@@ -1,0 +1,9 @@
+"""Model families of the port: FieldFM (config 3's model)."""
+
+from fm_spark_tpu_torch.models.base import ModelSpec, predict_from_scores  # noqa: F401
+from fm_spark_tpu_torch.models.field_fm import FieldFMSpec  # noqa: F401
+from fm_spark_tpu_torch.models.io import (  # noqa: F401
+    load_model,
+    params_from_numpy,
+    save_model,
+)

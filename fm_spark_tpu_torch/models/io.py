@@ -1,0 +1,107 @@
+"""Final-model save/load in the JAX package's model-dir format (the port
+of ``fm_spark_tpu/models/io.py``).
+
+A model dir holds ``spec.json`` (``{"family", "spec", "param_dtypes"}``)
+and ``params.npz`` (flat arrays named by their path in the parameter
+tree: ``w0``, ``vw/0`` … ``vw/{F-1}``). bf16 arrays are widened to
+float32 on disk and restored from ``param_dtypes`` on load, so a dir
+written by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+
+import numpy as np
+import torch
+
+from fm_spark_tpu_torch import resolve_device
+from fm_spark_tpu_torch.models.base import torch_dtype
+from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
+
+_FAMILIES = {"FieldFMSpec": FieldFMSpec}
+
+
+def _table_names(spec) -> list[str]:
+    groups = ("vw",) if spec.fused_linear else ("v", "w")
+    return [f"{g}/{f}" for g in groups for f in range(spec.num_fields)]
+
+
+def _flatten(params: dict) -> dict[str, torch.Tensor]:
+    flat = {}
+    for key, leaf in params.items():
+        if isinstance(leaf, (list, tuple)):
+            flat.update({f"{key}/{i}": t for i, t in enumerate(leaf)})
+        else:
+            flat[key] = leaf
+    return flat
+
+
+def params_from_numpy(spec, flat: dict, device=None,
+                      dtypes: dict | None = None) -> dict:
+    """Parameters for ``spec`` on ``device`` from numpy arrays under the
+    npz names (``w0``, ``vw/0`` …) — the carrier that moves JAX
+    parameters into the port. ``dtypes`` maps names to dtype names
+    ('float32' | 'bfloat16'); by default tables take the spec's
+    ``param_dtype`` and ``w0`` float32."""
+    dev = resolve_device(device)
+    dtypes = dtypes or {}
+    names = ["w0", *_table_names(spec)]
+    missing = [n for n in names if n not in flat]
+    if missing:
+        raise KeyError(f"parameters missing for {type(spec).__name__}: {missing}")
+    out = {}
+    for name in names:
+        arr = np.asarray(flat[name])
+        if arr.dtype.name == "bfloat16":      # ml_dtypes arrays from JAX
+            arr = arr.astype(np.float32)
+        default = "float32" if name == "w0" else spec.param_dtype
+        want = torch_dtype(dtypes.get(name, default))
+        out[name] = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
+            device=dev, dtype=want)
+    params = {"w0": out["w0"].reshape(())}
+    for name in _table_names(spec):
+        group, idx = name.split("/")
+        params.setdefault(group, [None] * spec.num_fields)[int(idx)] = out[name]
+    return params
+
+
+def save_model(path: str, spec, params: dict) -> None:
+    """Write spec.json + params.npz under ``path`` (a directory)."""
+    os.makedirs(path, exist_ok=True)
+    meta = {"family": type(spec).__name__, "spec": dataclasses.asdict(spec)}
+    # JSON can't hold inf; the regression clip defaults are ±inf.
+    for key in ("min_target", "max_target"):
+        if not math.isfinite(meta["spec"][key]):
+            meta["spec"][key] = None
+    flat, dtypes = {}, {}
+    for name, t in _flatten(params).items():
+        dtypes[name] = str(t.dtype).removeprefix("torch.")
+        flat[name] = t.detach().to("cpu", torch.float32).numpy()
+    meta["param_dtypes"] = dtypes
+    with open(os.path.join(path, "spec.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    np.savez(os.path.join(path, "params.npz"), **flat)
+
+
+def load_model(path: str, device=None):
+    """Read back ``(spec, params)`` with the params on ``device``."""
+    dev = resolve_device(device)
+    with open(os.path.join(path, "spec.json")) as f:
+        meta = json.load(f)
+    family = _FAMILIES.get(meta["family"])
+    if family is None:
+        raise ValueError(f"model family {meta['family']!r} is not ported yet "
+                         f"(ported: {sorted(_FAMILIES)})")
+    kwargs = dict(meta["spec"])
+    if kwargs.get("min_target") is None:
+        kwargs["min_target"] = -math.inf
+    if kwargs.get("max_target") is None:
+        kwargs["max_target"] = math.inf
+    spec = family(**kwargs)
+    with np.load(os.path.join(path, "params.npz")) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    return spec, params_from_numpy(spec, flat, dev, meta.get("param_dtypes"))

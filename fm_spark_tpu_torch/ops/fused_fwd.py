@@ -1,0 +1,133 @@
+"""Fused gather → FM-interaction forward: the CUDA kernel's wrapper and
+its plain PyTorch version.
+
+The port of ``fm_spark_tpu/ops/pallas_fused.py::fm_fused_scores``. The
+kernel (``csrc/fm_fused_fwd.cu``) loops over all fields inside one launch
+with the accumulator in registers; see the source for its design and
+bound. :func:`fm_fused_scores` launches it for CUDA tensors and runs
+:func:`fm_fused_scores_plain` only for tensors on the CPU — a CUDA input
+it cannot serve raises :class:`~fm_spark_tpu_torch.ops.KernelUnavailable`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from fm_spark_tpu_torch.ops import KernelUnavailable
+
+__all__ = ["MAX_FIELDS", "MAX_WIDTH", "fm_fused_scores",
+           "fm_fused_scores_plain", "launches"]
+
+#: Limits of the kernel (FM_MAX_FIELDS, 32·FM_MAX_COLS_PER_LANE in the source).
+MAX_FIELDS = 64
+MAX_WIDTH = 128
+
+#: Kernel launches made by :func:`fm_fused_scores` in this process.
+launches = 0
+_launch_lock = threading.Lock()
+
+
+def _check(tables, ids, vals, w0):
+    if ids.dim() != 2 or ids.shape != vals.shape:
+        raise ValueError(f"want matching [B, F] ids/vals, got "
+                         f"{tuple(ids.shape)} / {tuple(vals.shape)}")
+    b, num_fields = ids.shape
+    if b < 1:
+        raise ValueError("empty batch")
+    if len(tables) != num_fields:
+        raise ValueError(f"{len(tables)} tables for {num_fields} fields")
+    if ids.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"want int32 ids and float32 vals, got {ids.dtype} "
+                        f"/ {vals.dtype}")
+    shape, dtype = tables[0].shape, tables[0].dtype
+    if len(shape) != 2 or shape[1] < 2:
+        raise ValueError(f"want [bucket, k+1] tables, got {tuple(shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table storage must be float32 or bfloat16, got {dtype}")
+    dev = ids.device
+    for t in tables:
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError("every field table must share one shape and dtype")
+        if t.device != dev:
+            raise ValueError(f"table on {t.device}, ids on {dev}")
+    if vals.device != dev:
+        raise ValueError(f"vals on {vals.device}, ids on {dev}")
+    if w0 is not None and (w0.numel() != 1 or w0.dtype != torch.float32
+                           or w0.device != dev):
+        raise ValueError("w0 must be one float32 value on the ids' device")
+
+
+def fm_fused_scores_plain(tables, ids, vals, *, use_linear: bool = True,
+                          w0=None):
+    """Plain PyTorch version: per-field indexing and the same math as the
+    kernel (fp32 accumulation). Returns ``(scores [B], acc [B, k+1])``."""
+    tables = list(tables)
+    bucket, w = tables[0].shape
+    k = w - 1
+    acc = torch.zeros(ids.shape[0], w, dtype=torch.float32, device=ids.device)
+    ssq = torch.zeros(ids.shape[0], dtype=torch.float32, device=ids.device)
+    for f, table in enumerate(tables):
+        idx = ids[:, f].clamp(0, bucket - 1).long()
+        xv = table[idx].float() * vals[:, f:f + 1].float()
+        acc += xv
+        ssq += (xv[:, :k] * xv[:, :k]).sum(dim=1)
+    s = acc[:, :k]
+    scores = 0.5 * ((s * s).sum(dim=1) - ssq)
+    if use_linear:
+        scores = scores + acc[:, k]
+    if w0 is not None:
+        scores = scores + w0.reshape(()).float()
+    return scores, acc
+
+
+def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None):
+    """Fused gather→FM-interaction forward over per-field tables.
+
+    ``tables``: F × ``[bucket, k+1]`` (fused-linear layout, fp32 or bf16
+    storage, contiguous) as a sequence or one stacked tensor; ``ids``
+    int32 and ``vals`` float32, both ``[B, F]``; ``w0`` an optional
+    one-element float32 tensor. Ids are clamped to ``[0, bucket)``.
+    Returns ``(scores [B], acc [B, k+1])`` in float32: ``acc`` columns
+    ``[:k]`` are ``s = Σ_f x·v`` and column k the linear sum.
+    """
+    tables = list(tables)      # a stacked tensor iterates over its fields
+    _check(tables, ids, vals, w0)
+    if ids.device.type == "cpu":
+        return fm_fused_scores_plain(tables, ids, vals, use_linear=use_linear,
+                                     w0=w0)
+    if ids.device.type != "cuda":
+        raise KernelUnavailable(f"fm_fused_scores: no kernel for {ids.device}")
+    b, num_fields = ids.shape
+    bucket, w = tables[0].shape
+    if num_fields > MAX_FIELDS or w > MAX_WIDTH:
+        raise KernelUnavailable(
+            f"fm_fused_scores: kernel takes <= {MAX_FIELDS} fields of width "
+            f"<= {MAX_WIDTH}, got {num_fields} x {w}")
+    if not (ids.is_contiguous() and vals.is_contiguous()
+            and all(t.is_contiguous() for t in tables)):
+        raise ValueError("fm_fused_scores: ids, vals and tables must be contiguous")
+    from fm_spark_tpu_torch.kernels import build
+
+    lib = build.load("fm_fused_fwd")
+    dev = ids.device
+    scores = torch.empty(b, dtype=torch.float32, device=dev)
+    acc = torch.empty(b, w, dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * num_fields)(*[t.data_ptr() for t in tables])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.fm_fused_fwd(
+        ctypes.cast(ptrs, ctypes.c_void_p), num_fields, bucket, w,
+        int(tables[0].dtype == torch.bfloat16), ids.data_ptr(),
+        vals.data_ptr(), b, None if w0 is None else w0.data_ptr(),
+        int(use_linear), scores.data_ptr(), acc.data_ptr(), stream,
+        dev.index)
+    if err:
+        raise RuntimeError(
+            f"fm_fused_fwd launch failed: CUDA error {err} "
+            f"({lib.fm_cuda_error_string(err).decode()})")
+    global launches
+    with _launch_lock:
+        launches += 1
+    return scores, acc
