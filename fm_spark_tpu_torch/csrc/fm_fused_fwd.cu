@@ -12,6 +12,10 @@
 // with row_f = table_f[clamp(ids[b, f], 0, bucket - 1)], tables stored in
 // fp32 or bf16 and every sum taken in fp32.
 //
+// bf16 compute (cd_bf16, a template flag): as JAX's bf16 spec.scores does,
+// the row and x are rounded to bf16, each x * row product is rounded to
+// bf16, and so is w0; the sums stay fp32.
+//
 // Bound: memory. Per sample the kernel reads F random rows of w elements
 // plus F ids and values, and writes w + 1 floats; it does ~4 flops per
 // byte read, far below the card's ~20 fp32 flops per byte. The TPU version
@@ -71,6 +75,16 @@ struct Storage<__nv_bfloat16> {
     }
 };
 
+// Round to bf16 when the compute dtype is bf16.
+template <bool CD_BF16>
+__device__ __forceinline__ float rc(float v) {
+    if constexpr (CD_BF16) {
+        return __bfloat162float(__float2bfloat16_rn(v));
+    } else {
+        return v;
+    }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -79,7 +93,7 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool CD_BF16>
 __global__ void __launch_bounds__(FM_WARPS_PER_BLOCK * 32)
 fm_fused_fwd_kernel(TablePtrs tables, int num_fields, int bucket, int width,
                     const int* __restrict__ ids,
@@ -122,7 +136,7 @@ fm_fused_fwd_kernel(TablePtrs tables, int num_fields, int bucket, int width,
             // f is warp-uniform, so every lane takes the same slot.
             const int id = __shfl_sync(0xffffffffu, f < 32 ? id_lo : id_hi, f & 31);
             const float xf = __shfl_sync(0xffffffffu, f < 32 ? x_lo : x_hi, f & 31);
-            x[u] = live ? xf : 0.f;
+            x[u] = live ? rc<CD_BF16>(xf) : 0.f;
             const T* rowp = live
                 ? static_cast<const T*>(tables.t[f]) + static_cast<size_t>(id) * width
                 : nullptr;
@@ -137,7 +151,8 @@ fm_fused_fwd_kernel(TablePtrs tables, int num_fields, int bucket, int width,
         for (int u = 0; u < FM_FIELD_UNROLL; ++u) {
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
-                const float xv = x[u] * S::widen(v[u][c]);
+                const float xv = rc<CD_BF16>(
+                    __fmul_rn(x[u], rc<CD_BF16>(S::widen(v[u][c]))));
                 s[c] += xv;
                 if (lane + 32 * c < k) ssq += xv * xv;
             }
@@ -162,12 +177,12 @@ fm_fused_fwd_kernel(TablePtrs tables, int num_fields, int bucket, int width,
     if (lane == 0) {
         float score = 0.5f * (ss - ssq);
         if (use_linear) score += lin;
-        if (w0 != nullptr) score += *w0;
+        if (w0 != nullptr) score += rc<CD_BF16>(*w0);
         scores[row] = score;
     }
 }
 
-template <typename T>
+template <typename T, bool CD_BF16>
 void launch(const TablePtrs& t, int num_fields, int bucket, int width,
             const int* ids, const float* vals, int batch, const float* w0,
             int use_linear, float* scores, float* acc, cudaStream_t stream) {
@@ -175,19 +190,19 @@ void launch(const TablePtrs& t, int num_fields, int bucket, int width,
     const dim3 grid((batch + FM_WARPS_PER_BLOCK - 1) / FM_WARPS_PER_BLOCK);
     switch ((width + 31) / 32) {
         case 1:
-            fm_fused_fwd_kernel<T, 1><<<grid, block, 0, stream>>>(
+            fm_fused_fwd_kernel<T, 1, CD_BF16><<<grid, block, 0, stream>>>(
                 t, num_fields, bucket, width, ids, vals, batch, w0, use_linear, scores, acc);
             break;
         case 2:
-            fm_fused_fwd_kernel<T, 2><<<grid, block, 0, stream>>>(
+            fm_fused_fwd_kernel<T, 2, CD_BF16><<<grid, block, 0, stream>>>(
                 t, num_fields, bucket, width, ids, vals, batch, w0, use_linear, scores, acc);
             break;
         case 3:
-            fm_fused_fwd_kernel<T, 3><<<grid, block, 0, stream>>>(
+            fm_fused_fwd_kernel<T, 3, CD_BF16><<<grid, block, 0, stream>>>(
                 t, num_fields, bucket, width, ids, vals, batch, w0, use_linear, scores, acc);
             break;
         default:
-            fm_fused_fwd_kernel<T, 4><<<grid, block, 0, stream>>>(
+            fm_fused_fwd_kernel<T, 4, CD_BF16><<<grid, block, 0, stream>>>(
                 t, num_fields, bucket, width, ids, vals, batch, w0, use_linear, scores, acc);
             break;
     }
@@ -200,11 +215,13 @@ extern "C" {
 // Launches the kernel on `stream` of device `device` and returns
 // cudaGetLastError() (0 on success). `table_ptrs` is a HOST array of
 // `num_fields` device pointers, each to a contiguous [bucket, width]
-// table; `is_bf16` selects bf16 storage (else fp32). `w0` may be NULL.
+// table; `is_bf16` selects bf16 storage (else fp32), `cd_bf16` the bf16
+// compute rounding (else fp32). `w0` may be NULL.
 // Does not synchronise. The library links its own CUDA runtime, so the
 // device is set here rather than inherited from the caller's runtime.
 int fm_fused_fwd(const void* const* table_ptrs, int num_fields, int bucket,
-                 int width, int is_bf16, const int* ids, const float* vals,
+                 int width, int is_bf16, int cd_bf16, const int* ids,
+                 const float* vals,
                  int batch, const float* w0, int use_linear, float* scores,
                  float* acc, void* stream, int device) {
     if (num_fields < 1 || num_fields > FM_MAX_FIELDS || bucket < 1 ||
@@ -218,13 +235,20 @@ int fm_fused_fwd(const void* const* table_ptrs, int num_fields, int bucket,
         t.t[f] = f < num_fields ? table_ptrs[f] : nullptr;
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FM_FWD_ARGS t, num_fields, bucket, width, ids, vals, batch, w0, \
+    use_linear, scores, acc, s
     if (is_bf16) {
-        launch<__nv_bfloat16>(t, num_fields, bucket, width, ids, vals, batch,
-                              w0, use_linear, scores, acc, s);
+        if (cd_bf16) {
+            launch<__nv_bfloat16, true>(FM_FWD_ARGS);
+        } else {
+            launch<__nv_bfloat16, false>(FM_FWD_ARGS);
+        }
+    } else if (cd_bf16) {
+        launch<float, true>(FM_FWD_ARGS);
     } else {
-        launch<float>(t, num_fields, bucket, width, ids, vals, batch, w0,
-                      use_linear, scores, acc, s);
+        launch<float, false>(FM_FWD_ARGS);
     }
+#undef FM_FWD_ARGS
     return static_cast<int>(cudaGetLastError());
 }
 

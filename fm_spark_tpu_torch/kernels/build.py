@@ -10,7 +10,9 @@ together). A build or load that fails raises :class:`KernelBuildError`
 with the compiler's output; nothing falls back to another path.
 
 Pointers and the stream cross into C as ``ctypes.c_void_p`` (a bare
-Python int would be cut to 32 bits), integers as ``ctypes.c_int``.
+Python int would be cut to 32 bits), integers as ``ctypes.c_int`` or
+``c_longlong``, scalars as ``c_float``. Headers (``csrc/*.cuh``) shared by
+several sources enter every library's hash.
 """
 
 from __future__ import annotations
@@ -33,15 +35,33 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C entry points of each library: {library: {function: (restype, argtypes)}}.
 SIGNATURES = {
     "fm_fused_fwd": {
-        # tables, F, bucket, width, is_bf16, ids, vals, batch, w0,
-        # use_linear, scores, acc, stream, device
-        "fm_fused_fwd": (_I, [_P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P,
-                              _P, _P, _I]),
+        # tables, F, bucket, width, is_bf16, cd_bf16, ids, vals, batch,
+        # w0, use_linear, scores, acc, stream, device
+        "fm_fused_fwd": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I,
+                              _P, _P, _P, _I]),
         "fm_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "segment_totals": {
+        # sdelta, seg, batch, width, cap, out, scratch_seg, scratch_val,
+        # scratch_rows, stream, device
+        "segment_totals": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _L, _P, _I]),
+        "segment_scratch_rows": (_L, [_I]),
+        "segment_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fm_fused_bwd": {
+        # urows, F, cap, width, store_bf16, cd_bf16, order, inv, s1, ds,
+        # vals, weights, batch, neg_lr, use_rv, rv_factors, rv_linear, out,
+        # scratch_seg, scratch_val, scratch_rows, stream, device
+        "fm_fused_bwd": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _I, _F, _I, _F, _F, _P, _P, _P, _L, _P,
+                              _I]),
+        "fm_bwd_scratch_rows": (_L, [_I]),
+        "fm_bwd_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -76,8 +96,11 @@ def _sources() -> dict[str, str]:
 
 def _lib_path(name: str, src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
+    for path in (src, *headers):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}.{h.hexdigest()[:16]}.so")
 
 

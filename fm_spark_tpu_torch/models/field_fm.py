@@ -7,10 +7,10 @@ in the fused-linear layout (column ``rank`` is the linear weight), or
 ``{"w0", "w": F × [bucket], "v": F × [bucket, k]}`` without it.
 
 On CUDA tensors :meth:`FieldFMSpec.scores` goes through the fused
-gather→interaction kernel (``ops.fused_fwd``); the layouts the kernel
-does not take (``table_layout="col"``, ``fused_linear=False``, a compute
-dtype other than float32) raise :class:`KernelUnavailable` there and run
-only on the CPU.
+gather→interaction kernel (``ops.fused_fwd``), in float32 or bf16 compute
+(scores come back float32 either way); the layouts the kernel does not
+take (``table_layout="col"``, ``fused_linear=False``) raise
+:class:`KernelUnavailable` there and run only on the CPU.
 """
 
 from __future__ import annotations
@@ -63,9 +63,6 @@ class FieldFMSpec(base.ModelSpec):
             return "table_layout='col' has no CUDA kernel yet (ROADMAP)"
         if not self.fused_linear:
             return "fused_linear=False has no CUDA kernel yet (ROADMAP)"
-        if self.compute_dtype != "float32":
-            return (f"compute_dtype={self.compute_dtype!r}: the kernel "
-                    "accumulates in float32 only (ROADMAP)")
         return None
 
     def init(self, generator: torch.Generator | None = None,
@@ -114,7 +111,8 @@ class FieldFMSpec(base.ModelSpec):
         if reason is None:
             score, _ = fused_fwd.fm_fused_scores(
                 params["vw"], ids, vals, use_linear=self.use_linear,
-                w0=params["w0"] if self.use_bias else None)
+                w0=params["w0"] if self.use_bias else None,
+                compute_bf16=self.compute_dtype == "bfloat16")
             return score
         if ids.device.type != "cpu":
             raise KernelUnavailable(f"FieldFMSpec.scores: {reason}")

@@ -60,18 +60,25 @@ def _check(tables, ids, vals, w0):
         raise ValueError("w0 must be one float32 value on the ids' device")
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
 def fm_fused_scores_plain(tables, ids, vals, *, use_linear: bool = True,
-                          w0=None):
+                          w0=None, compute_bf16: bool = False):
     """Plain PyTorch version: per-field indexing and the same math as the
-    kernel (fp32 accumulation). Returns ``(scores [B], acc [B, k+1])``."""
+    kernel (fp32 accumulation; with ``compute_bf16`` the row, x, each
+    x·row product and w0 rounded to bf16 first). Returns
+    ``(scores [B], acc [B, k+1])``."""
     tables = list(tables)
     bucket, w = tables[0].shape
     k = w - 1
+    rnd = _round_bf16 if compute_bf16 else (lambda x: x)
     acc = torch.zeros(ids.shape[0], w, dtype=torch.float32, device=ids.device)
     ssq = torch.zeros(ids.shape[0], dtype=torch.float32, device=ids.device)
     for f, table in enumerate(tables):
         idx = ids[:, f].clamp(0, bucket - 1).long()
-        xv = table[idx].float() * vals[:, f:f + 1].float()
+        xv = rnd(rnd(table[idx].float()) * rnd(vals[:, f:f + 1].float()))
         acc += xv
         ssq += (xv[:, :k] * xv[:, :k]).sum(dim=1)
     s = acc[:, :k]
@@ -79,25 +86,28 @@ def fm_fused_scores_plain(tables, ids, vals, *, use_linear: bool = True,
     if use_linear:
         scores = scores + acc[:, k]
     if w0 is not None:
-        scores = scores + w0.reshape(()).float()
+        scores = scores + rnd(w0.reshape(()).float())
     return scores, acc
 
 
-def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None):
+def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
+                    compute_bf16: bool = False):
     """Fused gather→FM-interaction forward over per-field tables.
 
     ``tables``: F × ``[bucket, k+1]`` (fused-linear layout, fp32 or bf16
     storage, contiguous) as a sequence or one stacked tensor; ``ids``
     int32 and ``vals`` float32, both ``[B, F]``; ``w0`` an optional
     one-element float32 tensor. Ids are clamped to ``[0, bucket)``.
-    Returns ``(scores [B], acc [B, k+1])`` in float32: ``acc`` columns
-    ``[:k]`` are ``s = Σ_f x·v`` and column k the linear sum.
+    ``compute_bf16`` rounds as a bf16 compute dtype does (see
+    :func:`fm_fused_scores_plain`). Returns ``(scores [B], acc [B, k+1])``
+    in float32: ``acc`` columns ``[:k]`` are ``s = Σ_f x·v`` and column k
+    the linear sum.
     """
     tables = list(tables)      # a stacked tensor iterates over its fields
     _check(tables, ids, vals, w0)
     if ids.device.type == "cpu":
         return fm_fused_scores_plain(tables, ids, vals, use_linear=use_linear,
-                                     w0=w0)
+                                     w0=w0, compute_bf16=compute_bf16)
     if ids.device.type != "cuda":
         raise KernelUnavailable(f"fm_fused_scores: no kernel for {ids.device}")
     b, num_fields = ids.shape
@@ -119,7 +129,8 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fm_fused_fwd(
         ctypes.cast(ptrs, ctypes.c_void_p), num_fields, bucket, w,
-        int(tables[0].dtype == torch.bfloat16), ids.data_ptr(),
+        int(tables[0].dtype == torch.bfloat16), int(compute_bf16),
+        ids.data_ptr(),
         vals.data_ptr(), b, None if w0 is None else w0.data_ptr(),
         int(use_linear), scores.data_ptr(), acc.data_ptr(), stream,
         dev.index)

@@ -28,6 +28,10 @@ def hinge_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - t * scores, min=0.0)
 
 
+# Losses that are never negative: the compact 'error' overflow policy's
+# -inf loss sentinel is unambiguous only for these.
+NON_NEGATIVE_LOSSES = frozenset(("logistic", "squared", "hinge"))
+
 _LOSSES = {
     "logistic": logistic_loss,
     "squared": squared_loss,

@@ -171,7 +171,8 @@ def test_init_is_seeded_and_zeroes_linear_terms():
 
 @pytest.mark.parametrize("kw", [dict(table_layout="col"),
                                 dict(fused_linear=False),
-                                dict(compute_dtype="bfloat16")])
+                                dict(table_layout="col",
+                                     compute_dtype="bfloat16")])
 def test_kernel_unavailable_for_layouts_without_a_kernel(kw):
     spec = models.FieldFMSpec(**_kw(**kw))
     assert "ROADMAP" in spec.kernel_unsupported()
@@ -182,9 +183,31 @@ def test_kernel_unavailable_for_layouts_without_a_kernel(kw):
     params = {"w0": torch.zeros((), device="meta"),
               "vw": [torch.zeros(shape, device="meta") for _ in range(F)]}
     ids = torch.zeros((2, F), dtype=torch.int32, device="meta")
-    with pytest.raises(KernelUnavailable, match="no CUDA kernel|float32 only"):
+    with pytest.raises(KernelUnavailable, match="no CUDA kernel"):
         spec.scores(params, ids, ids.float())
     assert models.FieldFMSpec(**_kw()).kernel_unsupported() is None
+    # bf16 compute has the kernel's bf16 mode now.
+    assert models.FieldFMSpec(
+        **_kw(compute_dtype="bfloat16")).kernel_unsupported() is None
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_bf16_compute_scores_match_jax(param_dtype):
+    # The kernel's plain version on the CPU: bf16 rows, x and x·row
+    # products as JAX's bf16 compute rounds them, sums in fp32 where JAX
+    # sums in bf16. Against JAX's bf16 scores: within 2 % of the score's
+    # magnitude plus 2e-2, the sum's rounding in bf16 (8-bit mantissa)
+    # over F·k = 40 products of ~0.3.
+    kw = _kw(compute_dtype="bfloat16", param_dtype=param_dtype)
+    jspec, pspec = jmodels.FieldFMSpec(**kw), models.FieldFMSpec(**kw)
+    jp, flat = _jax_params(jspec)
+    ids, vals = _batch(n=200, seed=4)
+    want = np.asarray(jspec.scores(jp, jnp.asarray(ids), jnp.asarray(vals)),
+                      np.float32)
+    pp = models.params_from_numpy(pspec, flat, "cpu")
+    got = pspec.scores(pp, torch.from_numpy(ids), torch.from_numpy(vals))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
 
 
 def test_spec_validation_matches_jax():

@@ -184,3 +184,139 @@ def test_engine_serves_through_the_kernel(cuda):
     want = spec.predict(cpu, torch.from_numpy(ids), torch.from_numpy(vals))
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
     eng.close()
+
+
+def _sorted_ranks(rng, b, kind):
+    """Non-decreasing dense ranks of B sorted lanes: Zipf (long head
+    runs spanning many tiles), a few huge runs, or one segment."""
+    if kind == "zipf":
+        ids = np.sort(rng.zipf(1.3, b) % 5000)
+    elif kind == "few":
+        ids = np.sort(rng.integers(0, 3, b))
+    else:
+        ids = np.zeros(b, np.int64)
+    return np.unique(ids, return_inverse=True)[1].astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,kind", [(1, "one"), (127, "zipf"), (129, "few"),
+                                    (4100, "zipf"), (20000, "one"),
+                                    (70000, "zipf")])
+def test_segment_totals_kernel_matches_plain_on_the_card(cuda, b, kind):
+    from fm_spark_tpu_torch.ops import segsum
+
+    rng = np.random.default_rng(b)
+    seg = _sorted_ranks(rng, b, kind)
+    # A cap below the segment count: the last ranks are dropped.
+    cap = max(1, int(seg.max()) + 1 - 2)
+    x = torch.from_numpy(rng.normal(size=(b, 65)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(seg).to(cuda)
+    before = segsum.launches
+    got = segsum.segment_totals(x, s, cap)
+    again = segsum.segment_totals(x, s, cap)
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 2
+    assert torch.equal(got, again)                   # no atomics: same bits
+    # Both sides sum fp32 in different orders (the kernel in runs of 128,
+    # the plain version in atomic order): each must be within 1e-5 of the
+    # segment's sum of |x| from the exact (float64) total.
+    exact = segsum.segment_totals_plain(x.double(), s, cap)
+    bound = 1e-5 * segsum.segment_totals_plain(x.abs().double(), s, cap)
+    want = segsum.segment_totals_plain(x, s, cap)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((want.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rv", [None, (1e-3, 2e-3)])
+def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, store, cd, rv):
+    from fm_spark_tpu_torch.ops import fused_bwd
+    from fm_spark_tpu_torch.ops.scatter import compact_aux
+
+    rng = np.random.default_rng(3)
+    b, f, k, bucket, cap = 3000, 5, 64, 400, 400
+    ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
+    aux = compact_aux(ids, cap)
+    order, inv = (torch.from_numpy(a).to(cuda) for a in (aux[3], aux[4]))
+    urows = [torch.from_numpy(rng.normal(size=(cap, k + 1)) * 0.1)
+             .to(cuda, store) for _ in range(f)]
+    s1 = torch.from_numpy(rng.normal(size=(b, k + 1))).to(cuda, cd)
+    ds = torch.from_numpy(rng.normal(size=b) * 0.1).to(cuda, cd)
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (b, f))).to(cuda, torch.float32)
+    weights = torch.from_numpy((rng.random(b) > 0.1).astype(np.float32)).to(cuda)
+    before = fused_bwd.launches
+    args = (urows, s1, ds, vals, weights, order, inv, -0.05, rv)
+    got = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    again = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    torch.cuda.synchronize()
+    assert fused_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    want = fused_bwd.fm_bwd_segment_totals_plain(*args, cap=cap)
+    # Elementwise the same roundings; only the order of each segment's
+    # fp32 sum differs, an error that grows with the segment's size, so
+    # the bound is relative to the largest total of the field.
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((got - want).abs() <= 1e-5 * (want.abs() + scale)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lever", [dict(gfull_fused=True, segtotal_pallas=True),
+                                   dict(fused_embed="require")])
+def test_training_step_runs_through_the_kernels_on_the_card(cuda, lever):
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import fused_bwd, scatter, segsum
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    rng = np.random.default_rng(0)
+    b, f, bucket, cap = 2048, 6, 500, 512
+    spec = models.FieldFMSpec(num_features=f * bucket, rank=64, num_fields=f,
+                              bucket=bucket, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    cfg = TrainConfig(learning_rate=0.05, lr_schedule="constant",
+                      reg_factors=1e-4, sparse_update="dedup_sr",
+                      host_dedup=True, compact_cap=cap, **lever)
+    ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
+    batch = [torch.from_numpy(a) for a in (
+        ids, np.ones((b, f), np.float32),
+        rng.integers(0, 2, b).astype(np.float32), np.ones(b, np.float32))]
+    aux = [torch.from_numpy(a) for a in scatter.compact_aux(ids, cap)]
+    noise = lambda step, fld, shape: torch.from_numpy(
+        np.random.default_rng((step, fld)).integers(0, 1 << 16, shape)
+        .astype(np.int32))
+    p_card = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    p_cpu = {"w0": p_card["w0"].cpu(), "vw": [t.cpu() for t in p_card["vw"]]}
+    counts = (segsum.launches, fused_bwd.launches)
+    step = sparse.make_field_sparse_sgd_body(
+        spec, cfg, sr_noise=lambda *a: noise(*a).to(cuda))
+    p_card, loss_card = step(p_card, 0, *[t.to(cuda) for t in batch],
+                             tuple(a.to(cuda) for a in aux))
+    torch.cuda.synchronize()
+    launched = (segsum.launches - counts[0], fused_bwd.launches - counts[1])
+    assert launched == ((f, 0) if "segtotal_pallas" in lever else (0, 1))
+    p_cpu, loss_cpu = sparse.make_field_sparse_sgd_body(
+        spec, cfg, sr_noise=noise)(p_cpu, 0, *batch, tuple(aux))
+    assert abs(float(loss_card) - float(loss_cpu)) < 1e-3
+    for a, c in zip(p_card["vw"], p_cpu["vw"]):
+        torch.testing.assert_close(a.cpu().float(), c.float(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_bf16_compute_matches_plain_on_the_card(cuda, dtype):
+    rng = np.random.default_rng(1)
+    f, bucket, b, k = 6, 80, 500, 64
+    tables = [torch.from_numpy(rng.normal(size=(bucket, k + 1)) * 0.3)
+              .to(cuda, dtype) for _ in range(f)]
+    ids = torch.from_numpy(rng.integers(0, bucket, (b, f)).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random((b, f)).astype(np.float32) + 0.5).to(cuda)
+    w0 = torch.tensor(0.3, device=cuda)
+    got = fused_fwd.fm_fused_scores(tables, ids, vals, w0=w0, compute_bf16=True)
+    torch.cuda.synchronize()
+    want = fused_fwd.fm_fused_scores_plain(tables, ids, vals, w0=w0,
+                                           compute_bf16=True)
+    # Products rounded the same way on both sides; fp32 sums in another
+    # order.
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
