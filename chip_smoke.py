@@ -35,7 +35,26 @@ Phases (any failure exits non-zero before the last line is printed):
    leg (``segtotal``: gfull + kernel A; ``fusedbwd``: kernel B); the
    loss must be finite and fall and the leg's kernel must launch; one
    more step from the trained params must equal, within the bf16
-   tolerance, the same step with the plain versions swapped in.
+   tolerance, the same step with the plain versions swapped in;
+8. the FFM kernels (``ffm_sel_scores``, ``ffm_sel_bwd``) against their
+   plain versions at config 4's width (23 fields, rank 16) on rows
+   gathered from a seeded table by bench ids (``zipf(1.3) % 16384``),
+   B in {512, 8192, 131072}, fp32 and bf16: errors, a bitwise repeat,
+   device, call and plain times and the byte bound;
+9. FFM serving: a config-4 FieldFFM made on the card from a seeded
+   generator behind ``PredictEngine(buckets=(1, 8, 64, 512))``, 4
+   threads submitting 200 requests of 1-512 rows with one swap, checked
+   as in phase 4 against the plain version;
+10. FFM training at full width (23 x 16,384 x 369 fp32 tables, B =
+   131,072 bench batches): ``fit_field_sparse`` 7 steps per leg of the
+   ``selblk-pallas`` recipe (scatter_add, sel_blocked, fused_embed
+   require) in bf16 and in fp32 compute; the loss must be finite and
+   fall, each kernel launch once per step, and one more step equal the
+   same step with the plain versions within the stated tolerance.
+
+Phase 5 also trains config 4 at 4,096 buckets per field through both
+FFM kernels (bf16 compute) and evaluates and predicts with the model it
+wrote.
 
 It prints the kernels' JSON line, then the card line, then, last,
 ``{"ok": true, "device": {...}}``; details go to
@@ -64,6 +83,8 @@ FP32_FLOPS_PER_S = 67e12                 # the same, outside the tensor cores
 TRAIN_B, CAP = 131072, 12288             # bench.py's config-3 batch and cap
 TRAIN_STEPS, WARM_STEPS = 7, 2
 REPS = 20
+FFM_F, FFM_BUCKET, FFM_RANK = 23, 1 << 14, 16   # config 4, avazu_ffm_r16
+FFM_BATCHES = (512, 8192, 131072)
 # fp32 accumulation in another order than the plain version: the two
 # cancelling terms sum s^2 and ssq are each ~25 at N(0, 0.1) rows, so
 # their rounding differences reach ~1e-5 absolute.
@@ -204,39 +225,38 @@ def _config3_model(dev, seed: int, bucket: int = BUCKET):
 
 
 def _plain_predict(spec, params, ids, vals, dev):
+    """``spec.predict`` on the card with every kernel's plain version
+    swapped in."""
     import torch
 
-    from fm_spark_tpu_torch.models import predict_from_scores
-    from fm_spark_tpu_torch.ops import fused_fwd
-
-    s, _ = fused_fwd.fm_fused_scores_plain(
-        params["vw"], torch.from_numpy(ids).to(dev),
-        torch.from_numpy(vals).to(dev), use_linear=spec.use_linear,
-        w0=params["w0"])
-    return predict_from_scores(spec, s).cpu()
+    with _plain_versions():
+        return spec.predict(params, torch.from_numpy(ids).to(dev),
+                            torch.from_numpy(vals).to(dev)).float().cpu()
 
 
-def serve_phase(dev, report):
+def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
+    """4 threads submit ``n_req`` requests of 1-512 rows to a
+    ``PredictEngine`` and the generation is swapped from ``params`` to
+    ``params1`` half way; every request must be answered once, by one
+    generation, matching the plain version. ``counter`` is the
+    ``(module, name)`` of the kernel's launch count, set to 0 before the
+    requests and read after them."""
     import numpy as np
-    import torch
 
     from fm_spark_tpu_torch import data, obs
-    from fm_spark_tpu_torch.ops import fused_fwd
     from fm_spark_tpu_torch.serve import PredictEngine
 
-    spec, params = _config3_model(dev, seed=5)
-    params1 = {"w0": params["w0"] + 0.5, "vw": params["vw"]}
     engine = PredictEngine(spec, params, buckets=(1, 8, 64, 512),
                            latency_budget_ms=2.0, device=dev)
     warm = engine.warmup()
     print(f"serve warmup {warm['seconds']:.3f} s", flush=True)
 
-    ids_pool, vals_pool, _ = data.synthetic_ctr(20000, spec.num_features, F,
-                                                seed=2)
-    ids_pool = data.field_local(ids_pool, BUCKET)
+    ids_pool, vals_pool, _ = data.synthetic_ctr(20000, spec.num_features,
+                                                num_fields, seed=2)
+    ids_pool = data.field_local(ids_pool, bucket)
     rng = np.random.default_rng(7)
-    sizes = rng.choice([1, 1, 2, 3, 8, 17, 64, 100, 255, 512], size=400)
-    starts = rng.integers(0, len(ids_pool) - 512, size=400)
+    sizes = rng.choice([1, 1, 2, 3, 8, 17, 64, 100, 255, 512], size=n_req)
+    starts = rng.integers(0, len(ids_pool) - 512, size=n_req)
     reqs = [(int(s), int(o)) for s, o in zip(sizes, starts)]
     futures: list = [None] * len(reqs)
     half_done = threading.Event()
@@ -256,7 +276,7 @@ def serve_phase(dev, report):
 
     # Counts start at 0 just before the main path and are read just after.
     obs.registry().reset()
-    fused_fwd.launches = 0
+    setattr(*counter, 0)
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
     for th in threads:
@@ -272,7 +292,7 @@ def serve_phase(dev, report):
         th.join(120)
     results = [f.result(120) for f in futures]
     wall = time.perf_counter() - t0
-    launches = fused_fwd.launches
+    launches = getattr(*counter)
     snap = obs.registry().snapshot()
     engine.close()
     _check(not errors, f"client thread failed: {errors!r}")
@@ -300,14 +320,23 @@ def serve_phase(dev, report):
     _check(by_gen[0] > 0 and by_gen[1] > 0, f"swap not observed: {by_gen}")
     _check(launches > 0, "serving never launched the kernel")
     hist = snap["histograms"]["serve/request_ms"]
-    out = {"requests": len(reqs), "rows": int(sum(sizes)),
-           "batches": c.get("serve.batches_total"), "wall_s": wall,
-           "request_ms_p50": hist["p50"], "request_ms_p99": hist["p99"],
-           "batch_ms_p50": snap["histograms"]["serve/batch_ms"]["p50"],
-           "answers_by_generation": by_gen, "launches": launches}
+    return {"requests": len(reqs), "rows": int(sum(sizes)),
+            "batches": c.get("serve.batches_total"), "wall_s": wall,
+            "request_ms_p50": hist["p50"], "request_ms_p99": hist["p99"],
+            "batch_ms_p50": snap["histograms"]["serve/batch_ms"]["p50"],
+            "answers_by_generation": by_gen, "launches": launches}
+
+
+def serve_phase(dev, report):
+    from fm_spark_tpu_torch.ops import fused_fwd
+
+    spec, params = _config3_model(dev, seed=5)
+    params1 = {"w0": params["w0"] + 0.5, "vw": params["vw"]}
+    out = _serve(dev, spec, params, params1, F, BUCKET, 400,
+                 (fused_fwd, "launches"))
     print("serve", json.dumps(out), flush=True)
     report["serve"] = out
-    return launches
+    return out["launches"]
 
 
 def cli_phase(dev, report):
@@ -376,23 +405,89 @@ def cli_phase(dev, report):
     out.update(train_loss=losses, train_eval=evals[0],
                train_launches=train_launches["kernel_launches"],
                eval=metrics)
+    out["ffm"] = _ffm_cli(dev)
     print("cli", json.dumps(out), flush=True)
     report["cli"] = out
 
 
+def _ffm_cli(dev):
+    """``train`` on a config-4 copy of 4,096 buckets per field through both
+    FFM kernels (bf16 compute, 3 steps), then ``eval`` and ``predict`` of
+    the model it wrote, predictions checked against the plain version."""
+    import numpy as np
+
+    from fm_spark_tpu_torch import data, models
+
+    base = os.path.join(HERE, "build", "chip_smoke")
+    model_dir = os.path.join(base, "ffm_trained")
+    out_path = os.path.join(base, "ffm_preds.txt")
+
+    def run(*args):
+        proc = subprocess.run(
+            [sys.executable, "-m", "fm_spark_tpu_torch", *args], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+        _check(proc.returncode == 0, f"cli {args[0]} (ffm) exited "
+               f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        return proc, json.loads(proc.stderr.strip().splitlines()[-1])
+
+    proc, launched = run(
+        "train", "--config", "avazu_ffm_r16", "--bucket", "4096",
+        "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
+        "--compute-dtype", "bfloat16", "--sel-blocked", "--fused-embed",
+        "require", "--model-out", model_dir)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    losses = [x["loss"] for x in lines if "loss" in x]
+    evals = [x["eval"] for x in lines if "eval" in x]
+    _check(len(losses) == 3 and all(np.isfinite(losses)),
+           f"cli train (ffm) loss lines: {losses}")
+    _check(len(evals) == 1 and np.isfinite(evals[0]["logloss"]),
+           f"cli train (ffm) eval line: {evals}")
+    k = launched["kernel_launches"]
+    _check(k["ffm_sel_bwd"] == 3 and k["ffm_sel_scores"] > 3,
+           f"cli train (ffm) did not run both FFM kernels: {k}")
+    proc, eval_launched = run("eval", "--model", model_dir, "--synthetic",
+                              "4096", "--batch-size", "1024")
+    metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+    _check(metrics["count"] == 4096.0 and np.isfinite(metrics["logloss"])
+           and eval_launched["kernel_launches"]["ffm_sel_scores"] == 4,
+           f"cli eval (ffm): {metrics} {eval_launched}")
+    _, pred_launched = run("predict", "--model", model_dir, "--synthetic",
+                           "1024", "--batch-size", "512", "--out", out_path)
+    got = np.loadtxt(out_path)
+    spec, params = models.load_model(model_dir, device=dev)
+    ids, vals, _ = data.synthetic_ctr(1024, spec.num_features,
+                                      spec.num_fields, seed=1)
+    ids = data.field_local(ids, spec.bucket)
+    want = _plain_predict(spec, params, ids, vals, dev).numpy()
+    # %.6g output of bf16 predictions: 6 significant digits.
+    _check(got.shape == (1024,) and np.allclose(got, want, rtol=1e-5,
+                                                atol=1e-6),
+           f"cli predict (ffm) disagrees: max err {np.abs(got - want).max()}")
+    _check(pred_launched["kernel_launches"]["ffm_sel_scores"] > 0,
+           "cli predict (ffm) never launched the kernel")
+    return {"train_loss": losses, "train_eval": evals[0],
+            "train_launches": k, "eval": metrics,
+            "eval_launches": eval_launched["kernel_launches"],
+            "predict_lines": int(got.shape[0]),
+            "predict_max_abs_err": float(np.abs(got - want).max()),
+            "predict_launches": pred_launched["kernel_launches"]}
+
+
 class BenchStream:
-    """bench.py's config-3 batch as a stream: each batch draws ids
-    ``zipf(1.3) % bucket`` ([B, 39], so the first batch's ids are the
+    """bench.py's batch as a stream: each batch draws ids
+    ``zipf(1.3) % bucket`` ([B, fields], so the first batch's ids are the
     bench batch's), then its labels, from one ``default_rng(seed)``;
     vals and weights are all 1. Labels are Bernoulli(0.25) rather than
     the bench's fair coin, so a model has a bias to learn in a few
-    steps."""
+    steps. Config 3's shape by default."""
 
-    def __init__(self, seed: int = 0, batch: int = TRAIN_B):
+    def __init__(self, seed: int = 0, batch: int = TRAIN_B, fields: int = F,
+                 bucket: int = BUCKET):
         import numpy as np
 
         self._rng = np.random.default_rng(seed)
         self._b = batch
+        self._f, self._bucket = fields, bucket
         self._drawn = 0
 
     def state(self) -> dict:
@@ -402,9 +497,10 @@ class BenchStream:
         import numpy as np
 
         self._drawn += 1
-        ids = (self._rng.zipf(1.3, size=(self._b, F)) % BUCKET).astype(np.int32)
+        ids = (self._rng.zipf(1.3, size=(self._b, self._f))
+               % self._bucket).astype(np.int32)
         labels = (self._rng.random(self._b) < 0.25).astype(np.float32)
-        return (ids, np.ones((self._b, F), np.float32), labels,
+        return (ids, np.ones((self._b, self._f), np.float32), labels,
                 np.ones(self._b, np.float32))
 
 
@@ -492,11 +588,19 @@ def training_kernels_phase(dev, report):
         name = f"store={str(store)[6:]} compute={str(cd)[6:]}"
         _check(torch.equal(got, again), f"fm_bwd {name}: a repeat differs")
         # The same roundings elementwise; the fp32 segment sums differ in
-        # order, an error that grows with the segment's size: within 1e-5
-        # of |total| plus the field's largest |total|.
-        scale = want.abs().amax(dim=(1, 2), keepdim=True)
-        _check(bool(((got - want).abs() <= 1e-5 * (want.abs() + scale)).all()),
-               f"fm_bwd {name}: kernel disagrees with plain version")
+        # order (the plain version's index_add_ in atomic order, another
+        # each run): kernel and plain version each within 1e-5 of the
+        # segment's sum of |term| from the exact (float64) total.
+        terms = fused_bwd.fm_bwd_sorted_deltas(*args, cap=CAP)
+        exact = torch.stack([segsum.segment_totals_plain(d.double(), s, CAP)
+                             for d, s in terms])
+        bound = 1e-5 * torch.stack([
+            segsum.segment_totals_plain(d.abs().double(), s, CAP)
+            for d, s in terms])
+        del terms
+        _check(bool(((got.double() - exact).abs() <= bound).all())
+               and bool(((want.double() - exact).abs() <= bound).all()),
+               f"fm_bwd {name}: kernel or plain version off the exact sums")
         cdb, sb = s1.element_size(), urows[0].element_size()
         nbytes = (TRAIN_B * WIDTH * cdb + TRAIN_B * cdb + TRAIN_B * F * 4
                   + TRAIN_B * 4 + 2 * F * TRAIN_B * 4
@@ -506,7 +610,9 @@ def training_kernels_phase(dev, report):
         row = {
             "store": str(store)[6:], "compute": str(cd)[6:],
             "max_abs_err": float((got - want).abs().max()),
-            "max_rel_err": _rel_err(got, want), "bitwise_repeat": True,
+            "max_rel_err": _rel_err(got, want),
+            "max_abs_err_vs_exact": float((got.double() - exact).abs().max()),
+            "bitwise_repeat": True,
             "ms": _median_ms(
                 lambda r: fused_bwd.fm_bwd_segment_totals(*args, cap=CAP),
                 hide_host_ms=2.0),
@@ -518,7 +624,7 @@ def training_kernels_phase(dev, report):
         }
         print("fm_bwd_segment_totals", json.dumps(row), flush=True)
         b_rows.append(row)
-        del urows, s1, ds, got, again, want
+        del urows, s1, ds, got, again, want, exact, bound
         torch.cuda.empty_cache()
     out["fm_bwd_segment_totals"] = b_rows
     report["training_kernels"] = out
@@ -527,17 +633,21 @@ def training_kernels_phase(dev, report):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """Swap the training kernels' wrappers for their plain versions (the
-    step looks them up at call time)."""
-    from fm_spark_tpu_torch.ops import fused_bwd, segsum
+    """Swap every kernel's wrapper for its plain version (the models and
+    steps look them up at call time)."""
+    from fm_spark_tpu_torch.ops import ffm_sel, fused_bwd, fused_fwd, segsum
 
-    saved = segsum.segment_totals, fused_bwd.fm_bwd_segment_totals
-    segsum.segment_totals = segsum.segment_totals_plain
-    fused_bwd.fm_bwd_segment_totals = fused_bwd.fm_bwd_segment_totals_plain
+    swaps = [(fused_fwd, "fm_fused_scores"), (segsum, "segment_totals"),
+             (fused_bwd, "fm_bwd_segment_totals"),
+             (ffm_sel, "ffm_sel_scores"), (ffm_sel, "ffm_sel_bwd")]
+    saved = [getattr(m, n) for m, n in swaps]
+    for m, n in swaps:
+        setattr(m, n, getattr(m, n + "_plain"))
     try:
         yield
     finally:
-        segsum.segment_totals, fused_bwd.fm_bwd_segment_totals = saved
+        for (m, n), fn in zip(swaps, saved):
+            setattr(m, n, fn)
 
 
 def _profile_steps(step, params, batch, aux, step0, n: int = 3) -> dict:
@@ -684,6 +794,218 @@ def train_phase(dev, report):
     return launches
 
 
+def _ffm_bound(b: int, elem: int, bwd: bool):
+    """Bound of one ffm_sel call on ``b`` rows: the slab read once (the
+    backward also writes one), vals, and acc or dscores; 4 operations per
+    slab value forward (sel, selT, their product, the add), 3 backward."""
+    slab = b * FFM_F * FFM_F * FFM_RANK
+    nbytes = (slab + b * FFM_F + b) * elem + (slab * elem if bwd else 0)
+    return _bound_ms(nbytes, (3 if bwd else 4) * slab), nbytes
+
+
+def ffm_kernel_phase(dev, report):
+    """The FFM kernels against their plain versions at config 4's width."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import ffm_sel
+
+    fk = FFM_F * FFM_RANK
+    g = torch.Generator(device=dev).manual_seed(13)
+    table = [torch.randn(FFM_BUCKET, fk, generator=g, device=dev) * 0.1
+             for _ in range(FFM_F)]
+    ids_all = torch.from_numpy(BenchStream(0, FFM_BATCHES[-1], FFM_F,
+                                           FFM_BUCKET).next_batch()[0]).to(dev)
+    rows = []
+    for b in FFM_BATCHES:
+        ids = ids_all[:b].long()
+        base = torch.stack([t[ids[:, f]] for f, t in enumerate(table)], dim=1)
+        ds32 = torch.randn(b, generator=g, device=dev) * 1e-3
+        for dtype in (torch.float32, torch.bfloat16):
+            r = base.to(dtype)
+            x = torch.ones(b, FFM_F, dtype=dtype, device=dev)
+            ds = ds32.to(dtype)
+            acc = ffm_sel.ffm_sel_scores(r, x)
+            acc2 = ffm_sel.ffm_sel_scores(r, x)
+            dvs = ffm_sel.ffm_sel_bwd(r, x, ds)
+            dvs2 = ffm_sel.ffm_sel_bwd(r, x, ds)
+            torch.cuda.synchronize()
+            pacc = ffm_sel.ffm_sel_scores_plain(r, x)
+            pdvs = ffm_sel.ffm_sel_bwd_plain(r, x, ds)
+            name = f"ffm_sel {str(dtype)[6:]} B={b}"
+            _check(bool(torch.isfinite(acc).all() and torch.isfinite(dvs).all()),
+                   f"{name}: non-finite output")
+            _check(torch.equal(acc, acc2) and torch.equal(dvs, dvs2),
+                   f"{name}: a repeat differs")
+            # The same roundings in the same order and fp32 sums in index
+            # order on both sides: the kernels equal the plain versions
+            # bit for bit.
+            _check(torch.equal(acc, pacc) and torch.equal(dvs, pdvs),
+                   f"{name}: kernel disagrees with plain version")
+            elem = r.element_size()
+            (fb, fby), fbytes = _ffm_bound(b, elem, bwd=False)
+            (bb, bby), bbytes = _ffm_bound(b, elem, bwd=True)
+            slow = 40.0 if b > 8192 else 10.0
+            row = {
+                "dtype": str(dtype)[6:], "B": b,
+                "scores": {
+                    "max_abs_err": float((acc.float() - pacc.float()).abs().max()),
+                    "max_rel_err": _rel_err(acc.float(), pacc.float()),
+                    "bitwise_repeat": True,
+                    "ms": _median_ms(lambda i: ffm_sel.ffm_sel_scores(r, x),
+                                     hide_host_ms=2.0),
+                    "call_ms": _median_ms(lambda i: ffm_sel.ffm_sel_scores(r, x)),
+                    "plain_ms": _median_ms(
+                        lambda i: ffm_sel.ffm_sel_scores_plain(r, x), reps=5,
+                        hide_host_ms=slow),
+                    "library_ms": None, "bound_ms": fb, "bound_by": fby,
+                    "bytes": fbytes},
+                "bwd": {
+                    "max_abs_err": float((dvs.float() - pdvs.float()).abs().max()),
+                    "max_rel_err": _rel_err(dvs.float(), pdvs.float()),
+                    "bitwise_repeat": True,
+                    "ms": _median_ms(lambda i: ffm_sel.ffm_sel_bwd(r, x, ds),
+                                     hide_host_ms=2.0),
+                    "call_ms": _median_ms(lambda i: ffm_sel.ffm_sel_bwd(r, x, ds)),
+                    "plain_ms": _median_ms(
+                        lambda i: ffm_sel.ffm_sel_bwd_plain(r, x, ds), reps=5,
+                        hide_host_ms=slow),
+                    "library_ms": None, "bound_ms": bb, "bound_by": bby,
+                    "bytes": bbytes},
+            }
+            for k in ("scores", "bwd"):
+                row[k]["achieved_GBps"] = (row[k]["bytes"]
+                                           / (row[k]["ms"] * 1e-3) / 1e9)
+            print("ffm_kernels", json.dumps(row), flush=True)
+            rows.append(row)
+            del r, x, ds, acc, acc2, dvs, dvs2, pacc, pdvs
+        del base
+        torch.cuda.empty_cache()
+    del table
+    torch.cuda.empty_cache()
+    report["ffm_kernels"] = rows
+    return rows
+
+
+def _config4_model(dev, seed: int, bucket: int = FFM_BUCKET):
+    """A config-4 FieldFFM with random weights from ``seed``; the linear
+    column and bias are filled too, as a trained model's would be."""
+    import torch
+
+    from fm_spark_tpu_torch import models
+
+    spec = models.FieldFFMSpec(num_features=FFM_F * bucket, rank=FFM_RANK,
+                               num_fields=FFM_F, bucket=bucket, init_std=0.1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = spec.init(g, device=dev)
+    for t in params["vw"]:
+        t[:, -1] = torch.randn(bucket, generator=g, device=dev) * 0.1
+    params["w0"].fill_(0.05)
+    return spec, params
+
+
+def ffm_serve_phase(dev, report):
+    from fm_spark_tpu_torch.ops import ffm_sel
+
+    spec, params = _config4_model(dev, seed=6)
+    params1 = {"w0": params["w0"] + 0.5, "vw": params["vw"]}
+    out = _serve(dev, spec, params, params1, FFM_F, FFM_BUCKET, 200,
+                 (ffm_sel, "scores_launches"))
+    print("ffm_serve", json.dumps(out), flush=True)
+    report["ffm_serve"] = out
+    return out["launches"]
+
+
+def ffm_train_phase(dev, report):
+    """Config 4's selblk-pallas recipe through fit_field_sparse, in bf16
+    and in fp32 compute."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import ffm_sel
+    from fm_spark_tpu_torch.train import TrainConfig, fit_field_sparse
+
+    out, launches = {}, {"ffm_sel_scores": 0, "ffm_sel_bwd": 0}
+    cfg = TrainConfig(num_steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                      learning_rate=0.05, lr_schedule="constant",
+                      reg_factors=1e-6, sparse_update="scatter_add",
+                      sel_blocked=True, fused_embed="require")
+    for cd in ("bfloat16", "float32"):
+        leg = f"float32/scatter_add/cd-{'bf16' if cd == 'bfloat16' else 'fp32'}" \
+              "/selblk-pallas"
+        spec = models.FieldFFMSpec(num_features=FFM_F * FFM_BUCKET,
+                                   rank=FFM_RANK, num_fields=FFM_F,
+                                   bucket=FFM_BUCKET, init_std=0.01,
+                                   compute_dtype=cd)
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # Counts start at 0 just before the main path and are read just after.
+        ffm_sel.scores_launches = ffm_sel.bwd_launches = 0
+        t0 = time.perf_counter()
+        params = fit_field_sparse(
+            spec, cfg, BenchStream(0, TRAIN_B, FFM_F, FFM_BUCKET), device=dev,
+            stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"ffm_sel_scores": ffm_sel.scores_launches,
+                  "ffm_sel_bwd": ffm_sel.bwd_launches}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        loss = stats["loss"]
+        _check(all(np.isfinite(loss)), f"{leg}: non-finite loss {loss}")
+        _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
+        _check(counts == {"ffm_sel_scores": TRAIN_STEPS,
+                          "ffm_sel_bwd": TRAIN_STEPS},
+               f"{leg}: not one launch of each kernel per step: {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        step_ms = statistics.median(stats["step_ms"][WARM_STEPS:])
+
+        # One more step from the trained params, kernels vs plain versions.
+        batch = [torch.from_numpy(a).to(dev) for a in
+                 BenchStream(1, TRAIN_B, FFM_F, FFM_BUCKET).next_batch()]
+        copy = {"w0": params["w0"].clone(),
+                "vw": [t.clone() for t in params["vw"]]}
+        step = sparse.make_field_ffm_sparse_sgd_body(spec, cfg)
+        _, lk = step(params, TRAIN_STEPS, *batch)
+        mid = ffm_sel.scores_launches + ffm_sel.bwd_launches
+        with _plain_versions():
+            _, lp = step(copy, TRAIN_STEPS, *batch)
+        torch.cuda.synchronize()
+        _check(ffm_sel.scores_launches + ffm_sel.bwd_launches == mid,
+               f"{leg}: the plain step launched a kernel")
+        # The kernels equal their plain versions bit for bit, so the loss
+        # is the same; index_add_ on the card adds atomically in no fixed
+        # order, so the tables agree within the reference's fp32
+        # tolerance (tests/test_sel_blocked.py).
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(params["vw"], copy["vw"]))
+        close = all(torch.allclose(a, b, rtol=2e-5, atol=2e-6)
+                    for a, b in zip(params["vw"], copy["vw"]))
+        _check(float(lk) == float(lp) and close
+               and torch.allclose(params["w0"], copy["w0"], rtol=2e-5,
+                                  atol=2e-6),
+               f"{leg}: kernel step != plain step (max |dw| {diff}, loss "
+               f"{float(lk)} vs {float(lp)})")
+        del copy
+        prof = _profile_steps(step, params, batch, None, TRAIN_STEPS + 1)
+        row = {
+            "leg": leg, "loss": loss, "step_ms": stats["step_ms"],
+            "step_ms_median": step_ms,
+            "samples_per_s": TRAIN_B / (step_ms * 1e-3),
+            "wall_s": wall, "launches": counts,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+            "vs_plain_max_abs_diff": diff, "vs_plain_loss": [float(lk), float(lp)],
+            "profile": prof, "peak_mem_gb": peak,
+        }
+        print("ffm_train", json.dumps(row), flush=True)
+        out[leg] = row
+        del params, batch
+        torch.cuda.empty_cache()
+    report["ffm_train"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -720,6 +1042,9 @@ def main() -> int:
     cli_phase(dev, report)
     a_row, b_rows = training_kernels_phase(dev, report)
     train_launches = train_phase(dev, report)
+    ffm_rows = ffm_kernel_phase(dev, report)
+    ffm_serve_launches = ffm_serve_phase(dev, report)
+    ffm_launches = ffm_train_phase(dev, report)
 
     main_row = next(r for r in rows if r["dtype"] == "float32" and r["B"] == 512)
     kernels = {"kernels": [{
@@ -756,6 +1081,29 @@ def main() -> int:
         "library_ms": None,
         "shape": f"{F} fields, B={TRAIN_B}, cap={CAP}, bf16 store+compute",
     }]}
+    # The FFM kernels at the training batch in bf16 (the selblk-pallas
+    # leg's shape); launches from phase 10's run, the forward's serving
+    # launches from phase 9 beside them.
+    ffm_main = next(r for r in ffm_rows
+                    if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
+    for name, key, line in (
+            ("ffm_sel_scores", "scores", 490), ("ffm_sel_bwd", "bwd", 521)):
+        m = ffm_main[key]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "fm_spark_tpu_torch/csrc/ffm_sel.cu",
+            "replaces": f"fm_spark_tpu/ops/pallas_fused.py:{line}",
+            "launches": ffm_launches[name],
+            "max_abs_err": max(r[key]["max_abs_err"] for r in ffm_rows),
+            "max_rel_err": max(r[key]["max_rel_err"] for r in ffm_rows),
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None,
+            "shape": f"{FFM_F} fields, rank {FFM_RANK}, B={TRAIN_B}, bf16",
+        }
+        if name == "ffm_sel_scores":
+            entry["serve_launches"] = ffm_serve_launches
+        kernels["kernels"].append(entry)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

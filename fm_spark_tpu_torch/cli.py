@@ -2,8 +2,8 @@
 or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI on synthetic data:
 
 - ``train --config NAME --synthetic N --steps S --batch-size B ...``
-  trains a FieldFM config (``field_sparse`` strategy) on ``N`` seeded
-  examples with the fused sparse-SGD step, printing one JSON loss line
+  trains a FieldFM or FieldFFM config (``field_sparse`` strategy) on
+  ``N`` seeded examples with the fused sparse-SGD step, printing one JSON loss line
   every ``--log-every`` steps, then ``{"eval": {...}}`` on the held-out
   ``--test-fraction`` and ``{"saved": DIR}`` with ``--model-out``;
 - ``eval --model DIR --synthetic N`` prints the model's metrics on
@@ -49,11 +49,17 @@ def _synthetic_for_model(spec, n: int):
 
 
 def _launches() -> dict:
-    from fm_spark_tpu_torch.ops import fused_bwd, fused_fwd, segsum
+    from fm_spark_tpu_torch.ops import ffm_sel, fused_bwd, fused_fwd, segsum
 
     return {"fm_fused_scores": fused_fwd.launches,
             "segment_totals": segsum.launches,
-            "fm_bwd_segment_totals": fused_bwd.launches}
+            "fm_bwd_segment_totals": fused_bwd.launches,
+            "ffm_sel_scores": ffm_sel.scores_launches,
+            "ffm_sel_bwd": ffm_sel.bwd_launches}
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()}
 
 
 def cmd_train(args) -> int:
@@ -67,18 +73,26 @@ def cmd_train(args) -> int:
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              param_dtype=args.param_dtype,
                              compute_dtype=args.compute_dtype)
-    if cfg.model != "field_fm" or cfg.strategy != "field_sparse":
+    if (cfg.model not in ("field_fm", "field_ffm")
+            or cfg.strategy != "field_sparse"):
         raise SystemExit(f"config {cfg.name!r} (model {cfg.model!r}, "
                          f"strategy {cfg.strategy!r}) is not ported yet "
-                         "(ROADMAP); the port trains field_fm configs")
-    dev = resolve_device(args.device)
+                         "(ROADMAP); the port trains field_fm and field_ffm "
+                         "configs")
     tconfig = cfg.train_config(
         num_steps=args.steps, batch_size=args.batch_size,
         log_every=args.log_every, sparse_update=args.sparse_update,
         host_dedup=args.host_dedup, compact_cap=args.compact_cap,
         gfull_fused=args.gfull_fused, segtotal_pallas=args.segtotal_pallas,
-        fused_embed=args.fused_embed)
+        sel_blocked=args.sel_blocked, fused_embed=args.fused_embed)
     spec = cfg.spec()
+    if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
+        # The reference's lever rule; the port's CLI trains on one device.
+        raise SystemExit(
+            f"--sel-blocked is the single-chip FieldFFM body's lever (it "
+            f"blocks the [B, F, F, k] sel tensor; found 1 device(s), "
+            f"{type(spec).__name__})")
+    dev = resolve_device(args.device)
     ids, vals, labels, _ = load_dataset(cfg, args.synthetic)
     te = None
     if args.test_fraction > 0:
@@ -97,8 +111,8 @@ def cmd_train(args) -> int:
     if args.model_out:
         models.save_model(args.model_out, spec, params)
         print(json.dumps({"saved": args.model_out}), flush=True)
-    print(json.dumps({"device": str(dev), "kernel_launches": {
-        k: v - before[k] for k, v in _launches().items()}}), file=sys.stderr)
+    print(json.dumps({"device": str(dev), "kernel_launches": _since(before)}),
+          file=sys.stderr)
     return 0
 
 
@@ -115,14 +129,13 @@ def cmd_eval(args) -> int:
     metrics = evaluate_params(
         spec, params, data.iterate_once(ids, vals, labels, args.batch_size))
     print(json.dumps(metrics), flush=True)
-    print(json.dumps({"device": str(params["w0"].device), "kernel_launches": {
-        k: v - before[k] for k, v in _launches().items()}}), file=sys.stderr)
+    print(json.dumps({"device": str(params["w0"].device),
+                      "kernel_launches": _since(before)}), file=sys.stderr)
     return 0
 
 
 def cmd_predict(args) -> int:
     from fm_spark_tpu_torch import data, models
-    from fm_spark_tpu_torch.ops import fused_fwd
     from fm_spark_tpu_torch.serve import PredictEngine
 
     if not args.synthetic:
@@ -135,7 +148,7 @@ def cmd_predict(args) -> int:
     engine = PredictEngine(spec, params, nnz=nnz, buckets=(args.batch_size,),
                            latency_budget_ms=0.0, device=args.device)
     engine.warmup()
-    launches0 = fused_fwd.launches
+    before = _launches()
     rows = 0
     out = sys.stdout if args.out in (None, "-") else open(args.out, "w")
     try:
@@ -149,9 +162,7 @@ def cmd_predict(args) -> int:
         if out is not sys.stdout:
             out.close()
     print(json.dumps({"predicted": rows, "device": str(engine.device),
-                      "kernel_launches": {
-                          "fm_fused_scores": fused_fwd.launches - launches0}}),
-          file=sys.stderr)
+                      "kernel_launches": _since(before)}), file=sys.stderr)
     return 0
 
 
@@ -160,7 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     device_help = "'cuda' (default) or 'cpu' (the kernels' plain versions)"
 
-    t = sub.add_parser("train", help="train a field_fm config")
+    t = sub.add_parser("train", help="train a field_fm or field_ffm config")
     t.add_argument("--config", required=True, help="registered config name")
     t.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N seeded synthetic examples")
@@ -179,8 +190,12 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--gfull-fused", action="store_true", default=None)
     t.add_argument("--segtotal-pallas", action="store_true", default=None,
                    help="segment sums by the segment-totals kernel")
+    t.add_argument("--sel-blocked", action="store_true", default=None,
+                   help="FieldFFM: the per-owner-field interaction loop in "
+                        "place of the [B, F, F, k] sel tensor")
     t.add_argument("--fused-embed", choices=["off", "auto", "require"],
-                   help="the fused backward kernel")
+                   help="the fused kernels: FieldFM's backward, FieldFFM's "
+                        "ffm_sel pair (with --sel-blocked)")
     t.add_argument("--steps-per-call", type=int, default=1)
     t.add_argument("--test-fraction", type=float, default=0.2)
     t.add_argument("--log-every", type=int, default=1)

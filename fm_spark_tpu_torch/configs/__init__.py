@@ -2,8 +2,9 @@
 ``fm_spark_tpu/configs/__init__.py``): the same names, fields and
 recipes, so a config reads the same in both packages.
 
-Only the ``field_fm`` family (config 3, ``criteo1tb_fm_r64``) is ported;
-``RunConfig.spec`` raises for the others. The descriptions name each
+The ``field_fm`` (config 3, ``criteo1tb_fm_r64``) and ``field_ffm``
+(config 4, ``avazu_ffm_r16``) families are ported; ``RunConfig.spec``
+raises for the others. The descriptions name each
 config's model and data; speed figures of the JAX package were measured
 on a TPU and are not repeated here.
 """
@@ -64,19 +65,28 @@ class RunConfig:
         return self.num_fields * self.bucket
 
     def spec(self, num_features: int | None = None):
-        """The model spec; only ``field_fm`` is ported."""
-        if self.model != "field_fm":
+        """The model spec; only ``field_fm`` and ``field_ffm`` are ported."""
+        if self.model not in ("field_fm", "field_ffm"):
             raise ValueError(
                 f"model family {self.model!r} (config {self.name!r}) is not "
                 "ported yet (ROADMAP)")
+        if self.table_layout != "row" and self.model != "field_fm":
+            raise ValueError(
+                f"table_layout={self.table_layout!r} is a field_fm "
+                f"option (config {self.name!r} is model {self.model!r})"
+            )
         if num_features is not None and num_features != self.num_features:
-            raise ValueError("field_fm shapes are fixed by num_fields*bucket")
-        return models.FieldFMSpec(
+            raise ValueError(
+                f"{self.model} shapes are fixed by num_fields*bucket")
+        common = dict(
             num_features=self.num_features, rank=self.rank, task=self.task,
             loss=self.loss, init_std=0.01, param_dtype=self.param_dtype,
             compute_dtype=self.compute_dtype, num_fields=self.num_fields,
-            bucket=self.bucket, table_layout=self.table_layout,
+            bucket=self.bucket,
         )
+        if self.model == "field_ffm":
+            return models.FieldFFMSpec(**common)
+        return models.FieldFMSpec(**common, table_layout=self.table_layout)
 
     def train_config(self, **overrides) -> TrainConfig:
         base = {k: getattr(self, k) for k in _TRAIN_FIELDS if hasattr(self, k)}
@@ -119,7 +129,13 @@ CONFIGS = {
         RunConfig(
             name="avazu_ffm_r16",
             description="Config 4: FFM rank-16, Avazu CTR, 23 fields,"
-            " field-partitioned tables.",
+            " per-field hashed; field-partitioned packed tables (F·k+1 ="
+            " 369 columns) trained by the fused sparse-SGD step. The JAX"
+            " package's recipe: --compute-dtype bfloat16 with fp32 params"
+            " and scatter_add (the bf16 compute buffers halve the"
+            " [B, F, F, k] sel traffic; dedup/compact lose at this table"
+            " size); --sel-blocked never materializes the sel tensors, and"
+            " --fused-embed require runs that step on the ffm_sel kernels.",
             model="field_ffm", dataset="avazu", rank=16, num_fields=23,
             bucket=1 << 14, strategy="field_sparse", num_steps=100_000,
             batch_size=8192, learning_rate=0.05, lr_schedule="constant",

@@ -63,6 +63,15 @@ SIGNATURES = {
         "fm_bwd_scratch_rows": (_L, [_I]),
         "fm_bwd_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "ffm_sel": {
+        # rows, vals, out, batch, fields, rank, is_bf16, stream, device
+        "ffm_sel_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _I]),
+        # rows, vals, dscores, out, batch, fields, rank, is_bf16, stream,
+        # device
+        "ffm_sel_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I]),
+        "ffm_sel_smem_bytes": (_L, [_I, _I, _I]),
+        "ffm_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -20,9 +20,10 @@ import torch
 
 from fm_spark_tpu_torch import resolve_device
 from fm_spark_tpu_torch.models.base import torch_dtype
+from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
 from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 
-_FAMILIES = {"FieldFMSpec": FieldFMSpec}
+_FAMILIES = {"FieldFMSpec": FieldFMSpec, "FieldFFMSpec": FieldFFMSpec}
 
 
 def _table_names(spec) -> list[str]:

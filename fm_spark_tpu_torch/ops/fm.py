@@ -6,6 +6,14 @@ from __future__ import annotations
 import torch
 
 
+def sum_upcast(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``jnp.sum``: bf16 sums accumulate in float32, rounded back once."""
+    if x.dtype == torch.bfloat16:
+        s = x.float().sum() if dim is None else x.float().sum(dim)
+        return s.to(torch.bfloat16)
+    return x.sum() if dim is None else x.sum(dim)
+
+
 def fm_interaction_from_xv(xv: torch.Tensor) -> torch.Tensor:
     """Order-2 interaction from value-scaled gathered rows ``xv [B,nnz,k]``:
     ``0.5 · Σ_f (s_f² − Σ_i (v_{i,f} x_i)²)`` with ``s = Σ_i xv_i``."""

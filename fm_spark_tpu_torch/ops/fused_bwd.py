@@ -23,7 +23,8 @@ from fm_spark_tpu_torch.ops import KernelUnavailable
 from fm_spark_tpu_torch.ops.segsum import segment_totals_plain
 
 __all__ = ["MAX_FIELDS", "MAX_WIDTH", "fm_bwd_segment_totals",
-           "fm_bwd_segment_totals_plain", "fm_bwd_supported", "gfull",
+           "fm_bwd_segment_totals_plain", "fm_bwd_sorted_deltas",
+           "fm_bwd_supported", "gfull",
            "launches", "rv_vector"]
 
 #: Limits of the kernel (FM_BWD_MAX_FIELDS and SEG_MAX_WIDTH in the source).
@@ -109,13 +110,12 @@ def _check(urows, s1, dscores, vals, weights, order, inv, cap):
             raise ValueError("every field's urows must share one shape and dtype")
 
 
-def fm_bwd_segment_totals_plain(urows, s1, dscores, vals, weights, order,
-                                inv, neg_lr: float, rv=None, *, cap: int):
-    """Plain PyTorch version: per field, the unique rows expanded by
-    ``inv`` (a zero row past ``cap``), :func:`gfull`, ``neg_lr·g`` in
-    float32, reordered by ``order`` and summed per segment by
-    :func:`~fm_spark_tpu_torch.ops.segsum.segment_totals_plain`.
-    Returns ``[F, cap, k+1]`` float32."""
+def fm_bwd_sorted_deltas(urows, s1, dscores, vals, weights, order, inv,
+                         neg_lr: float, rv=None, *, cap: int):
+    """Per field, the unique rows expanded by ``inv`` (a zero row past
+    ``cap``), :func:`gfull` and ``neg_lr·g`` in float32, reordered by
+    ``order``: a list of F ``(sdelta [B, k+1] float32, seg [B] int32)``
+    pairs, the terms that :func:`fm_bwd_segment_totals_plain` sums."""
     urows = list(urows)
     _check(urows, s1, dscores, vals, weights, order, inv, cap)
     cd, (b, w) = s1.dtype, s1.shape
@@ -135,8 +135,19 @@ def fm_bwd_segment_totals_plain(urows, s1, dscores, vals, weights, order,
                   colmask)
         o = order[f].long()
         delta = g.float() * neg_lr
-        out.append(segment_totals_plain(delta[o].contiguous(), inv[f][o], cap))
-    return torch.stack(out)
+        out.append((delta[o].contiguous(), inv[f][o].contiguous()))
+    return out
+
+
+def fm_bwd_segment_totals_plain(urows, s1, dscores, vals, weights, order,
+                                inv, neg_lr: float, rv=None, *, cap: int):
+    """Plain PyTorch version: :func:`fm_bwd_sorted_deltas` summed per
+    segment by :func:`~fm_spark_tpu_torch.ops.segsum.segment_totals_plain`.
+    Returns ``[F, cap, k+1]`` float32."""
+    return torch.stack([
+        segment_totals_plain(d, seg, cap)
+        for d, seg in fm_bwd_sorted_deltas(urows, s1, dscores, vals, weights,
+                                           order, inv, neg_lr, rv, cap=cap)])
 
 
 def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,

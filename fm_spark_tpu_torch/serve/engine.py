@@ -241,10 +241,12 @@ class PredictEngine:
             vals_np[n:] = 0.0
             # The staging buffers are reused only after .cpu() below has
             # waited for this dispatch, so the async copies are safe.
+            # Predictions in a bf16 compute dtype widen to float32: numpy
+            # has no bf16.
             out = self.spec.predict(
                 gen.params,
                 ids_h.to(self.device, non_blocking=True),
-                vals_h.to(self.device, non_blocking=True)).cpu()
+                vals_h.to(self.device, non_blocking=True)).float().cpu()
         return out.numpy()[:n]
 
     def _execute(self, gen: Generation, ids: np.ndarray,

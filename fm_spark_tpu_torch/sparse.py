@@ -1,21 +1,27 @@
-"""Fused sparse-SGD step of FieldFM: analytic row gradients written straight
-into the tables, no dense gradient (the port of the FieldFM branch of
-``fm_spark_tpu/sparse.py``).
+"""Fused sparse-SGD steps of FieldFM and FieldFFM: analytic row gradients
+written straight into the tables, no dense gradient (the port of the
+FieldFM and FieldFFM bodies of ``fm_spark_tpu/sparse.py``).
 
 Forms ported (the others raise with the ROADMAP item that queues them):
 
 - ``sparse_update="scatter_add"`` without a cap: one ``index_add_`` per
   field of every lane's row delta;
 - the compact host-aux path (``host_dedup=True, compact_cap > 0``) in
-  ``dedup`` and ``dedup_sr``, with ``gfull_fused`` on or off,
-  ``segtotal_pallas`` on or off (kernel A, ``ops.segsum``), and
-  ``fused_embed`` off / auto / require (kernel B, ``ops.fused_bwd``).
+  ``dedup`` and ``dedup_sr``;
+- FieldFM: ``gfull_fused`` on or off, ``segtotal_pallas`` on or off
+  (kernel A, ``ops.segsum``), and ``fused_embed`` off / auto / require
+  (kernel B, ``ops.fused_bwd``);
+- FieldFFM: the ``[B, F, F, k]`` sel tensor, or with ``sel_blocked`` the
+  per-owner-field loop, and with ``sel_blocked`` and ``fused_embed`` the
+  two ``ffm_sel`` kernels (``ops.ffm_sel``).
 
 Every elementwise operation runs in the spec's compute dtype in the
 reference's order, and ``lr`` is a float32 scalar, so ``-lr·g_full`` is
 float32 even when ``g_full`` is bf16 (JAX's promotion of a strongly
-typed float32 scalar). Tables and ``w0`` are updated IN PLACE: the JAX
-step donates them, and the port never holds two copies of them.
+typed float32 scalar). A Python-float reg beside a compute-dtype array is
+rounded to that dtype first, as JAX treats a weakly typed scalar. Tables
+and ``w0`` are updated IN PLACE: the JAX step donates them, and the port
+never holds two copies of them.
 """
 
 from __future__ import annotations
@@ -26,13 +32,15 @@ import operator
 import torch
 
 from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import ffm_sel as ffm_sel_lib
 from fm_spark_tpu_torch.ops import fused_bwd as fused_bwd_lib
 from fm_spark_tpu_torch.ops import losses as losses_lib
 from fm_spark_tpu_torch.ops import scatter as scatter_lib
+from fm_spark_tpu_torch.ops.fm import sum_upcast as _sum_upcast
 from fm_spark_tpu_torch.train import TrainConfig, _lr_at
 
-__all__ = ["fused_embed_plan", "make_field_sparse_multistep",
-           "make_field_sparse_sgd_body"]
+__all__ = ["fused_embed_plan", "make_field_ffm_sparse_sgd_body",
+           "make_field_sparse_multistep", "make_field_sparse_sgd_body"]
 
 
 def _check_host_dedup(config: TrainConfig, loss: str):
@@ -100,8 +108,9 @@ def _check_host_dedup(config: TrainConfig, loss: str):
                          "exclusive")
 
 
-def _reject_unported(spec, config: TrainConfig, compact: bool, col: bool):
-    """Forms the JAX step takes that this slice does not port yet."""
+def _reject_unported(config: TrainConfig, compact: bool, col: bool = False,
+                     fused_linear: bool = True):
+    """Forms the JAX steps take that the port does not have yet."""
     if config.use_pallas:
         raise ValueError(
             "use_pallas (kernels gather_rows / update_rows_add) is not "
@@ -112,7 +121,7 @@ def _reject_unported(spec, config: TrainConfig, compact: bool, col: bool):
     if col:
         raise ValueError("table_layout='col' training is not ported yet "
                          "(ROADMAP Queue 1)")
-    if not spec.fused_linear:
+    if not fused_linear:
         raise ValueError("fused_linear=False training is not ported yet "
                          "(ROADMAP Queue 1)")
     if config.sparse_update != "scatter_add" and not compact:
@@ -122,42 +131,63 @@ def _reject_unported(spec, config: TrainConfig, compact: bool, col: bool):
             "host_dedup=True with compact_cap > 0")
 
 
-def _reject_rest(config: TrainConfig):
-    """The reference's guards for levers of other steps (same messages)."""
+# The reference's guards for levers of other steps, with its messages;
+# ``what`` names the step.
+
+
+def _reject_embed_tier_require(config: TrainConfig, what: str):
     if config.embed_tier not in ("off", "auto", "require"):
         raise ValueError(
             f"unknown embed_tier {config.embed_tier!r} "
             "(expected 'off', 'auto', or 'require')")
     if config.embed_tier == "require":
         raise ValueError(
-            "embed_tier='require' is served by the tiered flat-FM "
-            "trainer (fm_spark_tpu.embed.TieredTrainer), not the "
-            "single-chip FieldFM body; use 'auto' for fallback-to-in-HBM "
-            "semantics")
+            f"embed_tier='require' is served by the tiered flat-FM "
+            f"trainer (fm_spark_tpu.embed.TieredTrainer), not {what}; "
+            "use 'auto' for fallback-to-in-HBM semantics")
+
+
+def _reject_collective_dtype(config: TrainConfig, what: str):
     if config.collective_dtype != "float32":
         raise ValueError(
             f"collective_dtype={config.collective_dtype!r} is not "
-            "supported by the single-chip FieldFM body; it is a "
-            "field-sharded-step knob")
+            f"supported by {what}; it is a field-sharded-step knob")
+
+
+def _reject_score_sharded(config: TrainConfig, what: str):
     if config.score_sharded:
         raise ValueError(
-            "score_sharded is implemented for the field-sharded FM step "
-            "only, not the single-chip FieldFM body")
+            f"score_sharded is implemented for the field-sharded FM "
+            f"step only, not {what}")
+
+
+def _reject_sel_blocked(config: TrainConfig, what: str):
     if config.sel_blocked:
         raise ValueError(
-            "sel_blocked is the FieldFFM fused body's lever (it blocks the "
-            "[B, F, F, k] interaction tensor), not the single-chip FieldFM "
-            "body")
+            f"sel_blocked is the FieldFFM fused body's lever (it blocks "
+            f"the [B, F, F, k] interaction tensor), not {what}")
+
+
+def _reject_deep_sharded(config: TrainConfig, what: str):
     if config.deep_sharded:
         raise ValueError(
-            "deep_sharded is implemented for the field-sharded DeepFM step "
-            "only, not the single-chip FieldFM body")
+            f"deep_sharded is implemented for the field-sharded DeepFM "
+            f"step only, not {what}")
+
+
+def _reject_gfull(config: TrainConfig, what: str):
+    if config.gfull_fused:
+        raise ValueError(
+            f"gfull_fused is implemented for the FieldFM and "
+            f"FieldDeepFM fused bodies, not {what}")
 
 
 def fused_embed_plan(spec, config: TrainConfig):
     """Resolve ``TrainConfig.fused_embed`` against (spec, config): returns
-    ``(family, reason)`` — ``'fm_compact_bwd'`` (kernel B) or None with
-    ``reason`` naming why the plain torch path runs instead."""
+    ``(family, reason)`` — ``'fm_compact_bwd'`` (kernel B), ``'ffm_sel'``
+    (the sel-blocked FieldFFM kernels) or None with ``reason`` naming why
+    the plain torch path runs instead."""
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
     from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 
     if config.fused_embed not in ("off", "auto", "require"):
@@ -166,21 +196,30 @@ def fused_embed_plan(spec, config: TrainConfig):
             "(expected 'off', 'auto', or 'require')")
     if config.fused_embed == "off":
         return None, "fused_embed='off'"
-    if type(spec) is not FieldFMSpec:
-        return None, f"no fused kernel family for {type(spec).__name__}"
-    if config.compact_cap <= 0:
-        return None, ("the fused FM backward rides the compact "
-                      "update; it needs compact_cap > 0")
-    if not spec.fused_linear:
-        return None, "the fused FM backward needs fused_linear=True"
-    if spec.table_layout == "col":
-        return None, ("table_layout='col' stores transposed tables; the "
-                      "kernel reads row-major unique rows")
-    reason = fused_bwd_lib.fm_bwd_supported(
-        config.compact_cap, spec.rank + 1, spec.num_fields)
-    if reason:
-        return None, reason
-    return "fm_compact_bwd", None
+    if type(spec) is FieldFMSpec:
+        if config.compact_cap <= 0:
+            return None, ("the fused FM backward rides the compact "
+                          "update; it needs compact_cap > 0")
+        if not spec.fused_linear:
+            return None, "the fused FM backward needs fused_linear=True"
+        if spec.table_layout == "col":
+            return None, ("table_layout='col' stores transposed tables; "
+                          "the kernel reads row-major unique rows")
+        reason = fused_bwd_lib.fm_bwd_supported(
+            config.compact_cap, spec.rank + 1, spec.num_fields)
+        if reason:
+            return None, reason
+        return "fm_compact_bwd", None
+    if type(spec) is FieldFFMSpec:
+        if not config.sel_blocked:
+            return None, ("the ffm_sel kernels mirror the sel-blocked "
+                          "body (set sel_blocked=True)")
+        reason = ffm_sel_lib.ffm_sel_supported(
+            spec.num_fields, spec.rank, spec.cdtype.itemsize)
+        if reason:
+            return None, reason
+        return "ffm_sel", None
+    return None, f"no fused kernel family for {type(spec).__name__}"
 
 
 def _resolve_fused_embed(spec, config: TrainConfig):
@@ -199,12 +238,11 @@ def _seq_sum(terms):
     return functools.reduce(operator.add, terms)
 
 
-def _sum_upcast(x, dim=None):
-    """``jnp.sum``: bf16 sums accumulate in float32, rounded back once."""
-    if x.dtype == torch.bfloat16:
-        s = x.float().sum() if dim is None else x.float().sum(dim)
-        return s.to(torch.bfloat16)
-    return x.sum() if dim is None else x.sum(dim)
+def _as_cd(value: float, cd: torch.dtype) -> float:
+    """``value`` rounded to the compute dtype: a Python float beside a
+    ``cd`` array in JAX is converted to ``cd`` before the multiply, where
+    PyTorch would multiply by the float32 value."""
+    return float(torch.tensor(value, dtype=cd))
 
 
 def _compact_gather_all(tables, aux, cd):
@@ -284,6 +322,59 @@ def _fused_compact_updates(tables, urows, aux, s, dscores, vals, weights,
             noise_for(table, step_idx, f, totals[f].shape), urows[f])
 
 
+def _noise_fn(config: TrainConfig, sr_noise):
+    """``noise_for(table, step_idx, field, shape)``: the SR bits of a bf16
+    ``dedup_sr`` write, else None (default source: :class:`~fm_spark_tpu_torch
+    .ops.scatter.SrNoise` from ``config.seed + 0x5EED``)."""
+    noise_box = [sr_noise]
+
+    def noise_for(table, step_idx, f, shape):
+        if config.sparse_update != "dedup_sr" or table.dtype == torch.float32:
+            return None
+        if noise_box[0] is None:
+            noise_box[0] = scatter_lib.SrNoise(config.seed + 0x5EED,
+                                               table.device)
+        return noise_box[0](step_idx, f, shape)
+
+    return noise_for
+
+
+def _loss_and_grad_fn(loss_name: str):
+    """``(scores, labels, weights) → (loss, dscores)``: the weighted mean
+    loss and its gradient with respect to the scores."""
+    per_example_loss = losses_lib.loss_fn(loss_name)
+
+    def loss_and_grad(scores, labels, weights):
+        sc = scores.detach().requires_grad_(True)
+        with torch.enable_grad():
+            wsum = torch.clamp(weights.sum(), min=1.0)
+            loss = (per_example_loss(sc, labels) * weights).sum() / wsum
+            (dscores,) = torch.autograd.grad(loss, sc)
+        return loss.detach(), dscores
+
+    return loss_and_grad
+
+
+def _apply_updates(compact, tables, ids, g_fulls, urows, config: TrainConfig,
+                   noise_for, step_idx, neg_lr, aux):
+    """Write ``-lr·g_full`` into every field's table: the compact update,
+    or ``scatter_add`` of every lane (the reference's ``_updates_for``)."""
+    if compact:
+        _compact_apply_all(tables, g_fulls, urows, config, noise_for,
+                           step_idx, neg_lr, aux)
+        return
+    for f, (table, g_full) in enumerate(zip(tables, g_fulls)):
+        scatter_lib.apply_row_updates(table, ids[:, f],
+                                      g_full.float() * neg_lr,
+                                      config.sparse_update)
+
+
+def _update_bias(w0, lr, dscores, config: TrainConfig):
+    """``w0 -= lr·(Σ dscores + reg_bias·w0)`` in float32, in place."""
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=w0.device)
+    w0.sub_(lr_t * (_sum_upcast(dscores) + config.reg_bias * w0))
+
+
 def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     """The fused sparse-SGD step of a FieldFM:
     ``step(params, step_idx, ids, vals, labels, weights, aux=None) →
@@ -324,31 +415,21 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     if config.gfull_fused and not spec.fused_linear:
         raise ValueError("gfull_fused targets the fused-linear g_full "
                          "construction; it requires fused_linear=True")
-    _reject_rest(config)
+    what = "the single-chip FieldFM body"
+    _reject_embed_tier_require(config, what)
+    _reject_collective_dtype(config, what)
+    _reject_score_sharded(config, what)
+    _reject_sel_blocked(config, what)
+    _reject_deep_sharded(config, what)
     fused_bwd = _resolve_fused_embed(spec, config) == "fm_compact_bwd"
-    _reject_unported(spec, config, compact, col)
-    per_example_loss = losses_lib.loss_fn(spec.loss)
+    _reject_unported(config, compact, col, spec.fused_linear)
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     k = spec.rank
     lr_at = _lr_at(config)
-    mode = config.sparse_update
-    noise_box = [sr_noise]
-
-    def noise_for(table, step_idx, f, shape):
-        if mode != "dedup_sr" or table.dtype == torch.float32:
-            return None
-        if noise_box[0] is None:
-            noise_box[0] = scatter_lib.SrNoise(config.seed + 0x5EED,
-                                               table.device)
-        return noise_box[0](step_idx, f, shape)
-
-    def loss_and_grad(scores, labels, weights):
-        sc = scores.detach().requires_grad_(True)
-        with torch.enable_grad():
-            wsum = torch.clamp(weights.sum(), min=1.0)
-            loss = (per_example_loss(sc, labels) * weights).sum() / wsum
-            (dscores,) = torch.autograd.grad(loss, sc)
-        return loss.detach(), dscores
+    noise_for = _noise_fn(config, sr_noise)
+    reg_factors = _as_cd(config.reg_factors, cd)
+    reg_linear = _as_cd(config.reg_linear, cd)
 
     @torch.no_grad()
     def step(params, step_idx, ids, vals, labels, weights, aux=None):
@@ -400,27 +481,144 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                 for f in range(len(tables)):
                     g = dscores[:, None] * vals_c[:, f:f + 1] * (s - xvs[f])
                     if config.reg_factors:
-                        g = g + (config.reg_factors * rows[f][:, :k]
+                        g = g + (reg_factors * rows[f][:, :k]
                                  * touched[:, None])
                     if spec.use_linear:
                         g_lin = dscores * vals_c[:, f]
                         if config.reg_linear:
-                            g_lin = g_lin + config.reg_linear * lins[f] * touched
+                            g_lin = g_lin + reg_linear * lins[f] * touched
                         g_lin = g_lin[:, None]
                     else:
                         g_lin = torch.zeros(dscores.shape[0], 1, dtype=cd,
                                             device=dscores.device)
                     g_fulls.append(torch.cat([g, g_lin], dim=1))
-            if compact:
-                _compact_apply_all(tables, g_fulls, urows, config,
-                                   noise_for, step_idx, neg_lr, aux)
-            else:
-                for f, (table, g_full) in enumerate(zip(tables, g_fulls)):
-                    scatter_lib.apply_row_updates(
-                        table, ids[:, f], g_full.float() * neg_lr, mode)
+            _apply_updates(compact, tables, ids, g_fulls, urows, config,
+                           noise_for, step_idx, neg_lr, aux)
         if spec.use_bias:
-            lr_t = torch.tensor(lr, dtype=torch.float32, device=w0.device)
-            w0.sub_(lr_t * (_sum_upcast(dscores) + config.reg_bias * w0))
+            _update_bias(w0, lr, dscores, config)
+        return params, loss
+
+    return step
+
+
+def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
+    """The fused sparse-SGD step of a FieldFFM, with the same signature and
+    in-place contract as :func:`make_field_sparse_sgd_body`.
+
+    With ``sel[b,i,j] = v[id_i, field j]·x_i`` the pairwise term is
+    ``½ Σ_{i≠j} ⟨sel[b,i,j], sel[b,j,i]⟩``, so the factor gradient of owner
+    field ``i`` toward field ``j`` is ``ds_b·sel[b,j,i]·x_i`` (zero for
+    ``j = i``). Three forms compute it: the ``[B, F, F, k]`` sel tensor;
+    with ``sel_blocked`` a loop over owner fields that builds one
+    ``[B, F, k]`` pair at a time; and with ``sel_blocked`` and
+    ``fused_embed`` the two ``ffm_sel`` kernels on the stacked rows.
+    """
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+
+    if type(spec) is not FieldFFMSpec:
+        raise ValueError("expected a FieldFFMSpec")
+    if config.optimizer != "sgd":
+        raise ValueError("sparse step implements plain SGD only")
+    what = "the single-chip FieldFFM body"
+    _reject_gfull(config, "the FieldFFM body")
+    _reject_embed_tier_require(config, what)
+    _reject_collective_dtype(config, what)
+    _reject_score_sharded(config, what)
+    _reject_deep_sharded(config, what)
+    kernels = _resolve_fused_embed(spec, config) == "ffm_sel"
+    _check_host_dedup(config, spec.loss)
+    if config.sparse_update not in scatter_lib.SPARSE_UPDATE_MODES:
+        raise ValueError(f"unknown sparse_update mode {config.sparse_update!r}")
+    compact = config.compact_cap > 0
+    _reject_unported(config, compact)
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
+    cd = spec.cdtype
+    F, k = spec.num_fields, spec.rank
+    fk = F * k
+    lr_at = _lr_at(config)
+    noise_for = _noise_fn(config, sr_noise)
+    reg_factors = _as_cd(config.reg_factors, cd)
+    reg_linear = _as_cd(config.reg_linear, cd)
+
+    @torch.no_grad()
+    def step(params, step_idx, ids, vals, labels, weights, aux=None):
+        if config.host_dedup and aux is None:
+            raise ValueError(
+                "host_dedup step needs the batch's dedup_aux operand"
+            )
+        step_idx = int(step_idx)
+        w0 = params["w0"]
+        tables = params["vw"]
+        vals_c = vals.to(cd)
+        if compact:
+            urows, rows = _compact_gather_all(tables, aux, cd)
+        else:
+            urows, rows = None, _gather_all(tables, ids, cd)  # F × [B, F·k+1]
+        rv = [r[:, :fk].reshape(-1, F, k) for r in rows]
+
+        def selt(i):
+            """``sel[b, j, i]`` for every j: ``[B, F, k]``."""
+            return (torch.stack([rv[j][:, i, :] for j in range(F)], dim=1)
+                    * vals_c[:, :, None])
+
+        if kernels:
+            rstk = torch.stack([r[:, :fk] for r in rows], dim=1)
+            scores = 0.5 * ffm_sel_lib.ffm_sel_scores(rstk, vals_c)
+        elif config.sel_blocked:
+            acc = torch.zeros_like(vals_c[:, 0])
+            for i in range(F):
+                sel_i = rv[i] * vals_c[:, i, None, None]        # [B, F, k]
+                prod = _sum_upcast(sel_i * selt(i), -1)         # [B, F]
+                acc = acc + _sum_upcast(prod, 1) - prod[:, i]
+            scores = 0.5 * acc
+        else:
+            sel = spec._sel(rows, vals_c)                       # [B, F, F, k]
+            a = _sum_upcast(sel * sel.transpose(1, 2), -1)
+            diag = _sum_upcast(torch.diagonal(a, dim1=1, dim2=2), -1)
+            scores = 0.5 * (_sum_upcast(a, (1, 2)) - diag)
+        lins = [r[:, fk] for r in rows]
+        if spec.use_linear:
+            scores = scores + sum(l * vals_c[:, i] for i, l in enumerate(lins))
+        if spec.use_bias:
+            scores = scores + w0.to(cd)
+        loss, dscores = loss_and_grad(scores, labels, weights)
+        lr = lr_at(step_idx)
+        neg_lr = float(-lr)
+        touched = weights > 0
+
+        if kernels:
+            dvs_stk = ffm_sel_lib.ffm_sel_bwd(rstk, vals_c, dscores.to(cd))
+            dvs = [dvs_stk[:, i, :] for i in range(F)]
+        elif config.sel_blocked:
+            ds_cd = dscores.to(cd)
+            dvs = []
+            for i in range(F):
+                dsel_i = ds_cd[:, None, None] * selt(i)
+                dsel_i[:, i, :] = 0
+                dvs.append((dsel_i * vals_c[:, i, None, None]).reshape(-1, fk))
+        else:
+            dsel = dscores[:, None, None, None] * sel.transpose(1, 2)
+            eye = torch.eye(F, dtype=cd, device=dsel.device)[None, :, :, None]
+            dsel = dsel * (1.0 - eye)
+            dv = (dsel * vals_c[:, :, None, None]).reshape(-1, F, fk)
+            dvs = [dv[:, f, :] for f in range(F)]
+
+        g_fulls = []
+        for f in range(F):
+            g_v = dvs[f]
+            if config.reg_factors:
+                g_v = g_v + reg_factors * rows[f][:, :fk] * touched[:, None]
+            if spec.use_linear:
+                g_l = dscores * vals_c[:, f]
+                if config.reg_linear:
+                    g_l = g_l + reg_linear * lins[f] * touched
+            else:
+                g_l = torch.zeros_like(dscores)
+            g_fulls.append(torch.cat([g_v, g_l[:, None]], dim=1))
+        _apply_updates(compact, tables, ids, g_fulls, urows, config,
+                       noise_for, step_idx, neg_lr, aux)
+        if spec.use_bias:
+            _update_bias(w0, lr, dscores, config)
         return params, loss
 
     return step
@@ -431,11 +629,17 @@ def make_field_sparse_multistep(spec, config: TrainConfig, n: int,
     """``n`` fused steps per call over batches stacked on a leading
     ``[n, ...]`` axis: ``mstep(params, step0, m, ids, vals, labels,
     weights, aux=None) → (params, last_loss)`` runs the first ``m`` of
-    them as steps ``step0 .. step0+m-1``. A −inf loss (the compact
-    overflow poison) sticks once seen, as in the reference's roll."""
+    them as steps ``step0 .. step0+m-1``, through the FieldFFM body for a
+    :class:`~fm_spark_tpu_torch.models.FieldFFMSpec` and the FieldFM body
+    otherwise. A −inf loss (the compact overflow poison) sticks once seen,
+    as in the reference's roll."""
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+
     if n < 1:
         raise ValueError(f"steps per call must be >= 1, got {n}")
-    body = make_field_sparse_sgd_body(spec, config, sr_noise=sr_noise)
+    body = (make_field_ffm_sparse_sgd_body(spec, config, sr_noise=sr_noise)
+            if isinstance(spec, FieldFFMSpec)
+            else make_field_sparse_sgd_body(spec, config, sr_noise=sr_noise))
 
     def mstep(params, step0, m, ids, vals, labels, weights, aux=None):
         loss = torch.zeros((), dtype=torch.float32, device=ids.device)

@@ -22,8 +22,8 @@ import torch
 class TrainConfig:
     """Training hyperparameters: field for field those of the JAX
     package's ``TrainConfig``, so a config reads the same in both. The
-    levers of steps this slice does not port (``use_pallas``,
-    ``compact_device``, the sharded and FFM/DeepFM knobs, ``embed_tier``)
+    levers of steps the port does not have yet (``use_pallas``,
+    ``compact_device``, the sharded and DeepFM knobs, ``embed_tier``)
     are accepted here and refused by the step that would need them."""
 
     num_steps: int = 100                   # numIterations
@@ -53,8 +53,10 @@ class TrainConfig:
     deep_sharded: bool = False
     # Segment sums by kernel A (ops/segsum) instead of the blocked prefix.
     segtotal_pallas: bool = False
+    # FieldFFM: the per-owner-field loop in place of the sel tensor.
     sel_blocked: bool = False
-    # Fused backward (kernel B, ops/fused_bwd): 'off' | 'auto' | 'require'.
+    # Fused kernels (FieldFM: kernel B, ops/fused_bwd; FieldFFM with
+    # sel_blocked: ops/ffm_sel): 'off' | 'auto' | 'require'.
     fused_embed: str = "off"
     embed_tier: str = "off"
     hot_rows: int = 0
@@ -116,8 +118,9 @@ def evaluate_params(spec, params, batches) -> dict:
 def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                      steps_per_call: int = 1, prefetch: int = 2, logger=None,
                      stats: dict | None = None):
-    """Train ``spec`` for ``config.num_steps`` steps of the fused
-    sparse-SGD step on one card and return the parameters.
+    """Train ``spec`` (a FieldFM or FieldFFM) for ``config.num_steps``
+    steps of the fused sparse-SGD step on one card and return the
+    parameters.
 
     ``batches`` yields numpy ``(ids, vals, labels, weights)`` batches
     (:class:`~fm_spark_tpu_torch.data.Batches`); with ``host_dedup`` the
@@ -142,8 +145,10 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     if config.fused_embed == "auto":
         family, reason = fused_embed_plan(spec, config)
-        print(f"fused-embed: serving kernel family {family!r}" if family
-              else f"fused-embed: plain torch path ({reason})",
+        name = type(spec).__name__
+        print(f"fused-embed: {name} served by kernel family {family!r}"
+              if family else
+              f"fused-embed: {name} on the plain torch path ({reason})",
               file=sys.stderr)
     mstep = make_field_sparse_multistep(spec, config, steps_per_call)
     params = spec.init(torch.Generator(device=dev).manual_seed(config.seed),

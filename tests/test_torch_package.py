@@ -123,6 +123,29 @@ def test_unloadable_library_raises(tmp_path, monkeypatch):
         build.load("fm_fused_fwd")
 
 
+def test_package_data_ships_every_kernel_source_and_header():
+    import fnmatch
+    import re
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"][
+            "fm_spark_tpu_torch"]
+    csrc = os.path.join(REPO, "fm_spark_tpu_torch", "csrc")
+
+    def shipped(name):
+        return any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs)
+
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert sources and all(shipped(f) for f in sources)
+    for src in sources:
+        with open(os.path.join(csrc, src)) as fh:
+            for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', fh.read(),
+                                  re.M):
+                assert os.path.exists(os.path.join(csrc, inc)), (src, inc)
+                assert shipped(inc), f"{src} includes {inc}, not shipped"
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda p: False)
@@ -232,7 +255,7 @@ def test_segment_totals_kernel_matches_plain_on_the_card(cuda, b, kind):
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rv", [None, (1e-3, 2e-3)])
 def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, store, cd, rv):
-    from fm_spark_tpu_torch.ops import fused_bwd
+    from fm_spark_tpu_torch.ops import fused_bwd, segsum
     from fm_spark_tpu_torch.ops.scatter import compact_aux
 
     rng = np.random.default_rng(3)
@@ -255,10 +278,16 @@ def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, store, cd, rv):
     assert torch.equal(got, again)
     want = fused_bwd.fm_bwd_segment_totals_plain(*args, cap=cap)
     # Elementwise the same roundings; only the order of each segment's
-    # fp32 sum differs, an error that grows with the segment's size, so
-    # the bound is relative to the largest total of the field.
-    scale = want.abs().amax(dim=(1, 2), keepdim=True)
-    assert bool(((got - want).abs() <= 1e-5 * (want.abs() + scale)).all())
+    # fp32 sum differs (the plain version's in atomic order): each within
+    # 1e-5 of the segment's sum of |term| from the exact (float64) total.
+    terms = fused_bwd.fm_bwd_sorted_deltas(*args, cap=cap)
+    exact = torch.stack([segsum.segment_totals_plain(d.double(), s, cap)
+                         for d, s in terms])
+    bound = 1e-5 * torch.stack([segsum.segment_totals_plain(d.abs().double(),
+                                                            s, cap)
+                                for d, s in terms])
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((want.double() - exact).abs() <= bound).all())
 
 
 @pytest.mark.gpu
@@ -320,3 +349,115 @@ def test_forward_kernel_bf16_compute_matches_plain_on_the_card(cuda, dtype):
     # order.
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
+
+
+def _ffm_operands(cuda, b, f, k, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    rows = torch.from_numpy(rng.normal(size=(b, f, f * k)) * 0.5).to(cuda, dtype)
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (b, f))).to(cuda, dtype)
+    ds = torch.from_numpy(rng.normal(size=b) * 0.1).to(cuda, dtype)
+    return rows, vals, ds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,k", [(1, 23, 16), (127, 23, 16), (8192, 23, 16),
+                                   (300, 5, 6), (300, 5, 8)])
+def test_ffm_sel_kernels_match_plain_on_the_card(cuda, b, f, k, dtype):
+    from fm_spark_tpu_torch.ops import ffm_sel
+
+    rows, vals, ds = _ffm_operands(cuda, b, f, k, dtype, seed=b + k)
+    before = (ffm_sel.scores_launches, ffm_sel.bwd_launches)
+    acc = ffm_sel.ffm_sel_scores(rows, vals)
+    acc2 = ffm_sel.ffm_sel_scores(rows, vals)
+    dvs = ffm_sel.ffm_sel_bwd(rows, vals, ds)
+    dvs2 = ffm_sel.ffm_sel_bwd(rows, vals, ds)
+    torch.cuda.synchronize()
+    assert (ffm_sel.scores_launches - before[0],
+            ffm_sel.bwd_launches - before[1]) == (2, 2)
+    assert torch.equal(acc, acc2) and torch.equal(dvs, dvs2)   # same bits
+    # The same roundings in the same order, sums in index order on both
+    # sides: the kernels equal their plain versions bit for bit.
+    assert torch.equal(acc, ffm_sel.ffm_sel_scores_plain(rows, vals))
+    assert torch.equal(dvs, ffm_sel.ffm_sel_bwd_plain(rows, vals, ds))
+
+
+@pytest.mark.gpu
+def test_ffm_sel_library_stages_what_the_wrapper_expects(cuda):
+    from fm_spark_tpu_torch.ops import ffm_sel
+
+    lib = build.load("ffm_sel")
+    for f, k in ((23, 16), (5, 6), (39, 64), (1, 1)):
+        for elem in (2, 4):
+            assert lib.ffm_sel_smem_bytes(f, k, elem) == \
+                ffm_sel.smem_bytes(f, k, elem)
+
+
+def _ffm_spec(models, cd, f=6, bucket=40, k=16):
+    return models.FieldFFMSpec(num_features=f * bucket, rank=k, num_fields=f,
+                               bucket=bucket, init_std=0.2, compute_dtype=cd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_ffm_training_step_runs_through_the_kernels_on_the_card(cuda, cd):
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import ffm_sel
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    rng = np.random.default_rng(0)
+    b, f, bucket = 1024, 6, 40
+    spec = _ffm_spec(models, cd, f, bucket)
+    cfg = TrainConfig(learning_rate=0.05, lr_schedule="constant",
+                      reg_factors=1e-4, reg_linear=1e-5, sel_blocked=True,
+                      fused_embed="require")
+    batch = [torch.from_numpy(a) for a in (
+        (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32),
+        rng.uniform(0.5, 1.5, (b, f)).astype(np.float32),
+        rng.integers(0, 2, b).astype(np.float32), np.ones(b, np.float32))]
+    p_card = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    p_cpu = {"w0": p_card["w0"].cpu(), "vw": [t.cpu() for t in p_card["vw"]]}
+    before = (ffm_sel.scores_launches, ffm_sel.bwd_launches)
+    step = sparse.make_field_ffm_sparse_sgd_body(spec, cfg)
+    p_card, loss_card = step(p_card, 0, *[t.to(cuda) for t in batch])
+    torch.cuda.synchronize()
+    assert (ffm_sel.scores_launches - before[0],
+            ffm_sel.bwd_launches - before[1]) == (1, 1)
+    p_cpu, loss_cpu = step(p_cpu, 0, *batch)
+    # index_add_ on the card adds atomically, in no fixed order: the
+    # reference's tolerances (tests/test_sel_blocked.py).
+    tol = dict(rtol=2e-5, atol=2e-6) if cd == "float32" else \
+        dict(rtol=3e-2, atol=3e-3)
+    assert abs(float(loss_card) - float(loss_cpu)) < 1e-5
+    for a, c in zip(p_card["vw"], p_cpu["vw"]):
+        torch.testing.assert_close(a.cpu(), c, **tol)
+    torch.testing.assert_close(p_card["w0"].cpu(), p_cpu["w0"], **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_engine_serves_ffm_through_the_kernel(cuda, cd):
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.ops import ffm_sel
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    spec = _ffm_spec(models, cd)
+    params = spec.init(torch.Generator(device=cuda).manual_seed(1), cuda)
+    for t in params["vw"]:
+        t[:, -1] = 0.1
+    eng = PredictEngine(spec, params, buckets=(1, 8), device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 40, (20, 6)).astype(np.int32)
+    vals = rng.random((20, 6)).astype(np.float32)
+    before = ffm_sel.scores_launches
+    got = eng.predict(ids, vals)
+    assert ffm_sel.scores_launches - before == 3      # 8 + 8 + 4 rows
+    cpu = {"w0": params["w0"].cpu(), "vw": [t.cpu() for t in params["vw"]]}
+    want = spec.predict(cpu, torch.from_numpy(ids), torch.from_numpy(vals))
+    # The card scores by the owner loop, the CPU by the reference's sel
+    # tensor: fp32 sums in another order, or bf16 rounding at other places.
+    tol = dict(rtol=1e-5, atol=1e-6) if cd == "float32" else \
+        dict(rtol=3e-2, atol=3e-3)
+    np.testing.assert_allclose(got, want.float().numpy(), **tol)
+    eng.close()

@@ -225,7 +225,7 @@ def test_configs_and_train_config_match_jax():
         **dataclasses.asdict(jconfigs.get_config(
             "criteo1tb_fm_r64", param_dtype="bfloat16").spec()))
     with pytest.raises(ValueError, match="not ported yet"):
-        configs.get_config("avazu_ffm_r16").spec()
+        configs.get_config("criteo1tb_deepfm").spec()
     with pytest.raises(KeyError):
         configs.get_config("nope")
 
