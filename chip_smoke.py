@@ -50,11 +50,28 @@ Phases (any failure exits non-zero before the last line is printed):
    ``selblk-pallas`` recipe (scatter_add, sel_blocked, fused_embed
    require) in bf16 and in fp32 compute; the loss must be finite and
    fall, each kernel launch once per step, and one more step equal the
+   same step with the plain versions within the stated tolerance;
+11. the row kernels (``gather_rows``, ``update_rows_add``) against their
+   plain versions at full width on the bench batch's ids: config 3's
+   39 x 262,144 x 65 tables in fp32 and bf16 and config 4's
+   23 x 16,384 x 369 fp32 tables, every field bit for bit and a bitwise
+   repeat; the update writes the device dedup (``scatter._dedup``) of one
+   field's fp32 deltas. On the field with the most distinct ids: device,
+   call, plain and library times (``index_select``; ``index_add_`` of the
+   masked deltas) and the byte bound from the batch's distinct rows. Then
+   the native and numpy host aux builders on the config-3 bench batch;
+12. ``use_pallas`` training at full width through ``fit_field_sparse``, 7
+   steps per leg on bench batches: ``fm-pallas`` (config 3, fp32 tables
+   and compute, scatter_add) and ``ffm-selblk-pallas-rows`` (config 4,
+   fp32 tables, bf16 compute, scatter_add, sel_blocked, fused_embed
+   require); the loss must be finite and fall, each row kernel launch F
+   times per step (the FFM kernels once), and one more step equal the
    same step with the plain versions within the stated tolerance.
 
 Phase 5 also trains config 4 at 4,096 buckets per field through both
 FFM kernels (bf16 compute) and evaluates and predicts with the model it
-wrote.
+wrote, and trains config 3 at 16,384 buckets with ``--use-pallas``.
+Phase 7's host aux is the native counting sort's.
 
 It prints the kernels' JSON line, then the card line, then, last,
 ``{"ok": true, "device": {...}}``; details go to
@@ -97,13 +114,15 @@ def _check(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def _median_ms(fn, reps: int = REPS, hide_host_ms: float = 0.0) -> float:
+def _median_ms(fn, reps: int = REPS, hide_host_ms: float = 0.0,
+               before=None) -> float:
     """Median over ``reps`` warm calls of the CUDA-event time around one
     ``fn(r)``. With ``hide_host_ms`` > 0 a sleep kernel that long runs
     first, so the host has enqueued the whole call before the start
     event fires: the span is then device time alone. Without it the span
     also holds the host's time to issue the call (the idle-card latency
-    a caller sees)."""
+    a caller sees). ``before()``, when given, is enqueued after the sleep
+    and before the start event (an L2 flush, untimed)."""
     import torch
 
     fn(0)
@@ -118,6 +137,8 @@ def _median_ms(fn, reps: int = REPS, hide_host_ms: float = 0.0) -> float:
         end = torch.cuda.Event(enable_timing=True)
         if cycles:
             torch.cuda._sleep(cycles)
+        if before is not None:
+            before()
         start.record()
         fn(r)
         end.record()
@@ -405,9 +426,33 @@ def cli_phase(dev, report):
     out.update(train_loss=losses, train_eval=evals[0],
                train_launches=train_launches["kernel_launches"],
                eval=metrics)
+    out["use_pallas"] = _pallas_cli(bucket)
     out["ffm"] = _ffm_cli(dev)
     print("cli", json.dumps(out), flush=True)
     report["cli"] = out
+
+
+def _pallas_cli(bucket: int):
+    """``train --use-pallas`` on a config-3 copy of ``bucket`` buckets per
+    field (fp32, scatter_add, 3 steps): both row kernels F times a step."""
+    import numpy as np
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "fm_spark_tpu_torch", "train",
+         "--config", "criteo1tb_fm_r64", "--bucket", str(bucket),
+         "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
+         "--use-pallas"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    _check(proc.returncode == 0, f"cli train --use-pallas exited "
+           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    losses = [x["loss"] for x in lines if "loss" in x]
+    _check(len(losses) == 3 and all(np.isfinite(losses)),
+           f"cli train --use-pallas loss lines: {losses}")
+    k = json.loads(proc.stderr.strip().splitlines()[-1])["kernel_launches"]
+    _check(k["gather_rows"] == 3 * F and k["update_rows_add"] == 3 * F,
+           f"cli train --use-pallas did not run the row kernels: {k}")
+    return {"train_loss": losses, "train_launches": k}
 
 
 def _ffm_cli(dev):
@@ -635,11 +680,13 @@ def training_kernels_phase(dev, report):
 def _plain_versions():
     """Swap every kernel's wrapper for its plain version (the models and
     steps look them up at call time)."""
-    from fm_spark_tpu_torch.ops import ffm_sel, fused_bwd, fused_fwd, segsum
+    from fm_spark_tpu_torch.ops import (ffm_sel, fused_bwd, fused_fwd, rows,
+                                        segsum)
 
     swaps = [(fused_fwd, "fm_fused_scores"), (segsum, "segment_totals"),
              (fused_bwd, "fm_bwd_segment_totals"),
-             (ffm_sel, "ffm_sel_scores"), (ffm_sel, "ffm_sel_bwd")]
+             (ffm_sel, "ffm_sel_scores"), (ffm_sel, "ffm_sel_bwd"),
+             (rows, "gather_rows"), (rows, "update_rows_add")]
     saved = [getattr(m, n) for m, n in swaps]
     for m, n in swaps:
         setattr(m, n, getattr(m, n + "_plain"))
@@ -1006,6 +1053,272 @@ def ffm_train_phase(dev, report):
     return launches
 
 
+def _same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two float tensors (-0.0 and 0.0 differ)."""
+    import torch
+
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+def _host_cpu() -> str:
+    """The host's CPU model and core count, for host-clock figures."""
+    model = "unknown CPU"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def row_kernel_phase(dev, report):
+    """The row kernels against their plain versions at full width, and the
+    host aux builders, native against numpy."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch.ops import rows, scatter
+
+    ffm_w = FFM_F * FFM_RANK + 1
+    cases = (("config3-fp32", F, BUCKET, WIDTH, torch.float32),
+             ("config3-bf16", F, BUCKET, WIDTH, torch.bfloat16),
+             ("config4-fp32", FFM_F, FFM_BUCKET, ffm_w, torch.float32))
+    g = torch.Generator(device=dev).manual_seed(17)
+    # Written before every timed call: the 50 MB L2 holds no table rows,
+    # as in the step, where 38 other fields' traffic passes between two
+    # calls on one table.
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    out = []
+    for name, nf, bucket, w, dtype in cases:
+        ids = torch.from_numpy(BenchStream(0, TRAIN_B, nf, bucket)
+                               .next_batch()[0]).to(dev)
+        cols = [ids[:, f].contiguous() for f in range(nf)]
+        uniq = [int(torch.unique(c).numel()) for c in cols]
+        tables = [(torch.randn(bucket, w, generator=g, device=dev) * 0.1)
+                  .to(dtype) for _ in range(nf)]
+        for f in range(nf):
+            got = rows.gather_rows(tables[f], cols[f])
+            again = rows.gather_rows(tables[f], cols[f])
+            torch.cuda.synchronize()
+            _check(_same_bits(got, again), f"gather_rows {name} field {f}: "
+                   "a repeat differs")
+            _check(_same_bits(got, rows.gather_rows_plain(tables[f], cols[f])),
+                   f"gather_rows {name} field {f}: kernel disagrees with "
+                   "plain version")
+            delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
+            sid, summed, run, _ = scatter._dedup(cols[f], delta)
+            valid = (run & (sid >= 0) & (sid < bucket)).int()
+            t1, t2, t3 = (tables[f].clone() for _ in range(3))
+            rows.update_rows_add(t1, sid, valid, summed)
+            rows.update_rows_add(t2, sid, valid, summed)
+            rows.update_rows_add_plain(t3, sid, valid, summed)
+            torch.cuda.synchronize()
+            _check(_same_bits(t1, t2), f"update_rows_add {name} field {f}: "
+                   "a repeat differs")
+            _check(_same_bits(t1, t3), f"update_rows_add {name} field {f}: "
+                   "kernel disagrees with plain version")
+            _check(not _same_bits(t1, tables[f]),
+                   f"update_rows_add {name} field {f}: wrote nothing")
+            del t1, t2, t3
+        fmax = int(np.argmax(uniq))
+        table, col = tables[fmax], cols[fmax]
+        e = table.element_size()
+        delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
+        sid, summed, run, _ = scatter._dedup(col, delta)
+        valid = (run & (sid >= 0) & (sid < bucket)).int()
+        nvalid = int(valid.sum())
+        scratch = table.clone()
+
+        def timed(fn, hide):
+            return _median_ms(fn, hide_host_ms=hide, before=flush.zero_)
+
+        gbytes = lambda u: u * w * e + TRAIN_B * w * e + 4 * TRAIN_B
+        ubytes = lambda v: v * (2 * w * e + 4 * w) + 8 * TRAIN_B
+        col_l = col.long()
+        vmask = valid.bool()
+        idx_l = torch.where(vmask, sid, 0).long()
+        masked = torch.where(vmask[:, None], summed, 0.0)
+        gather = {
+            "ms": timed(lambda r: rows.gather_rows(table, col), 1.0),
+            "call_ms": _median_ms(lambda r: rows.gather_rows(table, col)),
+            "plain_ms": timed(lambda r: rows.gather_rows_plain(table, col),
+                              2.0),
+            "library_ms": timed(lambda r: torch.index_select(table, 0, col_l),
+                                1.0),
+            "library": "torch.index_select",
+            "bound_ms": gbytes(uniq[fmax]) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": gbytes(uniq[fmax]),
+            "step_bound_ms": sum(gbytes(u) for u in uniq)
+            / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": 0.0, "bitwise": True,
+        }
+        update = {
+            "ms": timed(lambda r: rows.update_rows_add(scratch, sid, valid,
+                                                       summed), 1.0),
+            "call_ms": _median_ms(lambda r: rows.update_rows_add(
+                scratch, sid, valid, summed)),
+            "plain_ms": timed(lambda r: rows.update_rows_add_plain(
+                scratch, sid, valid, summed), 2.0),
+            # One call computes it only for an fp32 table: index_add_ of a
+            # bf16 table takes bf16 deltas, rounded before the add.
+            "library_ms": (timed(lambda r: scratch.index_add_(0, idx_l,
+                                                              masked), 1.0)
+                           if dtype == torch.float32 else None),
+            "library": ("index_add_ of the masked deltas"
+                        if dtype == torch.float32 else "none"),
+            "bound_ms": ubytes(nvalid) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": ubytes(nvalid),
+            "step_bound_ms": sum(ubytes(u) for u in uniq)
+            / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": 0.0, "bitwise": True,
+        }
+        for k in (gather, update):
+            k["achieved_GBps"] = k["bytes"] / (k["ms"] * 1e-3) / 1e9
+        row = {"case": name, "fields": nf, "bucket": bucket, "width": w,
+               "dtype": str(dtype)[6:], "B": TRAIN_B, "field": fmax,
+               "unique_max": uniq[fmax], "unique_sum": sum(uniq),
+               "valid_lanes": nvalid, "gather": gather, "update": update}
+        print("row_kernels", json.dumps(row), flush=True)
+        out.append(row)
+        del tables, scratch, delta, summed, masked
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+
+    # The host aux builders on the config-3 bench batch (host clock).
+    ids = BenchStream(0).next_batch()[0]
+    aux, got = {"host": _host_cpu()}, {}
+    for label, fn in (("compact_native", lambda: scatter.compact_aux(ids, CAP)),
+                      ("compact_numpy",
+                       lambda: scatter.compact_aux_plain(ids, CAP)),
+                      ("dedup_native", lambda: scatter.dedup_aux(ids)),
+                      ("dedup_numpy", lambda: scatter.dedup_aux_plain(ids))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got[label] = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        aux[label] = {"ms": times, "ms_median": statistics.median(times)}
+    for kind in ("compact", "dedup"):
+        _check(all(np.array_equal(a, b) for a, b in
+                   zip(got[f"{kind}_native"], got[f"{kind}_numpy"])),
+               f"native {kind}_aux != numpy {kind}_aux on the bench batch")
+    print("host_aux", json.dumps(aux), flush=True)
+    report["row_kernels"] = out
+    report["host_aux"] = aux
+    return out
+
+
+def pallas_train_phase(dev, report):
+    """Both use_pallas legs through fit_field_sparse at full width."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import ffm_sel, rows
+    from fm_spark_tpu_torch.train import TrainConfig, fit_field_sparse
+
+    common = dict(num_steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                  learning_rate=0.05, lr_schedule="constant",
+                  reg_factors=1e-6, sparse_update="scatter_add",
+                  use_pallas=True)
+    legs = (
+        ("fm-pallas", F, BUCKET,
+         models.FieldFMSpec(num_features=F * BUCKET, rank=RANK, num_fields=F,
+                            bucket=BUCKET, init_std=0.01),
+         TrainConfig(**common)),
+        ("ffm-selblk-pallas-rows", FFM_F, FFM_BUCKET,
+         models.FieldFFMSpec(num_features=FFM_F * FFM_BUCKET, rank=FFM_RANK,
+                             num_fields=FFM_F, bucket=FFM_BUCKET,
+                             init_std=0.01, compute_dtype="bfloat16"),
+         TrainConfig(**common, sel_blocked=True, fused_embed="require")),
+    )
+    names = ("gather_rows", "update_rows_add", "ffm_sel_scores",
+             "ffm_sel_bwd")
+
+    def counts():
+        return dict(zip(names, (rows.gather_launches, rows.update_launches,
+                                ffm_sel.scores_launches,
+                                ffm_sel.bwd_launches)))
+
+    out, launches = {}, dict.fromkeys(names, 0)
+    for leg, nf, bucket, spec, cfg in legs:
+        ffm = nf == FFM_F
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # Counts start at 0 just before the main path and are read just after.
+        rows.gather_launches = rows.update_launches = 0
+        ffm_sel.scores_launches = ffm_sel.bwd_launches = 0
+        t0 = time.perf_counter()
+        params = fit_field_sparse(spec, cfg, BenchStream(0, TRAIN_B, nf,
+                                                         bucket),
+                                  device=dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        loss = stats["loss"]
+        _check(all(np.isfinite(loss)), f"{leg}: non-finite loss {loss}")
+        _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
+        want = {"gather_rows": nf * TRAIN_STEPS,
+                "update_rows_add": nf * TRAIN_STEPS,
+                "ffm_sel_scores": TRAIN_STEPS if ffm else 0,
+                "ffm_sel_bwd": TRAIN_STEPS if ffm else 0}
+        _check(got == want, f"{leg}: launches {got}, want {want}")
+        for k in launches:
+            launches[k] += got[k]
+        step_ms = statistics.median(stats["step_ms"][WARM_STEPS:])
+
+        # One more step from the trained params, kernels vs plain versions.
+        batch = [torch.from_numpy(a).to(dev) for a in
+                 BenchStream(1, TRAIN_B, nf, bucket).next_batch()]
+        copy = {"w0": params["w0"].clone(),
+                "vw": [t.clone() for t in params["vw"]]}
+        step = (sparse.make_field_ffm_sparse_sgd_body if ffm
+                else sparse.make_field_sparse_sgd_body)(spec, cfg)
+        _, lk = step(params, TRAIN_STEPS, *batch)
+        mid = counts()
+        with _plain_versions():
+            _, lp = step(copy, TRAIN_STEPS, *batch)
+        torch.cuda.synchronize()
+        _check(counts() == mid, f"{leg}: the plain step launched a kernel")
+        # The kernels equal their plain versions bit for bit, so the loss
+        # is the same; the device dedup's segment sums (index_add_) add in
+        # atomic order on the card, so the tables agree within the
+        # reference's fp32 tolerance (tests/test_sparse_pallas.py).
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(params["vw"], copy["vw"]))
+        close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+                    for a, b in zip(params["vw"], copy["vw"]))
+        _check(float(lk) == float(lp) and close
+               and torch.allclose(params["w0"], copy["w0"], rtol=1e-4,
+                                  atol=1e-6),
+               f"{leg}: kernel step != plain step (max |dw| {diff}, loss "
+               f"{float(lk)} vs {float(lp)})")
+        del copy
+        prof = _profile_steps(step, params, batch, None, TRAIN_STEPS + 1)
+        row = {
+            "leg": leg, "loss": loss, "step_ms": stats["step_ms"],
+            "step_ms_median": step_ms,
+            "samples_per_s": TRAIN_B / (step_ms * 1e-3),
+            "wall_s": wall, "launches": got,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
+            "vs_plain_max_abs_diff": diff,
+            "vs_plain_loss": [float(lk), float(lp)],
+            "profile": prof, "peak_mem_gb": peak,
+        }
+        print("pallas_train", json.dumps(row), flush=True)
+        out[leg] = row
+        del params, batch, step
+        torch.cuda.empty_cache()
+    report["pallas_train"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1045,6 +1358,8 @@ def main() -> int:
     ffm_rows = ffm_kernel_phase(dev, report)
     ffm_serve_launches = ffm_serve_phase(dev, report)
     ffm_launches = ffm_train_phase(dev, report)
+    row_rows = row_kernel_phase(dev, report)
+    pallas_launches = pallas_train_phase(dev, report)
 
     main_row = next(r for r in rows if r["dtype"] == "float32" and r["B"] == 512)
     kernels = {"kernels": [{
@@ -1103,7 +1418,27 @@ def main() -> int:
         }
         if name == "ffm_sel_scores":
             entry["serve_launches"] = ffm_serve_launches
+        entry["use_pallas_launches"] = pallas_launches[name]
         kernels["kernels"].append(entry)
+    # The row kernels on config 3's fp32 tables at the field with the most
+    # distinct ids; launches from phase 12's two legs.
+    row_main = row_rows[0]
+    for name, key, line in (("gather_rows", "gather", 97),
+                            ("update_rows_add", "update", 178)):
+        m = row_main[key]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "fm_spark_tpu_torch/csrc/rows.cu",
+            "replaces": f"fm_spark_tpu/ops/pallas_fm.py:{line}",
+            "launches": pallas_launches[name],
+            "max_abs_err": max(r[key]["max_abs_err"] for r in row_rows),
+            "ms": m["ms"], "call_ms": m["call_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "shape": (f"one field of {F}, B={TRAIN_B}, "
+                      f"{row_main['unique_max']} distinct ids, "
+                      f"w={WIDTH}, fp32"),
+        })
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

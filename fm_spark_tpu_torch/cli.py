@@ -49,13 +49,16 @@ def _synthetic_for_model(spec, n: int):
 
 
 def _launches() -> dict:
-    from fm_spark_tpu_torch.ops import ffm_sel, fused_bwd, fused_fwd, segsum
+    from fm_spark_tpu_torch.ops import (ffm_sel, fused_bwd, fused_fwd, rows,
+                                        segsum)
 
     return {"fm_fused_scores": fused_fwd.launches,
             "segment_totals": segsum.launches,
             "fm_bwd_segment_totals": fused_bwd.launches,
             "ffm_sel_scores": ffm_sel.scores_launches,
-            "ffm_sel_bwd": ffm_sel.bwd_launches}
+            "ffm_sel_bwd": ffm_sel.bwd_launches,
+            "gather_rows": rows.gather_launches,
+            "update_rows_add": rows.update_launches}
 
 
 def _since(before: dict) -> dict:
@@ -72,7 +75,8 @@ def cmd_train(args) -> int:
                          "not ported yet)")
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              param_dtype=args.param_dtype,
-                             compute_dtype=args.compute_dtype)
+                             compute_dtype=args.compute_dtype,
+                             use_pallas=True if args.use_pallas else None)
     if (cfg.model not in ("field_fm", "field_ffm")
             or cfg.strategy != "field_sparse"):
         raise SystemExit(f"config {cfg.name!r} (model {cfg.model!r}, "
@@ -185,7 +189,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sparse-update", choices=["scatter_add", "dedup",
                                                "dedup_sr"])
     t.add_argument("--host-dedup", action="store_true", default=None,
-                   help="build the compact aux on the host")
+                   help="build the dedup aux on the host (the compact aux "
+                        "with --compact-cap)")
     t.add_argument("--compact-cap", type=int, default=None)
     t.add_argument("--gfull-fused", action="store_true", default=None)
     t.add_argument("--segtotal-pallas", action="store_true", default=None,
@@ -193,6 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sel-blocked", action="store_true", default=None,
                    help="FieldFFM: the per-owner-field interaction loop in "
                         "place of the [B, F, F, k] sel tensor")
+    t.add_argument("--use-pallas", action="store_true",
+                   help="row gathers and scatter_add/dedup writes by the "
+                        "row kernels (gather_rows, update_rows_add)")
     t.add_argument("--fused-embed", choices=["off", "auto", "require"],
                    help="the fused kernels: FieldFM's backward, FieldFFM's "
                         "ffm_sel pair (with --sel-blocked)")

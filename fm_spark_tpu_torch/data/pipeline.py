@@ -89,19 +89,20 @@ class Batches:
 
 
 class DedupAuxBatches:
-    """Wraps a batch source and appends the COMPACT aux
-    (:func:`~fm_spark_tpu_torch.ops.scatter.compact_aux` at ``cap``) to each
-    batch: ``(ids, vals, labels, weights, aux)``. Wrap it BEFORE
-    :class:`Prefetcher`, so the sorts run in the producer thread.
+    """Wraps a batch source and appends the host-built dedup aux to each
+    batch: ``(ids, vals, labels, weights, aux)`` —
+    :func:`~fm_spark_tpu_torch.ops.scatter.dedup_aux` with ``cap=0``, the
+    COMPACT aux (:func:`~fm_spark_tpu_torch.ops.scatter.compact_aux`) at
+    ``cap > 0``. Wrap it BEFORE :class:`Prefetcher`, so the sorts run in
+    the producer thread.
 
     ``overflow='error'`` propagates
     :class:`~fm_spark_tpu_torch.ops.scatter.CompactCapOverflow`; the
-    reference's ``'split'`` policy is not ported yet (ROADMAP Queue 1), nor
-    is the non-compact aux (``cap=0``). ``aux_ms`` holds the host time of
-    each aux build, in milliseconds.
+    reference's ``'split'`` policy is not ported yet (ROADMAP Queue 1).
+    ``aux_ms`` holds the host time of each aux build, in milliseconds.
     """
 
-    def __init__(self, source, cap: int, overflow: str = "error"):
+    def __init__(self, source, cap: int = 0, overflow: str = "error"):
         if overflow == "split":
             raise ValueError("compact_overflow='split' is not ported yet "
                              "(ROADMAP Queue 1)")
@@ -109,20 +110,17 @@ class DedupAuxBatches:
             raise ValueError(
                 f"DedupAuxBatches overflow must be 'error' or 'split', "
                 f"got {overflow!r}")
-        if cap <= 0:
-            raise ValueError("the non-compact dedup aux (cap=0) is not "
-                             "ported yet (ROADMAP Queue 1)")
         self._source = source
         self._cap = int(cap)
         self.aux_ms: list[float] = []
 
     def next_batch(self):
-        from fm_spark_tpu_torch.ops.scatter import compact_aux
+        from fm_spark_tpu_torch.ops.scatter import compact_aux, dedup_aux
 
         ids, vals, labels, weights = (np.asarray(a)
                                       for a in self._source.next_batch())
         t0 = time.perf_counter()
-        aux = compact_aux(ids, self._cap)
+        aux = compact_aux(ids, self._cap) if self._cap > 0 else dedup_aux(ids)
         self.aux_ms.append((time.perf_counter() - t0) * 1e3)
         return ids, vals, labels, weights, aux
 

@@ -72,6 +72,15 @@ SIGNATURES = {
         "ffm_sel_smem_bytes": (_L, [_I, _I, _I]),
         "ffm_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "rows": {
+        # table, n, width, elem, ids, batch, out, stream, device
+        "rows_gather": (_I, [_P, _L, _I, _I, _P, _I, _P, _P, _I]),
+        # table, n, width, table_bf16, ids, valid, delta, delta_bf16, batch,
+        # stream, device
+        "rows_update_add": (_I, [_P, _L, _I, _I, _P, _P, _P, _I, _I, _P,
+                                 _I]),
+        "rows_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -1,29 +1,44 @@
-"""Sparse row updates of the fused FieldFM step: the compact path, stochastic
-rounding, and scatter-add (the port of ``fm_spark_tpu/ops/scatter.py``).
+"""Sparse row updates of the fused steps: the compact path, the per-lane
+dedup forms, stochastic rounding, scatter-add, and the host-side aux
+builders (the port of ``fm_spark_tpu/ops/scatter.py``).
 
 Write strategies (``TrainConfig.sparse_update``):
 
 - ``"scatter_add"``: ``index_add_`` of every lane's delta.
-- ``"dedup"`` with the compact aux: per-segment totals of the sorted
-  deltas, then one add per unique id.
-- ``"dedup_sr"`` with the compact aux: one stochastic-rounded set per
-  unique id of ``urows + totals``.
+- ``"dedup"``: per-segment totals of the sorted deltas, then one add per
+  unique id; with the compact aux (``compact_cap > 0``) on ``cap`` lanes,
+  else on ``B`` lanes with the segments from the device sort
+  (:func:`_dedup`) or from the host's :func:`dedup_aux`.
+- ``"dedup_sr"``: the same totals, then one stochastic-rounded set per
+  unique id of ``old row + total``.
+
+With ``use_pallas`` the ``scatter_add`` and ``dedup`` writes go through
+:func:`_pallas_dedup_add` (the device sort, then the row-update kernel,
+``ops.rows``), and the row gathers through :func:`pallas_gather`.
 
 Tables are updated IN PLACE (the JAX package donates them; the port never
 holds a second copy of a 1.33 GB table set) and returned.
 
 Out-of-range writes: XLA's ``mode="drop"`` has no torch counterpart, and
 an out-of-range ``index_add_``/``index_copy_`` on CUDA is a device-side
-assert. The compact aux pads each field's ``useg`` with sentinels past the
-table, so a write clamps every index into the table and makes the padding
-slots' writes no-ops (an add of zero, or a set of the value the row ends
-with), with no device-to-host sync to count the real slots.
+assert. So a write clamps every index into the table and makes each
+dropped lane's write a no-op (an add of zero, or a set of the value its
+row ends with), with no device-to-host sync to count the real lanes. As in
+JAX, an id in ``[-n, 0)`` counts from the end on the XLA-path writes, and
+the Pallas path drops it (:func:`_pallas_dedup_add`) where
+:func:`pallas_gather` clamps it to row 0.
 
 SR noise: JAX draws threefry bits per (step, field) key. The port draws
 them from a ``torch.Generator`` on the device seeded from (seed + 0x5EED,
 step, field), so a re-run or resume draws the same bits, which equal
 JAX's in distribution only; :func:`stochastic_round` takes the bits as an
 argument so tests can inject JAX's.
+
+Host aux: :func:`compact_aux` and :func:`dedup_aux` run the native
+counting sort (``fm_spark_tpu_torch.native``) where its scratch fits
+(``native.counting_sort_fits``, the reference's rule) and the numpy
+builders :func:`compact_aux_plain` / :func:`dedup_aux_plain` otherwise;
+both give the same ints.
 """
 
 from __future__ import annotations
@@ -31,11 +46,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fm_spark_tpu_torch import native
+from fm_spark_tpu_torch.ops import rows as rows_lib
 from fm_spark_tpu_torch.ops import segsum as segsum_lib
 
 __all__ = ["SPARSE_UPDATE_MODES", "CompactCapOverflow", "SrNoise",
            "apply_row_updates", "compact_apply", "compact_apply_totals",
-           "compact_aux", "compact_gather", "stochastic_round"]
+           "compact_aux", "compact_aux_plain", "compact_gather", "dedup_aux",
+           "dedup_aux_plain", "pallas_gather", "stochastic_round"]
 
 SPARSE_UPDATE_MODES = ("scatter_add", "dedup", "dedup_sr")
 
@@ -98,10 +116,34 @@ def stochastic_round(x: torch.Tensor, dtype: torch.dtype,
     return torch.where(finite_in, out, x.to(torch.bfloat16))
 
 
+def _overflow(field: int, count: int, cap: int) -> CompactCapOverflow:
+    return CompactCapOverflow(
+        f"field {field}: {count} unique ids > compact cap {cap}; raise "
+        "compact_cap (it must bound the per-field per-batch "
+        "unique-id count)"
+    )
+
+
+def _compact_ids(ids, cap: int) -> np.ndarray:
+    """The reference's checks of a compact-aux batch; returns it as an
+    array."""
+    ids = np.asarray(ids)
+    if ids.ndim != 2:
+        raise ValueError("compact_aux expects [B, F] ids")
+    b = ids.shape[0]
+    if cap < 1 or cap > max(b, 1):
+        raise ValueError(f"cap must be in [1, B], got {cap} (B={b})")
+    if b and ids.min() < 0:
+        raise ValueError("compact_aux requires non-negative ids")
+    if b and int(ids.max()) >= _IMAX - cap:
+        raise ValueError("id space collides with the sentinel range")
+    return ids
+
+
 def compact_aux(ids, cap: int):
     """HOST-side aux of the compact update for a ``[B, F]`` id batch
-    (numpy; int-exact with the reference's builder). Returns ``(useg,
-    segstart, segend, order, inv)``, all int32:
+    (int-exact with the reference's builder). Returns ``(useg, segstart,
+    segend, order, inv)``, all int32:
 
     - ``useg`` [F, cap]: each field's unique ids, ascending, padded with
       DISTINCT ascending sentinels ``INT32_MAX - cap + j`` past the table;
@@ -110,20 +152,25 @@ def compact_aux(ids, cap: int):
     - ``order`` [F, B]: each field's stable argsort of the ids;
     - ``inv`` [F, B]: the segment of each ORIGINAL lane.
 
-    Raises :class:`CompactCapOverflow` if a field has more than ``cap``
-    unique ids.
+    The native counting sort builds it where its scratch fits, else
+    :func:`compact_aux_plain`. Raises :class:`CompactCapOverflow` if a
+    field has more than ``cap`` unique ids (the lowest such field).
     """
-    ids = np.asarray(ids)
-    if ids.ndim != 2:
-        raise ValueError("compact_aux expects [B, F] ids")
+    ids = _compact_ids(ids, cap)
     b, f = ids.shape
-    if cap < 1 or cap > max(b, 1):
-        raise ValueError(f"cap must be in [1, B], got {cap} (B={b})")
-    if b and ids.min() < 0:
-        raise ValueError("compact_aux requires non-negative ids")
-    if b and int(ids.max()) >= _IMAX - cap:
-        raise ValueError("id space collides with the sentinel range")
+    bucket = int(ids.max()) + 1 if b else 1
+    if not native.counting_sort_fits(bucket, f):
+        return compact_aux_plain(ids, cap)
+    aux, over = native.compact_aux(ids, bucket, cap)
+    if over >= 0:
+        raise _overflow(over, np.unique(ids[:, over]).size, cap)
+    return aux
 
+
+def compact_aux_plain(ids, cap: int):
+    """The numpy builder of :func:`compact_aux` (the same ints)."""
+    ids = _compact_ids(ids, cap)
+    b, f = ids.shape
     useg = np.zeros((f, cap), np.int32)
     segstart = np.full((f, cap), max(b - 1, 0), np.int32)
     segend = np.full((f, cap), max(b - 1, 0), np.int32)
@@ -137,11 +184,7 @@ def compact_aux(ids, cap: int):
                     else (np.empty(0, np.int32), np.empty(0, np.int64)))
         s = u.size
         if s > cap:
-            raise CompactCapOverflow(
-                f"field {j}: {s} unique ids > compact cap {cap}; raise "
-                "compact_cap (it must bound the per-field per-batch "
-                "unique-id count)"
-            )
+            raise _overflow(j, s, cap)
         useg[j, :s] = u
         useg[j, s:] = sentinel[: cap - s]
         segstart[j, :s] = first
@@ -151,6 +194,62 @@ def compact_aux(ids, cap: int):
         ) if b else np.empty(0, np.int64)
         inv[j, order[j]] = seg_of_sorted
     return useg, segstart, segend, order, inv
+
+
+def dedup_aux(ids):
+    """HOST-side aux of the per-lane dedup forms (``host_dedup`` without a
+    cap) for a ``[B, F]`` id batch (a ``[B]`` batch gives ``[B]`` arrays):
+    ``(order, seg, useg, ord_first)``, each int32 ``[F, B]``:
+
+    - ``order``: each field's stable argsort of the ids;
+    - ``seg``: the segment of each SORTED lane (duplicates share one);
+    - ``useg``: the unique id each segment writes to, padded past the
+      segment count with ``INT32_MAX`` (past any table: dropped);
+    - ``ord_first``: the original lane of each segment's first sorted
+      occurrence (the ``dedup_sr`` representative row).
+
+    The native counting sort builds it where its scratch fits, else
+    :func:`dedup_aux_plain`; both give the reference's ints.
+    """
+    return _dedup_aux(ids, native_ok=True)
+
+
+def dedup_aux_plain(ids):
+    """The numpy builder of :func:`dedup_aux` (the same ints)."""
+    return _dedup_aux(ids, native_ok=False)
+
+
+def _dedup_aux(ids, native_ok: bool):
+    ids = np.asarray(ids)
+    squeeze = ids.ndim == 1
+    if squeeze:
+        ids = ids[:, None]
+    b, f = ids.shape
+    if b and ids.min() < 0:
+        raise ValueError("dedup_aux requires non-negative ids")
+    bucket = int(ids.max()) + 1 if b else 1
+    if native_ok and b and native.counting_sort_fits(bucket, f):
+        out = native.dedup_aux(ids, bucket)
+    else:
+        out = _dedup_aux_numpy(ids)
+    return tuple(a[0] for a in out) if squeeze else out
+
+
+def _dedup_aux_numpy(ids):
+    b, f = ids.shape
+    ids_t = np.ascontiguousarray(ids.T)
+    order = np.argsort(ids_t, axis=1, kind="stable").astype(np.int32)
+    sid = np.take_along_axis(ids_t, order, axis=1)
+    run = np.concatenate(
+        [np.ones((f, min(b, 1)), bool), sid[:, 1:] != sid[:, :-1]], axis=1)
+    seg = run.cumsum(axis=1).astype(np.int32) - 1
+    useg = np.full((f, b), _IMAX, np.int32)
+    ord_first = np.zeros((f, b), np.int32)
+    for j in range(f):
+        u = sid[j, run[j]]
+        useg[j, : u.size] = u
+        ord_first[j, : u.size] = order[j, run[j]]
+    return order, seg, useg, ord_first
 
 
 def _check_sentinel_range(bucket: int, cap: int) -> None:
@@ -223,12 +322,9 @@ def _compact_write(table, totals, useg, mode, noise, urows):
     last row and write nothing new there (see the module note)."""
     n = table.shape[0]
     real = useg < n
-    idx = useg.long().clamp(max=n - 1)
     if mode == "dedup":
-        upd = torch.where(real[:, None], totals,
-                          torch.zeros((), dtype=totals.dtype,
-                                      device=totals.device))
-        return table.index_add_(0, idx, upd.to(table.dtype))
+        return _add_rows(table, useg, real, totals)
+    idx = useg.long().clamp(max=n - 1)
     if mode != "dedup_sr":
         raise ValueError(f"compact write takes 'dedup' or 'dedup_sr', not {mode!r}")
     if urows is None:
@@ -250,23 +346,123 @@ def compact_apply_totals(table, totals, caux, mode, noise, urows):
     return _compact_write(table, totals, useg, mode, noise, urows)
 
 
-def apply_row_updates(table, ids, delta, mode: str = "scatter_add"):
-    """Add per-lane ``delta`` ([B, w]) to ``table`` rows ``ids`` ([B]) in
-    place, in the table's dtype. As in JAX, an id in ``[-n, 0)`` counts
-    from the end and any other out-of-range id is dropped. Only
-    ``scatter_add`` is ported: the non-compact dedup modes wait for a later
-    slice (ROADMAP Queue 1)."""
+def _dedup(ids, delta):
+    """Segment duplicate ids on the device: ``(sid, summed, run_start,
+    order)`` — the ids in stable sorted order, each sorted lane's segment
+    TOTAL of ``delta`` (in its dtype), the run-start mask and the sort
+    order. Only run-start lanes should write. The sort is stable, as
+    ``jnp.argsort``, so the lane order of each segment's sum is the
+    reference's; the sums themselves run in ``index_add_``'s order (fp32
+    reassociation against JAX's)."""
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    run_start = torch.ones_like(sid, dtype=torch.bool)
+    run_start[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(run_start, 0) - 1
+    summed = torch.zeros_like(delta).index_add_(0, seg, delta[order])
+    return sid, summed[seg], run_start, order
+
+
+def _add_rows(table, tgt, ok, upd):
+    """``table[tgt[m]] += upd[m]`` (in the table's dtype) for lanes with
+    ``ok[m]``; the others add zero to a clamped row."""
+    n = table.shape[0]
+    upd = torch.where(ok[:, None], upd,
+                      torch.zeros((), dtype=upd.dtype, device=upd.device))
+    return table.index_add_(0, tgt.long().clamp(0, n - 1),
+                            upd.to(table.dtype))
+
+
+def _set_rows(table, tgt, ok, vals):
+    """``table[tgt[m]] = vals[m]`` for lanes with ``ok[m]`` (targets unique
+    among them; if not, the highest such lane wins), the others writing
+    nothing new. Every lane writes, to its target clamped into the table,
+    the value its row ends with, so duplicate indices agree and no host
+    sync is needed."""
+    n, b = table.shape[0], tgt.shape[0]
+    idx = tgt.long().clamp(0, n - 1)
+    lane = torch.arange(b, device=table.device)
+    owner = torch.full((n,), -1, dtype=torch.int64, device=table.device)
+    owner.scatter_reduce_(0, idx, torch.where(ok, lane, -1), reduce="amax")
+    src = owner[idx]
+    final = torch.where((src >= 0)[:, None],
+                        vals.to(table.dtype)[src.clamp(min=0)], table[idx])
+    return table.index_copy_(0, idx, final)
+
+
+def _aux_apply(table, delta, aux, mode, noise, old_rows):
+    """Segment sums and one write per unique id from the host's
+    :func:`dedup_aux` (this field's ``[B]`` slices): no device sort."""
+    order, seg, useg, ord_first = (a.long() for a in aux)
+    summed = torch.zeros_like(delta).index_add_(0, seg, delta[order])
+    ok = useg < table.shape[0]          # INT32_MAX padding: dropped
+    if mode == "dedup":
+        return _add_rows(table, useg, ok, summed)
+    new_rows = old_rows[ord_first].float() + summed.float()
+    return _set_rows(table, useg, ok,
+                     stochastic_round(new_rows, table.dtype, noise))
+
+
+def pallas_gather(table, ids):
+    """The rows ``table[ids]`` by the gather kernel (``ops.rows``), ids
+    CLAMPED into ``[0, n - 1]``: a negative id reads row 0, where the
+    plain gather of the steps counts it from the end (the reference's two
+    routes)."""
+    return rows_lib.gather_rows(table, ids.to(torch.int32).contiguous())
+
+
+def _pallas_dedup_add(table, ids, delta):
+    """The device dedup, then one read-modify-write per unique id by the
+    row-update kernel (``ops.rows``): the ``use_pallas`` form of both
+    ``scatter_add`` and ``dedup``. Any id outside ``[0, n)``, a negative
+    one too, becomes an invalid lane and is dropped. Duplicates are summed
+    in fp32 and rounded ONCE to the table's dtype: for bf16 tables more
+    accurate than a rounding per duplicate, as in the reference."""
+    n = table.shape[0]
+    sid, summed, run_start, _ = _dedup(ids, delta)
+    valid = run_start & (sid >= 0) & (sid < n)
+    return rows_lib.update_rows_add(table, sid.to(torch.int32),
+                                    valid.to(torch.int32), summed)
+
+
+def apply_row_updates(table, ids, delta, mode: str = "scatter_add",
+                      noise=None, old_rows=None, use_pallas: bool = False,
+                      aux=None):
+    """Apply per-lane ``delta`` ([B, w]) to ``table`` ([n, w], storage
+    dtype) at ``ids`` ([B]) in place, by ``mode``.
+
+    ``old_rows`` ([B, w], compute dtype) are the lanes' gathered rows,
+    needed by ``dedup_sr`` (the new value is formed in fp32 from them);
+    ``noise`` the SR bits ``[B, w]`` of a bf16 ``dedup_sr`` table.
+    ``use_pallas`` routes ``scatter_add``/``dedup`` through
+    :func:`_pallas_dedup_add` (``dedup_sr`` keeps its set). ``aux`` is
+    :func:`dedup_aux`'s ``(order, seg, useg, ord_first)`` for this ids
+    column (a dedup mode): no device sort. As in JAX, an id in ``[-n, 0)``
+    counts from the end and any other out-of-range id is dropped, except
+    under ``use_pallas``, which drops every negative id.
+    """
     if mode not in SPARSE_UPDATE_MODES:
         raise ValueError(f"unknown sparse_update mode {mode!r}")
-    if mode != "scatter_add":
-        raise ValueError(
-            f"sparse_update={mode!r} without the compact aux is not ported "
-            "yet (ROADMAP Queue 1); use host_dedup with compact_cap > 0")
+    if aux is not None and mode == "scatter_add":
+        raise ValueError("aux requires a dedup mode")
+    if mode == "dedup_sr" and old_rows is None:
+        raise ValueError("dedup_sr needs noise= and old_rows=")
     n = table.shape[0]
-    ids = ids.long()
-    ids = torch.where(ids < 0, ids + n, ids)
-    valid = (ids >= 0) & (ids < n)
-    upd = torch.where(valid[:, None], delta,
-                      torch.zeros((), dtype=delta.dtype, device=delta.device))
-    return table.index_add_(0, torch.where(valid, ids, 0),
-                            upd.to(table.dtype))
+    if aux is not None:
+        return _aux_apply(table, delta, aux, mode, noise, old_rows)
+    if use_pallas and mode in ("scatter_add", "dedup"):
+        return _pallas_dedup_add(table, ids, delta)
+    if mode == "scatter_add":
+        idx = ids.long()
+        idx = torch.where(idx < 0, idx + n, idx)
+        return _add_rows(table, idx, (idx >= 0) & (idx < n), delta)
+
+    sid, summed, run_start, order = _dedup(ids, delta)
+    tgt = sid.long()
+    tgt = torch.where(tgt < 0, tgt + n, tgt)
+    ok = run_start & (tgt >= 0) & (tgt < n)    # one write per segment
+    if mode == "dedup":
+        return _add_rows(table, tgt, ok, summed)
+    new_rows = old_rows[order].float() + summed.float()
+    return _set_rows(table, tgt, ok,
+                     stochastic_round(new_rows, table.dtype, noise))

@@ -4,8 +4,13 @@ FieldFM and FieldFFM bodies of ``fm_spark_tpu/sparse.py``).
 
 Forms ported (the others raise with the ROADMAP item that queues them):
 
-- ``sparse_update="scatter_add"`` without a cap: one ``index_add_`` per
-  field of every lane's row delta;
+- without a cap, every ``sparse_update``: ``scatter_add`` (one
+  ``index_add_`` per field of every lane's row delta), and ``dedup`` /
+  ``dedup_sr`` on ``B`` lanes, deduplicated by the device sort or by the
+  host's ``dedup_aux`` (``host_dedup=True, compact_cap=0``);
+- ``use_pallas``: the row gathers and the ``scatter_add``/``dedup``
+  writes through the row kernels (``ops.rows``, by ``scatter.pallas_gather``
+  and ``scatter._pallas_dedup_add``);
 - the compact host-aux path (``host_dedup=True, compact_cap > 0``) in
   ``dedup`` and ``dedup_sr``;
 - FieldFM: ``gfull_fused`` on or off, ``segtotal_pallas`` on or off
@@ -108,13 +113,9 @@ def _check_host_dedup(config: TrainConfig, loss: str):
                          "exclusive")
 
 
-def _reject_unported(config: TrainConfig, compact: bool, col: bool = False,
+def _reject_unported(config: TrainConfig, col: bool = False,
                      fused_linear: bool = True):
     """Forms the JAX steps take that the port does not have yet."""
-    if config.use_pallas:
-        raise ValueError(
-            "use_pallas (kernels gather_rows / update_rows_add) is not "
-            "ported yet (ROADMAP Queue 2)")
     if config.compact_device:
         raise ValueError("compact_device (the in-step aux build) is not "
                          "ported yet (ROADMAP Queue 1)")
@@ -124,11 +125,6 @@ def _reject_unported(config: TrainConfig, compact: bool, col: bool = False,
     if not fused_linear:
         raise ValueError("fused_linear=False training is not ported yet "
                          "(ROADMAP Queue 1)")
-    if config.sparse_update != "scatter_add" and not compact:
-        raise ValueError(
-            f"sparse_update={config.sparse_update!r} without the compact "
-            "host aux is not ported yet (ROADMAP Queue 1); use "
-            "host_dedup=True with compact_cap > 0")
 
 
 # The reference's guards for levers of other steps, with its messages;
@@ -255,10 +251,14 @@ def _compact_gather_all(tables, aux, cd):
     return urows, rows
 
 
-def _gather_all(tables, ids, cd):
-    """One gather per field, cast to compute dtype (as JAX's indexing: an
-    id in ``[-n, 0)`` counts from the end, then ids clamp into the
-    table)."""
+def _gather_all(tables, ids, cd, use_pallas: bool):
+    """One gather per field, cast to compute dtype: with ``use_pallas`` by
+    the gather kernel (ids clamped into the table,
+    ``scatter.pallas_gather``), else as JAX's indexing (an id in
+    ``[-n, 0)`` counts from the end, then ids clamp into the table)."""
+    if use_pallas:
+        return [scatter_lib.pallas_gather(t, ids[:, f]).to(cd)
+                for f, t in enumerate(tables)]
     out = []
     for f, t in enumerate(tables):
         n = t.shape[0]
@@ -355,18 +355,22 @@ def _loss_and_grad_fn(loss_name: str):
     return loss_and_grad
 
 
-def _apply_updates(compact, tables, ids, g_fulls, urows, config: TrainConfig,
-                   noise_for, step_idx, neg_lr, aux):
+def _apply_updates(compact, tables, ids, g_fulls, rows, urows,
+                   config: TrainConfig, noise_for, step_idx, neg_lr, aux):
     """Write ``-lr·g_full`` into every field's table: the compact update,
-    or ``scatter_add`` of every lane (the reference's ``_updates_for``)."""
+    or the per-lane write of ``config.sparse_update`` (the reference's
+    ``_updates_for`` / ``_apply_field_updates``), with the host's
+    ``dedup_aux`` sliced per field when the batch carries it."""
     if compact:
         _compact_apply_all(tables, g_fulls, urows, config, noise_for,
                            step_idx, neg_lr, aux)
         return
     for f, (table, g_full) in enumerate(zip(tables, g_fulls)):
-        scatter_lib.apply_row_updates(table, ids[:, f],
-                                      g_full.float() * neg_lr,
-                                      config.sparse_update)
+        scatter_lib.apply_row_updates(
+            table, ids[:, f], g_full.float() * neg_lr, config.sparse_update,
+            noise=noise_for(table, step_idx, f, g_full.shape),
+            old_rows=rows[f], use_pallas=config.use_pallas,
+            aux=None if aux is None else tuple(a[f] for a in aux))
 
 
 def _update_bias(w0, lr, dscores, config: TrainConfig):
@@ -381,9 +385,11 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     (params, loss)``, updating ``params`` in place.
 
     ``ids`` int32 ``[B, F]`` (field-local), ``vals`` float32 ``[B, F]``,
-    ``labels``/``weights`` float32 ``[B]``, ``aux`` the compact aux (five
-    int32 tensors, :func:`~fm_spark_tpu_torch.ops.scatter.compact_aux`), all
-    on the params' device. ``sr_noise(step, field, shape)`` gives the SR
+    ``labels``/``weights`` float32 ``[B]``, ``aux`` the host aux of
+    ``host_dedup`` (the compact aux, five int32 tensors of
+    :func:`~fm_spark_tpu_torch.ops.scatter.compact_aux`, or without a cap
+    the four ``[F, B]`` of :func:`~fm_spark_tpu_torch.ops.scatter.dedup_aux`),
+    all on the params' device. ``sr_noise(step, field, shape)`` gives the SR
     bits of a bf16 ``dedup_sr`` write (default: :class:`~fm_spark_tpu_torch
     .ops.scatter.SrNoise` from ``config.seed + 0x5EED``).
     """
@@ -422,7 +428,7 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     _reject_sel_blocked(config, what)
     _reject_deep_sharded(config, what)
     fused_bwd = _resolve_fused_embed(spec, config) == "fm_compact_bwd"
-    _reject_unported(config, compact, col, spec.fused_linear)
+    _reject_unported(config, col, spec.fused_linear)
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     k = spec.rank
@@ -444,7 +450,8 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
         if compact:
             urows, rows = _compact_gather_all(tables, aux, cd)
         else:
-            urows, rows = None, _gather_all(tables, ids, cd)
+            urows, rows = None, _gather_all(tables, ids, cd,
+                                            config.use_pallas)
         if config.gfull_fused:
             xv_fulls = [r * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
             xvs = [x[:, :k] for x in xv_fulls]
@@ -492,8 +499,8 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                         g_lin = torch.zeros(dscores.shape[0], 1, dtype=cd,
                                             device=dscores.device)
                     g_fulls.append(torch.cat([g, g_lin], dim=1))
-            _apply_updates(compact, tables, ids, g_fulls, urows, config,
-                           noise_for, step_idx, neg_lr, aux)
+            _apply_updates(compact, tables, ids, g_fulls, rows, urows,
+                           config, noise_for, step_idx, neg_lr, aux)
         if spec.use_bias:
             _update_bias(w0, lr, dscores, config)
         return params, loss
@@ -530,7 +537,7 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     if config.sparse_update not in scatter_lib.SPARSE_UPDATE_MODES:
         raise ValueError(f"unknown sparse_update mode {config.sparse_update!r}")
     compact = config.compact_cap > 0
-    _reject_unported(config, compact)
+    _reject_unported(config)
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     F, k = spec.num_fields, spec.rank
@@ -553,7 +560,8 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
         if compact:
             urows, rows = _compact_gather_all(tables, aux, cd)
         else:
-            urows, rows = None, _gather_all(tables, ids, cd)  # F × [B, F·k+1]
+            urows, rows = None, _gather_all(
+                tables, ids, cd, config.use_pallas)         # F × [B, F·k+1]
         rv = [r[:, :fk].reshape(-1, F, k) for r in rows]
 
         def selt(i):
@@ -615,7 +623,7 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
             else:
                 g_l = torch.zeros_like(dscores)
             g_fulls.append(torch.cat([g_v, g_l[:, None]], dim=1))
-        _apply_updates(compact, tables, ids, g_fulls, urows, config,
+        _apply_updates(compact, tables, ids, g_fulls, rows, urows, config,
                        noise_for, step_idx, neg_lr, aux)
         if spec.use_bias:
             _update_bias(w0, lr, dscores, config)

@@ -22,9 +22,9 @@ import torch
 class TrainConfig:
     """Training hyperparameters: field for field those of the JAX
     package's ``TrainConfig``, so a config reads the same in both. The
-    levers of steps the port does not have yet (``use_pallas``,
-    ``compact_device``, the sharded and DeepFM knobs, ``embed_tier``)
-    are accepted here and refused by the step that would need them."""
+    levers of steps the port does not have yet (``compact_device``, the
+    sharded and DeepFM knobs, ``embed_tier``) are accepted here and
+    refused by the step that would need them."""
 
     num_steps: int = 100                   # numIterations
     batch_size: int = 1024
@@ -40,8 +40,10 @@ class TrainConfig:
     metrics_path: str | None = None
     # Sparse-row write strategy: 'scatter_add' | 'dedup' | 'dedup_sr'.
     sparse_update: str = "scatter_add"
+    # Row gathers and scatter_add/dedup writes by the row kernels (ops/rows).
     use_pallas: bool = False
-    # Host-built compact aux (ops/scatter.compact_aux) with a static cap.
+    # Host-built aux: ops/scatter.compact_aux with a static cap > 0, else
+    # ops/scatter.dedup_aux.
     host_dedup: bool = False
     compact_cap: int = 0
     compact_device: bool = False
@@ -124,7 +126,8 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
 
     ``batches`` yields numpy ``(ids, vals, labels, weights)`` batches
     (:class:`~fm_spark_tpu_torch.data.Batches`); with ``host_dedup`` the
-    compact aux is built on the host in the prefetch thread
+    aux (compact at ``compact_cap > 0``, else the per-lane dedup aux) is
+    built on the host in the prefetch thread
     (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`). The parameters
     start from ``spec.init`` seeded by ``config.seed`` and are updated in
     place. ``steps_per_call > 1`` runs the steps in groups through

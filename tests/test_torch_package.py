@@ -144,6 +144,15 @@ def test_package_data_ships_every_kernel_source_and_header():
                                   re.M):
                 assert os.path.exists(os.path.join(csrc, inc)), (src, inc)
                 assert shipped(inc), f"{src} includes {inc}, not shipped"
+    # The native aux builder's source, compiled at first use, and any
+    # header it includes.
+    nat = os.path.join(REPO, "fm_spark_tpu_torch", "native")
+    cpp = sorted(f for f in os.listdir(nat) if f.endswith(".cpp"))
+    assert cpp and all(any(fnmatch.fnmatch(f"native/{f}", g) for g in globs)
+                       for f in cpp)
+    for src in cpp:
+        with open(os.path.join(nat, src)) as fh:
+            assert not re.findall(r'^\s*#\s*include\s+"', fh.read(), re.M)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -461,3 +470,111 @@ def test_engine_serves_ffm_through_the_kernel(cuda, cd):
         dict(rtol=3e-2, atol=3e-3)
     np.testing.assert_allclose(got, want.float().numpy(), **tol)
     eng.close()
+
+
+def _bitwise(a, b):
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [65, 369])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 255, 131072])
+def test_row_kernels_match_plain_on_the_card(cuda, w, dtype, b):
+    from fm_spark_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(b + w)
+    n = max(2 * b, 1000)
+    table = torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).to(
+        cuda, dtype)
+    # Gather: duplicates and ids outside the table (clamped).
+    gids = torch.from_numpy(rng.integers(-5, n + 5, b).astype(np.int32)).to(cuda)
+    before = (rows.gather_launches, rows.update_launches)
+    got = rows.gather_rows(table, gids)
+    again = rows.gather_rows(table, gids)
+    # Update: unique ids among the valid lanes, invalid lanes aimed at row
+    # 0, fp32 and bf16 deltas.
+    ids = rng.permutation(n)[:b].astype(np.int32)
+    valid = (rng.random(b) < 0.7).astype(np.int32)
+    ids = np.where(valid == 1, ids, 0).astype(np.int32)
+    ids_t, valid_t = (torch.from_numpy(a).to(cuda) for a in (ids, valid))
+    for ddt in (torch.float32, torch.bfloat16):
+        delta = torch.from_numpy(rng.normal(size=(b, w)).astype(np.float32)
+                                 * 0.01).to(cuda, ddt)
+        t1, t2 = table.clone(), table.clone()
+        rows.update_rows_add(t1, ids_t, valid_t, delta)
+        rows.update_rows_add(t2, ids_t, valid_t, delta)
+        want = rows.update_rows_add_plain(table.cpu(), ids_t.cpu(),
+                                          valid_t.cpu(), delta.cpu())
+        torch.cuda.synchronize()
+        assert _bitwise(t1, t2)                       # a repeat: same bits
+        assert _bitwise(t1.cpu(), want)
+    torch.cuda.synchronize()
+    assert (rows.gather_launches - before[0],
+            rows.update_launches - before[1]) == (2, 4)
+    assert _bitwise(got, again)
+    assert _bitwise(got.cpu(), rows.gather_rows_plain(table.cpu(),
+                                                      gids.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ffm", [False, True], ids=["fm", "ffm"])
+def test_use_pallas_step_runs_through_the_row_kernels_on_the_card(cuda, ffm):
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import ffm_sel, rows
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    rng = np.random.default_rng(0)
+    b, f, bucket = 2048, 6, 500
+    if ffm:
+        spec = models.FieldFFMSpec(num_features=f * bucket, rank=16,
+                                   num_fields=f, bucket=bucket, init_std=0.1,
+                                   compute_dtype="bfloat16")
+        lever = dict(sel_blocked=True, fused_embed="require")
+    else:
+        spec = models.FieldFMSpec(num_features=f * bucket, rank=64,
+                                  num_fields=f, bucket=bucket, init_std=0.1)
+        lever = {}
+    cfg = TrainConfig(learning_rate=0.05, lr_schedule="constant",
+                      reg_factors=1e-4, sparse_update="scatter_add",
+                      use_pallas=True, **lever)
+    batch = [torch.from_numpy(a) for a in (
+        (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32),
+        rng.uniform(0.5, 1.5, (b, f)).astype(np.float32),
+        rng.integers(0, 2, b).astype(np.float32), np.ones(b, np.float32))]
+    p_card = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    p_cpu = {"w0": p_card["w0"].cpu(), "vw": [t.cpu() for t in p_card["vw"]]}
+    before = (rows.gather_launches, rows.update_launches,
+              ffm_sel.scores_launches)
+    step = (sparse.make_field_ffm_sparse_sgd_body if ffm
+            else sparse.make_field_sparse_sgd_body)(spec, cfg)
+    p_card, loss_card = step(p_card, 0, *[t.to(cuda) for t in batch])
+    torch.cuda.synchronize()
+    assert (rows.gather_launches - before[0],
+            rows.update_launches - before[1]) == (f, f)
+    assert ffm_sel.scores_launches - before[2] == (1 if ffm else 0)
+    p_cpu, loss_cpu = step(p_cpu, 0, *batch)
+    # The same kernels' arithmetic; the device sort's segment sums add in
+    # atomic order on the card: the reference's tolerances (fp32 for FM,
+    # the bf16 compute ones for FFM).
+    tol = (dict(rtol=3e-2, atol=3e-3) if ffm else dict(rtol=1e-4, atol=1e-6))
+    assert abs(float(loss_card) - float(loss_cpu)) <= (
+        1e-3 if ffm else 1e-5 * abs(float(loss_cpu)))
+    for a, c in zip(p_card["vw"], p_cpu["vw"]):
+        torch.testing.assert_close(a.cpu(), c, **tol)
+    torch.testing.assert_close(p_card["w0"].cpu(), p_cpu["w0"], **tol)
+
+
+@pytest.mark.gpu
+def test_native_aux_equals_numpy_on_the_bench_batch(cuda):
+    from fm_spark_tpu_torch.ops import scatter
+
+    ids = (np.random.default_rng(0).zipf(1.3, (131072, 39))
+           % (1 << 18)).astype(np.int32)
+    for g, p in zip(scatter.dedup_aux(ids), scatter.dedup_aux_plain(ids)):
+        np.testing.assert_array_equal(g, p)
+    for g, p in zip(scatter.compact_aux(ids, 12288),
+                    scatter.compact_aux_plain(ids, 12288)):
+        np.testing.assert_array_equal(g, p)

@@ -208,17 +208,6 @@ def test_scatter_add_matches_jax_and_drops_out_of_range(dtype):
                                np.asarray(want, np.float32), **tol)
 
 
-def test_non_compact_dedup_modes_are_not_ported():
-    t = torch.zeros(4, 3)
-    for mode in ("dedup", "dedup_sr"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            scatter.apply_row_updates(t, torch.zeros(2, dtype=torch.int32),
-                                      torch.zeros(2, 3), mode)
-    with pytest.raises(ValueError, match="unknown"):
-        scatter.apply_row_updates(t, torch.zeros(2, dtype=torch.int32),
-                                  torch.zeros(2, 3), "nope")
-
-
 def test_sentinel_range_guard():
     useg = torch.zeros(8, dtype=torch.int32)
     big = torch.empty(1, 1).expand(2**31 - 4, 1)

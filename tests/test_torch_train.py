@@ -126,15 +126,17 @@ def test_three_steps_match_jax(pd, cd, mode, lever):
     assert (segsum.launches, fused_bwd.launches) == launches
 
 
+# use_pallas and the per-lane dedup forms are ported (and tested in
+# tests/test_torch_train_pallas.py); the ids of the rest stay as they were.
 UNPORTED = [
-    (dict(use_pallas=True), {}, "Queue 2"),
-    (dict(sparse_update="dedup"), {}, "without the compact"),
-    (dict(sparse_update="dedup_sr"), {}, "without the compact"),
-    (dict(sparse_update="dedup", compact_device=True, compact_cap=CAP), {},
-     "compact_device"),
-    (dict(sparse_update="dedup", **COMPACT), dict(table_layout="col"),
-     "table_layout='col'"),
-    ({}, dict(fused_linear=False), "fused_linear=False"),
+    pytest.param(dict(sparse_update="dedup", compact_device=True,
+                      compact_cap=CAP), {}, "compact_device",
+                 id="cfg3-spec_kw3-compact_device"),
+    pytest.param(dict(sparse_update="dedup", **COMPACT),
+                 dict(table_layout="col"), "table_layout='col'",
+                 id="cfg4-spec_kw4-table_layout='col'"),
+    pytest.param({}, dict(fused_linear=False), "fused_linear=False",
+                 id="cfg5-spec_kw5-fused_linear=False"),
 ]
 
 
@@ -287,8 +289,11 @@ def test_dedup_aux_batches_and_prefetcher():
         pf.next_batch()
     with pytest.raises(ValueError, match="ROADMAP"):
         data.DedupAuxBatches(src, cap=CAP, overflow="split")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        data.DedupAuxBatches(src, cap=0)
+    # cap=0: the per-lane dedup aux, the reference's.
+    batch = data.DedupAuxBatches(
+        data.Batches(ids, vals, labels, B, seed=1)).next_batch()
+    for g, r in zip(batch[4], jscatter.dedup_aux(batch[0])):
+        np.testing.assert_array_equal(g, r)
     tiny = data.DedupAuxBatches(data.Batches(ids, vals, labels, B), cap=4)
     with data.Prefetcher(tiny, device="cpu") as pf:
         with pytest.raises(scatter.CompactCapOverflow):
