@@ -1426,7 +1426,7 @@ def main() -> int:
     for name, key, line in (("gather_rows", "gather", 97),
                             ("update_rows_add", "update", 178)):
         m = row_main[key]
-        kernels["kernels"].append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "fm_spark_tpu_torch/csrc/rows.cu",
             "replaces": f"fm_spark_tpu/ops/pallas_fm.py:{line}",
@@ -1438,7 +1438,20 @@ def main() -> int:
             "shape": (f"one field of {F}, B={TRAIN_B}, "
                       f"{row_main['unique_max']} distinct ids, "
                       f"w={WIDTH}, fp32"),
-        })
+        }
+        if name == "gather_rows":
+            # Phase 11's other two cases: config 4's 369-column rows and
+            # config 3 in bf16.
+            for r in row_rows[1:]:
+                g = r["gather"]
+                entry[r["case"]] = {
+                    k: g[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                entry[r["case"]]["shape"] = (
+                    f"one field of {r['fields']}, B={TRAIN_B}, "
+                    f"{r['unique_max']} distinct ids, w={r['width']}, "
+                    f"{r['dtype']}")
+        kernels["kernels"].append(entry)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

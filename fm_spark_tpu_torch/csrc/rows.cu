@@ -23,16 +23,40 @@
 // element. The update reads and writes each valid lane's row and reads its
 // delta: v * w * (2 e + e_delta) + 8 B bytes for v valid lanes. At config 3
 // (w = 65 fp32, B = 131,072 Zipf ids, ~12,000 distinct per field) a gather
-// moves ~37 MB (11 us at 3.35 TB/s) and an update ~9 MB.
+// moves ~37 MB (11 us at 3.35 TB/s) and an update ~9 MB; at config 4
+// (w = 369 fp32) a gather moves ~207 MB (62 us).
 //
-// Design: one warp per lane, 8 lanes per block. The warp's threads stride
-// the row's elements, so every row read and write is one coalesced sweep.
-// Rows of 260 B (w = 65 fp32) or 130 B (bf16) are only element-aligned, so
-// the copies are element by element, not 16-byte vectors. The TPU kernels'
-// 256 async row DMAs per grid program, their 128-lane width rule, the
-// B % 256 rule and the scalar-prefetch id cap are not carried over: the
-// grid is the batch, any width is taken, and many warps in flight on each SM
-// give the depth of outstanding row reads that the DMA queue gave.
+// Gather design: the flat output. The output [B, w] is contiguous and
+// fresh, so it is cut into 16-byte chunks (4 fp32 or 8 bf16 elements);
+// each thread owns kChunks of them, strided by the block so that a warp's
+// stores cover 512 contiguous bytes, and issues every load of all its
+// chunks before its first store. A chunk's first element finds its row by
+// a multiply-shift (the wrapper's divider for w; 64-bit division only past
+// 2^31 elements) and walks into the next row where the chunk crosses one,
+// reading each row's id once. Loads are element by element: the rows the
+// repo's configurations gather (w = 65, 369 or 17 elements, all odd)
+// start at every element offset of a 16-byte chunk, so a path of 16-byte
+// loads would run for none of them.
+//
+// What held the first design (one warp per lane, its threads striding the
+// row one element at a time) back, from its SASS (cuobjdump -sass, sm_90a):
+// at w = 65 every thread ran the remainder loop of its #pragma unroll 4,
+// one 4-byte LDG and one dependent 4-byte STG per trip, so each thread had
+// one load in flight; the third sweep of a 65-element row had 1 of 32
+// threads active; bf16 made every access 2 bytes (64 B per warp request);
+// at w = 369 a thread held at most four loads before its stores. No store
+// was wider than the element.
+//
+// TMA bulk copies do not fit these rows: cp.async.bulk needs 16-byte
+// aligned sources and sizes, and rows of 260 B (w = 65 fp32), 130 B (bf16)
+// or 1,476 B (w = 369 fp32) are neither.
+//
+// The update keeps the first design: one warp per lane, 8 lanes per block,
+// the warp's threads striding the row. Rows of 260 B (w = 65 fp32) or
+// 130 B (bf16) are only element-aligned, so its copies are element by
+// element. The TPU kernels' 256 async row DMAs per grid program, their
+// 128-lane width rule, the B % 256 rule and the scalar-prefetch id cap are
+// not carried over: any width and any batch are taken.
 
 #include <cuda_bf16.h>
 
@@ -64,21 +88,112 @@ struct Ty<true> {
     }
 };
 
-// E: an unsigned integer type of the element's size; the gather copies bits.
+constexpr int kGatherThreads = 256;
+constexpr int kChunks = 2;                 // 16-byte chunks per thread
+
+// q = x / d for 0 <= x < 2^31 by the wrapper's divider (magic, shift) of
+// d, or by a 64-bit division past that (WIDE).
+template <bool WIDE>
+__device__ __forceinline__ long long div_by(long long x, long long d,
+                                            unsigned magic, int shift) {
+    if constexpr (WIDE) {
+        return x / d;
+    } else {
+        return static_cast<long long>(
+            (static_cast<unsigned long long>(x) * magic) >> shift);
+    }
+}
+
+__device__ __forceinline__ long long clamp_id(const int* ids, long long m,
+                                              long long n) {
+    const long long id = __ldg(ids + m);
+    return id < 0 ? 0 : (id >= n ? n - 1 : id);
+}
+
+__device__ __forceinline__ uint4 pack(const uint32_t (&v)[4]) {
+    return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ uint4 pack(const uint16_t (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        w[i] = static_cast<uint32_t>(v[2 * i])
+            | (static_cast<uint32_t>(v[2 * i + 1]) << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// E: an unsigned integer type of the element's size (the gather copies
+// bits); V elements make a 16-byte chunk. `total` = B * w elements; the
+// last chunk may be partial and is stored element by element. (magic,
+// shift) divide by the width.
+template <typename E, bool WIDE>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_elems(const E* __restrict__ table, long long n, int width,
+                 const int* __restrict__ ids, int batch, long long total,
+                 unsigned magic, int shift, E* __restrict__ out) {
+    constexpr int V = 16 / sizeof(E);
+    const long long chunks = (total + V - 1) / V;
+    const long long first = static_cast<long long>(blockIdx.x)
+        * (kGatherThreads * kChunks) + threadIdx.x;
+    E v[kChunks][V];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+        const long long c = first + static_cast<long long>(k) * kGatherThreads;
+        if (c >= chunks) break;
+        long long m = div_by<WIDE>(c * V, width, magic, shift);
+        int col = static_cast<int>(c * V - m * width);
+        const E* src = table + clamp_id(ids, m, n) * width;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+            if (col == width) {            // the chunk runs into the next row
+                col = 0;
+                ++m;
+                src = table + clamp_id(ids, m < batch ? m : batch - 1, n)
+                    * width;
+            }
+            v[k][i] = __ldg(src + col);
+            ++col;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+        const long long c = first + static_cast<long long>(k) * kGatherThreads;
+        if (c >= chunks) break;
+        if ((c + 1) * V <= total) {
+            reinterpret_cast<uint4*>(out)[c] = pack(v[k]);
+        } else {
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+                if (c * V + i < total) out[c * V + i] = v[k][i];
+            }
+        }
+    }
+}
+
+inline unsigned gather_blocks(long long chunks) {
+    constexpr long long per_block = kGatherThreads * kChunks;
+    return static_cast<unsigned>((chunks + per_block - 1) / per_block);
+}
+
 template <typename E>
-__global__ void __launch_bounds__(kThreads)
-    gather_kernel(const E* __restrict__ table, long long n, int width,
-                  const int* __restrict__ ids, int batch, E* __restrict__ out) {
-    const long long m =
-        static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-    if (m >= batch) return;
-    const int lane = threadIdx.x & 31;
-    long long id = ids[m];
-    id = id < 0 ? 0 : (id >= n ? n - 1 : id);
-    const E* src = table + id * width;
-    E* dst = out + m * width;
-#pragma unroll 4
-    for (int c = lane; c < width; c += 32) dst[c] = src[c];
+cudaError_t launch_gather(const void* table, long long n, int width,
+                          const int* ids, int batch, unsigned magic,
+                          int shift, void* out, cudaStream_t s) {
+    constexpr int V = 16 / sizeof(E);
+    const long long total = static_cast<long long>(batch) * width;
+    const long long chunks = (total + V - 1) / V;
+    const auto* t = static_cast<const E*>(table);
+    auto* o = static_cast<E*>(out);
+    if (chunks * V < (1LL << 31)) {
+        gather_elems<E, false><<<gather_blocks(chunks), kGatherThreads, 0, s>>>(
+            t, n, width, ids, batch, total, magic, shift, o);
+    } else {
+        gather_elems<E, true><<<gather_blocks(chunks), kGatherThreads, 0, s>>>(
+            t, n, width, ids, batch, total, magic, shift, o);
+    }
+    return cudaGetLastError();
 }
 
 template <bool TBF16, bool DBF16>
@@ -121,29 +236,28 @@ cudaError_t launch_update(void* table, long long n, int width, const int* ids,
 extern "C" {
 
 // table [n, width] row-major of `elem` (2 or 4) bytes per element, ids
-// [batch] int32, out [batch, width] of the table's type; all contiguous.
-// Launches on `stream` of `device`; returns cudaGetLastError() (0 on
-// success). Does not synchronise. batch = 0 launches nothing.
+// [batch] int32, out [batch, width] of the table's type; all contiguous,
+// out 16-byte aligned. (magic, shift) divide by the width:
+// x / width = (x * magic) >> shift for 0 <= x < 2^31. Launches on `stream`
+// of `device`; returns cudaGetLastError() (0 on success). Does not
+// synchronise. batch = 0 launches nothing.
 int rows_gather(const void* table, long long n, int width, int elem,
-                const int* ids, int batch, void* out, void* stream,
-                int device) {
-    if (n < 1 || width < 1 || batch < 0 || (elem != 2 && elem != 4)) {
+                const int* ids, int batch, void* out, unsigned magic,
+                int shift, void* stream, int device) {
+    if (n < 1 || width < 1 || batch < 0 || (elem != 2 && elem != 4)
+        || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (batch == 0) return 0;
     const cudaError_t set = cudaSetDevice(device);
     if (set != cudaSuccess) return static_cast<int>(set);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (elem == 4) {
-        gather_kernel<uint32_t><<<blocks_for(batch), kThreads, 0, s>>>(
-            static_cast<const uint32_t*>(table), n, width, ids, batch,
-            static_cast<uint32_t*>(out));
-    } else {
-        gather_kernel<uint16_t><<<blocks_for(batch), kThreads, 0, s>>>(
-            static_cast<const uint16_t*>(table), n, width, ids, batch,
-            static_cast<uint16_t*>(out));
-    }
-    return static_cast<int>(cudaGetLastError());
+    const cudaError_t err = elem == 4
+        ? launch_gather<uint32_t>(table, n, width, ids, batch, magic, shift,
+                                  out, s)
+        : launch_gather<uint16_t>(table, n, width, ids, batch, magic, shift,
+                                  out, s);
+    return static_cast<int>(err);
 }
 
 // In place: table [n, width] (bf16 if table_bf16, else fp32), ids and valid

@@ -55,11 +55,12 @@ SIGNATURES = {
     },
     "fm_fused_bwd": {
         # urows, F, cap, width, store_bf16, cd_bf16, order, inv, s1, ds,
-        # vals, weights, batch, neg_lr, use_rv, rv_factors, rv_linear, out,
-        # scratch_seg, scratch_val, scratch_rows, stream, device
+        # vals, vals_t, weights, batch, neg_lr, use_rv, rv_factors,
+        # rv_linear, out, scratch_seg, scratch_val, scratch_rows, stream,
+        # device
         "fm_fused_bwd": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _I, _F, _I, _F, _F, _P, _P, _P, _L, _P,
-                              _I]),
+                              _P, _P, _I, _F, _I, _F, _F, _P, _P, _P, _L,
+                              _P, _I]),
         "fm_bwd_scratch_rows": (_L, [_I]),
         "fm_bwd_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -73,8 +74,10 @@ SIGNATURES = {
         "ffm_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "rows": {
-        # table, n, width, elem, ids, batch, out, stream, device
-        "rows_gather": (_I, [_P, _L, _I, _I, _P, _I, _P, _P, _I]),
+        # table, n, width, elem, ids, batch, out, magic, shift, stream,
+        # device
+        "rows_gather": (_I, [_P, _L, _I, _I, _P, _I, _P, ctypes.c_uint, _I,
+                             _P, _I]),
         # table, n, width, table_bf16, ids, valid, delta, delta_bf16, batch,
         # stream, device
         "rows_update_add": (_I, [_P, _L, _I, _I, _P, _P, _P, _I, _I, _P,

@@ -42,14 +42,15 @@ def fm_bwd_supported(cap: int, width: int, num_fields: int) -> str | None:
 
     The TPU kernel keeps the totals and the unique rows resident in VMEM,
     which bounds ``cap·width``. This kernel keeps neither resident: it
-    reads a field's unique rows through L2 (1.6 MB at cap 12288, width 65,
-    bf16) and writes the totals once, so ``cap`` is bounded only by the
-    32-bit row index. Its limits are one thread per column, the table
-    pointers it carries by value, and that index.
+    stages a tile's unique rows in shared memory (at most 128 rows of at
+    most 528 bytes) and writes the totals once, so ``cap`` is bounded only
+    by the 32-bit row index. Its limits are the width (128 lanes' staged
+    rows and their 16-bit offsets, and the carry passes' thread per
+    column), the table pointers it carries by value, and that index.
     """
     if width > MAX_WIDTH:
-        return (f"row width {width} > {MAX_WIDTH} (the kernel runs one "
-                "thread per column)")
+        return (f"row width {width} > {MAX_WIDTH} (the carry passes run "
+                "one thread per column)")
     if num_fields > MAX_FIELDS:
         return f"{num_fields} fields > {MAX_FIELDS} (table pointers by value)"
     if cap * width >= 2**31:
@@ -189,12 +190,14 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
     cseg = torch.empty(rows, dtype=torch.int32, device=dev)
     cval = torch.empty(rows, w, dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * num_fields)(*[t.data_ptr() for t in urows])
+    vals_t = torch.empty(num_fields, b, dtype=torch.float32, device=dev)
     err = lib.fm_fused_bwd(
         ctypes.cast(ptrs, ctypes.c_void_p), num_fields, cap, w,
         int(urows[0].dtype == torch.bfloat16), int(cd == torch.bfloat16),
         order.data_ptr(), inv.data_ptr(), s1.data_ptr(), dscores.data_ptr(),
-        vals.data_ptr(), weights.data_ptr(), b, neg_lr, int(rv is not None),
-        rv_f, rv_l, out.data_ptr(), cseg.data_ptr(), cval.data_ptr(), rows,
+        vals.data_ptr(), vals_t.data_ptr(), weights.data_ptr(), b, neg_lr,
+        int(rv is not None), rv_f, rv_l, out.data_ptr(), cseg.data_ptr(),
+        cval.data_ptr(), rows,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err:
         raise RuntimeError(

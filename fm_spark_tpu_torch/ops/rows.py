@@ -4,8 +4,9 @@ plain PyTorch versions.
 The port of ``fm_spark_tpu/ops/pallas_fm.py::gather_rows`` and
 ``::update_rows_add``, the row access of the fused sparse-SGD steps under
 ``TrainConfig.use_pallas`` (``scatter.pallas_gather`` and
-``scatter._pallas_dedup_add``). The kernels (``csrc/rows.cu``) run one
-warp per lane; see the source for their design and bound. The TPU's
+``scatter._pallas_dedup_add``). The gather kernel (``csrc/rows.cu``)
+copies the flat output in 16-byte chunks, the update runs one warp per
+lane; see the source for their design and bound. The TPU's
 limits (a width that is a multiple of 128, B a multiple of 256, at most
 64 Ki scalar-prefetched ids) are not carried over: any B >= 0 and any
 width are taken.
@@ -82,6 +83,16 @@ def _raise_on(lib, name, err):
                            f"({lib.rows_cuda_error_string(err).decode()})")
 
 
+def _divider(d: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``(x * magic) >> shift == x // d`` for every
+    ``0 <= x < 2**31`` (``magic`` < 2**32): ``l = ceil(log2 d)``,
+    ``magic = ceil(2**(31 + l) / d)``, ``shift = 31 + l``."""
+    if d < 1:
+        raise ValueError(f"divisor {d} < 1")
+    lg = (d - 1).bit_length()
+    return -(-(1 << (31 + lg)) // d), 31 + lg
+
+
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`gather_rows`."""
     _check_table(table, ids)
@@ -103,8 +114,9 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, w, dtype=table.dtype, device=dev)
     if b == 0:
         return out
+    magic, shift = _divider(w)
     err = lib.rows_gather(table.data_ptr(), n, w, table.element_size(),
-                          ids.data_ptr(), b, out.data_ptr(),
+                          ids.data_ptr(), b, out.data_ptr(), magic, shift,
                           torch.cuda.current_stream(dev).cuda_stream,
                           dev.index)
     _raise_on(lib, "rows_gather", err)

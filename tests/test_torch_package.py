@@ -260,21 +260,31 @@ def test_segment_totals_kernel_matches_plain_on_the_card(cuda, b, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 33, 65, 128])
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rv", [None, (1e-3, 2e-3)])
-def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, store, cd, rv):
+def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, w, store, cd, rv):
+    """Rows of 2 to 128 columns; B = 3000, not a multiple of the 128-lane
+    tile; field 0 one segment over every tile; field 1 a Zipf head over
+    several tiles; a cap below the largest field's distinct count, so
+    that field has lanes with inv >= cap (summed, never written)."""
     from fm_spark_tpu_torch.ops import fused_bwd, segsum
     from fm_spark_tpu_torch.ops.scatter import compact_aux
 
-    rng = np.random.default_rng(3)
-    b, f, k, bucket, cap = 3000, 5, 64, 400, 400
+    rng = np.random.default_rng(3 + w)
+    b, f, bucket = 3000, 5, 400
     ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
-    aux = compact_aux(ids, cap)
+    ids[:, 0] = 7
+    aux = compact_aux(ids, bucket)
+    distinct = [len(np.unique(ids[:, j])) for j in range(f)]
+    cap = max(distinct) - 20
+    assert max(distinct) > cap > 1 and b % 128
     order, inv = (torch.from_numpy(a).to(cuda) for a in (aux[3], aux[4]))
-    urows = [torch.from_numpy(rng.normal(size=(cap, k + 1)) * 0.1)
+    assert bool((inv >= cap).any())
+    urows = [torch.from_numpy(rng.normal(size=(cap, w)) * 0.1)
              .to(cuda, store) for _ in range(f)]
-    s1 = torch.from_numpy(rng.normal(size=(b, k + 1))).to(cuda, cd)
+    s1 = torch.from_numpy(rng.normal(size=(b, w))).to(cuda, cd)
     ds = torch.from_numpy(rng.normal(size=b) * 0.1).to(cuda, cd)
     vals = torch.from_numpy(rng.uniform(0.5, 1.5, (b, f))).to(cuda, torch.float32)
     weights = torch.from_numpy((rng.random(b) > 0.1).astype(np.float32)).to(cuda)
@@ -297,6 +307,54 @@ def test_fm_bwd_kernel_matches_plain_on_the_card(cuda, store, cd, rv):
                                 for d, s in terms])
     assert bool(((got.double() - exact).abs() <= bound).all())
     assert bool(((want.double() - exact).abs() <= bound).all())
+    # Field 0's one segment holds every lane's term.
+    assert bool((got[0, 1:] == 0).all()) and bool((got[0, 0] != 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gaps", [False, True], ids=["dense", "gaps"])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_fm_bwd_kernel_writes_every_row_of_its_output(cuda, gaps, cd):
+    """The kernel zeroes the rows no lane writes itself: its output gets a
+    freed block full of NaN. Dense segments leave the rows past each
+    field's last segment; doubled ones also leave a row between every two
+    and put the upper half at or past cap."""
+    from fm_spark_tpu_torch.ops import fused_bwd, segsum
+    from fm_spark_tpu_torch.ops.scatter import compact_aux
+
+    rng = np.random.default_rng(11)
+    b, f, bucket, cap, w = 5000, 4, 3000, 1200, 65
+    ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
+    aux = compact_aux(ids, bucket)
+    order, inv = (torch.from_numpy(a).to(cuda) for a in (aux[3], aux[4]))
+    if gaps:
+        inv = inv * 2
+    urows = [torch.from_numpy(rng.normal(size=(cap, w)) * 0.1)
+             .to(cuda, torch.bfloat16) for _ in range(f)]
+    s1 = torch.from_numpy(rng.normal(size=(b, w))).to(cuda, cd)
+    ds = torch.from_numpy(rng.normal(size=b) * 0.1).to(cuda, cd)
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (b, f))).to(cuda, torch.float32)
+    weights = torch.ones(b, device=cuda)
+    args = (urows, s1, ds, vals, weights, order, inv, -0.05, None)
+    nan = torch.full((f, cap, w), float("nan"), device=cuda)
+    ptr = nan.data_ptr()
+    del nan
+    got = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    terms = fused_bwd.fm_bwd_sorted_deltas(*args, cap=cap)
+    exact = torch.stack([segsum.segment_totals_plain(d.double(), s, cap)
+                         for d, s in terms])
+    bound = 1e-5 * torch.stack([segsum.segment_totals_plain(d.abs().double(),
+                                                            s, cap)
+                                for d, s in terms])
+    assert not bool(got.isnan().any())
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    hit = torch.zeros(f, cap, dtype=torch.bool, device=cuda)
+    for j in range(f):
+        s = inv[j][inv[j] < cap].long()
+        hit[j, s] = True
+    assert bool((~hit).any()) and bool((got[~hit] == 0).all())
 
 
 @pytest.mark.gpu
@@ -479,7 +537,7 @@ def _bitwise(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [65, 369])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 65, 128, 369])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [1, 255, 131072])
 def test_row_kernels_match_plain_on_the_card(cuda, w, dtype, b):
@@ -517,6 +575,53 @@ def test_row_kernels_match_plain_on_the_card(cuda, w, dtype, b):
     assert _bitwise(got, again)
     assert _bitwise(got.cpu(), rows.gather_rows_plain(table.cpu(),
                                                       gids.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3, 4, 8])
+@pytest.mark.parametrize("w", [4, 8, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernel_takes_a_table_at_a_storage_offset(cuda, offset, w,
+                                                        dtype):
+    """A contiguous view at a storage offset, aligned to 16 bytes or not:
+    bit for bit either way."""
+    from fm_spark_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(offset * w)
+    n, b = 3000, 4097
+    base = torch.from_numpy(rng.normal(size=n * w + 8).astype(np.float32)).to(
+        cuda, dtype)
+    table = base[offset:offset + n * w].view(n, w)
+    assert table.is_contiguous() and table.storage_offset() == offset
+    ids = torch.from_numpy(rng.integers(-3, n + 3, b).astype(np.int32)).to(cuda)
+    before = rows.gather_launches
+    got = rows.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert rows.gather_launches == before + 1
+    assert _bitwise(got.cpu(), rows.gather_rows_plain(table.cpu(), ids.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,w,b", [(torch.bfloat16, 3, 715_827_883),
+                                       (torch.float32, 2, (1 << 30) + 1)])
+def test_gather_kernel_indexes_past_2_31_elements(cuda, dtype, w, b):
+    """An output of just over 2^31 elements, where the kernel finds rows
+    by 64-bit division (4.3 or 8.6 GB of output on the card)."""
+    from fm_spark_tpu_torch.ops import rows
+
+    assert b * w > 1 << 31
+    n = 1000
+    g = torch.Generator(device=cuda).manual_seed(w)
+    table = torch.randn(n, w, generator=g, device=cuda).to(dtype)
+    ids = torch.randint(-3, n + 3, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = rows.gather_launches
+    got = rows.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert rows.gather_launches == before + 1
+    assert _bitwise(got, rows.gather_rows_plain(table, ids))
+    del got
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu

@@ -32,11 +32,16 @@ def _bits(t):
     return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
 
 
+# Widths of every regime of the gather kernel: rows narrower than a
+# 16-byte chunk (1, 3), rows of whole chunks (4, 8 fp32; 8 bf16), config
+# 3's 65 and config 4's 369 columns, and the widest kernel-B row (128).
+WIDTHS = [1, 3, 4, 8, 65, 128, 369]
+
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
 
 
-@pytest.mark.parametrize("w", [4, 65, 128])
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("b", [256, 512])
 @pytest.mark.parametrize("name,jdt,tdt", DTYPES, ids=[d[0] for d in DTYPES])
 def test_gather_plain_equals_jax_kernel_bitwise(w, b, name, jdt, tdt):
@@ -53,7 +58,7 @@ def test_gather_plain_equals_jax_kernel_bitwise(w, b, name, jdt, tdt):
         _bits(want))
 
 
-@pytest.mark.parametrize("w", [4, 65, 128])
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("b", [256, 512])
 @pytest.mark.parametrize("name,jdt,tdt", DTYPES, ids=[d[0] for d in DTYPES])
 @pytest.mark.parametrize("delta_bf16", [False, True])
@@ -77,6 +82,32 @@ def test_update_plain_equals_jax_kernel_bitwise(w, b, name, jdt, tdt,
                                torch.from_numpy(valid), td)
     assert out is table                                   # in place
     np.testing.assert_array_equal(_bits(table), _bits(want))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7, 8, 16, 17, 23, 33, 65, 92,
+                               128, 260, 369, 1000, 1476, (1 << 20) + 7,
+                               (1 << 31) - 1])
+def test_divider_divides_every_31_bit_numerator(d):
+    magic, shift = rows._divider(d)
+    assert 0 < magic < 1 << 32
+    rng = np.random.default_rng(d)
+    xs = np.concatenate([np.arange(0, min(4 * d + 3, 5000)),
+                         [(1 << 31) - 1, (1 << 31) - 2],
+                         (np.arange(1, 200) * d) - 1, np.arange(1, 200) * d,
+                         rng.integers(0, 1 << 31, 5000)])
+    xs = [int(x) for x in xs if 0 <= x < 1 << 31]
+    assert [(x * magic) >> shift for x in xs] == [x // d for x in xs]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_takes_a_table_at_a_storage_offset(offset, dtype):
+    """A contiguous view at a storage offset is a legal table."""
+    base = torch.arange(16 * 4 + 8, dtype=torch.float32).to(dtype)
+    table = base[offset:offset + 16 * 4].view(16, 4)
+    assert table.is_contiguous() and table.storage_offset() == offset
+    ids = torch.tensor([0, 15, 3, -1, 99], dtype=torch.int32)
+    assert torch.equal(rows.gather_rows(table, ids), table[[0, 15, 3, 0, 15]])
 
 
 def test_gather_clamps_out_of_range_ids():
