@@ -24,11 +24,15 @@ Phases (any failure exits non-zero before the last line is printed):
    by line against the plain version; then ``train`` on a config-3 copy
    with 16,384 buckets per field (bf16, dedup_sr, compact, the fused
    backward; 3 steps) and ``eval`` of the model it wrote;
-6. the training kernels against their plain versions at config 3's full
-   width on the aux of the bench batch (B = 131,072 Zipf(1.3) ids,
-   compact cap 12,288): segment totals (kernel A) on one field, the
-   fused backward (kernel B) over all 39 fields in fp32 and bf16
-   compute; each also repeated, which must give the same bits;
+6. the training kernels against their plain versions at full width on
+   the bench batch (B = 131,072 Zipf(1.3) ids): segment totals (kernel
+   A) on one field in the three forms the paths call it (the compact
+   update's, cap 12,288 at w = 65; the device dedup's, cap = B at
+   w = 65 and at config 4's w = 369), each within 1e-5 of each
+   segment's sum of |term| of the float64 sums, with device, plain,
+   ``index_add`` times and the bound; the fused backward (kernel B) over
+   all 39 fields on the compact aux in fp32 and bf16 compute; each also
+   repeated, which must give the same bits;
 7. training on the card: a config-3 FieldFM (bf16 tables and compute,
    dedup_sr, compact 12,288) made from a seeded generator, trained 7
    steps by ``fit_field_sparse`` on a stream of bench batches, once per
@@ -56,7 +60,9 @@ Phases (any failure exits non-zero before the last line is printed):
    39 x 262,144 x 65 tables in fp32 and bf16 and config 4's
    23 x 16,384 x 369 fp32 tables, every field bit for bit and a bitwise
    repeat; the update writes the device dedup (``scatter._dedup``) of one
-   field's fp32 deltas. On the field with the most distinct ids: device,
+   field's fp32 deltas in the dedup's form (per-segment totals and ids,
+   the segment count on the device). On the field with the most
+   distinct ids: device,
    call, plain and library times (``index_select``; ``index_add_`` of the
    masked deltas) and the byte bound from the batch's distinct rows. Then
    the native and numpy host aux builders on the config-3 bench batch;
@@ -64,9 +70,12 @@ Phases (any failure exits non-zero before the last line is printed):
    steps per leg on bench batches: ``fm-pallas`` (config 3, fp32 tables
    and compute, scatter_add) and ``ffm-selblk-pallas-rows`` (config 4,
    fp32 tables, bf16 compute, scatter_add, sel_blocked, fused_embed
-   require); the loss must be finite and fall, each row kernel launch F
-   times per step (the FFM kernels once), and one more step equal the
-   same step with the plain versions within the stated tolerance.
+   require); the loss must be finite and fall, each row kernel and
+   kernel A (the device dedup's sums) launch F times per step (the FFM
+   kernels once), one more step run twice on two copies of the params
+   give the same bits, that step equal the same step with the plain
+   versions within the stated tolerance, and the profile of three steps
+   hold no ``index_add`` op or kernel.
 
 Phase 5 also trains config 4 at 4,096 buckets per field through both
 FFM kernels (bf16 compute) and evaluates and predicts with the model it
@@ -573,46 +582,83 @@ def training_kernels_phase(dev, report):
     out = {"aux_ms": aux_ms, "unique_ids_per_field_max": max(nseg),
            "unique_ids_per_field_min": min(nseg)}
 
-    # Kernel A on field 0: deltas at the scale of -lr·g, in sorted order.
-    o = order[0].long()
-    sdelta = (torch.randn(TRAIN_B, WIDTH, generator=g, device=dev)
-              * 0.01)[o].contiguous()
-    seg = inv[0][o].contiguous()
-    got = segsum.segment_totals(sdelta, seg, CAP)
-    again = segsum.segment_totals(sdelta, seg, CAP)
-    torch.cuda.synchronize()
-    plain = segsum.segment_totals_plain(sdelta, seg, CAP)
-    exact = segsum.segment_totals_plain(sdelta.double(), seg, CAP)
-    bound = 1e-5 * segsum.segment_totals_plain(sdelta.abs().double(), seg, CAP)
-    _check(torch.equal(got, again), "segment_totals: a repeat differs")
-    # Each within 1e-5 of its segment's sum of |x| from the exact total:
-    # fp32 sums in another order on each side.
-    _check(bool(((got.double() - exact).abs() <= bound).all())
-           and bool(((plain.double() - exact).abs() <= bound).all()),
-           "segment_totals: kernel or plain version off the exact sums")
-    idx = torch.where(seg < CAP, seg, CAP).long()
-    base = torch.zeros(CAP + 1, WIDTH, device=dev)
-    bms, bby = _bound_ms(TRAIN_B * WIDTH * 4 + 4 * TRAIN_B + CAP * WIDTH * 4,
-                         TRAIN_B * WIDTH)
-    a_row = {
-        "field": 0, "segments": nseg[0],
-        "head_run": int(torch.bincount(seg).max()),
-        "max_abs_err": float((got - plain).abs().max()),
-        "max_rel_err": _rel_err(got, plain),
-        "max_abs_err_vs_exact": float((got.double() - exact).abs().max()),
-        "bitwise_repeat": True,
-        "ms": _median_ms(lambda r: segsum.segment_totals(sdelta, seg, CAP),
-                         hide_host_ms=2.0),
-        "plain_ms": _median_ms(
-            lambda r: segsum.segment_totals_plain(sdelta, seg, CAP),
-            hide_host_ms=5.0),
-        "library_ms": _median_ms(lambda r: base.index_add(0, idx, sdelta),
-                                 hide_host_ms=2.0),
-        "bound_ms": bms, "bound_by": bby,
-    }
-    print("segment_totals", json.dumps(a_row), flush=True)
-    out["segment_totals"] = a_row
-    del sdelta, seg, plain, exact, bound
+    # Kernel A in the three forms the main paths call it, each on field 0
+    # of a bench batch with deltas at the scale of -lr·g, read unsorted
+    # through the sort order: the compact update's (cap 12,288, every row
+    # written) and the device dedup's at config 3 and config 4 widths
+    # (cap = B, rows past the last rank not written).
+    a_rows = []
+    ffm_ids = BenchStream(0, TRAIN_B, FFM_F, FFM_BUCKET).next_batch()[0]
+    for case, w, cap in (("compact", WIDTH, CAP), ("dedup-fm", WIDTH, TRAIN_B),
+                         ("dedup-ffm", FFM_F * FFM_RANK + 1, TRAIN_B)):
+        if case == "compact":
+            order32 = order[0].contiguous()
+            seg = inv[0][order32.long()].contiguous()
+            zero_tail = True
+        else:
+            col = torch.from_numpy(
+                (ids if case == "dedup-fm" else ffm_ids)[:, 0].copy()).to(dev)
+            o64, _, _, seg = scatter._sort_segments(col)
+            order32 = o64.to(torch.int32)
+            zero_tail = False
+        delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
+        segs = int(seg[-1]) + 1
+        rows = cap if zero_tail else min(cap, segs)
+
+        def call(r, delta=delta, seg=seg, cap=cap, o=order32, zt=zero_tail):
+            return segsum.segment_totals(delta, seg, cap, order=o,
+                                         zero_tail=zt)
+
+        got = call(0)
+        again = call(1)
+        torch.cuda.synchronize()
+        plain = segsum.segment_totals_plain(delta, seg, cap, order32)
+        exact = segsum.segment_totals_plain(delta.double(), seg, cap, order32)
+        bound = 1e-5 * segsum.segment_totals_plain(delta.abs().double(), seg,
+                                                   cap, order32)
+        _check(torch.equal(got[:rows], again[:rows]),
+               f"segment_totals {case}: a repeat differs")
+        # Each within 1e-5 of its segment's sum of |x| from the exact
+        # total: fp32 sums in another order on each side.
+        _check(bool(((got[:rows].double() - exact[:rows]).abs()
+                     <= bound[:rows]).all())
+               and bool(((plain.double() - exact).abs() <= bound).all()),
+               f"segment_totals {case}: kernel or plain version off the "
+               "exact sums")
+        # One PyTorch call of the same function: index_add of each
+        # original lane's delta at its segment.
+        lane_seg = torch.empty_like(seg)
+        lane_seg[order32.long()] = seg
+        idx = torch.where(lane_seg < cap, lane_seg, cap).long()
+        base = torch.zeros(cap + 1, w, device=dev)
+        nbytes = TRAIN_B * w * 4 + 8 * TRAIN_B + rows * w * 4
+        bms, bby = _bound_ms(nbytes, TRAIN_B * w)
+        row = {
+            "case": case, "field": 0, "width": w, "cap": cap,
+            "segments": segs, "rows_written": rows,
+            "head_run": int(torch.bincount(seg).max()),
+            "max_abs_err": float((got[:rows] - plain[:rows]).abs().max()),
+            "max_rel_err": _rel_err(got[:rows], plain[:rows]),
+            "max_abs_err_vs_exact": float(
+                (got[:rows].double() - exact[:rows]).abs().max()),
+            "bitwise_repeat": True,
+            "ms": _median_ms(call, hide_host_ms=2.0),
+            "call_ms": _median_ms(call),
+            "plain_ms": _median_ms(
+                lambda r: segsum.segment_totals_plain(delta, seg, cap,
+                                                      order32),
+                hide_host_ms=5.0),
+            "library_ms": _median_ms(lambda r: base.index_add(0, idx, delta),
+                                     hide_host_ms=2.0),
+            "library": "torch.index_add",
+            "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
+        }
+        row["pct_of_bound_rate"] = 100.0 * bms / row["ms"]
+        print("segment_totals", json.dumps(row), flush=True)
+        a_rows.append(row)
+        del delta, got, again, plain, exact, bound, base, idx, lane_seg
+        torch.cuda.empty_cache()
+    out["segment_totals"] = a_rows
 
     # Kernel B over all fields, as the step calls it.
     b_rows = []
@@ -673,7 +719,7 @@ def training_kernels_phase(dev, report):
         torch.cuda.empty_cache()
     out["fm_bwd_segment_totals"] = b_rows
     report["training_kernels"] = out
-    return a_row, b_rows
+    return a_rows, b_rows
 
 
 @contextlib.contextmanager
@@ -722,7 +768,13 @@ def _profile_steps(step, params, batch, aux, step0, n: int = 3) -> dict:
                               "cuLaunchKernel", "cuLaunchKernelEx")
                    for e in events) / n
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    out = {"wall_ms_per_step": wall_ms, "launches_per_step": launches}
+    # index_add by name: the ATen op on the host and its kernels
+    # (indexFuncSmallIndex / indexFuncLargeIndex) on the device.
+    index_add = sorted({e.name[:80] for e in events
+                        if e.name.startswith("aten::index_add")
+                        or "indexFunc" in e.name or "index_add" in e.name})
+    out = {"wall_ms_per_step": wall_ms, "launches_per_step": launches,
+           "index_add_events": index_add}
     if not on_dev:
         return {**out, "device_ms_per_step": "not measured",
                 "idle_share": "not measured"}
@@ -1074,6 +1126,19 @@ def _host_cpu() -> str:
     return f"{model}, {os.cpu_count()} cores"
 
 
+def _dedup_update_args(scatter, col, delta, bucket):
+    """The update's operands as the device dedup hands them over
+    (``scatter._pallas_dedup_add``: per-segment ids and totals, every lane
+    valid, the segment count on the device), and the mask of the lanes it
+    writes."""
+    import torch
+
+    d = scatter._dedup(col, delta)
+    lanes = torch.arange(col.shape[0], device=col.device)
+    writes = (lanes < d.count) & (d.useg >= 0) & (d.useg < bucket)
+    return d.useg.to(torch.int32), d.totals, d.count, writes
+
+
 def row_kernel_phase(dev, report):
     """The row kernels against their plain versions at full width, and the
     host aux builders, native against numpy."""
@@ -1109,12 +1174,12 @@ def row_kernel_phase(dev, report):
                    f"gather_rows {name} field {f}: kernel disagrees with "
                    "plain version")
             delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
-            sid, summed, run, _ = scatter._dedup(cols[f], delta)
-            valid = (run & (sid >= 0) & (sid < bucket)).int()
+            sid, summed, cnt, _ = _dedup_update_args(scatter, cols[f],
+                                                     delta, bucket)
             t1, t2, t3 = (tables[f].clone() for _ in range(3))
-            rows.update_rows_add(t1, sid, valid, summed)
-            rows.update_rows_add(t2, sid, valid, summed)
-            rows.update_rows_add_plain(t3, sid, valid, summed)
+            rows.update_rows_add(t1, sid, None, summed, count=cnt)
+            rows.update_rows_add(t2, sid, None, summed, count=cnt)
+            rows.update_rows_add_plain(t3, sid, None, summed, count=cnt)
             torch.cuda.synchronize()
             _check(_same_bits(t1, t2), f"update_rows_add {name} field {f}: "
                    "a repeat differs")
@@ -1127,18 +1192,19 @@ def row_kernel_phase(dev, report):
         table, col = tables[fmax], cols[fmax]
         e = table.element_size()
         delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
-        sid, summed, run, _ = scatter._dedup(col, delta)
-        valid = (run & (sid >= 0) & (sid < bucket)).int()
-        nvalid = int(valid.sum())
+        sid, summed, cnt, vmask = _dedup_update_args(scatter, col, delta,
+                                                     bucket)
+        nvalid, segs = int(vmask.sum()), int(cnt)
         scratch = table.clone()
 
         def timed(fn, hide):
             return _median_ms(fn, hide_host_ms=hide, before=flush.zero_)
 
         gbytes = lambda u: u * w * e + TRAIN_B * w * e + 4 * TRAIN_B
-        ubytes = lambda v: v * (2 * w * e + 4 * w) + 8 * TRAIN_B
+        # The written rows and their deltas, and the ids of the lanes the
+        # count covers (the dedup's: one per distinct id).
+        ubytes = lambda v, lanes: v * (2 * w * e + 4 * w) + 4 * lanes
         col_l = col.long()
-        vmask = valid.bool()
         idx_l = torch.where(vmask, sid, 0).long()
         masked = torch.where(vmask[:, None], summed, 0.0)
         gather = {
@@ -1156,12 +1222,12 @@ def row_kernel_phase(dev, report):
             "max_abs_err": 0.0, "bitwise": True,
         }
         update = {
-            "ms": timed(lambda r: rows.update_rows_add(scratch, sid, valid,
-                                                       summed), 1.0),
+            "ms": timed(lambda r: rows.update_rows_add(
+                scratch, sid, None, summed, count=cnt), 1.0),
             "call_ms": _median_ms(lambda r: rows.update_rows_add(
-                scratch, sid, valid, summed)),
+                scratch, sid, None, summed, count=cnt)),
             "plain_ms": timed(lambda r: rows.update_rows_add_plain(
-                scratch, sid, valid, summed), 2.0),
+                scratch, sid, None, summed, count=cnt), 2.0),
             # One call computes it only for an fp32 table: index_add_ of a
             # bf16 table takes bf16 deltas, rounded before the add.
             "library_ms": (timed(lambda r: scratch.index_add_(0, idx_l,
@@ -1169,9 +1235,9 @@ def row_kernel_phase(dev, report):
                            if dtype == torch.float32 else None),
             "library": ("index_add_ of the masked deltas"
                         if dtype == torch.float32 else "none"),
-            "bound_ms": ubytes(nvalid) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bytes": ubytes(nvalid),
-            "step_bound_ms": sum(ubytes(u) for u in uniq)
+            "bound_ms": ubytes(nvalid, segs) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": ubytes(nvalid, segs),
+            "step_bound_ms": sum(ubytes(u, u) for u in uniq)
             / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": 0.0, "bitwise": True,
         }
@@ -1218,7 +1284,7 @@ def pallas_train_phase(dev, report):
     import torch
 
     from fm_spark_tpu_torch import models, sparse
-    from fm_spark_tpu_torch.ops import ffm_sel, rows
+    from fm_spark_tpu_torch.ops import ffm_sel, rows, segsum
     from fm_spark_tpu_torch.train import TrainConfig, fit_field_sparse
 
     common = dict(num_steps=TRAIN_STEPS, batch_size=TRAIN_B,
@@ -1236,12 +1302,12 @@ def pallas_train_phase(dev, report):
                              init_std=0.01, compute_dtype="bfloat16"),
          TrainConfig(**common, sel_blocked=True, fused_embed="require")),
     )
-    names = ("gather_rows", "update_rows_add", "ffm_sel_scores",
-             "ffm_sel_bwd")
+    names = ("gather_rows", "update_rows_add", "segment_totals",
+             "ffm_sel_scores", "ffm_sel_bwd")
 
     def counts():
         return dict(zip(names, (rows.gather_launches, rows.update_launches,
-                                ffm_sel.scores_launches,
+                                segsum.launches, ffm_sel.scores_launches,
                                 ffm_sel.bwd_launches)))
 
     out, launches = {}, dict.fromkeys(names, 0)
@@ -1251,7 +1317,7 @@ def pallas_train_phase(dev, report):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         # Counts start at 0 just before the main path and are read just after.
-        rows.gather_launches = rows.update_launches = 0
+        rows.gather_launches = rows.update_launches = segsum.launches = 0
         ffm_sel.scores_launches = ffm_sel.bwd_launches = 0
         t0 = time.perf_counter()
         params = fit_field_sparse(spec, cfg, BenchStream(0, TRAIN_B, nf,
@@ -1266,6 +1332,7 @@ def pallas_train_phase(dev, report):
         _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
         want = {"gather_rows": nf * TRAIN_STEPS,
                 "update_rows_add": nf * TRAIN_STEPS,
+                "segment_totals": nf * TRAIN_STEPS,
                 "ffm_sel_scores": TRAIN_STEPS if ffm else 0,
                 "ffm_sel_bwd": TRAIN_STEPS if ffm else 0}
         _check(got == want, f"{leg}: launches {got}, want {want}")
@@ -1273,23 +1340,36 @@ def pallas_train_phase(dev, report):
             launches[k] += got[k]
         step_ms = statistics.median(stats["step_ms"][WARM_STEPS:])
 
-        # One more step from the trained params, kernels vs plain versions.
+        # One more step from the trained params on two copies: the device
+        # dedup sums through kernel A, so the two give the same bits.
         batch = [torch.from_numpy(a).to(dev) for a in
                  BenchStream(1, TRAIN_B, nf, bucket).next_batch()]
-        copy = {"w0": params["w0"].clone(),
-                "vw": [t.clone() for t in params["vw"]]}
         step = (sparse.make_field_ffm_sparse_sgd_body if ffm
                 else sparse.make_field_sparse_sgd_body)(spec, cfg)
+
+        def copy_of(p):
+            return {"w0": p["w0"].clone(), "vw": [t.clone() for t in p["vw"]]}
+
+        twin, copy = copy_of(params), copy_of(params)
         _, lk = step(params, TRAIN_STEPS, *batch)
+        _, lt = step(twin, TRAIN_STEPS, *batch)
+        torch.cuda.synchronize()
+        _check(float(lk) == float(lt)
+               and _same_bits(params["w0"], twin["w0"])
+               and all(_same_bits(a, b)
+                       for a, b in zip(params["vw"], twin["vw"])),
+               f"{leg}: a repeat of one step differs")
+        del twin
+        # Then the same step with the plain versions.
         mid = counts()
         with _plain_versions():
             _, lp = step(copy, TRAIN_STEPS, *batch)
         torch.cuda.synchronize()
         _check(counts() == mid, f"{leg}: the plain step launched a kernel")
-        # The kernels equal their plain versions bit for bit, so the loss
-        # is the same; the device dedup's segment sums (index_add_) add in
-        # atomic order on the card, so the tables agree within the
-        # reference's fp32 tolerance (tests/test_sparse_pallas.py).
+        # The kernels equal their plain versions bit for bit, but for
+        # kernel A's sums: its plain version is an index_add_ on the card,
+        # in atomic order (another each run), so the tables agree within
+        # the reference's fp32 tolerance (tests/test_sparse_pallas.py).
         diff = max(float((a - b).abs().max())
                    for a, b in zip(params["vw"], copy["vw"]))
         close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-6)
@@ -1301,6 +1381,10 @@ def pallas_train_phase(dev, report):
                f"{float(lk)} vs {float(lp)})")
         del copy
         prof = _profile_steps(step, params, batch, None, TRAIN_STEPS + 1)
+        # The dedup sums through kernel A: no index_add_ is left in the
+        # step, on the host or on the card.
+        _check(not prof["index_add_events"],
+               f"{leg}: index_add in the step: {prof['index_add_events']}")
         row = {
             "leg": leg, "loss": loss, "step_ms": stats["step_ms"],
             "step_ms_median": step_ms,
@@ -1353,7 +1437,7 @@ def main() -> int:
     rows = kernel_phase(dev, report)
     launches = serve_phase(dev, report)
     cli_phase(dev, report)
-    a_row, b_rows = training_kernels_phase(dev, report)
+    a_rows, b_rows = training_kernels_phase(dev, report)
     train_launches = train_phase(dev, report)
     ffm_rows = ffm_kernel_phase(dev, report)
     ffm_serve_launches = ffm_serve_phase(dev, report)
@@ -1378,12 +1462,17 @@ def main() -> int:
         "source": "fm_spark_tpu_torch/csrc/segment_totals.cu",
         "replaces": "fm_spark_tpu/ops/pallas_segsum.py:81",
         "launches": train_launches["segment_totals"],
-        "max_abs_err": a_row["max_abs_err"],
-        "max_rel_err": a_row["max_rel_err"],
-        "ms": a_row["ms"], "plain_ms": a_row["plain_ms"],
-        "bound_ms": a_row["bound_ms"], "bound_by": a_row["bound_by"],
-        "library_ms": a_row["library_ms"],
-        "shape": f"one field, B={TRAIN_B}, cap={CAP}, w={WIDTH}",
+        "use_pallas_launches": pallas_launches["segment_totals"],
+        "max_abs_err": max(r["max_abs_err"] for r in a_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in a_rows),
+        **{k: a_rows[0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "shape": f"compact: one field, B={TRAIN_B}, cap={CAP}, w={WIDTH}",
+        **{r["case"]: {**{k: r[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, "shape": f"one field, B={TRAIN_B}, cap=B, "
+            f"w={r['width']}, {r['segments']} segments"}
+           for r in a_rows[1:]},
     }, {
         "name": "fm_bwd_segment_totals", "route": "cuda",
         "source": "fm_spark_tpu_torch/csrc/fm_fused_bwd.cu",
@@ -1439,18 +1528,16 @@ def main() -> int:
                       f"{row_main['unique_max']} distinct ids, "
                       f"w={WIDTH}, fp32"),
         }
-        if name == "gather_rows":
-            # Phase 11's other two cases: config 4's 369-column rows and
-            # config 3 in bf16.
-            for r in row_rows[1:]:
-                g = r["gather"]
-                entry[r["case"]] = {
-                    k: g[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}
-                entry[r["case"]]["shape"] = (
-                    f"one field of {r['fields']}, B={TRAIN_B}, "
-                    f"{r['unique_max']} distinct ids, w={r['width']}, "
-                    f"{r['dtype']}")
+        # Phase 11's other two cases: config 3 in bf16 and config 4's
+        # 369-column rows.
+        for r in row_rows[1:]:
+            entry[r["case"]] = {
+                **{k: r[key][k] for k in ("ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+                "shape": (f"one field of {r['fields']}, B={TRAIN_B}, "
+                          f"{r['unique_max']} distinct ids, w={r['width']}, "
+                          f"{r['dtype']}")}
         kernels["kernels"].append(entry)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -68,7 +68,7 @@
 //     first and last segments, where they continue into a neighbour tile,
 //     as carries in tile_pass's layout.
 // The carry passes that follow are segment_scan.cuh's tile_pass over the
-// carry rows, unchanged, as for kernel A. No atomics and a fixed order of
+// carry rows, unchanged. No atomics and a fixed order of
 // every sum: a repeat gives the same bits. The rows no lane writes are
 // zeroed by the first pass between compute and combine (its step 4), not
 // by a memset of the whole output first: with dense segments that is
@@ -621,7 +621,7 @@ __global__ void __launch_bounds__(kMaxItems, CD_BF16 ? 6 : 5)
 }
 
 // Runs transpose_vals and the first pass, then tile_pass over the
-// carries until one tile remains (segscan::run with this first pass).
+// carries until one tile remains.
 template <typename St, bool CD_BF16, bool RV>
 cudaError_t launch(const BwdArgs& a, const float* vals, float* out,
                    int* scratch_seg, float* scratch_val, cudaStream_t stream) {

@@ -21,7 +21,8 @@
 // Bound: memory. The gather reads each distinct row once and writes B rows:
 // u * w * e + B * w * e + 4 B bytes for u distinct ids and e bytes per
 // element. The update reads and writes each valid lane's row and reads its
-// delta: v * w * (2 e + e_delta) + 8 B bytes for v valid lanes. At config 3
+// delta, and reads the ids of the lanes it covers: v * w * (2 e + e_delta)
+// + 4 u bytes for v valid lanes of u (8 u with valid flags). At config 3
 // (w = 65 fp32, B = 131,072 Zipf ids, ~12,000 distinct per field) a gather
 // moves ~37 MB (11 us at 3.35 TB/s) and an update ~9 MB; at config 4
 // (w = 369 fp32) a gather moves ~207 MB (62 us).
@@ -51,21 +52,33 @@
 // aligned sources and sizes, and rows of 260 B (w = 65 fp32), 130 B (bf16)
 // or 1,476 B (w = 369 fp32) are neither.
 //
-// The update keeps the first design: one warp per lane, 8 lanes per block,
-// the warp's threads striding the row. Rows of 260 B (w = 65 fp32) or
-// 130 B (bf16) are only element-aligned, so its copies are element by
-// element. The TPU kernels' 256 async row DMAs per grid program, their
-// 128-lane width rule, the B % 256 rule and the scalar-prefetch id cap are
-// not carried over: any width and any batch are taken.
+// Update design: the flat [count, w] element space of the live lanes. The
+// caller (the device dedup, ops/scatter.py) hands over per-segment arrays
+// of B lanes of which only the first u are live, with u on the device: the
+// optional `count` (one int32) is read once by each thread, after its
+// first sweep's id loads are in flight, and nothing past count * w is
+// touched; a null `valid` makes every lane valid. A persistent grid
+// (kUpdBlocksPerSm blocks per SM) strides over that space; each thread
+// takes kUpdElems elements per sweep, strided by the block so a warp's
+// accesses are contiguous, loads every element's id (and valid flag),
+// then every table and delta element, then stores. Each element finds its
+// lane by the multiply-shift divider of the gather (64-bit division past
+// 2^31 elements), and reads delta at its flat index. What held the first
+// design (a warp per lane, 8 lanes per block, ceil(B / 8) blocks, its
+// threads striding the row) back: at config 3 it launched 16,384 blocks
+// for ~12,000 valid lanes, every warp made three dependent loads (valid,
+// id, then the row) before any work, and at w = 65 each thread ran the
+// remainder of its #pragma unroll 4, one load in flight. The TPU kernels'
+// 256 async row DMAs per grid program, their 128-lane width rule, the
+// B % 256 rule and the scalar-prefetch id cap are not carried over: any
+// width and any batch are taken.
 
 #include <cuda_bf16.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 template <bool BF16>
 struct Ty;
@@ -196,38 +209,81 @@ cudaError_t launch_gather(const void* table, long long n, int width,
     return cudaGetLastError();
 }
 
-template <bool TBF16, bool DBF16>
-__global__ void __launch_bounds__(kThreads)
-    update_kernel(typename Ty<TBF16>::S* __restrict__ table, long long n,
-                  int width, const int* __restrict__ ids,
-                  const int* __restrict__ valid,
-                  const typename Ty<DBF16>::S* __restrict__ delta, int batch) {
-    const long long m =
-        static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-    if (m >= batch || valid[m] == 0) return;
-    const long long id = ids[m];
-    if (id < 0 || id >= n) return;
-    const int lane = threadIdx.x & 31;
-    typename Ty<TBF16>::S* row = table + id * width;
-    const typename Ty<DBF16>::S* d = delta + m * width;
-#pragma unroll 4
-    for (int c = lane; c < width; c += 32) {
-        row[c] = Ty<TBF16>::narrow(
-            __fadd_rn(Ty<TBF16>::widen(row[c]), Ty<DBF16>::widen(d[c])));
-    }
-}
+constexpr int kUpdThreads = 256;
+constexpr int kUpdElems = 2;               // elements per thread per sweep
+constexpr int kUpdBlocksPerSm = 8;
 
-inline unsigned blocks_for(int batch) {
-    return static_cast<unsigned>((batch + kWarps - 1) / kWarps);
+template <bool TBF16, bool DBF16, bool WIDE>
+__global__ void __launch_bounds__(kUpdThreads)
+    update_elems(typename Ty<TBF16>::S* __restrict__ table, long long n,
+                 int width, const int* __restrict__ ids,
+                 const int* __restrict__ valid,
+                 const typename Ty<DBF16>::S* __restrict__ delta, int batch,
+                 const int* __restrict__ count, unsigned magic, int shift) {
+    const long long stride =
+        static_cast<long long>(gridDim.x) * kUpdThreads * kUpdElems;
+    long long total = static_cast<long long>(batch) * width;
+    bool counted = count == nullptr;
+    for (long long base = static_cast<long long>(blockIdx.x)
+             * kUpdThreads * kUpdElems + threadIdx.x;
+         base < total; base += stride) {
+        long long e[kUpdElems], id[kUpdElems];
+        bool ok[kUpdElems];
+#pragma unroll
+        for (int k = 0; k < kUpdElems; ++k) {
+            e[k] = base + static_cast<long long>(k) * kUpdThreads;
+            ok[k] = e[k] < total;
+            if (ok[k]) {
+                const long long m = div_by<WIDE>(e[k], width, magic, shift);
+                id[k] = __ldg(ids + m) * static_cast<long long>(width)
+                    + (e[k] - m * width);
+                ok[k] = (valid == nullptr || __ldg(valid + m) != 0)
+                    && id[k] >= 0 && id[k] < n * width;
+            }
+        }
+        if (!counted) {
+            // Read once, after the first sweep's id loads are in flight.
+            total = static_cast<long long>(max(0, min(__ldg(count), batch)))
+                * width;
+            counted = true;
+        }
+        float t[kUpdElems], d[kUpdElems];
+#pragma unroll
+        for (int k = 0; k < kUpdElems; ++k) {
+            ok[k] = ok[k] && e[k] < total;
+            if (ok[k]) {
+                t[k] = Ty<TBF16>::widen(table[id[k]]);
+                d[k] = Ty<DBF16>::widen(__ldg(delta + e[k]));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kUpdElems; ++k) {
+            if (ok[k]) table[id[k]] = Ty<TBF16>::narrow(__fadd_rn(t[k], d[k]));
+        }
+    }
 }
 
 template <bool TBF16, bool DBF16>
 cudaError_t launch_update(void* table, long long n, int width, const int* ids,
                           const int* valid, const void* delta, int batch,
-                          cudaStream_t stream) {
-    update_kernel<TBF16, DBF16><<<blocks_for(batch), kThreads, 0, stream>>>(
-        static_cast<typename Ty<TBF16>::S*>(table), n, width, ids, valid,
-        static_cast<const typename Ty<DBF16>::S*>(delta), batch);
+                          const int* count, unsigned magic, int shift,
+                          int sms, cudaStream_t stream) {
+    constexpr long long per_block = kUpdThreads * kUpdElems;
+    const long long total = static_cast<long long>(batch) * width;
+    const long long blocks = std::min<long long>(
+        (total + per_block - 1) / per_block,
+        static_cast<long long>(sms) * kUpdBlocksPerSm);
+    auto* t = static_cast<typename Ty<TBF16>::S*>(table);
+    const auto* d = static_cast<const typename Ty<DBF16>::S*>(delta);
+    if (total < (1LL << 31)) {
+        update_elems<TBF16, DBF16, false>
+            <<<static_cast<unsigned>(blocks), kUpdThreads, 0, stream>>>(
+                t, n, width, ids, valid, d, batch, count, magic, shift);
+    } else {
+        update_elems<TBF16, DBF16, true>
+            <<<static_cast<unsigned>(blocks), kUpdThreads, 0, stream>>>(
+                t, n, width, ids, valid, d, batch, count, magic, shift);
+    }
     return cudaGetLastError();
 }
 
@@ -262,32 +318,31 @@ int rows_gather(const void* table, long long n, int width, int elem,
 
 // In place: table [n, width] (bf16 if table_bf16, else fp32), ids and valid
 // [batch] int32, delta [batch, width] (bf16 if delta_bf16, else fp32); all
-// contiguous. Ids must be unique among the lanes with valid != 0. Launches
+// contiguous. Ids must be unique among the lanes with valid != 0 (every
+// lane, when valid is null). count: null, or one int32 on the device;
+// lanes at or past it are skipped unread. (magic, shift) divide by the width as for rows_gather. Launches
 // on `stream` of `device`; returns cudaGetLastError(). Does not
 // synchronise. batch = 0 launches nothing.
 int rows_update_add(void* table, long long n, int width, int table_bf16,
                     const int* ids, const int* valid, const void* delta,
-                    int delta_bf16, int batch, void* stream, int device) {
+                    int delta_bf16, int batch, const int* count,
+                    unsigned magic, int shift, void* stream, int device) {
     if (n < 1 || width < 1 || batch < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (batch == 0) return 0;
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return static_cast<int>(set);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (table_bf16) {
-        err = delta_bf16 ? launch_update<true, true>(table, n, width, ids,
-                                                     valid, delta, batch, s)
-                         : launch_update<true, false>(table, n, width, ids,
-                                                      valid, delta, batch, s);
-    } else {
-        err = delta_bf16 ? launch_update<false, true>(table, n, width, ids,
-                                                      valid, delta, batch, s)
-                         : launch_update<false, false>(table, n, width, ids,
-                                                       valid, delta, batch, s);
-    }
-    return static_cast<int>(err);
+    const auto launch = table_bf16
+        ? (delta_bf16 ? launch_update<true, true> : launch_update<true, false>)
+        : (delta_bf16 ? launch_update<false, true>
+                      : launch_update<false, false>);
+    return static_cast<int>(launch(table, n, width, ids, valid, delta, batch,
+                                   count, magic, shift, sms, s));
 }
 
 const char* rows_cuda_error_string(int code) {

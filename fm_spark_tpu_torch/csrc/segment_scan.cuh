@@ -1,15 +1,13 @@
-// Deterministic segmented sums over lanes sorted by segment, for Hopper.
+// Deterministic segmented sums over lanes sorted by segment, for Hopper:
+// the carry passes of fm_fused_bwd.cu (kernel B).
 //
-// The skeleton shared by segment_totals.cu (kernel A) and fm_fused_bwd.cu
-// (kernel B): both compute out[s] = sum of the lanes t whose segment is s,
-// over lanes grouped by segment (equal segments are contiguous), into a
-// [cap, width] fp32 output. They differ only in how a lane's row is
-// produced: kernel A reads it from memory, kernel B computes it. The
-// producer is a template parameter, so the two cannot drift apart.
-//
-// The TPU kernels walk the lanes in order on one core with the whole
-// output resident in VMEM. A CUDA grid is parallel and has no resident
-// accumulator, so here:
+// Kernel B computes out[s] = sum of the lanes t whose segment is s, over
+// lanes grouped by segment (equal segments are contiguous), into a
+// [cap, width] fp32 output. Its own first pass sums each tile's runs and
+// leaves the runs cut by the tile's edges as carries in this file's
+// layout; tile_pass then runs over the carry rows (PlainProducer), again
+// and again, until one tile remains. (Kernel A, segment_totals.cu, used
+// this skeleton for its first pass too until it got a design of its own.)
 //
 //   * One block per tile of SEG_TILE consecutive lanes, one thread per
 //     column. Each thread walks the tile's lanes in order and sums runs of
@@ -34,8 +32,7 @@
 // id 1) costs one carry row per tile it covers and nothing serial: the
 // next pass sums those rows 128 at a time.
 //
-// Segment ids outside [0, cap) are trash: summed, never written. The output
-// must be zeroed before the first pass (segments with no lanes stay 0).
+// Segment ids outside [0, cap) are trash: summed, never written.
 
 #pragma once
 
@@ -52,7 +49,7 @@ __device__ __forceinline__ bool live(int s, int cap) {
 }
 
 // Lanes read straight from memory: seg[t] and row t of a [n, width] fp32
-// array. Kernel A's input, and every carry pass.
+// array: every carry pass.
 struct PlainProducer {
     struct Lane {
         int pad;
@@ -182,38 +179,6 @@ inline long long scratch_rows(int n) {
         rows += 2LL * t;
         if (t == 1) return rows;
     }
-}
-
-// Runs the first pass with producer `p0` over n lanes, then the carry
-// passes until one tile remains. `out` ([fields][cap][width]) is zeroed
-// first. `scratch_seg` / `scratch_val` hold fields * scratch_rows(n) rows;
-// each pass's carries take the next [fields][2 * tiles] block of them.
-template <class P0>
-cudaError_t run(const P0& p0, int fields, int n, int width, int cap,
-                float* out, int* scratch_seg, float* scratch_val,
-                cudaStream_t stream) {
-    cudaError_t err = cudaMemsetAsync(
-        out, 0, sizeof(float) * static_cast<size_t>(fields) * cap * width,
-        stream);
-    if (err != cudaSuccess) return err;
-    const dim3 block((width + 31) / 32 * 32);
-    int tiles = tiles_of(n);
-    int* cseg = scratch_seg;
-    float* cval = scratch_val;
-    tile_pass<P0><<<dim3(tiles, fields), block, 0, stream>>>(
-        p0, n, width, cap, out, cseg, cval);
-    err = cudaGetLastError();
-    while (err == cudaSuccess && tiles > 1) {
-        const int m = 2 * tiles;              // carry rows of that pass
-        const PlainProducer pc{cseg, cval, m, width};
-        cseg += static_cast<size_t>(fields) * m;
-        cval += static_cast<size_t>(fields) * m * width;
-        tiles = tiles_of(m);
-        tile_pass<PlainProducer><<<dim3(tiles, fields), block, 0, stream>>>(
-            pc, m, width, cap, out, cseg, cval);
-        err = cudaGetLastError();
-    }
-    return err;
 }
 
 }  // namespace segscan

@@ -47,9 +47,11 @@ SIGNATURES = {
         "fm_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "segment_totals": {
-        # sdelta, seg, batch, width, cap, out, scratch_seg, scratch_val,
-        # scratch_rows, stream, device
-        "segment_totals": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _L, _P, _I]),
+        # delta, delta_bf16, order (or null), order_i64, seg, batch, width,
+        # cap, zero_tail, out, scratch_seg, scratch_val, scratch_rows,
+        # stream, device
+        "segment_totals": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                                _P, _L, _P, _I]),
         "segment_scratch_rows": (_L, [_I]),
         "segment_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -79,9 +81,9 @@ SIGNATURES = {
         "rows_gather": (_I, [_P, _L, _I, _I, _P, _I, _P, ctypes.c_uint, _I,
                              _P, _I]),
         # table, n, width, table_bf16, ids, valid, delta, delta_bf16, batch,
-        # stream, device
+        # count (or null), magic, shift, stream, device
         "rows_update_add": (_I, [_P, _L, _I, _I, _P, _P, _P, _I, _I, _P,
-                                 _I]),
+                                 ctypes.c_uint, _I, _P, _I]),
         "rows_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

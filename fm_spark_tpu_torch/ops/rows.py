@@ -5,8 +5,9 @@ The port of ``fm_spark_tpu/ops/pallas_fm.py::gather_rows`` and
 ``::update_rows_add``, the row access of the fused sparse-SGD steps under
 ``TrainConfig.use_pallas`` (``scatter.pallas_gather`` and
 ``scatter._pallas_dedup_add``). The gather kernel (``csrc/rows.cu``)
-copies the flat output in 16-byte chunks, the update runs one warp per
-lane; see the source for their design and bound. The TPU's
+copies the flat output in 16-byte chunks, the update strides a persistent
+grid over the live lanes' elements; see the source for their design and
+bound. The TPU's
 limits (a width that is a multiple of 128, B a multiple of 256, at most
 64 Ki scalar-prefetched ids) are not carried over: any B >= 0 and any
 width are taken.
@@ -51,17 +52,22 @@ def _check_table(table, ids):
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
 
 
-def _check_update(table, ids, valid, delta):
+def _check_update(table, ids, valid, delta, count):
     _check_table(table, ids)
     b, w = ids.shape[0], table.shape[1]
-    if valid.shape != (b,) or valid.dtype != torch.int32:
+    if valid is not None and (valid.shape != (b,)
+                              or valid.dtype != torch.int32):
         raise TypeError(f"want int32 valid [{b}], got {tuple(valid.shape)} "
                         f"{valid.dtype}")
     if delta.shape != (b, w) or delta.dtype not in _DTYPES:
         raise TypeError(f"want float32 or bfloat16 delta [{b}, {w}], got "
                         f"{tuple(delta.shape)} {delta.dtype}")
-    for t in (valid, delta):
-        if t.device != table.device:
+    if count is not None and (count.shape != (1,)
+                              or count.dtype != torch.int32):
+        raise TypeError(f"want count as one int32, got {tuple(count.shape)} "
+                        f"{count.dtype}")
+    for t in (valid, delta, count):
+        if t is not None and t.device != table.device:
             raise ValueError(f"tensor on {t.device}, table on {table.device}")
 
 
@@ -126,19 +132,24 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def update_rows_add_plain(table, ids, valid, delta):
-    """Plain PyTorch version of :func:`update_rows_add` (boolean masks:
-    the host's version, never on the card's path)."""
-    _check_update(table, ids, valid, delta)
+def update_rows_add_plain(table, ids, valid, delta, count=None):
+    """Plain PyTorch version of :func:`update_rows_add` (boolean masks and
+    a read of ``count``: the host's version, never on the card's path)."""
+    _check_update(table, ids, valid, delta, count)
     n = table.shape[0]
-    keep = (valid != 0) & (ids >= 0) & (ids < n)
+    keep = (ids >= 0) & (ids < n)
+    if valid is not None:
+        keep &= valid != 0
+    if count is not None:
+        keep &= torch.arange(ids.shape[0], device=ids.device) < int(count)
     idx = ids[keep].long()
     table[idx] = (table[idx].float() + delta[keep].float()).to(table.dtype)
     return table
 
 
 def update_rows_add(table: torch.Tensor, ids: torch.Tensor,
-                    valid: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+                    valid: torch.Tensor | None, delta: torch.Tensor,
+                    count: torch.Tensor | None = None) -> torch.Tensor:
     """In place, ``table[ids[m]] = (float(table[ids[m]]) + float(delta[m]))``
     rounded once to the table's dtype, for every lane with ``valid[m] != 0``;
     returns ``table``.
@@ -148,19 +159,25 @@ def update_rows_add(table: torch.Tensor, ids: torch.Tensor,
     valid lanes (the TPU kernel's contract): this is not checked, since a
     check would need a sync with the host, and duplicates make the result
     undefined. A valid lane whose id lies outside ``[0, n)`` is skipped.
+    The device dedup's form: ``valid=None`` makes every lane valid, and
+    ``count`` (one int32 on the table's device, which the host does not
+    know) skips the lanes at or past it without reading them.
     """
-    _check_update(table, ids, valid, delta)
+    _check_update(table, ids, valid, delta, count)
     if table.device.type == "cpu":
-        return update_rows_add_plain(table, ids, valid, delta)
-    lib = _lib_for("update_rows_add", table, ids, valid, delta)
+        return update_rows_add_plain(table, ids, valid, delta, count)
+    lanes = [t for t in (table, ids, valid, delta, count) if t is not None]
+    lib = _lib_for("update_rows_add", *lanes)
     dev = table.device
     b, (n, w) = ids.shape[0], table.shape
     if b == 0:
         return table
+    magic, shift = _divider(w)
     err = lib.rows_update_add(
         table.data_ptr(), n, w, int(table.dtype == torch.bfloat16),
-        ids.data_ptr(), valid.data_ptr(), delta.data_ptr(),
-        int(delta.dtype == torch.bfloat16), b,
+        ids.data_ptr(), None if valid is None else valid.data_ptr(),
+        delta.data_ptr(), int(delta.dtype == torch.bfloat16), b,
+        None if count is None else count.data_ptr(), magic, shift,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "rows_update_add", err)
     global update_launches

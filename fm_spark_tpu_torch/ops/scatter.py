@@ -13,8 +13,11 @@ Write strategies (``TrainConfig.sparse_update``):
   unique id of ``old row + total``.
 
 With ``use_pallas`` the ``scatter_add`` and ``dedup`` writes go through
-:func:`_pallas_dedup_add` (the device sort, then the row-update kernel,
-``ops.rows``), and the row gathers through :func:`pallas_gather`.
+:func:`_pallas_dedup_add` (the device sort, the segment sums by kernel A,
+``ops.segsum``, then the row-update kernel, ``ops.rows``), and the row
+gathers through :func:`pallas_gather`. Every device segment sum of the
+dedup forms runs through kernel A, which adds in a fixed order: a step
+repeats bit for bit on the card.
 
 Tables are updated IN PLACE (the JAX package donates them; the port never
 holds a second copy of a 1.33 GB table set) and returned.
@@ -42,6 +45,8 @@ both give the same ints.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -307,11 +312,13 @@ def compact_apply(table, delta, caux, mode, noise, urows,
     cap = useg.shape[-1]
     _check_sentinel_range(table.shape[0], cap)
     o = order.long()
-    sdelta = delta[o].float().contiguous()
     if segtotal_pallas:
-        totals = segsum_lib.segment_totals(sdelta, inv[o].contiguous(), cap)
+        totals = segsum_lib.segment_totals(
+            delta.contiguous(), inv[o].to(torch.int32).contiguous(), cap,
+            order=order.to(torch.int32).contiguous())
     else:
-        totals = _blocked_segment_sums(sdelta, segstart, segend)
+        totals = _blocked_segment_sums(delta[o].float().contiguous(),
+                                       segstart, segend)
     return _compact_write(table, totals, useg, mode, noise, urows)
 
 
@@ -346,21 +353,59 @@ def compact_apply_totals(table, totals, caux, mode, noise, urows):
     return _compact_write(table, totals, useg, mode, noise, urows)
 
 
-def _dedup(ids, delta):
-    """Segment duplicate ids on the device: ``(sid, summed, run_start,
-    order)`` — the ids in stable sorted order, each sorted lane's segment
-    TOTAL of ``delta`` (in its dtype), the run-start mask and the sort
-    order. Only run-start lanes should write. The sort is stable, as
-    ``jnp.argsort``, so the lane order of each segment's sum is the
-    reference's; the sums themselves run in ``index_add_``'s order (fp32
-    reassociation against JAX's)."""
+class _Dedup(NamedTuple):
+    """The device dedup of one ids column: its ``B`` lanes sorted, and per
+    segment ``s`` (one per distinct id) of which the first ``count`` are
+    live."""
+    order: torch.Tensor      # [B] int64: the stable sort order of the ids
+    run_start: torch.Tensor  # [B] bool: sorted lane t starts a segment
+    seg: torch.Tensor        # [B] int32: sorted lane t's segment
+    useg: torch.Tensor       # [B]: segment s's id, ascending (live s only)
+    count: torch.Tensor      # [1] int32: the number of segments
+    totals: torch.Tensor     # [B, w] float32: s's total of delta (live s)
+
+
+def _sort_segments(ids):
+    """``(order, sid, run_start, seg)``: the stable sort order of ``ids``,
+    the sorted ids, the run-start mask and each sorted lane's int32 rank
+    (dense from 0, non-decreasing: kernel A's precondition)."""
     order = torch.argsort(ids, stable=True)
     sid = ids[order]
     run_start = torch.ones_like(sid, dtype=torch.bool)
-    run_start[1:] = sid[1:] != sid[:-1]
-    seg = torch.cumsum(run_start, 0) - 1
-    summed = torch.zeros_like(delta).index_add_(0, seg, delta[order])
-    return sid, summed[seg], run_start, order
+    torch.ne(sid[1:], sid[:-1], out=run_start[1:])
+    seg = torch.cumsum(run_start, 0, dtype=torch.int32).sub_(1)
+    return order, sid, run_start, seg
+
+
+def _dedup(ids, delta):
+    """Segment duplicate ids on the device (:class:`_Dedup`), with each
+    segment's float32 total of ``delta`` taken ONCE per segment by
+    :func:`~fm_spark_tpu_torch.ops.segsum.segment_totals` (kernel A at
+    cap = B, reading ``delta`` through the sort order in place; no
+    atomics, so a repeat gives the same bits). The rows of ``totals`` past
+    ``count`` are not written on the card. The sort is stable, as
+    ``jnp.argsort``, so each segment's lanes are the reference's; only the
+    order of the fp32 adds differs (JAX's ``segment_sum`` adds in lane
+    order, as the plain version on the CPU does). No sync with the host:
+    the segment count stays on the device."""
+    order, sid, run_start, seg = _sort_segments(ids)
+    totals = segsum_lib.segment_totals(delta.contiguous(), seg, ids.shape[0],
+                                       order=order, zero_tail=False)
+    # Every lane writes its id into its segment's slot: the writers of one
+    # slot agree.
+    useg = torch.empty_like(sid).scatter_(0, seg.long(), sid)
+    return _Dedup(order, run_start, seg, useg, seg[-1:] + 1, totals)
+
+
+def _first_lanes(d: _Dedup) -> torch.Tensor:
+    """Each segment's first lane in sorted order (0 past the count): the
+    run starts write their positions into their segments' slots, every
+    other lane into a spare slot, which is dropped."""
+    b = d.seg.shape[0]
+    first = torch.zeros(b + 1, dtype=torch.int64, device=d.seg.device)
+    first.scatter_(0, torch.where(d.run_start, d.seg.long(), b),
+                   torch.arange(b, device=d.seg.device))
+    return first[:b]
 
 
 def _add_rows(table, tgt, ok, upd):
@@ -391,14 +436,20 @@ def _set_rows(table, tgt, ok, vals):
 
 
 def _aux_apply(table, delta, aux, mode, noise, old_rows):
-    """Segment sums and one write per unique id from the host's
-    :func:`dedup_aux` (this field's ``[B]`` slices): no device sort."""
-    order, seg, useg, ord_first = (a.long() for a in aux)
-    summed = torch.zeros_like(delta).index_add_(0, seg, delta[order])
+    """Segment sums (kernel A, as :func:`_dedup`) and one write per unique
+    id from the host's :func:`dedup_aux` (this field's ``[B]`` slices): no
+    device sort. The totals past the segment count are never read: their
+    ``useg`` is the ``INT32_MAX`` padding."""
+    order, seg, useg, ord_first = (a.to(torch.int32).contiguous()
+                                   for a in aux)
+    totals = segsum_lib.segment_totals(delta.contiguous(), seg,
+                                       delta.shape[0], order=order,
+                                       zero_tail=False)
+    useg = useg.long()
     ok = useg < table.shape[0]          # INT32_MAX padding: dropped
     if mode == "dedup":
-        return _add_rows(table, useg, ok, summed)
-    new_rows = old_rows[ord_first].float() + summed.float()
+        return _add_rows(table, useg, ok, totals)
+    new_rows = old_rows[ord_first.long()].float() + totals
     return _set_rows(table, useg, ok,
                      stochastic_round(new_rows, table.dtype, noise))
 
@@ -415,14 +466,12 @@ def _pallas_dedup_add(table, ids, delta):
     """The device dedup, then one read-modify-write per unique id by the
     row-update kernel (``ops.rows``): the ``use_pallas`` form of both
     ``scatter_add`` and ``dedup``. Any id outside ``[0, n)``, a negative
-    one too, becomes an invalid lane and is dropped. Duplicates are summed
+    one too, is skipped by the update. Duplicates are summed
     in fp32 and rounded ONCE to the table's dtype: for bf16 tables more
     accurate than a rounding per duplicate, as in the reference."""
-    n = table.shape[0]
-    sid, summed, run_start, _ = _dedup(ids, delta)
-    valid = run_start & (sid >= 0) & (sid < n)
-    return rows_lib.update_rows_add(table, sid.to(torch.int32),
-                                    valid.to(torch.int32), summed)
+    d = _dedup(ids, delta)
+    return rows_lib.update_rows_add(table, d.useg.to(torch.int32), None,
+                                    d.totals, count=d.count)
 
 
 def apply_row_updates(table, ids, delta, mode: str = "scatter_add",
@@ -448,6 +497,8 @@ def apply_row_updates(table, ids, delta, mode: str = "scatter_add",
     if mode == "dedup_sr" and old_rows is None:
         raise ValueError("dedup_sr needs noise= and old_rows=")
     n = table.shape[0]
+    if ids.shape[0] == 0:
+        return table
     if aux is not None:
         return _aux_apply(table, delta, aux, mode, noise, old_rows)
     if use_pallas and mode in ("scatter_add", "dedup"):
@@ -457,12 +508,16 @@ def apply_row_updates(table, ids, delta, mode: str = "scatter_add",
         idx = torch.where(idx < 0, idx + n, idx)
         return _add_rows(table, idx, (idx >= 0) & (idx < n), delta)
 
-    sid, summed, run_start, order = _dedup(ids, delta)
-    tgt = sid.long()
+    d = _dedup(ids, delta)
+    tgt = d.useg.long()
     tgt = torch.where(tgt < 0, tgt + n, tgt)
-    ok = run_start & (tgt >= 0) & (tgt < n)    # one write per segment
+    live = torch.arange(tgt.shape[0], device=tgt.device) < d.count
+    ok = live & (tgt >= 0) & (tgt < n)          # one write per segment
     if mode == "dedup":
-        return _add_rows(table, tgt, ok, summed)
-    new_rows = old_rows[order].float() + summed.float()
-    return _set_rows(table, tgt, ok,
-                     stochastic_round(new_rows, table.dtype, noise))
+        return _add_rows(table, tgt, ok, d.totals)
+    # Each segment takes its first sorted lane's old row and SR bits, as
+    # the reference's write at that lane.
+    first = _first_lanes(d)
+    new_rows = old_rows[d.order[first]].float() + d.totals
+    return _set_rows(table, tgt, ok, stochastic_round(
+        new_rows, table.dtype, None if noise is None else noise[first]))

@@ -43,9 +43,9 @@ def _ids(b, seed, n=N, wild=False):
     return ids
 
 
-def _table(dtype, seed=2):
+def _table(dtype, seed=2, w=W):
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(N, W)) * 0.5).astype(np.float32)
+    return (rng.normal(size=(N, w)) * 0.5).astype(np.float32)
 
 
 def _tol(dtype):
@@ -55,17 +55,25 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("b", [1, 48, 300])
 def test_device_dedup_matches_jax(b):
+    """The port's per-segment form against JAX's per-lane one: segment s
+    is JAX's s-th run-start lane (its id, its first lane in sorted order,
+    its total); the segments past the count are not live."""
     ids = _ids(b, seed=b, wild=b > 5)
     delta = (np.random.default_rng(1).normal(size=(b, W)) * 0.1).astype(
         np.float32)
-    jsid, jsum, jrun, jorder = jscatter._dedup(jnp.asarray(ids),
-                                               jnp.asarray(delta))
-    sid, summed, run, order = scatter._dedup(torch.from_numpy(ids),
-                                             torch.from_numpy(delta))
-    np.testing.assert_array_equal(sid.numpy(), np.asarray(jsid))
-    np.testing.assert_array_equal(run.numpy(), np.asarray(jrun))
-    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
-    np.testing.assert_allclose(summed.numpy(), np.asarray(jsum),
+    jsid, jsum, jrun, jorder = (np.asarray(a) for a in jscatter._dedup(
+        jnp.asarray(ids), jnp.asarray(delta)))
+    d = scatter._dedup(torch.from_numpy(ids), torch.from_numpy(delta))
+    u = int(jrun.sum())
+    assert int(d.count) == u and d.count.dtype == torch.int32
+    np.testing.assert_array_equal(d.order.numpy(), jorder)
+    np.testing.assert_array_equal(d.run_start.numpy(), jrun)
+    np.testing.assert_array_equal(d.seg.numpy(), np.cumsum(jrun) - 1)
+    np.testing.assert_array_equal(d.useg[:u].numpy(), jsid[jrun])
+    np.testing.assert_array_equal(scatter._first_lanes(d)[:u].numpy(),
+                                  np.flatnonzero(jrun))
+    assert d.totals.dtype == torch.float32 and d.totals.shape == (b, W)
+    np.testing.assert_allclose(d.totals[:u].numpy(), jsum[jrun],
                                rtol=1e-6, atol=1e-7)
 
 
@@ -137,16 +145,13 @@ MODES = [(mode, pallas, host)
          and not (host and pallas)]
 
 
-@pytest.mark.parametrize("mode,pallas,host", MODES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_apply_row_updates_matches_jax_in_every_mode(mode, pallas, host,
-                                                     dtype):
+def _every_mode(mode, pallas, host, dtype, w):
     b = 96
-    table = _table(dtype, seed=5)
+    table = _table(dtype, seed=5, w=w)
     # The host aux takes only non-negative ids.
     ids = _ids(b, seed=11, wild=not host)
     rng = np.random.default_rng(12)
-    delta = (rng.normal(size=(b, W)) * 0.05).astype(np.float32)
+    delta = (rng.normal(size=(b, w)) * 0.05).astype(np.float32)
     jt = jnp.asarray(table).astype(dtype)
     old = np.asarray(jscatter.pallas_gather(jt, jnp.asarray(ids))
                      if pallas else jt[jnp.asarray(ids)])
@@ -157,7 +162,7 @@ def test_apply_row_updates_matches_jax_in_every_mode(mode, pallas, host,
         old_rows=jnp.asarray(old), use_pallas=pallas,
         aux=None if aux is None else tuple(map(jnp.asarray, aux)))
     tt = torch.from_numpy(table.copy()).to(getattr(torch, dtype))
-    noise = (torch.from_numpy(_jax_bits(4, 2, 1, (b, W)))
+    noise = (torch.from_numpy(_jax_bits(4, 2, 1, (b, w)))
              if mode == "dedup_sr" and dtype == "bfloat16" else None)
     paux = None if aux is None else tuple(
         torch.from_numpy(a) for a in scatter.dedup_aux(ids))
@@ -175,6 +180,21 @@ def test_apply_row_updates_matches_jax_in_every_mode(mode, pallas, host,
     np.testing.assert_allclose(tt.float().numpy(),
                                np.asarray(want, np.float32), **tol)
     assert rows.update_launches == 0           # the CPU: plain versions
+
+
+@pytest.mark.parametrize("mode,pallas,host", MODES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_row_updates_matches_jax_in_every_mode(mode, pallas, host,
+                                                     dtype):
+    _every_mode(mode, pallas, host, dtype, W)
+
+
+@pytest.mark.parametrize("mode,pallas,host", MODES)
+@pytest.mark.parametrize("w", [65, 369], ids=["fm", "ffm"])
+def test_dedup_forms_match_jax_at_model_widths(mode, pallas, host, w):
+    """Every mode at config 3's row width (65) and config 4's (369), where
+    the per-segment dedup sums rows of the models' own widths."""
+    _every_mode(mode, pallas, host, "float32", w)
 
 
 def test_aux_apply_matches_device_dedup_and_guards():

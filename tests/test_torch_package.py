@@ -259,6 +259,150 @@ def test_segment_totals_kernel_matches_plain_on_the_card(cuda, b, kind):
     assert bool(((want.double() - exact).abs() <= bound).all())
 
 
+# Kernel A's cases: (B, ranks, cap, zero_tail, order). "dedup" is the
+# device dedup's call (cap = B, rows past the last rank left unwritten, the
+# unsorted delta read through the order); a Zipf head of ~5,000 lanes
+# spans many 256-lane tiles.
+_SEG_CASES = {
+    "dedup": (20000, "zipf", "B", False, True),
+    "compact": (20000, "zipf", "over", True, True),
+    "dropped": (20000, "zipf", "under", True, False),
+    "one": (5000, "one", "over", True, True),
+    "gaps": (3000, "gaps", "over", True, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_SEG_CASES))
+@pytest.mark.parametrize("w", [65, 128, 129, 369])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_totals_kernel_at_any_width_on_the_card(cuda, case, w, dtype):
+    """Widths past the first design's 128 columns, cap = B and cap below
+    the segment count, one segment over the whole batch, gapped ranks; the
+    output is handed over full of NaN: every live row must match the
+    float64 sums, every row no lane falls in must be 0, and with
+    zero_tail=False the rows past the last rank are not looked at."""
+    from fm_spark_tpu_torch.ops import segsum
+
+    b, kind, capk, zero_tail, use_order = _SEG_CASES[case]
+    rng = np.random.default_rng(w + b)
+    seg = _sorted_ranks(rng, b, "one" if kind == "one" else "zipf")
+    if kind == "gaps":
+        seg = seg * 3 + 2
+    last = int(seg.max())
+    cap = {"B": b, "over": last + 40, "under": max(1, last - 5)}[capk]
+    x = torch.from_numpy(rng.normal(size=(b, w)).astype(np.float32)).to(
+        cuda, dtype)
+    s = torch.from_numpy(seg).to(cuda)
+    order = (torch.from_numpy(rng.permutation(b).astype(np.int32)).to(cuda)
+             if use_order else None)
+    nan = torch.full((cap, w), float("nan"), device=cuda)
+    ptr = nan.data_ptr()
+    del nan
+    before = segsum.launches
+    got = segsum.segment_totals(x, s, cap, order=order, zero_tail=zero_tail)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    again = segsum.segment_totals(x, s, cap, order=order, zero_tail=zero_tail)
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 2
+    rows = cap if zero_tail else min(cap, last + 1)
+    assert torch.equal(got[:rows], again[:rows])     # no atomics: same bits
+    exact = segsum.segment_totals_plain(x.double(), s, cap, order)[:rows]
+    bound = 1e-5 * segsum.segment_totals_plain(x.abs().double(), s, cap,
+                                               order)[:rows]
+    assert not bool(got[:rows].isnan().any())
+    assert bool(((got[:rows].double() - exact).abs() <= bound).all())
+    hit = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    hit[s[s < rows].long()] = True
+    assert bool((got[:rows][~hit] == 0).all())
+    if kind == "gaps" or capk == "over":
+        assert bool((~hit).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 65, 369])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ddt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u", ["0", "1", "B"])
+def test_update_kernel_count_form_matches_plain_on_the_card(cuda, w, tdt,
+                                                            ddt, u):
+    """The dedup's call: per-segment lanes of which the first ``count``
+    are live; the lanes past it hold ids that alias live ones and must be
+    left alone. Bit for bit with the plain version."""
+    from fm_spark_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(w)
+    b, n = 3000, 5000
+    count = {"0": 0, "1": 1, "B": b}[u]
+    table = torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).to(
+        cuda, tdt)
+    ids = rng.permutation(n)[:b].astype(np.int32)
+    ids[count:] = ids[0]                  # dead lanes: never written
+    valid = np.ones(b, np.int32)
+    valid[::7] = 0
+    ids_t, valid_t = (torch.from_numpy(a).to(cuda) for a in (ids, valid))
+    delta = torch.from_numpy(rng.normal(size=(b, w)).astype(np.float32)
+                             * 0.01).to(cuda, ddt)
+    delta[count:] = float("nan")
+    cnt = torch.tensor([count], dtype=torch.int32, device=cuda)
+    t1, t2 = table.clone(), table.clone()
+    before = rows.update_launches
+    rows.update_rows_add(t1, ids_t, valid_t, delta, count=cnt)
+    rows.update_rows_add(t2, ids_t, valid_t, delta, count=cnt)
+    want = rows.update_rows_add_plain(table.cpu(), ids_t.cpu(), valid_t.cpu(),
+                                      delta.cpu(), count=cnt.cpu())
+    torch.cuda.synchronize()
+    assert rows.update_launches == before + 2
+    assert _bitwise(t1, t2)
+    assert _bitwise(t1.cpu(), want)
+    assert not bool(t1.isnan().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [65, 369])
+def test_pallas_dedup_add_repeats_bit_for_bit_on_the_card(cuda, w):
+    """The use_pallas write, and the host-aux dedup write, on a Zipf batch
+    whose head segment spans many of kernel A's tiles, each on two copies
+    of one table: the same bits, and
+    within 1e-5 of each row's sum of |term| (plus the table's rounding)
+    of the float64 result."""
+    from fm_spark_tpu_torch.ops import rows, scatter, segsum
+
+    rng = np.random.default_rng(w)
+    b, n = 40000, 5000
+    ids = (rng.zipf(1.3, b) % n).astype(np.int32)
+    assert np.bincount(ids).max() > 1000
+    table = torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).to(
+        cuda)
+    delta = torch.from_numpy(rng.normal(size=(b, w)).astype(np.float32)
+                             * 0.01).to(cuda)
+    ids_t = torch.from_numpy(ids).to(cuda)
+    t1, t2 = table.clone(), table.clone()
+    before = (segsum.launches, rows.update_launches)
+    scatter._pallas_dedup_add(t1, ids_t, delta)
+    scatter._pallas_dedup_add(t2, ids_t, delta)
+    torch.cuda.synchronize()
+    assert (segsum.launches - before[0], rows.update_launches - before[1]) \
+        == (2, 2)
+    assert _bitwise(t1, t2)
+    # The host dedup_aux form of the dedup write sums through kernel A too.
+    aux = tuple(torch.from_numpy(a).to(cuda) for a in scatter.dedup_aux(ids))
+    t3, t4 = table.clone(), table.clone()
+    for t in (t3, t4):
+        scatter.apply_row_updates(t, ids_t, delta, "dedup", aux=aux)
+    torch.cuda.synchronize()
+    assert segsum.launches - before[0] == 4
+    assert _bitwise(t3, t4)
+    idx = ids_t.long()
+    exact = table.double().index_add_(0, idx, delta.double())
+    bound = (1e-5 * torch.zeros_like(exact).index_add_(0, idx,
+                                                       delta.abs().double())
+             + 2.0 ** -24 * exact.abs())
+    for got in (t1, t3):
+        assert bool(((got.double() - exact).abs() <= bound).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("w", [2, 33, 65, 128])
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
@@ -661,9 +805,9 @@ def test_use_pallas_step_runs_through_the_row_kernels_on_the_card(cuda, ffm):
             rows.update_launches - before[1]) == (f, f)
     assert ffm_sel.scores_launches - before[2] == (1 if ffm else 0)
     p_cpu, loss_cpu = step(p_cpu, 0, *batch)
-    # The same kernels' arithmetic; the device sort's segment sums add in
-    # atomic order on the card: the reference's tolerances (fp32 for FM,
-    # the bf16 compute ones for FFM).
+    # The same kernels' arithmetic; the device dedup's segment sums add in
+    # kernel A's order on the card and in lane order on the CPU: the
+    # reference's tolerances (fp32 for FM, the bf16 compute ones for FFM).
     tol = (dict(rtol=3e-2, atol=3e-3) if ffm else dict(rtol=1e-4, atol=1e-6))
     assert abs(float(loss_card) - float(loss_cpu)) <= (
         1e-3 if ffm else 1e-5 * abs(float(loss_cpu)))

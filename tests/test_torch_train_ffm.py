@@ -83,17 +83,24 @@ def _batches(n, seed=1):
 
 
 COMPACT = dict(host_dedup=True, compact_cap=CAP)
+# "segtotal": the compact totals by kernel A (segtotal_pallas), which
+# takes FFM's rows on the card too; CAP keeps the reference's Pallas
+# kernel inside its VMEM budget.
 LEVERS = {"sel": {}, "blocked": dict(sel_blocked=True),
-          "kernels": dict(sel_blocked=True, fused_embed="require")}
+          "kernels": dict(sel_blocked=True, fused_embed="require"),
+          "segtotal": dict(segtotal_pallas=True)}
 FORMS = (
     [("float32", cd, "scatter_add", lever)
-     for cd in ("float32", "bfloat16") for lever in LEVERS]
+     for cd in ("float32", "bfloat16")
+     for lever in ("sel", "blocked", "kernels")]
     + [("float32", "float32", "dedup", "sel"),
        ("float32", "float32", "dedup", "kernels"),
        ("bfloat16", "bfloat16", "dedup", "blocked"),
        ("bfloat16", "bfloat16", "dedup_sr", "sel"),
        ("bfloat16", "bfloat16", "dedup_sr", "kernels"),
-       ("bfloat16", "float32", "dedup_sr", "blocked")])
+       ("bfloat16", "float32", "dedup_sr", "blocked"),
+       ("float32", "float32", "dedup", "segtotal"),
+       ("bfloat16", "bfloat16", "dedup_sr", "segtotal")])
 
 
 @pytest.mark.parametrize("pd,cd,mode,lever", FORMS)
