@@ -8,12 +8,20 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build every kernel from ``fm_spark_tpu_torch/csrc`` (timed);
-3. each kernel against its plain PyTorch version at config 3's full
-   width (39 fields x 262,144 buckets x 65 columns), fp32 and bf16
-   storage, B in {1, 8, 64, 512, 131072}: max errors, kernel and plain
-   times (CUDA events, median of 20 warm calls over 20 distinct id sets;
-   device time with the host's issue hidden behind a sleep kernel, and
-   the kernel's call time on an idle card) and the byte bound at 3.35 TB/s;
+3. the forward kernel (``fm_fused_scores``) against its plain PyTorch
+   version at config 3's full width (39 fields x 262,144 buckets x 65
+   columns), fp32 and bf16 storage: uniform ids at B in {1, 8, 64, 512,
+   131072}, all four storage/compute pairs at B = 512 and 131,072, the
+   bench's Zipf(1.3) ids (``BenchStream``) at B = 512 and 131,072, and
+   one wide row (w = 129, a quarter of the bucket); every row within
+   ATOL/RTOL of the plain version and repeated bit for bit (and the
+   uniform eval batch's first 512 rows equal bit for bit to a call on
+   those rows alone), with max errors, kernel and plain times (CUDA events, median of 20 warm calls
+   over 20 distinct id sets; device time with the host's issue hidden
+   behind a sleep kernel, and the kernel's call time on an idle card) and
+   the byte bound of this run's distinct rows at 3.35 TB/s. Then
+   ``train.evaluate_params`` of a config-3 model over three bench batches
+   (B = 131,072): wall ms and device-busy ms per batch, one launch each;
 4. serving: a config-3 FieldFM made on the card from a seeded generator,
    ``PredictEngine(buckets=(1, 8, 64, 512))``, 4 threads submitting 400
    requests of 1-512 Zipf rows with one generation swap mid-run; every
@@ -168,73 +176,183 @@ def _rel_err(got, want) -> float:
     return float(((got - want).abs()[big] / want.abs()[big]).max())
 
 
+def _fwd_rows(dev, tables, bucket, id_sets, vals, cases, tag):
+    """The forward kernel against its plain version on ``tables`` for each
+    ``(B, compute_bf16)`` of ``cases``: ``id_sets[B]`` holds REPS id sets
+    ``[B, F]`` and ``vals[B]`` REPS value sets (or one shared tensor).
+    Each case: max errors, a repeat that must give the same bits, device,
+    call and plain ms, and the bound from this run's distinct rows."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import fused_fwd
+
+    num_fields = len(tables)
+    width = tables[0].shape[1]
+    sb = tables[0].element_size()
+    dtype = str(tables[0].dtype).removeprefix("torch.")
+    w0 = torch.tensor(0.25, device=dev)
+    rows = []
+    for b, cd_bf16 in cases:
+        ids = id_sets[b]
+        vs = vals[b] if isinstance(vals[b], list) else [vals[b]] * REPS
+        got_s, got_a = fused_fwd.fm_fused_scores(
+            tables, ids[0], vs[0], w0=w0, compute_bf16=cd_bf16)
+        again_s, again_a = fused_fwd.fm_fused_scores(
+            tables, ids[0], vs[0], w0=w0, compute_bf16=cd_bf16)
+        torch.cuda.synchronize()
+        ref_s, ref_a = fused_fwd.fm_fused_scores_plain(
+            tables, ids[0], vs[0], w0=w0, compute_bf16=cd_bf16)
+        name = (f"{dtype} {tag} w={width} B={b}"
+                f"{' cd-bf16' if cd_bf16 else ''}")
+        _check(bool(torch.isfinite(got_s).all()), f"{name}: non-finite scores")
+        _check(got_s.shape == (b,) and got_a.shape == (b, width),
+               f"{name}: output shapes {got_s.shape} / {got_a.shape}")
+        _check(_close(got_s, ref_s) and _close(got_a, ref_a),
+               f"{name}: kernel disagrees with plain version")
+        _check(_same_bits(got_s, again_s) and _same_bits(got_a, again_a),
+               f"{name}: a repeated call gave other bits")
+
+        def kernel(r):
+            fused_fwd.fm_fused_scores(tables, ids[r], vs[r], w0=w0,
+                                      compute_bf16=cd_bf16)
+
+        def plain(r):
+            fused_fwd.fm_fused_scores_plain(tables, ids[r], vs[r], w0=w0,
+                                            compute_bf16=cd_bf16)
+
+        ms = _median_ms(kernel, hide_host_ms=2.0)
+        call_ms = _median_ms(kernel)
+        plain_ms = _median_ms(plain, hide_host_ms=30.0)
+        # Bytes this run's data needs: each distinct (field, id) row
+        # once, ids + vals once, scores + acc written once.
+        offs = torch.arange(num_fields, device=dev, dtype=torch.int64) * bucket
+        uniq = statistics.mean(
+            int(torch.unique(i.long().clamp(0, bucket - 1) + offs).numel())
+            for i in ids)
+        nbytes = (uniq * width * sb + b * num_fields * 8 + b * 4
+                  + b * width * 4 + 4)
+        row = {
+            "dtype": dtype, "ids": tag, "width": width, "fields": num_fields,
+            "bucket": bucket, "B": b,
+            "compute": "bfloat16" if cd_bf16 else "float32",
+            "max_abs_err": float((got_s - ref_s).abs().max()),
+            "max_abs_err_acc": float((got_a - ref_a).abs().max()),
+            "max_rel_err": _rel_err(got_s, ref_s), "repeat_bitwise": True,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "unique_rows": uniq,
+        }
+        row["achieved_GBps"] = nbytes / (ms * 1e-3) / 1e9
+        row["bound_share"] = row["bound_ms"] / ms
+        rows.append(row)
+        print("kernel", json.dumps(row), flush=True)
+    return rows
+
+
 def kernel_phase(dev, report):
     import torch
 
     from fm_spark_tpu_torch.ops import fused_fwd
 
-    rows = []
     g = torch.Generator(device=dev).manual_seed(3)
+    # Uniform ids at every serving bucket and the eval batch; all four
+    # storage/compute pairs at B = 512 and 131,072.
+    uni_ids, uni_vals = {}, {}
+    for b in BATCHES:
+        uni_ids[b] = [torch.randint(0, BUCKET, (b, F), generator=g, device=dev,
+                                    dtype=torch.int32) for _ in range(REPS)]
+        uni_vals[b] = [torch.rand(b, F, generator=g, device=dev) + 0.5
+                       for _ in range(REPS)]
+    # The bench's Zipf(1.3) ids (vals all 1) that serving and eval see.
+    zipf_ids, zipf_vals = {}, {}
+    for b in (512, TRAIN_B):
+        stream = BenchStream(seed=0, batch=b, fields=F, bucket=BUCKET)
+        zipf_ids[b] = [torch.from_numpy(stream.next_batch()[0]).to(dev)
+                       for _ in range(REPS)]
+        zipf_vals[b] = torch.ones(b, F, device=dev)
+    rows = []
     for dtype in (torch.float32, torch.bfloat16):
         tables = [(torch.randn(BUCKET, WIDTH, generator=g, device=dev) * 0.1)
                   .to(dtype) for _ in range(F)]
-        w0 = torch.tensor(0.25, device=dev)
-        sb = tables[0].element_size()
-        # bf16 tables also in the bf16-compute mode, at the serving bucket
-        # and the training batch.
-        runs = [(b, False) for b in BATCHES]
-        if dtype == torch.bfloat16:
-            runs += [(512, True), (131072, True)]
-        for b, cd_bf16 in runs:
-            ids = [torch.randint(0, BUCKET, (b, F), generator=g, device=dev,
-                                 dtype=torch.int32) for _ in range(REPS)]
-            vals = [torch.rand(b, F, generator=g, device=dev) + 0.5
-                    for _ in range(REPS)]
-            got_s, got_a = fused_fwd.fm_fused_scores(
-                tables, ids[0], vals[0], w0=w0, compute_bf16=cd_bf16)
-            torch.cuda.synchronize()
-            ref_s, ref_a = fused_fwd.fm_fused_scores_plain(
-                tables, ids[0], vals[0], w0=w0, compute_bf16=cd_bf16)
-            name = (f"{str(dtype).removeprefix('torch.')} B={b}"
-                    f"{' cd-bf16' if cd_bf16 else ''}")
-            _check(bool(torch.isfinite(got_s).all()), f"{name}: non-finite scores")
-            _check(_close(got_s, ref_s) and _close(got_a, ref_a),
-                   f"{name}: kernel disagrees with plain version")
-
-            def kernel(r):
-                fused_fwd.fm_fused_scores(tables, ids[r], vals[r], w0=w0,
-                                          compute_bf16=cd_bf16)
-
-            def plain(r):
-                fused_fwd.fm_fused_scores_plain(tables, ids[r], vals[r], w0=w0,
-                                                compute_bf16=cd_bf16)
-
-            ms = _median_ms(kernel, hide_host_ms=2.0)
-            call_ms = _median_ms(kernel)
-            plain_ms = _median_ms(plain, hide_host_ms=30.0)
-            # Bytes this run's data needs: each distinct (field, id) row
-            # once, ids + vals once, scores + acc written once.
-            offs = torch.arange(F, device=dev, dtype=torch.int64) * BUCKET
-            uniq = statistics.mean(
-                int(torch.unique(i.long() + offs).numel()) for i in ids)
-            nbytes = uniq * WIDTH * sb + b * F * 8 + b * 4 + b * WIDTH * 4 + 4
-            row = {
-                "dtype": str(dtype).removeprefix("torch."), "B": b,
-                "compute": "bfloat16" if cd_bf16 else "float32",
-                "max_abs_err": float((got_s - ref_s).abs().max()),
-                "max_abs_err_acc": float((got_a - ref_a).abs().max()),
-                "max_rel_err": _rel_err(got_s, ref_s),
-                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bytes": nbytes, "unique_rows": uniq,
-            }
-            row["achieved_GBps"] = nbytes / (ms * 1e-3) / 1e9
-            rows.append(row)
-            print("kernel", json.dumps(row), flush=True)
+        both = [(b, cd) for b in (512, TRAIN_B) for cd in (False, True)]
+        rows += _fwd_rows(dev, tables, BUCKET, uni_ids, uni_vals,
+                          [(b, False) for b in BATCHES] + [
+                              (512, True), (TRAIN_B, True)], "uniform")
+        rows += _fwd_rows(dev, tables, BUCKET, zipf_ids, zipf_vals, both,
+                          "zipf")
+        # A sample's bits do not hang on the batch it came in (nor on the
+        # launch form that batch takes): the eval batch's first 512 rows
+        # against a call on those 512 alone.
+        ids, vs = uni_ids[TRAIN_B][0], uni_vals[TRAIN_B][0]
+        for cd in (False, True):
+            full = fused_fwd.fm_fused_scores(tables, ids, vs, compute_bf16=cd)
+            part = fused_fwd.fm_fused_scores(tables, ids[:512], vs[:512],
+                                             compute_bf16=cd)
+            _check(all(_same_bits(p, f[:512]) for p, f in zip(part, full)),
+                   f"{dtype} cd_bf16={cd}: rows scored at B = 512 and in "
+                   f"the B = {TRAIN_B} batch differ in their bits")
         del tables
         torch.cuda.empty_cache()
+    # One wide row: rank 128 (w = 129, past the 128 columns the first
+    # kernel took) at a quarter of the bucket.
+    wide_bucket = BUCKET // 4
+    tables = [torch.randn(wide_bucket, 129, generator=g, device=dev) * 0.07
+              for _ in range(F)]
+    wide_ids = {TRAIN_B: [i % wide_bucket for i in uni_ids[TRAIN_B]]}
+    rows += _fwd_rows(dev, tables, wide_bucket, wide_ids, uni_vals,
+                      [(TRAIN_B, False)], "uniform")
+    del tables, uni_ids, zipf_ids
+    torch.cuda.empty_cache()
     report["kernel_vs_plain"] = rows
     return rows
+
+
+def eval_phase(dev, report):
+    """``train.evaluate_params`` of a config-3 FieldFM over three bench
+    batches (B = 131,072, Zipf ids): wall ms per batch on the host clock
+    (host input included) and the device's busy ms per batch under the
+    profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_spark_tpu_torch.ops import fused_fwd
+    from fm_spark_tpu_torch.train import evaluate_params
+
+    spec, params = _config3_model(dev, seed=5)
+    stream = BenchStream(seed=1, batch=TRAIN_B, fields=F, bucket=BUCKET)
+    batches = [stream.next_batch() for _ in range(3)]
+    evaluate_params(spec, params, batches[:1])      # warm
+    torch.cuda.synchronize()
+    fused_fwd.launches = 0
+    t0 = time.perf_counter()
+    metrics = evaluate_params(spec, params, batches)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = fused_fwd.launches
+    _check(launches == len(batches),
+           f"eval launched the forward kernel {launches} times, not 3")
+    _check(bool(np.isfinite(metrics["logloss"])) and metrics["count"] > 0,
+           f"eval metrics {metrics}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        evaluate_params(spec, params, batches)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = (_union_ms(on_dev) / len(batches) if on_dev else "not measured")
+    fwd = [e for e in on_dev if "fm_fused_fwd" in e.name]
+    out = {"batches": len(batches), "B": TRAIN_B, "wall_ms_per_batch": wall_ms,
+           "device_busy_ms_per_batch": busy,
+           "forward_kernel_ms_per_batch": (
+               sum(e.time_range.elapsed_us() for e in fwd) / 1e3 / len(batches)
+               if fwd else "not measured"),
+           "launches": launches, "metrics": metrics}
+    print("eval", json.dumps(out), flush=True)
+    report["eval"] = out
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def _config3_model(dev, seed: int, bucket: int = BUCKET):
@@ -743,6 +861,18 @@ def _plain_versions():
             setattr(m, n, fn)
 
 
+def _union_ms(on_dev) -> float:
+    """Milliseconds of the union of the device events' intervals (the
+    device's busy time)."""
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in on_dev):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
 def _profile_steps(step, params, batch, aux, step0, n: int = 3) -> dict:
     """``n`` steps on one device-resident batch under torch.profiler: the
     wall time per step, the device's busy time per step (the union of its
@@ -778,16 +908,10 @@ def _profile_steps(step, params, batch, aux, step0, n: int = 3) -> dict:
     if not on_dev:
         return {**out, "device_ms_per_step": "not measured",
                 "idle_share": "not measured"}
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in on_dev):
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
     by_name = collections.Counter()
     for e in on_dev:
         by_name[e.name[:80]] += e.time_range.elapsed_us()
-    device_ms = busy / 1e3 / n
+    device_ms = _union_ms(on_dev) / n
     return {**out, "device_ms_per_step": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "device_ops_per_step": len(on_dev) / n,
@@ -1435,6 +1559,7 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     rows = kernel_phase(dev, report)
+    eval_phase(dev, report)
     launches = serve_phase(dev, report)
     cli_phase(dev, report)
     a_rows, b_rows = training_kernels_phase(dev, report)
@@ -1445,7 +1570,19 @@ def main() -> int:
     row_rows = row_kernel_phase(dev, report)
     pallas_launches = pallas_train_phase(dev, report)
 
-    main_row = next(r for r in rows if r["dtype"] == "float32" and r["B"] == 512)
+    def fwd_row(dtype, ids, b, compute="float32"):
+        return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
+                                        r["compute"], r["width"])
+                    == (dtype, ids, b, compute, WIDTH))
+
+    main_row = fwd_row("float32", "uniform", 512)
+    # The eval batch in bf16 storage, both compute modes, and in fp32,
+    # beside the serving bucket.
+    fwd_cases = {
+        f"{d} B={TRAIN_B}{' cd-bf16' if c == 'bfloat16' else ''}":
+            fwd_row(d, "uniform", TRAIN_B, c)
+        for d, c in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+                     ("float32", "float32"))}
     kernels = {"kernels": [{
         "name": "fm_fused_scores", "route": "cuda",
         "source": "fm_spark_tpu_torch/csrc/fm_fused_fwd.cu",
@@ -1457,6 +1594,12 @@ def main() -> int:
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "shape": "fp32 B=512 (largest serving bucket)",
+        **{name: {**{k: r[k] for k in ("ms", "call_ms", "plain_ms",
+                                       "bound_ms")},
+                  "bound_by": "bytes", "library_ms": None,
+                  "shape": f"{F} fields, w={WIDTH}, uniform ids"}
+           for name, r in fwd_cases.items()},
+        "eval_launches": report["eval"]["launches"],
     }, {
         "name": "segment_totals", "route": "cuda",
         "source": "fm_spark_tpu_torch/csrc/segment_totals.cu",

@@ -40,10 +40,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C entry points of each library: {library: {function: (restype, argtypes)}}.
 SIGNATURES = {
     "fm_fused_fwd": {
-        # tables, F, bucket, width, is_bf16, cd_bf16, ids, vals, batch,
-        # w0, use_linear, scores, acc, stream, device
-        "fm_fused_fwd": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I,
-                              _P, _P, _P, _I]),
+        # tables (host array), tables (device array or null), F, bucket,
+        # width, is_bf16, cd_bf16, ids, vals, batch, w0, use_linear,
+        # scores, acc, stream, device
+        "fm_fused_fwd": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                              _I, _P, _P, _P, _I]),
         "fm_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "segment_totals": {

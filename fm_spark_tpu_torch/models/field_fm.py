@@ -7,10 +7,11 @@ in the fused-linear layout (column ``rank`` is the linear weight), or
 ``{"w0", "w": F × [bucket], "v": F × [bucket, k]}`` without it.
 
 On CUDA tensors :meth:`FieldFMSpec.scores` goes through the fused
-gather→interaction kernel (``ops.fused_fwd``), in float32 or bf16 compute
-(scores come back float32 either way); the layouts the kernel does not
-take (``table_layout="col"``, ``fused_linear=False``) raise
-:class:`KernelUnavailable` there and run only on the CPU.
+gather→interaction kernel (``ops.fused_fwd``) at any rank and number of
+fields, in float32 or bf16 compute (scores come back float32 either way);
+the layouts the kernel does not take (``table_layout="col"``,
+``fused_linear=False``) raise :class:`KernelUnavailable` there and run
+only on the CPU.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ class FieldFMSpec(base.ModelSpec):
         return self.rank + 1 if self.fused_linear else self.rank
 
     def kernel_unsupported(self) -> str | None:
-        """Why the fused CUDA kernel cannot score this spec, or None."""
+        """Why the fused CUDA kernel cannot score this spec, or None: only
+        the layout decides, never the rank or the field count."""
         if self.table_layout == "col":
             return "table_layout='col' has no CUDA kernel yet (ROADMAP)"
         if not self.fused_linear:

@@ -2,11 +2,16 @@
 its plain PyTorch version.
 
 The port of ``fm_spark_tpu/ops/pallas_fused.py::fm_fused_scores``. The
-kernel (``csrc/fm_fused_fwd.cu``) loops over all fields inside one launch
-with the accumulator in registers; see the source for its design and
-bound. :func:`fm_fused_scores` launches it for CUDA tensors and runs
-:func:`fm_fused_scores_plain` only for tensors on the CPU — a CUDA input
-it cannot serve raises :class:`~fm_spark_tpu_torch.ops.KernelUnavailable`.
+kernel (``csrc/fm_fused_fwd.cu``) sums all fields inside one launch, at
+any width and field count, in one of two forms the launcher picks per
+call: rows staged in shared memory by 16-byte chunks (bf16 tables, small
+batches, wide rows, many fields), or one warp per sample reading single
+elements (fp32 tables of ≤ 128 columns and ≤ 64 fields at batches of at
+least 4 rows per SM, 528 on an H100); see the source for the design and
+bound.
+:func:`fm_fused_scores` launches it for CUDA tensors and runs
+:func:`fm_fused_scores_plain` only for tensors on the CPU — a tensor on
+another device raises :class:`~fm_spark_tpu_torch.ops.KernelUnavailable`.
 """
 
 from __future__ import annotations
@@ -18,12 +23,12 @@ import torch
 
 from fm_spark_tpu_torch.ops import KernelUnavailable
 
-__all__ = ["MAX_FIELDS", "MAX_WIDTH", "fm_fused_scores",
-           "fm_fused_scores_plain", "launches"]
+__all__ = ["PARAM_FIELDS", "fm_fused_scores", "fm_fused_scores_plain",
+           "launches"]
 
-#: Limits of the kernel (FM_MAX_FIELDS, 32·FM_MAX_COLS_PER_LANE in the source).
-MAX_FIELDS = 64
-MAX_WIDTH = 128
+#: Fields whose table pointers travel in the kernel's parameter space
+#: (FM_PARAM_FIELDS in the source); above it they go in a device array.
+PARAM_FIELDS = 64
 
 #: Kernel launches made by :func:`fm_fused_scores` in this process.
 launches = 0
@@ -95,7 +100,8 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     """Fused gather→FM-interaction forward over per-field tables.
 
     ``tables``: F × ``[bucket, k+1]`` (fused-linear layout, fp32 or bf16
-    storage, contiguous) as a sequence or one stacked tensor; ``ids``
+    storage, contiguous, at any storage offset; any k and F) as a
+    sequence or one stacked tensor; ``ids``
     int32 and ``vals`` float32, both ``[B, F]``; ``w0`` an optional
     one-element float32 tensor. Ids are clamped to ``[0, bucket)``.
     ``compute_bf16`` rounds as a bf16 compute dtype does (see
@@ -112,10 +118,6 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
         raise KernelUnavailable(f"fm_fused_scores: no kernel for {ids.device}")
     b, num_fields = ids.shape
     bucket, w = tables[0].shape
-    if num_fields > MAX_FIELDS or w > MAX_WIDTH:
-        raise KernelUnavailable(
-            f"fm_fused_scores: kernel takes <= {MAX_FIELDS} fields of width "
-            f"<= {MAX_WIDTH}, got {num_fields} x {w}")
     if not (ids.is_contiguous() and vals.is_contiguous()
             and all(t.is_contiguous() for t in tables)):
         raise ValueError("fm_fused_scores: ids, vals and tables must be contiguous")
@@ -125,10 +127,17 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     dev = ids.device
     scores = torch.empty(b, dtype=torch.float32, device=dev)
     acc = torch.empty(b, w, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * num_fields)(*[t.data_ptr() for t in tables])
+    addrs = [t.data_ptr() for t in tables]
+    ptrs = (ctypes.c_void_p * num_fields)(*addrs)
+    # Kept alive to the end of this call: the launch is ordered before any
+    # later reuse of its memory on this stream.
+    ptrs_dev = (torch.tensor(addrs, dtype=torch.int64, device=dev)
+                if num_fields > PARAM_FIELDS else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fm_fused_fwd(
-        ctypes.cast(ptrs, ctypes.c_void_p), num_fields, bucket, w,
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        None if ptrs_dev is None else ptrs_dev.data_ptr(),
+        num_fields, bucket, w,
         int(tables[0].dtype == torch.bfloat16), int(compute_bf16),
         ids.data_ptr(),
         vals.data_ptr(), b, None if w0 is None else w0.data_ptr(),

@@ -57,10 +57,10 @@ def _jax_params(spec, seed=0):
     return jp, flat
 
 
-def _batch(n=33, seed=1):
+def _batch(n=33, seed=1, fields=F):
     rng = np.random.default_rng(seed)
-    ids = rng.integers(0, BUCKET, (n, F)).astype(np.int32)
-    vals = rng.uniform(0.5, 1.5, (n, F)).astype(np.float32)
+    ids = rng.integers(0, BUCKET, (n, fields)).astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, (n, fields)).astype(np.float32)
     return ids, vals
 
 
@@ -85,6 +85,31 @@ def test_predict_matches_jax(task, param_dtype):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     if task == "regression":   # the clip engaged on both ends
         assert got.min() == np.float32(-0.5) and got.max() == np.float32(0.6)
+
+
+# Width 129 and 201 (past the 128 columns the first CUDA kernel took) and
+# 70 fields (past its 64). init_std shrinks as 1/sqrt(rank·fields) so
+# that Σs² and Σxv² stay the size they are at rank 8 and 5 fields, where
+# the tolerance above is stated.
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank,fields", [(128, F), (200, 3), (8, 70)])
+def test_scores_match_jax_at_any_width_and_field_count(rank, fields,
+                                                       param_dtype):
+    kw = _kw(num_features=fields * BUCKET, rank=rank, num_fields=fields,
+             init_std=0.3 * math.sqrt(8 * F / (rank * fields)),
+             param_dtype=param_dtype)
+    jspec, pspec = jmodels.FieldFMSpec(**kw), models.FieldFMSpec(**kw)
+    assert pspec.kernel_unsupported() is None
+    jp, flat = _jax_params(jspec)
+    ids, vals = _batch(fields=fields)
+    want = np.asarray(jspec.scores(jp, jnp.asarray(ids), jnp.asarray(vals)))
+    pp = models.params_from_numpy(pspec, flat, "cpu",
+                                  {k: pspec.param_dtype for k in flat
+                                   if k != "w0"})
+    got = pspec.scores(pp, torch.from_numpy(ids), torch.from_numpy(vals))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    got_p, want_p = _both(jspec, pspec, jp, flat, ids, vals)
+    np.testing.assert_allclose(got_p, want_p, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("layout,fused,compute", [

@@ -31,12 +31,15 @@ F, BUCKET, B = 4, 60, 24
 RTOL, ATOL = 1e-5, 1e-5
 
 
-def _inputs(k, seed):
+def _inputs(k, seed, f=F):
+    # Rows at 0.3·sqrt(F / f): Σs² and Σxv² stay the size they are at
+    # F = 4 (the size the tolerance above is stated for) at any field count.
     rng = np.random.default_rng(seed)
-    tables = [(rng.normal(size=(BUCKET, k + 1)) * 0.3).astype(np.float32)
-              for _ in range(F)]
-    ids = rng.integers(0, BUCKET, (B, F)).astype(np.int32)
-    vals = rng.uniform(0.5, 1.5, (B, F)).astype(np.float32)
+    scale = 0.3 * np.sqrt(F / f)
+    tables = [(rng.normal(size=(BUCKET, k + 1)) * scale).astype(np.float32)
+              for _ in range(f)]
+    ids = rng.integers(0, BUCKET, (B, f)).astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, (B, f)).astype(np.float32)
     ids[0, :] = 0                       # table edges
     ids[1, :] = BUCKET - 1
     ids[-3:] = 0                        # padded rows: id 0, value 0
@@ -53,12 +56,14 @@ def _port(tables, ids, vals, dtype, use_linear, w0):
     return s.numpy(), acc.numpy()
 
 
-@pytest.mark.parametrize("k", [8, 64])
+# Widths 9, 65 and 129 (past the 128 columns the first kernel took) at
+# F = 4, and 70 fields (past its 64) at width 65.
+@pytest.mark.parametrize("k,f", [(8, F), (64, F), (128, F), (64, 70)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_linear", [True, False])
 @pytest.mark.parametrize("w0", [None, 0.3])
-def test_fused_fwd_matches_jax_pallas_and_xla(k, dtype, use_linear, w0):
-    tables, ids, vals = _inputs(k, seed=k)
+def test_fused_fwd_matches_jax_pallas_and_xla(k, f, dtype, use_linear, w0):
+    tables, ids, vals = _inputs(k, seed=k + f - F, f=f)
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     got_s, got_acc = _port(tables, ids, vals, tdt, use_linear, w0)
 
@@ -70,7 +75,7 @@ def test_fused_fwd_matches_jax_pallas_and_xla(k, dtype, use_linear, w0):
     np.testing.assert_allclose(got_acc, np.asarray(ref_acc), rtol=RTOL,
                                atol=ATOL)
 
-    spec = JaxFieldFMSpec(num_features=F * BUCKET, rank=k, num_fields=F,
+    spec = JaxFieldFMSpec(num_features=f * BUCKET, rank=k, num_fields=f,
                           bucket=BUCKET, use_linear=use_linear,
                           use_bias=w0 is not None, param_dtype=dtype)
     params = {"w0": jnp.float32(0.0 if w0 is None else w0), "vw": jt}

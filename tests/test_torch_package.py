@@ -172,28 +172,148 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# The forward kernel's four storage/compute pairs.
+_FWD_PAIRS = [(torch.float32, False), (torch.bfloat16, False),
+              (torch.bfloat16, True), (torch.float32, True)]
+
+
+def _fwd_tables(rng, cuda, f, bucket, w, dtype, offset):
+    """``f`` tables ``[bucket, w]``; with ``offset`` > 0 each is a
+    contiguous view that many elements into a larger buffer, so its rows
+    start off the 16-byte grid. Rows at 0.3·sqrt(320 / (f·(w-1))) keep
+    Σs² and Σxv² near their size at 5 fields of rank 64 whatever the
+    shape."""
+    scale = 0.3 * np.sqrt(320 / (f * (w - 1)))
+    tables = []
+    for _ in range(f):
+        t = torch.from_numpy(rng.normal(size=(bucket, w)) * scale).to(cuda, dtype)
+        if offset:
+            buf = torch.zeros(bucket * w + offset, dtype=dtype, device=cuda)
+            buf[offset:] = t.reshape(-1)
+            t = buf[offset:].view(bucket, w)
+            assert t.storage_offset() == offset and t.is_contiguous()
+        tables.append(t)
+    return tables
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [8, 64])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("use_linear,w0", [(True, 0.3), (False, None)])
-def test_kernel_matches_plain_on_the_card(cuda, k, dtype, use_linear, w0):
-    rng = np.random.default_rng(k)
-    f, bucket, b = 5, 60, 300
-    tables = [torch.from_numpy(rng.normal(size=(bucket, k + 1)) * 0.3)
-              .to(cuda, dtype) for _ in range(f)]
-    ids = torch.from_numpy(rng.integers(-3, bucket + 3, (b, f))
+@pytest.mark.parametrize("w", [2, 17, 65, 129, 201])
+@pytest.mark.parametrize("f", [1, 39, 70])
+@pytest.mark.parametrize("dtype,cd", _FWD_PAIRS)
+def test_kernel_matches_plain_on_the_card(cuda, w, f, dtype, cd):
+    """Both launch forms: the staged one for bf16 tables, for fp32 tables
+    up to 512 rows and past 128 columns or 64 fields (one sample per
+    block up to 4099 rows, tiles of several at 9001 on an H100), and the
+    warp one for the other fp32 cases from 4099 rows. Ids below 0 and
+    past the bucket (clamped), tables aligned and at an odd storage
+    offset, use_linear and w0 both ways, and a repeat of each call that
+    must give the same bits."""
+    rng = np.random.default_rng(100 * w + f)
+    bucket = 300
+    flags = [(True, 0.3), (False, None), (True, None), (False, 0.3)]
+    # Products rounded the same way on both sides; fp32 sums in another
+    # order (bf16 compute: the rounded products differ in the last bit
+    # of a bf16 more often, hence the wider absolute bound).
+    tol = dict(rtol=1e-5, atol=1e-4 if cd else 1e-5)
+    for offset in (0, 1 + 2 * (w % 3)):
+        tables = _fwd_tables(rng, cuda, f, bucket, w, dtype, offset)
+        for i, b in enumerate((1, 7, 64, 512, 4099, 9001)):
+            use_linear, w0 = flags[(i + offset) % 4]
+            ids = torch.from_numpy(rng.integers(-3, bucket + 3, (b, f))
+                                   .astype(np.int32)).to(cuda)
+            vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)
+                                    + 0.5).to(cuda)
+            wt = None if w0 is None else torch.tensor(w0, device=cuda)
+            before = fused_fwd.launches
+            got = fused_fwd.fm_fused_scores(tables, ids, vals,
+                                            use_linear=use_linear, w0=wt,
+                                            compute_bf16=cd)
+            again = fused_fwd.fm_fused_scores(tables, ids, vals,
+                                              use_linear=use_linear, w0=wt,
+                                              compute_bf16=cd)
+            torch.cuda.synchronize()
+            assert fused_fwd.launches == before + 2
+            want = fused_fwd.fm_fused_scores_plain(
+                tables, ids, vals, use_linear=use_linear, w0=wt,
+                compute_bf16=cd)
+            for g, a, r in zip(got, again, want):
+                assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+                torch.testing.assert_close(g, r, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,cd", _FWD_PAIRS)
+def test_forward_kernel_runs_column_windows_on_the_card(cuda, dtype, cd):
+    """Rows past the 1024 columns of one window (w = 1100) go through in
+    two windows, at one sample per block and at tiles of several."""
+    rng = np.random.default_rng(11)
+    f, bucket, w = 3, 50, 1100
+    tables = _fwd_tables(rng, cuda, f, bucket, w, dtype, offset=3)
+    w0 = torch.tensor(-0.2, device=cuda)
+    for b in (3, 600, 9001):
+        ids = torch.from_numpy(rng.integers(-2, bucket + 2, (b, f))
+                               .astype(np.int32)).to(cuda)
+        vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(cuda)
+        got = fused_fwd.fm_fused_scores(tables, ids, vals, w0=w0,
+                                        compute_bf16=cd)
+        torch.cuda.synchronize()
+        want = fused_fwd.fm_fused_scores_plain(tables, ids, vals, w0=w0,
+                                               compute_bf16=cd)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-5,
+                                       atol=1e-4 if cd else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [17, 65, 128])
+@pytest.mark.parametrize("f", [1, 39])
+@pytest.mark.parametrize("dtype,cd", _FWD_PAIRS)
+def test_forward_launch_forms_give_the_same_bits_on_the_card(cuda, w, f,
+                                                             dtype, cd):
+    """A sample scores to the same bits whatever batch it comes in: at
+    8192 rows (the warp form for fp32 tables, tiles of several samples
+    for bf16) and at 64 or 7 rows (one sample per block)."""
+    rng = np.random.default_rng(7 * w + f)
+    bucket = 500
+    tables = _fwd_tables(rng, cuda, f, bucket, w, dtype, offset=1)
+    b = 8192
+    ids = torch.from_numpy(rng.integers(0, bucket, (b, f))
                            .astype(np.int32)).to(cuda)
-    vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(cuda)
-    w = None if w0 is None else torch.tensor(w0, device=cuda)
+    vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)
+                            + 0.5).to(cuda)
+    w0 = torch.tensor(0.3, device=cuda)
+    full = fused_fwd.fm_fused_scores(tables, ids, vals, w0=w0, compute_bf16=cd)
+    for lo, hi in ((0, 64), (100, 107)):
+        part = fused_fwd.fm_fused_scores(tables, ids[lo:hi], vals[lo:hi],
+                                         w0=w0, compute_bf16=cd)
+        for g, r in zip(part, full):
+            assert torch.equal(g.view(torch.int32), r[lo:hi].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank,fields", [(200, 5), (64, 70)])
+def test_field_fm_scores_at_any_width_and_field_count_on_the_card(cuda, rank,
+                                                                  fields):
+    """FieldFMSpec.scores serves rank 200 and 70 fields through the
+    kernel (one launch, no KernelUnavailable) and agrees with the CPU."""
+    from fm_spark_tpu_torch import models
+
+    spec = models.FieldFMSpec(num_features=fields * 40, rank=rank,
+                              num_fields=fields, bucket=40,
+                              init_std=0.3 * np.sqrt(40 / (rank * fields)))
+    assert spec.kernel_unsupported() is None
+    params = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    params["w0"].fill_(0.1)
+    rng = np.random.default_rng(rank + fields)
+    ids = torch.from_numpy(rng.integers(0, 40, (300, fields)).astype(np.int32))
+    vals = torch.from_numpy(rng.random((300, fields)).astype(np.float32))
     before = fused_fwd.launches
-    got = fused_fwd.fm_fused_scores(tables, ids, vals, use_linear=use_linear,
-                                    w0=w)
+    got = spec.scores(params, ids.to(cuda), vals.to(cuda))
     torch.cuda.synchronize()
     assert fused_fwd.launches == before + 1
-    want = fused_fwd.fm_fused_scores_plain(tables, ids, vals,
-                                           use_linear=use_linear, w0=w)
-    for g, r in zip(got, want):
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+    cpu = {"w0": params["w0"].cpu(), "vw": [t.cpu() for t in params["vw"]]}
+    want = spec.scores(cpu, ids, vals)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -544,10 +664,13 @@ def test_training_step_runs_through_the_kernels_on_the_card(cuda, lever):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_forward_kernel_bf16_compute_matches_plain_on_the_card(cuda, dtype):
+@pytest.mark.parametrize("f,k", [(6, 64), (70, 200)])
+def test_forward_kernel_bf16_compute_matches_plain_on_the_card(cuda, dtype,
+                                                               f, k):
     rng = np.random.default_rng(1)
-    f, bucket, b, k = 6, 80, 500, 64
-    tables = [torch.from_numpy(rng.normal(size=(bucket, k + 1)) * 0.3)
+    bucket, b = 80, 500
+    scale = 0.3 * np.sqrt(6 * 64 / (f * k))
+    tables = [torch.from_numpy(rng.normal(size=(bucket, k + 1)) * scale)
               .to(cuda, dtype) for _ in range(f)]
     ids = torch.from_numpy(rng.integers(0, bucket, (b, f)).astype(np.int32)).to(cuda)
     vals = torch.from_numpy(rng.random((b, f)).astype(np.float32) + 0.5).to(cuda)
