@@ -83,7 +83,40 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels once), one more step run twice on two copies of the params
    give the same bits, that step equal the same step with the plain
    versions within the stated tolerance, and the profile of three steps
-   hold no ``index_add`` op or kernel.
+   hold no ``index_add`` op or kernel;
+13. the captured step: the SR bits kernel (``sr_bits``, JAX's threefry
+   key schedule) against its plain version bit for bit at [12,288, 65]
+   and [12,288, 369]; the compact update's blocked-prefix segment sums
+   on one field in three forms (the parent tree's ``cumsum``, one add per
+   element of a run, the package's ``cumsum`` per run), the last two bit
+   for bit equal to each other and to the CPU, with device-busy ms and
+   device ops per call; then six training legs at full width on the same
+   seeded bench batches, each eagerly (``make_field_*_sgd_body``) on one
+   copy of the params and captured (``make_field_*_sgd_step``: one CUDA
+   graph, replayed) on another, the losses and params equal bit for bit
+   after each of 7 steps and after 3 profiled steps: compact (bf16,
+   dedup_sr, cap 12,288, native host aux) in its plain form and with
+   ``segtotal`` and ``fusedbwd``, ``devaux`` (``compact_device``, gfull +
+   kernel A, overflow 'error'), ``fm-pallas`` and
+   ``ffm-selblk-pallas-rows``; for each, the capture's seconds, wall ms
+   per step (host clock to a synchronise, steps 3-7) and, over the 3
+   profiled steps, device-busy ms and host launches per step, eager
+   against captured. The wrappers count the eager steps' launches and
+   none in the replays; the profiler counts each port kernel's runs by
+   its symbol (``KERNEL_SYMBOLS``): the leg's own must run in the
+   replays, at least once per step, and no kernel more often per step
+   than the eager step launches it (the trace misses a kernel record now
+   and then, so a count may fall short). Then the roll (``make_field_sparse_multistep``, n = 4: a
+   graph of 4 steps and one of the tail of 3) against 7 eager steps of
+   the ``fusedbwd`` leg, bit for bit.
+
+Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
+captured step on the card: a kernel wrapper counts its launches in the
+warm-up step (on clones of the params, before the capture); the capture
+records the kernels and the replays run them past the wrappers, which
+phase 13 counts on the card. Phase 6 also holds kernel B against its
+plain version on the device-built aux of the bench batch at cap 8,192,
+where lanes lie past the cap (``compact_device``'s 'drop').
 
 Phase 5 also trains config 4 at 4,096 buckets per field through both
 FFM kernels (bf16 compute) and evaluates and predicts with the model it
@@ -115,7 +148,9 @@ BATCHES = (1, 8, 64, 512, 131072)
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12                 # the same, outside the tensor cores
 TRAIN_B, CAP = 131072, 12288             # bench.py's config-3 batch and cap
+DROP_CAP = 8192                          # below the bench batch's distinct ids
 TRAIN_STEPS, WARM_STEPS = 7, 2
+PROFILED_STEPS = 3                       # phase 13: after the 7 compared
 REPS = 20
 FFM_F, FFM_BUCKET, FFM_RANK = 23, 1 << 14, 16   # config 4, avazu_ffm_r16
 FFM_BATCHES = (512, 8192, 131072)
@@ -539,7 +574,9 @@ def cli_phase(dev, report):
     _check(len(evals) == 1 and np.isfinite(evals[0]["logloss"]),
            f"cli train eval line: {evals}")
     train_launches = json.loads(proc.stderr.strip().splitlines()[-1])
-    _check(train_launches["kernel_launches"]["fm_bwd_segment_totals"] == 3,
+    # The captured step: the warm-up step before the capture launches the
+    # kernel; the capture records it and the replays run it uncounted.
+    _check(train_launches["kernel_launches"]["fm_bwd_segment_totals"] == 1,
            f"cli train did not run the fused backward: {train_launches}")
     proc = subprocess.run(
         [sys.executable, "-m", "fm_spark_tpu_torch", "eval", "--model",
@@ -577,7 +614,8 @@ def _pallas_cli(bucket: int):
     _check(len(losses) == 3 and all(np.isfinite(losses)),
            f"cli train --use-pallas loss lines: {losses}")
     k = json.loads(proc.stderr.strip().splitlines()[-1])["kernel_launches"]
-    _check(k["gather_rows"] == 3 * F and k["update_rows_add"] == 3 * F,
+    # F each in the warm-up step (the replays run them uncounted).
+    _check(k["gather_rows"] == F and k["update_rows_add"] == F,
            f"cli train --use-pallas did not run the row kernels: {k}")
     return {"train_loss": losses, "train_launches": k}
 
@@ -615,7 +653,8 @@ def _ffm_cli(dev):
     _check(len(evals) == 1 and np.isfinite(evals[0]["logloss"]),
            f"cli train (ffm) eval line: {evals}")
     k = launched["kernel_launches"]
-    _check(k["ffm_sel_bwd"] == 3 and k["ffm_sel_scores"] > 3,
+    # The warm-up step's launches, and the held-out eval's forward.
+    _check(k["ffm_sel_bwd"] == 1 and k["ffm_sel_scores"] > 1,
            f"cli train (ffm) did not run both FFM kernels: {k}")
     proc, eval_launched = run("eval", "--model", model_dir, "--synthetic",
                               "4096", "--batch-size", "1024")
@@ -836,8 +875,89 @@ def training_kernels_phase(dev, report):
         del urows, s1, ds, got, again, want, exact, bound
         torch.cuda.empty_cache()
     out["fm_bwd_segment_totals"] = b_rows
+
+    # Kernel B on the device-built aux (compact_device) of the bench batch
+    # at a cap below its fields' distinct counts ('drop'): the lanes with
+    # inv >= cap read a zero row and write nothing.
+    cap = DROP_CAP
+    daux, nseg = scatter.device_compact_aux(torch.from_numpy(ids).to(dev),
+                                            cap)
+    past = int((nseg > cap).sum())
+    _check(past > 0 and bool((daux[4] >= cap).any()),
+           f"kernel B past the cap: no field has more than {cap} ids")
+    urows = [(torch.randn(cap, WIDTH, generator=g, device=dev) * 0.01)
+             .to(torch.bfloat16) for _ in range(F)]
+    s1 = torch.cat([torch.randn(TRAIN_B, RANK, generator=g, device=dev) * 0.1,
+                    torch.ones(TRAIN_B, 1, device=dev)], 1).to(torch.bfloat16)
+    ds = (torch.randn(TRAIN_B, generator=g, device=dev) * 1e-5).to(
+        torch.bfloat16)
+    args = (urows, s1, ds, ones, weights, daux[3], daux[4], -0.05,
+            (1e-6, 0.0))
+    got = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    again = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = fused_bwd.fm_bwd_segment_totals_plain(*args, cap=cap)
+    terms = fused_bwd.fm_bwd_sorted_deltas(*args, cap=cap)
+    exact = torch.stack([segsum.segment_totals_plain(d.double(), s, cap)
+                         for d, s in terms])
+    bound = 1e-5 * torch.stack([
+        segsum.segment_totals_plain(d.abs().double(), s, cap)
+        for d, s in terms])
+    del terms
+    _check(torch.equal(got, again), "fm_bwd past the cap: a repeat differs")
+    _check(bool(((got.double() - exact).abs() <= bound).all())
+           and bool(((want.double() - exact).abs() <= bound).all()),
+           "fm_bwd past the cap: kernel or plain version off the exact sums")
+    out["fm_bwd_past_cap"] = {
+        "store": "bfloat16", "compute": "bfloat16", "cap": cap,
+        "fields_past_cap": past, "segments_max": int(nseg.max()),
+        "lanes_past_cap": int((daux[4] >= cap).sum()),
+        "max_abs_err": float((got - want).abs().max()),
+        "max_abs_err_vs_exact": float((got.double() - exact).abs().max()),
+        "bitwise_repeat": True}
+    print("fm_bwd_past_cap", json.dumps(out["fm_bwd_past_cap"]), flush=True)
+    del urows, s1, ds, got, again, want, exact, bound, daux
+    torch.cuda.empty_cache()
     report["training_kernels"] = out
     return a_rows, b_rows
+
+
+def sr_bits_phase(dev, report):
+    """The SR bits kernel against its plain version (JAX's threefry
+    schedule in int64 ops, here on the card) at the compact update's
+    shape and config 4's row width; the step read from the device."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import srbits
+
+    step = torch.full((), 5, dtype=torch.int32, device=dev)
+    rows = []
+    for shape in ((CAP, WIDTH), (CAP, FFM_F * FFM_RANK + 1)):
+        def call(r, shape=shape):
+            return srbits.sr_bits(0x5EED, step, 7, shape, dev)
+
+        got, again = call(0), call(1)
+        plain = srbits.sr_bits_plain(0x5EED, step, 7, shape, dev)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, again) and torch.equal(got, plain),
+               f"sr_bits {shape}: kernel != plain version")
+        n = got.numel()
+        # The output written once; ~80 integer operations per element (20
+        # threefry rounds of add, rotate and xor, and the key injections),
+        # rated at the card's fp32 rate outside the tensor cores.
+        bms, bby = _bound_ms(4.0 * n, 80.0 * n)
+        row = {"shape": list(shape), "max_abs_err": 0, "bitwise": True,
+               "ms": _median_ms(call, hide_host_ms=2.0),
+               "call_ms": _median_ms(call),
+               "plain_ms": _median_ms(
+                   lambda r, shape=shape: srbits.sr_bits_plain(
+                       0x5EED, step, 7, shape, dev), hide_host_ms=5.0),
+               "library_ms": None, "bound_ms": bms, "bound_by": bby,
+               "bytes": 4 * n}
+        print("sr_bits", json.dumps(row), flush=True)
+        rows.append(row)
+    report["sr_bits"] = rows
+    return rows
 
 
 @contextlib.contextmanager
@@ -873,52 +993,6 @@ def _union_ms(on_dev) -> float:
     return busy / 1e3
 
 
-def _profile_steps(step, params, batch, aux, step0, n: int = 3) -> dict:
-    """``n`` steps on one device-resident batch under torch.profiler: the
-    wall time per step, the device's busy time per step (the union of its
-    kernel and copy intervals), its idle share, kernel launches per step,
-    and the kernels that take the most device time. Device figures read
-    "not measured" when the profiler records no device activity."""
-    import collections
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for j in range(n):
-            step(params, step0 + j, *batch, aux)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = prof.events()
-    launches = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                              "cuLaunchKernel", "cuLaunchKernelEx")
-                   for e in events) / n
-    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    # index_add by name: the ATen op on the host and its kernels
-    # (indexFuncSmallIndex / indexFuncLargeIndex) on the device.
-    index_add = sorted({e.name[:80] for e in events
-                        if e.name.startswith("aten::index_add")
-                        or "indexFunc" in e.name or "index_add" in e.name})
-    out = {"wall_ms_per_step": wall_ms, "launches_per_step": launches,
-           "index_add_events": index_add}
-    if not on_dev:
-        return {**out, "device_ms_per_step": "not measured",
-                "idle_share": "not measured"}
-    by_name = collections.Counter()
-    for e in on_dev:
-        by_name[e.name[:80]] += e.time_range.elapsed_us()
-    device_ms = _union_ms(on_dev) / n
-    return {**out, "device_ms_per_step": device_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "device_ops_per_step": len(on_dev) / n,
-            "top_kernels_ms_per_step": [[k, v / 1e3 / n] for k, v in
-                                        by_name.most_common(8)]}
-
-
 def train_phase(dev, report):
     """Both config-3 training legs through fit_field_sparse."""
     import numpy as np
@@ -926,7 +1000,7 @@ def train_phase(dev, report):
 
     from fm_spark_tpu_torch import models, sparse
     from fm_spark_tpu_torch.data import iterate_once
-    from fm_spark_tpu_torch.ops import fused_bwd, scatter, segsum
+    from fm_spark_tpu_torch.ops import fused_bwd, scatter, segsum, srbits
     from fm_spark_tpu_torch.train import (TrainConfig, evaluate_params,
                                           fit_field_sparse)
 
@@ -945,20 +1019,24 @@ def train_phase(dev, report):
         stats = {}
         torch.cuda.synchronize()
         # Counts start at 0 just before the main path and are read just after.
-        segsum.launches = fused_bwd.launches = 0
+        segsum.launches = fused_bwd.launches = srbits.launches = 0
         t0 = time.perf_counter()
         params = fit_field_sparse(spec, cfg, BenchStream(0), device=dev,
                                   stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # The warm-up step's launches (the replays run uncounted).
         counts = {"segment_totals": segsum.launches,
-                  "fm_bwd_segment_totals": fused_bwd.launches}
+                  "fm_bwd_segment_totals": fused_bwd.launches,
+                  "sr_bits": srbits.launches}
         loss = stats["loss"]
         _check(all(np.isfinite(loss)), f"{leg}: non-finite loss {loss}")
         _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
         mine = "segment_totals" if leg == "segtotal" else "fm_bwd_segment_totals"
-        _check(counts[mine] > 0, f"{leg}: {mine} never launched: {counts}")
+        _check(counts[mine] > 0 and counts["sr_bits"] > 0,
+               f"{leg}: {mine} or sr_bits never launched: {counts}")
         launches[mine] = counts[mine]
+        launches["sr_bits"] = launches.get("sr_bits", 0) + counts["sr_bits"]
         step_ms = statistics.median(stats["step_ms"][WARM_STEPS:])
 
         # One more step from the trained params, kernels vs plain versions.
@@ -990,8 +1068,10 @@ def train_phase(dev, report):
                and abs(float(params["w0"]) - float(copy["w0"])) < 1e-2,
                f"{leg}: kernel step != plain step (max |dw| {diff})")
         del copy
-        prof = _profile_steps(sparse.make_field_sparse_sgd_body(spec, cfg),
-                              params, batch, aux, TRAIN_STEPS + 1)
+        body = sparse.make_field_sparse_sgd_body(spec, cfg)
+        prof = _profile_calls(
+            lambda j: body(params, j, *batch, aux),
+            range(TRAIN_STEPS + 1, TRAIN_STEPS + 4))
         metrics = evaluate_params(spec, params, iterate_once(
             *BenchStream(2).next_batch()[:3], 16384))
         _check(np.isfinite(metrics["logloss"]), f"{leg}: eval {metrics}")
@@ -1003,7 +1083,6 @@ def train_phase(dev, report):
             "samples_per_s": TRAIN_B / (step_ms * 1e-3),
             "host_aux_ms_median": statistics.median(stats["aux_ms"]),
             "wall_s": wall, "launches": counts,
-            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
             "vs_plain_max_abs_diff": diff, "vs_plain_elements_differing": differ,
             "vs_plain_loss_diff": abs(float(lk) - float(lp)),
             "eval": metrics, "profile": prof,
@@ -1177,8 +1256,9 @@ def ffm_train_phase(dev, report):
         loss = stats["loss"]
         _check(all(np.isfinite(loss)), f"{leg}: non-finite loss {loss}")
         _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
-        _check(counts == {"ffm_sel_scores": TRAIN_STEPS,
-                          "ffm_sel_bwd": TRAIN_STEPS},
+        # One each in the warm-up step on clones of the params before the
+        # capture; the replays run them uncounted (phase 13 counts them).
+        _check(counts == {"ffm_sel_scores": 1, "ffm_sel_bwd": 1},
                f"{leg}: not one launch of each kernel per step: {counts}")
         for k in launches:
             launches[k] += counts[k]
@@ -1211,13 +1291,13 @@ def ffm_train_phase(dev, report):
                f"{leg}: kernel step != plain step (max |dw| {diff}, loss "
                f"{float(lk)} vs {float(lp)})")
         del copy
-        prof = _profile_steps(step, params, batch, None, TRAIN_STEPS + 1)
+        prof = _profile_calls(lambda j: step(params, j, *batch),
+                              range(TRAIN_STEPS + 1, TRAIN_STEPS + 4))
         row = {
             "leg": leg, "loss": loss, "step_ms": stats["step_ms"],
             "step_ms_median": step_ms,
             "samples_per_s": TRAIN_B / (step_ms * 1e-3),
             "wall_s": wall, "launches": counts,
-            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
             "vs_plain_max_abs_diff": diff, "vs_plain_loss": [float(lk), float(lp)],
             "profile": prof, "peak_mem_gb": peak,
         }
@@ -1454,11 +1534,11 @@ def pallas_train_phase(dev, report):
         loss = stats["loss"]
         _check(all(np.isfinite(loss)), f"{leg}: non-finite loss {loss}")
         _check(loss[-1] < loss[0], f"{leg}: loss did not fall: {loss}")
-        want = {"gather_rows": nf * TRAIN_STEPS,
-                "update_rows_add": nf * TRAIN_STEPS,
-                "segment_totals": nf * TRAIN_STEPS,
-                "ffm_sel_scores": TRAIN_STEPS if ffm else 0,
-                "ffm_sel_bwd": TRAIN_STEPS if ffm else 0}
+        # Per step, in the warm-up step on clones of the params before the
+        # capture; the replays run them uncounted (phase 13 counts them).
+        want = {"gather_rows": nf, "update_rows_add": nf,
+                "segment_totals": nf, "ffm_sel_scores": int(ffm),
+                "ffm_sel_bwd": int(ffm)}
         _check(got == want, f"{leg}: launches {got}, want {want}")
         for k in launches:
             launches[k] += got[k]
@@ -1504,7 +1584,8 @@ def pallas_train_phase(dev, report):
                f"{leg}: kernel step != plain step (max |dw| {diff}, loss "
                f"{float(lk)} vs {float(lp)})")
         del copy
-        prof = _profile_steps(step, params, batch, None, TRAIN_STEPS + 1)
+        prof = _profile_calls(lambda j: step(params, j, *batch),
+                              range(TRAIN_STEPS + 1, TRAIN_STEPS + 4))
         # The dedup sums through kernel A: no index_add_ is left in the
         # step, on the host or on the card.
         _check(not prof["index_add_events"],
@@ -1514,7 +1595,6 @@ def pallas_train_phase(dev, report):
             "step_ms_median": step_ms,
             "samples_per_s": TRAIN_B / (step_ms * 1e-3),
             "wall_s": wall, "launches": got,
-            "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
             "vs_plain_max_abs_diff": diff,
             "vs_plain_loss": [float(lk), float(lp)],
             "profile": prof, "peak_mem_gb": peak,
@@ -1524,6 +1604,381 @@ def pallas_train_phase(dev, report):
         del params, batch, step
         torch.cuda.empty_cache()
     report["pallas_train"] = out
+    return launches
+
+
+#: Host calls that put work on the card: kernel launches (by the runtime
+#: or the CUDA driver API), graph launches, and async copies and sets.
+_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+_HOST_LAUNCHES = _KERNEL_LAUNCHES + ("cudaGraphLaunch", "cudaMemcpyAsync",
+                                     "cudaMemsetAsync")
+
+
+#: Each kernel wrapper's one kernel symbol that runs once per launch of
+#: the wrapper (the other kernels of a wrapper, such as kernel A's fold or
+#: kernel B's transpose and carry passes, are not counted).
+KERNEL_SYMBOLS = {
+    "fm_fused_scores": ("fm_fused_fwd_kernel", "fm_fused_fwd_warp_kernel"),
+    "segment_totals": ("first_pass",),
+    "fm_bwd_segment_totals": ("bwd_first_pass",),
+    "ffm_sel_scores": ("ffm_fwd_kernel",),
+    "ffm_sel_bwd": ("ffm_bwd_kernel",),
+    "gather_rows": ("gather_elems",),
+    "update_rows_add": ("update_elems",),
+    "sr_bits": ("sr_bits_kernel",),
+}
+
+
+def _symbol_counts(on_dev):
+    """Device kernel events by wrapper, from their kernel symbols, whether
+    the trace names a kernel demangled or mangled (``first_pass`` is also
+    a part of ``bwd_first_pass``: the longest symbol found wins); and the
+    names seen for each wrapper."""
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    names = {k: set() for k in KERNEL_SYMBOLS}
+    for e in on_dev:
+        found = [(len(sym), k) for k, syms in KERNEL_SYMBOLS.items()
+                 for sym in syms if sym in e.name]
+        if found:
+            k = max(found)[1]
+            counts[k] += 1
+            names[k].add(e.name[:100])
+    return counts, {k: sorted(v) for k, v in names.items() if v}
+
+
+def _profile_calls(call, steps) -> dict:
+    """``call(step)`` for each step under torch.profiler: the wall time per
+    step, the device's busy time per step (the union of its kernel and
+    copy intervals) and its idle share, kernel launches and all host
+    launches per step (graph launches and async copies too), the kernels
+    that take the most device time, each port kernel's device events per
+    step by symbol (:data:`KERNEL_SYMBOLS`; a graph's replays included),
+    and any ``index_add`` on the host or the card. Device figures read
+    "not measured" when the profiler records no device activity.
+
+    The card's tracing may miss the first device work after it starts, so
+    the profile opens with a warm-up cycle (tracing on, its events
+    dropped: marker kernels and pauses) and reads only the steps' cycle;
+    range annotations are not device work."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        prof.step()
+        t0 = time.perf_counter()
+        for j in steps:
+            call(j)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(steps)
+        prof.step()
+    events = prof.events()
+    n = len(steps)
+    # index_add by name: the ATen op on the host and its kernels
+    # (indexFuncSmallIndex / indexFuncLargeIndex) on the device.
+    index_add = sorted({e.name[:80] for e in events
+                        if e.name.startswith("aten::index_add")
+                        or "indexFunc" in e.name or "index_add" in e.name})
+    out = {"wall_ms_per_step": wall_ms,
+           "launches_per_step": sum(e.name in _KERNEL_LAUNCHES
+                                    for e in events) / n,
+           "host_launches_per_step": sum(e.name in _HOST_LAUNCHES
+                                         for e in events) / n,
+           "graph_launches_per_step": sum(e.name == "cudaGraphLaunch"
+                                          for e in events) / n,
+           "index_add_events": index_add}
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("ProfilerStep")]
+    if not on_dev:
+        return {**out, "device_ms_per_step": "not measured",
+                "idle_share": "not measured"}
+    by_name = collections.Counter()
+    for e in on_dev:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    device_ms = _union_ms(on_dev) / n
+    runs, run_names = _symbol_counts(on_dev)
+    return {**out, "device_ms_per_step": device_ms,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "device_ops_per_step": len(on_dev) / n,
+            "kernel_runs_per_step": {k: v / n for k, v in runs.items()},
+            "kernel_names": run_names,
+            "top_kernels_ms_per_step": [[k, v / 1e3 / n] for k, v in
+                                        by_name.most_common(8)]}
+
+
+def _same_params(a, b) -> bool:
+    return _same_bits(a["w0"], b["w0"]) and all(
+        _same_bits(x, y) for x, y in zip(a["vw"], b["vw"]))
+
+
+def _blocked_sums_ab(dev, report):
+    """The compact update's blocked-prefix segment sums on one field of the
+    bench batch (B = 131,072, cap 12,288, w = 65, fp32), in three forms:
+    the parent tree's two ``torch.cumsum`` calls, the XLA-order prefix by
+    one add per element of a run (the form first written for the CPU's
+    bit parity) and the package's (a ``cumsum`` per run level on the
+    card). The last two must give the same bits, and those of the CPU;
+    device-busy ms and device ops per call from the profiler."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import scatter
+
+    ids = BenchStream(0).next_batch()[0]
+    caux = scatter.compact_aux(ids[:, :1], CAP)
+    start, end = (torch.from_numpy(a[0]).to(dev) for a in caux[1:3])
+    g = torch.Generator(device=dev).manual_seed(3)
+    sdelta = torch.randn(TRAIN_B, WIDTH, generator=g, device=dev) * 1e-3
+    blk = 512
+
+    def parent(x, dim):
+        return torch.cumsum(x, dim)
+
+    def adds(x, dim):
+        x = x.movedim(dim, 0)
+        n = x.shape[0]
+        if n <= 16:
+            parts = list(x.unbind(0))
+            for j in range(1, n):
+                parts[j] = parts[j - 1] + parts[j]
+            return torch.stack(parts, 0).movedim(0, dim)
+        pad = (-n) % 16
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))], 0)
+        runs = adds(x.reshape(-1, 16, *x.shape[1:]), 1)
+        off = adds(runs[:, -1], 0)
+        off = torch.cat([torch.zeros_like(off[:1]), off[:-1]], 0)
+        return (runs + off[:, None]).reshape(-1, *x.shape[1:])[:n].movedim(
+            0, dim)
+
+    def sums(prefix):
+        bl = prefix(sdelta.reshape(-1, blk, WIDTH), 1)
+        off = prefix(bl[:, -1, :], 0)
+        off = torch.cat([torch.zeros_like(off[:1]), off[:-1]], 0)
+        at = lambda p: bl[p // blk, p % blk] + off[p // blk]
+        s, e = start.long(), end.long()
+        return at(e) - at(s) + sdelta[s]
+
+    forms = {"parent_cumsum": lambda: sums(parent),
+             "per_element_adds": lambda: sums(adds),
+             "run_cumsum": lambda: scatter._blocked_segment_sums(
+                 sdelta, start, end)}
+    got = {k: f() for k, f in forms.items()}
+    cpu = scatter._blocked_segment_sums(sdelta.cpu(), start.cpu(), end.cpu())
+    torch.cuda.synchronize()
+    bits = lambda t: t.cpu().view(torch.int32)
+    _check(torch.equal(bits(got["run_cumsum"]), bits(got["per_element_adds"]))
+           and torch.equal(bits(got["run_cumsum"]), bits(cpu)),
+           "blocked prefix: the card's run cumsum != the per-element adds")
+    out = {"shape": f"one field, B={TRAIN_B}, cap={CAP}, w={WIDTH}, fp32",
+           "bitwise_equal_adds_and_cpu": True}
+    for k, f in forms.items():
+        prof = _profile_calls(lambda j, f=f: f(), range(5))
+        out[k] = {"device_ms": prof["device_ms_per_step"],
+                  "device_ops": prof.get("device_ops_per_step"),
+                  "launches": prof["launches_per_step"],
+                  "max_abs_diff_vs_package": float(
+                      (got[k] - got["run_cumsum"]).abs().max())}
+    print("blocked_sums", json.dumps(out), flush=True)
+    report["blocked_sums"] = out
+
+
+def capture_phase(dev, report):
+    """Phase 13: each training leg eagerly on one copy of the params and
+    captured (one CUDA graph, replayed) on another, from the same seed and
+    batches, the same bits after every step; then the roll of 4 over 7
+    steps on one leg."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.ops import kernel_launches
+    from fm_spark_tpu_torch.ops import scatter
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    fm_bf16 = models.FieldFMSpec(
+        num_features=F * BUCKET, rank=RANK, num_fields=F, bucket=BUCKET,
+        init_std=0.01, param_dtype="bfloat16", compute_dtype="bfloat16")
+    fm_fp32 = models.FieldFMSpec(num_features=F * BUCKET, rank=RANK,
+                                 num_fields=F, bucket=BUCKET, init_std=0.01)
+    ffm = models.FieldFFMSpec(
+        num_features=FFM_F * FFM_BUCKET, rank=FFM_RANK, num_fields=FFM_F,
+        bucket=FFM_BUCKET, init_std=0.01, compute_dtype="bfloat16")
+    # The inverse-sqrt schedule: the learning rate moves every step, read
+    # by the graph from its step counter on the card.
+    common = dict(batch_size=TRAIN_B, learning_rate=0.05, reg_factors=1e-6)
+    sr = dict(common, sparse_update="dedup_sr")
+    pallas = dict(common, sparse_update="scatter_add", use_pallas=True)
+    legs = (
+        # The plain compact form: the blocked prefix's segment sums in
+        # PyTorch (no segtotal_pallas, no fused backward).
+        ("compact", fm_bf16, TrainConfig(**sr, host_dedup=True,
+                                         compact_cap=CAP), ("sr_bits",)),
+        ("segtotal", fm_bf16, TrainConfig(**sr, host_dedup=True,
+                                          compact_cap=CAP, gfull_fused=True,
+                                          segtotal_pallas=True),
+         ("segment_totals", "sr_bits")),
+        ("fusedbwd", fm_bf16, TrainConfig(**sr, host_dedup=True,
+                                          compact_cap=CAP,
+                                          fused_embed="require"),
+         ("fm_bwd_segment_totals", "sr_bits")),
+        ("devaux", fm_bf16, TrainConfig(**sr, compact_device=True,
+                                        compact_cap=CAP, gfull_fused=True,
+                                        segtotal_pallas=True),
+         ("segment_totals", "sr_bits")),
+        ("fm-pallas", fm_fp32, TrainConfig(**pallas),
+         ("gather_rows", "update_rows_add", "segment_totals")),
+        ("ffm-selblk-pallas-rows", ffm,
+         TrainConfig(**pallas, sel_blocked=True, fused_embed="require"),
+         ("gather_rows", "update_rows_add", "segment_totals",
+          "ffm_sel_scores", "ffm_sel_bwd")),
+    )
+    _blocked_sums_ab(dev, report)
+    total = TRAIN_STEPS + PROFILED_STEPS
+    out, launches = {}, {}
+    for leg, spec, cfg, kernels in legs:
+        ffm_leg = spec is ffm
+        stream = (BenchStream(0, TRAIN_B, FFM_F, FFM_BUCKET) if ffm_leg
+                  else BenchStream(0))
+        batches = []
+        for _ in range(total):
+            ids, vals, labels, weights = stream.next_batch()
+            aux = None
+            if cfg.host_dedup:
+                aux = tuple(torch.from_numpy(a).to(dev)
+                            for a in scatter.compact_aux(ids, cfg.compact_cap))
+            batches.append((*(torch.from_numpy(a).to(dev)
+                              for a in (ids, vals, labels, weights)), aux))
+        body = (sparse.make_field_ffm_sparse_sgd_body if ffm_leg
+                else sparse.make_field_sparse_sgd_body)(spec, cfg)
+        step = (sparse.make_field_ffm_sparse_sgd_step if ffm_leg
+                else sparse.make_field_sparse_sgd_step)(spec, cfg)
+        eager = spec.init(torch.Generator(device=dev).manual_seed(21), dev)
+        graphed = {"w0": eager["w0"].clone(),
+                   "vw": [t.clone() for t in eager["vw"]]}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = {"eager": [], "captured": []}
+        losses = []
+        # The wrappers' counts of the eager steps, and of the captured
+        # calls after the first (the replays: none may count).
+        counted = {"eager": dict.fromkeys(kernel_launches(), 0),
+                   "replays": dict.fromkeys(kernel_launches(), 0)}
+
+        def run(mode, j):
+            nonlocal eager, graphed
+            before = kernel_launches()
+            if mode == "eager":
+                eager, loss = body(eager, j, *batches[j])
+            else:
+                graphed, loss = step(graphed, j, *batches[j])
+            if j < TRAIN_STEPS and (mode == "eager" or j > 0):
+                after = kernel_launches()
+                into = counted["eager" if mode == "eager" else "replays"]
+                for k in into:
+                    into[k] += after[k] - before[k]
+            return loss
+
+        for j in range(TRAIN_STEPS):
+            for mode in ("eager", "captured"):
+                t0 = time.perf_counter()
+                loss = run(mode, j)
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+                if mode == "eager":
+                    le = loss
+            _check(torch.equal(le.view(torch.int32), loss.view(torch.int32))
+                   and _same_params(eager, graphed),
+                   f"{leg}: captured step {j} != eager step "
+                   f"(loss {float(loss)} vs {float(le)})")
+            losses.append(float(le))
+        _check(all(np.isfinite(losses)), f"{leg}: non-finite loss {losses}")
+        _check(len(step.captured.capture_s) == 1,
+               f"{leg}: captured {len(step.captured.capture_s)} times")
+        per_step = {k: v / TRAIN_STEPS for k, v in counted["eager"].items()}
+        missing = [k for k in kernels if per_step[k] <= 0]
+        _check(not missing, f"{leg}: never launched {missing}: {per_step}")
+        _check(not any(counted["replays"].values()),
+               f"{leg}: the replays counted launches {counted['replays']}")
+        prof = {mode: _profile_calls(
+            lambda j, mode=mode: run(mode, j), range(TRAIN_STEPS, total))
+            for mode in ("eager", "captured")}
+        torch.cuda.synchronize()
+        _check(_same_params(eager, graphed),
+               f"{leg}: captured != eager after the profiled steps")
+        # The replays' kernels, counted on the card by symbol: each of the
+        # leg's kernels runs at least once per replayed step, and no port
+        # kernel more often than the eager step launches it. The trace misses a
+        # gather_rows record now and then, in eager profiles too (where
+        # the wrapper's count is exact), so a count may fall short of the
+        # launches; both are kept.
+        replayed = prof["captured"].get("kernel_runs_per_step")
+        _check(replayed is not None
+               and all(replayed[k] >= 1 for k in kernels)
+               and all(replayed[k] <= per_step[k] for k in per_step),
+               f"{leg}: kernel runs per replay {replayed}, launches per "
+               f"eager step {per_step}")
+        row = {
+            "leg": leg, "loss": losses,
+            "capture_s": step.captured.capture_s[0],
+            "wall_ms": walls,
+            "wall_ms_median_steps_3_7": {
+                m: statistics.median(w[WARM_STEPS:]) for m, w in walls.items()},
+            "profile_steps_8_10": prof,
+            # The wrappers' count per eager step, and the profiler's count
+            # of each kernel's runs per replay.
+            "launches_per_eager_step": {k: per_step[k] for k in kernels},
+            "kernel_runs_per_replay": {k: replayed[k] for k in kernels},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "bitwise_equal_every_step": True,
+        }
+        print("capture", json.dumps(row), flush=True)
+        out[leg] = row
+        for k in kernels:
+            launches.setdefault(k, {})[leg] = replayed[k]
+
+        if leg == "fusedbwd":
+            # The roll: a graph of 4 steps and one of the tail of 3 against
+            # 7 eager steps from fresh params.
+            mstep = sparse.make_field_sparse_multistep(spec, cfg, 4)
+            eager = spec.init(torch.Generator(device=dev).manual_seed(22),
+                              dev)
+            graphed = {"w0": eager["w0"].clone(),
+                       "vw": [t.clone() for t in eager["vw"]]}
+            le = []
+            for j in range(TRAIN_STEPS):
+                eager, loss = body(eager, j, *batches[j])
+                le.append(loss)
+            got = []
+            for lo, hi in ((0, 4), (4, TRAIN_STEPS)):
+                group = batches[lo:hi]
+                stacked = [torch.stack(p) for p in zip(*[g[:4] for g in group])]
+                aux = tuple(torch.stack(a) for a in zip(*[g[4] for g in group]))
+                graphed, loss = mstep(graphed, lo, hi - lo, *stacked, aux)
+                got.append(loss)
+            torch.cuda.synchronize()
+            _check(torch.equal(got[0], le[3]) and torch.equal(got[1], le[-1])
+                   and _same_params(eager, graphed),
+                   "roll of 4 over 7 steps != 7 eager steps")
+            out["roll"] = {"leg": leg, "n": 4, "steps": TRAIN_STEPS,
+                           "graphs": len(mstep.captured.capture_s),
+                           "capture_s": mstep.captured.capture_s,
+                           "bitwise_equal": True}
+            print("capture_roll", json.dumps(out["roll"]), flush=True)
+            del mstep
+        del eager, graphed, body, step, batches
+        torch.cuda.empty_cache()
+    report["capture"] = out
     return launches
 
 
@@ -1569,6 +2024,8 @@ def main() -> int:
     ffm_launches = ffm_train_phase(dev, report)
     row_rows = row_kernel_phase(dev, report)
     pallas_launches = pallas_train_phase(dev, report)
+    sr_rows = sr_bits_phase(dev, report)
+    capture_launches = capture_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -1682,6 +2139,27 @@ def main() -> int:
                           f"{r['unique_max']} distinct ids, w={r['width']}, "
                           f"{r['dtype']}")}
         kernels["kernels"].append(entry)
+    # The SR bits at the compact update's shape; launches from phase 13's
+    # captured legs.
+    kernels["kernels"].append({
+        "name": "sr_bits", "route": "cuda",
+        "source": "fm_spark_tpu_torch/csrc/sr_bits.cu",
+        "replaces": "fm_spark_tpu/ops/scatter.py:67",
+        "note": "jax.random.bits of the dedup_sr write; no Pallas kernel",
+        "launches": train_launches["sr_bits"],
+        "max_abs_err": 0,
+        **{k: sr_rows[0][k] for k in ("ms", "call_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+        "shape": f"[{CAP}, {WIDTH}] int32",
+        "ffm_width": {k: sr_rows[1][k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    })
+    # Each kernel's runs per replayed step of phase 13's captured legs, as
+    # the profiler counts them by kernel symbol.
+    for entry in kernels["kernels"]:
+        entry["runs_per_captured_step"] = capture_launches.get(entry["name"],
+                                                               {})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -3,7 +3,8 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI on synthetic data:
 
 - ``train --config NAME --synthetic N --steps S --batch-size B ...``
   trains a FieldFM or FieldFFM config (``field_sparse`` strategy) on
-  ``N`` seeded examples with the fused sparse-SGD step, printing one JSON loss line
+  ``N`` seeded examples with the fused sparse-SGD step (on the card a
+  captured CUDA graph per step), printing one JSON loss line
   every ``--log-every`` steps, then ``{"eval": {...}}`` on the held-out
   ``--test-fraction`` and ``{"saved": DIR}`` with ``--model-out``;
 - ``eval --model DIR --synthetic N`` prints the model's metrics on
@@ -49,16 +50,9 @@ def _synthetic_for_model(spec, n: int):
 
 
 def _launches() -> dict:
-    from fm_spark_tpu_torch.ops import (ffm_sel, fused_bwd, fused_fwd, rows,
-                                        segsum)
+    from fm_spark_tpu_torch.ops import kernel_launches
 
-    return {"fm_fused_scores": fused_fwd.launches,
-            "segment_totals": segsum.launches,
-            "fm_bwd_segment_totals": fused_bwd.launches,
-            "ffm_sel_scores": ffm_sel.scores_launches,
-            "ffm_sel_bwd": ffm_sel.bwd_launches,
-            "gather_rows": rows.gather_launches,
-            "update_rows_add": rows.update_launches}
+    return kernel_launches()
 
 
 def _since(before: dict) -> dict:
@@ -87,8 +81,14 @@ def cmd_train(args) -> int:
         num_steps=args.steps, batch_size=args.batch_size,
         log_every=args.log_every, sparse_update=args.sparse_update,
         host_dedup=args.host_dedup, compact_cap=args.compact_cap,
+        compact_device=args.compact_device,
+        compact_overflow=args.compact_overflow,
         gfull_fused=args.gfull_fused, segtotal_pallas=args.segtotal_pallas,
         sel_blocked=args.sel_blocked, fused_embed=args.fused_embed)
+    if tconfig.compact_overflow != "error" and tconfig.compact_cap <= 0:
+        # The reference's guard (cli_levers._v_overflow_needs_cap).
+        raise SystemExit(f"--compact-overflow {tconfig.compact_overflow} has "
+                         "no effect without --compact-cap")
     spec = cfg.spec()
     if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
         # The reference's lever rule; the port's CLI trains on one device.
@@ -192,6 +192,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build the dedup aux on the host (the compact aux "
                         "with --compact-cap)")
     t.add_argument("--compact-cap", type=int, default=None)
+    t.add_argument("--compact-device", action="store_true", default=None,
+                   help="build the compact aux on the card inside the step "
+                        "(no host aux). Needs --compact-cap and a dedup "
+                        "--sparse-update; exclusive with --host-dedup")
+    t.add_argument("--compact-overflow", choices=["error", "drop", "split"],
+                   help="when a field's unique ids exceed --compact-cap: "
+                        "error (default; the device aux poisons the loss "
+                        "to -inf), drop (device aux: overflow ids behave "
+                        "as absent features), split (host aux; not "
+                        "ported yet)")
     t.add_argument("--gfull-fused", action="store_true", default=None)
     t.add_argument("--segtotal-pallas", action="store_true", default=None,
                    help="segment sums by the segment-totals kernel")

@@ -208,8 +208,9 @@ struct BwdArgs {
     const void* ds;            // [n] compute dtype
     const float* vals;         // [F, n]: vals transposed by transpose_vals
     const float* weights;      // [n]
+    const float* neg_lr;       // one fp32 on the device: -lr of the step
     int n, fields, width, cap, k, subgroups;
-    float neg_lr, rv_factors, rv_linear;
+    float rv_factors, rv_linear;
 };
 
 struct __align__(16) Lane {
@@ -400,7 +401,7 @@ __global__ void __launch_bounds__(kMaxItems, CD_BF16 ? 6 : 5)
     float* fout = out + static_cast<size_t>(f) * p.cap * w;
     if (active && lo < hi) {
         const bool masked = col < p.k;       // the column takes -x*u
-        const float neg_lr = p.neg_lr;
+        const float neg_lr = __ldg(p.neg_lr);
         const StBits* rows = s_rows + col;
         const int first = s_lane[lo].roff;
         int cur = first;
@@ -670,18 +671,22 @@ extern "C" {
 // [fields, batch] fp32 (vals transposed here). rv_factors / rv_linear are
 // already rounded to the compute dtype. out: [fields, cap, width] fp32
 // (every row written here). scratch: at least fm_bwd_scratch_rows(batch)
-// rows per field. Launches on `stream` of `device`, returns cudaGetLastError();
+// rows per field. neg_lr points to one fp32 on the device (-lr of the
+// step): read there, not passed by value, so a captured CUDA graph of the
+// step takes each replay's learning rate. Launches on `stream` of
+// `device`, returns cudaGetLastError();
 // does not synchronise.
 int fm_fused_bwd(const void* const* urows_ptrs, int fields, int cap,
                  int width, int store_bf16, int cd_bf16, const int* order,
                  const int* inv, const void* s1, const void* ds,
                  const float* vals, float* vals_t, const float* weights,
                  int batch,
-                 float neg_lr, int use_rv, float rv_factors, float rv_linear,
+                 const float* neg_lr, int use_rv, float rv_factors,
+                 float rv_linear,
                  float* out, int* scratch_seg, float* scratch_val,
                  long long scratch_rows, void* stream, int device) {
     if (fields < 1 || fields > FM_BWD_MAX_FIELDS || cap < 1 || width < 2 ||
-        width > SEG_MAX_WIDTH || batch < 1 ||
+        width > SEG_MAX_WIDTH || batch < 1 || neg_lr == nullptr ||
         scratch_rows < segscan::scratch_rows(batch) * fields) {
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -58,14 +58,19 @@ SIGNATURES = {
     },
     "fm_fused_bwd": {
         # urows, F, cap, width, store_bf16, cd_bf16, order, inv, s1, ds,
-        # vals, vals_t, weights, batch, neg_lr, use_rv, rv_factors,
+        # vals, vals_t, weights, batch, neg_lr (device), use_rv, rv_factors,
         # rv_linear, out, scratch_seg, scratch_val, scratch_rows, stream,
         # device
         "fm_fused_bwd": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _I, _F, _I, _F, _F, _P, _P, _P, _L,
+                              _P, _P, _I, _P, _I, _F, _F, _P, _P, _P, _L,
                               _P, _I]),
         "fm_bwd_scratch_rows": (_L, [_I]),
         "fm_bwd_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "sr_bits": {
+        # step (device int32), seed, field, count, out, stream, device
+        "sr_bits": (_I, [_P, ctypes.c_uint, ctypes.c_uint, _L, _P, _P, _I]),
+        "sr_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "ffm_sel": {
         # rows, vals, out, batch, fields, rank, is_bf16, stream, device

@@ -33,6 +33,8 @@ MAX_SMEM_BYTES = 232_448
 
 #: Kernel launches made by :func:`ffm_sel_scores` / :func:`ffm_sel_bwd` in
 #: this process.
+#: A call that a CUDA graph records is no launch: the graph's replays
+#: launch the kernel, past the wrapper.
 scores_launches = 0
 bwd_launches = 0
 _launch_lock = threading.Lock()
@@ -140,7 +142,7 @@ def ffm_sel_bwd_plain(rows_stacked, vals, dscores):
     for i in range(num_fields):
         selt_i = r[:, :, i, :] * x[:, :, None]
         dsel_i = ds[:, None, None] * selt_i
-        dsel_i[:, i, :] = 0
+        dsel_i[:, i, :].zero_()
         out[:, i, :] = (dsel_i * x[:, i, None, None]).reshape(b, -1)
     return out
 
@@ -187,8 +189,9 @@ def ffm_sel_scores(rows_stacked, vals):
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "ffm_sel_fwd", err)
     global scores_launches
-    with _launch_lock:
-        scores_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            scores_launches += 1
     return acc.to(vals.dtype)
 
 
@@ -210,6 +213,7 @@ def ffm_sel_bwd(rows_stacked, vals, dscores):
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "ffm_sel_bwd", err)
     global bwd_launches
-    with _launch_lock:
-        bwd_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            bwd_launches += 1
     return out

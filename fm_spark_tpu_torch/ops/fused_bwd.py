@@ -15,6 +15,7 @@ on the CPU.
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 
 import torch
@@ -25,13 +26,15 @@ from fm_spark_tpu_torch.ops.segsum import segment_totals_plain
 __all__ = ["MAX_FIELDS", "MAX_WIDTH", "fm_bwd_segment_totals",
            "fm_bwd_segment_totals_plain", "fm_bwd_sorted_deltas",
            "fm_bwd_supported", "gfull",
-           "launches", "rv_vector"]
+           "launches", "round_to", "rv_vector"]
 
 #: Limits of the kernel (FM_BWD_MAX_FIELDS and SEG_MAX_WIDTH in the source).
 MAX_FIELDS = 64
 MAX_WIDTH = 128
 
 #: Kernel launches made by :func:`fm_bwd_segment_totals` in this process.
+#: A call that a CUDA graph records is no launch: the graph's replays
+#: launch the kernel, past the wrapper.
 launches = 0
 _launch_lock = threading.Lock()
 
@@ -73,12 +76,29 @@ def gfull(rows, xv_full, s1, ds, x, touched, rv, colmask):
     return g
 
 
+def round_to(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (float32 or bf16) as ``torch.tensor(
+    value, dtype=dtype)`` rounds it (to float32, then to nearest even in
+    bf16), in plain Python: no tensor op, so a captured step may call it."""
+    (bits,) = struct.unpack("<I", struct.pack("<f", value))
+    if dtype == torch.bfloat16 and (bits & 0x7F800000) != 0x7F800000:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    elif dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"round_to takes float32 or bfloat16, not {dtype}")
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 def rv_vector(rv, k, cd, device):
     """The per-column reg vector ``[k+1]`` of a ``(factor, linear)`` pair
-    (None stays None)."""
+    (None stays None), made on ``device`` by fills, not copied from the
+    host (a captured step may build it). Each value is rounded to ``cd``
+    on the host first, as JAX rounds the list it is given."""
     if rv is None:
         return None
-    return torch.tensor([rv[0]] * k + [rv[1]], dtype=cd, device=device)
+    factor, linear = (round_to(r, cd) for r in rv)
+    out = torch.full((k + 1,), factor, dtype=cd, device=device)
+    out[k:].fill_(linear)
+    return out
 
 
 def _check(urows, s1, dscores, vals, weights, order, inv, cap):
@@ -112,7 +132,7 @@ def _check(urows, s1, dscores, vals, weights, order, inv, cap):
 
 
 def fm_bwd_sorted_deltas(urows, s1, dscores, vals, weights, order, inv,
-                         neg_lr: float, rv=None, *, cap: int):
+                         neg_lr, rv=None, *, cap: int):
     """Per field, the unique rows expanded by ``inv`` (a zero row past
     ``cap``), :func:`gfull` and ``neg_lr·g`` in float32, reordered by
     ``order``: a list of F ``(sdelta [B, k+1] float32, seg [B] int32)``
@@ -141,7 +161,7 @@ def fm_bwd_sorted_deltas(urows, s1, dscores, vals, weights, order, inv,
 
 
 def fm_bwd_segment_totals_plain(urows, s1, dscores, vals, weights, order,
-                                inv, neg_lr: float, rv=None, *, cap: int):
+                                inv, neg_lr, rv=None, *, cap: int):
     """Plain PyTorch version: :func:`fm_bwd_sorted_deltas` summed per
     segment by :func:`~fm_spark_tpu_torch.ops.segsum.segment_totals_plain`.
     Returns ``[F, cap, k+1]`` float32."""
@@ -152,7 +172,7 @@ def fm_bwd_segment_totals_plain(urows, s1, dscores, vals, weights, order,
 
 
 def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
-                          neg_lr: float, rv=None, *, cap: int):
+                          neg_lr, rv=None, *, cap: int):
     """Segment totals of ``neg_lr·g_full`` for every field, ``[F, cap, k+1]``
     float32, with the gradient never materialised.
 
@@ -161,7 +181,10 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
     compute dtype; ``vals`` ``[B, F]`` and ``weights`` ``[B]`` float32
     (touched = weights > 0); ``order``/``inv`` ``[F, B]`` int32 from the
     compact aux, unsorted streams read through them. ``neg_lr`` is a
-    float32 value; ``rv`` the ``(factor, linear)`` column regs or None.
+    float32 value, as a Python float or a 0-dim float32 tensor on the
+    device (the kernel reads it there, so a captured step takes each
+    replay's learning rate); ``rv`` the ``(factor, linear)`` column regs
+    or None.
     """
     urows = list(urows)
     _check(urows, s1, dscores, vals, weights, order, inv, cap)
@@ -183,8 +206,14 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
 
     lib = build.load("fm_fused_bwd")
     cd = s1.dtype
-    rv_f, rv_l = (0.0, 0.0) if rv is None else (
-        float(torch.tensor(r, dtype=cd)) for r in rv)
+    rv_f, rv_l = (0.0, 0.0) if rv is None else (round_to(r, cd) for r in rv)
+    if isinstance(neg_lr, torch.Tensor):
+        if (neg_lr.shape != () or neg_lr.dtype != torch.float32
+                or neg_lr.device != dev):
+            raise ValueError(f"fm_bwd_segment_totals: neg_lr must be a 0-dim "
+                             f"float32 tensor on {dev}")
+    else:
+        neg_lr = torch.full((), neg_lr, dtype=torch.float32, device=dev)
     rows = lib.fm_bwd_scratch_rows(b) * num_fields
     out = torch.empty(num_fields, cap, w, dtype=torch.float32, device=dev)
     cseg = torch.empty(rows, dtype=torch.int32, device=dev)
@@ -195,7 +224,8 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
         ctypes.cast(ptrs, ctypes.c_void_p), num_fields, cap, w,
         int(urows[0].dtype == torch.bfloat16), int(cd == torch.bfloat16),
         order.data_ptr(), inv.data_ptr(), s1.data_ptr(), dscores.data_ptr(),
-        vals.data_ptr(), vals_t.data_ptr(), weights.data_ptr(), b, neg_lr,
+        vals.data_ptr(), vals_t.data_ptr(), weights.data_ptr(), b,
+        neg_lr.data_ptr(),
         int(rv is not None), rv_f, rv_l, out.data_ptr(), cseg.data_ptr(),
         cval.data_ptr(), rows,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
@@ -204,6 +234,7 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
             f"fm_fused_bwd launch failed: CUDA error {err} "
             f"({lib.fm_bwd_cuda_error_string(err).decode()})")
     global launches
-    with _launch_lock:
-        launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            launches += 1
     return out

@@ -31,6 +31,8 @@ __all__ = ["PARAM_FIELDS", "fm_fused_scores", "fm_fused_scores_plain",
 PARAM_FIELDS = 64
 
 #: Kernel launches made by :func:`fm_fused_scores` in this process.
+#: A call that a CUDA graph records is no launch: the graph's replays
+#: launch the kernel, past the wrapper.
 launches = 0
 _launch_lock = threading.Lock()
 
@@ -148,6 +150,7 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
             f"fm_fused_fwd launch failed: CUDA error {err} "
             f"({lib.fm_cuda_error_string(err).decode()})")
     global launches
-    with _launch_lock:
-        launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            launches += 1
     return scores, acc

@@ -32,6 +32,8 @@ __all__ = ["gather_launches", "gather_rows", "gather_rows_plain",
 
 #: Kernel launches made by :func:`gather_rows` / :func:`update_rows_add` in
 #: this process.
+#: A call that a CUDA graph records is no launch: the graph's replays
+#: launch the kernel, past the wrapper.
 gather_launches = 0
 update_launches = 0
 _launch_lock = threading.Lock()
@@ -127,24 +129,33 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                           dev.index)
     _raise_on(lib, "rows_gather", err)
     global gather_launches
-    with _launch_lock:
-        gather_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            gather_launches += 1
     return out
 
 
 def update_rows_add_plain(table, ids, valid, delta, count=None):
-    """Plain PyTorch version of :func:`update_rows_add` (boolean masks and
-    a read of ``count``: the host's version, never on the card's path)."""
+    """Plain PyTorch version of :func:`update_rows_add`, with no read on
+    the host: every lane writes, to its id clamped into the table, the
+    value its row ends with (a kept lane's sum, else the row as it is), so
+    lanes that share a row agree."""
     _check_update(table, ids, valid, delta, count)
-    n = table.shape[0]
+    n, b = table.shape[0], ids.shape[0]
+    lane = torch.arange(b, device=ids.device)
     keep = (ids >= 0) & (ids < n)
     if valid is not None:
         keep &= valid != 0
     if count is not None:
-        keep &= torch.arange(ids.shape[0], device=ids.device) < int(count)
-    idx = ids[keep].long()
-    table[idx] = (table[idx].float() + delta[keep].float()).to(table.dtype)
-    return table
+        keep &= lane < count
+    idx = ids.long().clamp(0, n - 1)
+    summed = (table[idx].float() + delta.float()).to(table.dtype)
+    owner = torch.full((n,), -1, dtype=torch.int64, device=ids.device)
+    owner.scatter_reduce_(0, idx, torch.where(keep, lane, -1), reduce="amax")
+    src = owner[idx]
+    final = torch.where((src >= 0)[:, None], summed[src.clamp(min=0)],
+                        table[idx])
+    return table.index_copy_(0, idx, final)
 
 
 def update_rows_add(table: torch.Tensor, ids: torch.Tensor,
@@ -181,6 +192,7 @@ def update_rows_add(table: torch.Tensor, ids: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "rows_update_add", err)
     global update_launches
-    with _launch_lock:
-        update_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            update_launches += 1
     return table

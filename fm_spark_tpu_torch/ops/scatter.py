@@ -31,11 +31,16 @@ JAX, an id in ``[-n, 0)`` counts from the end on the XLA-path writes, and
 the Pallas path drops it (:func:`_pallas_dedup_add`) where
 :func:`pallas_gather` clamps it to row 0.
 
-SR noise: JAX draws threefry bits per (step, field) key. The port draws
-them from a ``torch.Generator`` on the device seeded from (seed + 0x5EED,
-step, field), so a re-run or resume draws the same bits, which equal
-JAX's in distribution only; :func:`stochastic_round` takes the bits as an
-argument so tests can inject JAX's.
+SR noise: :class:`SrNoise` draws JAX's own threefry bits per (step,
+field) key from ``seed + 0x5EED`` (``ops.srbits``: a kernel on the card,
+its plain version on the CPU), so a bf16 ``dedup_sr`` write rounds as the
+JAX step's does; :func:`stochastic_round` takes the bits as an argument
+so tests can inject others.
+
+Device aux: :func:`device_compact_aux` builds the compact aux inside the
+step (``compact_device``) with no host round trip: one batched stable
+sort of the ``[F, B]`` ids, scatters into ``cap + 1`` slots whose last
+one takes the dropped lanes, and nothing that reads a size on the host.
 
 Host aux: :func:`compact_aux` and :func:`dedup_aux` run the native
 counting sort (``fm_spark_tpu_torch.native``) where its scratch fits
@@ -54,11 +59,13 @@ import torch
 from fm_spark_tpu_torch import native
 from fm_spark_tpu_torch.ops import rows as rows_lib
 from fm_spark_tpu_torch.ops import segsum as segsum_lib
+from fm_spark_tpu_torch.ops import srbits
 
 __all__ = ["SPARSE_UPDATE_MODES", "CompactCapOverflow", "SrNoise",
            "apply_row_updates", "compact_apply", "compact_apply_totals",
            "compact_aux", "compact_aux_plain", "compact_gather", "dedup_aux",
-           "dedup_aux_plain", "pallas_gather", "stochastic_round"]
+           "dedup_aux_plain", "device_compact_aux", "pallas_gather",
+           "stochastic_round"]
 
 SPARSE_UPDATE_MODES = ("scatter_add", "dedup", "dedup_sr")
 
@@ -69,29 +76,19 @@ class CompactCapOverflow(ValueError):
     """A field's per-batch unique-id count exceeded ``compact_cap``."""
 
 
-def _mix64(z: int) -> int:
-    """splitmix64's finaliser: a well-spread 64-bit hash of ``z``."""
-    z &= 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return z ^ (z >> 31)
-
-
 class SrNoise:
     """SR noise bits: ``noise(step, field, shape)`` → int32 values in
-    ``[0, 65536)`` on ``device``, deterministic in (seed, step, field).
-    ``seed`` is the config's ``seed + 0x5EED``, as the reference's key."""
+    ``[0, 65536)`` on ``device``, JAX's ``jax.random.bits(sr_key(key(seed),
+    step, field), shape) & 0xFFFF`` (:func:`~fm_spark_tpu_torch.ops.srbits
+    .sr_bits`). ``seed`` is the config's ``seed + 0x5EED``, as the
+    reference's key; ``step`` an int or a 0-dim int tensor on ``device``."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
         self.device = torch.device(device)
-        self._gen = torch.Generator(device=self.device)
 
-    def __call__(self, step: int, field: int, shape) -> torch.Tensor:
-        s = _mix64(_mix64(_mix64(self.seed) + int(step)) + int(field))
-        self._gen.manual_seed(s & 0x7FFFFFFFFFFFFFFF)
-        return torch.randint(0, 1 << 16, tuple(shape), generator=self._gen,
-                             device=self.device, dtype=torch.int32)
+    def __call__(self, step, field: int, shape) -> torch.Tensor:
+        return srbits.sr_bits(self.seed, step, field, shape, self.device)
 
 
 def stochastic_round(x: torch.Tensor, dtype: torch.dtype,
@@ -277,8 +274,106 @@ def compact_gather(table: torch.Tensor, useg: torch.Tensor) -> torch.Tensor:
     return table[useg.long().clamp(0, n - 1)]
 
 
+def device_compact_aux(ids: torch.Tensor, cap: int):
+    """DEVICE-side :func:`compact_aux` of a ``[B, F]`` id batch, built
+    inside the step (``compact_device``; the reference's
+    ``device_compact_aux`` vmapped over the fields): one stable sort of
+    the ``[F, B]`` ids, with static shapes and no read on the host.
+
+    Returns ``((useg, segstart, segend, order, inv), nseg)``: the five
+    int32 ``[F, ...]`` arrays of :func:`compact_aux`, bit for bit when no
+    field overflows, and each field's segment count ``nseg`` ``[F]``. It
+    cannot raise on overflow: segments past ``cap`` (the largest ids) get
+    no slot, their lanes keep ``inv >= cap`` (the step zeroes their rows,
+    ``sparse._compact_gather_all``) and their updates are never written:
+    the reference's ``compact_overflow='drop'`` semantics. A slot index
+    past ``cap`` lands in a spare slot ``cap`` that is cut off (JAX's
+    ``mode="drop"``; an out-of-range index in torch would be a device
+    assert).
+    """
+    cols = ids.t().contiguous()                             # [F, B]
+    f, b = cols.shape
+    sid, order = torch.sort(cols, dim=1, stable=True)
+    run_start = torch.ones_like(sid, dtype=torch.bool)
+    torch.ne(sid[:, 1:], sid[:, :-1], out=run_start[:, 1:])
+    run_end = torch.ones_like(run_start)
+    run_end[:, :-1] = run_start[:, 1:]
+    seg = torch.cumsum(run_start, 1, dtype=torch.int32).sub_(1)
+    nseg = seg[:, -1] + 1
+    lane = torch.arange(b, dtype=torch.int32, device=ids.device).expand(f, b)
+    fits = seg < cap
+    start_tgt = torch.where(run_start & fits, seg, cap).long()
+    end_tgt = torch.where(run_end & fits, seg, cap).long()
+
+    def slots(fill, tgt, src):
+        out = torch.full((f, cap + 1), fill, dtype=torch.int32,
+                         device=ids.device)
+        return out.scatter_(1, tgt, src)[:, :cap]
+
+    useg = slots(0, start_tgt, sid.to(torch.int32))
+    segstart = slots(b - 1, start_tgt, lane)
+    segend = slots(b - 1, end_tgt, lane)
+    # Padding slots (pos >= nseg) carry compact_aux's ascending
+    # sentinels past the table.
+    pos = torch.arange(cap, dtype=torch.int32, device=ids.device)[None, :]
+    live = pos < nseg[:, None]
+    useg = torch.where(live, useg, (pos - nseg[:, None]) + (_IMAX - cap))
+    segstart = torch.where(live, segstart, b - 1)
+    segend = torch.where(live, segend, b - 1)
+    inv = torch.empty_like(seg).scatter_(1, order, seg)
+    return (useg, segstart, segend, order.to(torch.int32), inv), nseg
+
+
 # Block size of the two-level prefix in compact_apply (the reference's).
 _CSUM_BLOCK = 512
+
+
+# Run length of XLA's cumulative sums: a prefix along n > 16 elements is
+# taken as sequential sums over runs of 16 plus the prefix of the runs'
+# totals, taken the same way.
+_SCAN_RUN = 16
+
+
+def _run_prefix(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive float32 prefix sums along ``dim`` (at most ``_SCAN_RUN``
+    long), added one after another, each partial sum rounded to float32.
+    On the card that is one ``torch.cumsum`` along a dimension that is not
+    the innermost (and not the only one of more than one element): CUDA
+    scans such a dimension with one float32 accumulator per column, in
+    order (``tests/test_torch_package.py`` and ``chip_smoke.py`` hold it
+    to the CPU's adds bit for bit); its first sum is ``0 + x[0]``, so
+    ``x[0]`` is copied back (a −0.0 stays −0.0)."""
+    if x.is_cuda and dim < x.dim() - 1 and x.numel() > x.shape[dim]:
+        out = torch.cumsum(x, dim)
+        out.select(dim, 0).copy_(x.select(dim, 0))
+        return out
+    parts = list(x.unbind(dim))
+    for j in range(1, len(parts)):
+        parts[j] = parts[j - 1] + parts[j]
+    return torch.stack(parts, dim)
+
+
+def _prefix_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive float32 prefix sums along ``dim``, each partial sum
+    rounded to float32 and associated as the reference's ``jnp.cumsum``
+    (XLA's two-level scan): sequential sums over runs of 16
+    (:func:`_run_prefix`) plus the prefix of the runs' totals, so the CPU
+    and the card give the same bits, and they equal the reference's on
+    the CPU. (``torch.cumsum`` over the whole dimension accumulates
+    float32 in float64 on the CPU and scans in another order on the
+    card.)"""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n <= _SCAN_RUN:
+        return _run_prefix(x, 0).movedim(0, dim)
+    pad = (-n) % _SCAN_RUN
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))], 0)
+    runs = _run_prefix(x.reshape(-1, _SCAN_RUN, *x.shape[1:]), 1)
+    off = _prefix_f32(runs[:, -1], 0)
+    off = torch.cat([torch.zeros_like(off[:1]), off[:-1]], 0)
+    out = (runs + off[:, None]).reshape(-1, *x.shape[1:])[:n]
+    return out.movedim(0, dim)
 
 
 def _blocked_segment_sums(sdelta, segstart, segend):
@@ -290,8 +385,8 @@ def _blocked_segment_sums(sdelta, segstart, segend):
     padded = (torch.nn.functional.pad(sdelta, (0, 0, 0, pad)) if pad
               else sdelta)
     nb = padded.shape[0] // blk
-    bl = torch.cumsum(padded.reshape(nb, blk, w), dim=1)      # in-block
-    off = torch.cumsum(bl[:, -1, :], dim=0)                   # inclusive
+    bl = _prefix_f32(padded.reshape(nb, blk, w), 1)            # in-block
+    off = _prefix_f32(bl[:, -1, :], 0)                         # inclusive
     off = torch.cat([torch.zeros_like(off[:1]), off[:-1]], dim=0)
 
     def csum_at(pos):
@@ -339,8 +434,10 @@ def _compact_write(table, totals, useg, mode, noise, urows):
     vals = stochastic_round(urows.float() + totals, table.dtype, noise)
     # Every slot that clamps to row n-1 writes the value that row ends
     # with: the last real slot's if it is row n-1, else the row as it is.
-    last = real.sum() - 1
-    fill = torch.where(useg[last] == n - 1, vals[last], table[n - 1])
+    # The real slots are a prefix; the last one is found on the device.
+    last = (real.sum() - 1).clamp(min=0).reshape(1)
+    fill = torch.where((useg.index_select(0, last) == n - 1)[:, None],
+                       vals.index_select(0, last), table[n - 1:n])
     src = torch.where(real[:, None], vals, fill)
     return table.index_copy_(0, idx, src)
 

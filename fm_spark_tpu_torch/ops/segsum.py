@@ -22,6 +22,8 @@ from fm_spark_tpu_torch.ops import KernelUnavailable
 __all__ = ["launches", "segment_totals", "segment_totals_plain"]
 
 #: Kernel launches made by :func:`segment_totals` in this process.
+#: A call that a CUDA graph records is no launch: the graph's replays
+#: launch the kernel, past the wrapper.
 launches = 0
 _launch_lock = threading.Lock()
 
@@ -114,6 +116,7 @@ def segment_totals(delta: torch.Tensor, seg: torch.Tensor, cap: int,
             f"segment_totals launch failed: CUDA error {err} "
             f"({lib.segment_cuda_error_string(err).decode()})")
     global launches
-    with _launch_lock:
-        launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        with _launch_lock:
+            launches += 1
     return out

@@ -11,14 +11,25 @@ Forms ported (the others raise with the ROADMAP item that queues them):
 - ``use_pallas``: the row gathers and the ``scatter_add``/``dedup``
   writes through the row kernels (``ops.rows``, by ``scatter.pallas_gather``
   and ``scatter._pallas_dedup_add``);
-- the compact host-aux path (``host_dedup=True, compact_cap > 0``) in
-  ``dedup`` and ``dedup_sr``;
+- the compact path in ``dedup`` and ``dedup_sr``, on the host's aux
+  (``host_dedup=True, compact_cap > 0``) or on the aux the step builds
+  (``compact_device``: ``scatter.device_compact_aux``; a field past the
+  cap poisons the loss to −inf under ``compact_overflow='error'``, or
+  its ids past the cap act as absent features under ``'drop'``);
 - FieldFM: ``gfull_fused`` on or off, ``segtotal_pallas`` on or off
   (kernel A, ``ops.segsum``), and ``fused_embed`` off / auto / require
   (kernel B, ``ops.fused_bwd``);
 - FieldFFM: the ``[B, F, F, k]`` sel tensor, or with ``sel_blocked`` the
   per-owner-field loop, and with ``sel_blocked`` and ``fused_embed`` the
   two ``ffm_sel`` kernels (``ops.ffm_sel``).
+
+The bodies run eagerly; :func:`make_field_sparse_sgd_step`,
+:func:`make_field_ffm_sparse_sgd_step`, :func:`make_field_sparse_multistep`
+and :func:`precompile_field_sparse_step` capture them on the card as CUDA
+graphs (``graphs.py``), the counterparts of the reference's jitted,
+rolled and precompiled steps. A body reads nothing of the device on the
+host: the step counter and learning rate live on the device, and the SR
+bits follow JAX's threefry key schedule there (``ops.srbits``).
 
 Every elementwise operation runs in the spec's compute dtype in the
 reference's order, and ``lr`` is a float32 scalar, so ``-lr·g_full`` is
@@ -36,16 +47,19 @@ import operator
 
 import torch
 
+from fm_spark_tpu_torch import graphs
 from fm_spark_tpu_torch.ops import KernelUnavailable
 from fm_spark_tpu_torch.ops import ffm_sel as ffm_sel_lib
 from fm_spark_tpu_torch.ops import fused_bwd as fused_bwd_lib
 from fm_spark_tpu_torch.ops import losses as losses_lib
 from fm_spark_tpu_torch.ops import scatter as scatter_lib
 from fm_spark_tpu_torch.ops.fm import sum_upcast as _sum_upcast
-from fm_spark_tpu_torch.train import TrainConfig, _lr_at
+from fm_spark_tpu_torch.train import TrainConfig, _lr_at_tensor
 
 __all__ = ["fused_embed_plan", "make_field_ffm_sparse_sgd_body",
-           "make_field_sparse_multistep", "make_field_sparse_sgd_body"]
+           "make_field_ffm_sparse_sgd_step", "make_field_sparse_multistep",
+           "make_field_sparse_sgd_body", "make_field_sparse_sgd_step",
+           "make_sgd_step", "precompile_field_sparse_step"]
 
 
 def _check_host_dedup(config: TrainConfig, loss: str):
@@ -116,9 +130,6 @@ def _check_host_dedup(config: TrainConfig, loss: str):
 def _reject_unported(config: TrainConfig, col: bool = False,
                      fused_linear: bool = True):
     """Forms the JAX steps take that the port does not have yet."""
-    if config.compact_device:
-        raise ValueError("compact_device (the in-step aux build) is not "
-                         "ported yet (ROADMAP Queue 1)")
     if col:
         raise ValueError("table_layout='col' training is not ported yet "
                          "(ROADMAP Queue 1)")
@@ -234,21 +245,61 @@ def _seq_sum(terms):
     return functools.reduce(operator.add, terms)
 
 
-def _as_cd(value: float, cd: torch.dtype) -> float:
-    """``value`` rounded to the compute dtype: a Python float beside a
-    ``cd`` array in JAX is converted to ``cd`` before the multiply, where
-    PyTorch would multiply by the float32 value."""
-    return float(torch.tensor(value, dtype=cd))
-
-
-def _compact_gather_all(tables, aux, cd):
+def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False):
     """Each field's ``cap`` unique rows gathered once (storage dtype) and
-    the per-lane rows expanded from them by ``inv`` (compute dtype)."""
+    the per-lane rows expanded from them by ``inv`` (compute dtype).
+
+    ``mask_overflow`` (the device-built aux, which cannot raise): a lane
+    whose segment lies past ``cap`` expands to a ZERO row (the overflow
+    drop's absent feature), the clipped row times 0, as the reference.
+    The host's aux guarantees ``inv < cap``."""
     useg, inv = aux[0], aux[4]
+    cap = useg.shape[-1]
     urows = [scatter_lib.compact_gather(t, useg[f])
              for f, t in enumerate(tables)]
-    rows = [u.to(cd)[inv[f].long()] for f, u in enumerate(urows)]
+    if not mask_overflow:
+        return urows, [u.to(cd)[inv[f].long()] for f, u in enumerate(urows)]
+    rows = [u.to(cd)[inv[f].long().clamp(max=cap - 1)]
+            * (inv[f] < cap)[:, None].to(cd) for f, u in enumerate(urows)]
     return urows, rows
+
+
+def _rows_for(compact, tables, aux, cd, ids, config: TrainConfig):
+    """The bodies' forward table access: ``(urows, rows, aux, ovf)`` from
+    the device-built compact aux (``compact_device``), the host's compact
+    aux, or the per-lane gather. ``ovf`` is the worst field's segment
+    count past the cap (a 0-dim int32 on the device; None but for the
+    device aux), and ``aux`` the one the update half reads."""
+    if config.compact_device:
+        cap = config.compact_cap
+        aux, nseg = scatter_lib.device_compact_aux(ids, cap)
+        ovf = (nseg.max() - cap).clamp(min=0)
+        urows, rows = _compact_gather_all(tables, aux, cd, mask_overflow=True)
+        return urows, rows, aux, ovf
+    if compact:
+        return (*_compact_gather_all(tables, aux, cd), aux, None)
+    return None, _gather_all(tables, ids, cd, config.use_pallas), aux, None
+
+
+def _fold_overflow(loss, ovf, config: TrainConfig):
+    """The device aux's overflow policy: ``'error'`` poisons the loss to
+    −inf (unambiguous for the non-negative losses, which a diverging run
+    takes to +inf), with no read on the host; ``'drop'`` keeps the
+    absent-feature semantics silently."""
+    if ovf is None or config.compact_overflow == "drop":
+        return loss
+    return torch.where(ovf > 0, torch.full_like(loss, float("-inf")), loss)
+
+
+def _step_tensor(step_idx, device) -> torch.Tensor:
+    """The step as a 0-dim int32 tensor on ``device``: a Python int is
+    filled in on the device (no copy from the host), a tensor passes."""
+    if isinstance(step_idx, torch.Tensor):
+        if step_idx.dim() != 0 or step_idx.is_floating_point():
+            raise ValueError(f"step must be an int or a 0-dim integer tensor, "
+                             f"got {step_idx.dtype} {tuple(step_idx.shape)}")
+        return step_idx.to(device=device, dtype=torch.int32)
+    return torch.full((), int(step_idx), dtype=torch.int32, device=device)
 
 
 def _gather_all(tables, ids, cd, use_pallas: bool):
@@ -324,17 +375,18 @@ def _fused_compact_updates(tables, urows, aux, s, dscores, vals, weights,
 
 def _noise_fn(config: TrainConfig, sr_noise):
     """``noise_for(table, step_idx, field, shape)``: the SR bits of a bf16
-    ``dedup_sr`` write, else None (default source: :class:`~fm_spark_tpu_torch
-    .ops.scatter.SrNoise` from ``config.seed + 0x5EED``)."""
-    noise_box = [sr_noise]
+    ``dedup_sr`` write, else None. The default source is JAX's key
+    schedule from ``config.seed + 0x5EED`` (:class:`~fm_spark_tpu_torch
+    .ops.scatter.SrNoise`, on the table's device); ``sr_noise(step, field,
+    shape)`` replaces it, called with the step as the caller gave it."""
 
     def noise_for(table, step_idx, f, shape):
         if config.sparse_update != "dedup_sr" or table.dtype == torch.float32:
             return None
-        if noise_box[0] is None:
-            noise_box[0] = scatter_lib.SrNoise(config.seed + 0x5EED,
-                                               table.device)
-        return noise_box[0](step_idx, f, shape)
+        if sr_noise is not None:
+            return sr_noise(step_idx, f, shape)
+        return scatter_lib.SrNoise(config.seed + 0x5EED,
+                                   table.device)(step_idx, f, shape)
 
     return noise_for
 
@@ -374,9 +426,9 @@ def _apply_updates(compact, tables, ids, g_fulls, rows, urows,
 
 
 def _update_bias(w0, lr, dscores, config: TrainConfig):
-    """``w0 -= lr·(Σ dscores + reg_bias·w0)`` in float32, in place."""
-    lr_t = torch.tensor(lr, dtype=torch.float32, device=w0.device)
-    w0.sub_(lr_t * (_sum_upcast(dscores) + config.reg_bias * w0))
+    """``w0 -= lr·(Σ dscores + reg_bias·w0)`` in float32, in place (``lr``
+    a 0-dim float32 tensor on the device)."""
+    w0.sub_(lr * (_sum_upcast(dscores) + config.reg_bias * w0))
 
 
 def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
@@ -389,9 +441,13 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     ``host_dedup`` (the compact aux, five int32 tensors of
     :func:`~fm_spark_tpu_torch.ops.scatter.compact_aux`, or without a cap
     the four ``[F, B]`` of :func:`~fm_spark_tpu_torch.ops.scatter.dedup_aux`),
-    all on the params' device. ``sr_noise(step, field, shape)`` gives the SR
-    bits of a bf16 ``dedup_sr`` write (default: :class:`~fm_spark_tpu_torch
-    .ops.scatter.SrNoise` from ``config.seed + 0x5EED``).
+    all on the params' device (None with ``compact_device``: the step
+    builds its own). ``step_idx`` is an int or a 0-dim integer tensor on
+    the params' device. ``sr_noise(step, field, shape)`` gives the SR bits
+    of a bf16 ``dedup_sr`` write (default: JAX's key schedule,
+    :class:`~fm_spark_tpu_torch.ops.scatter.SrNoise` from ``config.seed +
+    0x5EED``). With ``compact_overflow='error'`` a field past the cap of
+    the device aux returns a −inf loss.
     """
     from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 
@@ -432,10 +488,10 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     k = spec.rank
-    lr_at = _lr_at(config)
+    lr_at = _lr_at_tensor(config)
     noise_for = _noise_fn(config, sr_noise)
-    reg_factors = _as_cd(config.reg_factors, cd)
-    reg_linear = _as_cd(config.reg_linear, cd)
+    reg_factors = fused_bwd_lib.round_to(config.reg_factors, cd)
+    reg_linear = fused_bwd_lib.round_to(config.reg_linear, cd)
 
     @torch.no_grad()
     def step(params, step_idx, ids, vals, labels, weights, aux=None):
@@ -443,15 +499,11 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
             raise ValueError(
                 "host_dedup step needs the batch's dedup_aux operand"
             )
-        step_idx = int(step_idx)
         w0 = params["w0"]
         tables = params["vw"]
         vals_c = vals.to(cd)
-        if compact:
-            urows, rows = _compact_gather_all(tables, aux, cd)
-        else:
-            urows, rows = None, _gather_all(tables, ids, cd,
-                                            config.use_pallas)
+        urows, rows, aux, ovf = _rows_for(compact, tables, aux, cd, ids,
+                                          config)
         if config.gfull_fused:
             xv_fulls = [r * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
             xvs = [x[:, :k] for x in xv_fulls]
@@ -470,8 +522,8 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
         if spec.use_bias:
             scores = scores + w0.to(cd)
         loss, dscores = loss_and_grad(scores, labels, weights)
-        lr = lr_at(step_idx)
-        neg_lr = float(-lr)
+        lr = lr_at(_step_tensor(step_idx, w0.device))
+        neg_lr = -lr
         touched = weights > 0
 
         if fused_bwd:
@@ -503,7 +555,7 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                            config, noise_for, step_idx, neg_lr, aux)
         if spec.use_bias:
             _update_bias(w0, lr, dscores, config)
-        return params, loss
+        return params, _fold_overflow(loss, ovf, config)
 
     return step
 
@@ -542,10 +594,10 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     cd = spec.cdtype
     F, k = spec.num_fields, spec.rank
     fk = F * k
-    lr_at = _lr_at(config)
+    lr_at = _lr_at_tensor(config)
     noise_for = _noise_fn(config, sr_noise)
-    reg_factors = _as_cd(config.reg_factors, cd)
-    reg_linear = _as_cd(config.reg_linear, cd)
+    reg_factors = fused_bwd_lib.round_to(config.reg_factors, cd)
+    reg_linear = fused_bwd_lib.round_to(config.reg_linear, cd)
 
     @torch.no_grad()
     def step(params, step_idx, ids, vals, labels, weights, aux=None):
@@ -553,15 +605,11 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
             raise ValueError(
                 "host_dedup step needs the batch's dedup_aux operand"
             )
-        step_idx = int(step_idx)
         w0 = params["w0"]
         tables = params["vw"]
         vals_c = vals.to(cd)
-        if compact:
-            urows, rows = _compact_gather_all(tables, aux, cd)
-        else:
-            urows, rows = None, _gather_all(
-                tables, ids, cd, config.use_pallas)         # F × [B, F·k+1]
+        urows, rows, aux, ovf = _rows_for(
+            compact, tables, aux, cd, ids, config)          # F × [B, F·k+1]
         rv = [r[:, :fk].reshape(-1, F, k) for r in rows]
 
         def selt(i):
@@ -590,8 +638,8 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
         if spec.use_bias:
             scores = scores + w0.to(cd)
         loss, dscores = loss_and_grad(scores, labels, weights)
-        lr = lr_at(step_idx)
-        neg_lr = float(-lr)
+        lr = lr_at(_step_tensor(step_idx, w0.device))
+        neg_lr = -lr
         touched = weights > 0
 
         if kernels:
@@ -602,7 +650,7 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
             dvs = []
             for i in range(F):
                 dsel_i = ds_cd[:, None, None] * selt(i)
-                dsel_i[:, i, :] = 0
+                dsel_i[:, i, :].zero_()
                 dvs.append((dsel_i * vals_c[:, i, None, None]).reshape(-1, fk))
         else:
             dsel = dscores[:, None, None, None] * sel.transpose(1, 2)
@@ -627,35 +675,188 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                        noise_for, step_idx, neg_lr, aux)
         if spec.use_bias:
             _update_bias(w0, lr, dscores, config)
-        return params, loss
+        return params, _fold_overflow(loss, ovf, config)
 
     return step
+
+
+def _body_for(spec, config: TrainConfig, sr_noise=None):
+    """The FieldFFM body for a :class:`~fm_spark_tpu_torch.models
+    .FieldFFMSpec`, else the FieldFM body."""
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+
+    return (make_field_ffm_sparse_sgd_body(spec, config, sr_noise=sr_noise)
+            if isinstance(spec, FieldFFMSpec)
+            else make_field_sparse_sgd_body(spec, config, sr_noise=sr_noise))
+
+
+def _flat(ids, vals, labels, weights, aux):
+    return (ids, vals, labels, weights, *(aux if aux is not None else ()))
+
+
+def _unflat(inputs, has_aux: bool):
+    ids, vals, labels, weights, *aux = inputs
+    return ids, vals, labels, weights, (tuple(aux) if has_aux else None)
+
+
+def _on_card(params) -> bool:
+    return params["w0"].device.type == "cuda"
+
+
+def _roll(body, params, step0, m: int, ids, vals, labels, weights, aux):
+    """Steps ``step0 .. step0 + m - 1`` over the first ``m`` stacked
+    batches; the last loss, with a −inf (the compact overflow poison)
+    kept once seen, as the reference's roll."""
+    loss = torch.zeros((), dtype=torch.float32, device=params["w0"].device)
+    for j in range(m):
+        a = None if aux is None else tuple(x[j] for x in aux)
+        params, lj = body(params, step0 + j, ids[j], vals[j], labels[j],
+                          weights[j], a)
+        loss = torch.where(torch.isneginf(loss), loss, lj)
+    return loss
+
+
+def make_sgd_step(spec, config: TrainConfig):
+    """The captured single step of either family:
+    :func:`make_field_ffm_sparse_sgd_step` for a
+    :class:`~fm_spark_tpu_torch.models.FieldFFMSpec`, else
+    :func:`make_field_sparse_sgd_step`."""
+    body = _body_for(spec, config)
+
+    def run(params, step, *inputs):
+        has_aux = len(inputs) > 4
+        return body(params, step, *_unflat(inputs, has_aux))[1]
+
+    captured = graphs.CapturedStep(run)
+
+    def step(params, step_idx, ids, vals, labels, weights, aux=None):
+        if not _on_card(params):
+            return body(params, step_idx, ids, vals, labels, weights, aux)
+        if config.host_dedup and aux is None:
+            raise ValueError(
+                "host_dedup step needs the batch's dedup_aux operand"
+            )
+        return params, captured(params, step_idx,
+                                *_flat(ids, vals, labels, weights, aux))
+
+    step.captured = captured
+    return step
+
+
+def make_field_sparse_sgd_step(spec, config: TrainConfig):
+    """The fused sparse-SGD step of a FieldFM as the training loop runs it
+    (the counterpart of the reference's jitted step, params donated):
+    ``step(params, step_idx, ids, vals, labels, weights, aux=None) →
+    (params, loss)``.
+
+    On the card the body is captured as one CUDA graph per input layout on
+    its first call and replayed after (:class:`~fm_spark_tpu_torch.graphs
+    .CapturedStep`): the params are updated in place, the graph is bound
+    to their storage (other params tensors capture anew), ``step_idx``
+    may be an int or a 0-dim int tensor, and ``loss`` is a fresh tensor.
+    It takes no ``sr_noise``: the SR bits come from the device's key
+    schedule. On the CPU it runs the eager body.
+    """
+    from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
+
+    if type(spec) is not FieldFMSpec:
+        raise ValueError("expected a FieldFMSpec")
+    return make_sgd_step(spec, config)
+
+
+def make_field_ffm_sparse_sgd_step(spec, config: TrainConfig):
+    """:func:`make_field_sparse_sgd_step` for a FieldFFM."""
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+
+    if type(spec) is not FieldFFMSpec:
+        raise ValueError("expected a FieldFFMSpec")
+    return make_sgd_step(spec, config)
 
 
 def make_field_sparse_multistep(spec, config: TrainConfig, n: int,
                                 sr_noise=None):
     """``n`` fused steps per call over batches stacked on a leading
-    ``[n, ...]`` axis: ``mstep(params, step0, m, ids, vals, labels,
-    weights, aux=None) → (params, last_loss)`` runs the first ``m`` of
-    them as steps ``step0 .. step0+m-1``, through the FieldFFM body for a
+    ``[n, ...]`` axis (the counterpart of the reference's ``fori_loop``
+    roll): ``mstep(params, step0, m, ids, vals, labels, weights, aux=None)
+    → (params, last_loss)`` runs the first ``m`` of them as steps
+    ``step0 .. step0+m-1``, through the FieldFFM body for a
     :class:`~fm_spark_tpu_torch.models.FieldFFMSpec` and the FieldFM body
-    otherwise. A −inf loss (the compact overflow poison) sticks once seen,
-    as in the reference's roll."""
-    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+    otherwise. A −inf loss (the compact overflow poison) sticks once seen.
 
+    On the card each ``m`` (the full roll, and the tail of a run whose
+    step count ``n`` does not divide) is one CUDA graph of ``m`` steps over
+    ``[m, ...]`` buffers, captured at its first call: ``m`` is static here,
+    where the reference's is a traced operand. ``sr_noise`` (the SR bits
+    of a test) is taken on the CPU only: a host callable cannot be
+    captured. On the CPU the steps run eagerly.
+    """
     if n < 1:
         raise ValueError(f"steps per call must be >= 1, got {n}")
-    body = (make_field_ffm_sparse_sgd_body(spec, config, sr_noise=sr_noise)
-            if isinstance(spec, FieldFFMSpec)
-            else make_field_sparse_sgd_body(spec, config, sr_noise=sr_noise))
+    body = _body_for(spec, config, sr_noise=sr_noise)
+
+    def run(params, step0, *inputs):
+        m = inputs[0].shape[0]
+        return _roll(body, params, step0, m,
+                     *_unflat(inputs, len(inputs) > 4))
+
+    captured = graphs.CapturedStep(run)
 
     def mstep(params, step0, m, ids, vals, labels, weights, aux=None):
-        loss = torch.zeros((), dtype=torch.float32, device=ids.device)
-        for j in range(int(m)):
-            a = None if aux is None else tuple(x[j] for x in aux)
-            params, lj = body(params, int(step0) + j, ids[j], vals[j],
-                              labels[j], weights[j], a)
-            loss = torch.where(torch.isneginf(loss), loss, lj)
-        return params, loss
+        m = int(m)
+        if not 1 <= m <= n:
+            raise ValueError(f"m must be in [1, {n}], got {m}")
+        if not _on_card(params):
+            loss = _roll(body, params, int(step0), m, ids, vals, labels,
+                         weights, aux)
+            return params, loss
+        if sr_noise is not None:
+            raise ValueError("the captured steps draw their SR bits on the "
+                             "device; sr_noise is taken on the CPU only")
+        stacked = _flat(ids, vals, labels, weights, aux)
+        return params, captured(params, step0, *(t[:m] for t in stacked))
 
+    mstep.captured = captured
+    return mstep
+
+
+def precompile_field_sparse_step(spec, config: TrainConfig, batch_size: int,
+                                 steps_per_call: int = 1, *, params):
+    """Capture the fused step (or the ``steps_per_call`` roll) for
+    ``params`` ahead of the data: the counterpart of the reference's
+    ``lower().compile()`` warm start. Returns the step (for
+    ``steps_per_call = 1``) or the multistep, already captured for full
+    calls on the card, over zero batches shaped as
+    ``abstract_field_batch`` and, with ``host_dedup``, the aux of zero ids
+    (aux shapes depend on ``(B, F, cap)`` only).
+
+    It takes ``params``, where the reference takes none: a graph binds the
+    storage of the tensors it was captured on. The warm-up runs on clones,
+    so ``params`` are not stepped. On the CPU nothing is captured.
+    """
+    if steps_per_call < 1:
+        raise ValueError(f"steps per call must be >= 1, got {steps_per_call}")
+    import numpy as np
+
+    dev = params["w0"].device
+    b, f = batch_size, spec.num_fields
+    zeros = np.zeros((b, f), np.int32)
+    aux = None
+    if config.host_dedup:
+        aux = (scatter_lib.compact_aux(zeros, config.compact_cap)
+               if config.compact_cap else scatter_lib.dedup_aux(zeros))
+        aux = tuple(torch.from_numpy(a).to(dev) for a in aux)
+    batch = (torch.zeros(b, f, dtype=torch.int32, device=dev),
+             torch.zeros(b, f, dtype=torch.float32, device=dev),
+             torch.zeros(b, dtype=torch.float32, device=dev),
+             torch.zeros(b, dtype=torch.float32, device=dev), aux)
+    if steps_per_call == 1:
+        step = make_sgd_step(spec, config)
+        if _on_card(params):
+            step.captured(params, 0, *_flat(*batch))
+        return step
+    mstep = make_field_sparse_multistep(spec, config, steps_per_call)
+    if _on_card(params):
+        n = steps_per_call
+        mstep.captured(params, 0, *(t.unsqueeze(0).expand(n, *t.shape)
+                                    for t in _flat(*batch)))
     return mstep

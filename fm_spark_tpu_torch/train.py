@@ -22,9 +22,9 @@ import torch
 class TrainConfig:
     """Training hyperparameters: field for field those of the JAX
     package's ``TrainConfig``, so a config reads the same in both. The
-    levers of steps the port does not have yet (``compact_device``, the
-    sharded and DeepFM knobs, ``embed_tier``) are accepted here and
-    refused by the step that would need them."""
+    levers of steps the port does not have yet (the sharded and DeepFM
+    knobs, ``embed_tier``) are accepted here and refused by the step that
+    would need them."""
 
     num_steps: int = 100                   # numIterations
     batch_size: int = 1024
@@ -74,6 +74,29 @@ def _lr_at(config: TrainConfig):
         return lambda i: lr / np.sqrt(np.float32(i) + np.float32(1.0))
     if config.lr_schedule == "constant":
         return lambda i: lr
+    raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
+
+
+def _lr_at_tensor(config: TrainConfig):
+    """:func:`_lr_at` on the device: ``step`` (a 0-dim integer tensor) →
+    the float32 learning rate as a 0-dim tensor on its device, in the
+    reference's float32 order, ``lr / sqrt(float32(step) + 1)``, each
+    operation rounded once as IEEE float32 (numpy's value bit for bit).
+    The square root and the division run in float64 and round to float32,
+    which is exact for both (53 ≥ 2·24 + 2 bits): the CPU's float32
+    ``torch.sqrt`` is not always correctly rounded. A captured step reads
+    its step from the device, so no host value is baked in."""
+    lr = float(np.float32(config.learning_rate))
+    if config.lr_schedule == "inv_sqrt":
+        def lr_at(i):
+            root = torch.sqrt((i.to(torch.float32) + 1.0).double()).float()
+            return torch.div(torch.full((), lr, dtype=torch.float64,
+                                        device=i.device),
+                             root.double()).float()
+        return lr_at
+    if config.lr_schedule == "constant":
+        return lambda i: torch.full((), lr, dtype=torch.float32,
+                                    device=i.device)
     raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
 
 
@@ -128,20 +151,31 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     (:class:`~fm_spark_tpu_torch.data.Batches`); with ``host_dedup`` the
     aux (compact at ``compact_cap > 0``, else the per-lane dedup aux) is
     built on the host in the prefetch thread
-    (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`). The parameters
-    start from ``spec.init`` seeded by ``config.seed`` and are updated in
-    place. ``steps_per_call > 1`` runs the steps in groups through
-    :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_multistep`.
+    (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`); with
+    ``compact_device`` the step builds it. The parameters start from
+    ``spec.init`` seeded by ``config.seed`` and are updated in place. The
+    steps run one per call through
+    :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_sgd_step` (or its
+    FieldFFM twin), or in groups of ``steps_per_call > 1`` through
+    :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_multistep`: on the
+    card always as captured CUDA graphs (one per group length, captured at
+    its first call), as the reference's loop always runs its jitted step.
     ``logger`` (a ``MetricsLogger``) gets a loss line every
-    ``config.log_every`` steps and at the last. ``stats``, when given, is
-    filled with ``loss`` (per call), ``step_ms`` (per call: CUDA-event
-    time on the card, host time on the CPU) and ``aux_ms`` (host time of
-    each aux build).
+    ``config.log_every`` steps and at the last. Under ``compact_device``
+    with ``compact_overflow='error'`` a running ``fmin`` of every call's
+    loss stays on the device (a later NaN cannot hide the −inf overflow
+    poison) and is read at each log line and once at the end, with or
+    without a logger: a −inf there raises. ``stats``, when given, is filled
+    with ``loss`` (per call), ``step_ms`` (per call: CUDA-event time on
+    the card, capture included in a group's first call; host time on the
+    CPU), ``aux_ms`` (host time of each aux build) and ``capture_s`` (each
+    capture's seconds, warm-up included).
     """
     from fm_spark_tpu_torch import resolve_device
     from fm_spark_tpu_torch.data import DedupAuxBatches, Prefetcher
     from fm_spark_tpu_torch.sparse import (fused_embed_plan,
-                                           make_field_sparse_multistep)
+                                           make_field_sparse_multistep,
+                                           make_sgd_step)
 
     dev = resolve_device(device)
     if steps_per_call < 1:
@@ -153,7 +187,27 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
               if family else
               f"fused-embed: {name} on the plain torch path ({reason})",
               file=sys.stderr)
-    mstep = make_field_sparse_multistep(spec, config, steps_per_call)
+    if steps_per_call == 1:
+        step = make_sgd_step(spec, config)
+    else:
+        step = make_field_sparse_multistep(spec, config, steps_per_call)
+
+    def run(p, i, group):
+        if steps_per_call == 1:
+            return step(p, i, *group[0])
+        return step(p, i, len(group), *_stack(group))
+    # The 'error' policy's sticky detector (the reference's note_loss /
+    # check_poison): fmin, so a NaN loss after the poison keeps the −inf.
+    guard = config.compact_device and config.compact_overflow == "error"
+    worst = None
+
+    def check_poison():
+        if worst is not None and float(worst) == float("-inf"):
+            raise RuntimeError(
+                "compact_cap overflow poisoned the loss: a field's per-batch "
+                f"unique-id count exceeded compact_cap {config.compact_cap} "
+                "at some step (the 'error' policy); raise compact_cap or "
+                "use compact_overflow='drop'")
     params = spec.init(torch.Generator(device=dev).manual_seed(config.seed),
                        device=dev)
     aux_src = None
@@ -172,30 +226,30 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             m = min(steps_per_call, config.num_steps - i)
             group = [pf.next_batch() if pf else _batch_to(batches.next_batch(), dev)
                      for _ in range(m)]
-            stacked = _stack(group)
             if on_card:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
             else:
                 t0 = time.perf_counter()
-            params, loss = mstep(params, i, m, *stacked)
+            params, loss = run(params, i, group)
             if on_card:
                 t1.record()
                 marks.append((t0, t1))
             else:
                 marks.append(time.perf_counter() - t0)
-            losses.append(loss)
+            losses.append(loss)      # a fresh tensor per call
+            if guard:
+                worst = loss if worst is None else torch.fmin(worst, loss)
             i += m
-            since += m * stacked[2].shape[1]
+            since += sum(int(b[2].shape[0]) for b in group)
             if logger is not None and (
                     i // log_every > (i - m) // log_every
                     or i >= config.num_steps):
-                loss_f = float(loss)
-                if loss_f == float("-inf"):
-                    raise RuntimeError("compact_cap overflow poisoned the loss")
-                logger.log(i, samples=since, loss=loss_f)
+                check_poison()
+                logger.log(i, samples=since, loss=float(loss))
                 since = 0
+        check_poison()
     finally:
         if pf is not None:
             pf.close()
@@ -207,4 +261,5 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             stats["step_ms"] = [s * 1e3 for s in marks]
         stats["loss"] = [float(x) for x in losses]
         stats["aux_ms"] = list(aux_src.aux_ms) if aux_src else []
+        stats["capture_s"] = list(step.captured.capture_s)
     return params

@@ -1,0 +1,364 @@
+"""The captured training step's CPU side: what makes the port's fused
+steps capturable as CUDA graphs, held against the JAX package.
+
+- The learning rate on the device (``train._lr_at_tensor``) equals the
+  reference's float32 schedule bit for bit.
+- With no SR bits injected, the bf16 ``dedup_sr`` steps (FieldFM compact
+  and per-lane, FieldFFM compact and per-lane) equal JAX's jitted steps
+  bit for bit in the tables, and in the loss with bf16 compute: the port
+  draws JAX's threefry key schedule. JAX's steps are compiled with
+  ``xla_allow_excess_precision`` off, so XLA rounds every bf16 operation
+  as the program writes it (on the CPU it may otherwise keep fp32
+  between fused bf16 operations). A float32 sum over the batch adds in
+  another order on each side: the loss with float32 compute is held
+  within 2e-7, and ``w0`` at ``rtol=1e-6, atol=1e-8``.
+- A roll of n = 4 steps over 7 steps (a full call and a tail of 3)
+  equals 7 single steps bit for bit.
+- Every capturable form runs under :class:`NoHostSync`, a dispatch mode
+  that fails on what a graph cannot capture: a read of a device value on
+  the host (``_local_scalar_dense``, ``equal``, ``is_nonzero``), a shape
+  that depends on the data (``nonzero``, ``masked_select``, the unique
+  ops, boolean-mask indexing) and a copy from the host (a tensor made
+  from host data, a copy between devices). It is the CPU's proxy for
+  "captures on the card"; the capture itself is held on the card
+  (``tests/test_torch_package.py``, ``chip_smoke.py`` phase 13).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from fm_spark_tpu import models as jmodels
+from fm_spark_tpu import sparse as jsparse
+from fm_spark_tpu import train as jtrain
+from fm_spark_tpu_torch import models, sparse
+from fm_spark_tpu_torch.ops import scatter
+from fm_spark_tpu_torch.train import TrainConfig, _lr_at, _lr_at_tensor
+
+B, F, BUCKET, CAP = 48, 4, 24, 24
+FM_K, FFM_K = 4, 3
+aten = torch.ops.aten
+
+
+class NoHostSync(TorchDispatchMode):
+    """Raises on every operation that a CUDA graph cannot capture."""
+
+    BANNED = {aten._local_scalar_dense.default, aten.item.default,
+              aten.equal.default, aten.is_nonzero.default,
+              aten.nonzero.default, aten.masked_select.default,
+              aten._unique.default, aten._unique2.default,
+              aten.unique_dim.default, aten.unique_consecutive.default,
+              aten.repeat_interleave.Tensor, aten.lift_fresh.default}
+    INDEXING = {aten.index.Tensor, aten.index_put.default,
+                aten.index_put_.default, aten._index_put_impl_.default}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.BANNED:
+            raise AssertionError(f"{func} cannot be captured")
+        if func in self.INDEXING and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in args[1] if i is not None):
+            raise AssertionError(f"{func} with a boolean mask: its shape "
+                                 "depends on the data")
+        if func is aten._to_copy.default and "device" in kwargs:
+            if torch.device(kwargs["device"]) != args[0].device:
+                raise AssertionError("a copy between devices")
+        if func is aten.copy_.default and args[0].device != args[1].device:
+            raise AssertionError("a copy between devices")
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda x: x.sum().item(), lambda x: x[x > 0], lambda x: x.nonzero(),
+    lambda x: torch.unique(x), lambda x: x[torch.tensor(1)],
+    lambda x: torch.tensor([1.0, 2.0]), lambda x: x.masked_select(x > 0),
+    lambda x: bool(x.sum() > 0), lambda x: torch.equal(x, x),
+    lambda x: x.to("meta"),
+], ids=["item", "mask-index", "nonzero", "unique", "scalar-tensor-index",
+        "from-host", "masked_select", "bool", "equal", "device-copy"])
+def test_the_guard_catches_what_a_graph_cannot_capture(bad):
+    x = torch.arange(6.0)
+    with pytest.raises(AssertionError), NoHostSync():
+        bad(x)
+
+
+@pytest.mark.parametrize("schedule", ["inv_sqrt", "constant"])
+@pytest.mark.parametrize("lr", [0.05, 0.1, 0.3, 1e-3])
+def test_lr_on_the_device_equals_the_reference_schedule(schedule, lr):
+    cfg = TrainConfig(learning_rate=lr, lr_schedule=schedule)
+    rng = np.random.default_rng(0)
+    steps = np.unique(np.concatenate([
+        np.arange(4096), rng.integers(0, 10**7, 4096),
+        [10**7, 2**24 - 1, 2**24, 2**24 + 1]])).astype(np.int32)
+    want = np.array([_lr_at(cfg)(int(i)) for i in steps], np.float32)
+    got = _lr_at_tensor(cfg)(torch.from_numpy(steps))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    one = _lr_at_tensor(cfg)(torch.tensor(266, dtype=torch.int32))
+    assert one.shape == () and float(one) == _lr_at(cfg)(266)
+
+
+# ------------------------------------------------ JAX parity, no injection
+
+
+def _jit_exact(fn):
+    """JAX's jitted ``fn`` with every bf16 operation rounded as written."""
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jax.jit(fn).lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False}))
+        return compiled[0](*args)
+
+    return call
+
+
+def _specs(family, pd="bfloat16", cd="bfloat16"):
+    kw = dict(num_features=F * BUCKET, num_fields=F, bucket=BUCKET,
+              param_dtype=pd, compute_dtype=cd, init_std=0.1)
+    if family == "ffm":
+        return (jmodels.FieldFFMSpec(rank=FFM_K, **kw),
+                models.FieldFFMSpec(rank=FFM_K, **kw))
+    return (jmodels.FieldFMSpec(rank=FM_K, **kw),
+            models.FieldFMSpec(rank=FM_K, **kw))
+
+
+def _carry(pspec, jp):
+    flat = {"w0": np.asarray(jp["w0"])}
+    flat.update({f"vw/{f}": np.asarray(t.astype(jnp.float32))
+                 for f, t in enumerate(jp["vw"])})
+    return models.params_from_numpy(pspec, flat, "cpu")
+
+
+def _batches(n, seed=1):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = (rng.zipf(1.3, (B, F)) % BUCKET).astype(np.int32)
+        vals = rng.uniform(0.5, 1.5, (B, F)).astype(np.float32)
+        labels = rng.integers(0, 2, B).astype(np.float32)
+        weights = np.ones(B, np.float32)
+        weights[-5:] = 0.0                      # padded tail lanes
+        out.append((ids, vals, labels, weights))
+    return out
+
+
+def _aux(cfg, ids):
+    if not cfg.get("host_dedup"):
+        return None
+    return (scatter.compact_aux(ids, CAP) if cfg.get("compact_cap")
+            else scatter.dedup_aux(ids))
+
+
+COMPACT = dict(host_dedup=True, compact_cap=CAP)
+PARITY = {
+    "fm-compact": ("fm", COMPACT),
+    "fm-compact-gfull-segtotal": ("fm", dict(**COMPACT, gfull_fused=True,
+                                             segtotal_pallas=True)),
+    "fm-compact-fusedbwd": ("fm", dict(**COMPACT, fused_embed="require")),
+    "fm-lane-device-sort": ("fm", {}),
+    "fm-lane-host-aux": ("fm", dict(host_dedup=True)),
+    "fm-lane-pallas-gather": ("fm", dict(use_pallas=True)),
+    "ffm-compact": ("ffm", COMPACT),
+    "ffm-compact-selblk": ("ffm", dict(**COMPACT, sel_blocked=True)),
+    "ffm-lane-device-sort": ("ffm", {}),
+}
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("form", list(PARITY))
+def test_bf16_dedup_sr_steps_equal_jax_without_injected_bits(form, cd):
+    family, lever = PARITY[form]
+    jspec, pspec = _specs(family, "bfloat16", cd)
+    cfg = dict(learning_rate=0.05, reg_factors=1e-4, reg_linear=1e-5,
+               reg_bias=1e-6, sparse_update="dedup_sr", seed=3, **lever)
+    jmake, pmake = ((jsparse.make_field_ffm_sparse_sgd_body,
+                     sparse.make_field_ffm_sparse_sgd_body) if family == "ffm"
+                    else (jsparse.make_field_sparse_sgd_body,
+                          sparse.make_field_sparse_sgd_body))
+    jstep = _jit_exact(jmake(jspec, jtrain.TrainConfig(**cfg)))
+    pstep = pmake(pspec, TrainConfig(**cfg))
+    jp = jspec.init(jax.random.key(0))
+    pp = _carry(pspec, jp)
+    for i, batch in enumerate(_batches(3)):
+        aux = _aux(cfg, batch[0])
+        jp, jl = jstep(jp, jnp.int32(i), *map(jnp.asarray, batch),
+                       None if aux is None else tuple(map(jnp.asarray, aux)))
+        pp, pl = pstep(pp, i, *map(torch.from_numpy, batch),
+                       None if aux is None else
+                       tuple(map(torch.from_numpy, aux)))
+        if cd == "bfloat16":
+            assert float(pl) == float(jl)
+        else:
+            # The mean of float32 losses: a sum over the batch in another
+            # order on each side.
+            assert abs(float(pl) - float(jl)) <= 2e-7
+        for f in range(F):
+            got = pp["vw"][f].float().numpy().view(np.int32)
+            want = np.asarray(jp["vw"][f], np.float32).view(np.int32)
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(float(pp["w0"]), float(jp["w0"]),
+                                   rtol=1e-6, atol=1e-8)
+
+
+# ------------------------------------------------------------ the roll
+
+
+@pytest.mark.parametrize("family,lever", [
+    ("fm", dict(**COMPACT, fused_embed="require")),
+    ("fm", dict(compact_device=True, compact_cap=CAP)),
+    ("ffm", dict(**COMPACT, sel_blocked=True))])
+def test_roll_of_four_over_seven_steps_equals_seven_steps(family, lever):
+    _, pspec = _specs(family)
+    cfg = TrainConfig(learning_rate=0.05, sparse_update="dedup_sr", seed=2,
+                      **lever)
+    batches = _batches(7, seed=4)
+    body = (sparse.make_field_ffm_sparse_sgd_body if family == "ffm"
+            else sparse.make_field_sparse_sgd_body)(pspec, cfg)
+    p1 = pspec.init(torch.Generator().manual_seed(1), device="cpu")
+    p2 = {"w0": p1["w0"].clone(), "vw": [t.clone() for t in p1["vw"]]}
+    losses = []
+    for i, b in enumerate(batches):
+        aux = _aux(lever, b[0])
+        p1, loss = body(p1, 5 + i, *map(torch.from_numpy, b),
+                        None if aux is None else
+                        tuple(map(torch.from_numpy, aux)))
+        losses.append(float(loss))
+    mstep = sparse.make_field_sparse_multistep(pspec, cfg, 4)
+    got = []
+    for lo, hi in ((0, 4), (4, 7)):
+        group = batches[lo:hi]
+        stacked = [torch.from_numpy(np.stack(a)) for a in zip(*group)]
+        aux = None
+        if lever.get("host_dedup"):
+            aux = tuple(torch.from_numpy(np.stack(a)) for a in
+                        zip(*[_aux(lever, g[0]) for g in group]))
+        p2, loss = mstep(p2, 5 + lo, hi - lo, *stacked, aux)
+        got.append(float(loss))
+    assert got == [losses[3], losses[6]]
+    assert torch.equal(p1["w0"], p2["w0"])
+    assert all(torch.equal(a, c) for a, c in zip(p1["vw"], p2["vw"]))
+
+
+def test_roll_refuses_a_count_past_its_length():
+    _, pspec = _specs("fm")
+    mstep = sparse.make_field_sparse_multistep(pspec, TrainConfig(), 2)
+    params = pspec.init(torch.Generator().manual_seed(1), device="cpu")
+    stacked = [torch.from_numpy(np.stack(a)) for a in zip(*_batches(2))]
+    with pytest.raises(ValueError, match="m must be in"):
+        mstep(params, 0, 3, *stacked)
+
+
+# ------------------------------------------------- the capturable forms
+
+
+CAPTURABLE = {
+    "fm-compact-segtotal": ("fm", "dedup_sr", dict(**COMPACT, gfull_fused=True,
+                                                   segtotal_pallas=True)),
+    "fm-compact-fusedbwd": ("fm", "dedup_sr", dict(**COMPACT,
+                                                   fused_embed="require")),
+    "fm-devaux-error": ("fm", "dedup_sr", dict(
+        compact_device=True, compact_cap=8, gfull_fused=True,
+        segtotal_pallas=True)),
+    "fm-devaux-drop": ("fm", "dedup", dict(
+        compact_device=True, compact_cap=8, compact_overflow="drop",
+        fused_embed="require")),
+    "fm-lane-sr": ("fm", "dedup_sr", {}),
+    "fm-lane-host-aux": ("fm", "dedup_sr", dict(host_dedup=True)),
+    "fm-scatter-add": ("fm", "scatter_add", {}),
+    "fm-pallas": ("fm", "scatter_add", dict(use_pallas=True)),
+    "fm-pallas-dedup": ("fm", "dedup", dict(use_pallas=True)),
+    "ffm-selblk-pallas-rows": ("ffm", "scatter_add", dict(
+        use_pallas=True, sel_blocked=True, fused_embed="require")),
+    "ffm-compact-sr": ("ffm", "dedup_sr", COMPACT),
+    "ffm-devaux": ("ffm", "dedup_sr", dict(compact_device=True,
+                                           compact_cap=8, sel_blocked=True)),
+    "ffm-sel": ("ffm", "scatter_add", {}),
+}
+
+
+@pytest.mark.parametrize("form", list(CAPTURABLE))
+def test_capturable_forms_make_no_host_sync(form):
+    """The body and the roll as a graph runs them (the step a 0-dim int32
+    tensor, the SR bits from the schedule) under the guard; the roll's
+    second call gives the loss a −inf first step would leave."""
+    family, mode, lever = CAPTURABLE[form]
+    _, pspec = _specs(family, "bfloat16", "bfloat16")
+    cfg = TrainConfig(learning_rate=0.05, reg_factors=1e-4, reg_bias=1e-6,
+                      sparse_update=mode, **lever)
+    body = (sparse.make_field_ffm_sparse_sgd_body if family == "ffm"
+            else sparse.make_field_sparse_sgd_body)(pspec, cfg)
+    params = pspec.init(torch.Generator().manual_seed(1), device="cpu")
+    batches = _batches(2, seed=6)
+    auxes = [_aux(lever, b[0]) for b in batches]
+    step = torch.tensor(3, dtype=torch.int32)
+    batch = [torch.from_numpy(a) for a in batches[0]]
+    aux = None if auxes[0] is None else tuple(map(torch.from_numpy, auxes[0]))
+    with NoHostSync():
+        params, loss = body(params, step, *batch, aux)
+    assert loss.shape == ()
+    stacked = [torch.from_numpy(np.stack(a)) for a in zip(*batches)]
+    aux = None if auxes[0] is None else tuple(
+        torch.from_numpy(np.stack(a)) for a in zip(*auxes))
+    with NoHostSync():
+        loss = sparse._roll(body, params, step, 2, *stacked, aux)
+    assert loss.shape == ()
+
+
+# --------------------------------------------------- the entry points
+
+
+def test_captured_entry_points_run_the_body_on_the_cpu():
+    jspec, pspec = _specs("fm")
+    cfg = TrainConfig(learning_rate=0.05, sparse_update="dedup_sr", **COMPACT)
+    body = sparse.make_field_sparse_sgd_body(pspec, cfg)
+    step = sparse.make_field_sparse_sgd_step(pspec, cfg)
+    p1 = pspec.init(torch.Generator().manual_seed(1), device="cpu")
+    p2 = {"w0": p1["w0"].clone(), "vw": [t.clone() for t in p1["vw"]]}
+    for i, b in enumerate(_batches(2)):
+        aux = tuple(map(torch.from_numpy, _aux(COMPACT, b[0])))
+        p1, l1 = body(p1, i, *map(torch.from_numpy, b), aux)
+        p2, l2 = step(p2, i, *map(torch.from_numpy, b), aux)
+        assert float(l1) == float(l2)
+    assert all(torch.equal(a, c) for a, c in zip(p1["vw"], p2["vw"]))
+    assert step.captured.capture_s == []        # nothing captured here
+    with pytest.raises(ValueError, match="expected a FieldFFMSpec"):
+        sparse.make_field_ffm_sparse_sgd_step(pspec, cfg)
+    with pytest.raises(ValueError, match="expected a FieldFMSpec"):
+        sparse.make_field_sparse_sgd_step(_specs("ffm")[1], cfg)
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 3])
+def test_precompile_returns_the_step_without_stepping_the_params(
+        steps_per_call):
+    _, pspec = _specs("ffm")
+    cfg = TrainConfig(learning_rate=0.05, sparse_update="dedup_sr",
+                      sel_blocked=True, **COMPACT)
+    params = pspec.init(torch.Generator().manual_seed(1), device="cpu")
+    before = [t.clone() for t in params["vw"]]
+    step = sparse.precompile_field_sparse_step(pspec, cfg, B, steps_per_call,
+                                               params=params)
+    assert all(torch.equal(a, c) for a, c in zip(before, params["vw"]))
+    b = _batches(1)[0]
+    aux = tuple(map(torch.from_numpy, _aux(COMPACT, b[0])))
+    args = [torch.from_numpy(a) for a in b]
+    if steps_per_call == 1:
+        _, loss = step(params, 0, *args, aux)
+    else:
+        _, loss = step(params, 0, 1, *(a[None] for a in args),
+                       tuple(a[None] for a in aux))
+    assert np.isfinite(float(loss))
+
+
+def test_every_kernel_counter_is_known_to_the_graphs():
+    from fm_spark_tpu_torch import ops
+
+    counts = ops.kernel_launches()
+    assert len(counts) == len(ops.KERNEL_COUNTERS) == 8
+    assert all(isinstance(n, int) for n in counts.values())

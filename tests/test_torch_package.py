@@ -950,3 +950,243 @@ def test_native_aux_equals_numpy_on_the_bench_batch(cuda):
     for g, p in zip(scatter.compact_aux(ids, 12288),
                     scatter.compact_aux_plain(ids, 12288)):
         np.testing.assert_array_equal(g, p)
+
+
+# ------------------------------------------------------ the captured step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (7, 3), (12288, 65), (300, 250),
+                                   (5000, 369)])
+@pytest.mark.parametrize("step", [0, 9, 10**7])
+def test_sr_bits_kernel_matches_plain_on_the_card(cuda, shape, step):
+    from fm_spark_tpu_torch.ops import srbits
+
+    before = srbits.launches
+    got = srbits.sr_bits(3 + 0x5EED, step, 38, shape, cuda)
+    from_tensor = srbits.sr_bits(
+        3 + 0x5EED, torch.tensor(step, dtype=torch.int32, device=cuda), 38,
+        shape, cuda)
+    torch.cuda.synchronize()
+    assert srbits.launches == before + 2
+    want = srbits.sr_bits_plain(3 + 0x5EED, step, 38, shape)
+    assert torch.equal(got.cpu(), want) and torch.equal(from_tensor.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_fm_bwd_kernel_with_the_device_aux_past_its_cap_on_the_card(cuda, cd):
+    """Kernel B on the device-built aux of a batch with fields past the cap
+    (compact_device, 'drop'): the lanes with inv >= cap read a zero row
+    and write nothing; kernel and plain version each within 1e-5 of the
+    segment's sum of |term| from the exact total, the rows past the cap
+    untouched by them."""
+    from fm_spark_tpu_torch.ops import fused_bwd, scatter, segsum
+
+    rng = np.random.default_rng(7)
+    b, f, cap, w = 4000, 5, 700, 65
+    ids = (rng.zipf(1.3, (b, f)) % 3000).astype(np.int32)
+    ids[:, 2] = rng.permutation(b)                  # far past the cap
+    aux, nseg = scatter.device_compact_aux(torch.from_numpy(ids).to(cuda), cap)
+    order, inv = aux[3], aux[4]
+    assert int(nseg.max()) > cap and bool((inv >= cap).any())
+    urows = [torch.from_numpy(rng.normal(size=(cap, w)) * 0.1)
+             .to(cuda, torch.bfloat16) for _ in range(f)]
+    s1 = torch.from_numpy(rng.normal(size=(b, w))).to(cuda, cd)
+    ds = torch.from_numpy(rng.normal(size=b) * 0.1).to(cuda, cd)
+    vals = torch.from_numpy(rng.uniform(0.5, 1.5, (b, f))).to(cuda,
+                                                              torch.float32)
+    weights = torch.ones(b, device=cuda)
+    neg_lr = torch.tensor(-0.05, device=cuda)
+    args = (urows, s1, ds, vals, weights, order, inv, neg_lr, (1e-4, 1e-5))
+    got = fused_bwd.fm_bwd_segment_totals(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = fused_bwd.fm_bwd_segment_totals_plain(*args, cap=cap)
+    terms = fused_bwd.fm_bwd_sorted_deltas(*args, cap=cap)
+    exact = torch.stack([segsum.segment_totals_plain(d.double(), s, cap)
+                         for d, s in terms])
+    bound = 1e-5 * torch.stack([segsum.segment_totals_plain(d.abs().double(),
+                                                            s, cap)
+                                for d, s in terms])
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((want.double() - exact).abs() <= bound).all())
+
+
+def _captured_case(cuda, form):
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    family, dtype, mode, lever, b, f, bucket, cap = _CAPTURED_FORMS[form]
+    kw = dict(num_features=f * bucket, num_fields=f, bucket=bucket,
+              init_std=0.05, param_dtype=dtype, compute_dtype="bfloat16")
+    spec = (models.FieldFFMSpec(rank=16, **kw) if family == "ffm"
+            else models.FieldFMSpec(rank=64, **kw))
+    lever = dict(lever)
+    if "compact_cap" in lever:
+        lever["compact_cap"] = cap
+    cfg = TrainConfig(learning_rate=0.05, reg_factors=1e-4, reg_linear=1e-5,
+                      reg_bias=1e-6, sparse_update=mode, **lever)
+    return spec, cfg
+
+
+_CAPTURED_FORMS = {
+    # family, tables, sparse_update, levers, B, F, bucket, cap
+    "compact-segtotal": ("fm", "bfloat16", "dedup_sr", dict(
+        host_dedup=True, compact_cap=0, gfull_fused=True,
+        segtotal_pallas=True), 4096, 6, 3000, 1500),
+    "compact-fusedbwd": ("fm", "bfloat16", "dedup_sr", dict(
+        host_dedup=True, compact_cap=0, fused_embed="require"),
+        4096, 6, 3000, 1500),
+    "compact-plain": ("fm", "bfloat16", "dedup_sr", dict(
+        host_dedup=True, compact_cap=0), 4096, 6, 3000, 1500),
+    "devaux": ("fm", "bfloat16", "dedup_sr", dict(
+        compact_device=True, compact_cap=0, gfull_fused=True,
+        segtotal_pallas=True), 4096, 6, 3000, 1500),
+    "devaux-drop-fusedbwd": ("fm", "bfloat16", "dedup_sr", dict(
+        compact_device=True, compact_cap=0, compact_overflow="drop",
+        fused_embed="require"), 4096, 6, 3000, 300),
+    "lane-dedup-sr": ("fm", "bfloat16", "dedup_sr", {}, 4096, 6, 3000, 0),
+    "fm-pallas": ("fm", "float32", "scatter_add", dict(use_pallas=True),
+                  4096, 6, 3000, 0),
+    "ffm-selblk-pallas-rows": ("ffm", "float32", "scatter_add", dict(
+        use_pallas=True, sel_blocked=True, fused_embed="require"),
+        2048, 5, 500, 0),
+}
+
+
+def _captured_batches(cuda, form, n, cfg):
+    from fm_spark_tpu_torch.ops import scatter
+
+    _, _, _, _, b, f, bucket, cap = _CAPTURED_FORMS[form]
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(n):
+        ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
+        batch = [torch.from_numpy(a).to(cuda) for a in (
+            ids, rng.uniform(0.5, 1.5, (b, f)).astype(np.float32),
+            rng.integers(0, 2, b).astype(np.float32),
+            (rng.random(b) > 0.05).astype(np.float32))]
+        aux = None
+        if cfg.host_dedup:
+            aux = tuple(torch.from_numpy(a).to(cuda)
+                        for a in scatter.compact_aux(ids, cap))
+        out.append((*batch, aux))
+    return out
+
+
+def _same_params(a, b):
+    def bits(t):
+        return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                                   else torch.int32)
+
+    return (torch.equal(bits(a["w0"]), bits(b["w0"]))
+            and all(torch.equal(bits(x), bits(y))
+                    for x, y in zip(a["vw"], b["vw"])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(_CAPTURED_FORMS))
+def test_captured_step_equals_the_eager_step_on_the_card(cuda, form):
+    """Three steps of the captured step (one CUDA graph, replayed) against
+    the eager body on a copy of the same params: the same bits after every
+    step; a call with other params tensors captures anew."""
+    from fm_spark_tpu_torch import sparse
+
+    spec, cfg = _captured_case(cuda, form)
+    ffm = _CAPTURED_FORMS[form][0] == "ffm"
+    body = (sparse.make_field_ffm_sparse_sgd_body if ffm
+            else sparse.make_field_sparse_sgd_body)(spec, cfg)
+    step = (sparse.make_field_ffm_sparse_sgd_step if ffm
+            else sparse.make_field_sparse_sgd_step)(spec, cfg)
+    eager = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    graphed = {"w0": eager["w0"].clone(),
+               "vw": [t.clone() for t in eager["vw"]]}
+    for i, batch in enumerate(_captured_batches(cuda, form, 3, cfg)):
+        eager, le = body(eager, i, *batch)
+        graphed, lc = step(graphed, i, *batch)
+        torch.cuda.synchronize()
+        assert torch.equal(le.view(torch.int32), lc.view(torch.int32)), i
+        assert _same_params(eager, graphed), i
+    assert len(step.captured.capture_s) == 1
+    other = {"w0": eager["w0"].clone(), "vw": [t.clone() for t in eager["vw"]]}
+    batch = _captured_batches(cuda, form, 1, cfg)[0]
+    eager, le = body(eager, 3, *batch)
+    other, lc = step(other, 3, *batch)
+    torch.cuda.synchronize()
+    assert len(step.captured.capture_s) == 2
+    assert torch.equal(le, lc) and _same_params(eager, other)
+
+
+@pytest.mark.gpu
+def test_counters_count_the_warm_up_and_no_replay_on_the_card(cuda):
+    """A captured step's first call launches its kernels once, in the
+    warm-up on clones of the params; the capture records them and the
+    replays launch them past the wrappers, so neither counts."""
+    from fm_spark_tpu_torch import ops, sparse
+
+    form = "compact-segtotal"
+    spec, cfg = _captured_case(cuda, form)
+    step = sparse.make_field_sparse_sgd_step(spec, cfg)
+    params = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    batches = _captured_batches(cuda, form, 3, cfg)
+    before = ops.kernel_launches()
+    params, _ = step(params, 0, *batches[0])
+    torch.cuda.synchronize()
+    first = ops.kernel_launches()
+    for i, batch in enumerate(batches[1:], 1):
+        params, _ = step(params, i, *batch)
+    torch.cuda.synchronize()
+    f = spec.num_fields
+    assert first["segment_totals"] - before["segment_totals"] == f
+    assert first["sr_bits"] - before["sr_bits"] == f
+    assert ops.kernel_launches() == first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, dim", [((256, 512, 65), 1), ((256, 65), 0),
+                                        ((40, 3), 0), ((7, 33, 2), 1)])
+def test_xla_order_prefix_on_the_card_equals_the_cpu(cuda, shape, dim):
+    """The compact update's blocked prefix (``scatter._prefix_f32``): its
+    runs of 16 are one cumsum on the card and sequential adds on the CPU,
+    the same float32 sums bit for bit, a −0.0 first element kept."""
+    from fm_spark_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=shape).astype(np.float32)
+    x[(0,) * len(shape)] = -0.0
+    x.reshape(-1)[::5] *= 1e-6
+    want = scatter._prefix_f32(torch.from_numpy(x), dim)
+    got = scatter._prefix_f32(torch.from_numpy(x).to(cuda), dim)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_captured_roll_equals_the_eager_steps_on_the_card(cuda):
+    """A roll of n = 4 over 7 steps: a graph of 4 steps and one of the tail
+    of 3, against 7 eager steps, the same bits."""
+    from fm_spark_tpu_torch import sparse
+
+    form = "compact-fusedbwd"
+    spec, cfg = _captured_case(cuda, form)
+    body = sparse.make_field_sparse_sgd_body(spec, cfg)
+    mstep = sparse.make_field_sparse_multistep(spec, cfg, 4)
+    eager = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    graphed = {"w0": eager["w0"].clone(),
+               "vw": [t.clone() for t in eager["vw"]]}
+    batches = _captured_batches(cuda, form, 7, cfg)
+    losses = []
+    for i, batch in enumerate(batches):
+        eager, loss = body(eager, 2 + i, *batch)
+        losses.append(loss)
+    got = []
+    for lo, hi in ((0, 4), (4, 7)):
+        group = batches[lo:hi]
+        stacked = [torch.stack(parts) for parts in zip(*[g[:4] for g in group])]
+        aux = tuple(torch.stack(a) for a in zip(*[g[4] for g in group]))
+        graphed, loss = mstep(graphed, 2 + lo, hi - lo, *stacked, aux)
+        got.append(loss)
+    torch.cuda.synchronize()
+    assert len(mstep.captured.capture_s) == 2
+    assert torch.equal(got[0], losses[3]) and torch.equal(got[1], losses[6])
+    assert _same_params(eager, graphed)

@@ -127,11 +127,10 @@ def test_three_steps_match_jax(pd, cd, mode, lever):
 
 
 # use_pallas and the per-lane dedup forms are ported (and tested in
-# tests/test_torch_train_pallas.py); the ids of the rest stay as they were.
+# tests/test_torch_train_pallas.py), and compact_device (tested in
+# tests/test_torch_compact_device.py); the ids of the rest stay as they
+# were.
 UNPORTED = [
-    pytest.param(dict(sparse_update="dedup", compact_device=True,
-                      compact_cap=CAP), {}, "compact_device",
-                 id="cfg3-spec_kw3-compact_device"),
     pytest.param(dict(sparse_update="dedup", **COMPACT),
                  dict(table_layout="col"), "table_layout='col'",
                  id="cfg4-spec_kw4-table_layout='col'"),

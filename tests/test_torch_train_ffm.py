@@ -156,19 +156,6 @@ def test_reference_guards_raise_the_same(cfg):
     assert str(got.value) == str(want.value)
 
 
-# use_pallas and the per-lane dedup forms are ported (and tested in
-# tests/test_torch_train_pallas.py); the id of the rest stays as it was.
-@pytest.mark.parametrize("cfg,match", [
-    pytest.param(dict(sparse_update="dedup", compact_device=True,
-                      compact_cap=CAP), "compact_device.*ROADMAP",
-                 id="cfg1-compact_device.*ROADMAP"),
-])
-def test_unported_forms_raise_with_their_roadmap_item(cfg, match):
-    _, pspec = _specs()
-    with pytest.raises(ValueError, match=match):
-        sparse.make_field_ffm_sparse_sgd_body(pspec, TrainConfig(**cfg))
-
-
 def test_bodies_refuse_the_other_family():
     _, pspec = _specs()
     fm = models.FieldFMSpec(num_features=F * BUCKET, num_fields=F,
