@@ -108,7 +108,29 @@ Phases (any failure exits non-zero before the last line is printed):
    than the eager step launches it (the trace misses a kernel record now
    and then, so a count may fall short). Then the roll (``make_field_sparse_multistep``, n = 4: a
    graph of 4 steps and one of the tail of 3) against 7 eager steps of
-   the ``fusedbwd`` leg, bit for bit.
+   the ``fusedbwd`` leg, bit for bit;
+14. real data and resumable training through ``fmtorch`` (``cli.main``,
+   in this process): a 327,680-row Criteo TSV written by whole columns
+   (``zipf(1.3)`` hex tokens, 5 % missing), ``preprocess`` at config 3's
+   full bucket (shuffled) and ``cap-advise`` (its scanned maximum must
+   fit cap 12,288), the packed reader's ``assemble`` timed on the host;
+   then three legs, each trained uninterrupted, stopped, and resumed by
+   the same command into a checkpoint chain kept in a temporary
+   directory (``--checkpoint-keep 2``): leg A, config 3 at full width
+   (bf16, ``dedup_sr``, host compact aux at 12,288, the fused backward,
+   batch 131,072, 6 steps over two epoch boundaries, resumed at 3), with
+   ``eval --data`` and ``predict --data`` on the holdout; leg B, the same
+   with ``segtotal`` and ``--steps-per-call 2`` (4 steps, resumed at 2);
+   leg C, config 4 from an Avazu CSV (``--use-pallas``, ``sel_blocked``,
+   the FFM kernels, batch 8,192, resumed at 3) and ``eval --data``. The
+   resumed run's loss lines and final saved step (and in legs A and C its
+   params.npz) must equal the uninterrupted run's bit for bit, its steps
+   replays of graphs captured after the restore (the equality is the
+   witness that they read the restored tensors). Every kernel
+   counter is set to 0 before the legs and each must have launched. It
+   prints preprocess rows/s, assemble, aux and step ms per batch, save
+   (snapshot, crc, write) and restore ms, with the card's name and power
+   limit.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -134,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1982,6 +2005,343 @@ def capture_phase(dev, report):
     return launches
 
 
+INGEST_ROWS = 327680                     # phase 14: 262,144 train rows
+INGEST_AVAZU_ROWS = 40000
+INGEST_FFM_B = 8192
+
+
+def _criteo_tsv(path: str, rows: int, seed: int) -> int:
+    """A Criteo-shaped TSV written by whole columns: 40 tab-separated
+    columns per line (a 0/1 label at P(1) = 0.25, 13 counts
+    ``zipf(1.5) - 1`` in decimal, 26 tokens ``zipf(1.3)`` as 8 hex
+    digits), each count or token missing (empty) at 5 %. Every line is
+    laid out in a fixed-width byte matrix and the bytes of empty fields
+    and leading zeros are masked out. Returns the file's size."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    label = rng.random(rows) < 0.25
+    counts = np.minimum(rng.zipf(1.5, (rows, 13)) - 1, 10**9 - 1)
+    tokens = (rng.zipf(1.3, (rows, 26)) % (1 << 32)).astype(np.uint64)
+    missing = rng.random((rows, 39)) < 0.05
+    width = 1 + 13 * 10 + 26 * 9 + 1
+    mat = np.empty((rows, width), np.uint8)
+    keep = np.ones((rows, width), bool)
+    mat[:, 0] = np.where(label, ord("1"), ord("0"))
+    col = 1
+    tens = 10 ** np.arange(8, -1, -1, dtype=np.int64)        # 9 digits
+    for f in range(13):
+        mat[:, col] = ord("\t")
+        digits = (counts[:, f:f + 1] // tens) % 10
+        mat[:, col + 1:col + 10] = digits + ord("0")
+        lead = np.cumsum(digits != 0, axis=1) > 0
+        lead[:, -1] = True                                    # "0"
+        keep[:, col + 1:col + 10] = lead & ~missing[:, f:f + 1]
+        col += 10
+    hexdigits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    shifts = np.arange(28, -1, -4, dtype=np.uint64)           # 8 nibbles
+    for f in range(26):
+        mat[:, col] = ord("\t")
+        nibbles = (tokens[:, f:f + 1] >> shifts) & np.uint64(15)
+        mat[:, col + 1:col + 9] = hexdigits[nibbles.astype(np.int64)]
+        keep[:, col + 1:col + 9] = ~missing[:, 13 + f:14 + f]
+        col += 9
+    mat[:, col] = ord("\n")
+    body = mat[keep].tobytes()
+    with open(path, "wb") as f:
+        f.write(body)
+    return len(body)
+
+
+def _cli(*argv):
+    """``fmtorch`` run in this process (``cli.main``, the console
+    script's entry point): its stdout's JSON lines and stderr's last
+    JSON line. A failure raises."""
+    import gc
+    import io
+
+    import torch
+
+    from fm_spark_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    _check(rc == 0, f"fmtorch {argv[0]} returned {rc}: {err.getvalue()[-4000:]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith("{")]
+    errs = [json.loads(x) for x in err.getvalue().splitlines()
+            if x.startswith("{")]
+    return lines, (errs[-1] if errs else None)
+
+
+def _losses(lines) -> dict:
+    return {x["step"]: x["loss"] for x in lines if "loss" in x}
+
+
+def _one(lines, key):
+    got = [x[key] for x in lines if key in x]
+    _check(len(got) == 1, f"want one {key!r} line, got {got}")
+    return got[0]
+
+
+def _chain_step(ckdir: str, step: int) -> dict:
+    """The arrays (bf16 as their uint16 bits) and manifest of one saved
+    step of a checkpoint chain."""
+    import numpy as np
+
+    d = os.path.join(ckdir, str(step))
+    with open(os.path.join(d, "state.json")) as f:
+        state = json.load(f)
+    with open(os.path.join(ckdir, "manifests", f"{step}.json")) as f:
+        manifest = json.load(f)
+    arrays = {k: np.load(os.path.join(d, v["file"]))
+              for k, v in state["arrays"].items()}
+    return {"arrays": arrays, "checksums": manifest["checksums"],
+            "pipeline": state["pipeline"]}
+
+
+def _same_chain_step(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return (a["checksums"] == b["checksums"] and a["pipeline"] == b["pipeline"]
+            and sorted(a["arrays"]) == sorted(b["arrays"])
+            and all(np.array_equal(a["arrays"][k], b["arrays"][k])
+                    for k in a["arrays"]))
+
+
+def _resume_leg(name, common, base, tag, steps, stop, models=False):
+    """One leg of phase 14: ``train`` uninterrupted for ``steps`` into a
+    chain; ``stop`` steps into a fresh chain; the same command at
+    ``steps`` again, which resumes from ``stop``. The resumed run's loss
+    lines and final saved step (arrays, crc32s and cursor) must equal the
+    uninterrupted run's bit for bit, and its steps must run as replays of
+    the graphs it captured after the restore (the equality is the witness
+    that those graphs read the restored tensors; fit restores before its
+    first call). With ``models`` both full runs write a
+    model dir (``<tag>_full``, ``<tag>_resumed``) whose params.npz must be
+    equal too."""
+    import numpy as np
+
+    chains = [os.path.join(base, f"{tag}{i}") for i in (1, 2)]
+    outs = [os.path.join(base, f"{tag}_{k}") for k in ("full", "resumed")]
+
+    def model_args(i):
+        return ["--model-out", outs[i]] if models else []
+    full, full_sum = _cli(*common, "--steps", steps, "--checkpoint-dir",
+                          chains[0], *model_args(0))
+    part, part_sum = _cli(*common, "--steps", stop, "--checkpoint-dir",
+                          chains[1])
+    rest, rest_sum = _cli(*common, "--steps", steps, "--checkpoint-dir",
+                          chains[1], *model_args(1))
+    lf, lp, lr = _losses(full), _losses(part), _losses(rest)
+    _check(all(lp[k] == lf[k] for k in lp) and max(lp) == stop,
+           f"{name}: the stopped run's losses {lp} != {lf}")
+    _check(lr and all(lr[k] == lf[k] for k in lr) and min(lr) > stop
+           and max(lr) == steps,
+           f"{name}: the resumed run's losses {lr} != the uninterrupted {lf}")
+    resumed = _one(rest, "resumed")
+    _check(resumed["step"] == stop and len(rest_sum["capture_s"]) >= 1,
+           f"{name}: resumed {resumed}, captured {rest_sum['capture_s']}")
+    _check(_same_chain_step(_chain_step(chains[0], steps),
+                            _chain_step(chains[1], steps)),
+           f"{name}: the resumed run's step {steps} differs from the "
+           "uninterrupted run's")
+    for d in chains:
+        shutil.rmtree(d)
+    if models:
+        with np.load(os.path.join(outs[0], "params.npz")) as a, \
+                np.load(os.path.join(outs[1], "params.npz")) as b:
+            _check(sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files),
+                f"{name}: the resumed params.npz differs from the "
+                "uninterrupted run's")
+        shutil.rmtree(outs[0])
+    return {"losses": lf, "resumed_losses": lr, "resumed": resumed,
+            # Wall-clock samples/s between loss lines (the logger's): at
+            # a step whose previous step saved nothing, one step end to
+            # end, host input included.
+            "samples_per_s": {x["step"]: x.get("samples_per_sec")
+                              for x in full if "loss" in x},
+            "full": full_sum, "stopped": part_sum, "resumed_run": rest_sum,
+            "full_eval": _one(full, "eval"), "resumed_eval": _one(rest, "eval"),
+            "model": outs[1] if models else None}
+
+
+def _leg_numbers(leg) -> dict:
+    """The leg's host and device times: step and aux ms per batch (the
+    uninterrupted run), save ms by part, restore ms."""
+    full = leg["full"]
+    saves = full["saves"]
+    med = statistics.median
+    return {
+        "samples_per_s": leg["samples_per_s"],
+        "step_ms_median": med(full["step_ms"][1:] or full["step_ms"]),
+        "step_ms": full["step_ms"],
+        "aux_ms_median": med(full["aux_ms"]) if full["aux_ms"] else None,
+        "capture_s": full["capture_s"],
+        "save_snapshot_ms": [x["snapshot_ms"] for x in saves],
+        "save_crc_ms": med(x["crc_ms"] for x in saves),
+        "save_write_ms": med(x["write_ms"] for x in saves),
+        "save_bytes": saves[0]["bytes"],
+        "restore_ms": leg["resumed"]["restore_ms"],
+        "restore_read_ms": leg["resumed"]["read_ms"],
+        "restore_verify_ms": leg["resumed"]["verify_ms"],
+        "restore_bytes": leg["resumed"]["bytes"],
+    }
+
+
+def ingest_phase(dev, report):
+    """Phase 14: real data and resumable training through ``fmtorch``."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+
+    from fm_spark_tpu_torch import data, models, native
+    from fm_spark_tpu_torch.data import avazu
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="ingest.", dir=root)
+    out = {"card": report["card"]}
+    try:
+        # The preprocessing library builds at first use: apart from the
+        # parse's time.
+        t0 = time.perf_counter()
+        native.load_fast()
+        out["native_build_s"] = time.perf_counter() - t0
+        # Data: the Criteo TSV, preprocess at config 3's full bucket.
+        tsv = os.path.join(base, "day.tsv")
+        t0 = time.perf_counter()
+        out["tsv_bytes"] = _criteo_tsv(tsv, INGEST_ROWS, seed=14)
+        out["tsv_write_s"] = time.perf_counter() - t0
+        packed = os.path.join(base, "criteo")
+        lines, _ = _cli("preprocess", "--config", "criteo1tb_fm_r64",
+                        "--input", tsv, "--out-dir", packed)
+        pre = lines[-1]
+        _check(pre["num_examples"] == INGEST_ROWS and pre["shuffled"],
+               f"preprocess: {pre}")
+        os.unlink(tsv)
+        out["preprocess"] = {
+            **pre, "parse_rows_per_s": INGEST_ROWS / pre["parse_s"],
+            "rows_per_s": INGEST_ROWS / (pre["parse_s"] + pre["shuffle_s"])}
+        lines, _ = _cli("cap-advise", "--data", packed, "--batch-size",
+                        TRAIN_B, "--batches", 4)
+        advice = lines[-1]
+        _check(advice["max_unique_per_field_overall"] <= CAP,
+               f"cap-advise: a batch holds more than {CAP} ids per field: "
+               f"{advice['max_unique_per_field_overall']}")
+        out["cap_advise"] = {k: advice[k] for k in (
+            "max_unique_per_field_overall", "recommended_compact_cap")}
+        ds = data.PackedDataset(packed)
+        cut = int(len(ds) * (1.0 - 0.2))           # train's tail holdout
+        rng = np.random.default_rng(0)
+        times = []
+        for _ in range(5):
+            sel = rng.permutation(cut)[:TRAIN_B]
+            t0 = time.perf_counter()
+            ds.assemble(sel, bucket=BUCKET)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["assemble_ms_per_batch"] = statistics.median(times)
+        holdout = os.path.join(base, "criteo_holdout")
+        with data.PackedWriter(holdout, F, store_vals=False) as w:
+            w.append(np.asarray(ds.ids[cut:]), np.asarray(ds.labels[cut:]))
+
+        # Counts start at 0 just before the legs and are read just after.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        config3 = ["train", "--config", "criteo1tb_fm_r64", "--data", packed,
+                   "--batch-size", TRAIN_B, "--param-dtype", "bfloat16",
+                   "--compute-dtype", "bfloat16", "--sparse-update",
+                   "dedup_sr", "--host-dedup", "--compact-cap", CAP,
+                   "--test-fraction", "0.2", "--checkpoint-every", 2,
+                   "--checkpoint-keep", 2]
+        # Leg A: the fused backward, 6 steps over two epoch boundaries.
+        leg_a = _resume_leg("leg A", config3 + ["--fused-embed", "require"],
+                            base, "a", 6, 3, models=True)
+        model = leg_a["model"]
+        lines, ev = _cli("eval", "--model", model, "--config",
+                         "criteo1tb_fm_r64", "--data", holdout,
+                         "--batch-size", TRAIN_B)
+        metrics = lines[-1]
+        want = leg_a["resumed_eval"]
+        _check(metrics["count"] == len(ds) - cut and all(
+            abs(metrics[k] - want[k]) <= 1e-6 for k in ("auc", "logloss")),
+            f"eval --data: {metrics} != the training run's holdout {want}")
+        _check(ev["kernel_launches"]["fm_fused_scores"] > 0,
+               f"eval --data launched no forward kernel: {ev}")
+        preds = os.path.join(base, "preds.txt")
+        _, pr = _cli("predict", "--model", model, "--config",
+                     "criteo1tb_fm_r64", "--data", holdout, "--batch-size",
+                     16384, "--out", preds)
+        got = np.loadtxt(preds)
+        spec, params = models.load_model(model, device=dev)
+        ids, vals, _ = ds.assemble(np.s_[cut:cut + 4096], bucket=BUCKET)
+        want = _plain_predict(spec, params, ids, np.array(vals), dev).numpy()
+        del params
+        _check(got.shape == (len(ds) - cut,)
+               and np.allclose(got[:4096], want, rtol=1e-5, atol=1e-6),
+               f"predict --data: {got.shape} lines, max err "
+               f"{np.abs(got[:4096] - want).max()}")
+        _check(pr["kernel_launches"]["fm_fused_scores"] > 0,
+               f"predict --data launched no forward kernel: {pr}")
+        shutil.rmtree(model)
+        out["leg_a"] = {**_leg_numbers(leg_a), "losses": leg_a["losses"],
+                        "eval": metrics, "predict_lines": int(got.shape[0])}
+
+        # Leg B: kernel A's segment totals, two steps per call, resumed
+        # at a stride boundary.
+        leg_b = _resume_leg(
+            "leg B", config3 + ["--gfull-fused", "--segtotal-pallas",
+                                "--steps-per-call", 2], base, "b", 4, 2)
+        out["leg_b"] = {**_leg_numbers(leg_b), "losses": leg_b["losses"]}
+        shutil.rmtree(packed)
+        shutil.rmtree(holdout)
+
+        # Leg C: config 4 from an Avazu CSV, the FFM kernels and the row
+        # kernels (deterministic scatter_add under --use-pallas).
+        csv = os.path.join(base, "train.csv")
+        t0 = time.perf_counter()
+        avazu.synthesize_csv(csv, INGEST_AVAZU_ROWS, seed=14)
+        out["avazu_csv_write_s"] = time.perf_counter() - t0
+        packed_c = os.path.join(base, "avazu")
+        lines, _ = _cli("preprocess", "--config", "avazu_ffm_r16",
+                        "--input", csv, "--out-dir", packed_c)
+        _check(lines[-1]["num_examples"] == INGEST_AVAZU_ROWS,
+               f"preprocess (avazu): {lines[-1]}")
+        out["preprocess_avazu"] = lines[-1]
+        leg_c = _resume_leg(
+            "leg C", ["train", "--config", "avazu_ffm_r16", "--data",
+                      packed_c, "--batch-size", INGEST_FFM_B,
+                      "--compute-dtype", "bfloat16", "--sel-blocked",
+                      "--fused-embed", "require", "--use-pallas",
+                      "--test-fraction", "0.2", "--checkpoint-every", 2,
+                      "--checkpoint-keep", 2], base, "c", 6, 3, models=True)
+        lines, ev = _cli("eval", "--model", leg_c["model"], "--config",
+                         "avazu_ffm_r16", "--data", packed_c,
+                         "--batch-size", INGEST_FFM_B)
+        _check(lines[-1]["count"] == INGEST_AVAZU_ROWS
+               and np.isfinite(lines[-1]["logloss"])
+               and ev["kernel_launches"]["ffm_sel_scores"] > 0,
+               f"eval --data (avazu): {lines[-1]} {ev}")
+        out["leg_c"] = {**_leg_numbers(leg_c), "losses": leg_c["losses"],
+                        "eval": lines[-1]}
+        launches = kernel_launches()
+        out["launches"] = launches
+        _check(all(v > 0 for v in launches.values()),
+               f"a kernel of the ingest legs never launched: {launches}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print("ingest", json.dumps(out), flush=True)
+    report["ingest"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2026,6 +2386,7 @@ def main() -> int:
     pallas_launches = pallas_train_phase(dev, report)
     sr_rows = sr_bits_phase(dev, report)
     capture_launches = capture_phase(dev, report)
+    ingest_launches = ingest_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -2160,6 +2521,8 @@ def main() -> int:
     for entry in kernels["kernels"]:
         entry["runs_per_captured_step"] = capture_launches.get(entry["name"],
                                                                {})
+        # Phase 14's legs (ingest, train, resume, eval, predict).
+        entry["ingest_launches"] = ingest_launches[entry["name"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

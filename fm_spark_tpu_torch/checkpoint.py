@@ -1,0 +1,678 @@
+"""Mid-training checkpoints and resume: the port of
+``fm_spark_tpu/checkpoint.py``'s crash-consistent chain, without orbax.
+
+A save holds the full training state: the parameters, the step and the
+data pipeline's cursor, so a resumed run replays exactly the batches,
+step indices and learning rates the uninterrupted run would have seen
+and ends with the same bits.
+
+**Step data.** Each step is one directory, ``<dir>/<step>/``, written
+under a temporary name, fsynced and renamed. It holds one ``.npy`` per
+array under its canonical key (``w0.npy``, ``vw/0.npy`` … the names of
+``models/io.py``) and ``state.json``: the step, the pipeline cursor,
+``extra``, the layout (``"canonical"``: per-field tables, one card) and
+each array's dtype and shape. A bf16 array is stored bit for bit, as its
+16-bit pattern (``uint16``) with ``"bfloat16"`` recorded.
+
+**The chain** keeps the reference's files and fields. After a step's
+directory is renamed into place its MANIFEST is written atomically,
+``manifests/<step>.json``: a crc32 per array of the exact bytes saved
+(the reference's ``verify="checksum"``), the crc of the JSON meta, and
+the step. Then ``last_good.json`` advances to it.
+``tombstones/<step>.json`` (and ``range_<floor>_<tip>.json``) veto a step
+on restore; this package reads them and does not write them.
+:meth:`Checkpointer.restore` walks the chain newest-first and trusts
+nothing it cannot verify: a step without a manifest newer than
+``last_good`` (a torn save), one whose bytes miss their crc or cannot be
+read (corrupt), and a tombstoned one are skipped, each with a journal
+event, down to the newest verified step; the torn and corrupt steps it
+passed are then removed (the resumed run writes them anew) and
+``last_good`` points at the restored step. When steps exist and none
+verifies it raises :class:`CheckpointChainBroken`; it never starts fresh
+silently.
+
+**Saves race the next step.** A captured training step updates the
+parameters in place on the card. So :meth:`Checkpointer.save` copies
+them to the host (into pinned buffers it keeps) and computes their crc32
+on the calling thread, before it returns and before the caller issues
+the next step; only the file write runs in the background, and
+:meth:`wait`/:meth:`close` join it. A write that failed raises at the
+next save, wait or close.
+
+``max_to_keep`` keeps the newest steps (and ``last_good``'s) and removes
+the rest with their manifests. :class:`PreemptionGuard` turns SIGTERM
+into a flag the training loop polls to save and stop. Deferred to the
+serving slices: ``demote``, ``demote_newer_than`` and ``ChainFollower``.
+"""
+
+from __future__ import annotations
+
+import errno
+import json
+import os
+import shutil
+import signal
+import threading
+import time
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+from fm_spark_tpu_torch.utils import durable
+
+__all__ = ["CheckpointChainBroken", "CheckpointIOError", "Checkpointer",
+           "PreemptionGuard", "copy_into"]
+
+#: The layout a save records: per-field tables in the canonical tree.
+LAYOUT = "canonical"
+#: Bounded retry of a chain-file write (the reference's backoff).
+_IO_RETRY_BACKOFF_S = (0.05, 0.1, 0.2)
+
+
+class CheckpointChainBroken(RuntimeError):
+    """Checkpoints exist but none passed verification (every step torn
+    or corrupt), or an explicit step is vetoed or corrupt. Restarting
+    from scratch silently would discard the run's progress."""
+
+
+class CheckpointIOError(RuntimeError):
+    """A checkpoint write failed (after bounded retry for the chain
+    files). The ``OSError`` rides as ``__cause__``; ``errno`` mirrors it."""
+
+    def __init__(self, path: str, exc: BaseException):
+        super().__init__(f"checkpoint durable write failed: {path} "
+                         f"({type(exc).__name__}: {exc})")
+        self.path = path
+        self.errno = getattr(exc, "errno", None)
+
+
+def _flatten(params) -> dict[str, torch.Tensor]:
+    """The canonical keys of ``models/io.py``: ``w0``, ``vw/0`` …"""
+    flat = {}
+    for key, leaf in params.items():
+        if isinstance(leaf, (list, tuple)):
+            flat.update({f"{key}/{i}": t for i, t in enumerate(leaf)})
+        else:
+            flat[key] = leaf
+    return flat
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _checksum(dtype: str, arr: np.ndarray) -> str:
+    crc = zlib.crc32(memoryview(arr.reshape(-1)).cast("B"))
+    return f"{dtype}:{tuple(arr.shape)}:{crc:08x}"
+
+
+def _meta_crc(meta: dict) -> str:
+    return f"{zlib.crc32(json.dumps(meta, sort_keys=True).encode()):08x}"
+
+
+def _to_tensor(dtype: str, arr: np.ndarray) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(arr)
+    if _dtype_name(t.dtype) != dtype:
+        raise ValueError(f"array stored as {arr.dtype}, recorded {dtype}")
+    return t
+
+
+def copy_into(params, restored) -> None:
+    """Copy a restored tree (host tensors) into ``params`` in place, so a
+    captured step bound to ``params``' storage steps the restored values.
+    Keys, shapes and dtypes must match."""
+    want, got = _flatten(params), _flatten(restored)
+    if sorted(want) != sorted(got):
+        raise ValueError(f"checkpoint holds {sorted(got)}, the model "
+                         f"{sorted(want)}")
+    for key, t in want.items():
+        src = got[key]
+        if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
+            raise ValueError(
+                f"checkpoint array {key} is {src.dtype} {tuple(src.shape)}, "
+                f"the model's {t.dtype} {tuple(t.shape)}")
+        t.copy_(src.reshape(t.shape))
+
+
+def _step_json_names(directory: str) -> list[int]:
+    steps = []
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return steps
+    for fname in names:
+        if fname.endswith(".json"):
+            try:
+                steps.append(int(fname[:-5]))
+            except ValueError:
+                continue
+    return steps
+
+
+class _Tombstones:
+    """The vetoed steps: ``<step>.json`` singles and
+    ``range_<floor>_<tip>.json`` stones (every step in ``(floor, tip]``),
+    tested as intervals."""
+
+    def __init__(self, directory: str):
+        self.singles = set(_step_json_names(directory))
+        self.ranges = []
+        try:
+            names = os.listdir(directory)
+        except OSError:
+            names = []
+        for fname in names:
+            if fname.startswith("range_") and fname.endswith(".json"):
+                parts = fname[len("range_"):-len(".json")].split("_")
+                try:
+                    self.ranges.append((int(parts[0]), int(parts[1])))
+                except (IndexError, ValueError):
+                    continue
+
+    def __contains__(self, step) -> bool:
+        step = int(step)
+        return step in self.singles or any(
+            floor < step <= tip for floor, tip in self.ranges)
+
+
+class _Snapshot:
+    """One save's host copy: ``arrays`` (numpy, bf16 as uint16) keyed
+    canonically, with their dtype names."""
+
+    def __init__(self, arrays: dict, dtypes: dict):
+        self.arrays = arrays
+        self.dtypes = dtypes
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self.arrays.values())
+
+
+class Checkpointer:
+    """The crash-consistent checkpoint chain of a training run (see the
+    module's docstring).
+
+    ``save_every`` is the cadence :meth:`due`, :meth:`due_window` and
+    :meth:`maybe_save` test; :meth:`save` writes now. ``journal`` (an
+    object with ``emit(event, **fields)``, such as
+    :class:`~fm_spark_tpu_torch.utils.logging.EventLog`) receives the
+    chain's events: ``checkpoint_verified`` and ``checkpoint_save_skipped``,
+    and on restore ``checkpoint_unverified_skipped``,
+    ``checkpoint_corrupt``, ``checkpoint_unreadable``,
+    ``checkpoint_demoted_skipped``, ``checkpoint_walked_back`` and
+    ``checkpoint_stale_removed``. ``timings`` lists each save's
+    ``snapshot_ms``, ``crc_ms``, ``write_ms`` and ``bytes``;
+    ``restore_timing`` the last restore's ``read_ms``, ``verify_ms`` and
+    ``bytes``.
+
+    Usage::
+
+        ckpt = Checkpointer(dir, save_every=1000)
+        restored = ckpt.restore(params)          # None on a fresh dir
+        ...
+        ckpt.maybe_save(step, params, pipeline_state)
+        ...
+        ckpt.close()
+    """
+
+    def __init__(self, directory: str, save_every: int = 1000,
+                 max_to_keep: int = 3, journal=None):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(str(directory))
+        self.save_every = int(save_every)
+        self._max_to_keep = int(max_to_keep)
+        self.journal = journal
+        self._writer: threading.Thread | None = None
+        self._writer_error: BaseException | None = None
+        self._pinned: dict[str, torch.Tensor] = {}
+        self.timings: list[dict] = []
+        self.restore_timing: dict | None = None
+        os.makedirs(self.directory, exist_ok=True)
+        # A step directory still under its temporary name was never
+        # renamed into place: no reader can load it.
+        for fname in os.listdir(self.directory):
+            if ".tmp-" in fname:
+                shutil.rmtree(os.path.join(self.directory, fname),
+                              ignore_errors=True)
+
+    # ------------------------------------------------------------ layout
+
+    def _emit(self, event: str, **fields) -> None:
+        if self.journal is not None:
+            self.journal.emit(event, **fields)
+
+    @property
+    def _manifest_dir(self) -> str:
+        return os.path.join(self.directory, "manifests")
+
+    def _manifest_path(self, step: int) -> str:
+        return os.path.join(self._manifest_dir, f"{int(step)}.json")
+
+    @property
+    def _last_good_path(self) -> str:
+        return os.path.join(self.directory, "last_good.json")
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
+
+    def all_steps(self) -> list[int]:
+        """The committed steps (directories renamed into place), oldest
+        first."""
+        steps = []
+        for fname in os.listdir(self.directory):
+            if fname.isdigit() and os.path.isdir(
+                    os.path.join(self.directory, fname)):
+                steps.append(int(fname))
+        return sorted(steps)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def last_good_step(self) -> int | None:
+        """The persisted last verified step."""
+        try:
+            step = durable.read_json(self._last_good_path).get("step")
+            return int(step) if step is not None else None
+        except (OSError, ValueError, TypeError, AttributeError):
+            return None
+
+    def tombstoned_steps(self) -> set[int]:
+        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
+        out = set(stones.singles)
+        for floor, tip in stones.ranges:
+            out.update(range(floor + 1, tip + 1))
+        return out
+
+    def is_tombstoned(self, step: int) -> bool:
+        return int(step) in _Tombstones(
+            os.path.join(self.directory, "tombstones"))
+
+    def _read_manifest(self, step: int) -> dict | None:
+        try:
+            return durable.read_json(self._manifest_path(step))
+        except (OSError, ValueError):
+            return None
+
+    def _chain_active(self) -> bool:
+        """Has this directory ever had a manifest? Once it has, a step
+        without one newer than ``last_good`` is a torn save."""
+        try:
+            return any(f.endswith(".json")
+                       for f in os.listdir(self._manifest_dir))
+        except OSError:
+            return False
+
+    # ------------------------------------------------------------ cadence
+
+    def due(self, step: int) -> bool:
+        """Is ``step`` on the save cadence?"""
+        return self.save_every > 0 and step % self.save_every == 0
+
+    def due_window(self, step: int, window: int) -> bool:
+        """Does a multiple of ``save_every`` fall in ``(step - window,
+        step]``? The cadence of a loop that advances ``window`` steps per
+        call."""
+        if self.save_every <= 0 or window <= 0:
+            return False
+        return (step // self.save_every) > ((step - window)
+                                            // self.save_every)
+
+    def maybe_save(self, step: int, params, pipeline_state=None,
+                   extra=None) -> bool:
+        """Save iff ``step`` is on the cadence. Returns whether it saved."""
+        if not self.due(step):
+            return False
+        return self.save(step, params, pipeline_state, extra)
+
+    # --------------------------------------------------------------- save
+
+    def _snapshot(self, params) -> _Snapshot:
+        """The params on the host, copied before this returns: on the card
+        into pinned buffers kept across saves (the writer of the previous
+        save has been joined, so they are free)."""
+        arrays, dtypes = {}, {}
+        for key, t in _flatten(params).items():
+            t = t.detach()
+            if t.device.type == "cuda":
+                buf = self._pinned.get(key)
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    self._pinned[key] = buf
+                buf.copy_(t)
+            else:
+                buf = t.clone()
+            dtypes[key] = _dtype_name(t.dtype)
+            if t.dtype == torch.bfloat16:
+                arrays[key] = buf.view(torch.int16).numpy().view(np.uint16)
+            else:
+                arrays[key] = buf.numpy()
+        return _Snapshot(arrays, dtypes)
+
+    def save(self, step: int, params, pipeline_state: dict | None = None,
+             extra: dict | None = None, force: bool = False) -> bool:
+        """Save ``params`` (the canonical tree of tensors) at ``step`` with
+        the pipeline cursor and ``extra``. The host snapshot and its crc32
+        are taken before this returns; the file write runs in the
+        background. Returns whether the chain holds the step afterwards:
+        a step already in the chain is not written again (True; training
+        state at a step is unique), unless a tombstone vetoes it (False).
+        A step older than the newest step that no tombstone vetoes is not
+        written (False) unless ``force``. Each refusal is journaled as
+        ``checkpoint_save_skipped``."""
+        step = int(step)
+        self.wait()
+        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
+        if os.path.isdir(self._step_dir(step)):
+            if step not in stones:
+                return True
+            self._emit("checkpoint_save_skipped", step=step,
+                       reason="tombstoned")
+            return False
+        live = [s for s in self.all_steps() if s not in stones]
+        if not force and live and step < live[-1]:
+            self._emit("checkpoint_save_skipped", step=step,
+                       reason=f"older than step {live[-1]}")
+            return False
+        meta = {"pipeline": pipeline_state, "extra": extra}
+        t0 = time.perf_counter()
+        snap = self._snapshot(params)
+        t1 = time.perf_counter()
+        checksums = {k: _checksum(snap.dtypes[k], a)
+                     for k, a in snap.arrays.items()}
+        t2 = time.perf_counter()
+        manifest = {"step": step, "checksums": checksums,
+                    "meta_crc": _meta_crc(meta), "ts": round(time.time(), 3)}
+        timing = {"step": step, "snapshot_ms": (t1 - t0) * 1e3,
+                  "crc_ms": (t2 - t1) * 1e3, "bytes": snap.nbytes,
+                  "forced": bool(force)}
+        self.timings.append(timing)
+        self._writer = threading.Thread(
+            target=self._write_guarded,
+            args=(step, snap, meta, manifest, timing), daemon=True)
+        self._writer.start()
+        return True
+
+    def _write_guarded(self, *args) -> None:
+        try:
+            self._commit(*args)
+        except BaseException as e:  # noqa: BLE001 — raised at the next join
+            self._writer_error = e
+
+    def _commit(self, step, snap: _Snapshot, meta, manifest, timing) -> None:
+        """Write the step under a temporary name, fsync, rename; then its
+        manifest and ``last_good``; then collect old steps."""
+        t0 = time.perf_counter()
+        final = self._step_dir(step)
+        tmp = f"{final}.tmp-{os.getpid()}"
+        try:
+            os.makedirs(tmp)
+            arrays = {}
+            for key, arr in snap.arrays.items():
+                rel = key + ".npy"
+                path = os.path.join(tmp, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                    f.flush()
+                    os.fsync(f.fileno())
+                arrays[key] = {"file": rel, "dtype": snap.dtypes[key],
+                               "shape": list(arr.shape)}
+            state = {"step": step, "layout": LAYOUT, "arrays": arrays,
+                     **meta}
+            with open(os.path.join(tmp, "state.json"), "w") as f:
+                json.dump(state, f)
+                f.flush()
+                os.fsync(f.fileno())
+            for sub in {os.path.dirname(a["file"]) for a in arrays.values()}:
+                durable.fsync_dir(os.path.join(tmp, sub))
+            durable.fsync_dir(tmp)
+            os.rename(tmp, final)
+            durable.fsync_dir(self.directory)
+        except OSError as e:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise CheckpointIOError(final, e) from e
+        timing["write_ms"] = (time.perf_counter() - t0) * 1e3
+        os.makedirs(self._manifest_dir, exist_ok=True)
+        self._durable_json(self._manifest_path(step), manifest)
+        prev = self.last_good_step()
+        if self.is_tombstoned(step):
+            self._emit("checkpoint_verified_demoted", step=step)
+        elif prev is None or step > prev:
+            self._durable_json(self._last_good_path,
+                               {"step": step, "ts": round(time.time(), 3)})
+        self._emit("checkpoint_verified", step=step,
+                   last_good=max(step, prev or step))
+        self._collect()
+
+    def _collect(self) -> None:
+        """``max_to_keep``: remove all but the newest steps (never
+        ``last_good``'s), and the manifests of steps that are gone."""
+        steps = self.all_steps()
+        keep = set(steps[-self._max_to_keep:])
+        last_good = self.last_good_step()
+        if last_good is not None:
+            keep.add(last_good)
+        for s in steps:
+            if s not in keep:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        live = set(self.all_steps())
+        for s in _step_json_names(self._manifest_dir):
+            if s not in live:
+                try:
+                    os.unlink(self._manifest_path(s))
+                except OSError:
+                    pass
+
+    def _durable_json(self, path: str, obj: dict) -> None:
+        """One fail-loud chain-file write: transient errors retry with
+        bounded backoff; ENOSPC (waiting frees no bytes) and the last
+        failure raise :class:`CheckpointIOError`."""
+        for attempt, delay in enumerate(_IO_RETRY_BACKOFF_S, 1):
+            try:
+                durable.atomic_write_json(path, obj, path_class="ckpt")
+                return
+            except OSError as e:
+                name = os.path.basename(path)
+                if (getattr(e, "errno", None) == errno.ENOSPC
+                        or attempt == len(_IO_RETRY_BACKOFF_S)):
+                    self._emit("checkpoint_io_error", path=name,
+                               errno=getattr(e, "errno", None))
+                    raise CheckpointIOError(path, e) from e
+                self._emit("ckpt_io_retry", path=name, attempt=attempt,
+                           errno=getattr(e, "errno", None), delay_s=delay)
+                time.sleep(delay)
+
+    def wait(self) -> None:
+        """Join the background write, if any; raise what it raised."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._writer_error is not None:
+            err, self._writer_error = self._writer_error, None
+            raise err
+
+    def close(self) -> None:
+        self.wait()
+
+    # ------------------------------------------------------------ restore
+
+    def _read_step(self, step: int):
+        """``(state, {key: (dtype, array)}, bytes, read_ms)`` of a step."""
+        t0 = time.perf_counter()
+        d = self._step_dir(step)
+        state = durable.read_json(os.path.join(d, "state.json"))
+        if state.get("layout", LAYOUT) != LAYOUT:
+            raise ValueError(f"checkpoint step {step} has layout "
+                             f"{state.get('layout')!r}, not {LAYOUT!r}")
+        arrays = {}
+        for key, info in state["arrays"].items():
+            arr = np.load(os.path.join(d, info["file"]), allow_pickle=False)
+            if list(arr.shape) != list(info["shape"]):
+                raise ValueError(f"{key}: shape {arr.shape} != recorded "
+                                 f"{info['shape']}")
+            arrays[key] = (info["dtype"], arr)
+        nbytes = sum(a.nbytes for _, a in arrays.values())
+        return state, arrays, nbytes, (time.perf_counter() - t0) * 1e3
+
+    @staticmethod
+    def _matches(state, arrays, manifest: dict) -> bool:
+        got = {k: _checksum(dt, a) for k, (dt, a) in arrays.items()}
+        meta = {"pipeline": state.get("pipeline"), "extra": state.get("extra")}
+        return (got == manifest.get("checksums")
+                and _meta_crc(meta) == manifest.get("meta_crc"))
+
+    def _result(self, step, state, arrays, params_example):
+        flat = {k: _to_tensor(dt, a) for k, (dt, a) in arrays.items()}
+        params: Any = flat
+        if params_example is not None:
+            params = {}
+            for key, leaf in params_example.items():
+                if isinstance(leaf, (list, tuple)):
+                    params[key] = [flat[f"{key}/{i}"]
+                                   for i in range(len(leaf))]
+                else:
+                    params[key] = flat[key]
+        return {"params": params, "step": int(step),
+                "pipeline": state.get("pipeline"),
+                "extra": state.get("extra")}
+
+    def _remove_stale(self, stale: list[int], restored: int) -> None:
+        """Remove the steps a walk-back passed as torn, unreadable or
+        corrupt (all newer than ``restored``) with their manifests, and
+        point ``last_good`` at ``restored``: nothing newer verifies, and
+        the resumed run's saves of those steps must be written anew and
+        advance the pointer again."""
+        for s in stale:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+            try:
+                os.unlink(self._manifest_path(s))
+            except OSError:
+                pass
+        durable.fsync_dir(self.directory)
+        self._durable_json(self._last_good_path,
+                           {"step": restored, "ts": round(time.time(), 3)})
+        self._emit("checkpoint_stale_removed", steps=stale,
+                   last_good=restored)
+
+    def restore(self, params_example=None, step: int | None = None):
+        """Restore the newest VERIFIED step (or exactly ``step``).
+
+        Returns None when the chain holds no step, else ``{"params",
+        "step", "pipeline", "extra"}``, ``params`` host tensors in the
+        tree of ``params_example`` (the canonical flat dict without one);
+        :func:`copy_into` moves them into the model's tensors.
+
+        The walk-back skips, newest first, a tombstoned step, a step with
+        no manifest newer than ``last_good`` (torn), one that cannot be
+        read (unreadable) and one that misses its crc (corrupt), each
+        with a journal event, then removes the torn, unreadable and
+        corrupt steps it passed and points ``last_good`` at the restored
+        step (``checkpoint_stale_removed``), so the resumed run writes
+        those steps anew; it raises :class:`CheckpointChainBroken` when
+        steps exist and none verifies. An explicit ``step`` skips
+        the walk-back and fails loudly: a tombstone or a crc mismatch
+        raises :class:`CheckpointChainBroken`, a missing or unreadable
+        step its ``OSError`` or ``ValueError``.
+        """
+        self.wait()
+        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
+        if step is not None:
+            step = int(step)
+            if step in stones:
+                raise CheckpointChainBroken(
+                    f"checkpoint step {step} carries a demotion tombstone; "
+                    "restoring it explicitly would resurrect a vetoed model")
+            state, arrays, nbytes, read_ms = self._read_step(step)
+            manifest = self._read_manifest(step)
+            t0 = time.perf_counter()
+            if manifest is not None and not self._matches(state, arrays,
+                                                          manifest):
+                raise CheckpointChainBroken(
+                    f"checkpoint step {step} fails its manifest checksums "
+                    "(corrupt bytes); pick another step or restore without "
+                    "an explicit step to walk back automatically")
+            self.restore_timing = {
+                "step": step, "read_ms": read_ms, "bytes": nbytes,
+                "verify_ms": (time.perf_counter() - t0) * 1e3}
+            return self._result(step, state, arrays, params_example)
+        steps = sorted(self.all_steps(), reverse=True)
+        if not steps:
+            return None
+        chain_active = self._chain_active()
+        last_good = self.last_good_step()
+        stale = []
+        for s in steps:
+            if s in stones:
+                self._emit("checkpoint_demoted_skipped", step=s)
+                continue
+            manifest = self._read_manifest(s)
+            if manifest is None and chain_active and (
+                    last_good is None or s > last_good):
+                self._emit("checkpoint_unverified_skipped", step=s)
+                stale.append(s)
+                continue
+            try:
+                state, arrays, nbytes, read_ms = self._read_step(s)
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                self._emit("checkpoint_unreadable", step=s,
+                           error=f"{type(e).__name__}: "
+                                 f"{(str(e).splitlines() or [''])[0][:200]}")
+                stale.append(s)
+                continue
+            t0 = time.perf_counter()
+            if manifest is not None and not self._matches(state, arrays,
+                                                          manifest):
+                self._emit("checkpoint_corrupt", step=s)
+                stale.append(s)
+                continue
+            if s != steps[0]:
+                self._emit("checkpoint_walked_back", from_step=steps[0],
+                           to_step=s)
+            self.restore_timing = {
+                "step": s, "read_ms": read_ms, "bytes": nbytes,
+                "verify_ms": (time.perf_counter() - t0) * 1e3}
+            if stale or (last_good is not None and last_good > s):
+                self._remove_stale(stale, s)
+            return self._result(s, state, arrays, params_example)
+        raise CheckpointChainBroken(
+            f"{len(steps)} checkpoint step(s) exist under {self.directory} "
+            "but none passed verification (all torn or corrupt); refusing "
+            "to silently restart from scratch")
+
+
+class PreemptionGuard:
+    """Preemption signal → flag; the training loop saves and stops.
+
+    Preemption arrives as SIGTERM with a grace window, so SIGTERM is the
+    default; ``signals=(signal.SIGTERM, signal.SIGINT)`` also catches
+    Ctrl-C. Signal handlers install only in the main thread; elsewhere
+    the guard is an always-False flag."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._signals = tuple(signals)
+        self._flag = threading.Event()
+        self._previous: dict[int, Any] = {}
+
+    @property
+    def should_stop(self) -> bool:
+        return self._flag.is_set()
+
+    def _handler(self, signum, frame):
+        self._flag.set()
+
+    def __enter__(self) -> "PreemptionGuard":
+        if threading.current_thread() is threading.main_thread():
+            for sig in self._signals:
+                self._previous[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, prev in self._previous.items():
+            signal.signal(sig, prev)
+        self._previous.clear()

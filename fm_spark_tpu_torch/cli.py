@@ -1,27 +1,41 @@
 """Command-line entry point of the port (``python -m fm_spark_tpu_torch``
-or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI on synthetic data:
+or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
 
-- ``train --config NAME --synthetic N --steps S --batch-size B ...``
-  trains a FieldFM or FieldFFM config (``field_sparse`` strategy) on
-  ``N`` seeded examples with the fused sparse-SGD step (on the card a
-  captured CUDA graph per step), printing one JSON loss line
-  every ``--log-every`` steps, then ``{"eval": {...}}`` on the held-out
-  ``--test-fraction`` and ``{"saved": DIR}`` with ``--model-out``;
-- ``eval --model DIR --synthetic N`` prints the model's metrics on
-  ``N`` seeded examples shaped by its spec (seed 1, field-local ids);
-- ``predict --model DIR --synthetic N`` scores the same examples through
-  the serving engine with one bucket of ``--batch-size`` rows and writes
-  one ``%.6g`` prediction per line.
+- ``preprocess --config NAME --input FILE... --out-dir DIR`` hashes raw
+  Criteo TSV or Avazu CSV into a packed dir, globally shuffled unless
+  ``--no-shuffle``;
+- ``cap-advise --data DIR --batch-size B`` scans packed batches as
+  training draws them and recommends a ``--compact-cap``;
+- ``train --config NAME (--data PATH | --synthetic N) --steps S ...``
+  trains a FieldFM or FieldFFM config (``field_sparse`` strategy) with
+  the fused sparse-SGD step (on the card a captured CUDA graph per
+  step), printing one JSON loss line every ``--log-every`` steps, then
+  ``{"eval": {...}}`` on the held-out ``--test-fraction`` and
+  ``{"saved": DIR}`` with ``--model-out``. ``--data`` takes a packed dir
+  (streamed; the held-out rows are its tail) or a small text file of the
+  config's dataset (parsed in memory; a malformed line raises with
+  ``path:lineno``). ``--checkpoint-dir`` keeps a crash-consistent
+  checkpoint chain every ``--checkpoint-every`` steps, and the same
+  command resumes from its newest verified step; SIGTERM saves and
+  stops;
+- ``eval --model DIR (--data PATH --config NAME | --synthetic N)``
+  prints the model's metrics;
+- ``predict --model DIR (--data PATH --config NAME | --synthetic N)``
+  scores through the serving engine with one bucket of ``--batch-size``
+  rows and writes one ``%.6g`` prediction per line.
 
-Every command runs on the CUDA device unless ``--device cpu`` is given.
-A JSON summary of kernel launches goes to standard error.
+Every command that computes runs on the CUDA device unless ``--device
+cpu`` is given. A JSON summary (kernel launches; for ``train`` also the
+step, aux, capture and checkpoint times) goes to standard error.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 
 
 def load_dataset(cfg, synthetic: int):
@@ -38,6 +52,33 @@ def load_dataset(cfg, synthetic: int):
     return ids, vals, labels, num_features
 
 
+def load_text(cfg, path: str):
+    """``(ids, vals, labels)`` of a small Criteo TSV or Avazu CSV file,
+    parsed in memory (the reference's ``load_dataset`` for text): field-
+    local ids for field-partitioned models, float32 labels, unit vals. A
+    malformed line raises :class:`~fm_spark_tpu_torch.data.records
+    .BadRecord` with ``path:lineno``."""
+    import numpy as np
+
+    from fm_spark_tpu_torch.data import avazu, criteo, field_local, records
+
+    mod = {"criteo": criteo, "avazu": avazu}.get(cfg.dataset)
+    if mod is None:
+        raise SystemExit(f"--data text files are criteo/avazu configs' "
+                         f"(config {cfg.name!r} is dataset {cfg.dataset!r})")
+    with open(path, "rb") as f:
+        lines = f.read().splitlines()
+    header = 0
+    if cfg.dataset == "avazu" and lines and lines[0].startswith(b"id,"):
+        lines, header = lines[1:], 1
+    ids, labels = mod.parse_lines(lines, cfg.bucket, per_field=True,
+                                  on_error=records.strict, path=path,
+                                  start_lineno=1 + header)
+    if cfg.field_local_ids:
+        ids = field_local(ids, cfg.bucket)
+    return ids, np.ones(ids.shape, np.float32), labels.astype(np.float32)
+
+
 def _synthetic_for_model(spec, n: int):
     """``n`` seeded examples (seed 1) shaped by a model's own spec."""
     from fm_spark_tpu_torch import data
@@ -47,6 +88,33 @@ def _synthetic_for_model(spec, n: int):
     if getattr(spec, "field_local_ids", False):
         ids = data.field_local(ids, spec.bucket)
     return ids, vals, labels
+
+
+def _batches_for_model(args, spec):
+    """One ordered pass of eval/predict batches for a trained model: its
+    own synthetic examples, or ``--data`` read with ``--config``'s
+    loader (a packed dir streamed, a text file parsed)."""
+    from fm_spark_tpu_torch import configs, data
+
+    if args.synthetic:
+        return data.iterate_once(*_synthetic_for_model(spec, args.synthetic),
+                                 args.batch_size)
+    if not args.data:
+        raise SystemExit(f"{args.cmd} needs --data PATH or --synthetic N")
+    if args.config is None:
+        raise SystemExit(f"{args.cmd} with --data needs --config to name "
+                         "the dataset loader")
+    cfg = configs.get_config(args.config, bucket=args.bucket)
+    if cfg.bucket > 0 and cfg.num_features != spec.num_features:
+        raise SystemExit(
+            f"config {cfg.name!r} encodes {cfg.num_features} features but "
+            f"the model was trained with {spec.num_features}; ids would be "
+            "silently clamped — pass the config the model was trained with")
+    bucket = cfg.bucket if cfg.field_local_ids else 0
+    if os.path.isdir(args.data):
+        return data.iter_packed_once(data.PackedDataset(args.data),
+                                     args.batch_size, bucket=bucket)
+    return data.iterate_once(*load_text(cfg, args.data), args.batch_size)
 
 
 def _launches() -> dict:
@@ -59,14 +127,89 @@ def _since(before: dict) -> dict:
     return {k: v - before[k] for k, v in _launches().items()}
 
 
+def cmd_preprocess(args) -> int:
+    import shutil
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.data import avazu, criteo, shuffle_packed
+
+    cfg = configs.get_config(args.config, bucket=args.bucket)
+    mod = {"criteo": criteo, "avazu": avazu}.get(cfg.dataset)
+    if mod is None:
+        raise SystemExit("preprocess supports criteo/avazu configs")
+    t0 = time.perf_counter()
+    if args.shuffle:
+        # Source text is in raw (often temporal) order; the global shuffle
+        # makes train's tail holdout (--test-fraction) a random split.
+        tmp = args.out_dir.rstrip("/") + ".unshuffled.tmp"
+        count = mod.preprocess(args.input, tmp, cfg.bucket)
+        t1 = time.perf_counter()
+        shuffle_packed(tmp, args.out_dir, seed=cfg.seed, remove_src=True)
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+    else:
+        count = mod.preprocess(args.input, args.out_dir, cfg.bucket)
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    print(json.dumps({"out_dir": args.out_dir, "num_examples": count,
+                      "shuffled": bool(args.shuffle),
+                      "parse_s": t1 - t0, "shuffle_s": t2 - t1}), flush=True)
+    return 0
+
+
+def cmd_cap_advise(args) -> int:
+    """Recommend a ``--compact-cap`` for a packed dir at a batch size:
+    the largest per-field unique-id count over ``--batches`` batches drawn
+    as training draws them, plus ``--headroom``, rounded up to a multiple
+    of 512 and clamped to the batch size (a batch never holds more
+    unique ids than rows)."""
+    import numpy as np
+
+    from fm_spark_tpu_torch.data import PackedBatches, PackedDataset
+
+    ds = PackedDataset(args.data)
+    batches = PackedBatches(ds, args.batch_size, seed=args.seed)
+    overall = 0
+    per_field_max = np.zeros((ds.num_fields,), np.int64)
+    maxima = []
+    for _ in range(args.batches):
+        ids = next(batches)[0]
+        counts = np.array([np.unique(ids[:, f]).size
+                           for f in range(ids.shape[1])])
+        per_field_max = np.maximum(per_field_max, counts)
+        maxima.append(int(counts.max()))
+        overall = max(overall, maxima[-1])
+    pad = max(64, int(overall * args.headroom))
+    recommended = ((overall + pad) + 511) // 512 * 512
+    note = ("cap must bound EVERY future batch; rounded to a 512 multiple "
+            f"with {int(args.headroom * 100)}% headroom over the scanned "
+            "max — rescan after changing batch size, hashing, or data "
+            "distribution")
+    if recommended > args.batch_size:
+        recommended = args.batch_size
+        note = ("cap must bound EVERY future batch; clamped to batch_size "
+                "(a batch's unique count is bounded by it) — rescan after "
+                "changing batch size, hashing, or data distribution")
+    print(json.dumps({
+        "data": args.data,
+        "batch_size": args.batch_size,
+        "batches_scanned": args.batches,
+        "max_unique_per_field_overall": overall,
+        "per_batch_max": maxima,
+        "per_field_max": per_field_max.tolist(),
+        "recommended_compact_cap": int(recommended),
+        "note": note,
+    }), flush=True)
+    return 0
+
+
 def cmd_train(args) -> int:
     from fm_spark_tpu_torch import configs, data, models, resolve_device
     from fm_spark_tpu_torch.train import evaluate_params, fit_field_sparse
-    from fm_spark_tpu_torch.utils.logging import MetricsLogger
+    from fm_spark_tpu_torch.utils.logging import EventLog, MetricsLogger
 
-    if not args.synthetic:
-        raise SystemExit("train needs --synthetic N (dataset loaders are "
-                         "not ported yet)")
+    if bool(args.synthetic) == bool(args.data):
+        raise SystemExit("train needs one of --data PATH or --synthetic N")
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              param_dtype=args.param_dtype,
                              compute_dtype=args.compute_dtype,
@@ -79,7 +222,8 @@ def cmd_train(args) -> int:
                          "configs")
     tconfig = cfg.train_config(
         num_steps=args.steps, batch_size=args.batch_size,
-        log_every=args.log_every, sparse_update=args.sparse_update,
+        log_every=args.log_every, eval_every=args.eval_every,
+        sparse_update=args.sparse_update,
         host_dedup=args.host_dedup, compact_cap=args.compact_cap,
         compact_device=args.compact_device,
         compact_overflow=args.compact_overflow,
@@ -97,41 +241,94 @@ def cmd_train(args) -> int:
             f"blocks the [B, F, F, k] sel tensor; found 1 device(s), "
             f"{type(spec).__name__})")
     dev = resolve_device(args.device)
-    ids, vals, labels, _ = load_dataset(cfg, args.synthetic)
-    te = None
-    if args.test_fraction > 0:
-        (ids, vals, labels), te = data.train_test_split(
-            ids, vals, labels, args.test_fraction, seed=cfg.seed)
-    batches = data.Batches(ids, vals, labels, tconfig.batch_size,
-                           seed=cfg.seed)
+    bs = tconfig.batch_size
+    if args.data and os.path.isdir(args.data):
+        # A packed dir streams; --test-fraction holds out its TAIL rows (a
+        # random split when preprocess shuffled the dir).
+        ds = data.PackedDataset(args.data)
+        cut = (max(1, int(len(ds) * (1.0 - args.test_fraction)))
+               if args.test_fraction > 0 else len(ds))
+        bucket = cfg.bucket if cfg.field_local_ids else 0
+        batches = data.PackedBatches(ds, bs, seed=cfg.seed,
+                                     row_range=(0, cut), bucket=bucket)
+        eval_source = (
+            (lambda: data.iter_packed_once(ds, bs, bucket=bucket,
+                                           row_range=(cut, len(ds))))
+            if cut < len(ds) else None)
+    else:
+        if args.data:
+            ids, vals, labels = load_text(cfg, args.data)
+        else:
+            ids, vals, labels, _ = load_dataset(cfg, args.synthetic)
+        te = None
+        if args.test_fraction > 0:
+            (ids, vals, labels), te = data.train_test_split(
+                ids, vals, labels, args.test_fraction, seed=cfg.seed)
+        batches = data.Batches(ids, vals, labels, bs, seed=cfg.seed)
+        eval_source = ((lambda: data.iterate_once(*te, bs))
+                       if te is not None else None)
+    checkpointer = journal = None
+    if args.checkpoint_dir:
+        from fm_spark_tpu_torch.checkpoint import Checkpointer
+
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
+        checkpointer = Checkpointer(
+            args.checkpoint_dir, save_every=args.checkpoint_every,
+            max_to_keep=args.checkpoint_keep, journal=journal)
+    stats = {}
     before = _launches()
-    params = fit_field_sparse(spec, tconfig, batches, device=dev,
-                              steps_per_call=args.steps_per_call,
-                              logger=MetricsLogger())
-    if te is not None:
-        metrics = evaluate_params(
-            spec, params, data.iterate_once(*te, tconfig.batch_size))
+    try:
+        with _preemption(checkpointer) as guard:
+            params = fit_field_sparse(
+                spec, tconfig, batches, device=dev,
+                steps_per_call=args.steps_per_call, logger=MetricsLogger(),
+                stats=stats, checkpointer=checkpointer,
+                eval_source=eval_source, preemption_guard=guard)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
+            journal.close()
+    if stats["resumed"] is not None:
+        print(json.dumps({"resumed": stats["resumed"]}), flush=True)
+    summary = {"device": str(dev), "kernel_launches": _since(before),
+               "step_ms": stats["step_ms"], "aux_ms": stats["aux_ms"],
+               "capture_s": stats["capture_s"], "saves": stats["saves"]}
+    if stats["end"] < tconfig.num_steps:
+        # Preempted: the chain holds the step reached; the same command
+        # resumes it.
+        print(json.dumps({"preempted": stats["end"]}), flush=True)
+        print(json.dumps(summary), file=sys.stderr)
+        return 0
+    if eval_source is not None:
+        metrics = evaluate_params(spec, params, eval_source())
         print(json.dumps({"eval": metrics}), flush=True)
     if args.model_out:
         models.save_model(args.model_out, spec, params)
         print(json.dumps({"saved": args.model_out}), flush=True)
-    print(json.dumps({"device": str(dev), "kernel_launches": _since(before)}),
-          file=sys.stderr)
+    summary["kernel_launches"] = _since(before)
+    print(json.dumps(summary), file=sys.stderr)
     return 0
 
 
+def _preemption(checkpointer):
+    """A SIGTERM guard when there is a chain to flush into, else nothing."""
+    import contextlib
+
+    from fm_spark_tpu_torch.checkpoint import PreemptionGuard
+
+    return PreemptionGuard() if checkpointer is not None \
+        else contextlib.nullcontext()
+
+
 def cmd_eval(args) -> int:
-    from fm_spark_tpu_torch import data, models
+    from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.train import evaluate_params
 
-    if not args.synthetic:
-        raise SystemExit("eval needs --synthetic N (dataset loaders are "
-                         "not ported yet)")
     spec, params = models.load_model(args.model, device=args.device)
-    ids, vals, labels = _synthetic_for_model(spec, args.synthetic)
+    batches = _batches_for_model(args, spec)
     before = _launches()
-    metrics = evaluate_params(
-        spec, params, data.iterate_once(ids, vals, labels, args.batch_size))
+    metrics = evaluate_params(spec, params, batches)
     print(json.dumps(metrics), flush=True)
     print(json.dumps({"device": str(params["w0"].device),
                       "kernel_launches": _since(before)}), file=sys.stderr)
@@ -139,16 +336,13 @@ def cmd_eval(args) -> int:
 
 
 def cmd_predict(args) -> int:
-    from fm_spark_tpu_torch import data, models
+    from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.serve import PredictEngine
 
-    if not args.synthetic:
-        raise SystemExit("predict needs --synthetic N (dataset loaders are "
-                         "not ported yet)")
     spec, params = models.load_model(args.model, device=args.device)
     nnz = getattr(spec, "num_fields", 0) or min(8, spec.num_features)
-    ids, vals, labels = _synthetic_for_model(spec, args.synthetic)
-    # One bucket = the batch size: every iterate_once batch is padded to it.
+    batches = _batches_for_model(args, spec)
+    # One bucket = the batch size: every batch is padded to it.
     engine = PredictEngine(spec, params, nnz=nnz, buckets=(args.batch_size,),
                            latency_budget_ms=0.0, device=args.device)
     engine.warmup()
@@ -156,8 +350,7 @@ def cmd_predict(args) -> int:
     rows = 0
     out = sys.stdout if args.out in (None, "-") else open(args.out, "w")
     try:
-        for bids, bvals, _, w in data.iterate_once(ids, vals, labels,
-                                                   args.batch_size):
+        for bids, bvals, _, w in batches:
             preds = engine.score(bids, bvals)
             for p in preds[w > 0]:
                 out.write(f"{float(p):.6g}\n")
@@ -177,6 +370,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="train a field_fm or field_ffm config")
     t.add_argument("--config", required=True, help="registered config name")
+    t.add_argument("--data", help="a packed dir (see preprocess) or a small "
+                                  "text file of the config's dataset")
     t.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N seeded synthetic examples")
     t.add_argument("--steps", type=int, required=True)
@@ -200,8 +395,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="when a field's unique ids exceed --compact-cap: "
                         "error (default; the device aux poisons the loss "
                         "to -inf), drop (device aux: overflow ids behave "
-                        "as absent features), split (host aux; not "
-                        "ported yet)")
+                        "as absent features), split (host aux: the batch "
+                        "is halved until every field fits)")
     t.add_argument("--gfull-fused", action="store_true", default=None)
     t.add_argument("--segtotal-pallas", action="store_true", default=None,
                    help="segment sums by the segment-totals kernel")
@@ -217,25 +412,68 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps-per-call", type=int, default=1)
     t.add_argument("--test-fraction", type=float, default=0.2)
     t.add_argument("--log-every", type=int, default=1)
+    t.add_argument("--eval-every", type=int, default=None,
+                   help="held-out eval every N steps during training")
+    t.add_argument("--checkpoint-dir",
+                   help="checkpoint chain directory; a run resumes from its "
+                        "newest verified step")
+    t.add_argument("--checkpoint-every", type=int, default=1000)
+    t.add_argument("--checkpoint-keep", type=int, default=3,
+                   help="steps the chain keeps (max_to_keep)")
     t.add_argument("--model-out", help="directory to save the final model")
     t.add_argument("--device", default=None, help=device_help)
     t.set_defaults(fn=cmd_train)
 
+    def add_data_args(sp, batch_size):
+        sp.add_argument("--data", help="a packed dir or a text file of "
+                                       "--config's dataset")
+        sp.add_argument("--config", help="config naming the dataset loader")
+        sp.add_argument("--bucket", type=int, default=None,
+                        help="the per-field bucket count the model and data "
+                             "were made with, in place of the config's")
+        sp.add_argument("--synthetic", type=int, default=0, metavar="N",
+                        help="N seeded synthetic examples shaped by the model")
+        sp.add_argument("--batch-size", type=int, default=batch_size)
+        sp.add_argument("--device", default=None, help=device_help)
+
     e = sub.add_parser("eval", help="evaluate a saved model")
     e.add_argument("--model", required=True)
-    e.add_argument("--synthetic", type=int, default=0, metavar="N")
-    e.add_argument("--batch-size", type=int, default=8192)
-    e.add_argument("--device", default=None, help=device_help)
+    add_data_args(e, 8192)
     e.set_defaults(fn=cmd_eval)
 
     pr = sub.add_parser("predict", help="write predictions for a dataset")
     pr.add_argument("--model", required=True, help="model dir (spec.json + params.npz)")
-    pr.add_argument("--synthetic", type=int, default=0, metavar="N",
-                    help="score N seeded synthetic examples")
-    pr.add_argument("--batch-size", type=int, default=8192)
-    pr.add_argument("--device", default=None, help=device_help)
+    add_data_args(pr, 8192)
     pr.add_argument("--out", help="output file ('-' = stdout)")
     pr.set_defaults(fn=cmd_predict)
+
+    pp = sub.add_parser("preprocess",
+                        help="hash raw criteo/avazu text → packed binary")
+    pp.add_argument("--config", required=True)
+    pp.add_argument("--input", required=True, nargs="+")
+    pp.add_argument("--out-dir", required=True)
+    pp.add_argument("--bucket", type=int, default=None,
+                    help="per-field bucket count in place of the config's "
+                         "(for train --bucket of the same value)")
+    pp.add_argument("--no-shuffle", dest="shuffle", action="store_false",
+                    help="keep raw source order (tail holdouts become "
+                         "temporal splits — see train --test-fraction)")
+    pp.set_defaults(fn=cmd_preprocess, shuffle=True)
+
+    ca = sub.add_parser(
+        "cap-advise",
+        help="scan a packed dir and recommend a --compact-cap "
+             "(bounds the per-field per-batch unique-id count)")
+    ca.add_argument("--data", required=True, help="packed dir")
+    ca.add_argument("--batch-size", type=int, required=True,
+                    help="the training batch size the cap must serve")
+    ca.add_argument("--batches", type=int, default=20,
+                    help="batches to scan (chunk-shuffled, like training)")
+    ca.add_argument("--seed", type=int, default=0)
+    ca.add_argument("--headroom", type=float, default=0.10,
+                    help="fractional headroom over the scanned max "
+                         "before rounding up to a multiple of 512")
+    ca.set_defaults(fn=cmd_cap_advise)
     return p
 
 

@@ -5,6 +5,7 @@ ordered pass used by evaluation and predict."""
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -54,6 +55,13 @@ class Batches:
     def state(self) -> dict:
         return {"epoch": self.epoch, "index": self.index, "seed": self.seed}
 
+    def restore(self, state: dict) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError("restoring pipeline state with a different seed")
+        self.epoch = int(state["epoch"])
+        self.index = int(state["index"])
+        self._perm = None
+
     def next_batch(self):
         """Return ``(ids, vals, labels, weights)``, advancing the cursor."""
         n, b = self.num_examples, self.batch_size
@@ -96,33 +104,83 @@ class DedupAuxBatches:
     ``cap > 0``. Wrap it BEFORE :class:`Prefetcher`, so the sorts run in
     the producer thread.
 
-    ``overflow='error'`` propagates
-    :class:`~fm_spark_tpu_torch.ops.scatter.CompactCapOverflow`; the
-    reference's ``'split'`` policy is not ported yet (ROADMAP Queue 1).
+    ``overflow`` (compact only) picks what happens when a field's unique
+    count exceeds ``cap``:
+
+    - ``'error'`` (default): propagate
+      :class:`~fm_spark_tpu_torch.ops.scatter.CompactCapOverflow`;
+    - ``'split'``: halve the offending batch recursively until every
+      field fits, padding each half back to the full batch with inert
+      lanes (val, label and weight 0, ids copied from the half's first
+      row, so padding adds no unique id), so the step's static shapes do
+      not change. Each half is an exact smaller SGD step, at the cost of
+      extra step indices for that batch. While halves are pending,
+      ``state()`` reports the cursor from BEFORE the split batch, so a
+      resume replays the whole source batch (halves already trained
+      repeat; no data is skipped).
+
     ``aux_ms`` holds the host time of each aux build, in milliseconds.
     """
 
     def __init__(self, source, cap: int = 0, overflow: str = "error"):
-        if overflow == "split":
-            raise ValueError("compact_overflow='split' is not ported yet "
-                             "(ROADMAP Queue 1)")
-        if overflow != "error":
+        if overflow not in ("error", "split"):
             raise ValueError(
                 f"DedupAuxBatches overflow must be 'error' or 'split', "
                 f"got {overflow!r}")
         self._source = source
         self._cap = int(cap)
+        self._overflow = overflow
+        self._pending = collections.deque()
+        self._pre_split_state = None
         self.aux_ms: list[float] = []
 
-    def next_batch(self):
+    def _aux(self, ids):
         from fm_spark_tpu_torch.ops.scatter import compact_aux, dedup_aux
 
-        ids, vals, labels, weights = (np.asarray(a)
-                                      for a in self._source.next_batch())
         t0 = time.perf_counter()
-        aux = compact_aux(ids, self._cap) if self._cap > 0 else dedup_aux(ids)
-        self.aux_ms.append((time.perf_counter() - t0) * 1e3)
-        return ids, vals, labels, weights, aux
+        try:
+            return compact_aux(ids, self._cap) if self._cap else dedup_aux(ids)
+        finally:
+            self.aux_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def _expand(self, batch, b_full: int):
+        """``batch`` holds the real rows only (fewer than ``b_full`` after
+        a split); each attempt pads to ``b_full``, and the recursion
+        halves the real rows, so it ends."""
+        from fm_spark_tpu_torch.ops.scatter import CompactCapOverflow
+
+        ids, vals, labels, weights = batch
+        r = ids.shape[0]
+        pad = b_full - r
+        if pad:
+            ids = np.concatenate(
+                [ids, np.broadcast_to(ids[:1], (pad,) + ids.shape[1:])])
+
+            def zero(a):
+                return np.concatenate([a, np.zeros((pad,) + a.shape[1:],
+                                                   a.dtype)])
+            vals, labels, weights = zero(vals), zero(labels), zero(weights)
+        try:
+            return [(ids, vals, labels, weights, self._aux(ids))]
+        except CompactCapOverflow:
+            if self._overflow != "split" or r < 2:
+                raise
+        h = r // 2
+        return (self._expand(tuple(a[:h] for a in batch), b_full)
+                + self._expand(tuple(a[h:r] for a in batch), b_full))
+
+    def next_batch(self):
+        if not self._pending:
+            pre = (self._source.state() if self._overflow == "split"
+                   else None)
+            batch = tuple(np.asarray(a) for a in self._source.next_batch())
+            parts = self._expand(batch, batch[0].shape[0])
+            self._pending.extend(parts)
+            self._pre_split_state = pre if len(parts) > 1 else None
+        out = self._pending.popleft()
+        if not self._pending:
+            self._pre_split_state = None     # the split batch is consumed
+        return out
 
     def __iter__(self):
         return self
@@ -131,13 +189,37 @@ class DedupAuxBatches:
         return self.next_batch()
 
     def state(self):
+        if self._pre_split_state is not None:
+            return self._pre_split_state
         return self._source.state()
+
+    def restore(self, state) -> None:
+        self._pending.clear()
+        self._pre_split_state = None
+        self._source.restore(state)
 
 
 def _tree_map(fn, batch):
     if isinstance(batch, (tuple, list)):
         return tuple(_tree_map(fn, b) for b in batch)
     return fn(batch)
+
+
+def host_tensor(a, pin: bool = False) -> torch.Tensor:
+    """A numpy array as a CPU tensor: shared with the array where it is
+    writable and contiguous, else a copy (a read-only array, such as the
+    packed reader's shared all-ones vals, is never handed out writable);
+    ``pin`` copies it into pinned memory for an asynchronous copy to the
+    card."""
+    a = np.asarray(a)
+    if pin:
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        t = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+        t.numpy()[...] = a
+        return t
+    if a.flags.writeable and a.flags.c_contiguous:
+        return torch.from_numpy(a)
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 class Prefetcher:
@@ -174,12 +256,12 @@ class Prefetcher:
 
     def _to_device(self, batch, side):
         if side is None:
-            return _tree_map(
-                lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch), None
+            return _tree_map(host_tensor, batch), None
         with torch.cuda.stream(side):
             out = _tree_map(
-                lambda a: torch.from_numpy(np.ascontiguousarray(a))
-                .pin_memory().to(self._device, non_blocking=True), batch)
+                lambda a: host_tensor(a, pin=True).to(self._device,
+                                                      non_blocking=True),
+                batch)
             ready = torch.cuda.Event()
             ready.record(side)
         return out, ready

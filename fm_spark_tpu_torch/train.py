@@ -102,9 +102,11 @@ def _lr_at_tensor(config: TrainConfig):
 
 def _batch_to(batch, device):
     """A numpy batch (nested tuples allowed) as tensors on ``device``."""
+    from fm_spark_tpu_torch.data.pipeline import host_tensor
+
     if isinstance(batch, (tuple, list)):
         return tuple(_batch_to(b, device) for b in batch)
-    return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+    return host_tensor(batch).to(device)
 
 
 def _stack(group):
@@ -140,18 +142,47 @@ def evaluate_params(spec, params, batches) -> dict:
     return metrics_lib.finalize_metrics(mstate)
 
 
+def _resume(checkpointer, params, batches) -> tuple[int, dict | None]:
+    """Restore the newest verified checkpoint into ``params`` (in place,
+    before any step is captured, so the graph binds the restored tensors)
+    and its cursor into ``batches``, the innermost source (under the aux
+    wrapper and the prefetcher). Returns ``(start step, restore info)``,
+    ``(0, None)`` on a fresh chain (the reference's ``cli._resume``)."""
+    from fm_spark_tpu_torch.checkpoint import copy_into
+
+    t0 = time.perf_counter()
+    restored = checkpointer.restore(params)
+    if restored is None:
+        return 0, None
+    copy_into(params, restored["params"])
+    if restored["pipeline"] is not None:
+        if not hasattr(batches, "restore"):
+            raise ValueError(
+                f"the checkpoint holds a pipeline cursor and the batch "
+                f"source {type(batches).__name__} cannot restore one")
+        batches.restore(restored["pipeline"])
+    info = {"step": restored["step"], "pipeline": restored["pipeline"],
+            "restore_ms": (time.perf_counter() - t0) * 1e3,
+            **(checkpointer.restore_timing or {})}
+    return restored["step"], info
+
+
 def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                      steps_per_call: int = 1, prefetch: int = 2, logger=None,
-                     stats: dict | None = None):
+                     stats: dict | None = None, checkpointer=None,
+                     eval_source=None, preemption_guard=None):
     """Train ``spec`` (a FieldFM or FieldFFM) for ``config.num_steps``
     steps of the fused sparse-SGD step on one card and return the
-    parameters.
+    parameters (the single-card, canonical-layout counterpart of the
+    reference's ``cli._fit_field_sparse``).
 
     ``batches`` yields numpy ``(ids, vals, labels, weights)`` batches
-    (:class:`~fm_spark_tpu_torch.data.Batches`); with ``host_dedup`` the
-    aux (compact at ``compact_cap > 0``, else the per-lane dedup aux) is
-    built on the host in the prefetch thread
-    (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`); with
+    (:class:`~fm_spark_tpu_torch.data.Batches`,
+    :class:`~fm_spark_tpu_torch.data.PackedBatches`); with ``host_dedup``
+    the aux (compact at ``compact_cap > 0``, else the per-lane dedup aux)
+    is built on the host in the prefetch thread
+    (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`, which halves a
+    batch past the cap under ``compact_overflow='split'``); with
     ``compact_device`` the step builds it. The parameters start from
     ``spec.init`` seeded by ``config.seed`` and are updated in place. The
     steps run one per call through
@@ -164,12 +195,33 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     ``config.log_every`` steps and at the last. Under ``compact_device``
     with ``compact_overflow='error'`` a running ``fmin`` of every call's
     loss stays on the device (a later NaN cannot hide the −inf overflow
-    poison) and is read at each log line and once at the end, with or
-    without a logger: a −inf there raises. ``stats``, when given, is filled
-    with ``loss`` (per call), ``step_ms`` (per call: CUDA-event time on
-    the card, capture included in a group's first call; host time on the
-    CPU), ``aux_ms`` (host time of each aux build) and ``capture_s`` (each
-    capture's seconds, warm-up included).
+    poison) and is read at each log line, before every checkpoint save
+    and once at the end: a −inf there raises, so a poisoned table is
+    never saved.
+
+    ``checkpointer`` (a :class:`~fm_spark_tpu_torch.checkpoint
+    .Checkpointer`): the run resumes from its newest verified step (the
+    params copied into the initialised tensors before the first capture,
+    the pipeline cursor restored into ``batches``, the step index, and
+    with it the learning rate and the SR bits, continuing from the
+    restored step), saves whenever a multiple of its ``save_every`` falls
+    in a call's steps, and saves at the last step. The saved cursor is
+    the prefetcher's: that of the last batch a step consumed.
+    ``preemption_guard`` (a :class:`~fm_spark_tpu_torch.checkpoint
+    .PreemptionGuard`) is polled between calls: once it is set the loop
+    saves the step it reached and returns. ``eval_source``, a callable
+    returning an iterable of eval batches, is evaluated and logged
+    (``eval_*`` keys) whenever a multiple of ``config.eval_every > 0``
+    falls in a call's steps.
+
+    ``stats``, when given, is filled with ``loss`` (per call),
+    ``step_ms`` (per call: CUDA-event time on the card, capture included
+    in a group's first call; host time on the CPU), ``aux_ms`` (host time
+    of each aux build), ``capture_s`` (each capture's seconds, warm-up
+    included), ``start`` and ``end`` (the steps the run began and
+    stopped at), ``resumed`` (the restore: its step, cursor and ms; None
+    on a fresh start) and ``saves`` (each save's
+    snapshot, crc and write ms and bytes).
     """
     from fm_spark_tpu_torch import resolve_device
     from fm_spark_tpu_torch.data import DedupAuxBatches, Prefetcher
@@ -210,19 +262,27 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                 "use compact_overflow='drop'")
     params = spec.init(torch.Generator(device=dev).manual_seed(config.seed),
                        device=dev)
+    start, resumed = 0, None
+    if checkpointer is not None:
+        start, resumed = _resume(checkpointer, params, batches)
     aux_src = None
     if config.host_dedup:
         batches = aux_src = DedupAuxBatches(
-            batches, cap=config.compact_cap, overflow=config.compact_overflow)
+            batches, cap=config.compact_cap,
+            overflow="split" if config.compact_overflow == "split"
+            else "error")
     pf = Prefetcher(batches, depth=prefetch, device=dev) if prefetch > 0 \
         else None
+    cursor = pf if pf is not None else batches
     on_card = dev.type == "cuda"
     losses, marks = [], []
     log_every = max(config.log_every, 1)
     since = 0
+    i = start
     try:
-        i = 0
         while i < config.num_steps:
+            if preemption_guard is not None and preemption_guard.should_stop:
+                break
             m = min(steps_per_call, config.num_steps - i)
             group = [pf.next_batch() if pf else _batch_to(batches.next_batch(), dev)
                      for _ in range(m)]
@@ -249,6 +309,22 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                 check_poison()
                 logger.log(i, samples=since, loss=float(loss))
                 since = 0
+            if (eval_source is not None and config.eval_every > 0
+                    and i // config.eval_every
+                    > (i - m) // config.eval_every):
+                metrics = evaluate_params(spec, params, eval_source())
+                if logger is not None:
+                    logger.log(i, **{f"eval_{k}": v
+                                     for k, v in metrics.items()})
+            if checkpointer is not None and checkpointer.due_window(i, m):
+                check_poison()
+                checkpointer.save(i, params, cursor.state())
+        if checkpointer is not None:
+            if i > start:
+                check_poison()
+            # The last step's save, or the preemption flush.
+            checkpointer.save(i, params, cursor.state(), force=True)
+            checkpointer.wait()
         check_poison()
     finally:
         if pf is not None:
@@ -262,4 +338,7 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
         stats["loss"] = [float(x) for x in losses]
         stats["aux_ms"] = list(aux_src.aux_ms) if aux_src else []
         stats["capture_s"] = list(step.captured.capture_s)
+        stats["start"], stats["end"] = start, i
+        stats["resumed"] = resumed
+        stats["saves"] = list(checkpointer.timings) if checkpointer else []
     return params

@@ -1,11 +1,13 @@
-"""Structured per-step logging: one JSON object per line (a reduced copy of
-``fm_spark_tpu/utils/logging.py``'s ``MetricsLogger``, without its
-metrics-registry mirror), with a wall-clock samples/s between logs."""
+"""Structured logging: per-step metric lines, one JSON object per line (a
+reduced copy of ``fm_spark_tpu/utils/logging.py``'s ``MetricsLogger``,
+without its metrics-registry mirror), with a wall-clock samples/s between
+logs; and the health-event journal (``EventLog``)."""
 
 from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
 
 
@@ -28,3 +30,37 @@ class MetricsLogger:
             record[k] = float(v) if hasattr(v, "__float__") else v
         print(json.dumps(record), file=self._stream, flush=True)
         return record
+
+
+class EventLog:
+    """Append-only JSONL journal of health events (a reduced copy of
+    ``fm_spark_tpu/utils/logging.py``'s ``EventLog``): one
+    ``{"ts", "event", ...}`` object per line, to a file and/or a stream.
+    Best-effort: a journal write never takes down the operation it
+    narrates. ``records`` keeps every emitted event in memory too."""
+
+    def __init__(self, path: str | None = None, stream=None):
+        self._fh = open(path, "a") if path else None
+        self._stream = stream
+        self._lock = threading.Lock()
+        self.records: list[dict] = []
+
+    def emit(self, event: str, **fields) -> dict:
+        record = {"ts": round(time.time(), 3), "event": event, **fields}
+        with self._lock:
+            self.records.append(record)
+            try:
+                line = json.dumps(record)
+                if self._stream is not None:
+                    print(line, file=self._stream, flush=True)
+                if self._fh is not None:
+                    self._fh.write(line + "\n")
+                    self._fh.flush()
+            except (OSError, TypeError, ValueError):
+                pass
+        return record
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

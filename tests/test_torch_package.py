@@ -1190,3 +1190,48 @@ def test_captured_roll_equals_the_eager_steps_on_the_card(cuda):
     assert len(mstep.captured.capture_s) == 2
     assert torch.equal(got[0], losses[3]) and torch.equal(got[1], losses[6])
     assert _same_params(eager, graphed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form, steps_per_call, stop", [
+    ("compact-fusedbwd", 1, 3), ("compact-segtotal", 2, 2),
+    ("ffm-selblk-pallas-rows", 1, 3)])
+def test_captured_resume_equals_the_uninterrupted_run_on_the_card(
+        cuda, tmp_path, form, steps_per_call, stop):
+    """fit_field_sparse with a checkpoint chain: 6 steps uninterrupted,
+    against ``stop`` steps into a fresh chain and the same call at 6,
+    which resumes; the resumed run's steps are replays of graphs it
+    captured after the restore, and its losses and final params equal the
+    uninterrupted run's bit for bit (the witness that those graphs read
+    the restored tensors)."""
+    import dataclasses
+
+    from fm_spark_tpu_torch import data
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.train import fit_field_sparse
+
+    spec, cfg = _captured_case(cuda, form)
+    _, _, _, _, b, f, bucket, _ = _CAPTURED_FORMS[form]
+    rng = np.random.default_rng(5)
+    n = 5 * b // 2                        # an epoch of 2.5 batches
+    ids = (rng.zipf(1.3, (n, f)) % bucket).astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, (n, f)).astype(np.float32)
+    labels = rng.integers(0, 2, n).astype(np.float32)
+
+    def fit(steps, chain):
+        stats = {}
+        params = fit_field_sparse(
+            spec, dataclasses.replace(cfg, num_steps=steps, batch_size=b),
+            data.Batches(ids, vals, labels, b, seed=3), device=cuda,
+            steps_per_call=steps_per_call, stats=stats,
+            checkpointer=Checkpointer(str(tmp_path / chain), save_every=2))
+        return params, stats
+
+    full, s_full = fit(6, "full")
+    _, s_part = fit(stop, "resumed")
+    rest, s_rest = fit(6, "resumed")
+    assert s_part["resumed"] is None and s_rest["resumed"]["step"] == stop
+    assert len(s_rest["capture_s"]) >= 1
+    calls = len(s_rest["loss"])
+    assert s_rest["loss"] == s_full["loss"][-calls:]
+    assert _same_params(full, rest)
