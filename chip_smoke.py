@@ -130,7 +130,32 @@ Phases (any failure exits non-zero before the last line is printed):
    counter is set to 0 before the legs and each must have launched. It
    prints preprocess rows/s, assemble, aux and step ms per batch, save
    (snapshot, crc, write) and restore ms, with the card's name and power
-   limit.
+   limit;
+15. config 5 (FieldDeepFM, ``criteo1tb_deepfm``) at full width: 39 x
+   262,144 x 17 tables (bf16), an MLP of 624 -> 400 -> 400 -> 400 -> 1
+   trained by Adam, B = 16,384 bench batches (``zipf(1.3) % bucket``).
+   First the kernels at its 17 columns against their plain versions:
+   ``gather_rows`` and ``update_rows_add`` on bf16 and fp32 tables (every
+   field bit for bit), kernel A on fp32 deltas in the compact update's
+   form (cap 16,384) and the device dedup's (cap = B), the SR bits at
+   [16,384, 17]. Then three legs, each 4 steps eagerly and captured (one
+   CUDA graph over the params and Adam's state) from the same seeded
+   params, the loss, params and Adam's moments and count equal bit for
+   bit after every step, and 3 profiled steps of each: A, the registered
+   recipe (bf16, ``dedup_sr``, host compact aux at 16,384); B, the same
+   with ``segtotal_pallas``; C, ``use_pallas`` with ``dedup`` (the row
+   kernels and kernel A at cap = B; under ``use_pallas`` ``dedup_sr``
+   writes by its set, as the reference's). Per leg the captured step's
+   CUDA-event ms, samples/s, device-busy ms and idle share, host
+   launches eager against replayed, each kernel's runs per replay; once,
+   the MLP's forward and backward ms beside its FLOP bound and one Adam
+   update's ms. Then leg A through ``fmtorch`` on a packed dir of bench
+   ids: trained uninterrupted, stopped and resumed into a checkpoint
+   chain (the resumed run's losses and final step, Adam's arrays
+   included, bit for bit), ``eval`` and ``predict`` of its model dir,
+   and 400 requests served from it with a generation swap. Every kernel
+   counter is set to 0 before the legs; each kernel the legs reach must
+   have launched.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -440,13 +465,15 @@ def _plain_predict(spec, params, ids, vals, dev):
                             torch.from_numpy(vals).to(dev)).float().cpu()
 
 
-def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
+def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter,
+           atol: float = 2e-5):
     """4 threads submit ``n_req`` requests of 1-512 rows to a
     ``PredictEngine`` and the generation is swapped from ``params`` to
     ``params1`` half way; every request must be answered once, by one
-    generation, matching the plain version. ``counter`` is the
-    ``(module, name)`` of the kernel's launch count, set to 0 before the
-    requests and read after them."""
+    generation, matching the plain version within ``RTOL`` and ``atol``.
+    ``counter`` is the ``(module, name)`` of the kernel's launch count,
+    set to 0 before the requests and read after them (None for a model
+    served without a kernel)."""
     import numpy as np
 
     from fm_spark_tpu_torch import data, obs
@@ -482,7 +509,8 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
 
     # Counts start at 0 just before the main path and are read just after.
     obs.registry().reset()
-    setattr(*counter, 0)
+    if counter is not None:
+        setattr(*counter, 0)
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
     for th in threads:
@@ -498,7 +526,7 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
         th.join(120)
     results = [f.result(120) for f in futures]
     wall = time.perf_counter() - t0
-    launches = getattr(*counter)
+    launches = getattr(*counter) if counter is not None else None
     snap = obs.registry().snapshot()
     engine.close()
     _check(not errors, f"client thread failed: {errors!r}")
@@ -509,13 +537,16 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
             for p in (params, params1)]
     by_gen = [0, 0]
     off = 0
+    err = 0.0
     for (n, _), got in zip(reqs, results):
         _check(got.shape == (n,) and bool(np.isfinite(got).all()),
                "bad result shape or non-finite prediction")
-        match = [np.allclose(got, w[off:off + n], rtol=RTOL, atol=2e-5)
+        match = [np.allclose(got, w[off:off + n], rtol=RTOL, atol=atol)
                  for w in want]
         _check(any(match), "request matches neither generation")
         by_gen[0 if match[0] else 1] += 1
+        err = max(err, min(float(np.abs(got - w[off:off + n]).max())
+                           for w in want))
         off += n
     c = snap["counters"]
     _check(c.get("serve.requests_total") == len(reqs),
@@ -524,13 +555,15 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter):
            "rows scored != rows submitted (a request answered twice or never)")
     _check(c.get("serve.batch_failures_total", 0) == 0, "a batch failed")
     _check(by_gen[0] > 0 and by_gen[1] > 0, f"swap not observed: {by_gen}")
-    _check(launches > 0, "serving never launched the kernel")
+    _check(counter is None or launches > 0,
+           "serving never launched the kernel")
     hist = snap["histograms"]["serve/request_ms"]
     return {"requests": len(reqs), "rows": int(sum(sizes)),
             "batches": c.get("serve.batches_total"), "wall_s": wall,
             "request_ms_p50": hist["p50"], "request_ms_p99": hist["p99"],
             "batch_ms_p50": snap["histograms"]["serve/batch_ms"]["p50"],
-            "answers_by_generation": by_gen, "launches": launches}
+            "answers_by_generation": by_gen, "launches": launches,
+            "max_abs_err": err}
 
 
 def serve_phase(dev, report):
@@ -745,6 +778,75 @@ def _bound_ms(nbytes: float, flops: float = 0.0):
                                    else "operations")
 
 
+def _kernel_a_row(dev, case, delta, seg, cap, order32, zero_tail):
+    """Kernel A (``segment_totals``) against its plain version on one
+    field's deltas ``[B, w]`` read through the sort order ``order32`` at
+    the sorted ranks ``seg``: a bitwise repeat, kernel and plain version
+    each within 1e-5 of each segment's sum of |x| of the float64 sums;
+    device, call, plain and ``index_add`` times and the bound."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import segsum
+
+    b, w = delta.shape
+    segs = int(seg[-1]) + 1
+    rows = cap if zero_tail else min(cap, segs)
+
+    def call(r):
+        return segsum.segment_totals(delta, seg, cap, order=order32,
+                                     zero_tail=zero_tail)
+
+    got = call(0)
+    again = call(1)
+    torch.cuda.synchronize()
+    plain = segsum.segment_totals_plain(delta, seg, cap, order32)
+    exact = segsum.segment_totals_plain(delta.double(), seg, cap, order32)
+    bound = 1e-5 * segsum.segment_totals_plain(delta.abs().double(), seg,
+                                               cap, order32)
+    _check(torch.equal(got[:rows], again[:rows]),
+           f"segment_totals {case}: a repeat differs")
+    # Each within 1e-5 of its segment's sum of |x| from the exact
+    # total: fp32 sums in another order on each side.
+    _check(bool(((got[:rows].double() - exact[:rows]).abs()
+                 <= bound[:rows]).all())
+           and bool(((plain.double() - exact).abs() <= bound).all()),
+           f"segment_totals {case}: kernel or plain version off the "
+           "exact sums")
+    # One PyTorch call of the same function: index_add of each
+    # original lane's delta at its segment.
+    lane_seg = torch.empty_like(seg)
+    lane_seg[order32.long()] = seg
+    idx = torch.where(lane_seg < cap, lane_seg, cap).long()
+    base = torch.zeros(cap + 1, w, device=dev)
+    nbytes = b * w * 4 + 8 * b + rows * w * 4
+    bms, bby = _bound_ms(nbytes, b * w)
+    row = {
+        "case": case, "field": 0, "width": w, "cap": cap, "B": b,
+        "segments": segs, "rows_written": rows,
+        "head_run": int(torch.bincount(seg).max()),
+        "max_abs_err": float((got[:rows] - plain[:rows]).abs().max()),
+        "max_rel_err": _rel_err(got[:rows], plain[:rows]),
+        "max_abs_err_vs_exact": float(
+            (got[:rows].double() - exact[:rows]).abs().max()),
+        "bitwise_repeat": True,
+        "ms": _median_ms(call, hide_host_ms=2.0),
+        "call_ms": _median_ms(call),
+        "plain_ms": _median_ms(
+            lambda r: segsum.segment_totals_plain(delta, seg, cap,
+                                                  order32),
+            hide_host_ms=5.0),
+        "library_ms": _median_ms(lambda r: base.index_add(0, idx, delta),
+                                 hide_host_ms=2.0),
+        "library": "torch.index_add",
+        "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
+    }
+    row["pct_of_bound_rate"] = 100.0 * bms / row["ms"]
+    print("segment_totals", json.dumps(row), flush=True)
+    del got, again, plain, exact, bound, base, idx, lane_seg
+    torch.cuda.empty_cache()
+    return row
+
+
 def training_kernels_phase(dev, report):
     """Kernels A and B against their plain versions at full width."""
     import numpy as np
@@ -782,62 +884,8 @@ def training_kernels_phase(dev, report):
             order32 = o64.to(torch.int32)
             zero_tail = False
         delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
-        segs = int(seg[-1]) + 1
-        rows = cap if zero_tail else min(cap, segs)
-
-        def call(r, delta=delta, seg=seg, cap=cap, o=order32, zt=zero_tail):
-            return segsum.segment_totals(delta, seg, cap, order=o,
-                                         zero_tail=zt)
-
-        got = call(0)
-        again = call(1)
-        torch.cuda.synchronize()
-        plain = segsum.segment_totals_plain(delta, seg, cap, order32)
-        exact = segsum.segment_totals_plain(delta.double(), seg, cap, order32)
-        bound = 1e-5 * segsum.segment_totals_plain(delta.abs().double(), seg,
-                                                   cap, order32)
-        _check(torch.equal(got[:rows], again[:rows]),
-               f"segment_totals {case}: a repeat differs")
-        # Each within 1e-5 of its segment's sum of |x| from the exact
-        # total: fp32 sums in another order on each side.
-        _check(bool(((got[:rows].double() - exact[:rows]).abs()
-                     <= bound[:rows]).all())
-               and bool(((plain.double() - exact).abs() <= bound).all()),
-               f"segment_totals {case}: kernel or plain version off the "
-               "exact sums")
-        # One PyTorch call of the same function: index_add of each
-        # original lane's delta at its segment.
-        lane_seg = torch.empty_like(seg)
-        lane_seg[order32.long()] = seg
-        idx = torch.where(lane_seg < cap, lane_seg, cap).long()
-        base = torch.zeros(cap + 1, w, device=dev)
-        nbytes = TRAIN_B * w * 4 + 8 * TRAIN_B + rows * w * 4
-        bms, bby = _bound_ms(nbytes, TRAIN_B * w)
-        row = {
-            "case": case, "field": 0, "width": w, "cap": cap,
-            "segments": segs, "rows_written": rows,
-            "head_run": int(torch.bincount(seg).max()),
-            "max_abs_err": float((got[:rows] - plain[:rows]).abs().max()),
-            "max_rel_err": _rel_err(got[:rows], plain[:rows]),
-            "max_abs_err_vs_exact": float(
-                (got[:rows].double() - exact[:rows]).abs().max()),
-            "bitwise_repeat": True,
-            "ms": _median_ms(call, hide_host_ms=2.0),
-            "call_ms": _median_ms(call),
-            "plain_ms": _median_ms(
-                lambda r: segsum.segment_totals_plain(delta, seg, cap,
-                                                      order32),
-                hide_host_ms=5.0),
-            "library_ms": _median_ms(lambda r: base.index_add(0, idx, delta),
-                                     hide_host_ms=2.0),
-            "library": "torch.index_add",
-            "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
-        }
-        row["pct_of_bound_rate"] = 100.0 * bms / row["ms"]
-        print("segment_totals", json.dumps(row), flush=True)
-        a_rows.append(row)
-        del delta, got, again, plain, exact, bound, base, idx, lane_seg
-        torch.cuda.empty_cache()
+        a_rows.append(_kernel_a_row(dev, case, delta, seg, cap, order32,
+                                    zero_tail))
     out["segment_totals"] = a_rows
 
     # Kernel B over all fields, as the step calls it.
@@ -949,38 +997,44 @@ def sr_bits_phase(dev, report):
     """The SR bits kernel against its plain version (JAX's threefry
     schedule in int64 ops, here on the card) at the compact update's
     shape and config 4's row width; the step read from the device."""
+    rows = [_sr_bits_row(dev, shape)
+            for shape in ((CAP, WIDTH), (CAP, FFM_F * FFM_RANK + 1))]
+    report["sr_bits"] = rows
+    return rows
+
+
+def _sr_bits_row(dev, shape):
+    """The SR bits kernel against its plain version at ``shape``, bit for
+    bit, with its times and bound."""
     import torch
 
     from fm_spark_tpu_torch.ops import srbits
 
     step = torch.full((), 5, dtype=torch.int32, device=dev)
-    rows = []
-    for shape in ((CAP, WIDTH), (CAP, FFM_F * FFM_RANK + 1)):
-        def call(r, shape=shape):
-            return srbits.sr_bits(0x5EED, step, 7, shape, dev)
 
-        got, again = call(0), call(1)
-        plain = srbits.sr_bits_plain(0x5EED, step, 7, shape, dev)
-        torch.cuda.synchronize()
-        _check(torch.equal(got, again) and torch.equal(got, plain),
-               f"sr_bits {shape}: kernel != plain version")
-        n = got.numel()
-        # The output written once; ~80 integer operations per element (20
-        # threefry rounds of add, rotate and xor, and the key injections),
-        # rated at the card's fp32 rate outside the tensor cores.
-        bms, bby = _bound_ms(4.0 * n, 80.0 * n)
-        row = {"shape": list(shape), "max_abs_err": 0, "bitwise": True,
-               "ms": _median_ms(call, hide_host_ms=2.0),
-               "call_ms": _median_ms(call),
-               "plain_ms": _median_ms(
-                   lambda r, shape=shape: srbits.sr_bits_plain(
-                       0x5EED, step, 7, shape, dev), hide_host_ms=5.0),
-               "library_ms": None, "bound_ms": bms, "bound_by": bby,
-               "bytes": 4 * n}
-        print("sr_bits", json.dumps(row), flush=True)
-        rows.append(row)
-    report["sr_bits"] = rows
-    return rows
+    def call(r):
+        return srbits.sr_bits(0x5EED, step, 7, shape, dev)
+
+    got, again = call(0), call(1)
+    plain = srbits.sr_bits_plain(0x5EED, step, 7, shape, dev)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, again) and torch.equal(got, plain),
+           f"sr_bits {shape}: kernel != plain version")
+    n = got.numel()
+    # The output written once; ~80 integer operations per element (20
+    # threefry rounds of add, rotate and xor, and the key injections),
+    # rated at the card's fp32 rate outside the tensor cores.
+    bms, bby = _bound_ms(4.0 * n, 80.0 * n)
+    row = {"shape": list(shape), "max_abs_err": 0, "bitwise": True,
+           "ms": _median_ms(call, hide_host_ms=2.0),
+           "call_ms": _median_ms(call),
+           "plain_ms": _median_ms(
+               lambda r: srbits.sr_bits_plain(0x5EED, step, 7, shape, dev),
+               hide_host_ms=5.0),
+           "library_ms": None, "bound_ms": bms, "bound_by": bby,
+           "bytes": 4 * n}
+    print("sr_bits", json.dumps(row), flush=True)
+    return row
 
 
 @contextlib.contextmanager
@@ -1366,13 +1420,119 @@ def _dedup_update_args(scatter, col, delta, bucket):
     return d.useg.to(torch.int32), d.totals, d.count, writes
 
 
+def _row_kernel_case(dev, name, nf, bucket, w, dtype, batch, g, flush):
+    """The row kernels against their plain versions on ``nf`` tables
+    ``[bucket, w]`` of ``dtype`` and the bench batch's ids at ``batch``
+    rows, every field bit for bit and a bitwise repeat (the update in the
+    device dedup's count form); on the field with the most distinct ids,
+    device, call, plain and library times and the byte bound."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch.ops import rows, scatter
+
+    ids = torch.from_numpy(BenchStream(0, batch, nf, bucket)
+                           .next_batch()[0]).to(dev)
+    cols = [ids[:, f].contiguous() for f in range(nf)]
+    uniq = [int(torch.unique(c).numel()) for c in cols]
+    tables = [(torch.randn(bucket, w, generator=g, device=dev) * 0.1)
+              .to(dtype) for _ in range(nf)]
+    for f in range(nf):
+        got = rows.gather_rows(tables[f], cols[f])
+        again = rows.gather_rows(tables[f], cols[f])
+        torch.cuda.synchronize()
+        _check(_same_bits(got, again), f"gather_rows {name} field {f}: "
+               "a repeat differs")
+        _check(_same_bits(got, rows.gather_rows_plain(tables[f], cols[f])),
+               f"gather_rows {name} field {f}: kernel disagrees with "
+               "plain version")
+        delta = torch.randn(batch, w, generator=g, device=dev) * 0.01
+        sid, summed, cnt, _ = _dedup_update_args(scatter, cols[f],
+                                                 delta, bucket)
+        t1, t2, t3 = (tables[f].clone() for _ in range(3))
+        rows.update_rows_add(t1, sid, None, summed, count=cnt)
+        rows.update_rows_add(t2, sid, None, summed, count=cnt)
+        rows.update_rows_add_plain(t3, sid, None, summed, count=cnt)
+        torch.cuda.synchronize()
+        _check(_same_bits(t1, t2), f"update_rows_add {name} field {f}: "
+               "a repeat differs")
+        _check(_same_bits(t1, t3), f"update_rows_add {name} field {f}: "
+               "kernel disagrees with plain version")
+        _check(not _same_bits(t1, tables[f]),
+               f"update_rows_add {name} field {f}: wrote nothing")
+        del t1, t2, t3
+    fmax = int(np.argmax(uniq))
+    table, col = tables[fmax], cols[fmax]
+    e = table.element_size()
+    delta = torch.randn(batch, w, generator=g, device=dev) * 0.01
+    sid, summed, cnt, vmask = _dedup_update_args(scatter, col, delta,
+                                                 bucket)
+    nvalid, segs = int(vmask.sum()), int(cnt)
+    scratch = table.clone()
+
+    def timed(fn, hide):
+        return _median_ms(fn, hide_host_ms=hide, before=flush.zero_)
+
+    gbytes = lambda u: u * w * e + batch * w * e + 4 * batch
+    # The written rows and their deltas, and the ids of the lanes the
+    # count covers (the dedup's: one per distinct id).
+    ubytes = lambda v, lanes: v * (2 * w * e + 4 * w) + 4 * lanes
+    col_l = col.long()
+    idx_l = torch.where(vmask, sid, 0).long()
+    masked = torch.where(vmask[:, None], summed, 0.0)
+    gather = {
+        "ms": timed(lambda r: rows.gather_rows(table, col), 1.0),
+        "call_ms": _median_ms(lambda r: rows.gather_rows(table, col)),
+        "plain_ms": timed(lambda r: rows.gather_rows_plain(table, col),
+                          2.0),
+        "library_ms": timed(lambda r: torch.index_select(table, 0, col_l),
+                            1.0),
+        "library": "torch.index_select",
+        "bound_ms": gbytes(uniq[fmax]) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": gbytes(uniq[fmax]),
+        "step_bound_ms": sum(gbytes(u) for u in uniq)
+        / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": 0.0, "bitwise": True,
+    }
+    update = {
+        "ms": timed(lambda r: rows.update_rows_add(
+            scratch, sid, None, summed, count=cnt), 1.0),
+        "call_ms": _median_ms(lambda r: rows.update_rows_add(
+            scratch, sid, None, summed, count=cnt)),
+        "plain_ms": timed(lambda r: rows.update_rows_add_plain(
+            scratch, sid, None, summed, count=cnt), 2.0),
+        # One call computes it only for an fp32 table: index_add_ of a
+        # bf16 table takes bf16 deltas, rounded before the add.
+        "library_ms": (timed(lambda r: scratch.index_add_(0, idx_l,
+                                                          masked), 1.0)
+                       if dtype == torch.float32 else None),
+        "library": ("index_add_ of the masked deltas"
+                    if dtype == torch.float32 else "none"),
+        "bound_ms": ubytes(nvalid, segs) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": ubytes(nvalid, segs),
+        "step_bound_ms": sum(ubytes(u, u) for u in uniq)
+        / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": 0.0, "bitwise": True,
+    }
+    for k in (gather, update):
+        k["achieved_GBps"] = k["bytes"] / (k["ms"] * 1e-3) / 1e9
+    row = {"case": name, "fields": nf, "bucket": bucket, "width": w,
+           "dtype": str(dtype)[6:], "B": batch, "field": fmax,
+           "unique_max": uniq[fmax], "unique_sum": sum(uniq),
+           "valid_lanes": nvalid, "gather": gather, "update": update}
+    print("row_kernels", json.dumps(row), flush=True)
+    del tables, scratch, delta, summed, masked
+    torch.cuda.empty_cache()
+    return row
+
+
 def row_kernel_phase(dev, report):
     """The row kernels against their plain versions at full width, and the
     host aux builders, native against numpy."""
     import numpy as np
     import torch
 
-    from fm_spark_tpu_torch.ops import rows, scatter
+    from fm_spark_tpu_torch.ops import scatter
 
     ffm_w = FFM_F * FFM_RANK + 1
     cases = (("config3-fp32", F, BUCKET, WIDTH, torch.float32),
@@ -1383,101 +1543,9 @@ def row_kernel_phase(dev, report):
     # as in the step, where 38 other fields' traffic passes between two
     # calls on one table.
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-    out = []
-    for name, nf, bucket, w, dtype in cases:
-        ids = torch.from_numpy(BenchStream(0, TRAIN_B, nf, bucket)
-                               .next_batch()[0]).to(dev)
-        cols = [ids[:, f].contiguous() for f in range(nf)]
-        uniq = [int(torch.unique(c).numel()) for c in cols]
-        tables = [(torch.randn(bucket, w, generator=g, device=dev) * 0.1)
-                  .to(dtype) for _ in range(nf)]
-        for f in range(nf):
-            got = rows.gather_rows(tables[f], cols[f])
-            again = rows.gather_rows(tables[f], cols[f])
-            torch.cuda.synchronize()
-            _check(_same_bits(got, again), f"gather_rows {name} field {f}: "
-                   "a repeat differs")
-            _check(_same_bits(got, rows.gather_rows_plain(tables[f], cols[f])),
-                   f"gather_rows {name} field {f}: kernel disagrees with "
-                   "plain version")
-            delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
-            sid, summed, cnt, _ = _dedup_update_args(scatter, cols[f],
-                                                     delta, bucket)
-            t1, t2, t3 = (tables[f].clone() for _ in range(3))
-            rows.update_rows_add(t1, sid, None, summed, count=cnt)
-            rows.update_rows_add(t2, sid, None, summed, count=cnt)
-            rows.update_rows_add_plain(t3, sid, None, summed, count=cnt)
-            torch.cuda.synchronize()
-            _check(_same_bits(t1, t2), f"update_rows_add {name} field {f}: "
-                   "a repeat differs")
-            _check(_same_bits(t1, t3), f"update_rows_add {name} field {f}: "
-                   "kernel disagrees with plain version")
-            _check(not _same_bits(t1, tables[f]),
-                   f"update_rows_add {name} field {f}: wrote nothing")
-            del t1, t2, t3
-        fmax = int(np.argmax(uniq))
-        table, col = tables[fmax], cols[fmax]
-        e = table.element_size()
-        delta = torch.randn(TRAIN_B, w, generator=g, device=dev) * 0.01
-        sid, summed, cnt, vmask = _dedup_update_args(scatter, col, delta,
-                                                     bucket)
-        nvalid, segs = int(vmask.sum()), int(cnt)
-        scratch = table.clone()
-
-        def timed(fn, hide):
-            return _median_ms(fn, hide_host_ms=hide, before=flush.zero_)
-
-        gbytes = lambda u: u * w * e + TRAIN_B * w * e + 4 * TRAIN_B
-        # The written rows and their deltas, and the ids of the lanes the
-        # count covers (the dedup's: one per distinct id).
-        ubytes = lambda v, lanes: v * (2 * w * e + 4 * w) + 4 * lanes
-        col_l = col.long()
-        idx_l = torch.where(vmask, sid, 0).long()
-        masked = torch.where(vmask[:, None], summed, 0.0)
-        gather = {
-            "ms": timed(lambda r: rows.gather_rows(table, col), 1.0),
-            "call_ms": _median_ms(lambda r: rows.gather_rows(table, col)),
-            "plain_ms": timed(lambda r: rows.gather_rows_plain(table, col),
-                              2.0),
-            "library_ms": timed(lambda r: torch.index_select(table, 0, col_l),
-                                1.0),
-            "library": "torch.index_select",
-            "bound_ms": gbytes(uniq[fmax]) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bytes": gbytes(uniq[fmax]),
-            "step_bound_ms": sum(gbytes(u) for u in uniq)
-            / HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": 0.0, "bitwise": True,
-        }
-        update = {
-            "ms": timed(lambda r: rows.update_rows_add(
-                scratch, sid, None, summed, count=cnt), 1.0),
-            "call_ms": _median_ms(lambda r: rows.update_rows_add(
-                scratch, sid, None, summed, count=cnt)),
-            "plain_ms": timed(lambda r: rows.update_rows_add_plain(
-                scratch, sid, None, summed, count=cnt), 2.0),
-            # One call computes it only for an fp32 table: index_add_ of a
-            # bf16 table takes bf16 deltas, rounded before the add.
-            "library_ms": (timed(lambda r: scratch.index_add_(0, idx_l,
-                                                              masked), 1.0)
-                           if dtype == torch.float32 else None),
-            "library": ("index_add_ of the masked deltas"
-                        if dtype == torch.float32 else "none"),
-            "bound_ms": ubytes(nvalid, segs) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bytes": ubytes(nvalid, segs),
-            "step_bound_ms": sum(ubytes(u, u) for u in uniq)
-            / HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": 0.0, "bitwise": True,
-        }
-        for k in (gather, update):
-            k["achieved_GBps"] = k["bytes"] / (k["ms"] * 1e-3) / 1e9
-        row = {"case": name, "fields": nf, "bucket": bucket, "width": w,
-               "dtype": str(dtype)[6:], "B": TRAIN_B, "field": fmax,
-               "unique_max": uniq[fmax], "unique_sum": sum(uniq),
-               "valid_lanes": nvalid, "gather": gather, "update": update}
-        print("row_kernels", json.dumps(row), flush=True)
-        out.append(row)
-        del tables, scratch, delta, summed, masked
-        torch.cuda.empty_cache()
+    out = [_row_kernel_case(dev, name, nf, bucket, w, dtype, TRAIN_B, g,
+                            flush)
+           for name, nf, bucket, w, dtype in cases]
     del flush
     torch.cuda.empty_cache()
 
@@ -1740,9 +1808,13 @@ def _profile_calls(call, steps) -> dict:
                                         by_name.most_common(8)]}
 
 
-def _same_params(a, b) -> bool:
-    return _same_bits(a["w0"], b["w0"]) and all(
-        _same_bits(x, y) for x, y in zip(a["vw"], b["vw"]))
+def _same_tree(a, b) -> bool:
+    """Every leaf of two trees (params, optimizer state) the same bits."""
+    from fm_spark_tpu_torch.models.io import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return sorted(fa) == sorted(fb) and all(_same_bits(fa[k], fb[k])
+                                            for k in fa)
 
 
 def _blocked_sums_ab(dev, report):
@@ -1921,7 +1993,7 @@ def capture_phase(dev, report):
                 if mode == "eager":
                     le = loss
             _check(torch.equal(le.view(torch.int32), loss.view(torch.int32))
-                   and _same_params(eager, graphed),
+                   and _same_tree(eager, graphed),
                    f"{leg}: captured step {j} != eager step "
                    f"(loss {float(loss)} vs {float(le)})")
             losses.append(float(le))
@@ -1937,7 +2009,7 @@ def capture_phase(dev, report):
             lambda j, mode=mode: run(mode, j), range(TRAIN_STEPS, total))
             for mode in ("eager", "captured")}
         torch.cuda.synchronize()
-        _check(_same_params(eager, graphed),
+        _check(_same_tree(eager, graphed),
                f"{leg}: captured != eager after the profiled steps")
         # The replays' kernels, counted on the card by symbol: each of the
         # leg's kernels runs at least once per replayed step, and no port
@@ -1991,7 +2063,7 @@ def capture_phase(dev, report):
                 got.append(loss)
             torch.cuda.synchronize()
             _check(torch.equal(got[0], le[3]) and torch.equal(got[1], le[-1])
-                   and _same_params(eager, graphed),
+                   and _same_tree(eager, graphed),
                    "roll of 4 over 7 steps != 7 eager steps")
             out["roll"] = {"leg": leg, "n": 4, "steps": TRAIN_STEPS,
                            "graphs": len(mstep.captured.capture_s),
@@ -2342,6 +2414,304 @@ def ingest_phase(dev, report):
     return launches
 
 
+DEEPFM_RANK, DEEPFM_MLP = 16, (400, 400, 400)   # config 5, criteo1tb_deepfm
+DEEPFM_W = DEEPFM_RANK + 1
+DEEPFM_B = DEEPFM_CAP = 16384            # its batch, and the recipe's cap
+DEEPFM_ROWS = 131072                     # phase 15's packed dir
+DEEPFM_STEPS = 4                         # eager against captured, per leg
+
+
+def _deepfm_leg(dev, spec, cfg, kernels, leg):
+    """One phase-15 leg: ``DEEPFM_STEPS`` steps of the eager body on one
+    copy of seeded params and of the captured step on another, over the
+    same bench batches, the loss, params and Adam's state the same bits
+    after each; then 3 profiled steps of each (device-busy ms, idle
+    share, host launches, each kernel's runs per replay by symbol)."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import sparse
+    from fm_spark_tpu_torch.graphs import _clone
+    from fm_spark_tpu_torch.ops import kernel_launches, scatter
+
+    total = DEEPFM_STEPS + PROFILED_STEPS
+    stream = BenchStream(0, DEEPFM_B)
+    batches, aux_ms = [], []
+    for _ in range(total):
+        ids, vals, labels, weights = stream.next_batch()
+        aux = None
+        if cfg.host_dedup:
+            t0 = time.perf_counter()
+            host = scatter.compact_aux(ids, cfg.compact_cap)
+            aux_ms.append((time.perf_counter() - t0) * 1e3)
+            aux = tuple(torch.from_numpy(a).to(dev) for a in host)
+        batches.append((*(torch.from_numpy(a).to(dev)
+                          for a in (ids, vals, labels, weights)), aux))
+    body, init = sparse.make_field_deepfm_sparse_body(spec, cfg)
+    step = sparse.make_field_deepfm_sparse_step(spec, cfg)
+    eager = spec.init(torch.Generator(device=dev).manual_seed(25), dev)
+    graphed = _clone(eager)
+    oe, og = init(eager), step.init_opt_state(graphed)
+    counted = dict.fromkeys(kernel_launches(), 0)
+
+    def run(mode, j):
+        nonlocal eager, graphed, oe, og
+        before = kernel_launches()
+        if mode == "eager":
+            eager, oe, loss = body(eager, oe, j, *batches[j])
+            if j < DEEPFM_STEPS:
+                after = kernel_launches()
+                for k in counted:
+                    counted[k] += after[k] - before[k]
+        else:
+            graphed, og, loss = step(graphed, og, j, *batches[j])
+        return loss
+
+    step_ms, losses = [], []
+    for j in range(DEEPFM_STEPS):
+        le = run("eager", j)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        lc = run("captured", j)
+        t1.record()
+        torch.cuda.synchronize()
+        if j > 0:                                # the first call captures
+            step_ms.append(t0.elapsed_time(t1))
+        _check(torch.equal(le.view(torch.int32), lc.view(torch.int32))
+               and _same_tree(eager, graphed) and _same_tree(oe, og),
+               f"deepfm {leg}: captured step {j} != eager step "
+               f"(loss {float(lc)} vs {float(le)})")
+        losses.append(float(le))
+    _check(all(np.isfinite(losses)), f"deepfm {leg}: loss {losses}")
+    _check(len(step.captured.capture_s) == 1,
+           f"deepfm {leg}: captured {len(step.captured.capture_s)} times")
+    per_step = {k: v / DEEPFM_STEPS for k, v in counted.items()}
+    _check(all(per_step[k] > 0 for k in kernels),
+           f"deepfm {leg}: a kernel never launched: {per_step}")
+    prof = {mode: _profile_calls(lambda j, mode=mode: run(mode, j),
+                                 range(DEEPFM_STEPS, total))
+            for mode in ("eager", "captured")}
+    torch.cuda.synchronize()
+    _check(_same_tree(eager, graphed) and _same_tree(oe, og)
+           and int(og["count"]) == total,
+           f"deepfm {leg}: captured != eager after the profiled steps")
+    replayed = prof["captured"].get("kernel_runs_per_step")
+    _check(replayed is not None
+           and all(replayed[k] >= 1 for k in kernels)
+           and all(replayed[k] <= per_step[k] for k in per_step),
+           f"deepfm {leg}: kernel runs per replay {replayed}, launches per "
+           f"eager step {per_step}")
+    ms = statistics.median(step_ms)
+    row = {
+        "leg": leg, "loss": losses,
+        "capture_s": step.captured.capture_s[0],
+        "captured_step_ms": step_ms, "captured_step_ms_median": ms,
+        "samples_per_s": DEEPFM_B / (ms * 1e-3),
+        "device_ms_per_step": prof["captured"]["device_ms_per_step"],
+        "idle_share": prof["captured"]["idle_share"],
+        "host_launches_per_eager_step":
+            prof["eager"]["host_launches_per_step"],
+        "host_launches_per_replay":
+            prof["captured"]["host_launches_per_step"],
+        "launches_per_eager_step": {k: per_step[k] for k in kernels},
+        "kernel_runs_per_replay": {k: replayed[k] for k in kernels},
+        "top_kernels_ms_per_step":
+            prof["captured"].get("top_kernels_ms_per_step"),
+        "aux_ms_median": statistics.median(aux_ms) if aux_ms else None,
+        "bitwise_equal_every_step": True,
+    }
+    print("deepfm_leg", json.dumps(row), flush=True)
+    del eager, oe, og, body, step, batches
+    torch.cuda.empty_cache()
+    return row, graphed
+
+
+def _deepfm_dense_ms(dev, spec, cfg, params):
+    """The MLP's forward and backward at B = 16,384 (bf16, the step's
+    ``_mlp_forward``/``_mlp_backward``) and one Adam update of the dense
+    side, in CUDA-event ms beside their bounds."""
+    import torch
+
+    from fm_spark_tpu_torch import sparse
+    from fm_spark_tpu_torch.graphs import _clone
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.train import apply_updates, make_optimizer
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    h = (torch.randn(DEEPFM_B, F * DEEPFM_RANK, generator=g, device=dev)
+         * 0.1).to(spec.cdtype)
+    ds = (torch.randn(DEEPFM_B, generator=g, device=dev) * 1e-4).to(
+        spec.cdtype)
+
+    def mlp(r):
+        kernels, ins, pres, _ = sparse._mlp_forward(spec, params["mlp"], h)
+        return sparse._mlp_backward(spec, kernels, ins, pres, ds)
+
+    dims = (F * DEEPFM_RANK, *DEEPFM_MLP, 1)
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    flops = 3 * 2 * DEEPFM_B * macs            # forward, g_in, g_kernel
+    dense = _clone({"w0": params["w0"], "mlp": params["mlp"]})
+    opt = make_optimizer(cfg)
+    state = opt.init(dense)
+    grads = _clone(dense)
+    n = sum(t.numel() for t in flatten(dense).values())
+    adam_bytes = 7 * 4 * n          # read p, g, mu, nu; write p, mu, nu
+    out = {
+        "mlp_fwd_bwd_ms": _median_ms(mlp, hide_host_ms=2.0),
+        "mlp_flops": flops,
+        "mlp_bound_ms_bf16_peak": flops / 989e12 * 1e3,
+        "mlp_bound_ms_fp32_peak": flops / FP32_FLOPS_PER_S * 1e3,
+        "mlp_params": n,
+        "adam_ms": _median_ms(lambda r: apply_updates(
+            dense, opt.update(grads, state, dense)), hide_host_ms=2.0),
+        "adam_call_ms": _median_ms(lambda r: apply_updates(
+            dense, opt.update(grads, state, dense))),
+        "adam_bound_ms": adam_bytes / HBM_BYTES_PER_S * 1e3,
+        "adam_bytes": adam_bytes,
+    }
+    print("deepfm_dense", json.dumps(out), flush=True)
+    return out
+
+
+def deepfm_phase(dev, report):
+    """Phase 15: config 5 (FieldDeepFM) at full width."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs, data, models
+    from fm_spark_tpu_torch.ops import (KERNEL_COUNTERS, kernel_launches,
+                                        scatter)
+
+    out = {"card": report["card"]}
+    # The kernels at config 5's width against their plain versions: the
+    # row kernels on bf16 and fp32 tables, kernel A in its two forms on
+    # fp32 deltas (the compact update's cap 16,384 and the device dedup's
+    # cap = B), the SR bits.
+    g = torch.Generator(device=dev).manual_seed(15)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    w17 = {"rows": [_row_kernel_case(dev, f"config5-{n}", F, BUCKET,
+                                     DEEPFM_W, dt, DEEPFM_B, g, flush)
+                    for n, dt in (("bf16", torch.bfloat16),
+                                  ("fp32", torch.float32))]}
+    del flush
+    ids = BenchStream(0, DEEPFM_B).next_batch()[0]
+    caux = scatter.compact_aux(ids[:, :1], DEEPFM_CAP)
+    order = torch.from_numpy(caux[3][0]).to(dev)
+    seg = torch.from_numpy(caux[4][0]).to(dev)[order.long()].contiguous()
+    col = torch.from_numpy(ids[:, 0].copy()).to(dev)
+    o64, _, _, dseg = scatter._sort_segments(col)
+    delta = torch.randn(DEEPFM_B, DEEPFM_W, generator=g, device=dev) * 0.01
+    w17["segment_totals"] = [
+        _kernel_a_row(dev, "compact-config5", delta, seg, DEEPFM_CAP, order,
+                      True),
+        _kernel_a_row(dev, "dedup-config5", delta, dseg, DEEPFM_B,
+                      o64.to(torch.int32), False)]
+    w17["sr_bits"] = _sr_bits_row(dev, (DEEPFM_CAP, DEEPFM_W))
+    del delta, order, seg, col, o64, dseg
+    out["w17"] = w17
+
+    cfg5 = configs.get_config("criteo1tb_deepfm", param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    spec = cfg5.spec()
+    recipe = dict(sparse_update="dedup_sr", host_dedup=True,
+                  compact_cap=DEEPFM_CAP)
+    legs = (("A-recipe", cfg5.train_config(**recipe), ("sr_bits",)),
+            ("B-segtotal", cfg5.train_config(**recipe, segtotal_pallas=True),
+             ("segment_totals", "sr_bits")),
+            # dedup_sr writes by its set under use_pallas (as JAX's); dedup
+            # is the form that reaches update_rows_add.
+            ("C-use-pallas", cfg5.train_config(sparse_update="dedup",
+                                               use_pallas=True),
+             ("gather_rows", "update_rows_add", "segment_totals")))
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="deepfm.", dir=root)
+    try:
+        # Counts start at 0 just before the legs and are read just after.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        for leg, cfg, kernels in legs:
+            row, params = _deepfm_leg(dev, spec, cfg, kernels, leg)
+            out[leg] = row
+            if leg == "A-recipe":
+                out["dense"] = _deepfm_dense_ms(dev, spec, cfg, params)
+            del params
+            torch.cuda.empty_cache()
+
+        # Leg A through fmtorch: a packed dir of bench ids (zipf(1.3) %
+        # bucket per field), the registered recipe trained uninterrupted,
+        # stopped and resumed into a checkpoint chain, then eval and
+        # predict of the model dir and 400 requests served from it.
+        rng = np.random.default_rng(15)
+        packed = os.path.join(base, "zipf")
+        local = rng.zipf(1.3, (DEEPFM_ROWS, F)) % BUCKET
+        with data.PackedWriter(packed, F, store_vals=False) as w:
+            w.append((local + np.arange(F) * BUCKET).astype(np.int32),
+                     (rng.random(DEEPFM_ROWS) < 0.25).astype(np.int8))
+        common = ["train", "--config", "criteo1tb_deepfm", "--data", packed,
+                  "--batch-size", DEEPFM_B, "--param-dtype", "bfloat16",
+                  "--compute-dtype", "bfloat16", "--sparse-update",
+                  "dedup_sr", "--host-dedup", "--compact-cap", DEEPFM_CAP,
+                  "--test-fraction", "0.2", "--checkpoint-every", 2,
+                  "--checkpoint-keep", 2]
+        cli_a = _resume_leg("deepfm leg A", common, base, "d", 6, 3,
+                            models=True)
+        model = cli_a["model"]
+        ds = data.PackedDataset(packed)
+        cut = int(len(ds) * (1.0 - 0.2))
+        holdout = os.path.join(base, "holdout")
+        with data.PackedWriter(holdout, F, store_vals=False) as w:
+            w.append(np.asarray(ds.ids[cut:]), np.asarray(ds.labels[cut:]))
+        lines, _ = _cli("eval", "--model", model, "--config",
+                        "criteo1tb_deepfm", "--data", holdout,
+                        "--batch-size", DEEPFM_B)
+        metrics, want = lines[-1], cli_a["resumed_eval"]
+        _check(metrics["count"] == len(ds) - cut and all(
+            abs(metrics[k] - want[k]) <= 1e-6 for k in ("auc", "logloss")),
+            f"deepfm eval --data: {metrics} != the training run's {want}")
+        preds = os.path.join(base, "preds.txt")
+        _cli("predict", "--model", model, "--config", "criteo1tb_deepfm",
+             "--data", holdout, "--batch-size", DEEPFM_B, "--out", preds)
+        got = np.loadtxt(preds)
+        mspec, params = models.load_model(model, device=dev)
+        hid, hvals, _ = ds.assemble(np.s_[cut:cut + DEEPFM_B], bucket=BUCKET)
+        with torch.no_grad():
+            want = mspec.predict(params, torch.from_numpy(hid).to(dev),
+                                 torch.from_numpy(np.array(hvals)).to(dev))
+        want = want.float().cpu().numpy()
+        _check(got.shape == (len(ds) - cut,)
+               and np.allclose(got[:DEEPFM_B], want, rtol=1e-5, atol=1e-6),
+               f"deepfm predict --data: {got.shape} lines, max err "
+               f"{np.abs(got[:DEEPFM_B] - want).max()}")
+        params1 = {**params, "w0": params["w0"] + 3.0}
+        serve = _serve(dev, mspec, params, params1, F, BUCKET, 400,
+                       counter=None, atol=2.0**-6)
+        print("deepfm_serve", json.dumps(serve), flush=True)
+        out["A-cli"] = {**_leg_numbers(cli_a), "losses": cli_a["losses"],
+                        "resumed_losses": cli_a["resumed_losses"],
+                        "eval": metrics, "predict_lines": int(got.shape[0]),
+                        "serve": serve}
+        del params, params1
+        launches = kernel_launches()
+        out["launches"] = launches
+        reached = ("gather_rows", "update_rows_add", "segment_totals",
+                   "sr_bits")
+        _check(all(launches[k] > 0 for k in reached),
+               f"a kernel of the deepfm legs never launched: {launches}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print("deepfm", json.dumps({k: out[k] for k in (
+        "card", "launches")}), flush=True)
+    report["deepfm"] = out
+    return launches, w17
+
+
 def main() -> int:
     import torch
 
@@ -2387,6 +2757,7 @@ def main() -> int:
     sr_rows = sr_bits_phase(dev, report)
     capture_launches = capture_phase(dev, report)
     ingest_launches = ingest_phase(dev, report)
+    deepfm_launches, w17 = deepfm_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -2523,6 +2894,31 @@ def main() -> int:
                                                                {})
         # Phase 14's legs (ingest, train, resume, eval, predict).
         entry["ingest_launches"] = ingest_launches[entry["name"]]
+        # Phase 15's legs (config 5: eager and captured, fmtorch).
+        entry["deepfm_launches"] = deepfm_launches[entry["name"]]
+    # The kernels at config 5's row width (17 columns), phase 15.
+    w17_shape = f"config 5, w={DEEPFM_W}, B={DEEPFM_B}"
+    for entry in kernels["kernels"]:
+        name = entry["name"]
+        if name in ("gather_rows", "update_rows_add"):
+            key = "gather" if name == "gather_rows" else "update"
+            entry["deepfm_w17"] = {
+                r["dtype"]: {**{k: r[key][k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}, "shape": (
+                    f"{w17_shape}, one field of {F}, "
+                    f"{r['unique_max']} distinct ids, {r['dtype']}")}
+                for r in w17["rows"]}
+        elif name == "segment_totals":
+            entry["deepfm_w17"] = {r["case"]: {**{k: r[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}, "shape": (
+                f"{w17_shape}, cap={r['cap']}, {r['segments']} segments, "
+                "fp32 deltas")} for r in w17["segment_totals"]}
+        elif name == "sr_bits":
+            entry["deepfm_w17"] = {**{k: w17["sr_bits"][k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}, "shape": f"[{DEEPFM_CAP}, {DEEPFM_W}] int32"}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -1,15 +1,18 @@
 """Mid-training checkpoints and resume: the port of
 ``fm_spark_tpu/checkpoint.py``'s crash-consistent chain, without orbax.
 
-A save holds the full training state: the parameters, the step and the
-data pipeline's cursor, so a resumed run replays exactly the batches,
-step indices and learning rates the uninterrupted run would have seen
-and ends with the same bits.
+A save holds the full training state: the parameters, the dense
+optimizer's state (FieldDeepFM's Adam moments and counts; empty for the
+SGD families), the step and the data pipeline's cursor, so a resumed run
+replays exactly the batches, step indices and learning rates the
+uninterrupted run would have seen and ends with the same bits.
 
 **Step data.** Each step is one directory, ``<dir>/<step>/``, written
 under a temporary name, fsynced and renamed. It holds one ``.npy`` per
-array under its canonical key (``w0.npy``, ``vw/0.npy`` … the names of
-``models/io.py``) and ``state.json``: the step, the pipeline cursor,
+array under its canonical key (``w0.npy``, ``vw/0.npy``,
+``mlp/0/kernel.npy`` … the names of ``models/io.py``; the optimizer's
+under ``opt/``, as ``opt/count.npy`` and ``opt/mu/mlp/0/kernel.npy``) and
+``state.json``: the step, the pipeline cursor,
 ``extra``, the layout (``"canonical"``: per-field tables, one card) and
 each array's dtype and shape. A bf16 array is stored bit for bit, as its
 16-bit pattern (``uint16``) with ``"bfloat16"`` recorded.
@@ -60,6 +63,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from fm_spark_tpu_torch.models.io import flatten, unflatten
 from fm_spark_tpu_torch.utils import durable
 
 __all__ = ["CheckpointChainBroken", "CheckpointIOError", "Checkpointer",
@@ -88,14 +92,16 @@ class CheckpointIOError(RuntimeError):
         self.errno = getattr(exc, "errno", None)
 
 
-def _flatten(params) -> dict[str, torch.Tensor]:
-    """The canonical keys of ``models/io.py``: ``w0``, ``vw/0`` …"""
-    flat = {}
-    for key, leaf in params.items():
-        if isinstance(leaf, (list, tuple)):
-            flat.update({f"{key}/{i}": t for i, t in enumerate(leaf)})
-        else:
-            flat[key] = leaf
+#: The key prefix of the optimizer state's arrays.
+OPT = "opt"
+
+
+def _flatten(params, opt_state=None) -> dict[str, torch.Tensor]:
+    """The canonical keys of ``models/io.py`` (``w0``, ``vw/0``,
+    ``mlp/0/kernel`` …), and the optimizer state's under ``opt/``."""
+    flat = flatten(params)
+    if opt_state:
+        flat.update(flatten(opt_state, OPT))
     return flat
 
 
@@ -122,10 +128,10 @@ def _to_tensor(dtype: str, arr: np.ndarray) -> torch.Tensor:
 
 
 def copy_into(params, restored) -> None:
-    """Copy a restored tree (host tensors) into ``params`` in place, so a
-    captured step bound to ``params``' storage steps the restored values.
-    Keys, shapes and dtypes must match."""
-    want, got = _flatten(params), _flatten(restored)
+    """Copy a restored tree (host tensors) into ``params`` (or an optimizer
+    state) in place, so a captured step bound to its storage steps the
+    restored values. Keys, shapes and dtypes must match."""
+    want, got = flatten(params), flatten(restored)
     if sorted(want) != sorted(got):
         raise ValueError(f"checkpoint holds {sorted(got)}, the model "
                          f"{sorted(want)}")
@@ -324,20 +330,21 @@ class Checkpointer:
                                             // self.save_every)
 
     def maybe_save(self, step: int, params, pipeline_state=None,
-                   extra=None) -> bool:
+                   extra=None, *, opt_state=None) -> bool:
         """Save iff ``step`` is on the cadence. Returns whether it saved."""
         if not self.due(step):
             return False
-        return self.save(step, params, pipeline_state, extra)
+        return self.save(step, params, pipeline_state, extra,
+                         opt_state=opt_state)
 
     # --------------------------------------------------------------- save
 
-    def _snapshot(self, params) -> _Snapshot:
-        """The params on the host, copied before this returns: on the card
-        into pinned buffers kept across saves (the writer of the previous
-        save has been joined, so they are free)."""
+    def _snapshot(self, params, opt_state=None) -> _Snapshot:
+        """The params and optimizer state on the host, copied before this
+        returns: on the card into pinned buffers kept across saves (the
+        writer of the previous save has been joined, so they are free)."""
         arrays, dtypes = {}, {}
-        for key, t in _flatten(params).items():
+        for key, t in _flatten(params, opt_state).items():
             t = t.detach()
             if t.device.type == "cuda":
                 buf = self._pinned.get(key)
@@ -355,11 +362,14 @@ class Checkpointer:
         return _Snapshot(arrays, dtypes)
 
     def save(self, step: int, params, pipeline_state: dict | None = None,
-             extra: dict | None = None, force: bool = False) -> bool:
-        """Save ``params`` (the canonical tree of tensors) at ``step`` with
-        the pipeline cursor and ``extra``. The host snapshot and its crc32
-        are taken before this returns; the file write runs in the
-        background. Returns whether the chain holds the step afterwards:
+             extra: dict | None = None, force: bool = False, *,
+             opt_state=None) -> bool:
+        """Save ``params`` (the canonical tree of tensors) and
+        ``opt_state`` (the dense optimizer's tree; None or empty for none)
+        at ``step`` with the pipeline cursor and ``extra``. The host
+        snapshot and its crc32 are taken before this returns; the file
+        write runs in the background. Returns whether the chain holds the
+        step afterwards:
         a step already in the chain is not written again (True; training
         state at a step is unique), unless a tombstone vetoes it (False).
         A step older than the newest step that no tombstone vetoes is not
@@ -381,7 +391,7 @@ class Checkpointer:
             return False
         meta = {"pipeline": pipeline_state, "extra": extra}
         t0 = time.perf_counter()
-        snap = self._snapshot(params)
+        snap = self._snapshot(params, opt_state)
         t1 = time.perf_counter()
         checksums = {k: _checksum(snap.dtypes[k], a)
                      for k, a in snap.arrays.items()}
@@ -529,16 +539,18 @@ class Checkpointer:
 
     def _result(self, step, state, arrays, params_example):
         flat = {k: _to_tensor(dt, a) for k, (dt, a) in arrays.items()}
-        params: Any = flat
+        opt = {k[len(OPT) + 1:]: v for k, v in flat.items()
+               if k.startswith(OPT + "/")}
+        params: Any = {k: v for k, v in flat.items()
+                       if not k.startswith(OPT + "/")}
         if params_example is not None:
-            params = {}
-            for key, leaf in params_example.items():
-                if isinstance(leaf, (list, tuple)):
-                    params[key] = [flat[f"{key}/{i}"]
-                                   for i in range(len(leaf))]
-                else:
-                    params[key] = flat[key]
-        return {"params": params, "step": int(step),
+            names = list(flatten(params_example))
+            missing = [n for n in names if n not in params]
+            if missing:
+                raise ValueError(f"checkpoint step {step} holds no arrays "
+                                 f"{missing} (it holds {sorted(params)})")
+            params = unflatten(params, names)
+        return {"params": params, "opt_state": opt, "step": int(step),
                 "pipeline": state.get("pipeline"),
                 "extra": state.get("extra")}
 
@@ -564,8 +576,10 @@ class Checkpointer:
         """Restore the newest VERIFIED step (or exactly ``step``).
 
         Returns None when the chain holds no step, else ``{"params",
-        "step", "pipeline", "extra"}``, ``params`` host tensors in the
-        tree of ``params_example`` (the canonical flat dict without one);
+        "opt_state", "step", "pipeline", "extra"}``: ``params`` host
+        tensors in the tree of ``params_example`` (the canonical flat dict
+        without one), ``opt_state`` the flat dict of the optimizer state's
+        arrays by canonical key (``{}`` for a chain saved without one);
         :func:`copy_into` moves them into the model's tensors.
 
         The walk-back skips, newest first, a tombstoned step, a step with

@@ -7,9 +7,10 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
 - ``cap-advise --data DIR --batch-size B`` scans packed batches as
   training draws them and recommends a ``--compact-cap``;
 - ``train --config NAME (--data PATH | --synthetic N) --steps S ...``
-  trains a FieldFM or FieldFFM config (``field_sparse`` strategy) with
-  the fused sparse-SGD step (on the card a captured CUDA graph per
-  step), printing one JSON loss line every ``--log-every`` steps, then
+  trains a FieldFM, FieldFFM or FieldDeepFM config (``field_sparse``
+  strategy) with the fused sparse step (on the card a captured CUDA graph
+  per step; FieldDeepFM's MLP and bias by ``--optimizer``, Adam for
+  config 5), printing one JSON loss line every ``--log-every`` steps, then
   ``{"eval": {...}}`` on the held-out ``--test-fraction`` and
   ``{"saved": DIR}`` with ``--model-out``. ``--data`` takes a packed dir
   (streamed; the held-out rows are its tail) or a small text file of the
@@ -213,13 +214,14 @@ def cmd_train(args) -> int:
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              param_dtype=args.param_dtype,
                              compute_dtype=args.compute_dtype,
-                             use_pallas=True if args.use_pallas else None)
-    if (cfg.model not in ("field_fm", "field_ffm")
+                             use_pallas=True if args.use_pallas else None,
+                             optimizer=args.optimizer)
+    if (cfg.model not in ("field_fm", "field_ffm", "field_deepfm")
             or cfg.strategy != "field_sparse"):
         raise SystemExit(f"config {cfg.name!r} (model {cfg.model!r}, "
                          f"strategy {cfg.strategy!r}) is not ported yet "
-                         "(ROADMAP); the port trains field_fm and field_ffm "
-                         "configs")
+                         "(ROADMAP); the port trains field_fm, field_ffm and "
+                         "field_deepfm configs")
     tconfig = cfg.train_config(
         num_steps=args.steps, batch_size=args.batch_size,
         log_every=args.log_every, eval_every=args.eval_every,
@@ -368,13 +370,17 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     device_help = "'cuda' (default) or 'cpu' (the kernels' plain versions)"
 
-    t = sub.add_parser("train", help="train a field_fm or field_ffm config")
+    t = sub.add_parser("train", help="train a field_fm, field_ffm or "
+                                     "field_deepfm config")
     t.add_argument("--config", required=True, help="registered config name")
     t.add_argument("--data", help="a packed dir (see preprocess) or a small "
                                   "text file of the config's dataset")
     t.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N seeded synthetic examples")
     t.add_argument("--steps", type=int, required=True)
+    t.add_argument("--optimizer", choices=["sgd", "adam", "adagrad", "ftrl"],
+                   help="FieldDeepFM's dense optimizer (MLP and bias) in "
+                        "place of the config's; the FM/FFM steps take sgd")
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--bucket", type=int, default=None,
                    help="per-field bucket count in place of the config's "

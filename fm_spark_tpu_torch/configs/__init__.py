@@ -2,9 +2,10 @@
 ``fm_spark_tpu/configs/__init__.py``): the same names, fields and
 recipes, so a config reads the same in both packages.
 
-The ``field_fm`` (config 3, ``criteo1tb_fm_r64``) and ``field_ffm``
-(config 4, ``avazu_ffm_r16``) families are ported; ``RunConfig.spec``
-raises for the others. The descriptions name each
+The ``field_fm`` (config 3, ``criteo1tb_fm_r64``), ``field_ffm``
+(config 4, ``avazu_ffm_r16``) and ``field_deepfm`` (config 5,
+``criteo1tb_deepfm``) families are ported; ``RunConfig.spec`` raises for
+the flat ``fm`` configs 1 and 2. The descriptions name each
 config's model and data; speed figures of the JAX package were measured
 on a TPU and are not repeated here.
 """
@@ -65,8 +66,9 @@ class RunConfig:
         return self.num_fields * self.bucket
 
     def spec(self, num_features: int | None = None):
-        """The model spec; only ``field_fm`` and ``field_ffm`` are ported."""
-        if self.model not in ("field_fm", "field_ffm"):
+        """The model spec of a field-partitioned config (``field_fm``,
+        ``field_ffm``, ``field_deepfm``)."""
+        if self.model not in ("field_fm", "field_ffm", "field_deepfm"):
             raise ValueError(
                 f"model family {self.model!r} (config {self.name!r}) is not "
                 "ported yet (ROADMAP)")
@@ -86,6 +88,8 @@ class RunConfig:
         )
         if self.model == "field_ffm":
             return models.FieldFFMSpec(**common)
+        if self.model == "field_deepfm":
+            return models.FieldDeepFMSpec(**common, mlp_dims=self.mlp_dims)
         return models.FieldFMSpec(**common, table_layout=self.table_layout)
 
     def train_config(self, **overrides) -> TrainConfig:
@@ -143,7 +147,12 @@ CONFIGS = {
         RunConfig(
             name="criteo1tb_deepfm",
             description="Config 5: DeepFM, FM rank-16 + 3-layer 400-wide"
-            " MLP on Criteo shapes.",
+            " MLP on Criteo shapes; the field-partitioned embedding"
+            " (39 x 262,144 x 17 columns) is trained by the fused sparse"
+            " scatter update, the MLP and bias by Adam (no table-sized"
+            " gradient or moment state). The JAX package's recipe:"
+            " --param-dtype bfloat16 --compute-dtype bfloat16"
+            " --sparse-update dedup_sr --host-dedup --compact-cap 16384.",
             model="field_deepfm", dataset="criteo", rank=16, num_fields=39,
             bucket=1 << 18, strategy="field_sparse", num_steps=1_000_000,
             batch_size=16384, learning_rate=1e-3, lr_schedule="constant",

@@ -3,9 +3,10 @@ of ``fm_spark_tpu/models/io.py``).
 
 A model dir holds ``spec.json`` (``{"family", "spec", "param_dtypes"}``)
 and ``params.npz`` (flat arrays named by their path in the parameter
-tree: ``w0``, ``vw/0`` … ``vw/{F-1}``). bf16 arrays are widened to
-float32 on disk and restored from ``param_dtypes`` on load, so a dir
-written by either package loads in the other.
+tree, JAX's keypath join: ``w0``, ``vw/0`` … ``vw/{F-1}``, and for
+FieldDeepFM ``mlp/{i}/kernel`` and ``mlp/{i}/bias``). bf16 arrays are
+widened to float32 on disk and restored from ``param_dtypes`` on load, so
+a dir written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import torch
 
 from fm_spark_tpu_torch import resolve_device
 from fm_spark_tpu_torch.models.base import torch_dtype
+from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
 from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
 from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 
-_FAMILIES = {"FieldFMSpec": FieldFMSpec, "FieldFFMSpec": FieldFFMSpec}
+_FAMILIES = {"FieldFMSpec": FieldFMSpec, "FieldFFMSpec": FieldFFMSpec,
+             "FieldDeepFMSpec": FieldDeepFMSpec}
 
 
 def _table_names(spec) -> list[str]:
@@ -31,26 +34,57 @@ def _table_names(spec) -> list[str]:
     return [f"{g}/{f}" for g in groups for f in range(spec.num_fields)]
 
 
-def _flatten(params: dict) -> dict[str, torch.Tensor]:
+def _mlp_names(spec) -> list[str]:
+    if not hasattr(spec, "mlp_dims"):
+        return []
+    return [f"mlp/{i}/{leaf}" for i in range(len(spec.mlp_dims) + 1)
+            for leaf in ("kernel", "bias")]
+
+
+def flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The leaves of a nested dict/list tree under their keypath names
+    (``w0``, ``vw/0``, ``mlp/0/kernel`` …), JAX's keypath join."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
     flat = {}
-    for key, leaf in params.items():
-        if isinstance(leaf, (list, tuple)):
-            flat.update({f"{key}/{i}": t for i, t in enumerate(leaf)})
-        else:
-            flat[key] = leaf
+    for key, leaf in items:
+        flat.update(flatten(leaf, f"{prefix}/{key}" if prefix else str(key)))
     return flat
+
+
+def unflatten(flat: dict, names) -> dict:
+    """The nested tree of ``flat``'s entries under ``names`` (keypaths; a
+    level whose keys are all digits is a list)."""
+    groups: dict[str, list[str]] = {}
+    for name in names:
+        head, _, rest = name.partition("/")
+        groups.setdefault(head, []).append(rest)
+    tree = {}
+    for head, rests in groups.items():
+        if rests == [""]:
+            tree[head] = flat[head]
+            continue
+        sub = unflatten({r: flat[f"{head}/{r}"] for r in rests}, rests)
+        tree[head] = ([sub[str(i)] for i in range(len(sub))]
+                      if all(k.isdigit() for k in sub) else sub)
+    return tree
 
 
 def params_from_numpy(spec, flat: dict, device=None,
                       dtypes: dict | None = None) -> dict:
     """Parameters for ``spec`` on ``device`` from numpy arrays under the
-    npz names (``w0``, ``vw/0`` …) — the carrier that moves JAX
-    parameters into the port. ``dtypes`` maps names to dtype names
-    ('float32' | 'bfloat16'); by default tables take the spec's
-    ``param_dtype`` and ``w0`` float32."""
+    npz names (``w0``, ``vw/0`` …, ``mlp/0/kernel`` …) — the carrier that
+    moves JAX parameters into the port. ``dtypes`` maps names to dtype
+    names ('float32' | 'bfloat16'); by default tables take the spec's
+    ``param_dtype``, ``w0`` and the MLP float32."""
     dev = resolve_device(device)
     dtypes = dtypes or {}
-    names = ["w0", *_table_names(spec)]
+    tables = _table_names(spec)
+    names = ["w0", *tables, *_mlp_names(spec)]
     missing = [n for n in names if n not in flat]
     if missing:
         raise KeyError(f"parameters missing for {type(spec).__name__}: {missing}")
@@ -59,15 +93,12 @@ def params_from_numpy(spec, flat: dict, device=None,
         arr = np.asarray(flat[name])
         if arr.dtype.name == "bfloat16":      # ml_dtypes arrays from JAX
             arr = arr.astype(np.float32)
-        default = "float32" if name == "w0" else spec.param_dtype
+        default = spec.param_dtype if name in tables else "float32"
         want = torch_dtype(dtypes.get(name, default))
         out[name] = torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
             device=dev, dtype=want)
-    params = {"w0": out["w0"].reshape(())}
-    for name in _table_names(spec):
-        group, idx = name.split("/")
-        params.setdefault(group, [None] * spec.num_fields)[int(idx)] = out[name]
-    return params
+    out["w0"] = out["w0"].reshape(())
+    return unflatten(out, names)
 
 
 def save_model(path: str, spec, params: dict) -> None:
@@ -79,7 +110,7 @@ def save_model(path: str, spec, params: dict) -> None:
         if not math.isfinite(meta["spec"][key]):
             meta["spec"][key] = None
     flat, dtypes = {}, {}
-    for name, t in _flatten(params).items():
+    for name, t in flatten(params).items():
         dtypes[name] = str(t.dtype).removeprefix("torch.")
         flat[name] = t.detach().to("cpu", torch.float32).numpy()
     meta["param_dtypes"] = dtypes
@@ -102,6 +133,8 @@ def load_model(path: str, device=None):
         kwargs["min_target"] = -math.inf
     if kwargs.get("max_target") is None:
         kwargs["max_target"] = math.inf
+    if "mlp_dims" in kwargs:
+        kwargs["mlp_dims"] = tuple(kwargs["mlp_dims"])
     spec = family(**kwargs)
     with np.load(os.path.join(path, "params.npz")) as npz:
         flat = {k: npz[k] for k in npz.files}

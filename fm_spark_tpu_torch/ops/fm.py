@@ -3,6 +3,9 @@ of ``fm_spark_tpu/ops/fm.py``)."""
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import torch
 
 
@@ -12,6 +15,12 @@ def sum_upcast(x: torch.Tensor, dim=None) -> torch.Tensor:
         s = x.float().sum() if dim is None else x.float().sum(dim)
         return s.to(torch.bfloat16)
     return x.sum() if dim is None else x.sum(dim)
+
+
+def seq_sum(terms):
+    """Python's ``sum`` over per-field arrays: left to right, each add
+    rounded in the operands' dtype."""
+    return functools.reduce(operator.add, terms)
 
 
 def fm_interaction_from_xv(xv: torch.Tensor) -> torch.Tensor:

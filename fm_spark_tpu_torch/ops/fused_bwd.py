@@ -61,15 +61,19 @@ def fm_bwd_supported(cap: int, width: int, num_fields: int) -> str | None:
     return None
 
 
-def gfull(rows, xv_full, s1, ds, x, touched, rv, colmask):
+def gfull(rows, xv_full, s1, ds, x, touched, rv, colmask, extra=None):
     """One field's fused row gradient (``sparse._gfull_grads``):
-    ``ds·(s1 − mask·xv_full)·x + rv·rows·touched``, every operation in the
-    compute dtype of its operands. ``rows``/``xv_full``/``s1`` [B, k+1];
-    ``ds``/``x``/``touched`` [B]; ``rv`` [k+1] or None; ``colmask``
-    [k+1] bool, False on the linear column."""
+    ``(ds·(s1 − mask·xv_full) + extra)·x + rv·rows·touched``, every
+    operation in the compute dtype of its operands. ``rows``/``xv_full``/
+    ``s1`` [B, k+1]; ``ds``/``x``/``touched`` [B]; ``rv`` [k+1] or None;
+    ``colmask`` [k+1] bool, False on the linear column; ``extra`` [B, k+1]
+    or None (FieldDeepFM's deep-head pullback, zero on the linear
+    column)."""
     base = ds[:, None] * (s1 - torch.where(colmask, xv_full,
                                            torch.zeros((), dtype=s1.dtype,
                                                        device=s1.device)))
+    if extra is not None:
+        base = base + extra
     g = base * x[:, None]
     if rv is not None:
         g = g + rv * rows * touched[:, None]

@@ -1,6 +1,9 @@
-"""Fused sparse-SGD steps of FieldFM and FieldFFM: analytic row gradients
-written straight into the tables, no dense gradient (the port of the
-FieldFM and FieldFFM bodies of ``fm_spark_tpu/sparse.py``).
+"""Fused sparse-SGD steps of FieldFM, FieldFFM and FieldDeepFM: analytic
+row gradients written straight into the tables, no dense gradient (the
+port of the FieldFM, FieldFFM and FieldDeepFM bodies of
+``fm_spark_tpu/sparse.py``). FieldDeepFM's step is hybrid: its tables
+take the FieldFM forms below with the MLP's pullback added, its MLP and
+``w0`` the dense optimizer (Adam for config 5).
 
 Forms ported (the others raise with the ROADMAP item that queues them):
 
@@ -24,8 +27,10 @@ Forms ported (the others raise with the ROADMAP item that queues them):
   two ``ffm_sel`` kernels (``ops.ffm_sel``).
 
 The bodies run eagerly; :func:`make_field_sparse_sgd_step`,
-:func:`make_field_ffm_sparse_sgd_step`, :func:`make_field_sparse_multistep`
-and :func:`precompile_field_sparse_step` capture them on the card as CUDA
+:func:`make_field_ffm_sparse_sgd_step`, :func:`make_field_deepfm_sparse_step`,
+the rolls :func:`make_field_sparse_multistep` and
+:func:`make_field_deepfm_multistep`, and
+:func:`precompile_field_sparse_step` capture them on the card as CUDA
 graphs (``graphs.py``), the counterparts of the reference's jitted,
 rolled and precompiled steps. A body reads nothing of the device on the
 host: the step counter and learning rate live on the device, and the SR
@@ -36,14 +41,12 @@ reference's order, and ``lr`` is a float32 scalar, so ``-lr·g_full`` is
 float32 even when ``g_full`` is bf16 (JAX's promotion of a strongly
 typed float32 scalar). A Python-float reg beside a compute-dtype array is
 rounded to that dtype first, as JAX treats a weakly typed scalar. Tables
-and ``w0`` are updated IN PLACE: the JAX step donates them, and the port
-never holds two copies of them.
+and ``w0`` (and FieldDeepFM's MLP and optimizer state) are updated IN
+PLACE: the JAX step donates them, and the port never holds two copies of
+them.
 """
 
 from __future__ import annotations
-
-import functools
-import operator
 
 import torch
 
@@ -53,13 +56,16 @@ from fm_spark_tpu_torch.ops import ffm_sel as ffm_sel_lib
 from fm_spark_tpu_torch.ops import fused_bwd as fused_bwd_lib
 from fm_spark_tpu_torch.ops import losses as losses_lib
 from fm_spark_tpu_torch.ops import scatter as scatter_lib
+from fm_spark_tpu_torch.ops.fm import seq_sum as _seq_sum
 from fm_spark_tpu_torch.ops.fm import sum_upcast as _sum_upcast
 from fm_spark_tpu_torch.train import TrainConfig, _lr_at_tensor
 
-__all__ = ["fused_embed_plan", "make_field_ffm_sparse_sgd_body",
-           "make_field_ffm_sparse_sgd_step", "make_field_sparse_multistep",
-           "make_field_sparse_sgd_body", "make_field_sparse_sgd_step",
-           "make_sgd_step", "precompile_field_sparse_step"]
+__all__ = ["fused_embed_plan", "make_field_deepfm_multistep",
+           "make_field_deepfm_sparse_body", "make_field_deepfm_sparse_step",
+           "make_field_ffm_sparse_sgd_body", "make_field_ffm_sparse_sgd_step",
+           "make_field_sparse_multistep", "make_field_sparse_sgd_body",
+           "make_field_sparse_sgd_step", "make_sgd_step",
+           "precompile_field_sparse_step"]
 
 
 def _check_host_dedup(config: TrainConfig, loss: str):
@@ -182,6 +188,19 @@ def _reject_deep_sharded(config: TrainConfig, what: str):
             f"step only, not {what}")
 
 
+def _reject_fused_embed_require(config: TrainConfig, what: str):
+    if config.fused_embed not in ("off", "auto", "require"):
+        raise ValueError(
+            f"unknown fused_embed {config.fused_embed!r} "
+            "(expected 'off', 'auto', or 'require')")
+    if config.fused_embed == "require":
+        raise ValueError(
+            f"fused_embed='require' is served by the single-chip "
+            f"FieldFM compact backward and sel-blocked FieldFFM fused "
+            f"bodies, not {what}; use 'auto' for fallback-to-XLA "
+            "semantics")
+
+
 def _reject_gfull(config: TrainConfig, what: str):
     if config.gfull_fused:
         raise ValueError(
@@ -237,12 +256,6 @@ def _resolve_fused_embed(spec, config: TrainConfig):
         raise KernelUnavailable(
             f"fused_embed='require' cannot be served: {reason}")
     return family
-
-
-def _seq_sum(terms):
-    """Left-to-right elementwise sum, each add rounded in the operands'
-    dtype (the reference's Python ``sum`` over per-field arrays)."""
-    return functools.reduce(operator.add, terms)
 
 
 def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False):
@@ -332,14 +345,17 @@ def _s1_and_rv(s, k, cd, use_linear: bool, config: TrainConfig):
 
 
 def _gfull_grads(dscores, vals_c, s, xv_fulls, rows, touched_c, k, cd,
-                 use_linear: bool, config: TrainConfig):
+                 use_linear: bool, config: TrainConfig, extra=None):
     """The fused g_full construction per field (``gfull_fused``):
-    ``ds·(s1 − mask·xv_full)·x + rv·rows·touched``."""
+    ``(ds·(s1 − mask·xv_full) + extra_f)·x + rv·rows·touched``, with
+    ``extra`` FieldDeepFM's deep-head pullback as one zero-padded
+    ``[B, F, k+1]`` tensor (None for FieldFM)."""
     s1, rv = _s1_and_rv(s, k, cd, use_linear, config)
     rv = fused_bwd_lib.rv_vector(rv, k, cd, s.device)
     colmask = torch.arange(k + 1, device=s.device) < k
     return [fused_bwd_lib.gfull(rows[f], xv_fulls[f], s1, dscores,
-                                vals_c[:, f], touched_c, rv, colmask)
+                                vals_c[:, f], touched_c, rv, colmask,
+                                None if extra is None else extra[:, f])
             for f in range(len(rows))]
 
 
@@ -680,6 +696,259 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     return step
 
 
+def _mlp_forward(spec, mlp, h):
+    """The MLP head (``FieldDeepFMSpec.deep_scores``) with what its
+    backward needs: ``(kernels, inputs, pre_activations, deep [B])``, the
+    kernels cast to the compute dtype."""
+    cd = spec.cdtype
+    n_hidden = len(spec.mlp_dims)
+    kernels, ins, pres = [], [], []
+    for li, layer in enumerate(mlp):
+        kernel = layer["kernel"].to(cd)
+        pre = torch.matmul(h, kernel) + layer["bias"].to(cd)
+        kernels.append(kernel)
+        ins.append(h)
+        pres.append(pre)
+        h = torch.relu(pre) if li < n_hidden else pre
+    return kernels, ins, pres, h[:, 0]
+
+
+def _mlp_backward(spec, kernels, ins, pres, g_out):
+    """The vjp of the MLP head at the cotangent ``g_out`` [B] (compute
+    dtype), as JAX's vjp computes it: per layer ``g_kernel = inᵀ·g`` and
+    ``g_bias = Σ_b g`` in the compute dtype, widened to float32 (the vjp
+    of the cast), ``g_in = g·kernelᵀ``, and the ReLU's mask. Returns
+    ``(per-layer {"kernel", "bias"} gradients, g_h [B, F·k])``. A bf16
+    bias sum accumulates in float32 and rounds once (XLA's CPU sums bf16
+    in an order of its own)."""
+    n_hidden = len(spec.mlp_dims)
+    g = g_out[:, None]
+    grads = [None] * len(kernels)
+    for li in reversed(range(len(kernels))):
+        if li < n_hidden:
+            g = torch.where(pres[li] > 0, g, torch.zeros_like(g))
+        grads[li] = {"kernel": torch.matmul(ins[li].t(), g).float(),
+                     "bias": _sum_upcast(g, 0).float()}
+        g = torch.matmul(g, kernels[li].t())
+    return grads, g
+
+
+def make_field_deepfm_sparse_body(spec, config: TrainConfig):
+    """The fused hybrid step of a FieldDeepFM (the reference's
+    ``make_field_deepfm_sparse_body``): ``(body, init_opt_state)`` with
+    ``body(params, opt_state, step_idx, ids, vals, labels, weights,
+    aux=None) → (params, opt_state, loss)``, updating ``params`` and
+    ``opt_state`` in place, and ``init_opt_state(params)`` the dense
+    optimizer's state of ``{"w0", "mlp"}``.
+
+    The tables take the analytic sparse rule of the FieldFM body with the
+    deep head's pullback added, ``∂L/∂rows_f[:, :k] = ds·x_f·(s − xv_f) +
+    g_h[:, f·k:(f+1)·k]·x_f``, through every table form the FieldFM body
+    has but the fused backward (``fused_embed='require'`` raises, as in the
+    reference). ``w0`` and the MLP are updated by ``config.optimizer``
+    (:func:`~fm_spark_tpu_torch.train.make_optimizer`), ``reg_bias·w0``
+    and ``reg_factors·p`` added to their gradients. The MLP's backward is
+    written out (:func:`_mlp_backward`), its products by ``torch.matmul``.
+    Arguments as :func:`make_field_sparse_sgd_body`'s.
+    """
+    from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
+    from fm_spark_tpu_torch.train import apply_updates, make_optimizer
+
+    if type(spec) is not FieldDeepFMSpec:
+        raise ValueError("expected a FieldDeepFMSpec")
+    what = "the single-chip FieldDeepFM body"
+    _reject_collective_dtype(config, what)
+    _reject_score_sharded(config, what)
+    _reject_sel_blocked(config, what)
+    _reject_deep_sharded(config, what)
+    _reject_fused_embed_require(config, what)
+    _reject_embed_tier_require(config, what)
+    _check_host_dedup(config, spec.loss)
+    if config.sparse_update not in scatter_lib.SPARSE_UPDATE_MODES:
+        raise ValueError(f"unknown sparse_update mode {config.sparse_update!r}")
+    compact = config.compact_cap > 0
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
+    cd = spec.cdtype
+    F, k = spec.num_fields, spec.rank
+    lr_at = _lr_at_tensor(config)
+    noise_for = _noise_fn(config, None)
+    dense_opt = make_optimizer(config)
+    reg_factors = fused_bwd_lib.round_to(config.reg_factors, cd)
+    reg_linear = fused_bwd_lib.round_to(config.reg_linear, cd)
+    # The dense gradients are float32: JAX rounds a Python reg to it.
+    reg_bias32 = fused_bwd_lib.round_to(config.reg_bias, torch.float32)
+    reg_factors32 = fused_bwd_lib.round_to(config.reg_factors, torch.float32)
+
+    def dense_subtree(params):
+        return {"w0": params["w0"], "mlp": params["mlp"]}
+
+    def init_opt_state(params):
+        return dense_opt.init(dense_subtree(params))
+
+    @torch.no_grad()
+    def body(params, opt_state, step_idx, ids, vals, labels, weights,
+             aux=None):
+        if config.host_dedup and aux is None:
+            raise ValueError(
+                "host_dedup step needs the batch's dedup_aux operand"
+            )
+        w0 = params["w0"]
+        tables = params["vw"]
+        vals_c = vals.to(cd)
+        urows, rows, aux, ovf = _rows_for(compact, tables, aux, cd, ids,
+                                          config)             # F × [B, k+1]
+        if config.gfull_fused:
+            xv_fulls = [r * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
+            xvs = [x[:, :k] for x in xv_fulls]
+        else:
+            xvs = [r[:, :k] * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
+        s = _seq_sum(xvs)
+        sum_sq = _seq_sum([_sum_upcast(x * x, 1) for x in xvs])
+        fm_scores = 0.5 * (_sum_upcast(s * s, 1) - sum_sq)
+        if spec.use_linear:
+            if config.gfull_fused:
+                fm_scores = fm_scores + _seq_sum([x[:, k] for x in xv_fulls])
+            else:
+                fm_scores = fm_scores + _seq_sum(
+                    [r[:, k] * vals_c[:, f] for f, r in enumerate(rows)])
+        h = torch.cat(xvs, dim=1)                           # [B, F·k]
+        kernels, ins, pres, deep = _mlp_forward(spec, params["mlp"], h)
+        scores = fm_scores + deep
+        if spec.use_bias:
+            scores = scores + w0.to(cd)
+        loss, dscores = loss_and_grad(scores, labels, weights)
+        g_mlp, g_h = _mlp_backward(spec, kernels, ins, pres, dscores)
+        lr = lr_at(_step_tensor(step_idx, w0.device))
+        touched = weights > 0
+
+        if config.gfull_fused:
+            # The pullback widened to [B, F, k+1] by one zero column (the
+            # head never reads the linear weight).
+            extra = torch.nn.functional.pad(g_h.reshape(-1, F, k), (0, 1))
+            g_fulls = _gfull_grads(dscores, vals_c, s, xv_fulls, rows,
+                                   touched.to(cd), k, cd, spec.use_linear,
+                                   config, extra=extra)
+        else:
+            g_fulls = []
+            for f in range(F):
+                x_f = vals_c[:, f:f + 1]
+                g_v = (dscores[:, None] * x_f * (s - xvs[f])
+                       + g_h[:, f * k:(f + 1) * k] * x_f)
+                if config.reg_factors:
+                    g_v = g_v + reg_factors * rows[f][:, :k] * touched[:, None]
+                if spec.use_linear:
+                    g_l = dscores * vals_c[:, f]
+                    if config.reg_linear:
+                        g_l = g_l + reg_linear * rows[f][:, k] * touched
+                else:
+                    g_l = torch.zeros_like(dscores)
+                g_fulls.append(torch.cat([g_v, g_l[:, None]], dim=1))
+        _apply_updates(compact, tables, ids, g_fulls, rows, urows, config,
+                       noise_for, step_idx, -lr, aux)
+
+        # The dense side: the optimizer on {"w0", "mlp"} (+ L2 per group).
+        g_w0 = _sum_upcast(dscores).float()
+        if config.reg_bias:
+            g_w0 = g_w0 + reg_bias32 * w0
+        if config.reg_factors:
+            g_mlp = [{key: g[key] + reg_factors32 * layer[key] for key in g}
+                     for g, layer in zip(g_mlp, params["mlp"])]
+        dense = dense_subtree(params)
+        apply_updates(dense, dense_opt.update({"w0": g_w0, "mlp": g_mlp},
+                                              opt_state, dense))
+        return params, opt_state, _fold_overflow(loss, ovf, config)
+
+    return body, init_opt_state
+
+
+def _deepfm_roll(body, params, opt_state, step0, m: int, ids, vals, labels,
+                 weights, aux):
+    """:func:`_roll` of the FieldDeepFM body, the optimizer's state
+    carried through the steps."""
+    def one(p, i, *batch):
+        p, _, loss = body(p, opt_state, i, *batch)
+        return p, loss
+
+    return _roll(one, params, step0, m, ids, vals, labels, weights, aux)
+
+
+def make_field_deepfm_sparse_step(spec, config: TrainConfig):
+    """The fused hybrid step of a FieldDeepFM as the training loop runs it
+    (the reference's jitted step, params and optimizer state donated):
+    ``step(params, opt_state, step_idx, ids, vals, labels, weights,
+    aux=None) → (params, opt_state, loss)``, with
+    ``step.init_opt_state(params)``.
+
+    On the card the body is captured as one CUDA graph per input layout
+    over the tree ``{"params", "opt"}`` (:class:`~fm_spark_tpu_torch.graphs
+    .CapturedStep`): both are updated in place and bound by storage, so
+    other params or state tensors capture anew. On the CPU it runs the
+    eager body.
+    """
+    body, init_opt_state = make_field_deepfm_sparse_body(spec, config)
+
+    def run(state, step, *inputs):
+        has_aux = len(inputs) > 4
+        return body(state["params"], state["opt"], step,
+                    *_unflat(inputs, has_aux))[2]
+
+    captured = graphs.CapturedStep(run)
+
+    def step(params, opt_state, step_idx, ids, vals, labels, weights,
+             aux=None):
+        if not _on_card(params):
+            return body(params, opt_state, step_idx, ids, vals, labels,
+                        weights, aux)
+        if config.host_dedup and aux is None:
+            raise ValueError(
+                "host_dedup step needs the batch's dedup_aux operand"
+            )
+        loss = captured({"params": params, "opt": opt_state}, step_idx,
+                        *_flat(ids, vals, labels, weights, aux))
+        return params, opt_state, loss
+
+    step.captured = captured
+    step.init_opt_state = init_opt_state
+    return step
+
+
+def make_field_deepfm_multistep(spec, config: TrainConfig, n: int):
+    """The FieldDeepFM form of :func:`make_field_sparse_multistep`:
+    ``mstep(params, opt_state, step0, m, ids, vals, labels, weights,
+    aux=None) → (params, opt_state, last_loss)`` over ``[n, ...]``-stacked
+    batches, the optimizer's state advanced through the ``m`` steps as in
+    ``m`` separate calls; ``mstep.init_opt_state`` as the step's. On the
+    card each ``m`` is one CUDA graph over ``{"params", "opt"}``."""
+    if n < 1:
+        raise ValueError(f"steps per call must be >= 1, got {n}")
+    body, init_opt_state = make_field_deepfm_sparse_body(spec, config)
+
+    def run(state, step0, *inputs):
+        m = inputs[0].shape[0]
+        return _deepfm_roll(body, state["params"], state["opt"], step0, m,
+                            *_unflat(inputs, len(inputs) > 4))
+
+    captured = graphs.CapturedStep(run)
+
+    def mstep(params, opt_state, step0, m, ids, vals, labels, weights,
+              aux=None):
+        m = int(m)
+        if not 1 <= m <= n:
+            raise ValueError(f"m must be in [1, {n}], got {m}")
+        if not _on_card(params):
+            loss = _deepfm_roll(body, params, opt_state, int(step0), m, ids,
+                                vals, labels, weights, aux)
+            return params, opt_state, loss
+        stacked = _flat(ids, vals, labels, weights, aux)
+        loss = captured({"params": params, "opt": opt_state}, step0,
+                        *(t[:m] for t in stacked))
+        return params, opt_state, loss
+
+    mstep.captured = captured
+    mstep.init_opt_state = init_opt_state
+    return mstep
+
+
 def _body_for(spec, config: TrainConfig, sr_noise=None):
     """The FieldFFM body for a :class:`~fm_spark_tpu_torch.models
     .FieldFFMSpec`, else the FieldFM body."""
@@ -820,23 +1089,32 @@ def make_field_sparse_multistep(spec, config: TrainConfig, n: int,
 
 
 def precompile_field_sparse_step(spec, config: TrainConfig, batch_size: int,
-                                 steps_per_call: int = 1, *, params):
+                                 steps_per_call: int = 1, *, params,
+                                 opt_state=None):
     """Capture the fused step (or the ``steps_per_call`` roll) for
     ``params`` ahead of the data: the counterpart of the reference's
-    ``lower().compile()`` warm start. Returns the step (for
+    ``lower().compile()`` warm start, dispatching FieldFM, FieldFFM and
+    FieldDeepFM as the training loop does. Returns the step (for
     ``steps_per_call = 1``) or the multistep, already captured for full
     calls on the card, over zero batches shaped as
     ``abstract_field_batch`` and, with ``host_dedup``, the aux of zero ids
     (aux shapes depend on ``(B, F, cap)`` only).
 
-    It takes ``params``, where the reference takes none: a graph binds the
-    storage of the tensors it was captured on. The warm-up runs on clones,
-    so ``params`` are not stepped. On the CPU nothing is captured.
+    It takes ``params`` (and for a FieldDeepFM the ``opt_state`` of
+    ``step.init_opt_state``), where the reference takes none: a graph binds
+    the storage of the tensors it was captured on. The warm-up runs on
+    clones, so neither is stepped. On the CPU nothing is captured.
     """
+    from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
+
     if steps_per_call < 1:
         raise ValueError(f"steps per call must be >= 1, got {steps_per_call}")
     import numpy as np
 
+    deep = isinstance(spec, FieldDeepFMSpec)
+    if deep and opt_state is None:
+        raise ValueError("a FieldDeepFM step binds its optimizer state: "
+                         "pass opt_state=step.init_opt_state(params)")
     dev = params["w0"].device
     b, f = batch_size, spec.num_fields
     zeros = np.zeros((b, f), np.int32)
@@ -845,18 +1123,19 @@ def precompile_field_sparse_step(spec, config: TrainConfig, batch_size: int,
         aux = (scatter_lib.compact_aux(zeros, config.compact_cap)
                if config.compact_cap else scatter_lib.dedup_aux(zeros))
         aux = tuple(torch.from_numpy(a).to(dev) for a in aux)
-    batch = (torch.zeros(b, f, dtype=torch.int32, device=dev),
-             torch.zeros(b, f, dtype=torch.float32, device=dev),
-             torch.zeros(b, dtype=torch.float32, device=dev),
-             torch.zeros(b, dtype=torch.float32, device=dev), aux)
+    batch = _flat(torch.zeros(b, f, dtype=torch.int32, device=dev),
+                  torch.zeros(b, f, dtype=torch.float32, device=dev),
+                  torch.zeros(b, dtype=torch.float32, device=dev),
+                  torch.zeros(b, dtype=torch.float32, device=dev), aux)
+    state = {"params": params, "opt": opt_state} if deep else params
     if steps_per_call == 1:
-        step = make_sgd_step(spec, config)
-        if _on_card(params):
-            step.captured(params, 0, *_flat(*batch))
-        return step
-    mstep = make_field_sparse_multistep(spec, config, steps_per_call)
-    if _on_card(params):
+        step = (make_field_deepfm_sparse_step(spec, config) if deep
+                else make_sgd_step(spec, config))
+    else:
+        step = (make_field_deepfm_multistep if deep
+                else make_field_sparse_multistep)(spec, config, steps_per_call)
         n = steps_per_call
-        mstep.captured(params, 0, *(t.unsqueeze(0).expand(n, *t.shape)
-                                    for t in _flat(*batch)))
-    return mstep
+        batch = [t.unsqueeze(0).expand(n, *t.shape) for t in batch]
+    if _on_card(params):
+        step.captured(state, 0, *batch)
+    return step

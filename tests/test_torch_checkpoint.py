@@ -7,7 +7,9 @@ package's (mirroring ``tests/test_checkpoint.py`` and
   each journaled; ``CheckpointChainBroken`` when nothing verifies; an
   explicit step failing loudly; tombstones honoured; ``max_to_keep``; a
   save's snapshot taken before the next step writes the params; a failed
-  write raising at the next boundary.
+  write raising at the next boundary; a FieldDeepFM's nested params and
+  Adam state saved beside them (``opt/``) and restored bit for bit, and
+  a chain without optimizer state restoring an empty one.
 - Training: kill-and-resume equals the uninterrupted run bit for bit
   (FieldFM compact bf16 ``dedup_sr`` with the host aux at
   ``steps_per_call`` 1 and 2, and FieldFFM); the preemption flush; a
@@ -115,6 +117,47 @@ def test_round_trip_keeps_the_bf16_bits(tmp_path):
     assert _same(fresh, params)
     with pytest.raises(ValueError, match="float32"):
         copy_into(_params("float32")[1], got["params"])
+
+
+def test_optimizer_state_saves_beside_the_params_and_restores(tmp_path):
+    """A FieldDeepFM's nested params and Adam state (``opt/`` keys) round
+    trip bit for bit and copy into fresh tensors; a chain saved without
+    optimizer state (the SGD families') restores an empty one."""
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.train import make_optimizer
+
+    spec = models.FieldDeepFMSpec(num_features=F * BUCKET, rank=4,
+                                  num_fields=F, bucket=BUCKET,
+                                  mlp_dims=(8, 8), param_dtype="bfloat16")
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    opt = make_optimizer(TrainConfig(optimizer="adam"))
+    state = opt.init({"w0": params["w0"], "mlp": params["mlp"]})
+    state["count"].fill_(7)
+    state["mu"]["mlp"][1]["kernel"].normal_()
+    ck = Checkpointer(str(tmp_path / "deep"))
+    ck.save(4, params, {"epoch": 0}, opt_state=state)
+    ck.wait()
+    assert (tmp_path / "deep" / "4" / "opt" / "mu" / "mlp" / "1"
+            / "kernel.npy").exists()
+    fresh = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    fresh_state = opt.init({"w0": fresh["w0"], "mlp": fresh["mlp"]})
+    got = Checkpointer(str(tmp_path / "deep")).restore(fresh)
+    copy_into(fresh, got["params"])
+    copy_into(fresh_state, got["opt_state"])
+    for a, b in ((params, fresh), (state, fresh_state)):
+        fa, fb = flatten(a), flatten(b)
+        assert sorted(fa) == sorted(fb)
+        assert all(torch.equal(_bits(fa[k]), _bits(fb[k])) for k in fa)
+    assert int(fresh_state["count"]) == 7
+    with pytest.raises(ValueError, match="checkpoint holds"):
+        copy_into(opt.init({"w0": fresh["w0"]}), got["opt_state"])
+    _, fm_params = _params()
+    ck = Checkpointer(str(tmp_path / "fm"))
+    ck.save(1, fm_params)
+    ck.wait()
+    restored = Checkpointer(str(tmp_path / "fm")).restore(fm_params)
+    assert restored["opt_state"] == {}
+    copy_into({}, restored["opt_state"])
 
 
 def test_restore_none_on_a_fresh_dir(tmp_path):

@@ -394,7 +394,7 @@ _SEG_CASES = {
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(_SEG_CASES))
-@pytest.mark.parametrize("w", [65, 128, 129, 369])
+@pytest.mark.parametrize("w", [17, 65, 128, 129, 369])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segment_totals_kernel_at_any_width_on_the_card(cuda, case, w, dtype):
     """Widths past the first design's 128 columns, cap = B and cap below
@@ -804,9 +804,9 @@ def _bitwise(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [1, 3, 4, 8, 65, 128, 369])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 17, 65, 128, 369])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 255, 131072])
+@pytest.mark.parametrize("b", [1, 255, 16384, 131072])
 def test_row_kernels_match_plain_on_the_card(cuda, w, dtype, b):
     from fm_spark_tpu_torch.ops import rows
 
@@ -1235,3 +1235,83 @@ def test_captured_resume_equals_the_uninterrupted_run_on_the_card(
     calls = len(s_rest["loss"])
     assert s_rest["loss"] == s_full["loss"][-calls:]
     assert _same_params(full, rest)
+
+
+# FieldDeepFM (config 5): the hybrid step's forms, with B, F, bucket, cap.
+_DEEPFM_FORMS = {
+    "recipe": ("bfloat16", dict(sparse_update="dedup_sr", host_dedup=True,
+                                compact_cap=2048)),
+    "segtotal": ("bfloat16", dict(sparse_update="dedup_sr", host_dedup=True,
+                                  compact_cap=2048, gfull_fused=True,
+                                  segtotal_pallas=True)),
+    "use-pallas": ("bfloat16", dict(sparse_update="dedup_sr",
+                                    use_pallas=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(_DEEPFM_FORMS))
+def test_deepfm_captured_step_and_roll_equal_eager_on_the_card(cuda, form):
+    """Three steps of FieldDeepFM's captured step (one CUDA graph over the
+    params and Adam's state) against the eager body on a copy: the loss,
+    the params and Adam's moments and count the same bits after every
+    step; then the roll of n = 2 over three steps the same."""
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.graphs import _clone
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.ops import scatter
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    dt, lever = _DEEPFM_FORMS[form]
+    b, f, bucket = 4096, 6, 3000
+    spec = models.FieldDeepFMSpec(
+        num_features=f * bucket, rank=16, num_fields=f, bucket=bucket,
+        mlp_dims=(64, 64, 64), param_dtype=dt, compute_dtype=dt)
+    cfg = TrainConfig(learning_rate=1e-3, lr_schedule="constant",
+                      optimizer="adam", reg_factors=1e-6, **lever)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(3):
+        ids = (rng.zipf(1.3, (b, f)) % bucket).astype(np.int32)
+        aux = (tuple(torch.from_numpy(a).to(cuda) for a in
+                     scatter.compact_aux(ids, cfg.compact_cap))
+               if cfg.host_dedup else None)
+        batches.append((*(torch.from_numpy(a).to(cuda) for a in (
+            ids, np.ones((b, f), np.float32),
+            (rng.random(b) < 0.25).astype(np.float32),
+            np.ones(b, np.float32))), aux))
+
+    def bits(tree):
+        return [t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                                    else torch.int32)
+                for t in flatten(tree).values()]
+
+    def same(a, c):
+        return all(torch.equal(x, y) for x, y in zip(bits(a), bits(c)))
+
+    body, init = sparse.make_field_deepfm_sparse_body(spec, cfg)
+    step = sparse.make_field_deepfm_sparse_step(spec, cfg)
+    eager = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    graphed, rolled = _clone(eager), _clone(eager)
+    oe, og = init(eager), step.init_opt_state(graphed)
+    for i, batch in enumerate(batches):
+        eager, oe, le = body(eager, oe, i, *batch)
+        graphed, og, lc = step(graphed, og, i, *batch)
+        torch.cuda.synchronize()
+        assert torch.equal(le.view(torch.int32), lc.view(torch.int32)), i
+        assert same(eager, graphed) and same(oe, og), i
+    assert len(step.captured.capture_s) == 1 and int(og["count"]) == 3
+    # The roll from the start: a graph of 2 steps and one of the tail.
+    mstep = sparse.make_field_deepfm_multistep(spec, cfg, 2)
+    orl = mstep.init_opt_state(rolled)
+    losses = []
+    for lo, hi in ((0, 2), (2, 3)):
+        group = batches[lo:hi]
+        stacked = [torch.stack(p) for p in zip(*[g[:4] for g in group])]
+        aux = (tuple(torch.stack(a) for a in zip(*[g[4] for g in group]))
+               if cfg.host_dedup else None)
+        rolled, orl, loss = mstep(rolled, orl, lo, hi - lo, *stacked, aux)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    assert torch.equal(losses[-1], le)
+    assert same(rolled, eager) and same(orl, oe)

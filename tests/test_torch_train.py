@@ -225,8 +225,12 @@ def test_configs_and_train_config_match_jax():
     assert c3.spec() == models.FieldFMSpec(
         **dataclasses.asdict(jconfigs.get_config(
             "criteo1tb_fm_r64", param_dtype="bfloat16").spec()))
+    c5 = configs.get_config("criteo1tb_deepfm", param_dtype="bfloat16")
+    assert c5.spec() == models.FieldDeepFMSpec(
+        **dataclasses.asdict(jconfigs.get_config(
+            "criteo1tb_deepfm", param_dtype="bfloat16").spec()))
     with pytest.raises(ValueError, match="not ported yet"):
-        configs.get_config("criteo1tb_deepfm").spec()
+        configs.get_config("criteo_kaggle_fm_r32").spec()
     with pytest.raises(KeyError):
         configs.get_config("nope")
 
