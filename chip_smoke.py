@@ -23,13 +23,16 @@ Phases (any failure exits non-zero before the last line is printed):
    ``train.evaluate_params`` of a config-3 model over three bench batches
    (B = 131,072): wall ms and device-busy ms per batch, one launch each;
 4. serving: a config-3 FieldFM made on the card from a seeded generator,
-   ``PredictEngine(buckets=(1, 8, 64, 512))``, 4 threads submitting 400
-   requests of 1-512 Zipf rows with one generation swap mid-run; every
+   ``PredictEngine(buckets=(1, 8, 64, 512))`` (a CUDA graph per bucket),
+   4 threads submitting 400 requests of 1-512 Zipf rows with one
+   generation swap (a recapture) mid-run, under torch.profiler; every
    request must be answered once, by one generation, matching the plain
-   version; the kernel's launch count over this phase must be > 0;
+   version; the kernel must run in the replays, counted by its symbol in
+   the profile (the replays launch past the wrapper's count);
 5. the CLI: ``python -m fm_spark_tpu_torch predict`` on a saved model
    dir (16,384 buckets per field, to keep the npz short), checked line
-   by line against the plain version; then ``train`` on a config-3 copy
+   by line against the plain version, the kernel run in its graphs'
+   replays (its ``kernel_runs_in_replays``); then ``train`` on a config-3 copy
    with 16,384 buckets per field (bf16, dedup_sr, compact, the fused
    backward; 3 steps) and ``eval`` of the model it wrote;
 6. the training kernels against their plain versions at full width on
@@ -155,7 +158,31 @@ Phases (any failure exits non-zero before the last line is printed):
    included, bit for bit), ``eval`` and ``predict`` of its model dir,
    and 400 requests served from it with a generation swap. Every kernel
    counter is set to 0 before the legs; each kernel the legs reach must
-   have launched.
+   have launched;
+16. serving through the graphs and the chain (``serve_chain_phase``):
+   leg A, ``fmtorch train`` publishes step 2 of a config-3 chain (bf16,
+   full width, bench ids, B = 16,384), ``fmtorch serve --config ...
+   --checkpoint-dir`` starts from it, and the same train command resumes
+   to step 6 (saves every 2) while serve answers 4,160 requests paced by
+   a 5 ms budget: serve must swap at least once, with no reload failure,
+   not degraded, end on step 6, and its last pass equal the plain
+   version on step 6's params; leg B (in this process, meanwhile), the
+   chain's drills at config 5's width with a client served throughout:
+   a demoted tip refused, ``demote_newer_than`` moving the pointer back,
+   a corrupt tip and a torn ``last_good`` walked past, a demotion racing
+   a reload refused, every poll leaving the chain's sizes and mtimes and
+   the last three its bytes as they were, every answer one installed
+   generation's; leg D, FieldDeepFM's rows served in each bucket against
+   the same rows in a batch of 512, raw scores (bf16 and fp32, torch's bf16
+   reduced-precision flag on and off), the parent's whole-batch head
+   measured beside the row-tiled one, which must be 0; leg C (alone on
+   the card), per bucket of configs 3 (fp32, bf16), 4 and 5 at full
+   width: the replay bit for bit equal to an eager ``spec.predict`` of
+   the same padded bucket, dispatch ms eager against replayed, host
+   launches and device-busy ms per batch, the forward kernels' runs per
+   replay by symbol; a swap from host params (H2D and capture seconds)
+   after which every answer is the new generation's; and config 3
+   bf16's memory after 3 swaps.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -438,15 +465,18 @@ def eval_phase(dev, report):
     return out
 
 
-def _config3_model(dev, seed: int, bucket: int = BUCKET):
-    """A config-3 FieldFM with random weights from ``seed``; the linear
-    column and bias are filled too, as a trained model's would be."""
+def _config3_model(dev, seed: int, bucket: int = BUCKET,
+                   dtype: str = "float32"):
+    """A config-3 FieldFM with random weights from ``seed`` (tables and
+    compute in ``dtype``); the linear column and bias are filled too, as a
+    trained model's would be."""
     import torch
 
     from fm_spark_tpu_torch import models
 
     spec = models.FieldFMSpec(num_features=F * bucket, rank=RANK,
-                              num_fields=F, bucket=bucket, init_std=0.1)
+                              num_fields=F, bucket=bucket, init_std=0.1,
+                              param_dtype=dtype, compute_dtype=dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
     params = spec.init(g, device=dev)
     for t in params["vw"]:
@@ -465,16 +495,20 @@ def _plain_predict(spec, params, ids, vals, dev):
                             torch.from_numpy(vals).to(dev)).float().cpu()
 
 
-def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter,
+def _serve(dev, spec, params, params1, num_fields, bucket, n_req, kernel,
            atol: float = 2e-5):
     """4 threads submit ``n_req`` requests of 1-512 rows to a
-    ``PredictEngine`` and the generation is swapped from ``params`` to
-    ``params1`` half way; every request must be answered once, by one
-    generation, matching the plain version within ``RTOL`` and ``atol``.
-    ``counter`` is the ``(module, name)`` of the kernel's launch count,
-    set to 0 before the requests and read after them (None for a model
-    served without a kernel)."""
+    ``PredictEngine`` (a CUDA graph per bucket) and the generation is
+    swapped from ``params`` to ``params1`` half way (a recapture); every
+    request must be answered once, by one generation, matching
+    the plain version within ``RTOL`` and ``atol``. ``kernel`` (a wrapper's
+    name, None for a model served without a kernel) must run in the
+    replays: the run is profiled and the kernel's device events counted by
+    symbol (the replays launch past the wrapper's count)."""
     import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from fm_spark_tpu_torch import data, obs
     from fm_spark_tpu_torch.serve import PredictEngine
@@ -482,7 +516,8 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter,
     engine = PredictEngine(spec, params, buckets=(1, 8, 64, 512),
                            latency_budget_ms=2.0, device=dev)
     warm = engine.warmup()
-    print(f"serve warmup {warm['seconds']:.3f} s", flush=True)
+    print(f"serve warmup {warm['seconds']:.3f} s ({warm['captures']} "
+          f"captures, {warm['capture_s']:.3f} s)", flush=True)
 
     ids_pool, vals_pool, _ = data.synthetic_ctr(20000, spec.num_features,
                                                 num_fields, seed=2)
@@ -509,24 +544,35 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter,
 
     # Counts start at 0 just before the main path and are read just after.
     obs.registry().reset()
-    if counter is not None:
-        setattr(*counter, 0)
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
-    for th in threads:
-        th.start()
-    give_up = time.monotonic() + 120
-    while sum(f is not None and f.done() for f in futures) < len(reqs) // 2:
-        _check(time.monotonic() < give_up and not errors,
-               f"first half of the requests not answered: {errors!r}")
-        time.sleep(1e-3)
-    engine.swap_generation(params1, step=1)
-    half_done.set()
-    for th in threads:
-        th.join(120)
-    results = [f.result(120) for f in futures]
-    wall = time.perf_counter() - t0
-    launches = getattr(*counter) if counter is not None else None
+    runs0 = engine.kernel_runs()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.cuda._sleep(2_000_000)       # the trace's warm-up cycle
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        give_up = time.monotonic() + 120
+        while sum(f is not None and f.done() for f in futures) < len(reqs) // 2:
+            _check(time.monotonic() < give_up and not errors,
+                   f"first half of the requests not answered: {errors!r}")
+            time.sleep(1e-3)
+        gen1 = engine.swap_generation(params1, step=1)
+        half_done.set()
+        for th in threads:
+            th.join(120)
+        results = [f.result(120) for f in futures]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        prof.step()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    symbols, _ = _symbol_counts(on_dev)
+    runs = engine.kernel_runs()
+    launches = symbols[kernel] if kernel is not None else None
     snap = obs.registry().snapshot()
     engine.close()
     _check(not errors, f"client thread failed: {errors!r}")
@@ -555,24 +601,25 @@ def _serve(dev, spec, params, params1, num_fields, bucket, n_req, counter,
            "rows scored != rows submitted (a request answered twice or never)")
     _check(c.get("serve.batch_failures_total", 0) == 0, "a batch failed")
     _check(by_gen[0] > 0 and by_gen[1] > 0, f"swap not observed: {by_gen}")
-    _check(counter is None or launches > 0,
-           "serving never launched the kernel")
+    _check(kernel is None or launches > 0,
+           f"serving never ran {kernel} in the profile: {symbols}")
     hist = snap["histograms"]["serve/request_ms"]
     return {"requests": len(reqs), "rows": int(sum(sizes)),
             "batches": c.get("serve.batches_total"), "wall_s": wall,
             "request_ms_p50": hist["p50"], "request_ms_p99": hist["p99"],
             "batch_ms_p50": snap["histograms"]["serve/batch_ms"]["p50"],
             "answers_by_generation": by_gen, "launches": launches,
-            "max_abs_err": err}
+            "kernel_runs_by_engine": {k: runs.get(k, 0) - runs0.get(k, 0)
+                                      for k in runs},
+            "warmup": warm, "swap_h2d_s": gen1.h2d_s,
+            "swap_capture_s": gen1.capture_s, "max_abs_err": err}
 
 
 def serve_phase(dev, report):
-    from fm_spark_tpu_torch.ops import fused_fwd
-
     spec, params = _config3_model(dev, seed=5)
     params1 = {"w0": params["w0"] + 0.5, "vw": params["vw"]}
     out = _serve(dev, spec, params, params1, F, BUCKET, 400,
-                 (fused_fwd, "launches"))
+                 "fm_fused_scores")
     print("serve", json.dumps(out), flush=True)
     report["serve"] = out
     return out["launches"]
@@ -604,8 +651,9 @@ def cli_phase(dev, report):
     # %.6g output: 6 significant digits.
     _check(np.allclose(got, want, rtol=1e-5, atol=1e-6),
            f"cli predictions disagree: max err {np.abs(got - want).max()}")
-    _check(summary["kernel_launches"]["fm_fused_scores"] > 0,
-           "cli predict never launched the kernel")
+    # The engine's graphs replay the kernel past its wrapper's count.
+    _check(summary["kernel_runs_in_replays"].get("fm_fused_scores", 0) > 0,
+           f"cli predict never ran the kernel: {summary}")
     out = {"lines": int(got.shape[0]),
            "max_abs_err": float(np.abs(got - want).max()),
            "cli": summary}
@@ -730,14 +778,16 @@ def _ffm_cli(dev):
     _check(got.shape == (1024,) and np.allclose(got, want, rtol=1e-5,
                                                 atol=1e-6),
            f"cli predict (ffm) disagrees: max err {np.abs(got - want).max()}")
-    _check(pred_launched["kernel_launches"]["ffm_sel_scores"] > 0,
-           "cli predict (ffm) never launched the kernel")
+    # The engine's graphs replay the kernel past its wrapper's count.
+    _check(pred_launched["kernel_runs_in_replays"].get("ffm_sel_scores", 0)
+           > 0, f"cli predict (ffm) never ran the kernel: {pred_launched}")
     return {"train_loss": losses, "train_eval": evals[0],
             "train_launches": k, "eval": metrics,
             "eval_launches": eval_launched["kernel_launches"],
             "predict_lines": int(got.shape[0]),
             "predict_max_abs_err": float(np.abs(got - want).max()),
-            "predict_launches": pred_launched["kernel_launches"]}
+            "predict_launches": pred_launched["kernel_launches"],
+            "predict_runs_in_replays": pred_launched["kernel_runs_in_replays"]}
 
 
 class BenchStream:
@@ -1283,12 +1333,10 @@ def _config4_model(dev, seed: int, bucket: int = FFM_BUCKET):
 
 
 def ffm_serve_phase(dev, report):
-    from fm_spark_tpu_torch.ops import ffm_sel
-
     spec, params = _config4_model(dev, seed=6)
     params1 = {"w0": params["w0"] + 0.5, "vw": params["vw"]}
     out = _serve(dev, spec, params, params1, FFM_F, FFM_BUCKET, 200,
-                 (ffm_sel, "scores_launches"))
+                 "ffm_sel_scores")
     print("ffm_serve", json.dumps(out), flush=True)
     report["ffm_serve"] = out
     return out["launches"]
@@ -2360,8 +2408,8 @@ def ingest_phase(dev, report):
                and np.allclose(got[:4096], want, rtol=1e-5, atol=1e-6),
                f"predict --data: {got.shape} lines, max err "
                f"{np.abs(got[:4096] - want).max()}")
-        _check(pr["kernel_launches"]["fm_fused_scores"] > 0,
-               f"predict --data launched no forward kernel: {pr}")
+        _check(pr["kernel_runs_in_replays"].get("fm_fused_scores", 0) > 0,
+               f"predict --data ran no forward kernel: {pr}")
         shutil.rmtree(model)
         out["leg_a"] = {**_leg_numbers(leg_a), "losses": leg_a["losses"],
                         "eval": metrics, "predict_lines": int(got.shape[0])}
@@ -2689,8 +2737,12 @@ def deepfm_phase(dev, report):
                f"deepfm predict --data: {got.shape} lines, max err "
                f"{np.abs(got[:DEEPFM_B] - want).max()}")
         params1 = {**params, "w0": params["w0"] + 3.0}
+        # The head's fixed row tiles: served rows equal the plain
+        # version's rows of one 44,540-row batch bit for bit (products
+        # over the whole batch differed by up to 0.00098), so they are
+        # held at the other models' bound.
         serve = _serve(dev, mspec, params, params1, F, BUCKET, 400,
-                       counter=None, atol=2.0**-6)
+                       kernel=None)
         print("deepfm_serve", json.dumps(serve), flush=True)
         out["A-cli"] = {**_leg_numbers(cli_a), "losses": cli_a["losses"],
                         "resumed_losses": cli_a["resumed_losses"],
@@ -2710,6 +2762,607 @@ def deepfm_phase(dev, report):
         "card", "launches")}), flush=True)
     report["deepfm"] = out
     return launches, w17
+
+
+SERVE_BUCKETS = (1, 8, 64, 512)
+SERVE_TRAIN_B = 16384                    # phase 16 leg A: the trainer's batch
+SERVE_TRAIN_ROWS = 65536
+SERVE_TRAIN_STEPS = 6                    # saves every 2 steps: 2, 4, 6
+SERVE_REPEAT = 65                        # leg A: passes of 64 requests
+SERVE_REPS = 30                          # leg C: timed dispatches per case
+
+
+def _chain_stat(d, digest: bool = False) -> dict:
+    """Every file and directory under ``d``: size and mtime, and with
+    ``digest`` the crc32 of each file's bytes."""
+    import zlib
+
+    out = {}
+    for root, dirs, files in os.walk(d):
+        for name in dirs:
+            p = os.path.join(root, name)
+            out[os.path.relpath(p, d)] = (None, os.stat(p).st_mtime_ns)
+        for name in files:
+            p = os.path.join(root, name)
+            st = os.stat(p)
+            entry = (st.st_size, st.st_mtime_ns)
+            if digest:
+                crc = 0
+                with open(p, "rb") as f:
+                    for chunk in iter(lambda: f.read(1 << 24), b""):
+                        crc = zlib.crc32(chunk, crc)
+                entry += (crc,)
+            out[os.path.relpath(p, d)] = entry
+    return out
+
+
+class _LiveChain:
+    """Phase 16 leg A: ``fmtorch serve`` follows a live config-3 chain (bf16,
+    full width) on bench ids. In a thread: ``fmtorch train`` publishes step
+    2, then ``fmtorch serve`` starts from it, and once it serves the same
+    train command resumes to step ``SERVE_TRAIN_STEPS``, saving every 2
+    steps, while serve answers its stream. The phase goes on in this
+    process meanwhile."""
+
+    def __init__(self, base):
+        import numpy as np
+
+        from fm_spark_tpu_torch import data
+
+        rng = np.random.default_rng(16)
+        packed = os.path.join(base, "zipf3")
+        local = rng.zipf(1.3, (SERVE_TRAIN_ROWS, F)) % BUCKET
+        with data.PackedWriter(packed, F, store_vals=False) as w:
+            w.append((local + np.arange(F) * BUCKET).astype(np.int32),
+                     (rng.random(SERVE_TRAIN_ROWS) < 0.25).astype(np.int8))
+        self.chain = os.path.join(base, "chain3")
+        self.out_path = os.path.join(base, "served.txt")
+        dtypes = ["--param-dtype", "bfloat16", "--compute-dtype", "bfloat16"]
+        fmtorch = [sys.executable, "-m", "fm_spark_tpu_torch"]
+        self.train_argv = fmtorch + [
+            "train", "--config", "criteo1tb_fm_r64", "--data", packed,
+            "--batch-size", str(SERVE_TRAIN_B), *dtypes, "--sparse-update",
+            "dedup_sr", "--host-dedup", "--compact-cap", str(CAP),
+            "--fused-embed", "require", "--test-fraction", "0",
+            "--log-every", "1", "--checkpoint-dir", self.chain,
+            "--checkpoint-every", "2", "--checkpoint-keep", "3", "--steps"]
+        # The budget paces the stream: a lone request waits 5 ms for
+        # batch-mates, so the stream outlasts the resumed trainer.
+        self.serve_argv = fmtorch + [
+            "serve", "--config", "criteo1tb_fm_r64", "--compute-dtype",
+            "bfloat16",
+            "--checkpoint-dir", self.chain, "--synthetic", "4096",
+            "--batch-size", "64", "--latency-budget-ms", "5",
+            "--reload-poll-s", "0.2", "--repeat", str(SERVE_REPEAT),
+            "--out", self.out_path]
+        self.logs = {k: open(os.path.join(base, f"{k}.log"), "w+")
+                     for k in ("train1.out", "train1.err", "train2.out",
+                               "train2.err", "serve.out", "serve.err")}
+        self.procs: dict = {}
+        self.marks: dict = {}
+        self.error = None
+        self.t0 = time.perf_counter()
+        self._sequence = threading.Thread(target=self._run, daemon=True)
+        self._sequence.start()
+
+    def _spawn(self, name, argv):
+        self.marks[f"{name}_started_s"] = time.perf_counter() - self.t0
+        self.procs[name] = subprocess.Popen(
+            argv, cwd=HERE, stdout=self.logs[f"{name}.out"],
+            stderr=self.logs[f"{name}.err"])
+        return self.procs[name]
+
+    def _run(self):
+        try:
+            rc = self._spawn("train1", self.train_argv + ["2"]).wait(400)
+            if rc != 0:
+                self.error = f"the first train exited {rc}"
+                return
+            server = self._spawn("serve", self.serve_argv)
+            give_up = time.monotonic() + 300
+            while '"serving"' not in self._peek("serve.out"):
+                if server.poll() is not None or time.monotonic() > give_up:
+                    self.error = "serve never reached its serving line"
+                    return
+                time.sleep(0.05)
+            self.marks["serving_s"] = time.perf_counter() - self.t0
+            self._spawn("train2", self.train_argv + [str(SERVE_TRAIN_STEPS)])
+        except Exception as e:  # noqa: BLE001 — reported by finish()
+            self.error = f"{type(e).__name__}: {e}"
+
+    def _peek(self, key):
+        with open(self.logs[key].name) as f:
+            return f.read()
+
+    def _read(self, key):
+        f = self.logs[key]
+        f.flush()
+        f.seek(0)
+        return f.read()
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in self.logs.values():
+            f.close()
+
+    def finish(self, dev) -> dict:
+        """Wait for the three processes and check leg A's contract."""
+        import numpy as np
+
+        from fm_spark_tpu_torch import configs
+        from fm_spark_tpu_torch.checkpoint import ChainFollower
+        from fm_spark_tpu_torch.cli import _synthetic_for_model
+        from fm_spark_tpu_torch.models.io import param_names, unflatten
+
+        self._sequence.join(400)
+        _check(self.error is None and "train2" in self.procs,
+               f"leg A: {self.error}:\n{self._read('train1.err')[-3000:]}\n"
+               f"{self._read('serve.err')[-3000:]}")
+        for name in ("train2", "serve"):
+            rc = self.procs[name].wait(timeout=400)
+            self.marks[f"{name}_ended_s"] = time.perf_counter() - self.t0
+            _check(rc == 0, f"leg A {name} exited {rc}:\n"
+                   f"{self._read(name + '.err')[-4000:]}")
+        lines = [json.loads(x) for x in self._read("serve.out").splitlines()
+                 if x.startswith("{")]
+        summary = next(x["serve_summary"] for x in lines
+                       if "serve_summary" in x)
+        serving = next(x for x in lines if "serving" in x)
+        counts = json.loads(self._read("serve.err").strip().splitlines()[-1])
+        losses = [json.loads(x)["loss"] for k in ("train1.out", "train2.out")
+                  for x in self._read(k).splitlines() if '"loss"' in x]
+        spec = configs.get_config("criteo1tb_fm_r64", param_dtype="bfloat16",
+                                  compute_dtype="bfloat16").spec()
+        names = param_names(spec)
+        final = ChainFollower(self.chain).restore(
+            unflatten(dict.fromkeys(names), names))
+        _check(final is not None and final["step"] == SERVE_TRAIN_STEPS,
+               f"leg A: the chain's newest verified step is "
+               f"{final and final['step']}, not {SERVE_TRAIN_STEPS}")
+        _check(summary["swaps"] >= 1 and summary["reload_failures"] == 0
+               and not summary["degraded"],
+               f"leg A serve_summary: {summary}")
+        _check(summary["generation_step"] == SERVE_TRAIN_STEPS,
+               f"leg A served step {summary['generation_step']} at the end, "
+               f"not the trainer's last {SERVE_TRAIN_STEPS}")
+        _check(counts["kernel_runs_in_replays"].get("fm_fused_scores", 0) > 0,
+               f"leg A: serve never ran the forward kernel: {counts}")
+        got = np.loadtxt(self.out_path)
+        ids, vals, _ = _synthetic_for_model(spec, 4096)
+        params = {"w0": final["params"]["w0"].to(dev),
+                  "vw": [t.to(dev) for t in final["params"]["vw"]]}
+        want = _plain_predict(spec, params, ids, vals, dev).numpy()
+        _check(got.shape == (summary["served_rows"],),
+               f"leg A wrote {got.shape} predictions")
+        # bf16 compute: the kernel within phase 3's tolerance of the
+        # plain version; %.6g output.
+        last = got[-4096:]
+        _check(np.allclose(last, want, rtol=RTOL, atol=ATOL),
+               f"leg A: the last pass differs from the plain version on step "
+               f"{SERVE_TRAIN_STEPS}: max err {np.abs(last - want).max()}")
+        return {**self.marks, "losses": losses, "serving": serving,
+                "summary": summary, "serve_counts": counts,
+                "last_pass_max_abs_err": float(np.abs(last - want).max())}
+
+
+def _chain_drills(dev, base) -> dict:
+    """Phase 16 leg B: the chain's drills at config 5's full width while a
+    client thread is served: a demoted tip refused, ``demote_newer_than``
+    moving the pointer back, a corrupt tip and a torn ``last_good``
+    walked past, a demotion racing a reload refused; the chain unchanged
+    (sizes, mtimes) by every poll, and byte for byte by the last three."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.serve import PredictEngine, ReloadFollower
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    spec = configs.get_config("criteo1tb_deepfm", param_dtype="bfloat16",
+                              compute_dtype="bfloat16").spec()
+    params = spec.init(torch.Generator(device=dev).manual_seed(16), dev)
+
+    def gen(step):      # generations told apart by the bias alone
+        return {**params, "w0": params["w0"] + 0.4 * step}
+
+    chain = os.path.join(base, "chain5")
+    ck = Checkpointer(chain, max_to_keep=3)
+    journal = EventLog()
+    engine = PredictEngine(spec, gen(0), device=dev, journal=journal)
+    engine.warmup()
+    fol = ReloadFollower(engine, chain, journal=journal)
+    stop = threading.Event()
+    sent = []
+
+    def client():
+        rng = np.random.default_rng(16)
+        while not stop.is_set():
+            n = int(rng.integers(1, 17))
+            ids = (rng.zipf(1.3, (n, F)) % BUCKET).astype(np.int32)
+            vals = np.ones((n, F), np.float32)
+            sent.append((ids, vals, engine.submit(ids, vals)))
+            time.sleep(0.005)
+
+    def save(step):
+        ck.save(step, gen(step))
+        ck.wait()
+
+    def poll(writer_inside=False):
+        before = _chain_stat(chain)
+        outcome = fol.poll_once()
+        _check(writer_inside or _chain_stat(chain) == before,
+               f"a follower's poll changed the chain ({outcome})")
+        return outcome, engine.generation().step
+
+    steps = []
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        save(1)
+        save(2)
+        steps.append(("first", poll(), ("swapped", 2)))
+        save(3)
+        ck.demote(3, reason="drift verdict")       # before any poll sees 3
+        steps.append(("demoted tip", poll(), ("fresh", 2)))
+        with open(os.path.join(chain, "last_good.json"), "w") as f:
+            json.dump({"step": 3}, f)           # the crash window's pointer
+        steps.append(("stale pointer to it", poll(), ("stale_chain", 2)))
+        _check(ck.demote_newer_than(1, reason="drift day") == [2]
+               and ck.last_good_step() == 1,
+               f"demote_newer_than(1): pointer {ck.last_good_step()}")
+        steps.append(("pointer moved back", poll(), ("fresh", 2)))
+        save(4)
+        steps.append(("past the range", poll(), ("swapped", 4)))
+        save(5)
+        for root, _, files in os.walk(os.path.join(chain, "5")):
+            for name in files:
+                if name.endswith(".npy"):
+                    with open(os.path.join(root, name), "r+b") as f:
+                        f.seek(-4, os.SEEK_END)
+                        f.write(b"\xde\xad\xbe\xef")
+        steps.append(("corrupt tip", poll(), ("stale_chain", 4)))
+        with open(os.path.join(chain, "last_good.json"), "w") as f:
+            f.write("")
+        steps.append(("torn last_good", poll(), ("no_checkpoint", 4)))
+        with open(os.path.join(chain, "last_good.json"), "w") as f:
+            json.dump({"step": 5}, f)
+        save(6)
+        steps.append(("a good step again", poll(), ("swapped", 6)))
+        save(7)
+        restore = fol.chain.restore
+
+        def restore_then_demote(*a, **kw):
+            got = restore(*a, **kw)
+            ck.demote(7, reason="drift verdict racing the reload")
+            return got
+        fol.chain.restore = restore_then_demote
+        steps.append(("demotion racing the reload",
+                      poll(writer_inside=True), ("demoted", 6)))
+        fol.chain.restore = restore
+        with open(os.path.join(chain, "last_good.json"), "w") as f:
+            json.dump({"step": 7}, f)           # vouches for the demoted 7
+        before = _chain_stat(chain, digest=True)
+        tail = [poll() for _ in range(3)]
+        _check(_chain_stat(chain, digest=True) == before,
+               "the follower's polls changed the chain's bytes")
+        _check(len({tuple(t) for t in tail}) == 1, f"leg B tail {tail}")
+        steps.append(("three more polls", tail[-1], ("stale_chain", 6)))
+    finally:
+        stop.set()
+        th.join(30)
+    for name, got, want in steps:
+        _check(tuple(got) == want, f"leg B {name}: {got}, want {want}")
+    swaps = [e for e in journal.records if e["event"] == "serve_swap"]
+    results = [(ids, fut.result(60)) for ids, _, fut in sent]
+    engine.close()
+    ck.close()
+    # Each answer is one installed generation's, never a demoted one's.
+    ids_all = np.concatenate([i for i, _ in results])
+    got_all = np.concatenate([r for _, r in results])
+    cands = {}
+    for step in (0, 2, 3, 4, 5, 6, 7):
+        with torch.no_grad():
+            cands[step] = spec.predict(
+                gen(step), torch.from_numpy(ids_all).to(dev),
+                torch.ones(ids_all.shape, device=dev)).float().cpu().numpy()
+    # bf16 predictions, the bias steps 0.4 apart: 2^-6 tells them apart.
+    order = sorted(cands)
+    match = np.abs(np.stack([cands[k] for k in order]) - got_all) <= 2.0 ** -6
+    _check(bool((match.sum(0) == 1).all()),
+           "leg B: an answer matches no generation or several")
+    which = np.array(order)[match.argmax(0)]
+    by_gen = {int(k): int((which == k).sum()) for k in order}
+    _check(by_gen[3] == by_gen[5] == by_gen[7] == 0,
+           f"leg B: a demoted or corrupt generation answered: {by_gen}")
+    return {"polls": [[name, list(got)] for name, got, _ in steps],
+            "requests": len(results), "rows_by_generation": by_gen,
+            "journal": sorted({e["event"] for e in journal.records}),
+            "swaps": len(swaps), "reloads": fol.reloads,
+            "failures": fol.failures, "last_swap": fol.last_swap,
+            "step_bytes": sum(t.numel() * t.element_size()
+                              for t in params["vw"])}
+
+
+def _raw_scores_spec(spec, whole_batch: bool):
+    """``spec`` whose ``predict`` returns the raw scores (a bf16 sigmoid
+    saturates and would hide a difference), with ``whole_batch`` the
+    parent tree's head: each product over the whole batch."""
+    import dataclasses
+
+    import torch
+
+    @dataclasses.dataclass(frozen=True)
+    class Raw(type(spec)):
+        def predict(self, params, ids, vals):
+            return self.scores(params, ids, vals)
+
+    @dataclasses.dataclass(frozen=True)
+    class Whole(Raw):
+        def deep_scores(self, mlp, h):
+            cd = self.cdtype
+            for li, layer in enumerate(mlp):
+                h = torch.matmul(h, layer["kernel"].to(cd)) + \
+                    layer["bias"].to(cd)
+                if li < len(self.mlp_dims):
+                    h = torch.relu(h)
+            return h[:, 0]
+
+    cls = Whole if whole_batch else Raw
+    return cls(**{f.name: getattr(spec, f.name)
+                  for f in dataclasses.fields(spec)})
+
+
+def _deepfm_batch_measure(dev) -> dict:
+    """Phase 16 leg D: config 5's rows served in each bucket against the
+    same rows in a batch of 512, max |Δ| of the raw scores, bf16 and
+    fp32, with torch's bf16 reduced-precision flag at its default and off:
+    the parent's head (products over the whole batch, served eagerly as
+    the parent's engine did) and the package's (products over fixed row
+    tiles) through the engine's graphs. The package's must be 0
+    everywhere."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    ids, vals = BenchStream(17, batch=512).next_batch()[:2]
+    ns = (1, 5, 8, 33, 64, 300, 512)
+    out = {"flag_default": default, "scores": {}}
+    try:
+        for cd in ("bfloat16", "float32"):
+            spec = configs.get_config("criteo1tb_deepfm", param_dtype=cd,
+                                      compute_dtype=cd).spec()
+            params = spec.init(torch.Generator(device=dev).manual_seed(18),
+                               dev)
+            for t in params["vw"]:      # rows at a trained scale (std 0.1)
+                t.mul_(10.0)
+            whole, tiles = (_raw_scores_spec(spec, True),
+                            _raw_scores_spec(spec, False))
+            for flag in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = flag
+
+                def padded(n):
+                    b = next(x for x in SERVE_BUCKETS if x >= n)
+                    pi = np.zeros((b, F), np.int32)
+                    pv = np.zeros((b, F), np.float32)
+                    pi[:n], pv[:n] = ids[:n], vals[:n]
+                    return (torch.from_numpy(pi).to(dev),
+                            torch.from_numpy(pv).to(dev))
+
+                with torch.no_grad():
+                    full = whole.predict(params, *padded(512)).float()
+                    untiled = {n: float((whole.predict(
+                        params, *padded(n)).float()[:n]
+                        - full[:n]).abs().max()) for n in ns}
+                eng = PredictEngine(tiles, params, buckets=SERVE_BUCKETS,
+                                    device=dev)
+                eng.warmup()
+                efull = eng.score(ids, vals)
+                tiled = {n: float(np.abs(eng.score(ids[:n], vals[:n])
+                                         - efull[:n]).max()) for n in ns}
+                eng.close()
+                out[f"{cd} flag={flag}"] = {"untiled": untiled,
+                                            "tiled": tiled}
+            out["scores"][cd] = {"abs_max": float(full.abs().max()),
+                                 "abs_median": float(full.abs().median())}
+            del params
+            torch.cuda.empty_cache()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = default
+    bad = {k: v["tiled"] for k, v in out.items()
+           if isinstance(v, dict) and "tiled" in v and any(v["tiled"].values())}
+    _check(not bad, f"leg D: served FieldDeepFM rows depend on the batch: "
+           f"{bad}")
+    return out
+
+
+def _host_copy(params, shift):
+    """``params`` on the host (pageable, as a restore returns them), the
+    bias shifted by ``shift``."""
+    out = {k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+           for k, v in params.items() if k != "mlp"}
+    if "mlp" in params:
+        out["mlp"] = [{k: t.cpu() for k, t in layer.items()}
+                      for layer in params["mlp"]]
+    out["w0"] = out["w0"] + shift
+    return out
+
+
+def _graphs_vs_eager(dev) -> dict:
+    """Phase 16 leg C: per served model at full width, each bucket's replay
+    against an eager ``spec.predict`` on the same padded bucket (bit for
+    bit), their dispatch ms (host clock to the answer on the host, median
+    of ``SERVE_REPS``) and, profiled, host launches and device-busy ms per
+    batch; then swaps from host params (H2D and capture seconds), after
+    which every answer is the new generation's, and the memory after 3
+    swaps."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    def config5(d):
+        spec = configs.get_config("criteo1tb_deepfm", param_dtype="bfloat16",
+                                  compute_dtype="bfloat16").spec()
+        return spec, spec.init(torch.Generator(device=d).manual_seed(19), d)
+
+    def config4(d):
+        spec, params = _config4_model(d, seed=6)
+        return dataclasses.replace(spec, compute_dtype="bfloat16"), params
+
+    cases = (("config3-fp32", lambda d: _config3_model(d, seed=5), F, BUCKET,
+              "fm_fused_scores"),
+             ("config3-bf16", lambda d: _config3_model(d, seed=5,
+                                                       dtype="bfloat16"),
+              F, BUCKET, "fm_fused_scores"),
+             ("config4-bf16-compute", config4, FFM_F, FFM_BUCKET,
+              "ffm_sel_scores"),
+             ("config5-bf16", config5, F, BUCKET, None))
+    out = {}
+    for name, make, nf, bucket, kernel in cases:
+        spec, params = make(dev)
+        eng = PredictEngine(spec, params, buckets=SERVE_BUCKETS, device=dev)
+        warm = eng.warmup()
+        gen0 = eng.generation()
+        row = {"warmup": warm, "buckets": {}}
+        for b in SERVE_BUCKETS:
+            ids, vals = BenchStream(20 + b, batch=b, fields=nf,
+                                    bucket=bucket).next_batch()[:2]
+            ids_h = torch.from_numpy(ids).pin_memory()
+            vals_h = torch.from_numpy(vals).pin_memory()
+
+            def eager(_=None):
+                with torch.no_grad():
+                    return spec.predict(params, ids_h.to(dev, non_blocking=True),
+                                        vals_h.to(dev, non_blocking=True)
+                                        ).float().cpu().numpy()
+
+            def replay(_=None):
+                return eng._dispatch(gen0, ids, vals)
+
+            got, want = replay(), eager()
+            _check(np.array_equal(got, want),
+                   f"leg C {name} bucket {b}: replay != eager, max |Δ| "
+                   f"{np.abs(got - want).max()}")
+            times = {"eager": [], "replay": []}
+            for _ in range(SERVE_REPS):
+                for mode, fn in (("eager", eager), ("replay", replay)):
+                    t0 = time.perf_counter()
+                    fn()
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+            prof = {mode: _profile_calls(fn, range(5))
+                    for mode, fn in (("eager", eager), ("replay", replay))}
+            row["buckets"][b] = {
+                "batch_ms_p50_eager": statistics.median(times["eager"]),
+                "batch_ms_p50_replay": statistics.median(times["replay"]),
+                **{f"{k}_{mode}": prof[mode].get(k) for mode in prof
+                   for k in ("host_launches_per_step", "device_ms_per_step",
+                             "graph_launches_per_step")},
+                "kernel_runs_per_replay": (
+                    prof["replay"].get("kernel_runs_per_step", {}).get(kernel)
+                    if kernel else None)}
+        # Swaps from host params: the H2D and the capture, then no answer
+        # from the old generation.
+        swaps = []
+        host1 = _host_copy(params, 0.5)
+        gen = eng.swap_generation(host1, step=1)
+        swaps.append({"h2d_s": gen.h2d_s, "capture_s": gen.capture_s})
+        for b in SERVE_BUCKETS:
+            ids, vals = BenchStream(40 + b, batch=b, fields=nf,
+                                    bucket=bucket).next_batch()[:2]
+            d_ids, d_vals = (torch.from_numpy(ids).to(dev),
+                             torch.from_numpy(vals).to(dev))
+            with torch.no_grad():
+                old = spec.predict(params, d_ids, d_vals).float().cpu().numpy()
+                new = spec.predict(gen.params, d_ids,
+                                   d_vals).float().cpu().numpy()
+            got = eng.score(ids, vals)
+            _check(np.array_equal(got, new) and np.array_equal(
+                got != old, new != old) and bool((new != old).any()),
+                f"leg C {name} bucket {b}: an answer after the swap is not "
+                "the new generation's")
+        del gen0
+        if name == "config3-bf16":
+            gc.collect()
+            torch.cuda.synchronize()
+            mem = [torch.cuda.memory_allocated()]
+            for step in (2, 3):
+                gen = eng.swap_generation(_host_copy(params, 0.5 * step), step)
+                swaps.append({"h2d_s": gen.h2d_s, "capture_s": gen.capture_s})
+                gc.collect()
+                torch.cuda.synchronize()
+                mem.append(torch.cuda.memory_allocated())
+            row["memory_allocated_after_swaps"] = mem
+            _check(mem[-1] <= mem[0] + (64 << 20),
+                   f"leg C: an old generation's memory was kept: {mem}")
+        row["swaps"] = swaps
+        eng.close()
+        del eng, gen, params, host1
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = row
+        print(f"serve graphs {name}", json.dumps(row), flush=True)
+    return out
+
+
+def serve_chain_phase(dev, report):
+    """Phase 16: ``fmtorch serve`` following a live chain (leg A, in two
+    processes, while legs B and D run here), the chain's drills (B), the
+    FieldDeepFM batch measurement (D), then graphs against eager per
+    bucket (C) with the card to itself."""
+    import tempfile
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="serve.", dir=root)
+    live = None
+    t0 = time.perf_counter()
+    try:
+        live = _LiveChain(base)
+        drills = _chain_drills(dev, base)
+        print("serve_chain B", json.dumps(drills), flush=True)
+        batch = _deepfm_batch_measure(dev)
+        print("serve_chain D", json.dumps(batch), flush=True)
+        leg_a = live.finish(dev)
+        print("serve_chain A", json.dumps(leg_a), flush=True)
+        graphs = _graphs_vs_eager(dev)
+    finally:
+        if live is not None:
+            live.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    out = {"card": report["card"], "A": leg_a, "B": drills, "C": graphs,
+           "D": batch, "seconds": time.perf_counter() - t0,
+           "request_ms_under_4_threads": {
+               k: {q: report[k][q] for q in ("request_ms_p50",
+                                             "request_ms_p99",
+                                             "batch_ms_p50")}
+               for k in ("serve", "ffm_serve") if k in report}}
+    if "deepfm" in report:
+        out["request_ms_under_4_threads"]["deepfm"] = {
+            q: report["deepfm"]["A-cli"]["serve"][q]
+            for q in ("request_ms_p50", "request_ms_p99", "batch_ms_p50")}
+    report["serve_chain"] = out
+    print(f"serve_chain {out['seconds']:.1f} s", flush=True)
+    runs = {"fm_fused_scores": 0, "ffm_sel_scores": 0}
+    for name, row in graphs.items():
+        kernel = ("ffm_sel_scores" if name.startswith("config4")
+                  else "fm_fused_scores" if name.startswith("config3")
+                  else None)
+        if kernel:
+            runs[kernel] += sum(5 * (r["kernel_runs_per_replay"] or 0)
+                                for r in row["buckets"].values())
+    return runs
 
 
 def main() -> int:
@@ -2758,6 +3411,7 @@ def main() -> int:
     capture_launches = capture_phase(dev, report)
     ingest_launches = ingest_phase(dev, report)
     deepfm_launches, w17 = deepfm_phase(dev, report)
+    serve_runs = serve_chain_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -2896,6 +3550,12 @@ def main() -> int:
         entry["ingest_launches"] = ingest_launches[entry["name"]]
         # Phase 15's legs (config 5: eager and captured, fmtorch).
         entry["deepfm_launches"] = deepfm_launches[entry["name"]]
+        # Serving's kernel runs by symbol in the graphs' replays: phases 4
+        # and 9 (4 threads) and phase 16's leg C (5 profiled replays per
+        # bucket); 0 off the serving path.
+        entry["serve_launches"] = serve_runs.get(entry["name"], 0) + {
+            "fm_fused_scores": launches,
+            "ffm_sel_scores": ffm_serve_launches}.get(entry["name"], 0)
     # The kernels at config 5's row width (17 columns), phase 15.
     w17_shape = f"config 5, w={DEEPFM_W}, B={DEEPFM_B}"
     for entry in kernels["kernels"]:

@@ -22,8 +22,6 @@ directory is renamed into place its MANIFEST is written atomically,
 ``manifests/<step>.json``: a crc32 per array of the exact bytes saved
 (the reference's ``verify="checksum"``), the crc of the JSON meta, and
 the step. Then ``last_good.json`` advances to it.
-``tombstones/<step>.json`` (and ``range_<floor>_<tip>.json``) veto a step
-on restore; this package reads them and does not write them.
 :meth:`Checkpointer.restore` walks the chain newest-first and trusts
 nothing it cannot verify: a step without a manifest newer than
 ``last_good`` (a torn save), one whose bytes miss their crc or cannot be
@@ -33,6 +31,24 @@ passed are then removed (the resumed run writes them anew) and
 ``last_good`` points at the restored step. When steps exist and none
 verifies it raises :class:`CheckpointChainBroken`; it never starts fresh
 silently.
+
+**Demotion.** ``tombstones/<step>.json`` and ``range_<floor>_<tip>.json``
+veto a step on every restore and every follow, however well its bytes
+verify. :meth:`Checkpointer.demote` and :meth:`~Checkpointer.
+demote_newer_than` write them in the reference's crash order: first the
+tombstone (one atomic file; a range vetoes every step in ``(floor,
+tip]`` at once), then ``last_good`` republished at the newest verified
+step no tombstone vetoes. A crash between the two leaves a pointer that
+vouches for a vetoed step, which no reader trusts, and the next demotion
+repairs it. A chain file write that fails with ENOSPC runs the emergency
+GC once (:meth:`Checkpointer._emergency_gc`: tombstoned steps, manifests
+of steps that are gone, ``.tmp`` leftovers; never ``last_good``'s step)
+and retries once.
+
+**Followers.** :class:`ChainFollower` is the serving side's reader: it
+never writes, renames or removes anything in the chain, trusts only
+manifest-verified steps, walks back past torn, unreadable and corrupt
+ones and returns None when nothing verifies.
 
 **Saves race the next step.** A captured training step updates the
 parameters in place on the card. So :meth:`Checkpointer.save` copies
@@ -44,8 +60,9 @@ next save, wait or close.
 
 ``max_to_keep`` keeps the newest steps (and ``last_good``'s) and removes
 the rest with their manifests. :class:`PreemptionGuard` turns SIGTERM
-into a flag the training loop polls to save and stop. Deferred to the
-serving slices: ``demote``, ``demote_newer_than`` and ``ChainFollower``.
+into a flag the training loop polls to save and stop. The fault points
+``ckpt_demote`` and ``ckpt_gc`` call :func:`~fm_spark_tpu_torch.
+resilience.faults.inject`, a no-op until the faults plane is ported.
 """
 
 from __future__ import annotations
@@ -63,11 +80,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from fm_spark_tpu_torch import obs
 from fm_spark_tpu_torch.models.io import flatten, unflatten
+from fm_spark_tpu_torch.resilience import faults
 from fm_spark_tpu_torch.utils import durable
 
-__all__ = ["CheckpointChainBroken", "CheckpointIOError", "Checkpointer",
-           "PreemptionGuard", "copy_into"]
+__all__ = ["ChainFollower", "CheckpointChainBroken", "CheckpointIOError",
+           "Checkpointer", "PreemptionGuard", "copy_into"]
 
 #: The layout a save records: per-field tables in the canonical tree.
 LAYOUT = "canonical"
@@ -198,6 +217,63 @@ class _Snapshot:
         return sum(a.nbytes for a in self.arrays.values())
 
 
+def _read_tombstones(directory: str) -> _Tombstones:
+    """The tombstones of the chain at ``directory``, read from disk now
+    (a trainer demotes underneath a polling follower)."""
+    return _Tombstones(os.path.join(directory, "tombstones"))
+
+
+def _expanded(stones: _Tombstones) -> set[int]:
+    out = set(stones.singles)
+    for floor, tip in stones.ranges:
+        out.update(range(floor + 1, tip + 1))
+    return out
+
+
+def _read_step(step_dir: str):
+    """``(state, {key: (dtype, array)}, bytes, read_ms)`` of the step
+    saved in ``step_dir``, in whatever layout it records."""
+    t0 = time.perf_counter()
+    state = durable.read_json(os.path.join(step_dir, "state.json"))
+    arrays = {}
+    for key, info in state["arrays"].items():
+        arr = np.load(os.path.join(step_dir, info["file"]), allow_pickle=False)
+        if list(arr.shape) != list(info["shape"]):
+            raise ValueError(f"{key}: shape {arr.shape} != recorded "
+                             f"{info['shape']}")
+        arrays[key] = (info["dtype"], arr)
+    nbytes = sum(a.nbytes for _, a in arrays.values())
+    return state, arrays, nbytes, (time.perf_counter() - t0) * 1e3
+
+
+def _matches(state, arrays, manifest: dict) -> bool:
+    """Do a step's arrays and meta match its manifest's crc32s?"""
+    got = {k: _checksum(dt, a) for k, (dt, a) in arrays.items()}
+    meta = {"pipeline": state.get("pipeline"), "extra": state.get("extra")}
+    return (got == manifest.get("checksums")
+            and _meta_crc(meta) == manifest.get("meta_crc"))
+
+
+def _result(step, state, arrays, params_example):
+    """The restore dict of a read step (see :meth:`Checkpointer.restore`);
+    ``layout`` is the layout the step records."""
+    flat = {k: _to_tensor(dt, a) for k, (dt, a) in arrays.items()}
+    opt = {k[len(OPT) + 1:]: v for k, v in flat.items()
+           if k.startswith(OPT + "/")}
+    params: Any = {k: v for k, v in flat.items()
+                   if not k.startswith(OPT + "/")}
+    if params_example is not None:
+        names = list(flatten(params_example))
+        missing = [n for n in names if n not in params]
+        if missing:
+            raise ValueError(f"checkpoint step {step} holds no arrays "
+                             f"{missing} (it holds {sorted(params)})")
+        params = unflatten(params, names)
+    return {"params": params, "opt_state": opt, "step": int(step),
+            "pipeline": state.get("pipeline"), "extra": state.get("extra"),
+            "layout": state.get("layout", LAYOUT)}
+
+
 class Checkpointer:
     """The crash-consistent checkpoint chain of a training run (see the
     module's docstring).
@@ -289,15 +365,109 @@ class Checkpointer:
             return None
 
     def tombstoned_steps(self) -> set[int]:
-        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
-        out = set(stones.singles)
-        for floor, tip in stones.ranges:
-            out.update(range(floor + 1, tip + 1))
-        return out
+        """The demoted steps, every step of a range stone listed."""
+        return _expanded(_read_tombstones(self.directory))
 
     def is_tombstoned(self, step: int) -> bool:
-        return int(step) in _Tombstones(
-            os.path.join(self.directory, "tombstones"))
+        return int(step) in _read_tombstones(self.directory)
+
+    @property
+    def _tombstone_dir(self) -> str:
+        return os.path.join(self.directory, "tombstones")
+
+    def _known_steps(self) -> set[int]:
+        """The committed steps and the steps that have a manifest."""
+        return set(self.all_steps()) | set(
+            _step_json_names(self._manifest_dir))
+
+    def _quarantined(self) -> int:
+        """How many existing saves the tombstones veto (the gauge)."""
+        stones = _read_tombstones(self.directory)
+        return sum(1 for s in self._known_steps() if s in stones)
+
+    # ----------------------------------------------------------- demotion
+
+    def demote(self, step: int, reason: str = "") -> bool:
+        """Demote one save: the coordinated-rollback primitive.
+
+        Writes (1) the tombstone ``tombstones/<step>.json`` (one atomic
+        JSON with the step and the verdict), then (2) ``last_good``
+        republished at the newest verified step no tombstone vetoes. A
+        crash between the two leaves the pointer vouching for the
+        demoted step; every reader checks tombstones first, and the next
+        demotion repairs the pointer. The ``ckpt_demote`` fault point
+        sits in that window. Returns False (only the repair) when the
+        step is already tombstoned."""
+        step = int(step)
+        self.wait()
+        stones = _read_tombstones(self.directory)
+        if step in stones:
+            self._repair_pointer(stones)
+            return False
+        os.makedirs(self._tombstone_dir, exist_ok=True)
+        self._durable_json(os.path.join(self._tombstone_dir, f"{step}.json"),
+                           {"step": step, "reason": str(reason)[:500],
+                            "ts": round(time.time(), 3)})
+        self._emit("generation_demoted", step=step, reason=str(reason)[:200])
+        obs.counter("checkpoint.demotions_total").add(1)
+        obs.gauge("checkpoint/quarantined_generations").set(
+            self._quarantined())
+        faults.inject("ckpt_demote")
+        self._republish_last_good()
+        return True
+
+    def demote_newer_than(self, step: int, reason: str = "") -> list[int]:
+        """Demote every committed or manifested step newer than ``step``
+        (the pre-drift save) with ONE atomic range tombstone
+        ``range_<step>_<tip>.json`` vetoing ``(step, tip]``, so a crash
+        never leaves a partly demoted suffix; then republish the pointer
+        (the ``ckpt_demote`` fault point between the two writes). Returns
+        the newly demoted steps; ``[]`` (and only the pointer's repair)
+        when none is left to demote."""
+        floor = int(step)
+        self.wait()
+        stones = _read_tombstones(self.directory)
+        demoted = sorted(s for s in self._known_steps()
+                         if s > floor and s not in stones)
+        if not demoted:
+            self._repair_pointer(stones)
+            return []
+        tip = demoted[-1]
+        os.makedirs(self._tombstone_dir, exist_ok=True)
+        self._durable_json(
+            os.path.join(self._tombstone_dir, f"range_{floor}_{tip}.json"),
+            {"newer_than": floor, "through": tip, "steps": demoted,
+             "reason": str(reason)[:500], "ts": round(time.time(), 3)})
+        self._emit("generation_demoted", steps=demoted, newer_than=floor,
+                   reason=str(reason)[:200])
+        obs.counter("checkpoint.demotions_total").add(len(demoted))
+        obs.gauge("checkpoint/quarantined_generations").set(
+            self._quarantined())
+        faults.inject("ckpt_demote")
+        self._republish_last_good()
+        return demoted
+
+    def _repair_pointer(self, stones: _Tombstones) -> None:
+        """A re-run after a crash inside the demotion window: the
+        tombstone is durable but the pointer may still vouch for a
+        vetoed step."""
+        lg = self.last_good_step()
+        if lg is not None and lg in stones:
+            self._republish_last_good()
+
+    def _republish_last_good(self) -> None:
+        """Point ``last_good`` atomically at the newest manifested,
+        committed step no tombstone vetoes; ``{"step": null}`` when none
+        qualifies (readers then find nothing published)."""
+        stones = _read_tombstones(self.directory)
+        committed = set(self.all_steps())
+        good = sorted((s for s in _step_json_names(self._manifest_dir)
+                       if s in committed and s not in stones), reverse=True)
+        prev = self.last_good_step()
+        new = good[0] if good else None
+        self._durable_json(self._last_good_path,
+                           {"step": new, "ts": round(time.time(), 3)})
+        self._emit("last_good_republished", prev=prev, step=new)
 
     def _read_manifest(self, step: int) -> dict | None:
         try:
@@ -377,7 +547,7 @@ class Checkpointer:
         ``checkpoint_save_skipped``."""
         step = int(step)
         self.wait()
-        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
+        stones = _read_tombstones(self.directory)
         if os.path.isdir(self._step_dir(step)):
             if step not in stones:
                 return True
@@ -481,22 +651,72 @@ class Checkpointer:
 
     def _durable_json(self, path: str, obj: dict) -> None:
         """One fail-loud chain-file write: transient errors retry with
-        bounded backoff; ENOSPC (waiting frees no bytes) and the last
-        failure raise :class:`CheckpointIOError`."""
+        bounded backoff; ENOSPC runs the emergency GC and then exactly one
+        more attempt; what still fails raises :class:`CheckpointIOError`."""
         for attempt, delay in enumerate(_IO_RETRY_BACKOFF_S, 1):
             try:
                 durable.atomic_write_json(path, obj, path_class="ckpt")
                 return
             except OSError as e:
                 name = os.path.basename(path)
-                if (getattr(e, "errno", None) == errno.ENOSPC
-                        or attempt == len(_IO_RETRY_BACKOFF_S)):
+                if getattr(e, "errno", None) == errno.ENOSPC:
+                    self._emergency_gc(trigger=name)
+                    try:
+                        durable.atomic_write_json(path, obj,
+                                                  path_class="ckpt")
+                        return
+                    except OSError as e2:
+                        self._emit("checkpoint_io_error", path=name,
+                                   errno=getattr(e2, "errno", None))
+                        raise CheckpointIOError(path, e2) from e2
+                if attempt == len(_IO_RETRY_BACKOFF_S):
                     self._emit("checkpoint_io_error", path=name,
                                errno=getattr(e, "errno", None))
                     raise CheckpointIOError(path, e) from e
                 self._emit("ckpt_io_retry", path=name, attempt=attempt,
                            errno=getattr(e, "errno", None), delay_s=delay)
                 time.sleep(delay)
+
+    def _emergency_gc(self, trigger: str = "") -> list[int]:
+        """ENOSPC's last resort: delete what no reader may ever load —
+        tombstoned steps (data and manifest), manifests of steps that are
+        gone, and ``.tmp`` leftovers of torn atomic writes. The intent is
+        journaled first (``ckpt_emergency_gc``), so a crash mid-GC (the
+        ``ckpt_gc`` fault point) is recovered by running it again: every
+        victim was already unloadable. ``last_good``'s step is never a
+        victim. Returns the tombstoned steps collected."""
+        stones = _read_tombstones(self.directory)
+        committed = set(self.all_steps())
+        manifested = set(_step_json_names(self._manifest_dir))
+        keep = self.last_good_step()
+        victims = sorted(s for s in committed | manifested
+                         if s in stones and s != keep)
+        orphans = sorted(s for s in manifested - committed
+                         if s not in stones and s != keep)
+        self._emit("ckpt_emergency_gc", trigger=trigger, steps=victims,
+                   manifests=orphans)
+        obs.counter("checkpoint.emergency_gc_total").add(1)
+        faults.inject("ckpt_gc")
+        for s in victims:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        for s in victims + orphans:
+            try:
+                os.unlink(self._manifest_path(s))
+            except OSError:
+                pass
+        for d in (self.directory, self._manifest_dir, self._tombstone_dir):
+            try:
+                names = os.listdir(d)
+            except OSError:
+                continue
+            for fname in names:
+                if fname.endswith(".tmp"):
+                    try:
+                        os.unlink(os.path.join(d, fname))
+                    except OSError:
+                        pass
+        self._emit("ckpt_emergency_gc_done", steps=victims)
+        return victims
 
     def wait(self) -> None:
         """Join the background write, if any; raise what it raised."""
@@ -513,46 +733,13 @@ class Checkpointer:
     # ------------------------------------------------------------ restore
 
     def _read_step(self, step: int):
-        """``(state, {key: (dtype, array)}, bytes, read_ms)`` of a step."""
-        t0 = time.perf_counter()
-        d = self._step_dir(step)
-        state = durable.read_json(os.path.join(d, "state.json"))
+        """:func:`_read_step` of a step in the canonical layout (another
+        layout is unreadable to a training run)."""
+        state, arrays, nbytes, read_ms = _read_step(self._step_dir(step))
         if state.get("layout", LAYOUT) != LAYOUT:
             raise ValueError(f"checkpoint step {step} has layout "
                              f"{state.get('layout')!r}, not {LAYOUT!r}")
-        arrays = {}
-        for key, info in state["arrays"].items():
-            arr = np.load(os.path.join(d, info["file"]), allow_pickle=False)
-            if list(arr.shape) != list(info["shape"]):
-                raise ValueError(f"{key}: shape {arr.shape} != recorded "
-                                 f"{info['shape']}")
-            arrays[key] = (info["dtype"], arr)
-        nbytes = sum(a.nbytes for _, a in arrays.values())
-        return state, arrays, nbytes, (time.perf_counter() - t0) * 1e3
-
-    @staticmethod
-    def _matches(state, arrays, manifest: dict) -> bool:
-        got = {k: _checksum(dt, a) for k, (dt, a) in arrays.items()}
-        meta = {"pipeline": state.get("pipeline"), "extra": state.get("extra")}
-        return (got == manifest.get("checksums")
-                and _meta_crc(meta) == manifest.get("meta_crc"))
-
-    def _result(self, step, state, arrays, params_example):
-        flat = {k: _to_tensor(dt, a) for k, (dt, a) in arrays.items()}
-        opt = {k[len(OPT) + 1:]: v for k, v in flat.items()
-               if k.startswith(OPT + "/")}
-        params: Any = {k: v for k, v in flat.items()
-                       if not k.startswith(OPT + "/")}
-        if params_example is not None:
-            names = list(flatten(params_example))
-            missing = [n for n in names if n not in params]
-            if missing:
-                raise ValueError(f"checkpoint step {step} holds no arrays "
-                                 f"{missing} (it holds {sorted(params)})")
-            params = unflatten(params, names)
-        return {"params": params, "opt_state": opt, "step": int(step),
-                "pipeline": state.get("pipeline"),
-                "extra": state.get("extra")}
+        return state, arrays, nbytes, read_ms
 
     def _remove_stale(self, stale: list[int], restored: int) -> None:
         """Remove the steps a walk-back passed as torn, unreadable or
@@ -595,7 +782,7 @@ class Checkpointer:
         step its ``OSError`` or ``ValueError``.
         """
         self.wait()
-        stones = _Tombstones(os.path.join(self.directory, "tombstones"))
+        stones = _read_tombstones(self.directory)
         if step is not None:
             step = int(step)
             if step in stones:
@@ -605,7 +792,7 @@ class Checkpointer:
             state, arrays, nbytes, read_ms = self._read_step(step)
             manifest = self._read_manifest(step)
             t0 = time.perf_counter()
-            if manifest is not None and not self._matches(state, arrays,
+            if manifest is not None and not _matches(state, arrays,
                                                           manifest):
                 raise CheckpointChainBroken(
                     f"checkpoint step {step} fails its manifest checksums "
@@ -614,7 +801,7 @@ class Checkpointer:
             self.restore_timing = {
                 "step": step, "read_ms": read_ms, "bytes": nbytes,
                 "verify_ms": (time.perf_counter() - t0) * 1e3}
-            return self._result(step, state, arrays, params_example)
+            return _result(step, state, arrays, params_example)
         steps = sorted(self.all_steps(), reverse=True)
         if not steps:
             return None
@@ -640,7 +827,7 @@ class Checkpointer:
                 stale.append(s)
                 continue
             t0 = time.perf_counter()
-            if manifest is not None and not self._matches(state, arrays,
+            if manifest is not None and not _matches(state, arrays,
                                                           manifest):
                 self._emit("checkpoint_corrupt", step=s)
                 stale.append(s)
@@ -653,11 +840,111 @@ class Checkpointer:
                 "verify_ms": (time.perf_counter() - t0) * 1e3}
             if stale or (last_good is not None and last_good > s):
                 self._remove_stale(stale, s)
-            return self._result(s, state, arrays, params_example)
+            return _result(s, state, arrays, params_example)
         raise CheckpointChainBroken(
             f"{len(steps)} checkpoint step(s) exist under {self.directory} "
             "but none passed verification (all torn or corrupt); refusing "
             "to silently restart from scratch")
+
+
+class ChainFollower:
+    """Read-only reader of a checkpoint chain, for serving followers (the
+    port of ``fm_spark_tpu/checkpoint.py``'s ``ChainFollower``).
+
+    It never writes, renames or removes anything under ``directory``
+    (:meth:`Checkpointer.restore` removes stale steps and rewrites
+    ``last_good``, so a follower cannot reuse it): a step that fails
+    verification is skipped and journaled, never repaired. It trusts
+    only manifest-verified steps (no leniency for a chain without
+    manifests) and walks back from the newest manifested step past torn,
+    unreadable and corrupt ones, returning None, not raising, when
+    nothing verifies. A tombstoned step is skipped even when its bytes
+    verify and a stale ``last_good`` still vouches for it; the reload
+    path checks :meth:`is_tombstoned` again just before its swap.
+
+    The port's chain is keyed by name, so the follower reads the params
+    (and the optimizer state, returned flat) without an optimizer-state
+    example.
+    """
+
+    def __init__(self, directory: str, journal=None):
+        self.directory = os.path.abspath(str(directory))
+        self.journal = journal
+
+    def _emit(self, event: str, **fields) -> None:
+        if self.journal is not None:
+            self.journal.emit(event, **fields)
+
+    @property
+    def _manifest_dir(self) -> str:
+        return os.path.join(self.directory, "manifests")
+
+    def last_good_step(self) -> int | None:
+        """The trainer's published last verified step: None when absent,
+        cleared or torn."""
+        try:
+            step = durable.read_json(
+                os.path.join(self.directory, "last_good.json")).get("step")
+            return int(step) if step is not None else None
+        except (OSError, ValueError, TypeError, AttributeError):
+            return None
+
+    def tombstoned_steps(self) -> set[int]:
+        return _expanded(_read_tombstones(self.directory))
+
+    def is_tombstoned(self, step: int) -> bool:
+        return int(step) in _read_tombstones(self.directory)
+
+    def _read_manifest(self, step: int) -> dict | None:
+        try:
+            return durable.read_json(
+                os.path.join(self._manifest_dir, f"{int(step)}.json"))
+        except (OSError, ValueError):
+            return None
+
+    def restore(self, params_example=None):
+        """The newest manifest-verified step no tombstone vetoes, as
+        :meth:`Checkpointer.restore`'s dict (host tensors; ``layout`` the
+        step's own, its params left flat when it is not canonical), or
+        None when no step verifies."""
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return None
+        committed = {int(n) for n in names if n.isdigit() and os.path.isdir(
+            os.path.join(self.directory, n))}
+        stones = _read_tombstones(self.directory)
+        steps = sorted((s for s in _step_json_names(self._manifest_dir)
+                        if s in committed), reverse=True)
+        for s in steps:
+            if s in stones:
+                self._emit("checkpoint_demoted_skipped", step=s)
+                continue
+            manifest = self._read_manifest(s)
+            if manifest is None:
+                continue
+            try:
+                state, arrays, _, _ = _read_step(
+                    os.path.join(self.directory, str(s)))
+                layout = state.get("layout", LAYOUT)
+                if not _matches(state, arrays, manifest):
+                    self._emit("checkpoint_corrupt", step=s)
+                    continue
+                result = _result(s, state, arrays, params_example
+                                 if layout == LAYOUT else None)
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                self._emit("checkpoint_unreadable", step=s,
+                           error=f"{type(e).__name__}: "
+                                 f"{(str(e).splitlines() or [''])[0][:200]}")
+                continue
+            if s != steps[0]:
+                self._emit("checkpoint_walked_back", from_step=steps[0],
+                           to_step=s)
+            return result
+        return None
+
+    def close(self) -> None:
+        """Nothing to release: the follower holds no file open."""
 
 
 class PreemptionGuard:

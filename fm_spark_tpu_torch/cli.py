@@ -23,11 +23,21 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
   prints the model's metrics;
 - ``predict --model DIR (--data PATH --config NAME | --synthetic N)``
   scores through the serving engine with one bucket of ``--batch-size``
-  rows and writes one ``%.6g`` prediction per line.
+  rows and writes one ``%.6g`` prediction per line;
+- ``serve (--model DIR | --config NAME --checkpoint-dir CK)`` answers a
+  request stream (the predict batches, ``--repeat`` passes) through the
+  coalescing engine, one CUDA graph per ``--buckets`` bucket on the
+  card, and with ``--checkpoint-dir`` hot-swaps every new verified,
+  undemoted generation the trainer publishes (polled every
+  ``--reload-poll-s``); it prints a ``serving`` line after warm-up and a
+  ``serve_summary`` line at the end;
+- ``list-configs [--verbose]`` lists the registered configs.
 
 Every command that computes runs on the CUDA device unless ``--device
-cpu`` is given. A JSON summary (kernel launches; for ``train`` also the
-step, aux, capture and checkpoint times) goes to standard error.
+cpu`` is given. A JSON summary (eager kernel launches; for ``predict``
+and ``serve`` also the graph replays and the kernel runs they made, by
+wrapper name; for ``train`` the step, aux, capture and checkpoint times)
+goes to standard error.
 """
 
 from __future__ import annotations
@@ -337,6 +347,13 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _replay_counts(engine) -> dict:
+    """The engine's graph replays and the kernel runs they made, by
+    wrapper name (replays launch past the wrappers' launch counts)."""
+    return {"graph_replays": engine.graph_replays,
+            "kernel_runs_in_replays": engine.kernel_runs()}
+
+
 def cmd_predict(args) -> int:
     from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.serve import PredictEngine
@@ -361,7 +378,165 @@ def cmd_predict(args) -> int:
         if out is not sys.stdout:
             out.close()
     print(json.dumps({"predicted": rows, "device": str(engine.device),
-                      "kernel_launches": _since(before)}), file=sys.stderr)
+                      "kernel_launches": _since(before),
+                      **_replay_counts(engine)}), file=sys.stderr)
+    return 0
+
+
+#: serve's flags of the reference that wait for later ports, by the
+#: ROADMAP Queue 1 item that brings them.
+_UNPORTED_SERVE_FLAGS = (
+    ("fleet", "--fleet", "6b"), ("autoscale_max", "--autoscale-max", "6b"),
+    ("frontdoor_port", "--frontdoor-port", "6b"), ("classes", "--classes", "6b"),
+    ("serve_seconds", "--serve-seconds", "6b"),
+    ("trace_sample", "--trace-sample", "6b"), ("slo_ms", "--slo-ms", "13"),
+    ("metrics_port", "--metrics-port", "13"), ("obs_dir", "--obs-dir", "13"),
+    ("compile_cache", "--compile-cache", "12"))
+
+
+def _serve_from_chain(args):
+    """``(spec, params, step)`` of the newest verified step of the chain,
+    read through the same read-only follower the hot reload polls. The
+    spec is ``--config``'s (with ``--bucket`` and ``--compute-dtype``),
+    its table dtype the chain's."""
+    import dataclasses
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+    from fm_spark_tpu_torch.models.io import param_names, unflatten
+
+    cfg = configs.get_config(args.config, bucket=args.bucket,
+                             compute_dtype=args.compute_dtype)
+    try:
+        spec = cfg.spec()
+    except ValueError as e:
+        raise SystemExit(f"serve --config {cfg.name}: {e}") from e
+    names = param_names(spec)
+    chain = ChainFollower(args.checkpoint_dir)
+    restored = chain.restore(unflatten(dict.fromkeys(names), names))
+    chain.close()
+    if restored is None:
+        raise SystemExit(f"no verified checkpoint to serve under "
+                         f"{args.checkpoint_dir} (the follower trusts only "
+                         "manifest-verified steps)")
+    if restored["layout"] != "canonical":
+        raise SystemExit(f"chain holds {restored['layout']}-layout "
+                         "checkpoints; serving follows canonical layouts only")
+    table = restored["params"][names[1].split("/")[0]][0]
+    spec = dataclasses.replace(
+        spec, param_dtype=str(table.dtype).removeprefix("torch."))
+    return spec, restored["params"], restored["step"]
+
+
+def cmd_serve(args) -> int:
+    """Online serving (the reference's single-engine ``serve``): the
+    coalescing engine over a bounded request stream, with hot reload
+    from a checkpoint chain; one summary line of request latency, QPS,
+    swaps, reload failures and staleness."""
+    from fm_spark_tpu_torch import models, obs, resolve_device
+    from fm_spark_tpu_torch.serve import PredictEngine, ReloadFollower
+
+    for dest, flag, item in _UNPORTED_SERVE_FLAGS:
+        if getattr(args, dest) is not None:
+            raise SystemExit(f"serve {flag} is not ported yet (ROADMAP Queue "
+                             f"1 item {item})")
+    buckets = tuple(sorted({int(b) for b in args.buckets.split(",") if b}))
+    if not buckets:
+        raise SystemExit(f"--buckets parsed empty from {args.buckets!r}")
+    dev = resolve_device(args.device)
+    step0 = 0
+    if args.model:
+        spec, params = models.load_model(args.model, device=dev)
+    else:
+        if not (args.checkpoint_dir and args.config):
+            raise SystemExit("serve needs --model DIR, or --checkpoint-dir "
+                             "with --config to follow a training chain")
+        spec, params, step0 = _serve_from_chain(args)
+    engine = follower = None
+    out = None
+    if args.out:
+        out = sys.stdout if args.out == "-" else open(args.out, "w")
+    # Synthetic rows are drawn once (a full-width planted model takes
+    # seconds to draw); --data streams again on every pass.
+    stream = list(_batches_for_model(args, spec)) if args.synthetic else None
+    before = _launches()
+    n_requests = n_rows = 0
+    t0 = time.perf_counter()
+    try:
+        for _ in range(max(args.repeat, 1)):
+            for bids, bvals, _, w in (stream if stream is not None
+                                      else _batches_for_model(args, spec)):
+                if engine is None:
+                    engine = PredictEngine(
+                        spec, params, nnz=bids.shape[1], step=step0,
+                        buckets=buckets,
+                        latency_budget_ms=args.latency_budget_ms, device=dev)
+                    warm = engine.warmup()
+                    # No compile cache (ROADMAP item 12): the kernels
+                    # build and the graphs capture in the warm-up.
+                    print(json.dumps({
+                        "serving": True, "step": step0,
+                        "buckets": list(buckets), "warmup_s": warm["seconds"],
+                        "fresh_compiles": None, "captures": warm["captures"],
+                        "capture_s": warm["capture_s"]}), flush=True)
+                    if args.checkpoint_dir and args.reload_poll_s > 0:
+                        follower = ReloadFollower(
+                            engine, args.checkpoint_dir,
+                            poll_s=args.reload_poll_s).start()
+                preds = engine.predict(bids, bvals)
+                if out is not None:
+                    for p in preds[w > 0]:
+                        out.write(f"{float(p):.6g}\n")
+                n_requests += 1
+                n_rows += int((w > 0).sum())
+                if args.max_requests and n_requests >= args.max_requests:
+                    break
+            else:
+                continue
+            break
+    finally:
+        if follower is not None:
+            follower.stop()
+        if engine is not None:
+            engine.close()
+        if out is not None and out is not sys.stdout:
+            out.close()
+    elapsed = time.perf_counter() - t0
+    req = obs.histogram("serve/request_ms").summary()
+    summary = {
+        "served_requests": n_requests,
+        "served_rows": n_rows,
+        "elapsed_s": round(elapsed, 3),
+        "qps": round(n_requests / elapsed, 2) if elapsed > 0 else None,
+        "request_ms": {k: req[k] for k in ("count", "mean", "p50", "p95",
+                                           "p99")},
+        "generation_step": (engine.generation().step
+                            if engine is not None else None),
+        "swaps": follower.reloads if follower is not None else 0,
+        "reload_failures": follower.failures if follower is not None else 0,
+        "staleness_steps": int(obs.gauge("serve/staleness_steps").value or 0),
+        "degraded": bool(obs.gauge("serve/degraded").value or 0),
+    }
+    print(json.dumps({"serve_summary": summary}), flush=True)
+    print(json.dumps({
+        "device": str(dev), "kernel_launches": _since(before),
+        **(_replay_counts(engine) if engine is not None else {}),
+        "batch_ms": obs.histogram("serve/batch_ms").summary(),
+        "last_swap": follower.last_swap if follower is not None else None,
+    }), file=sys.stderr)
+    return 0
+
+
+def cmd_list_configs(args) -> int:
+    import dataclasses
+
+    from fm_spark_tpu_torch import configs
+
+    for name, cfg in sorted(configs.CONFIGS.items()):
+        if args.verbose:
+            print(json.dumps(dataclasses.asdict(cfg)))
+        else:
+            print(f"{name:24s} {cfg.description}")
     return 0
 
 
@@ -452,6 +627,53 @@ def build_parser() -> argparse.ArgumentParser:
     add_data_args(pr, 8192)
     pr.add_argument("--out", help="output file ('-' = stdout)")
     pr.set_defaults(fn=cmd_predict)
+
+    sv = sub.add_parser(
+        "serve", help="online serving: the micro-batched engine (a CUDA "
+                      "graph per bucket) with hot reload from a checkpoint "
+                      "chain")
+    sv.add_argument("--model", help="saved model dir (spec.json + params.npz)")
+    add_data_args(sv, 256)
+    sv.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                    help="with --config and no --model: the compute dtype "
+                         "in place of the config's (the tables keep the "
+                         "chain's dtype)")
+    sv.add_argument("--optimizer", default=None,
+                    help="accepted and ignored: the port's chain is keyed by "
+                         "name and the follower reads the params only, so "
+                         "no optimizer-state example is rebuilt")
+    sv.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                    help="training chain to follow: without --model the "
+                         "first generation is its newest verified step, and "
+                         "with --reload-poll-s > 0 each new last_good that "
+                         "verifies and is not demoted hot-swaps in")
+    sv.add_argument("--latency-budget-ms", type=float, default=2.0,
+                    dest="latency_budget_ms",
+                    help="how long the coalescer may hold a request waiting "
+                         "for batch-mates (0 = dispatch at once)")
+    sv.add_argument("--buckets", default="1,8,64,512",
+                    help="comma-separated padded-batch buckets, one CUDA "
+                         "graph each on the card")
+    sv.add_argument("--reload-poll-s", type=float, default=2.0,
+                    dest="reload_poll_s",
+                    help="how often the follower polls last_good.json "
+                         "(0 = no hot reload)")
+    sv.add_argument("--repeat", type=int, default=1,
+                    help="passes over the request stream")
+    sv.add_argument("--max-requests", type=int, default=0,
+                    dest="max_requests",
+                    help="stop after N requests (0 = the whole stream)")
+    sv.add_argument("--out", help="write predictions here ('-' = stdout)")
+    for dest, flag, item in _UNPORTED_SERVE_FLAGS:
+        sv.add_argument(flag, dest=dest, default=None, nargs="?", const="",
+                        help=f"not ported yet (ROADMAP Queue 1 item {item}); "
+                             "giving it exits")
+    sv.set_defaults(fn=cmd_serve)
+
+    lc = sub.add_parser("list-configs", help="list the registered configs")
+    lc.add_argument("--verbose", action="store_true",
+                    help="every field of each config, one JSON per line")
+    lc.set_defaults(fn=cmd_list_configs)
 
     pp = sub.add_parser("preprocess",
                         help="hash raw criteo/avazu text → packed binary")

@@ -12,10 +12,20 @@ them under the same names in both packages. The score is
 reference's order: plain PyTorch ops on any device (the reference scores
 DeepFM with XLA ops, no Pallas kernel), the MLP's products by
 ``torch.matmul``.
+
+A row's score does not depend on the batch it is scored in: the head's
+products run over tiles of :data:`ROW_TILE` rows, the last one padded
+with zero rows, so every batch size runs products of one shape and a
+row served in any bucket gets the bits it gets in any other. On the
+card, bf16 products run with
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+off (float32 sums, as the reference's), set for the head's products only
+and restored after them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -26,6 +36,25 @@ from fm_spark_tpu_torch.models import base
 from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 from fm_spark_tpu_torch.ops.fm import seq_sum as _seq_sum
 from fm_spark_tpu_torch.ops.fm import sum_upcast
+
+#: Rows per product of the MLP head: every batch runs products of this
+#: one shape, so a row's bits do not depend on the batch size.
+ROW_TILE = 64
+
+
+@contextlib.contextmanager
+def _float32_sums(device: torch.device, dtype: torch.dtype):
+    """bf16 products on the card with float32 sums, only inside."""
+    if device.type != "cuda" or dtype != torch.bfloat16:
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +130,26 @@ class FieldDeepFMSpec(base.ModelSpec):
         return out
 
     def deep_scores(self, mlp, h: torch.Tensor) -> torch.Tensor:
-        """The MLP head over ``h = concat(xv)`` ``[B, F*rank]`` → ``[B]``."""
+        """The MLP head over ``h = concat(xv)`` ``[B, F*rank]`` → ``[B]``,
+        each product over :data:`ROW_TILE`-row tiles of ``h`` padded with
+        zero rows to a whole tile."""
         cd = self.cdtype
         n_hidden = len(self.mlp_dims)
-        for li, layer in enumerate(mlp):
-            h = torch.matmul(h, layer["kernel"].to(cd)) + layer["bias"].to(cd)
-            if li < n_hidden:
-                h = torch.relu(h)
-        return h[:, 0]
+        b = h.shape[0]
+        pad = -b % ROW_TILE
+        if pad:
+            h = torch.cat([h, h.new_zeros(pad, h.shape[1])])
+        with _float32_sums(h.device, cd):
+            for li, layer in enumerate(mlp):
+                kernel = layer["kernel"].to(cd)
+                out = h.new_empty(h.shape[0], kernel.shape[1])
+                for lo in range(0, h.shape[0], ROW_TILE):
+                    torch.matmul(h[lo:lo + ROW_TILE], kernel,
+                                 out=out[lo:lo + ROW_TILE])
+                h = out + layer["bias"].to(cd)
+                if li < n_hidden:
+                    h = torch.relu(h)
+        return h[:b, 0]
 
     def scores(self, params: dict, ids: torch.Tensor,
                vals: torch.Tensor) -> torch.Tensor:

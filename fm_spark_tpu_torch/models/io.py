@@ -41,6 +41,11 @@ def _mlp_names(spec) -> list[str]:
             for leaf in ("kernel", "bias")]
 
 
+def param_names(spec) -> list[str]:
+    """The keypath names of a spec's parameters, in the model dir's order."""
+    return ["w0", *_table_names(spec), *_mlp_names(spec)]
+
+
 def flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """The leaves of a nested dict/list tree under their keypath names
     (``w0``, ``vw/0``, ``mlp/0/kernel`` …), JAX's keypath join."""
@@ -84,7 +89,7 @@ def params_from_numpy(spec, flat: dict, device=None,
     dev = resolve_device(device)
     dtypes = dtypes or {}
     tables = _table_names(spec)
-    names = ["w0", *tables, *_mlp_names(spec)]
+    names = param_names(spec)
     missing = [n for n in names if n not in flat]
     if missing:
         raise KeyError(f"parameters missing for {type(spec).__name__}: {missing}")

@@ -108,10 +108,11 @@ class Histogram:
         with self._lock:
             count, total, vmin, vmax = self.count, self.sum, self.min, self.max
         if count == 0:
-            return {"count": 0, "sum": 0.0, "min": None, "max": None,
-                    "p50": None, "p99": None}
-        return {"count": count, "sum": total, "min": vmin, "max": vmax,
-                "p50": self.percentile(0.50), "p99": self.percentile(0.99)}
+            return {"count": 0, "sum": 0.0, "mean": None, "min": None,
+                    "max": None, "p50": None, "p95": None, "p99": None}
+        return {"count": count, "sum": total, "mean": total / count,
+                "min": vmin, "max": vmax, "p50": self.percentile(0.50),
+                "p95": self.percentile(0.95), "p99": self.percentile(0.99)}
 
 
 class MetricsRegistry:

@@ -1,6 +1,8 @@
 """Compute ops: the FM forward math and the hand-written CUDA kernels'
 wrappers (each beside its plain PyTorch version)."""
 
+import threading
+
 
 class KernelUnavailable(ValueError):
     """A CUDA kernel cannot serve this (device, shape, dtype, layout)
@@ -33,3 +35,23 @@ def kernel_launches() -> dict:
 
     return {name: getattr(importlib.import_module(f"{__name__}.{mod}"), attr)
             for name, mod, attr in KERNEL_COUNTERS}
+
+
+_recorded: dict[str, int] = {}
+_recorded_lock = threading.Lock()
+
+
+def note_recorded(name: str) -> None:
+    """Count one call of wrapper ``name`` that a CUDA graph's capture
+    recorded (no launch: the graph's replays run the kernel)."""
+    with _recorded_lock:
+        _recorded[name] = _recorded.get(name, 0) + 1
+
+
+def kernel_recordings() -> dict:
+    """Every kernel wrapper's count of calls recorded by a capture in this
+    process, by the wrapper's name: the difference across one capture is
+    what each replay of that graph runs."""
+    with _recorded_lock:
+        return {name: _recorded.get(name, 0)
+                for name, _, _ in KERNEL_COUNTERS}

@@ -22,7 +22,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["MAX_SMEM_BYTES", "bwd_launches", "ffm_sel_bwd",
            "ffm_sel_bwd_plain", "ffm_sel_scores", "ffm_sel_scores_plain",
@@ -189,7 +189,9 @@ def ffm_sel_scores(rows_stacked, vals):
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "ffm_sel_fwd", err)
     global scores_launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("ffm_sel_scores")
+    else:
         with _launch_lock:
             scores_launches += 1
     return acc.to(vals.dtype)
@@ -213,7 +215,9 @@ def ffm_sel_bwd(rows_stacked, vals, dscores):
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "ffm_sel_bwd", err)
     global bwd_launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("ffm_sel_bwd")
+    else:
         with _launch_lock:
             bwd_launches += 1
     return out

@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 from fm_spark_tpu_torch.ops.segsum import segment_totals_plain
 
 __all__ = ["MAX_FIELDS", "MAX_WIDTH", "fm_bwd_segment_totals",
@@ -238,7 +238,9 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
             f"fm_fused_bwd launch failed: CUDA error {err} "
             f"({lib.fm_bwd_cuda_error_string(err).decode()})")
     global launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("fm_bwd_segment_totals")
+    else:
         with _launch_lock:
             launches += 1
     return out

@@ -12,6 +12,10 @@ bound.
 :func:`fm_fused_scores` launches it for CUDA tensors and runs
 :func:`fm_fused_scores_plain` only for tensors on the CPU — a tensor on
 another device raises :class:`~fm_spark_tpu_torch.ops.KernelUnavailable`.
+Above :data:`PARAM_FIELDS` fields the table pointers go to the card in an
+array copied from the host at each call, so a CUDA graph's capture of
+such a call refuses (``KernelUnavailable``) rather than record a copy it
+cannot replay.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["PARAM_FIELDS", "fm_fused_scores", "fm_fused_scores_plain",
            "launches"]
@@ -65,6 +69,11 @@ def _check(tables, ids, vals, w0):
     if w0 is not None and (w0.numel() != 1 or w0.dtype != torch.float32
                            or w0.device != dev):
         raise ValueError("w0 must be one float32 value on the ids' device")
+
+
+def _capturing() -> bool:
+    """Is a CUDA graph capturing on this thread's current stream?"""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -113,12 +122,17 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     """
     tables = list(tables)      # a stacked tensor iterates over its fields
     _check(tables, ids, vals, w0)
+    b, num_fields = ids.shape
+    if num_fields > PARAM_FIELDS and _capturing():
+        raise KernelUnavailable(
+            f"fm_fused_scores: {num_fields} fields > {PARAM_FIELDS} take a "
+            "pointer array copied from the host at each call, which a CUDA "
+            "graph cannot capture")
     if ids.device.type == "cpu":
         return fm_fused_scores_plain(tables, ids, vals, use_linear=use_linear,
                                      w0=w0, compute_bf16=compute_bf16)
     if ids.device.type != "cuda":
         raise KernelUnavailable(f"fm_fused_scores: no kernel for {ids.device}")
-    b, num_fields = ids.shape
     bucket, w = tables[0].shape
     if not (ids.is_contiguous() and vals.is_contiguous()
             and all(t.is_contiguous() for t in tables)):
@@ -150,7 +164,9 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
             f"fm_fused_fwd launch failed: CUDA error {err} "
             f"({lib.fm_cuda_error_string(err).decode()})")
     global launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("fm_fused_scores")
+    else:
         with _launch_lock:
             launches += 1
     return scores, acc

@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["gather_launches", "gather_rows", "gather_rows_plain",
            "update_launches", "update_rows_add", "update_rows_add_plain"]
@@ -129,7 +129,9 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                           dev.index)
     _raise_on(lib, "rows_gather", err)
     global gather_launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("gather_rows")
+    else:
         with _launch_lock:
             gather_launches += 1
     return out
@@ -192,7 +194,9 @@ def update_rows_add(table: torch.Tensor, ids: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _raise_on(lib, "rows_update_add", err)
     global update_launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("update_rows_add")
+    else:
         with _launch_lock:
             update_launches += 1
     return table

@@ -17,7 +17,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["launches", "segment_totals", "segment_totals_plain"]
 
@@ -116,7 +116,9 @@ def segment_totals(delta: torch.Tensor, seg: torch.Tensor, cap: int,
             f"segment_totals launch failed: CUDA error {err} "
             f"({lib.segment_cuda_error_string(err).decode()})")
     global launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("segment_totals")
+    else:
         with _launch_lock:
             launches += 1
     return out

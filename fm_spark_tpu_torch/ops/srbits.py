@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["launches", "sr_bits", "sr_bits_plain", "threefry2x32"]
 
@@ -114,7 +114,9 @@ def sr_bits(seed: int, step, field: int, shape, device) -> torch.Tensor:
         raise RuntimeError(f"sr_bits launch failed: CUDA error {err} "
                            f"({lib.sr_cuda_error_string(err).decode()})")
     global launches
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        note_recorded("sr_bits")
+    else:
         with _launch_lock:
             launches += 1
     return out

@@ -1,0 +1,32 @@
+"""The fault points of the port: the names of
+``fm_spark_tpu/resilience/faults.py``, each a call to :func:`inject` where
+the reference injects its faults, without the reference's fault plans.
+
+:func:`inject` is a no-op here: the faults plane (plans, actions and the
+cross-process occurrence counters) is not ported yet (ROADMAP Queue 1
+item 13). Tests patch it to raise at one point and so drive the same
+recovery paths a planned fault would:
+
+- ``ckpt_demote``: a demotion's tombstone is durable and the
+  ``last_good`` pointer is not yet republished
+  (:meth:`~fm_spark_tpu_torch.checkpoint.Checkpointer.demote`,
+  ``demote_newer_than``);
+- ``ckpt_gc``: the emergency GC's intent is journaled and nothing is
+  deleted yet (``Checkpointer._emergency_gc``);
+- ``serve_reload``: inside a reload attempt, before the chain is read
+  (:meth:`~fm_spark_tpu_torch.serve.reload.ReloadFollower.poll_once`).
+"""
+
+from __future__ import annotations
+
+__all__ = ["KNOWN_POINTS", "inject"]
+
+#: The fault points this package calls.
+KNOWN_POINTS = ("ckpt_demote", "ckpt_gc", "serve_reload")
+
+
+def inject(point: str) -> None:
+    """The fault point ``point``: nothing happens (no plan can be active)."""
+    if point not in KNOWN_POINTS:
+        raise ValueError(f"unknown fault point {point!r}; known: "
+                         f"{', '.join(KNOWN_POINTS)}")

@@ -4,10 +4,31 @@ of ``fm_spark_tpu/serve/engine.py``).
 Shape discipline as in the reference: a request of ``n`` rows is padded
 (id 0, value 0) to the smallest configured **batch bucket** ``>= n`` and
 the padded rows are sliced off before any caller sees them; per-row
-scores are row-independent, so padding never changes an answer. Each
-bucket owns a host staging buffer — page-locked on CUDA, so the copy to
-the device is asynchronous — and :meth:`PredictEngine.warmup` builds
-the kernels and launches every bucket once before serving.
+scores are row-independent (FieldDeepFM's head by its fixed row tiles,
+``models/field_deepfm.py``), so padding never changes an answer. Each
+bucket owns host staging buffers, page-locked on CUDA.
+
+**A CUDA graph per bucket**, the counterpart of the reference's AOT
+executables: on the card :meth:`PredictEngine.warmup` builds the kernels
+and captures, for each bucket, ``spec.predict`` over static device
+buffers (ids ``[b, nnz]`` int32 and vals ``[b, nnz]`` float32 in,
+float32 predictions out). A dispatch copies the staged rows into the
+graph's inputs, replays it and copies the output back, under one lock.
+The engine always serves through its graphs on the card: a capture that
+fails raises and names the bucket, and nothing falls back to eager
+dispatch. On the CPU (``device="cpu"``) it dispatches eagerly through the
+kernels' plain versions.
+
+A graph binds the storage of the params it was captured on, so the
+graphs belong to the :class:`Generation`, each generation with its own
+memory pool. :meth:`~PredictEngine.swap_generation` moves the new params
+to the card, captures the new generation's graphs on a side stream (off
+the request path: the worker goes on replaying the old generation's
+graphs meanwhile), and only then stores the new reference. The worker
+reads the reference once per batch and replays THAT generation's graph,
+so no request replays a graph bound to another generation's tensors; the
+old generation's graphs and tensors are freed when the last batch holding
+it ends.
 
 Request path: callers :meth:`~PredictEngine.submit` requests of
 1..bucket-max rows; a worker thread takes the first queued request and
@@ -15,9 +36,12 @@ accumulates more until the **latency budget** (or the earliest request
 deadline) expires or the largest bucket fills, then runs ONE padded
 batch and splits the results back per request. Every request is
 answered exactly once — failures included — and each from exactly one
-model :class:`Generation`: the worker reads the generation reference
-once per batch, and :meth:`~PredictEngine.swap_generation` replaces it
-with a single reference store.
+generation.
+
+The kernel wrappers count eager launches only; a replay runs the kernels
+its capture recorded past them. :meth:`PredictEngine.kernel_runs` counts
+those runs by wrapper name (each graph's recorded calls times its
+replays).
 """
 
 from __future__ import annotations
@@ -30,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from fm_spark_tpu_torch import obs, resolve_device
+from fm_spark_tpu_torch import obs, ops, resolve_device
 
 __all__ = ["DEFAULT_BUCKETS", "Generation", "PredictEngine", "ServeFuture"]
 
@@ -51,14 +75,50 @@ def _to_device(params, device):
 
 class Generation:
     """One immutable served model generation. The engine holds exactly
-    one reference; a swap replaces the reference, never the contents."""
+    one reference; a swap replaces the reference, never the contents.
+    On the card it owns one CUDA graph per bucket (``graphs``) in its own
+    memory pool, and ``h2d_s``/``capture_s`` time its install."""
 
-    __slots__ = ("params", "step", "gen_id")
+    __slots__ = ("params", "step", "gen_id", "graphs", "pool", "h2d_s",
+                 "capture_s")
 
     def __init__(self, params, step: int, gen_id: int):
         self.params = params
         self.step = int(step)
         self.gen_id = int(gen_id)
+        self.graphs: dict[int, _BucketGraph] = {}
+        self.pool = None
+        self.h2d_s = 0.0
+        self.capture_s = 0.0
+
+
+class _BucketGraph:
+    """``predict(params, ids, vals)`` of one bucket captured over static
+    device buffers. ``kernels`` counts, by wrapper name, the kernel calls
+    the capture recorded (what each replay runs)."""
+
+    def __init__(self, predict, params, bucket: int, nnz: int, device,
+                 pool, stream):
+        self.ids = torch.zeros((bucket, nnz), dtype=torch.int32,
+                               device=device)
+        self.vals = torch.zeros((bucket, nnz), dtype=torch.float32,
+                                device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        # The warm-up call builds the kernels and sets their opt-ins; it
+        # runs on the real params, which predict only reads.
+        with torch.cuda.stream(stream):
+            predict(params, self.ids, self.vals)
+        stream.synchronize()
+        before = ops.kernel_recordings()
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the worker goes on replaying the old generation's
+        # graphs and synchronising its stream while this thread captures.
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = predict(params, self.ids, self.vals).float()
+        after = ops.kernel_recordings()
+        self.kernels = {k: after[k] - before[k] for k in after
+                        if after[k] > before[k]}
 
 
 class ServeFuture:
@@ -113,7 +173,8 @@ class PredictEngine:
 
     ``nnz`` pins the per-row feature width; every request must match it.
     ``device`` is where the model runs (default: the current CUDA
-    device; ``"cpu"`` runs the kernels' plain versions). Call
+    device; ``"cpu"`` runs the kernels' plain versions). ``journal`` (an
+    object with ``emit(event, **fields)``) receives ``serve_swap``. Call
     :meth:`warmup` once before serving; then :meth:`submit` /
     :meth:`predict` for coalesced serving or :meth:`score` for direct
     offline batches.
@@ -121,7 +182,7 @@ class PredictEngine:
 
     def __init__(self, spec, params, *, nnz: int | None = None,
                  step: int = 0, buckets=DEFAULT_BUCKETS,
-                 latency_budget_ms: float = 2.0, device=None):
+                 latency_budget_ms: float = 2.0, device=None, journal=None):
         self.spec = spec
         self.device = resolve_device(device)
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -134,13 +195,21 @@ class PredictEngine:
                 "engine needs the per-row feature width: pass nnz= "
                 "(specs without num_fields cannot imply it)")
         self.latency_budget_s = max(float(latency_budget_ms), 0.0) / 1e3
+        self.journal = journal
+        self._graphed = self.device.type == "cuda"
         self._gen = Generation(_to_device(params, self.device), step,
                                gen_id=0)
         obs.gauge("serve/generation_step").set(self._gen.step)
-        # bucket -> (ids, vals) host staging buffers, made by warmup().
-        self._staging: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # bucket -> (ids, vals, out) host staging buffers, made by warmup().
+        self._staging: dict[int, tuple[torch.Tensor, ...]] = {}
+        self._side: torch.cuda.Stream | None = None
+        self._warm = False
+        # Swaps (captures) one at a time.
+        self._swap_lock = threading.Lock()
         # One dispatch at a time: it owns the staging buffer it fills.
         self._dispatch_lock = threading.Lock()
+        self._runs: dict[str, int] = {}
+        self.graph_replays = 0
         self._queue: queue.Queue = queue.Queue()
         self._carry: _Request | None = None
         self._worker: threading.Thread | None = None
@@ -154,17 +223,67 @@ class PredictEngine:
         return self._gen
 
     def swap_generation(self, params, step: int) -> Generation:
-        """Install a new generation via a single reference assignment.
-        The new params are fully on the device before the store, so a
-        concurrent batch sees either the old reference or the new one;
-        batches already running on the old generation finish on it."""
-        old = self._gen
-        gen = Generation(_to_device(params, self.device), step,
-                         gen_id=old.gen_id + 1)
-        self._gen = gen
+        """Install a new generation via a single reference store, after
+        its params are on the device and, on the card once warmed, its
+        graphs are captured (on a side stream, while batches go on being
+        served by the old generation). A capture that fails raises, and
+        the old generation keeps serving. Batches already running on the
+        old generation finish on it."""
+        with self._swap_lock:
+            old = self._gen
+            t0 = time.perf_counter()
+            gen = Generation(self._place(params), step,
+                             gen_id=old.gen_id + 1)
+            t1 = time.perf_counter()
+            if self._graphed and self._warm:
+                self._capture(gen)
+            gen.h2d_s, gen.capture_s = t1 - t0, time.perf_counter() - t1
+            self._gen = gen
         obs.counter("serve.swaps_total").add(1)
         obs.gauge("serve/generation_step").set(gen.step)
+        if self.journal is not None:
+            self.journal.emit("serve_swap", step=gen.step, gen_id=gen.gen_id,
+                              from_step=old.step, h2d_s=gen.h2d_s,
+                              capture_s=gen.capture_s)
         return gen
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    def _place(self, params):
+        """``params`` on the device; on the card copied on the side
+        stream, so the worker's replays do not wait behind the copy."""
+        if not self._graphed:
+            return _to_device(params, self.device)
+        side = self._side_stream()
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            params = _to_device(params, self.device)
+        side.synchronize()
+        return params
+
+    def _capture(self, gen: Generation) -> None:
+        """Capture ``gen``'s graph of every bucket into its own pool."""
+        gen.pool = torch.cuda.graph_pool_handle()
+        side = self._side_stream()
+        with self._device_ctx():
+            for b in self.buckets:
+                try:
+                    gen.graphs[b] = _BucketGraph(
+                        self.spec.predict, gen.params, b, self.nnz,
+                        self.device, gen.pool, side)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"capture of bucket {b} failed ({type(e).__name__}: "
+                        f"{e}); the engine serves only through its graphs "
+                        "on the card") from e
+
+    def kernel_runs(self) -> dict:
+        """Kernel runs of the graphs' replays so far, by wrapper name."""
+        with self._dispatch_lock:
+            return dict(self._runs)
 
     # ------------------------------------------------------------- warmup
 
@@ -183,10 +302,12 @@ class PredictEngine:
         return contextlib.nullcontext()
 
     def warmup(self) -> dict:
-        """Build the kernels, make each bucket's staging buffers and
-        launch every bucket once. Returns ``{"seconds", "buckets"}``."""
+        """Make each bucket's staging buffers and, on the card, build the
+        kernels and capture the current generation's graph of every
+        bucket; on the CPU launch every bucket once. Returns
+        ``{"seconds", "buckets", "captures", "capture_s"}``."""
         t0 = time.perf_counter()
-        pin = self.device.type == "cuda"
+        pin = self._graphed
         if pin:
             from fm_spark_tpu_torch.kernels import build
 
@@ -197,11 +318,26 @@ class PredictEngine:
                     torch.zeros((b, self.nnz), dtype=torch.int32,
                                 pin_memory=pin),
                     torch.zeros((b, self.nnz), dtype=torch.float32,
-                                pin_memory=pin))
-            zeros_i = np.zeros((b, self.nnz), np.int32)
-            self._dispatch(self._gen, zeros_i, zeros_i.astype(np.float32))
+                                pin_memory=pin),
+                    torch.zeros((b,), dtype=torch.float32, pin_memory=pin))
+        captures, capture_s = 0, 0.0
+        with self._swap_lock:
+            gen = self._gen
+            if pin and not gen.graphs:
+                t1 = time.perf_counter()
+                self._capture(gen)
+                capture_s = time.perf_counter() - t1
+                gen.capture_s = capture_s
+                captures = len(gen.graphs)
+            self._warm = True
+        if not pin:
+            zeros_i = np.zeros((1, self.nnz), np.int32)
+            for b in self.buckets:
+                self._dispatch(gen, np.repeat(zeros_i, b, axis=0),
+                               np.zeros((b, self.nnz), np.float32))
         return {"seconds": time.perf_counter() - t0,
-                "buckets": list(self.buckets)}
+                "buckets": list(self.buckets), "captures": captures,
+                "capture_s": capture_s}
 
     # ------------------------------------------------------------ execute
 
@@ -224,30 +360,40 @@ class PredictEngine:
     def _dispatch(self, gen: Generation, ids: np.ndarray,
                   vals: np.ndarray) -> np.ndarray:
         """Stage ``ids``/``vals`` into their bucket's buffers (padding
-        with id 0, value 0), run the model, return the first ``n``
-        predictions as host floats."""
+        with id 0, value 0), run the model (on the card: replay ``gen``'s
+        graph of the bucket), return the first ``n`` predictions as host
+        floats."""
         n = ids.shape[0]
         bucket = self._bucket_for(n)
         staged = self._staging.get(bucket)
-        if staged is None:
+        graph = gen.graphs.get(bucket) if self._graphed else None
+        if staged is None or (self._graphed and graph is None):
             raise RuntimeError(
                 f"bucket {bucket} not warmed — call warmup() before serving")
-        ids_h, vals_h = staged
+        ids_h, vals_h, out_h = staged
         with self._dispatch_lock, self._device_ctx():
             ids_np, vals_np = ids_h.numpy(), vals_h.numpy()
             ids_np[:n] = ids
             ids_np[n:] = 0
             vals_np[:n] = vals
             vals_np[n:] = 0.0
-            # The staging buffers are reused only after .cpu() below has
-            # waited for this dispatch, so the async copies are safe.
-            # Predictions in a bf16 compute dtype widen to float32: numpy
-            # has no bf16.
-            out = self.spec.predict(
-                gen.params,
-                ids_h.to(self.device, non_blocking=True),
-                vals_h.to(self.device, non_blocking=True)).float().cpu()
-        return out.numpy()[:n]
+            if graph is None:
+                # Predictions in a bf16 compute dtype widen to float32:
+                # numpy has no bf16.
+                return self.spec.predict(
+                    gen.params, ids_h.to(self.device),
+                    vals_h.to(self.device)).float().numpy()[:n]
+            # The staging buffers are reused only after the synchronise
+            # below, so the asynchronous copies are safe.
+            graph.ids.copy_(ids_h, non_blocking=True)
+            graph.vals.copy_(vals_h, non_blocking=True)
+            graph.graph.replay()
+            out_h.copy_(graph.out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            self.graph_replays += 1
+            for k, c in graph.kernels.items():
+                self._runs[k] = self._runs.get(k, 0) + c
+            return out_h.numpy()[:n].copy()
 
     def _execute(self, gen: Generation, ids: np.ndarray,
                  vals: np.ndarray) -> np.ndarray:

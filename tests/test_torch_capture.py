@@ -362,3 +362,56 @@ def test_every_kernel_counter_is_known_to_the_graphs():
     counts = ops.kernel_launches()
     assert len(counts) == len(ops.KERNEL_COUNTERS) == 8
     assert all(isinstance(n, int) for n in counts.values())
+
+
+# -------------------------------------------------- serving's predict
+
+
+def _serving_case(family, cd, num_fields=F):
+    kw = dict(num_features=num_fields * BUCKET, num_fields=num_fields,
+              bucket=BUCKET, param_dtype=cd, compute_dtype=cd, init_std=0.1)
+    spec = {"fm": lambda: models.FieldFMSpec(rank=FM_K, **kw),
+            "ffm": lambda: models.FieldFFMSpec(rank=FFM_K, **kw),
+            "deepfm": lambda: models.FieldDeepFMSpec(
+                rank=FM_K, mlp_dims=(16, 16, 16), **kw)}[family]()
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, BUCKET, (64, num_fields))
+                           .astype(np.int32))
+    vals = torch.from_numpy(rng.random((64, num_fields)).astype(np.float32))
+    return spec, params, ids, vals
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm"])
+def test_every_served_predict_is_capturable(family, cd):
+    """What the engine captures per bucket on the card: ``spec.predict``
+    (and FieldFFM's kernel form, which the card's ``scores`` takes) runs
+    under the guard and gives the same predictions as outside it."""
+    spec, params, ids, vals = _serving_case(family, cd)
+    want = spec.predict(params, ids, vals)
+    with NoHostSync():
+        got = spec.predict(params, ids, vals).float()
+        if family == "ffm":
+            spec._scores_sel(params, ids, vals)
+    assert torch.equal(got, want.float())
+
+
+def test_a_capture_of_more_than_64_fields_refuses_with_its_reason(
+        monkeypatch):
+    """F = 65: the forward kernel takes its table pointers from an array
+    copied from the host at each call, which a graph cannot hold. On the
+    CPU the plain version scores it under the guard; under a capture the
+    wrapper refuses with the reason (on the card the engine's capture then
+    raises naming the bucket, ``tests/test_torch_package.py``)."""
+    from fm_spark_tpu_torch.ops import KernelUnavailable, fused_fwd
+
+    spec, params, ids, vals = _serving_case("fm", "float32", num_fields=65)
+    assert fused_fwd.PARAM_FIELDS == 64
+    with NoHostSync():
+        spec.predict(params, ids, vals)
+    monkeypatch.setattr(fused_fwd, "_capturing", lambda: True)
+    with pytest.raises(KernelUnavailable, match="65 fields > 64"):
+        spec.predict(params, ids, vals)
+    small = _serving_case("fm", "float32", num_fields=64)
+    small[0].predict(*small[1:])          # 64 fields pass in the parameters

@@ -10,6 +10,17 @@ package's (mirroring ``tests/test_checkpoint.py`` and
   write raising at the next boundary; a FieldDeepFM's nested params and
   Adam state saved beside them (``opt/``) and restored bit for bit, and
   a chain without optimizer state restoring an empty one.
+- The chain's writers: ``demote`` (tombstone, then the pointer
+  republished; idempotent), ``demote_newer_than`` (one atomic range
+  stone), an explicit restore of a demoted step refused, a crash between
+  the tombstone and the pointer (the ``ckpt_demote`` fault point patched
+  to raise) recovered by the next demotion, ENOSPC on a chain file
+  running the emergency GC once (tombstoned steps, manifests of steps
+  that are gone, ``.tmp`` leftovers; never ``last_good``'s step) and
+  retrying once, and a second ENOSPC raising. Across packages: the
+  port's tombstones veto the same steps under JAX's reader, and JAX's
+  stones copied into a port chain veto the same steps in the port's
+  ``ChainFollower``.
 - Training: kill-and-resume equals the uninterrupted run bit for bit
   (FieldFM compact bf16 ``dedup_sr`` with the host aux at
   ``steps_per_call`` 1 and 2, and FieldFFM); the preemption flush; a
@@ -25,6 +36,7 @@ package's (mirroring ``tests/test_checkpoint.py`` and
 """
 
 import dataclasses
+import errno
 import json
 import os
 import shutil
@@ -616,3 +628,176 @@ def test_the_resumed_saves_rewrite_every_stale_step(tmp_path, damage):
     for step in (4, 6):
         got = Checkpointer(str(tmp_path)).restore(params, step=step)
         assert _same(got["params"], want)
+
+
+# ------------------------------------------ demotion and the emergency GC
+#
+# The counterparts of tests/test_checkpoint_chain.py's demotion drills.
+# The SIGKILL-mid-demotion subprocess drill waits for the faults plane
+# (ROADMAP Queue 1 item 13): it needs an injected exit at ckpt_demote.
+
+
+def _demo_chain(ckdir, steps=(1, 2, 3), journal=None):
+    _, params = _params("float32")
+    ck = Checkpointer(str(ckdir), max_to_keep=10, journal=journal)
+    for s in steps:
+        ck.save(s, {"w0": params["w0"] * s, "vw": [t * s for t in params["vw"]]},
+                {"epoch": s}, force=True)
+    ck.wait()
+    return ck, params
+
+
+def test_demote_tombstones_and_republishes_last_good(tmp_path):
+    journal = EventLog()
+    ck, params = _demo_chain(tmp_path, journal=journal)
+    assert ck.last_good_step() == 3
+    assert ck.demote(3, reason="drift verdict") is True
+    assert ck.last_good_step() == 2
+    assert ck.is_tombstoned(3) and not ck.is_tombstoned(2)
+    stone = json.loads((tmp_path / "tombstones" / "3.json").read_text())
+    assert stone["step"] == 3 and stone["reason"] == "drift verdict"
+    events = [e["event"] for e in journal.records]
+    assert events[-2:] == ["generation_demoted", "last_good_republished"]
+    assert ck.restore(params)["step"] == 2
+    assert ck.demote(3) is False                     # idempotent
+    assert ck.all_steps() == [1, 2, 3]               # bytes intact
+    ck.close()
+
+
+def test_demote_newer_than_is_one_atomic_range(tmp_path):
+    ck, params = _demo_chain(tmp_path, steps=(1, 2, 3, 4))
+    assert ck.demote_newer_than(2, reason="drift day") == [3, 4]
+    assert ck.tombstoned_steps() == {3, 4} and ck.last_good_step() == 2
+    assert os.listdir(tmp_path / "tombstones") == ["range_2_4.json"]
+    stone = json.loads((tmp_path / "tombstones" / "range_2_4.json").read_text())
+    assert (stone["newer_than"], stone["through"], stone["steps"]) == (2, 4,
+                                                                       [3, 4])
+    # Saves after the rollback land past the range and are trusted.
+    ck.save(5, params)
+    ck.wait()
+    assert ck.last_good_step() == 5 and ck.restore(params)["step"] == 5
+    assert ck.demote_newer_than(5) == []
+    ck.close()
+
+
+def test_explicit_restore_of_a_demoted_step_refuses(tmp_path):
+    ck, params = _demo_chain(tmp_path)
+    ck.demote(3, reason="drift")
+    with pytest.raises(CheckpointChainBroken, match="tombstone"):
+        ck.restore(params, step=3)
+    ck.close()
+
+
+def test_a_crash_between_tombstone_and_pointer_recovers(tmp_path, monkeypatch):
+    """The ckpt_demote fault point sits after the tombstone and before the
+    republished pointer: the failure leaves a pointer that vouches for
+    vetoed steps, readers veto them anyway, and the next demotion repairs
+    the pointer."""
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+    from fm_spark_tpu_torch.resilience import faults
+
+    ck, params = _demo_chain(tmp_path)
+
+    def crash(point):
+        if point == "ckpt_demote":
+            raise RuntimeError("killed inside the demotion window")
+    monkeypatch.setattr(faults, "inject", crash)
+    with pytest.raises(RuntimeError, match="demotion window"):
+        ck.demote_newer_than(1, reason="drift")
+    monkeypatch.undo()
+    assert ck.tombstoned_steps() == {2, 3} and ck.last_good_step() == 3
+    assert ChainFollower(str(tmp_path)).restore(params)["step"] == 1
+    assert ck.demote_newer_than(1, reason="drift") == []
+    assert ck.last_good_step() == 1
+    monkeypatch.setattr(faults, "inject", crash)
+    with pytest.raises(RuntimeError):
+        ck.demote(1)
+    monkeypatch.undo()
+    assert ck.last_good_step() == 1                  # stale: vouches for 1
+    assert ck.demote(1) is False and ck.last_good_step() is None
+    assert ChainFollower(str(tmp_path)).restore(params) is None
+    ck.close()
+
+
+def test_enospc_runs_the_emergency_gc_once_and_retries(tmp_path, monkeypatch):
+    journal = EventLog()
+    ck, params = _demo_chain(tmp_path, steps=(1, 2, 3, 4), journal=journal)
+    ck.demote_newer_than(2, reason="drift")          # 3 and 4 vetoed
+    # The crash window's stale pointer vouches for a vetoed step: that step
+    # is never a victim.
+    (tmp_path / "last_good.json").write_text('{"step": 4}')
+    os.unlink(tmp_path / "manifests" / "1.json")
+    shutil.rmtree(tmp_path / "1")
+    (tmp_path / "manifests" / "1.json").write_text("{}")   # a step gone
+    (tmp_path / "last_good.json.tmp").write_text("torn")
+    from fm_spark_tpu_torch.utils import durable
+
+    real = durable.atomic_write_json
+    calls = []
+
+    def full_once(path, obj, **kw):
+        calls.append(os.path.basename(path))
+        if len(calls) == 1:
+            raise OSError(errno.ENOSPC, "No space left on device")
+        return real(path, obj, **kw)
+    monkeypatch.setattr(durable, "atomic_write_json", full_once)
+    ck.save(5, params)
+    ck.wait()
+    assert calls[:2] == ["5.json", "5.json"]         # one retry
+    gc = [e for e in journal.records if e["event"] == "ckpt_emergency_gc"]
+    assert len(gc) == 1 and gc[0]["steps"] == [3] and gc[0]["manifests"] == [1]
+    assert ck.all_steps() == [2, 4, 5] and ck.last_good_step() == 5
+    assert sorted(os.listdir(tmp_path / "manifests")) == ["2.json", "4.json",
+                                                          "5.json"]
+    assert not (tmp_path / "last_good.json.tmp").exists()
+    assert ck.restore(params)["step"] == 5
+    ck.close()
+
+
+def test_enospc_twice_raises(tmp_path, monkeypatch):
+    ck, params = _demo_chain(tmp_path, steps=(1,))
+    from fm_spark_tpu_torch.utils import durable
+
+    def full(path, obj, **kw):
+        raise OSError(errno.ENOSPC, "No space left on device")
+    monkeypatch.setattr(durable, "atomic_write_json", full)
+    with pytest.raises(CheckpointIOError) as err:
+        ck.demote(1)
+    assert err.value.errno == errno.ENOSPC
+    ck.close()
+
+
+def test_tombstones_veto_the_same_steps_in_both_packages(tmp_path):
+    """The port's stones parse to the same vetoed steps under JAX's
+    reader; stones JAX's Checkpointer writes, copied into a port chain,
+    veto the same steps in the port's ChainFollower."""
+    from fm_spark_tpu import checkpoint as jckpt
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+
+    ck, params = _demo_chain(tmp_path / "port", steps=(1, 2, 3, 4, 5))
+    ck.demote(5, reason="single")
+    ck.demote_newer_than(2, reason="range")
+    stones = jckpt._read_tombstones(str(tmp_path / "port" / "tombstones"))
+    assert {s for s in range(8) if s in stones} == {3, 4, 5}
+    assert ck.tombstoned_steps() == {3, 4, 5}
+    ck.close()
+
+    jparams = {"w0": jnp.float32(0.0), "vw": [jnp.zeros((BUCKET, 5))] * F}
+    jck = jckpt.Checkpointer(str(tmp_path / "jax"), save_every=1,
+                             async_save=False)
+    for s in (1, 2, 3, 4, 5):
+        jck.save(s, jparams, {}, None, force=True)
+    jck.wait()
+    jck.demote(5, reason="single")
+    jck.demote_newer_than(2, reason="range")
+    want = jck.tombstoned_steps()
+    jck.close()
+    assert want == {3, 4, 5}
+    ck, _ = _demo_chain(tmp_path / "copy", steps=(1, 2, 3, 4, 5))
+    ck.close()
+    shutil.copytree(tmp_path / "jax" / "tombstones", tmp_path / "copy" /
+                    "tombstones")
+    fol = ChainFollower(str(tmp_path / "copy"))
+    assert fol.tombstoned_steps() == want
+    assert [s for s in range(8) if fol.is_tombstoned(s)] == [3, 4, 5]
+    assert fol.restore(params)["step"] == 2

@@ -69,7 +69,7 @@ def test_resolve_device_never_picks_the_cpu_silently():
         resolve_device("meta")
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.serve import PredictEngine
 
@@ -81,6 +81,13 @@ def test_entry_points_default_to_the_card():
     params = spec.init(device="cpu")
     with pytest.raises(DeviceUnavailable):
         PredictEngine(spec, params)
+    from fm_spark_tpu_torch import cli
+    from fm_spark_tpu_torch.models import save_model
+
+    model_dir = os.path.join(str(tmp_path), "m")
+    save_model(model_dir, spec, params)
+    with pytest.raises(DeviceUnavailable):
+        cli.main(["serve", "--model", model_dir, "--synthetic", "8"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -331,11 +338,106 @@ def test_engine_serves_through_the_kernel(cuda):
     vals = rng.random((20, 6)).astype(np.float32)
     before = fused_fwd.launches
     got = eng.predict(ids, vals)
-    assert fused_fwd.launches - before == 3      # 8 + 8 + 4 rows
+    # 8 + 8 + 4 rows: three replays of graphs that each recorded the
+    # kernel once, launched past the wrapper's count.
+    assert fused_fwd.launches == before
+    assert eng.graph_replays == 3
+    assert eng.kernel_runs() == {"fm_fused_scores": 3}
     cpu = {"w0": params["w0"].cpu(), "vw": [t.cpu() for t in params["vw"]]}
     want = spec.predict(cpu, torch.from_numpy(ids), torch.from_numpy(vals))
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
     eng.close()
+
+
+def _served_model(cuda, family, cd, num_fields=6, seed=0):
+    from fm_spark_tpu_torch import models
+
+    kw = dict(num_features=num_fields * 50, num_fields=num_fields, bucket=50,
+              param_dtype=cd, compute_dtype=cd, init_std=0.2)
+    spec = {"fm": lambda: models.FieldFMSpec(rank=64, **kw),
+            "ffm": lambda: models.FieldFFMSpec(rank=16, **kw),
+            "deepfm": lambda: models.FieldDeepFMSpec(rank=16, **kw)}[family]()
+    params = spec.init(torch.Generator(device=cuda).manual_seed(seed), cuda)
+    return spec, params
+
+
+def _rows(n, num_fields=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 50, (n, num_fields)).astype(np.int32),
+            rng.random((n, num_fields)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm"])
+def test_bucket_replay_equals_eager_bit_for_bit_on_the_card(cuda, family, cd):
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    spec, params = _served_model(cuda, family, cd)
+    eng = PredictEngine(spec, params, buckets=(1, 8, 64, 512), device=cuda)
+    warm = eng.warmup()
+    assert warm["captures"] == 4 and warm["capture_s"] > 0
+    for b in (1, 8, 64, 512):
+        ids, vals = _rows(b, seed=b)
+        got = eng.score(ids, vals)
+        want = spec.predict(params, torch.from_numpy(ids).to(cuda),
+                            torch.from_numpy(vals).to(cuda)).float().cpu()
+        assert np.array_equal(got, want.numpy()), (family, cd, b)
+    assert eng.graph_replays == 4
+    eng.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm"])
+def test_a_swap_recaptures_and_no_answer_comes_from_the_old_generation(
+        cuda, family):
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    spec, params = _served_model(cuda, family, "float32", seed=1)
+    newer = {**params, "w0": params["w0"] + 1.0}
+    eng = PredictEngine(spec, params, buckets=(8, 64), device=cuda)
+    eng.warmup()
+    ids, vals = _rows(50)
+    old = eng.predict(ids, vals)
+    gen = eng.swap_generation(newer, step=3)
+    assert set(gen.graphs) == {8, 64} and gen.capture_s > 0
+    new = eng.predict(ids, vals)
+    want = spec.predict(newer, torch.from_numpy(ids).to(cuda),
+                        torch.from_numpy(vals).to(cuda)).float().cpu().numpy()
+    assert np.array_equal(new, want)
+    assert not np.isclose(new, old, rtol=0, atol=1e-6).any()
+    eng.close()
+
+
+@pytest.mark.gpu
+def test_deepfm_rows_are_batch_invariant_on_the_card(cuda):
+    """A FieldDeepFM row served in each bucket equals the same row in a
+    batch of 512, bit for bit, in bf16 and fp32 (the head's fixed row
+    tiles; bf16 products with float32 sums)."""
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    for cd in ("float32", "bfloat16"):
+        spec, params = _served_model(cuda, "deepfm", cd)
+        eng = PredictEngine(spec, params, buckets=(1, 8, 64, 512),
+                            device=cuda)
+        eng.warmup()
+        ids, vals = _rows(512, seed=3)
+        full = eng.score(ids, vals)
+        for n in (1, 5, 8, 33, 64, 300):
+            assert np.array_equal(eng.score(ids[:n], vals[:n]), full[:n]), \
+                (cd, n)
+        eng.close()
+
+
+@pytest.mark.gpu
+def test_a_capture_of_65_fields_raises_naming_the_bucket(cuda):
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    spec, params = _served_model(cuda, "fm", "float32", num_fields=65)
+    eng = PredictEngine(spec, params, buckets=(4,), device=cuda)
+    with pytest.raises(RuntimeError, match="bucket 4") as err:
+        eng.warmup()
+    assert "65 fields > 64" in str(err.value.__cause__)
 
 
 def _sorted_ranks(rng, b, kind):
@@ -786,7 +888,8 @@ def test_engine_serves_ffm_through_the_kernel(cuda, cd):
     vals = rng.random((20, 6)).astype(np.float32)
     before = ffm_sel.scores_launches
     got = eng.predict(ids, vals)
-    assert ffm_sel.scores_launches - before == 3      # 8 + 8 + 4 rows
+    assert ffm_sel.scores_launches == before      # replays: 8 + 8 + 4 rows
+    assert eng.kernel_runs() == {"ffm_sel_scores": 3}
     cpu = {"w0": params["w0"].cpu(), "vw": [t.cpu() for t in params["vw"]]}
     want = spec.predict(cpu, torch.from_numpy(ids), torch.from_numpy(vals))
     # The card scores by the owner loop, the CPU by the reference's sel

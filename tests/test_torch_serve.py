@@ -7,6 +7,7 @@ probabilities): float32 accumulation in different orders, as in
 are held bitwise equal at the raw-score level.
 """
 
+import json
 import sys
 import threading
 
@@ -241,3 +242,162 @@ def test_predict_cli_matches_jax_cli(model_dir, tmp_path):
 def test_predict_cli_needs_synthetic(model_dir):
     with pytest.raises(SystemExit):
         cli.main(["predict", "--model", model_dir, "--device", "cpu"])
+
+
+# ------------------------------------------------------------ cli serve
+
+
+def _serve_lines(text):
+    """``(predictions, json lines)`` of a serve run's standard output."""
+    preds, objs = [], []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            objs.append(json.loads(line))
+        elif line.strip():
+            preds.append(float(line))
+    return np.array(preds), objs
+
+
+SUMMARY_KEYS = {"served_requests", "served_rows", "elapsed_s", "qps",
+                "request_ms", "generation_step", "swaps", "reload_failures",
+                "staleness_steps", "degraded"}
+
+
+def test_serve_cli_matches_jax_cli(model_dir, capsys):
+    """The port's ``serve --out -`` against JAX's on the same JAX-saved
+    model dir, at the predict CLI test's tolerance (float32 sums in
+    another order; %.6g output)."""
+    args = ["serve", "--model", model_dir, "--synthetic", "64",
+            "--batch-size", "8", "--buckets", "1,8", "--out", "-",
+            "--reload-poll-s", "0", "--latency-budget-ms", "0"]
+    assert jcli.main(args + ["--obs-dir", "none"]) == 0
+    want, jlines = _serve_lines(capsys.readouterr().out)
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got, plines = _serve_lines(capsys.readouterr().out)
+    assert got.shape == want.shape == (64,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    jsum = next(o["serve_summary"] for o in jlines if "serve_summary" in o)
+    psum = next(o["serve_summary"] for o in plines if "serve_summary" in o)
+    assert set(jsum) == set(psum) == SUMMARY_KEYS
+    assert set(jsum["request_ms"]) == set(psum["request_ms"])
+    assert psum["served_requests"] == jsum["served_requests"] == 8
+    assert psum["served_rows"] == 64 and psum["generation_step"] == 0
+    assert not psum["degraded"] and psum["swaps"] == 0
+    jserving = next(o for o in jlines if "serving" in o)
+    pserving = next(o for o in plines if "serving" in o)
+    assert set(jserving) <= set(pserving)
+
+
+def test_serve_follows_a_chain_without_a_model(tmp_path, capsys):
+    """``--config`` with ``--checkpoint-dir`` and no ``--model`` serves the
+    chain's newest verified step, its tables in the chain's dtype (bf16
+    here, the config's float32), with its last_good torn to show the
+    follower walks the manifests, not the pointer."""
+    import dataclasses
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+
+    spec = dataclasses.replace(
+        configs.get_config("criteo1tb_fm_r64", bucket=16).spec(),
+        param_dtype="bfloat16")
+    ck = Checkpointer(str(tmp_path / "ck"))
+    gens = {}
+    for step in (2, 4):
+        gens[step] = spec.init(torch.Generator().manual_seed(step),
+                               device="cpu")
+        ck.save(step, gens[step])
+    ck.close()
+    (tmp_path / "ck" / "last_good.json").write_text("")
+    assert cli.main(["serve", "--config", "criteo1tb_fm_r64", "--bucket",
+                     "16", "--checkpoint-dir", str(tmp_path / "ck"),
+                     "--synthetic", "40", "--batch-size", "16", "--buckets",
+                     "4,16", "--out", "-", "--reload-poll-s", "0",
+                     "--device", "cpu"]) == 0
+    got, lines = _serve_lines(capsys.readouterr().out)
+    summary = next(o["serve_summary"] for o in lines if "serve_summary" in o)
+    assert summary["generation_step"] == 4 and summary["served_rows"] == 40
+    assert next(o for o in lines if "serving" in o)["step"] == 4
+    ids, vals, _ = cli._synthetic_for_model(spec, 40)
+    want = spec.predict(gens[4], torch.from_numpy(ids),
+                        torch.from_numpy(vals)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)  # %.6g
+    with pytest.raises(SystemExit, match="no verified checkpoint"):
+        cli.main(["serve", "--config", "criteo1tb_fm_r64", "--bucket", "16",
+                  "--checkpoint-dir", str(tmp_path / "empty"),
+                  "--synthetic", "8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs --model"):
+        cli.main(["serve", "--checkpoint-dir", str(tmp_path / "ck"),
+                  "--synthetic", "8", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag,value,item", [
+    ("--fleet", "2", "6b"), ("--autoscale-max", "3", "6b"),
+    ("--frontdoor-port", "0", "6b"), ("--classes", "a:1:2", "6b"),
+    ("--serve-seconds", "5", "6b"), ("--trace-sample", "0.1", "6b"),
+    ("--slo-ms", "10", "13"), ("--metrics-port", "0", "13"),
+    ("--obs-dir", "none", "13"), ("--compile-cache", None, "12")])
+def test_serve_unported_flags_exit_naming_their_item(model_dir, flag, value,
+                                                     item):
+    argv = ["serve", "--model", model_dir, "--synthetic", "8", "--device",
+            "cpu", flag] + ([value] if value is not None else [])
+    with pytest.raises(SystemExit, match=f"item {item}"):
+        cli.main(argv)
+
+
+def test_serve_accepts_and_ignores_optimizer(model_dir, capsys):
+    assert cli.main(["serve", "--model", model_dir, "--synthetic", "8",
+                     "--optimizer", "ftrl", "--device", "cpu"]) == 0
+    assert '"serve_summary"' in capsys.readouterr().out
+
+
+def test_list_configs_lists_the_ports_configs(capsys):
+    from fm_spark_tpu_torch import configs
+
+    assert cli.main(["list-configs"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == sorted(configs.CONFIGS)
+    assert cli.main(["list-configs", "--verbose"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["name"] for r in rows] == sorted(configs.CONFIGS)
+    assert rows[2]["bucket"] == 1 << 18 and rows[2]["model"] == "field_fm"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepfm_padded_and_unpadded_scores_are_bitwise_equal(dtype):
+    """A FieldDeepFM row scored in any bucket against the same row scored
+    in a batch of 512. The port: raw scores of the padded bucket bit for
+    bit (its products run over fixed row tiles; before them its fp32 rows
+    differed by ~3e-8 between batch sizes), predictions within the CPU
+    sigmoid's ulp. JAX's engine is not batch-invariant on the CPU (its
+    fp32 raw scores and predictions differ by up to 1.4e-7 / 6e-8 here,
+    XLA's products shaped by the batch), so it is held at one fp32 ulp
+    of the prediction's scale and, in bf16, at one bf16 ulp."""
+    kw = dict(num_features=F * BUCKET, rank=4, num_fields=F, bucket=BUCKET,
+              mlp_dims=(16, 16, 16), init_std=0.3, param_dtype=dtype,
+              compute_dtype=dtype)
+    jspec = jmodels.FieldDeepFMSpec(**kw)
+    jparams = jspec.init(jax.random.key(0))
+    spec = models.FieldDeepFMSpec(**kw)
+    params = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    buckets = (1, 8, 64, 512)
+    jeng = JaxPredictEngine(jspec, jparams, buckets=buckets)
+    jeng.warmup()
+    eng = _engine(spec, params, buckets=buckets)
+    ids, vals = _batch(512, seed=9)
+    jfull, full = jeng.score(ids, vals), eng.score(ids, vals)
+    jtol = 2.0 ** -23 if dtype == "float32" else 2.0 ** -8
+    full_raw = spec.scores(params, torch.from_numpy(ids),
+                           torch.from_numpy(vals))
+    for n in (1, 5, 8, 50, 64, 300):
+        np.testing.assert_allclose(jeng.score(ids[:n], vals[:n]), jfull[:n],
+                                   rtol=0, atol=jtol)
+        np.testing.assert_allclose(eng.score(ids[:n], vals[:n]), full[:n],
+                                   **ULP2)
+        bucket = next(b for b in buckets if b >= n)
+        pad = np.zeros((bucket - n, F), np.int32)
+        raw = spec.scores(
+            params, torch.from_numpy(np.concatenate([ids[:n], pad])),
+            torch.from_numpy(np.concatenate([vals[:n], pad.astype(np.float32)])))
+        assert torch.equal(raw[:n], full_raw[:n])
+    eng.close()
