@@ -182,7 +182,28 @@ Phases (any failure exits non-zero before the last line is printed):
    launches and device-busy ms per batch, the forward kernels' runs per
    replay by symbol; a swap from host params (H2D and capture seconds)
    after which every answer is the new generation's; and config 3
-   bf16's memory after 3 swaps.
+   bf16's memory after 3 swaps;
+17. configs 1 and 2, the flat FM (``flat_fm_phase``): kernel A against
+   its plain version at each dense step's shape (the device dedup of the
+   batch's B·nnz lanes, w = rank + 1, cap = B·nnz), with device, call,
+   plain and ``index_add`` times and the bound; then every kernel count
+   set to 0 and, for config 2 (``criteo_kaggle_fm_r32`` at full width:
+   1,277,952 x 32 fp32, B = 16,384 x 39 global Zipf ids) and config 1
+   (``movielens_fm_r8`` on an ML-100K-shaped ratings file synthesized
+   from a seed: 943 users, 1,682 items, 100,000 ratings, B = 4,096), the
+   dense step (``train.make_train_step``) 5 steps eagerly and captured
+   from the same seeded params, loss, ``grad_norm``, params and the
+   schedule's count equal bit for bit after every step, wall ms per step,
+   3 profiled steps of each (device-busy ms, idle share, host launches,
+   kernel A's runs per replay by symbol), the eager step repeated on two
+   copies bit for bit, and one step on the card against the plain CPU
+   step (params and scores within rtol 1e-5, atol 1e-6: float32 sums in
+   another order); config 2 behind ``PredictEngine``, each bucket's
+   replay equal to eager bit for bit, with dispatch ms; ``fmtorch``
+   preprocess of a 98,304-row Criteo-shaped TSV at config 2's bucket,
+   train uninterrupted and stopped and resumed (bit for bit), eval and
+   predict ``--data``; config 1 trained and evaluated through ``fmtorch``.
+   Kernel A must have launched.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -3365,6 +3386,331 @@ def serve_chain_phase(dev, report):
     return runs
 
 
+FLAT_STEPS = 5                           # phase 17: eager against captured
+FLAT_C2 = dict(name="criteo_kaggle_fm_r32", fields=39, bucket=1 << 15,
+               rank=32, batch=16384)         # config 2
+FLAT_C1 = dict(name="movielens_fm_r8", users=943, items=1682,
+               ratings=100000, rank=8, batch=4096)   # config 1, ML-100K's shape
+FLAT_TSV_ROWS = 98304                    # phase 17's Criteo TSV (4 steps + holdout)
+# The card's step against the plain CPU step from the same params: float32
+# sums (the batch's, and each id's lanes) in another order on each side.
+FLAT_RTOL, FLAT_ATOL = 1e-5, 1e-6
+
+
+class _FlatConfig2Stream:
+    """Config 2's batch: ``BenchStream``'s Zipf(1.3) ids per field, made
+    global (``field·32768 + id``, the flat table's ids)."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self._inner = BenchStream(seed, batch=FLAT_C2["batch"],
+                                  fields=FLAT_C2["fields"],
+                                  bucket=FLAT_C2["bucket"])
+        self._offsets = (np.arange(FLAT_C2["fields"], dtype=np.int32)
+                         * FLAT_C2["bucket"])
+
+    def next_batch(self):
+        ids, vals, labels, weights = self._inner.next_batch()
+        return ids + self._offsets, vals, labels, weights
+
+
+def _flat_leg(dev, name, spec, tcfg, batches):
+    """One config of phase 17: the dense step (``train.make_train_step``)
+    ``FLAT_STEPS`` steps eagerly (its body) on one copy of seeded params
+    and captured on another, loss, ``grad_norm``, params and the
+    schedule's count equal bit for bit after each step; wall ms per step
+    (host clock to a synchronise, steps 2-5), then 3 profiled steps of
+    each (device-busy ms, idle share, host launches, kernel A's runs by
+    symbol); the eager body repeated on two copies of the same params and
+    state (the same bits); one step on the card against the plain CPU
+    step from the same params, and the card's scores against the CPU's."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import train
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.ops import segsum
+
+    def batch_on(b, d):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in b]
+
+    host = [batches.next_batch() for _ in range(FLAT_STEPS + 4)]
+    on_dev = [batch_on(b, dev) for b in host]
+    p0 = spec.init(torch.Generator(device=dev).manual_seed(17), device=dev)
+
+    def fresh():
+        params = {k: v.clone() for k, v in p0.items()}
+        opt = train.make_optimizer(tcfg)
+        return params, opt.init(params), opt
+
+    pe, se, opt_e = fresh()
+    pc, sc, opt_c = fresh()
+    eager = train.make_train_step(spec, tcfg, opt_e).body
+    captured = train.make_train_step(spec, tcfg, opt_c)
+    walls = {"eager": [], "captured": []}
+    losses = []
+    a0 = segsum.launches
+    for i in range(FLAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        le, ne = eager(pe, se, *on_dev[i])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mc = captured(pc, sc, *on_dev[i])[2]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        walls["eager"].append((t1 - t0) * 1e3)
+        walls["captured"].append((t2 - t1) * 1e3)
+        _check(_same_bits(le, mc["loss"]) and _same_bits(ne, mc["grad_norm"])
+               and _same_tree(pe, pc) and _same_tree(se, sc),
+               f"phase 17 {name}: the captured step {i} differs from the "
+               f"eager one (loss {float(le)} / {float(mc['loss'])})")
+        losses.append(float(le))
+        _check(np.isfinite(losses[-1]), f"phase 17 {name}: loss {losses[-1]}")
+    eager_launches = segsum.launches - a0
+    # The eager steps and the capture's warm-up each launch kernel A once.
+    _check(eager_launches == FLAT_STEPS + 1,
+           f"phase 17 {name}: kernel A launched {eager_launches} times in "
+           f"{FLAT_STEPS} eager steps and one warm-up")
+    k = FLAT_STEPS
+    # The trace may hold no device event at all (PERF.md §7): a second
+    # profile of both forms then, each stepping its params alike.
+    for _ in range(2):
+        prof = {
+            "eager": _profile_calls(lambda j: eager(pe, se, *on_dev[k + j]),
+                                    range(PROFILED_STEPS)),
+            "captured": _profile_calls(
+                lambda j: captured(pc, sc, *on_dev[k + j]),
+                range(PROFILED_STEPS))}
+        if all(p.get("device_ms_per_step") != "not measured"
+               for p in prof.values()):
+            break
+    _check(_same_tree(pe, pc) and _same_tree(se, sc),
+           f"phase 17 {name}: the profiled steps differ")
+    replay_runs = prof["captured"].get("kernel_runs_per_step", {}).get(
+        "segment_totals")
+    # The trace misses a kernel record now and then (PERF.md §7): the
+    # replays must show kernel A, at most once a step.
+    if replay_runs is not None:
+        _check(0 < replay_runs <= 1,
+               f"phase 17 {name}: kernel A ran {replay_runs} times per "
+               "replayed step (want 1)")
+    # The eager body twice on the same params, state and batch.
+    pa, sa, opt_a = fresh()
+    pb, sb, opt_b = fresh()
+    la = train.make_train_step(spec, tcfg, opt_a).body(pa, sa, *on_dev[-1])
+    lb = train.make_train_step(spec, tcfg, opt_b).body(pb, sb, *on_dev[-1])
+    _check(all(_same_bits(x, y) for x, y in zip(la, lb))
+           and _same_tree(pa, pb),
+           f"phase 17 {name}: the dense step repeated on the same inputs "
+           "gave other bits")
+    # One step from p0 on the card (pa) against the plain CPU step.
+    pcpu = {k: v.cpu() for k, v in p0.items()}
+    opt_h = train.make_optimizer(tcfg)
+    lh, nh = train.make_train_step(spec, tcfg, opt_h).body(
+        pcpu, opt_h.init(pcpu), *batch_on(host[-1], "cpu"))
+    errs = {}
+    for key, t in flatten(pa).items():
+        ref = pcpu[key]
+        errs[key] = float((t.cpu() - ref).abs().max())
+        _check(torch.allclose(t.cpu(), ref, rtol=FLAT_RTOL, atol=FLAT_ATOL),
+               f"phase 17 {name}: {key} after the card's step differs from "
+               f"the plain CPU step by {errs[key]}")
+    _check(abs(float(la[0]) - float(lh)) <= FLAT_RTOL * abs(float(lh)),
+           f"phase 17 {name}: loss {float(la[0])} on the card, {float(lh)} "
+           "on the CPU")
+    ids, vals = on_dev[0][:2]
+    with torch.no_grad():
+        s_card = spec.scores(pa, ids, vals).cpu()
+        s_cpu = spec.scores(pcpu, ids.cpu(), vals.cpu())
+    score_err = float((s_card - s_cpu).abs().max())
+    _check(torch.allclose(s_card, s_cpu, rtol=FLAT_RTOL, atol=FLAT_ATOL),
+           f"phase 17 {name}: the card's scores differ from the CPU's by "
+           f"{score_err}")
+    med = statistics.median
+    row = {
+        "num_features": spec.num_features, "rank": spec.rank,
+        "batch": int(host[0][0].shape[0]), "ids_per_row": int(
+            host[0][0].shape[1]),
+        "lanes": int(host[0][0].size),
+        "distinct_ids_first_batch": int(np.unique(host[0][0]).size),
+        "wall_ms_eager": med(walls["eager"][1:]),
+        "wall_ms_captured": med(walls["captured"][1:]),
+        "capture_s": captured.captured.capture_s,
+        "kernel_a_eager_launches": eager_launches,
+        "kernel_a_runs_per_replay": replay_runs,
+        "max_abs_err_vs_cpu": errs, "score_max_abs_err_vs_cpu": score_err,
+        "losses": losses, "loss_card_vs_cpu": [float(la[0]), float(lh)],
+        **{f"{k}_{mode}": prof[mode].get(k) for mode in prof
+           for k in ("wall_ms_per_step", "device_ms_per_step", "idle_share",
+                     "host_launches_per_step", "graph_launches_per_step",
+                     "top_kernels_ms_per_step")}}
+    del pe, pc, pa, pb, se, sc, on_dev
+    torch.cuda.empty_cache()
+    return row, p0
+
+
+def _flat_serve(dev, spec, params) -> dict:
+    """Config 2 behind ``PredictEngine`` (a CUDA graph per bucket): each
+    bucket's replay against an eager ``spec.predict`` of the same padded
+    bucket (bit for bit), dispatch ms eager against replayed (host clock
+    to the answer, median of ``SERVE_REPS``)."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    eng = PredictEngine(spec, params, nnz=FLAT_C2["fields"],
+                        buckets=SERVE_BUCKETS, device=dev)
+    warm = eng.warmup()
+    gen = eng.generation()
+    out = {"warmup_s": warm["seconds"], "capture_s": warm["capture_s"]}
+    stream = _FlatConfig2Stream(23)
+    for b in SERVE_BUCKETS:
+        ids, vals = stream.next_batch()[:2]
+        ids, vals = ids[:b], vals[:b]
+        ids_h = torch.from_numpy(ids).pin_memory()
+        vals_h = torch.from_numpy(vals).pin_memory()
+
+        def eager():
+            with torch.no_grad():
+                return spec.predict(params, ids_h.to(dev, non_blocking=True),
+                                    vals_h.to(dev, non_blocking=True)
+                                    ).float().cpu().numpy()
+
+        def replay():
+            return eng._dispatch(gen, ids, vals)
+
+        _check(np.array_equal(replay(), eager()),
+               f"phase 17 serving bucket {b}: replay != eager")
+        times = {"eager": [], "replay": []}
+        for _ in range(SERVE_REPS):
+            for mode, fn in (("eager", eager), ("replay", replay)):
+                t0 = time.perf_counter()
+                fn()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        out[b] = {f"dispatch_ms_p50_{m}": statistics.median(t)
+                  for m, t in times.items()}
+    eng.close()
+    return out
+
+
+def _flat_kernel_a(dev, name, batches, k):
+    """Kernel A against its plain version at the dense step's shape: the
+    ``[B·nnz, k+1]`` lanes of one batch sorted by id, cap = B·nnz (the
+    device dedup's form)."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import scatter
+
+    ids = torch.from_numpy(batches.next_batch()[0]).to(dev).reshape(-1)
+    order, _, _, seg = scatter._sort_segments(ids.long())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    delta = torch.randn(ids.shape[0], k + 1, generator=gen, device=dev)
+    return _kernel_a_row(dev, f"flat {name} dense step", delta, seg,
+                         ids.shape[0], order.to(torch.int32), False)
+
+
+def flat_fm_phase(dev, report):
+    """Phase 17: configs 1 and 2 (the flat FM family) at full width."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+
+    from fm_spark_tpu_torch import configs, data
+    from fm_spark_tpu_torch.data import movielens
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="flat.", dir=root)
+    t_phase = time.perf_counter()
+    out = {"card": report["card"]}
+    try:
+        ratings = os.path.join(base, "u.data")
+        movielens.synthesize_ratings(ratings, FLAT_C1["users"],
+                                     FLAT_C1["items"], FLAT_C1["ratings"],
+                                     seed=0)
+        (ids1, vals1, labels1), meta = movielens.load_ratings(ratings)
+        c1 = configs.get_config(FLAT_C1["name"])
+        c2 = configs.get_config(FLAT_C2["name"])
+        spec1 = c1.spec(meta["num_features"])
+        spec2 = c2.spec()
+        _check(spec2.num_features == 1277952 and spec2.rank == 32,
+               f"phase 17: config 2's spec {spec2}")
+        out["kernel_a"] = {
+            "config2": _flat_kernel_a(dev, "config2", _FlatConfig2Stream(5),
+                                      spec2.rank),
+            "config1": _flat_kernel_a(dev, "config1", data.Batches(
+                ids1, vals1, labels1, FLAT_C1["batch"], seed=5), spec1.rank)}
+        # The main path, with every kernel count set to 0 before it.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        out["config2"], p2 = _flat_leg(
+            dev, "config2", spec2, c2.train_config(), _FlatConfig2Stream(7))
+        print("flat config2", json.dumps(out["config2"]), flush=True)
+        out["config1"], _ = _flat_leg(
+            dev, "config1", spec1, c1.train_config(),
+            data.Batches(ids1, vals1, labels1, FLAT_C1["batch"], seed=0))
+        print("flat config1", json.dumps(out["config1"]), flush=True)
+        out["serve_config2"] = _flat_serve(dev, spec2, p2)
+        print("flat serve", json.dumps(out["serve_config2"]), flush=True)
+        del p2
+        # fmtorch: config 2 from a Criteo TSV through preprocess, trained
+        # uninterrupted and stopped/resumed; config 1 on the ratings file.
+        tsv = os.path.join(base, "day.tsv")
+        _criteo_tsv(tsv, FLAT_TSV_ROWS, seed=11)
+        packed = os.path.join(base, "packed")
+        _cli("preprocess", "--config", c2.name, "--input", tsv, "--out-dir",
+             packed)
+        common = ["train", "--config", c2.name, "--data", packed,
+                  "--batch-size", FLAT_C2["batch"], "--log-every", 1,
+                  "--checkpoint-every", 2, "--checkpoint-keep", 2]
+        leg = _resume_leg("phase 17 config2", common, base, "c2ck", 4, 2,
+                          models=True)
+        model = leg["model"]
+        ev, _ = _cli("eval", "--model", model, "--config", c2.name, "--data",
+                     packed)
+        pred = os.path.join(base, "pred.txt")
+        _cli("predict", "--model", model, "--config", c2.name, "--data",
+             packed, "--batch-size", FLAT_C2["batch"], "--out", pred)
+        preds = np.loadtxt(pred)
+        _check(preds.shape == (FLAT_TSV_ROWS,) and bool(np.isfinite(
+            preds).all()) and 0 < preds.min() and preds.max() < 1,
+            f"phase 17: predict --data wrote {preds.shape}")
+        out["cli_config2"] = {
+            "losses": leg["losses"], "resumed": leg["resumed"],
+            "eval": leg["full_eval"], "eval_cmd": ev[-1],
+            "samples_per_s": leg["samples_per_s"],
+            "saves": leg["full"]["saves"],
+            "capture_s": leg["full"]["capture_s"]}
+        lines, summ = _cli("train", "--config", c1.name, "--data", ratings,
+                           "--steps", 20, "--log-every", 5, "--model-out",
+                           os.path.join(base, "m1"))
+        ev1, _ = _cli("eval", "--model", os.path.join(base, "m1"), "--config",
+                      c1.name, "--data", ratings)
+        out["cli_config1"] = {"losses": _losses(lines),
+                              "eval": _one(lines, "eval"),
+                              "eval_cmd": ev1[-1], "capture_s":
+                              summ["capture_s"]}
+        _check(all(np.isfinite(v) for v in _losses(lines).values()),
+               "phase 17: config 1's losses")
+        counts = kernel_launches()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    _check(counts["segment_totals"] > 0,
+           f"phase 17: kernel A never launched on the flat path: {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    report["flat"] = out
+    print(f"flat {out['seconds']:.1f} s, launches {json.dumps(counts)}",
+          flush=True)
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -3412,6 +3758,7 @@ def main() -> int:
     ingest_launches = ingest_phase(dev, report)
     deepfm_launches, w17 = deepfm_phase(dev, report)
     serve_runs = serve_chain_phase(dev, report)
+    flat_launches, flat = flat_fm_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -3579,6 +3926,21 @@ def main() -> int:
             entry["deepfm_w17"] = {**{k: w17["sr_bits"][k] for k in (
                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}, "shape": f"[{DEEPFM_CAP}, {DEEPFM_W}] int32"}
+    # Phase 17, the flat FM's dense steps: kernel A at their shape and its
+    # launches (eager steps and capture warm-ups; replays run it uncounted,
+    # counted by symbol per replayed step).
+    for entry in kernels["kernels"]:
+        entry["flat_launches"] = flat_launches[entry["name"]]
+        if entry["name"] == "segment_totals":
+            for cfg in ("config2", "config1"):
+                r = flat["kernel_a"][cfg]
+                entry[f"flat_{cfg}"] = {**{k: r[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}, "shape": (
+                    f"{cfg} dense step: B*nnz={r['B']} lanes, w={r['width']}, "
+                    f"cap=B*nnz, {r['segments']} segments, fp32"),
+                    "runs_per_replayed_step": flat[cfg][
+                        "kernel_a_runs_per_replay"]}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -7,15 +7,18 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
 - ``cap-advise --data DIR --batch-size B`` scans packed batches as
   training draws them and recommends a ``--compact-cap``;
 - ``train --config NAME (--data PATH | --synthetic N) --steps S ...``
-  trains a FieldFM, FieldFFM or FieldDeepFM config (``field_sparse``
-  strategy) with the fused sparse step (on the card a captured CUDA graph
-  per step; FieldDeepFM's MLP and bias by ``--optimizer``, Adam for
-  config 5), printing one JSON loss line every ``--log-every`` steps, then
+  trains any registered config: the flat FM (configs 1 and 2, strategies
+  ``single`` and ``dp`` on one device) by ``FMTrainer``'s dense step, a
+  FieldFM, FieldFFM or FieldDeepFM config (``field_sparse`` strategy)
+  by the fused sparse step (on the card each a captured CUDA graph per
+  step; FieldDeepFM's MLP and bias by ``--optimizer``, Adam for config
+  5), printing one JSON loss line every ``--log-every`` steps, then
   ``{"eval": {...}}`` on the held-out ``--test-fraction`` and
   ``{"saved": DIR}`` with ``--model-out``. ``--data`` takes a packed dir
-  (streamed; the held-out rows are its tail) or a small text file of the
-  config's dataset (parsed in memory; a malformed line raises with
-  ``path:lineno``). ``--checkpoint-dir`` keeps a crash-consistent
+  (streamed; the held-out rows are its tail) or a small file of the
+  config's dataset: a MovieLens ratings file, a Criteo TSV or an Avazu
+  CSV (parsed in memory; a malformed line raises with ``path:lineno``).
+  ``--checkpoint-dir`` keeps a crash-consistent
   checkpoint chain every ``--checkpoint-every`` steps, and the same
   command resumes from its newest verified step; SIGTERM saves and
   stops;
@@ -64,19 +67,27 @@ def load_dataset(cfg, synthetic: int):
 
 
 def load_text(cfg, path: str):
-    """``(ids, vals, labels)`` of a small Criteo TSV or Avazu CSV file,
-    parsed in memory (the reference's ``load_dataset`` for text): field-
-    local ids for field-partitioned models, float32 labels, unit vals. A
-    malformed line raises :class:`~fm_spark_tpu_torch.data.records
-    .BadRecord` with ``path:lineno``."""
+    """``(ids, vals, labels, num_features)`` of a small file of the
+    config's dataset, parsed in memory (the reference's ``load_dataset``
+    for files): a MovieLens ratings file (``num_features`` = users +
+    items), or a Criteo TSV or Avazu CSV (the config's hashed size;
+    field-local ids for field-partitioned models, unit vals). Labels are
+    float32. A malformed Criteo or Avazu line raises
+    :class:`~fm_spark_tpu_torch.data.records.BadRecord` with
+    ``path:lineno``."""
     import numpy as np
 
-    from fm_spark_tpu_torch.data import avazu, criteo, field_local, records
+    from fm_spark_tpu_torch.data import (avazu, criteo, field_local,
+                                         movielens, records)
 
+    if cfg.dataset == "movielens":
+        (ids, vals, labels), meta = movielens.load_ratings(path,
+                                                           task=cfg.task)
+        return ids, vals, labels, meta["num_features"]
     mod = {"criteo": criteo, "avazu": avazu}.get(cfg.dataset)
     if mod is None:
-        raise SystemExit(f"--data text files are criteo/avazu configs' "
-                         f"(config {cfg.name!r} is dataset {cfg.dataset!r})")
+        raise SystemExit(f"don't know how to load dataset kind "
+                         f"{cfg.dataset!r} (config {cfg.name!r})")
     with open(path, "rb") as f:
         lines = f.read().splitlines()
     header = 0
@@ -87,7 +98,8 @@ def load_text(cfg, path: str):
                                   start_lineno=1 + header)
     if cfg.field_local_ids:
         ids = field_local(ids, cfg.bucket)
-    return ids, np.ones(ids.shape, np.float32), labels.astype(np.float32)
+    return (ids, np.ones(ids.shape, np.float32), labels.astype(np.float32),
+            cfg.num_features)
 
 
 def _synthetic_for_model(spec, n: int):
@@ -125,7 +137,13 @@ def _batches_for_model(args, spec):
     if os.path.isdir(args.data):
         return data.iter_packed_once(data.PackedDataset(args.data),
                                      args.batch_size, bucket=bucket)
-    return data.iterate_once(*load_text(cfg, args.data), args.batch_size)
+    ids, vals, labels, num_features = load_text(cfg, args.data)
+    if cfg.bucket <= 0 and num_features > spec.num_features:
+        raise SystemExit(
+            f"dataset has {num_features} features but the model was trained "
+            f"with {spec.num_features}; out-of-range ids would be silently "
+            "clamped — evaluate on data from the training feature space")
+    return data.iterate_once(ids, vals, labels, args.batch_size)
 
 
 def _launches() -> dict:
@@ -217,7 +235,7 @@ def cmd_cap_advise(args) -> int:
 def cmd_train(args) -> int:
     from fm_spark_tpu_torch import configs, data, models, resolve_device
     from fm_spark_tpu_torch.train import evaluate_params, fit_field_sparse
-    from fm_spark_tpu_torch.utils.logging import EventLog, MetricsLogger
+    from fm_spark_tpu_torch.utils.logging import MetricsLogger
 
     if bool(args.synthetic) == bool(args.data):
         raise SystemExit("train needs one of --data PATH or --synthetic N")
@@ -226,12 +244,9 @@ def cmd_train(args) -> int:
                              compute_dtype=args.compute_dtype,
                              use_pallas=True if args.use_pallas else None,
                              optimizer=args.optimizer)
-    if (cfg.model not in ("field_fm", "field_ffm", "field_deepfm")
-            or cfg.strategy != "field_sparse"):
-        raise SystemExit(f"config {cfg.name!r} (model {cfg.model!r}, "
-                         f"strategy {cfg.strategy!r}) is not ported yet "
-                         "(ROADMAP); the port trains field_fm, field_ffm and "
-                         "field_deepfm configs")
+    if cfg.strategy not in ("single", "dp", "field_sparse"):
+        raise SystemExit(f"strategy {cfg.strategy!r} (config {cfg.name!r}) "
+                         "is not ported yet (ROADMAP Queue 1 item 11)")
     tconfig = cfg.train_config(
         num_steps=args.steps, batch_size=args.batch_size,
         log_every=args.log_every, eval_every=args.eval_every,
@@ -245,6 +260,8 @@ def cmd_train(args) -> int:
         # The reference's guard (cli_levers._v_overflow_needs_cap).
         raise SystemExit(f"--compact-overflow {tconfig.compact_overflow} has "
                          "no effect without --compact-cap")
+    if cfg.strategy != "field_sparse":
+        return _train_flat(args, cfg, tconfig)
     spec = cfg.spec()
     if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
         # The reference's lever rule; the port's CLI trains on one device.
@@ -268,26 +285,11 @@ def cmd_train(args) -> int:
                                            row_range=(cut, len(ds))))
             if cut < len(ds) else None)
     else:
-        if args.data:
-            ids, vals, labels = load_text(cfg, args.data)
-        else:
-            ids, vals, labels, _ = load_dataset(cfg, args.synthetic)
-        te = None
-        if args.test_fraction > 0:
-            (ids, vals, labels), te = data.train_test_split(
-                ids, vals, labels, args.test_fraction, seed=cfg.seed)
-        batches = data.Batches(ids, vals, labels, bs, seed=cfg.seed)
-        eval_source = ((lambda: data.iterate_once(*te, bs))
-                       if te is not None else None)
-    checkpointer = journal = None
-    if args.checkpoint_dir:
-        from fm_spark_tpu_torch.checkpoint import Checkpointer
-
-        os.makedirs(args.checkpoint_dir, exist_ok=True)
-        journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
-        checkpointer = Checkpointer(
-            args.checkpoint_dir, save_every=args.checkpoint_every,
-            max_to_keep=args.checkpoint_keep, journal=journal)
+        ids, vals, labels, _ = (load_text(cfg, args.data) if args.data
+                                else load_dataset(cfg, args.synthetic))
+        batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
+                                              bs)
+    checkpointer, journal = _checkpointer(args)
     stats = {}
     before = _launches()
     try:
@@ -319,6 +321,123 @@ def cmd_train(args) -> int:
         models.save_model(args.model_out, spec, params)
         print(json.dumps({"saved": args.model_out}), flush=True)
     summary["kernel_launches"] = _since(before)
+    print(json.dumps(summary), file=sys.stderr)
+    return 0
+
+
+def _split_batches(args, cfg, ids, vals, labels, bs):
+    """In-memory arrays → (training ``Batches``, eval source or None) by
+    ``--test-fraction``."""
+    from fm_spark_tpu_torch import data
+
+    te = None
+    if args.test_fraction > 0:
+        (ids, vals, labels), te = data.train_test_split(
+            ids, vals, labels, args.test_fraction, seed=cfg.seed)
+    batches = data.Batches(ids, vals, labels, bs, seed=cfg.seed)
+    return batches, ((lambda: data.iterate_once(*te, bs))
+                     if te is not None else None)
+
+
+def _checkpointer(args):
+    """``(Checkpointer, its journal)`` of ``--checkpoint-dir``, or Nones."""
+    if not args.checkpoint_dir:
+        return None, None
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
+    return Checkpointer(args.checkpoint_dir,
+                        save_every=args.checkpoint_every,
+                        max_to_keep=args.checkpoint_keep,
+                        journal=journal), journal
+
+
+#: train's levers of the fused field steps, refused by the flat family's
+#: dense step, as the reference's CLI refuses them off ``field_sparse``.
+_FIELD_ONLY_LEVERS = (
+    ("host_dedup", "--host-dedup"), ("compact_device", "--compact-device"),
+    ("compact_cap", "--compact-cap"), ("segtotal_pallas", "--segtotal-pallas"),
+    ("gfull_fused", "--gfull-fused"), ("sel_blocked", "--sel-blocked"),
+    ("use_pallas", "--use-pallas"), ("sparse_update", "--sparse-update"),
+    ("compact_overflow", "--compact-overflow"))
+
+
+def _train_flat(args, cfg, tconfig) -> int:
+    """``train`` of a flat FM config (strategies ``single`` and ``dp``) by
+    :class:`~fm_spark_tpu_torch.train.FMTrainer`'s dense step. ``dp`` is
+    the same step on one device (the reference's mesh of one); with more
+    than one visible card it raises, never training on one of several."""
+    import torch
+
+    from fm_spark_tpu_torch import data, models, resolve_device
+    from fm_spark_tpu_torch.train import FMTrainer
+
+    for dest, flag in _FIELD_ONLY_LEVERS:
+        if getattr(args, dest):
+            raise SystemExit(f"{flag} requires strategy 'field_sparse' "
+                             f"(config {cfg.name!r} resolves to "
+                             f"{cfg.strategy!r})")
+    if args.steps_per_call > 1:
+        raise SystemExit(f"--steps-per-call requires strategy "
+                         f"'field_sparse' (config {cfg.name!r} resolves to "
+                         f"{cfg.strategy!r})")
+    if cfg.strategy == "dp" and torch.cuda.device_count() > 1:
+        raise SystemExit(
+            f"strategy 'dp' over {torch.cuda.device_count()} visible cards "
+            "is not ported yet (ROADMAP Queue 1 item 11); make one card "
+            "visible (CUDA_VISIBLE_DEVICES) to run it on one")
+    dev = resolve_device(args.device)
+    bs = tconfig.batch_size
+    if args.data and os.path.isdir(args.data):
+        # Global ids (field offset + hash): the flat table takes them as
+        # they are, bucket 0 in the reader.
+        ds = data.PackedDataset(args.data)
+        cut = (max(1, int(len(ds) * (1.0 - args.test_fraction)))
+               if args.test_fraction > 0 else len(ds))
+        batches = data.PackedBatches(ds, bs, seed=cfg.seed,
+                                     row_range=(0, cut), bucket=0)
+        eval_source = (
+            (lambda: data.iter_packed_once(ds, bs, row_range=(cut, len(ds))))
+            if cut < len(ds) else None)
+        spec = cfg.spec()
+    else:
+        ids, vals, labels, num_features = (
+            load_text(cfg, args.data) if args.data
+            else load_dataset(cfg, args.synthetic))
+        spec = cfg.spec(num_features if cfg.bucket <= 0 else None)
+        batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
+                                              bs)
+    checkpointer, journal = _checkpointer(args)
+    trainer = FMTrainer(spec, tconfig, device=dev)
+    before = _launches()
+    try:
+        with _preemption(checkpointer) as guard:
+            trainer.fit(batches, checkpointer=checkpointer,
+                        preemption_guard=guard,
+                        eval_batches=(eval_source if tconfig.eval_every > 0
+                                      else None))
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
+            journal.close()
+    if trainer.resumed is not None:
+        print(json.dumps({"resumed": trainer.resumed}), flush=True)
+    summary = {"device": str(dev), "strategy": cfg.strategy,
+               "kernel_launches": _since(before),
+               "capture_s": trainer._train_step.captured.capture_s,
+               "saves": list(checkpointer.timings) if checkpointer else []}
+    if trainer.step_count < tconfig.num_steps:
+        print(json.dumps({"preempted": trainer.step_count}), flush=True)
+        print(json.dumps(summary), file=sys.stderr)
+        return 0
+    if eval_source is not None:
+        metrics = trainer.last_eval or trainer.evaluate(eval_source())
+        print(json.dumps({"eval": metrics}), flush=True)
+    if args.model_out:
+        models.save_model(args.model_out, spec, trainer.params)
+        print(json.dumps({"saved": args.model_out}), flush=True)
     print(json.dumps(summary), file=sys.stderr)
     return 0
 
@@ -359,17 +478,22 @@ def cmd_predict(args) -> int:
     from fm_spark_tpu_torch.serve import PredictEngine
 
     spec, params = models.load_model(args.model, device=args.device)
-    nnz = getattr(spec, "num_fields", 0) or min(8, spec.num_features)
     batches = _batches_for_model(args, spec)
-    # One bucket = the batch size: every batch is padded to it.
-    engine = PredictEngine(spec, params, nnz=nnz, buckets=(args.batch_size,),
-                           latency_budget_ms=0.0, device=args.device)
-    engine.warmup()
+    engine = None
     before = _launches()
     rows = 0
     out = sys.stdout if args.out in (None, "-") else open(args.out, "w")
     try:
         for bids, bvals, _, w in batches:
+            if engine is None:
+                # One bucket = the batch size: every batch is padded to
+                # it; the row width is the data's (a flat FM's nnz).
+                engine = PredictEngine(spec, params, nnz=bids.shape[1],
+                                       buckets=(args.batch_size,),
+                                       latency_budget_ms=0.0,
+                                       device=args.device)
+                engine.warmup()
+                before = _launches()
             preds = engine.score(bids, bvals)
             for p in preds[w > 0]:
                 out.write(f"{float(p):.6g}\n")
@@ -377,9 +501,11 @@ def cmd_predict(args) -> int:
     finally:
         if out is not sys.stdout:
             out.close()
-    print(json.dumps({"predicted": rows, "device": str(engine.device),
+    print(json.dumps({"predicted": rows,
+                      "device": str(params["w0"].device),
                       "kernel_launches": _since(before),
-                      **_replay_counts(engine)}), file=sys.stderr)
+                      **(_replay_counts(engine) if engine else {})}),
+          file=sys.stderr)
     return 0
 
 
@@ -403,7 +529,7 @@ def _serve_from_chain(args):
 
     from fm_spark_tpu_torch import configs
     from fm_spark_tpu_torch.checkpoint import ChainFollower
-    from fm_spark_tpu_torch.models.io import param_names, unflatten
+    from fm_spark_tpu_torch.models.io import flatten, param_names, unflatten
 
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              compute_dtype=args.compute_dtype)
@@ -422,7 +548,7 @@ def _serve_from_chain(args):
     if restored["layout"] != "canonical":
         raise SystemExit(f"chain holds {restored['layout']}-layout "
                          "checkpoints; serving follows canonical layouts only")
-    table = restored["params"][names[1].split("/")[0]][0]
+    table = flatten(restored["params"])[names[1]]
     spec = dataclasses.replace(
         spec, param_dtype=str(table.dtype).removeprefix("torch."))
     return spec, restored["params"], restored["step"]
@@ -545,17 +671,18 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     device_help = "'cuda' (default) or 'cpu' (the kernels' plain versions)"
 
-    t = sub.add_parser("train", help="train a field_fm, field_ffm or "
-                                     "field_deepfm config")
+    t = sub.add_parser("train", help="train a registered config")
     t.add_argument("--config", required=True, help="registered config name")
     t.add_argument("--data", help="a packed dir (see preprocess) or a small "
-                                  "text file of the config's dataset")
+                                  "file of the config's dataset (MovieLens "
+                                  "ratings, Criteo TSV, Avazu CSV)")
     t.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N seeded synthetic examples")
     t.add_argument("--steps", type=int, required=True)
     t.add_argument("--optimizer", choices=["sgd", "adam", "adagrad", "ftrl"],
-                   help="FieldDeepFM's dense optimizer (MLP and bias) in "
-                        "place of the config's; the FM/FFM steps take sgd")
+                   help="the flat FM's optimizer, or FieldDeepFM's dense "
+                        "one (MLP and bias), in place of the config's; the "
+                        "field FM/FFM steps take sgd")
     t.add_argument("--batch-size", type=int, default=None)
     t.add_argument("--bucket", type=int, default=None,
                    help="per-field bucket count in place of the config's "

@@ -2,10 +2,11 @@
 ``fm_spark_tpu/configs/__init__.py``): the same names, fields and
 recipes, so a config reads the same in both packages.
 
-The ``field_fm`` (config 3, ``criteo1tb_fm_r64``), ``field_ffm``
-(config 4, ``avazu_ffm_r16``) and ``field_deepfm`` (config 5,
-``criteo1tb_deepfm``) families are ported; ``RunConfig.spec`` raises for
-the flat ``fm`` configs 1 and 2. The descriptions name each
+Every registered config is ported: the flat ``fm`` family (config 1,
+``movielens_fm_r8``; config 2, ``criteo_kaggle_fm_r32``), ``field_fm``
+(config 3, ``criteo1tb_fm_r64``), ``field_ffm`` (config 4,
+``avazu_ffm_r16``) and ``field_deepfm`` (config 5, ``criteo1tb_deepfm``).
+The descriptions name each
 config's model and data; speed figures of the JAX package were measured
 on a TPU and are not repeated here.
 """
@@ -66,26 +67,32 @@ class RunConfig:
         return self.num_fields * self.bucket
 
     def spec(self, num_features: int | None = None):
-        """The model spec of a field-partitioned config (``field_fm``,
-        ``field_ffm``, ``field_deepfm``)."""
-        if self.model not in ("field_fm", "field_ffm", "field_deepfm"):
+        """The model spec; ``num_features`` overrides the hashed size
+        ``num_fields * bucket`` (required for dense-id datasets such as
+        MovieLens, ``bucket = 0``). The flat ``fm`` family, ``field_fm``,
+        ``field_ffm`` and ``field_deepfm`` are ported; ``ffm`` and
+        ``deepfm`` raise (ROADMAP Queue 1 item 9b)."""
+        if self.model not in ("fm", "field_fm", "field_ffm", "field_deepfm"):
             raise ValueError(
                 f"model family {self.model!r} (config {self.name!r}) is not "
-                "ported yet (ROADMAP)")
+                "ported yet (ROADMAP Queue 1 item 9b)")
         if self.table_layout != "row" and self.model != "field_fm":
             raise ValueError(
                 f"table_layout={self.table_layout!r} is a field_fm "
                 f"option (config {self.name!r} is model {self.model!r})"
             )
+        n = num_features if num_features is not None else self.num_features
+        common = dict(
+            num_features=n, rank=self.rank, task=self.task, loss=self.loss,
+            init_std=0.01, param_dtype=self.param_dtype,
+            compute_dtype=self.compute_dtype,
+        )
+        if self.model == "fm":
+            return models.FMSpec(**common)
         if num_features is not None and num_features != self.num_features:
             raise ValueError(
                 f"{self.model} shapes are fixed by num_fields*bucket")
-        common = dict(
-            num_features=self.num_features, rank=self.rank, task=self.task,
-            loss=self.loss, init_std=0.01, param_dtype=self.param_dtype,
-            compute_dtype=self.compute_dtype, num_fields=self.num_fields,
-            bucket=self.bucket,
-        )
+        common.update(num_fields=self.num_fields, bucket=self.bucket)
         if self.model == "field_ffm":
             return models.FieldFFMSpec(**common)
         if self.model == "field_deepfm":

@@ -1,7 +1,9 @@
-"""Host data of the port: seeded synthetic CTR data, the Criteo and Avazu
-parsers and the packed dataset format, batching, the compact-aux wrapper
+"""Host data of the port: seeded synthetic CTR data, the MovieLens, libSVM,
+Criteo and Avazu readers and the packed dataset format, batching (epoch
+batches and the reference's Bernoulli sample), the compact-aux wrapper
 and the prefetcher."""
 
+from fm_spark_tpu_torch.data.libsvm import load_libsvm, save_libsvm  # noqa: F401
 from fm_spark_tpu_torch.data.packed import (  # noqa: F401
     PackedBatches,
     PackedDataset,
@@ -11,6 +13,7 @@ from fm_spark_tpu_torch.data.packed import (  # noqa: F401
 )
 from fm_spark_tpu_torch.data.pipeline import (  # noqa: F401
     Batches,
+    BernoulliBatches,
     DedupAuxBatches,
     Prefetcher,
     iterate_once,

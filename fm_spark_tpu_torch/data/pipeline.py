@@ -1,5 +1,6 @@
 """Host batching (the port of ``fm_spark_tpu/data/pipeline.py``):
-deterministic epoch-shuffled batches, the compact-aux wrapper, a
+deterministic epoch-shuffled batches, the reference's per-iteration
+Bernoulli sample, the compact-aux wrapper, a
 prefetcher that moves batches to the card off the critical path, and the
 ordered pass used by evaluation and predict."""
 
@@ -88,6 +89,56 @@ class Batches:
             self.index = 0
             self._perm = None
         return self.ids[sel], self.vals[sel], self.labels[sel], weights
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
+
+
+class BernoulliBatches:
+    """Per-iteration Bernoulli sampling, the reference's minibatch
+    semantics (``data.sample(withReplacement=false, miniBatchFraction,
+    seed+i)`` per SGD iteration): every step yields the FULL dataset with a
+    fresh Bernoulli(``fraction``) weight mask, so the step sees one shape
+    and the weighted-mean loss averages over exactly the sampled examples.
+    The mask of step ``i`` is ``default_rng((seed, 0xB3A2, i))``'s, the JAX
+    package's bit for bit, so a resumed run replays the same masks."""
+
+    def __init__(self, ids, vals, labels, fraction: float, seed: int = 0):
+        if not (0.0 < fraction <= 1.0):
+            raise ValueError(f"fraction must be in (0, 1], got {fraction}")
+        self.ids = np.ascontiguousarray(ids)
+        self.vals = np.ascontiguousarray(vals)
+        self.labels = np.ascontiguousarray(labels)
+        if self.ids.shape[0] == 0:
+            raise ValueError("empty dataset")
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+        self.step = 0
+
+    @property
+    def num_examples(self):
+        return self.ids.shape[0]
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed,
+                "fraction": self.fraction}
+
+    def restore(self, state: dict) -> None:
+        for key, have in [("seed", self.seed), ("fraction", self.fraction)]:
+            if key in state and state[key] != have:
+                raise ValueError(
+                    f"restoring sampler state with a different {key}")
+        self.step = int(state["step"])
+
+    def next_batch(self):
+        rng = np.random.default_rng((self.seed, 0xB3A2, self.step))
+        weights = (rng.random(self.num_examples)
+                   < self.fraction).astype(np.float32)
+        self.step += 1
+        return self.ids, self.vals, self.labels, weights
 
     def __iter__(self):
         return self

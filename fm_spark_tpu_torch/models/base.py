@@ -77,3 +77,11 @@ def predict_from_scores(spec: ModelSpec, scores: torch.Tensor) -> torch.Tensor:
     if lo is None and hi is None:
         return scores
     return torch.clamp(scores, lo, hi)
+
+
+def init_linear_terms(spec: ModelSpec, device) -> dict:
+    """Bias and linear weights, zero like the reference's (w = 0, w0 = 0)."""
+    return {
+        "w0": torch.zeros((), dtype=torch.float32, device=device),
+        "w": torch.zeros(spec.num_features, dtype=spec.pdtype, device=device),
+    }

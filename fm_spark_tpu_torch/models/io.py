@@ -3,7 +3,8 @@ of ``fm_spark_tpu/models/io.py``).
 
 A model dir holds ``spec.json`` (``{"family", "spec", "param_dtypes"}``)
 and ``params.npz`` (flat arrays named by their path in the parameter
-tree, JAX's keypath join: ``w0``, ``vw/0`` … ``vw/{F-1}``, and for
+tree, JAX's keypath join: ``w0``, ``w`` and ``v`` for the flat FM,
+``w0``, ``vw/0`` … ``vw/{F-1}`` for the field families, and for
 FieldDeepFM ``mlp/{i}/kernel`` and ``mlp/{i}/bias``). bf16 arrays are
 widened to float32 on disk and restored from ``param_dtypes`` on load, so
 a dir written by either package loads in the other.
@@ -24,12 +25,15 @@ from fm_spark_tpu_torch.models.base import torch_dtype
 from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
 from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
 from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
+from fm_spark_tpu_torch.models.fm import FMSpec
 
-_FAMILIES = {"FieldFMSpec": FieldFMSpec, "FieldFFMSpec": FieldFFMSpec,
-             "FieldDeepFMSpec": FieldDeepFMSpec}
+_FAMILIES = {"FMSpec": FMSpec, "FieldFMSpec": FieldFMSpec,
+             "FieldFFMSpec": FieldFFMSpec, "FieldDeepFMSpec": FieldDeepFMSpec}
 
 
 def _table_names(spec) -> list[str]:
+    if type(spec) is FMSpec:
+        return ["w", "v"]
     groups = ("vw",) if spec.fused_linear else ("v", "w")
     return [f"{g}/{f}" for g in groups for f in range(spec.num_fields)]
 
@@ -82,7 +86,7 @@ def unflatten(flat: dict, names) -> dict:
 def params_from_numpy(spec, flat: dict, device=None,
                       dtypes: dict | None = None) -> dict:
     """Parameters for ``spec`` on ``device`` from numpy arrays under the
-    npz names (``w0``, ``vw/0`` …, ``mlp/0/kernel`` …) — the carrier that
+    npz names (``w0``, ``w``, ``v``, ``vw/0`` …, ``mlp/0/kernel`` …) — the carrier that
     moves JAX parameters into the port. ``dtypes`` maps names to dtype
     names ('float32' | 'bfloat16'); by default tables take the spec's
     ``param_dtype``, ``w0`` and the MLP float32."""

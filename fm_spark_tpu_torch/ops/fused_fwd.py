@@ -12,10 +12,12 @@ bound.
 :func:`fm_fused_scores` launches it for CUDA tensors and runs
 :func:`fm_fused_scores_plain` only for tensors on the CPU — a tensor on
 another device raises :class:`~fm_spark_tpu_torch.ops.KernelUnavailable`.
-Above :data:`PARAM_FIELDS` fields the table pointers go to the card in an
-array copied from the host at each call, so a CUDA graph's capture of
-such a call refuses (``KernelUnavailable``) rather than record a copy it
-cannot replay.
+Above :data:`PARAM_FIELDS` fields the table pointers go to the card in a
+device array, staged once per set of table addresses
+(:func:`stage_table_pointers`) by the first call outside a capture, so a
+CUDA graph's capture of a later call records no copy from the host; a
+capture whose pointers were never staged refuses
+(``KernelUnavailable``) rather than record a copy it cannot replay.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from fm_spark_tpu_torch.ops import KernelUnavailable, note_recorded
 
 __all__ = ["PARAM_FIELDS", "fm_fused_scores", "fm_fused_scores_plain",
-           "launches"]
+           "launches", "stage_table_pointers"]
 
 #: Fields whose table pointers travel in the kernel's parameter space
 #: (FM_PARAM_FIELDS in the source); above it they go in a device array.
@@ -39,6 +41,14 @@ PARAM_FIELDS = 64
 #: launch the kernel, past the wrapper.
 launches = 0
 _launch_lock = threading.Lock()
+
+#: The staged pointer arrays, by (device, table addresses). An array holds
+#: its key, so it stays right for whatever tables later live at those
+#: addresses; the arrays are kept for the life of the process, because a
+#: captured graph reads its array at every replay (8 bytes per field for
+#: each set of addresses ever served).
+_staged: dict = {}
+_staged_lock = threading.Lock()
 
 
 def _check(tables, ids, vals, w0):
@@ -74,6 +84,28 @@ def _check(tables, ids, vals, w0):
 def _capturing() -> bool:
     """Is a CUDA graph capturing on this thread's current stream?"""
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def stage_table_pointers(tables) -> torch.Tensor:
+    """The int64 array of ``tables``' addresses on their device, staged
+    (copied from the host) at the first call for this set of addresses
+    and reused after. Under a capture an unstaged set raises
+    :class:`KernelUnavailable`: the copy could not be replayed."""
+    dev = tables[0].device
+    addrs = tuple(t.data_ptr() for t in tables)
+    key = (str(dev), addrs)
+    with _staged_lock:
+        ptrs = _staged.get(key)
+    if ptrs is not None:
+        return ptrs
+    if _capturing():
+        raise KernelUnavailable(
+            f"fm_fused_scores: the pointers of {len(addrs)} fields > "
+            f"{PARAM_FIELDS} tables are not staged on the card; a call "
+            "outside the capture stages them")
+    ptrs = torch.tensor(addrs, dtype=torch.int64, device=dev)
+    with _staged_lock:
+        return _staged.setdefault(key, ptrs)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -123,11 +155,6 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     tables = list(tables)      # a stacked tensor iterates over its fields
     _check(tables, ids, vals, w0)
     b, num_fields = ids.shape
-    if num_fields > PARAM_FIELDS and _capturing():
-        raise KernelUnavailable(
-            f"fm_fused_scores: {num_fields} fields > {PARAM_FIELDS} take a "
-            "pointer array copied from the host at each call, which a CUDA "
-            "graph cannot capture")
     if ids.device.type == "cpu":
         return fm_fused_scores_plain(tables, ids, vals, use_linear=use_linear,
                                      w0=w0, compute_bf16=compute_bf16)
@@ -145,9 +172,7 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     acc = torch.empty(b, w, dtype=torch.float32, device=dev)
     addrs = [t.data_ptr() for t in tables]
     ptrs = (ctypes.c_void_p * num_fields)(*addrs)
-    # Kept alive to the end of this call: the launch is ordered before any
-    # later reuse of its memory on this stream.
-    ptrs_dev = (torch.tensor(addrs, dtype=torch.int64, device=dev)
+    ptrs_dev = (stage_table_pointers(tables)
                 if num_fields > PARAM_FIELDS else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fm_fused_fwd(

@@ -65,7 +65,7 @@ __all__ = ["fused_embed_plan", "make_field_deepfm_multistep",
            "make_field_ffm_sparse_sgd_body", "make_field_ffm_sparse_sgd_step",
            "make_field_sparse_multistep", "make_field_sparse_sgd_body",
            "make_field_sparse_sgd_step", "make_sgd_step",
-           "precompile_field_sparse_step"]
+           "make_sparse_sgd_step", "precompile_field_sparse_step"]
 
 
 def _check_host_dedup(config: TrainConfig, loss: str):
@@ -199,6 +199,22 @@ def _reject_fused_embed_require(config: TrainConfig, what: str):
             f"FieldFM compact backward and sel-blocked FieldFFM fused "
             f"bodies, not {what}; use 'auto' for fallback-to-XLA "
             "semantics")
+
+
+def _reject_host_aux(config: TrainConfig, what: str):
+    """Guard for steps that take no aux operand: an explicit fast-path
+    request fails rather than train without it."""
+    if config.host_dedup or config.compact_cap:
+        raise ValueError(
+            f"the HOST-built dedup/compact aux is not supported by "
+            f"{what}; drop host_dedup (compact_device=True is the "
+            "form that composes with sharded layouts where supported)"
+        )
+    if config.segtotal_pallas:
+        raise ValueError(
+            f"segtotal_pallas rides the compact fused update, which is "
+            f"not part of {what}"
+        )
 
 
 def _reject_gfull(config: TrainConfig, what: str):
@@ -1086,6 +1102,108 @@ def make_field_sparse_multistep(spec, config: TrainConfig, n: int,
 
     mstep.captured = captured
     return mstep
+
+
+def make_sparse_sgd_step(spec, config: TrainConfig):
+    """The fused sparse-SGD step of the flat FM (the reference's
+    ``make_sparse_sgd_step``): ``step(params, step_idx, ids, vals, labels,
+    weights) → (params, loss)``, updating ``params`` (``{"w0", "w", "v"}``
+    of an ``FMSpec``) in place. Plain SGD with the schedule of
+    :func:`~fm_spark_tpu_torch.train.make_optimizer`, read from
+    ``step_idx`` (an int or a 0-dim int tensor).
+
+    The analytic row rule ``∂ŷ/∂v[i] = x_i·(s − v[i]·x_i)``,
+    ``∂ŷ/∂w[i] = x_i``, with LAZY L2: ``reg_factors`` and ``reg_linear``
+    decay only the gathered rows of lanes with ``weight > 0``, and
+    ``reg_bias`` the bias. The ``[B·nnz, k+1]`` lanes of ``-lr·[g_v |
+    g_w]`` (float32) are summed once per distinct id by the device dedup
+    (kernel A at cap = B·nnz on the card) and each total is added once to
+    its row, in the table's dtype; ids follow JAX's rules (an id in
+    ``[-n, 0)`` counts from the end; any other out-of-range id clamps in
+    the gather and is dropped from the write). On the card the body is
+    captured as one CUDA graph per input layout; on the CPU it runs
+    eagerly."""
+    from fm_spark_tpu_torch.models.fm import FMSpec
+    from fm_spark_tpu_torch.ops import fm as fm_ops
+
+    if type(spec) is not FMSpec:
+        raise ValueError("sparse step supports the plain FM family only")
+    if config.optimizer != "sgd":
+        raise ValueError("sparse step implements plain SGD only")
+    _reject_gfull(config, "the flat-table FM step (it has no fused "
+                  "g_full concat to eliminate)")
+    _reject_collective_dtype(config, "the single-chip flat-table FM step")
+    _reject_score_sharded(config, "the single-chip flat-table FM step")
+    _reject_sel_blocked(config, "the single-chip flat-table FM step")
+    _reject_deep_sharded(config, "the single-chip flat-table FM step")
+    _reject_fused_embed_require(config, "the single-chip flat-table FM step")
+    _reject_embed_tier_require(config, "the bare flat-table FM step "
+                               "(drive it through embed.TieredTrainer)")
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
+    cd = spec.cdtype
+    lr_at = _lr_at_tensor(config)
+    reg_factors = fused_bwd_lib.round_to(config.reg_factors, cd)
+    reg_linear = fused_bwd_lib.round_to(config.reg_linear, cd)
+
+    @torch.no_grad()
+    def body(params, step_idx, ids, vals, labels, weights):
+        w0, w, v = params["w0"], params["w"], params["v"]
+        n, k = v.shape
+        gidx = fm_ops.gather_index(ids, n)
+        vals_c = vals.to(cd)
+        rows = v[gidx].to(cd)                              # [B, nnz, k]
+        xv = rows * vals_c[..., None]
+        s = _sum_upcast(xv, 1)                             # [B, k]
+        sum_sq = _sum_upcast(xv * xv, (1, 2))
+        scores = 0.5 * (_sum_upcast(s * s, 1) - sum_sq)
+        if spec.use_linear:
+            scores = scores + _sum_upcast(w[gidx].to(cd) * vals_c, 1)
+        if spec.use_bias:
+            scores = scores + w0.to(cd)
+        loss, dscores = loss_and_grad(scores, labels, weights)
+        g_rows = dscores[:, None, None] * vals_c[..., None] * (
+            s[:, None, :] - xv)
+        lr = lr_at(_step_tensor(step_idx, v.device))
+        touched = weights > 0
+        if config.reg_factors:
+            g_rows = g_rows + reg_factors * rows * touched[:, None, None]
+        if spec.use_linear:
+            g_w = dscores[:, None] * vals_c
+            if config.reg_linear:
+                g_w = g_w + reg_linear * w[gidx].to(cd) * touched[:, None]
+        else:
+            g_w = torch.zeros_like(vals_c)
+        # -lr·g in float32 (JAX promotes the compute dtype to the float32
+        # lr), summed per id in float32 and added once in the table's dtype.
+        m = ids.numel()
+        delta = torch.cat([g_rows.float().reshape(m, k),
+                           g_w.float().reshape(m, 1)], dim=1) * -lr
+        d = scatter_lib._dedup(fm_ops.write_index(ids, n).reshape(-1), delta)
+        slot = torch.arange(delta.shape[0], device=v.device)
+        ok = (slot < d.count) & (d.useg < n)    # one write per distinct id
+        # The other slots add zeros, spread over the rows (on one row
+        # their atomic adds would queue behind each other).
+        tgt = torch.where(ok, d.useg.long(), slot % n)
+        scatter_lib._add_rows(v, tgt, ok, d.totals[:, :k])
+        if spec.use_linear:
+            scatter_lib._add_rows(w[:, None], tgt, ok, d.totals[:, k:])
+        if spec.use_bias:
+            _update_bias(w0, lr, dscores, config)
+        return params, loss
+
+    def run(params, step, *batch):
+        return body(params, step, *batch)[1]
+
+    captured = graphs.CapturedStep(run)
+
+    def step(params, step_idx, ids, vals, labels, weights):
+        if not _on_card(params):
+            return body(params, step_idx, ids, vals, labels, weights)
+        return params, captured(params, step_idx, ids, vals, labels, weights)
+
+    step.captured = captured
+    step.body = body
+    return step
 
 
 def precompile_field_sparse_step(spec, config: TrainConfig, batch_size: int,

@@ -202,10 +202,22 @@ class Optimizer:
                     s > 0, torch.rsqrt(s + eps), torch.zeros_like(s)) * g),
                 grads, state["sum_of_squares"])
         else:
-            updates = _tree_map(lambda g: neg_lr * g, grads)
+            # optax's scale casts the learning rate to each update's dtype.
+            updates = _tree_map(lambda g: _scaled(neg_lr, g), grads)
         if "schedule_count" in state:
             _advance(state["schedule_count"])
         return updates
+
+
+def _scaled(factor, g: torch.Tensor) -> torch.Tensor:
+    """``factor · g`` in ``g``'s dtype, ``factor`` (a Python float or a
+    0-dim float32 tensor) first rounded to that dtype, as JAX treats the
+    scale of a bf16 update."""
+    if isinstance(factor, float):
+        from fm_spark_tpu_torch.ops.fused_bwd import round_to
+
+        factor = round_to(factor, g.dtype)
+    return factor * g
 
 
 def apply_updates(params, updates) -> None:
@@ -229,11 +241,14 @@ def make_optimizer(config: TrainConfig) -> Optimizer:
 
 
 def _batch_to(batch, device):
-    """A numpy batch (nested tuples allowed) as tensors on ``device``."""
+    """A batch of numpy arrays or tensors (nested tuples allowed) as
+    tensors on ``device``."""
     from fm_spark_tpu_torch.data.pipeline import host_tensor
 
     if isinstance(batch, (tuple, list)):
         return tuple(_batch_to(b, device) for b in batch)
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device)
     return host_tensor(batch).to(device)
 
 
@@ -247,43 +262,402 @@ def _stack(group):
     return torch.stack(group)
 
 
-@torch.no_grad()
-def evaluate_params(spec, params, batches) -> dict:
-    """Stream numpy ``(ids, vals, labels, weights)`` batches through the
-    model on its params' device → finalized metrics (``auc``, ``logloss``,
-    ``rmse``, ``count``) as floats. Scores go through ``spec.scores`` (for
-    a FieldFM the fused forward kernel on CUDA)."""
+def make_eval_step(spec):
+    """The metrics-accumulation step: ``step(params, mstate, ids, vals,
+    labels, weights) → mstate``. RMSE is computed from the model's
+    predictions (the regression clip applied, as ``FMModel.predict``),
+    AUC and logloss from the raw scores. Scores go through
+    ``spec.scores`` (for a FieldFM the fused forward kernel on CUDA)."""
     from fm_spark_tpu_torch.models import predict_from_scores
     from fm_spark_tpu_torch.ops import losses
     from fm_spark_tpu_torch.utils import metrics as metrics_lib
 
-    dev = params["w0"].device
     per_example_loss = losses.loss_fn(spec.loss)
-    mstate = metrics_lib.init_metrics(device=dev)
-    for batch in batches:
-        ids, vals, labels, weights = _batch_to(tuple(batch)[:4], dev)
+
+    @torch.no_grad()
+    def step(params, mstate, ids, vals, labels, weights):
         scores = spec.scores(params, ids, vals)
         per = per_example_loss(scores, labels)
         preds = predict_from_scores(spec, scores)
-        mstate = metrics_lib.update_metrics(mstate, scores, labels, per,
-                                            weights, predictions=preds)
+        return metrics_lib.update_metrics(mstate, scores, labels, per,
+                                          weights, predictions=preds)
+
+    return step
+
+
+def evaluate_params(spec, params, batches, max_batches: int | None = None,
+                    step=None) -> dict:
+    """Stream ``(ids, vals, labels, weights)`` batches (numpy, or tensors)
+    through the model on its params' device → finalized metrics (``auc``,
+    ``logloss``, ``rmse``, ``count``) as floats, over at most
+    ``max_batches`` batches. ``step`` is a :func:`make_eval_step` to reuse
+    (the trainer's periodic eval passes its own)."""
+    from fm_spark_tpu_torch.utils import metrics as metrics_lib
+
+    if step is None:
+        step = make_eval_step(spec)
+    dev = params["w0"].device
+    mstate = metrics_lib.init_metrics(device=dev)
+    for i, batch in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
+        mstate = step(params, mstate, *_batch_to(tuple(batch)[:4], dev))
     return metrics_lib.finalize_metrics(mstate)
 
 
+def _group_reg(config: TrainConfig):
+    """Per-group L2 added to the gradient, MLlib's squared-L2 updater
+    (the reference's ``_group_reg``): ``w0`` → ``reg_bias``, ``w`` →
+    ``reg_linear``, ``v`` and ``mlp`` → ``reg_factors``; a FieldFM ``vw``
+    table takes a per-column vector (factor columns ``reg_factors``, the
+    last column ``reg_linear``). An unknown group raises: a parameter
+    silently left unregularized is worse than a crash. Each reg is
+    rounded to the gradient's dtype first, as JAX treats a Python float
+    beside an array (the ``vw`` vector is float32, as the reference's)."""
+    from fm_spark_tpu_torch.ops.fused_bwd import round_to
+
+    known = {"w0": config.reg_bias, "w": config.reg_linear,
+             "v": config.reg_factors, "mlp": config.reg_factors}
+
+    def one(key, g, p):
+        if key == "vw":
+            if config.reg_factors == 0.0 and config.reg_linear == 0.0:
+                return g
+            r = torch.full((p.shape[-1],), round_to(config.reg_factors,
+                                                    torch.float32),
+                           dtype=torch.float32, device=p.device)
+            r[-1] = round_to(config.reg_linear, torch.float32)
+            return g + r * p.to(g.dtype)
+        if key not in known:
+            raise ValueError(f"no regularization group for param {key!r}")
+        r = known[key]
+        if r == 0.0:
+            return g
+        return g + round_to(r, g.dtype) * p.to(g.dtype)
+
+    def add_reg(grads, params):
+        return {key: _tree_map(lambda g, p, key=key: one(key, g, p),
+                               g, params[key])
+                for key, g in grads.items()}
+
+    return add_reg
+
+
+def _global_norm(tree) -> torch.Tensor:
+    """``optax.global_norm``: the square root of the sum of every leaf's
+    sum of squares (each leaf's sum in its dtype, bf16 accumulated in
+    float32 and rounded once; the leaves added in float32 in key order)."""
+    from fm_spark_tpu_torch.graphs import _leaves
+    from fm_spark_tpu_torch.ops.fm import sum_upcast
+
+    total = None
+    for g in _leaves(tree):
+        sq = sum_upcast(g * g).float()
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+#: Rows past the table in the dense step's gradient buffers, which the
+#: dedup's unused segment slots write to.
+_SPARE_ROWS = 4096
+
+
+def _dense_fm_body(spec, config: TrainConfig, optimizer):
+    """One dense step of the flat FM (the computation of the reference's
+    ``make_train_step`` for an ``FMSpec``): ``body(params, opt_state, ids,
+    vals, labels, weights) → (loss, grad_norm)``, updating ``params`` and
+    ``opt_state`` in place.
+
+    The gradient is written out, not taken by autograd: per lane
+    ``∂ŷ/∂v[i] = x_i·(s − v[i]·x_i)`` and ``∂ŷ/∂w[i] = x_i``, times the
+    loss's ``∂L/∂ŷ``. The ``[B·nnz, k+1]`` lanes of ``[g_v | g_w]`` are
+    summed once per distinct id by the device dedup
+    (``ops.scatter._dedup``: a stable sort and kernel A at cap = B·nnz on
+    the card, no atomics, so a repeat gives the same bits), and the totals
+    written into the unique rows of zero float32 gradients of ``v`` and
+    ``w``, whose :data:`_SPARE_ROWS` rows past the table take what JAX's
+    scatter drops (ids outside ``[-n, n)``) and the unused segment slots.
+    Then ``_group_reg``'s
+    dense L2 and ``config.optimizer`` over the whole table, in place, as
+    XLA updates it: every row decays every step, touched or not. The
+    table gradients take the table's dtype (as JAX's do), ``w0``'s is
+    float32. A term gated off (``use_bias``/``use_linear`` False) gets a
+    zero gradient."""
+    from fm_spark_tpu_torch.ops import fm as fm_ops
+    from fm_spark_tpu_torch.ops import scatter as scatter_lib
+    from fm_spark_tpu_torch.sparse import _loss_and_grad_fn
+
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
+    add_reg = _group_reg(config)
+    cd, pd = spec.cdtype, spec.pdtype
+    sum_upcast = fm_ops.sum_upcast
+
+    @torch.no_grad()
+    def body(params, opt_state, ids, vals, labels, weights):
+        w0, w, v = params["w0"], params["w"], params["v"]
+        n, k = v.shape
+        dev = v.device
+        gidx = fm_ops.gather_index(ids, n)                 # [B, nnz]
+        vals_c = vals.to(cd)
+        xv = v[gidx].to(cd) * vals_c[..., None]            # [B, nnz, k]
+        s = sum_upcast(xv, 1)                              # [B, k]
+        inter = 0.5 * (sum_upcast(s * s, 1) - sum_upcast(xv * xv, (1, 2)))
+        zero = torch.zeros((), dtype=cd, device=dev)
+        linear = (sum_upcast(w[gidx].to(cd) * vals_c, 1) if spec.use_linear
+                  else zero)
+        bias = w0.to(cd) if spec.use_bias else zero
+        loss, dscores = loss_and_grad(bias + linear + inter, labels, weights)
+
+        g_v = dscores[:, None, None] * vals_c[..., None] * (s[:, None, :] - xv)
+        g_w = (dscores[:, None] * vals_c if spec.use_linear
+               else torch.zeros_like(vals_c))
+        m = ids.numel()
+        lanes = torch.cat([g_v.float().reshape(m, k),
+                           g_w.float().reshape(m, 1)], dim=1)
+        wid = fm_ops.write_index(ids, n).reshape(-1)
+        d = scatter_lib._dedup(wid, lanes)
+        slot = torch.arange(wid.shape[0], device=dev)
+        # A slot past the segment count holds no total: it writes to one
+        # of the spare rows past the table, spread over them (the stores
+        # of every unused slot to one row would queue behind each other).
+        tgt = torch.where(slot < d.count, d.useg.long(),
+                          n + slot % _SPARE_ROWS)
+        g_v = torch.zeros(n + _SPARE_ROWS, k, dtype=torch.float32,
+                          device=dev).index_copy_(0, tgt, d.totals[:, :k])
+        g_w = torch.zeros(n + _SPARE_ROWS, dtype=torch.float32,
+                          device=dev).index_copy_(0, tgt, d.totals[:, k])
+        g_w0 = (sum_upcast(dscores).float() if spec.use_bias
+                else torch.zeros((), dtype=torch.float32, device=dev))
+        grads = add_reg({"w0": g_w0, "w": g_w[:n].to(pd),
+                         "v": g_v[:n].to(pd)}, params)
+        norm = _global_norm(grads)
+        apply_updates(params, optimizer.update(grads, opt_state, params))
+        return loss.float(), norm
+
+    return body
+
+
+def make_train_step(spec, config: TrainConfig, optimizer=None):
+    """The single-device dense train step of the flat FM (the reference's
+    ``make_train_step``): ``step(params, opt_state, ids, vals, labels,
+    weights) → (params, opt_state, {"loss", "grad_norm"})``, the params
+    and the optimizer's state updated in place (the counterpart of their
+    donation), the metrics 0-dim float32 tensors on the params' device.
+    ``optimizer`` defaults to :func:`make_optimizer` of ``config``.
+
+    On the card the body (:func:`_dense_fm_body`) is captured as one CUDA
+    graph over ``{"params", "opt"}`` (:class:`~fm_spark_tpu_torch.graphs
+    .CapturedStep`, the counterpart of ``jax.jit``): the schedule's count
+    stays on the card, and other params or state tensors capture anew. On
+    the CPU it runs the eager body. Other families raise: their dense
+    steps are ROADMAP Queue 1 item 9b."""
+    from fm_spark_tpu_torch import graphs
+    from fm_spark_tpu_torch.models.fm import FMSpec
+    from fm_spark_tpu_torch.sparse import (_reject_collective_dtype,
+                                           _reject_deep_sharded,
+                                           _reject_embed_tier_require,
+                                           _reject_fused_embed_require,
+                                           _reject_host_aux,
+                                           _reject_score_sharded,
+                                           _reject_sel_blocked)
+
+    if type(spec) is not FMSpec:
+        raise ValueError(
+            f"the dense train step of {type(spec).__name__} is not ported "
+            "yet (ROADMAP Queue 1 item 9b); the port's takes FMSpec")
+    what = "the dense single-device train step"
+    _reject_host_aux(config, "the dense optax train step")
+    _reject_collective_dtype(config, what)
+    _reject_score_sharded(config, what)
+    _reject_deep_sharded(config, what)
+    _reject_sel_blocked(config, what)
+    _reject_fused_embed_require(config, what)
+    _reject_embed_tier_require(config, what)
+    body = _dense_fm_body(spec, config, optimizer or make_optimizer(config))
+
+    def run(state, _step, *batch):
+        return torch.stack(body(state["params"], state["opt"], *batch))
+
+    captured = graphs.CapturedStep(run)
+
+    def step(params, opt_state, ids, vals, labels, weights):
+        if params["w0"].device.type != "cuda":
+            loss, norm = body(params, opt_state, ids, vals, labels, weights)
+        else:
+            loss, norm = captured({"params": params, "opt": opt_state}, 0,
+                                  ids, vals, labels, weights)
+        return params, opt_state, {"loss": loss, "grad_norm": norm}
+
+    step.captured = captured
+    step.body = body
+    return step
+
+
+class FMTrainer:
+    """End-to-end trainer of the flat FM on one device, the rebuild's
+    ``FMWithSGD`` (the port of the reference's ``FMTrainer``)::
+
+        trainer = FMTrainer(spec, TrainConfig(num_steps=1000, ...))
+        params = trainer.fit(train_batches)
+        metrics = trainer.evaluate(eval_batches)
+
+    The params start from ``spec.init`` seeded by ``config.seed`` on
+    ``device`` (the card unless ``device="cpu"``); copy other values into
+    them in place before :meth:`fit` to start elsewhere (the captured
+    step binds their storage). Each step is :func:`make_train_step`'s.
+    """
+
+    def __init__(self, spec, config: TrainConfig, device=None):
+        from fm_spark_tpu_torch import resolve_device
+        from fm_spark_tpu_torch.utils.logging import MetricsLogger
+
+        self.spec = spec
+        self.config = config
+        self.device = resolve_device(device)
+        self.optimizer = make_optimizer(config)
+        self._train_step = make_train_step(spec, config, self.optimizer)
+        self._eval_step = make_eval_step(spec)
+        self.params = spec.init(
+            torch.Generator(device=self.device).manual_seed(config.seed),
+            device=self.device)
+        self.opt_state = self.optimizer.init(self.params)
+        self.step_count = 0
+        self.logger = MetricsLogger()
+        self.loss_history: list[float] = []
+        self.last_eval: dict | None = None   # the newest in-fit eval
+        self.resumed: dict | None = None     # the last fit's restore
+
+    def fit(self, batches, num_steps: int | None = None, checkpointer=None,
+            preemption_guard=None, eval_batches=None, prefetch: int = 0,
+            supervisor=None, elastic=None, divergence_guard=None):
+        """Run the training loop over ``batches``, which yields ``(ids,
+        vals, labels, weights)`` (numpy arrays or tensors), and return the
+        params.
+
+        With a :class:`~fm_spark_tpu_torch.checkpoint.Checkpointer`,
+        ``num_steps`` is a GLOBAL step target: the run resumes from the
+        newest verified step (params, optimizer state with the schedule's
+        count, the step, ``loss_history``, and the cursor of ``batches``,
+        which must have ``state()``/``restore()``), saves on the
+        checkpointer's cadence and at the end; a ``preemption_guard`` that
+        is set flushes a save and returns. Without one, ``fit`` runs
+        ``num_steps`` more steps (default ``config.num_steps``).
+
+        ``eval_batches`` (a zero-argument callable returning a finite
+        batch iterable) is evaluated every ``config.eval_every`` steps and
+        after the last, logged with an ``eval_`` prefix. ``prefetch > 0``
+        moves batches to the device in a background
+        :class:`~fm_spark_tpu_torch.data.Prefetcher` of that depth, made
+        after the resume so it reads from the restored cursor.
+        ``supervisor``, ``elastic`` and ``divergence_guard`` are not
+        ported yet (ROADMAP Queue 1 items 12 and 13) and raise.
+        """
+        for name, value, item in (("supervisor", supervisor, 12),
+                                  ("elastic", elastic, 12),
+                                  ("divergence_guard", divergence_guard, 13)):
+            if value is not None:
+                raise ValueError(f"FMTrainer.fit({name}=...) is not ported "
+                                 f"yet (ROADMAP Queue 1 item {item})")
+        from fm_spark_tpu_torch.data import Prefetcher
+
+        total = num_steps if num_steps is not None else self.config.num_steps
+        start = 0
+        if checkpointer is not None:
+            if not (hasattr(batches, "state") and hasattr(batches, "restore")):
+                raise ValueError(
+                    "checkpointed training needs a resumable batch source "
+                    "with state()/restore() (e.g. data.Batches); a plain "
+                    "iterator would silently replay data after resume")
+            start, self.resumed, extra = _resume(
+                checkpointer, self.params, self.opt_state, batches)
+            if start:
+                self.step_count = start
+                self.loss_history = list((extra or {}).get("loss_history",
+                                                           []))
+        pf = (Prefetcher(batches, depth=prefetch, device=self.device)
+              if prefetch > 0 else None)
+        source = pf if pf is not None else batches
+
+        def save(force: bool = False) -> None:
+            if checkpointer is None:
+                return
+            if not force and not checkpointer.due(self.step_count):
+                return
+            checkpointer.save(self.step_count, self.params, source.state(),
+                              {"loss_history": list(self.loss_history)},
+                              force=force, opt_state=self.opt_state)
+            if force:
+                checkpointer.wait()
+
+        try:
+            return self._fit_loop(source, start, total, preemption_guard,
+                                  eval_batches, save)
+        finally:
+            if pf is not None:
+                pf.close()
+
+    def _fit_loop(self, batches, start, total, preemption_guard,
+                  eval_batches, save):
+        it = iter(batches)
+        log_every = max(self.config.log_every, 1)
+        eval_every = self.config.eval_every
+        since = 0
+        for step_i in range(start, total):
+            if preemption_guard is not None and preemption_guard.should_stop:
+                save(force=True)
+                return self.params
+            try:
+                batch = next(it)
+            except StopIteration:
+                raise ValueError(
+                    f"batch iterable exhausted after {step_i} of {total} "
+                    "steps; pass an epoch-cycling iterator (data.Batches) "
+                    "or lower num_steps") from None
+            ids, vals, labels, weights = _batch_to(tuple(batch)[:4],
+                                                   self.device)
+            _, _, m = self._train_step(self.params, self.opt_state, ids,
+                                       vals, labels, weights)
+            self.step_count += 1
+            since += 1
+            if self.step_count % log_every == 0 or step_i == total - 1:
+                loss = float(m["loss"])
+                self.loss_history.append(loss)
+                self.logger.log(self.step_count,
+                                samples=since * labels.shape[0], loss=loss,
+                                grad_norm=float(m["grad_norm"]))
+                since = 0
+            if eval_batches is not None and (
+                    (eval_every > 0 and self.step_count % eval_every == 0)
+                    or step_i == total - 1):
+                self.last_eval = self.evaluate(eval_batches())
+                self.logger.log(self.step_count, **{
+                    f"eval_{k}": v for k, v in self.last_eval.items()})
+            save()
+        save(force=True)
+        return self.params
+
+    def evaluate(self, batches, max_batches: int | None = None) -> dict:
+        """Metrics of the current params over ``batches`` through the
+        trainer's eval step."""
+        return evaluate_params(self.spec, self.params, batches, max_batches,
+                               step=self._eval_step)
+
+
 def _resume(checkpointer, params, opt_state, batches
-            ) -> tuple[int, dict | None]:
+            ) -> tuple[int, dict | None, dict | None]:
     """Restore the newest verified checkpoint into ``params`` and
     ``opt_state`` (in place, before any step is captured, so the graph
     binds the restored tensors: Adam's moments and counts included) and
     its cursor into ``batches``, the innermost source (under the aux
-    wrapper and the prefetcher). Returns ``(start step, restore info)``,
-    ``(0, None)`` on a fresh chain (the reference's ``cli._resume``)."""
+    wrapper and the prefetcher). Returns ``(start step, restore info, the
+    step's extra)``, ``(0, None, None)`` on a fresh chain (the reference's
+    ``cli._resume`` and ``checkpoint.resume_or_init``)."""
     from fm_spark_tpu_torch.checkpoint import copy_into
 
     t0 = time.perf_counter()
     restored = checkpointer.restore(params)
     if restored is None:
-        return 0, None
+        return 0, None, None
     copy_into(params, restored["params"])
     copy_into(opt_state, restored["opt_state"])
     if restored["pipeline"] is not None:
@@ -295,7 +669,7 @@ def _resume(checkpointer, params, opt_state, batches
     info = {"step": restored["step"], "pipeline": restored["pipeline"],
             "restore_ms": (time.perf_counter() - t0) * 1e3,
             **(checkpointer.restore_timing or {})}
-    return restored["step"], info
+    return restored["step"], info, restored["extra"]
 
 
 def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
@@ -411,7 +785,8 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     opt_state = step.init_opt_state(params) if deep else {}
     start, resumed = 0, None
     if checkpointer is not None:
-        start, resumed = _resume(checkpointer, params, opt_state, batches)
+        start, resumed, _ = _resume(checkpointer, params, opt_state,
+                                    batches)
     aux_src = None
     if config.host_dedup:
         batches = aux_src = DedupAuxBatches(

@@ -311,6 +311,41 @@ def test_capturable_forms_make_no_host_sync(form):
     assert loss.shape == ()
 
 
+@pytest.mark.parametrize("pd,sched", [("float32", "inv_sqrt"),
+                                      ("bfloat16", "constant")])
+@pytest.mark.parametrize("form", ["dense", "flat-sparse"])
+def test_flat_fm_steps_make_no_host_sync(form, pd, sched):
+    """The flat FM's dense optax step (``train.make_train_step``'s body,
+    the schedule's count on the device) and its sparse step (the step a
+    0-dim int32 tensor), as their graphs run them, with ids out of range
+    and zero weights."""
+    from fm_spark_tpu_torch import train
+
+    spec = models.FMSpec(num_features=40, rank=4, param_dtype=pd,
+                         compute_dtype=pd, init_std=0.1)
+    cfg = TrainConfig(learning_rate=0.05, lr_schedule=sched, reg_bias=1e-3,
+                      reg_linear=1e-2, reg_factors=1e-2)
+    params = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(2)
+    ids = rng.integers(-45, 45, (B, 3)).astype(np.int32)
+    batch = [torch.from_numpy(a) for a in (
+        ids, rng.random((B, 3)).astype(np.float32),
+        rng.integers(0, 2, B).astype(np.float32),
+        (rng.random(B) > 0.2).astype(np.float32))]
+    if form == "dense":
+        opt = train.make_optimizer(cfg)
+        state = opt.init(params)
+        body = train.make_train_step(spec, cfg, opt).body
+        with NoHostSync():
+            loss, norm = body(params, state, *batch)
+    else:
+        body = sparse.make_sparse_sgd_step(spec, cfg).body
+        step = torch.tensor(3, dtype=torch.int32)
+        with NoHostSync():
+            _, loss = body(params, step, *batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
+
+
 # --------------------------------------------------- the entry points
 
 
@@ -399,19 +434,29 @@ def test_every_served_predict_is_capturable(family, cd):
 
 def test_a_capture_of_more_than_64_fields_refuses_with_its_reason(
         monkeypatch):
-    """F = 65: the forward kernel takes its table pointers from an array
-    copied from the host at each call, which a graph cannot hold. On the
-    CPU the plain version scores it under the guard; under a capture the
-    wrapper refuses with the reason (on the card the engine's capture then
-    raises naming the bucket, ``tests/test_torch_package.py``)."""
+    """F = 65: the forward kernel takes its table pointers from a device
+    array, staged once per set of table addresses by a call outside the
+    capture (the engine's warm-up call before each bucket's capture). A
+    capture that finds them staged records no copy from the host and
+    scores as the plain version; one that finds them unstaged refuses with
+    its reason. On the CPU the plain version scores under the guard (the
+    capture itself is held on the card, ``tests/test_torch_package.py``)."""
     from fm_spark_tpu_torch.ops import KernelUnavailable, fused_fwd
 
     spec, params, ids, vals = _serving_case("fm", "float32", num_fields=65)
     assert fused_fwd.PARAM_FIELDS == 64
-    with NoHostSync():
-        spec.predict(params, ids, vals)
+    want = spec.predict(params, ids, vals)
     monkeypatch.setattr(fused_fwd, "_capturing", lambda: True)
-    with pytest.raises(KernelUnavailable, match="65 fields > 64"):
-        spec.predict(params, ids, vals)
+    with pytest.raises(KernelUnavailable, match="65 fields > 64 tables are "
+                       "not staged"):
+        fused_fwd.stage_table_pointers(params["vw"])
+    monkeypatch.setattr(fused_fwd, "_capturing", lambda: False)
+    staged = fused_fwd.stage_table_pointers(params["vw"])
+    assert staged.tolist() == [t.data_ptr() for t in params["vw"]]
+    monkeypatch.setattr(fused_fwd, "_capturing", lambda: True)
+    with NoHostSync():
+        assert fused_fwd.stage_table_pointers(params["vw"]) is staged
+        got = spec.predict(params, ids, vals)
+    assert torch.equal(got, want)
     small = _serving_case("fm", "float32", num_fields=64)
     small[0].predict(*small[1:])          # 64 fields pass in the parameters

@@ -137,7 +137,7 @@ def test_run_config_five_builds_the_spec_and_the_recipe():
         "adam", 1e-3, "constant", 16384)
     narrow = configs.get_config("criteo1tb_deepfm", bucket=64).spec()
     assert narrow.num_features == 39 * 64
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="takes num_features from the data"):
         configs.get_config("movielens_fm_r8").spec()
 
 

@@ -430,14 +430,32 @@ def test_deepfm_rows_are_batch_invariant_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_a_capture_of_65_fields_raises_naming_the_bucket(cuda):
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_a_capture_of_65_fields_replays_equal_to_the_plain_version(cuda, cd):
+    """Above 64 fields the table pointers are staged once per set of
+    addresses by the warm-up call, so each bucket captures and replays;
+    the replay equals an eager call bit for bit and the plain version
+    within the forward's tolerance, before and after a swap."""
     from fm_spark_tpu_torch.serve import PredictEngine
 
-    spec, params = _served_model(cuda, "fm", "float32", num_fields=65)
-    eng = PredictEngine(spec, params, buckets=(4,), device=cuda)
-    with pytest.raises(RuntimeError, match="bucket 4") as err:
-        eng.warmup()
-    assert "65 fields > 64" in str(err.value.__cause__)
+    spec, params = _served_model(cuda, "fm", cd, num_fields=65)
+    eng = PredictEngine(spec, params, buckets=(4, 64), device=cuda)
+    assert eng.warmup()["captures"] == 2
+    for gen_params in (params, {**params, "w0": params["w0"] + 1.0}):
+        if gen_params is not params:
+            eng.swap_generation(gen_params, step=1)
+        ids, vals = _rows(50, num_fields=65, seed=7)
+        got = eng.predict(ids, vals)
+        t_ids, t_vals = (torch.from_numpy(ids).to(cuda),
+                         torch.from_numpy(vals).to(cuda))
+        eager = spec.predict(gen_params, t_ids, t_vals).float().cpu()
+        assert np.array_equal(got, eager.numpy())
+        plain, _ = fused_fwd.fm_fused_scores_plain(
+            [t.cpu() for t in gen_params["vw"]], t_ids.cpu(), t_vals.cpu(),
+            w0=gen_params["w0"].cpu(), compute_bf16=cd == "bfloat16")
+        np.testing.assert_allclose(got, torch.sigmoid(plain).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    eng.close()
 
 
 def _sorted_ranks(rng, b, kind):
@@ -1418,3 +1436,90 @@ def test_deepfm_captured_step_and_roll_equal_eager_on_the_card(cuda, form):
     torch.cuda.synchronize()
     assert torch.equal(losses[-1], le)
     assert same(rolled, eager) and same(orl, oe)
+
+
+def _flat_fm_case(cuda, pd, seed=0):
+    from fm_spark_tpu_torch import models
+
+    spec = models.FMSpec(num_features=3000, rank=32, param_dtype=pd,
+                         compute_dtype="float32", init_std=0.1)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(3):
+        ids = (np.arange(39) * 70 + rng.zipf(1.3, (1024, 39)) % 70)
+        ids[0, 0], ids[1, 1] = -5, 3007            # JAX's index rules
+        batches.append([torch.from_numpy(a).to(cuda) for a in (
+            ids.astype(np.int32), np.ones((1024, 39), np.float32),
+            rng.integers(0, 2, 1024).astype(np.float32),
+            (rng.random(1024) > 0.1).astype(np.float32))])
+    params = spec.init(torch.Generator(device=cuda).manual_seed(seed), cuda)
+    return spec, params, batches
+
+
+def _clone_tree(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["dense", "flat-sparse"])
+def test_flat_fm_step_repeats_and_captures_bit_for_bit_on_the_card(cuda, form,
+                                                                   pd):
+    """The flat FM's dense step (and its sparse step) on the card: the
+    eager body run twice on copies of the same params gives the same bits
+    (the dedup's sums by kernel A, no atomics), the captured step equals
+    the eager one bit for bit, each eager step launches kernel A once and
+    the replays none past the wrapper; and the card's params stay within
+    float32 reassociation of the plain CPU run."""
+    from fm_spark_tpu_torch import sparse, train
+    from fm_spark_tpu_torch.ops import segsum
+
+    spec, p0, batches = _flat_fm_case(cuda, pd)
+    cfg = train.TrainConfig(learning_rate=0.05, reg_bias=1e-3,
+                            reg_linear=1e-5, reg_factors=1e-4)
+    runs = {}
+    for name in ("eager1", "eager2", "captured", "cpu"):
+        dev = torch.device("cpu") if name == "cpu" else cuda
+        params = {k: v.to(dev) for k, v in _clone_tree(p0).items()}
+        losses = []
+        if form == "dense":
+            opt = train.make_optimizer(cfg)
+            state = opt.init(params)
+            step = train.make_train_step(spec, cfg, opt)
+            for b in batches:
+                b = [t.to(dev) for t in b]
+                if name.startswith("eager"):
+                    before = segsum.launches
+                    losses.append(step.body(params, state, *b)[0])
+                    assert segsum.launches == before + 1
+                else:
+                    losses.append(step(params, state, *b)[2]["loss"])
+        else:
+            step = sparse.make_sparse_sgd_step(spec, cfg)
+            for i, b in enumerate(batches):
+                b = [t.to(dev) for t in b]
+                fn = step.body if name.startswith("eager") else step
+                losses.append(fn(params, i, *b)[1])
+        if name == "captured":
+            before = segsum.launches
+            losses.append((step(params, state, *batches[0])[2]["loss"]
+                           if form == "dense" else
+                           step(params, 3, *batches[0])[1]))
+            assert segsum.launches == before         # replays only
+            assert len(step.captured.capture_s) == 1
+        else:
+            losses.append((step.body(params, state, *[
+                t.to(dev) for t in batches[0]])[0] if form == "dense" else
+                step.body(params, 3, *[t.to(dev) for t in batches[0]])[1]))
+        torch.cuda.synchronize()
+        runs[name] = (params, torch.stack(losses).cpu())
+    for name in ("eager2", "captured"):
+        assert torch.equal(runs[name][1], runs["eager1"][1]), name
+        for key in ("w0", "w", "v"):
+            assert torch.equal(runs[name][0][key], runs["eager1"][0][key]), \
+                (name, key)
+    if pd == "float32":
+        for key in ("w0", "w", "v"):
+            torch.testing.assert_close(runs["eager1"][0][key].cpu(),
+                                       runs["cpu"][0][key], rtol=1e-5,
+                                       atol=1e-6)

@@ -229,8 +229,16 @@ def test_configs_and_train_config_match_jax():
     assert c5.spec() == models.FieldDeepFMSpec(
         **dataclasses.asdict(jconfigs.get_config(
             "criteo1tb_deepfm", param_dtype="bfloat16").spec()))
-    with pytest.raises(ValueError, match="not ported yet"):
-        configs.get_config("criteo_kaggle_fm_r32").spec()
+    # The flat family: config 2's hashed size, config 1's from the data.
+    assert configs.get_config("criteo_kaggle_fm_r32").spec() == models.FMSpec(
+        **dataclasses.asdict(jconfigs.get_config(
+            "criteo_kaggle_fm_r32").spec()))
+    c1, jc1 = (configs.get_config("movielens_fm_r8"),
+               jconfigs.get_config("movielens_fm_r8"))
+    assert c1.spec(2625) == models.FMSpec(**dataclasses.asdict(jc1.spec(2625)))
+    for cfg in (c1, jc1):
+        with pytest.raises(ValueError, match="takes num_features from"):
+            cfg.spec()
     with pytest.raises(KeyError):
         configs.get_config("nope")
 
