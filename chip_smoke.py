@@ -203,7 +203,27 @@ Phases (any failure exits non-zero before the last line is printed):
    preprocess of a 98,304-row Criteo-shaped TSV at config 2's bucket,
    train uninterrupted and stopped and resumed (bit for bit), eval and
    predict ``--data``; config 1 trained and evaluated through ``fmtorch``.
-   Kernel A must have launched.
+   Kernel A must have launched;
+18. the other families and optimizers (``families_phase``), every kernel
+   count set to 0 before its legs: leg A, FTRL, the dense step at config
+   2's full width as phase 17's legs are held (eager against captured bit
+   for bit with FTRL's ``z``/``n``, against the CPU step), ``fmtorch
+   train --optimizer ftrl`` on 81,920 synthetic rows stopped at 2 and
+   resumed to 4 (bit for bit), config 5's recipe with its dense head by
+   FTRL (eager against captured); leg B, the sparse adaptive step at
+   config 2's width for FTRL and AdaGrad (eager against captured bit for
+   bit, untouched rows and slots unchanged, against the CPU step, step ms,
+   kernel A per replay); leg C, a config-4 FieldFFM's params through
+   ``to_flat_params`` (the flat FFM's scores against FieldFFM's), the sel
+   kernels and kernel A (w = 369, lanes = B·23) at the flat FFM step's
+   shape against their plain versions, the dense FFM step at B = 16,384
+   as a phase 17 leg; leg D, the flat DeepFM at config 5's widths (39 x
+   262,144 x 16, MLP 400-400-400, Adam, fp32, B = 16,384) as a phase 17
+   leg, and served per bucket; leg E, ``FMWithLBFGS`` on config 1's
+   ratings (the card's objective against the CPU's), ``FFMWithSGD`` on
+   20,000 Avazu-shaped rows, and config 2's trained model through
+   ``save_libfm``/``load_libfm`` (scores bit for bit). Kernel A, both sel
+   kernels and the SR bits must have launched.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -2491,9 +2511,10 @@ DEEPFM_STEPS = 4                         # eager against captured, per leg
 
 
 def _deepfm_leg(dev, spec, cfg, kernels, leg):
-    """One phase-15 leg: ``DEEPFM_STEPS`` steps of the eager body on one
-    copy of seeded params and of the captured step on another, over the
-    same bench batches, the loss, params and Adam's state the same bits
+    """One leg of phases 15 and 18: ``DEEPFM_STEPS`` steps of the eager
+    body on one copy of seeded params and of the captured step on
+    another, over the same bench batches, the loss, params and the dense
+    optimizer's state (Adam's, or FTRL's) the same bits
     after each; then 3 profiled steps of each (device-busy ms, idle
     share, host launches, each kernel's runs per replay by symbol)."""
     import numpy as np
@@ -2563,7 +2584,7 @@ def _deepfm_leg(dev, spec, cfg, kernels, leg):
             for mode in ("eager", "captured")}
     torch.cuda.synchronize()
     _check(_same_tree(eager, graphed) and _same_tree(oe, og)
-           and int(og["count"]) == total,
+           and ("count" not in og or int(og["count"]) == total),
            f"deepfm {leg}: captured != eager after the profiled steps")
     replayed = prof["captured"].get("kernel_runs_per_step")
     _check(replayed is not None
@@ -3399,24 +3420,156 @@ FLAT_RTOL, FLAT_ATOL = 1e-5, 1e-6
 
 class _FlatConfig2Stream:
     """Config 2's batch: ``BenchStream``'s Zipf(1.3) ids per field, made
-    global (``field·32768 + id``, the flat table's ids)."""
+    global (``field·32768 + id``, the flat table's ids). Other widths give
+    the flat table of another config (config 4's for the flat FFM, config
+    5's for the flat DeepFM)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, batch: int = FLAT_C2["batch"],
+                 fields: int = FLAT_C2["fields"],
+                 bucket: int = FLAT_C2["bucket"]):
         import numpy as np
 
-        self._inner = BenchStream(seed, batch=FLAT_C2["batch"],
-                                  fields=FLAT_C2["fields"],
-                                  bucket=FLAT_C2["bucket"])
-        self._offsets = (np.arange(FLAT_C2["fields"], dtype=np.int32)
-                         * FLAT_C2["bucket"])
+        self._inner = BenchStream(seed, batch=batch, fields=fields,
+                                  bucket=bucket)
+        self._offsets = np.arange(fields, dtype=np.int32) * bucket
 
     def next_batch(self):
         ids, vals, labels, weights = self._inner.next_batch()
         return ids + self._offsets, vals, labels, weights
 
 
+#: A coordinate's CPU gradient is clear of summation noise above this
+#: many times its floor (:func:`_grad_floor`): a gradient held within
+#: the floor then differs by at most 1e-3 of itself, and a scale-free
+#: step (``lr·g/(|g| + eps)``) by at most ``1e-3·lr``.
+GRAD_CLEAR = 1e3
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches inside the block are a check's, not the main
+    path's: every wrapper's count is set back to its value before it."""
+    import importlib
+
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS
+
+    counters = [(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                 attr) for _, mod, attr in KERNEL_COUNTERS]
+    before = [getattr(mod, attr) for mod, attr in counters]
+    try:
+        yield
+    finally:
+        for (mod, attr), value in zip(counters, before):
+            setattr(mod, attr, value)
+
+
+def _grad_floor(g):
+    """The absolute floor of a float32 gradient against another device's:
+    ``FLAT_RTOL`` of the largest magnitude in each row (in the whole leaf
+    for a leaf of one dimension or none), the error a total that cancels
+    keeps when its terms are summed in another order."""
+    a = g.float().abs()
+    if a.dim() >= 2:
+        rows = a.reshape(a.shape[0], -1).amax(1)
+        return FLAT_RTOL * rows.reshape(-1, *([1] * (a.dim() - 1)))
+    return FLAT_RTOL * (a.max() if a.numel() else a.sum())
+
+
+def _grads_near(name, got, want):
+    """A gradient tree on the card against the plain CPU one: each element
+    within ``FLAT_RTOL`` of the CPU's value plus its floor
+    (:func:`_grad_floor`), so a row the CPU leaves zero (no id touched
+    it) is zero on the card. Returns each leaf's max abs error and the
+    CPU's leaves with their floors, by keypath."""
+    from fm_spark_tpu_torch.models.io import flatten
+
+    ref_leaves = flatten(want)
+    errs, ref = {}, {}
+    for key, t in flatten(got).items():
+        w = ref_leaves[key].float()
+        diff = (t.cpu().float() - w).abs()
+        floor = _grad_floor(w)
+        errs[key] = float(diff.max()) if diff.numel() else 0.0
+        over = diff - (FLAT_RTOL * w.abs() + floor)
+        at = int(over.argmax()) if over.numel() else 0
+        _check(bool((over <= 0).all()),
+               f"{name}: the gradient {key} on the card differs from the "
+               f"CPU's by {errs[key]}; at flat index {at}: card "
+               f"{float(t.reshape(-1)[at])}, CPU {float(w.reshape(-1)[at])}, "
+               f"floor {float(floor.expand_as(w).reshape(-1)[at])}")
+        ref[key] = (w, floor)
+    return errs, ref
+
+
+def _relu_ties(spec, p_card, p_cpu, ids, vals):
+    """The rows of a DeepFM batch whose MLP's ReLUs decide differently on
+    the card and the CPU (``[B]`` bool, on the CPU). The MLP's input, the
+    gathered rows times their values, is the same bits on both; a hidden
+    pre-activation within rounding of 0 then takes either side, which
+    moves that row's whole gradient through the unit, not its rounding."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import fm as fm_ops
+    from fm_spark_tpu_torch.sparse import _mlp_forward
+
+    masks = []
+    with torch.no_grad(), _uncounted():
+        for p, i, x in ((p_card, ids, vals),
+                        (p_cpu, ids.cpu(), vals.cpu())):
+            v = p["v"]
+            xv = (v[fm_ops.gather_index(i, v.shape[0])].to(spec.cdtype)
+                  * x.to(spec.cdtype)[..., None])
+            pres = _mlp_forward(spec, p["mlp"], xv.reshape(xv.shape[0], -1))[2]
+            masks.append([(t > 0).cpu() for t in pres[:len(spec.mlp_dims)]])
+    differ = torch.zeros(ids.shape[0], dtype=torch.bool)
+    for a, b in zip(*masks):
+        differ |= (a != b).any(1)
+    return differ
+
+
+def _near_cpu(got, want, optimizer: str, lr: float, grad=None) -> bool:
+    """A parameter after one step on the card against the plain CPU step
+    from the same params: within ``FLAT_RTOL``/``FLAT_ATOL`` (float32 sums
+    in another order). Adam's and AdaGrad's first step is scale-free where
+    the gradient is small (``lr·g/(|g| + eps)``): a total that cancels to
+    summation noise may step either way, so there each coordinate is held
+    to the most two such steps can differ, ``2·lr``, and each coordinate
+    whose CPU gradient (``grad``: the gradient and its floor, the
+    optimizer's view with the L2 added) is ``GRAD_CLEAR`` times clear of
+    its floor to the CPU tests' ``FLAT_RTOL`` plus ``1e-3·lr``. Returns
+    whether it holds and, for Adam and AdaGrad, the share of coordinates
+    clear of the noise and their largest error."""
+    import torch
+
+    if optimizer in ("adam", "adagrad"):
+        diff = (got - want).abs()
+        g, floor = grad
+        clear = (g.abs() > GRAD_CLEAR * floor).reshape(diff.shape)
+        ok = bool((diff <= 2 * lr + FLAT_ATOL).all()) and bool(
+            (diff[clear] <= FLAT_RTOL * want.abs()[clear] + 1e-3 * lr).all())
+        return ok, {"clear_share": float(clear.float().mean()),
+                    "clear_max_abs_err": float(diff[clear].max())
+                    if bool(clear.any()) else 0.0}
+    return torch.allclose(got, want, rtol=FLAT_RTOL, atol=FLAT_ATOL), None
+
+
+def _near_cpu_state(got, want) -> bool:
+    """An optimizer's state after one step on the card against the plain
+    CPU step's: counts equal; moments and slots (the gradient, its square,
+    FTRL's ``z``) within ``FLAT_RTOL`` and ``FLAT_RTOL`` of the leaf's
+    largest magnitude (a sum that cancels keeps its absolute error)."""
+    import torch
+
+    if not want.is_floating_point():
+        return torch.equal(got, want)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return torch.allclose(got, want, rtol=FLAT_RTOL,
+                          atol=FLAT_ATOL + FLAT_RTOL * scale)
+
+
 def _flat_leg(dev, name, spec, tcfg, batches):
-    """One config of phase 17: the dense step (``train.make_train_step``)
+    """One leg of phases 17 and 18 (``name`` begins with the phase): the
+    dense step (``train.make_train_step``) of a flat family
     ``FLAT_STEPS`` steps eagerly (its body) on one copy of seeded params
     and captured on another, loss, ``grad_norm``, params and the
     schedule's count equal bit for bit after each step; wall ms per step
@@ -3424,23 +3577,29 @@ def _flat_leg(dev, name, spec, tcfg, batches):
     each (device-busy ms, idle share, host launches, kernel A's runs by
     symbol); the eager body repeated on two copies of the same params and
     state (the same bits); one step on the card against the plain CPU
-    step from the same params, and the card's scores against the CPU's."""
+    step from the same params: its gradient (:func:`_grads_near`), the
+    params (:func:`_near_cpu`) and the optimizer's state
+    (:func:`_near_cpu_state`); and the card's scores against the CPU's at
+    the card's stepped params."""
     import numpy as np
     import torch
 
     from fm_spark_tpu_torch import train
+    from fm_spark_tpu_torch.models.deepfm import DeepFMSpec
     from fm_spark_tpu_torch.models.io import flatten
     from fm_spark_tpu_torch.ops import segsum
 
     def batch_on(b, d):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in b]
 
+    from fm_spark_tpu_torch.graphs import _clone
+
     host = [batches.next_batch() for _ in range(FLAT_STEPS + 4)]
     on_dev = [batch_on(b, dev) for b in host]
     p0 = spec.init(torch.Generator(device=dev).manual_seed(17), device=dev)
 
     def fresh():
-        params = {k: v.clone() for k, v in p0.items()}
+        params = _clone(p0)
         opt = train.make_optimizer(tcfg)
         return params, opt.init(params), opt
 
@@ -3464,14 +3623,14 @@ def _flat_leg(dev, name, spec, tcfg, batches):
         walls["captured"].append((t2 - t1) * 1e3)
         _check(_same_bits(le, mc["loss"]) and _same_bits(ne, mc["grad_norm"])
                and _same_tree(pe, pc) and _same_tree(se, sc),
-               f"phase 17 {name}: the captured step {i} differs from the "
+               f"{name}: the captured step {i} differs from the "
                f"eager one (loss {float(le)} / {float(mc['loss'])})")
         losses.append(float(le))
-        _check(np.isfinite(losses[-1]), f"phase 17 {name}: loss {losses[-1]}")
+        _check(np.isfinite(losses[-1]), f"{name}: loss {losses[-1]}")
     eager_launches = segsum.launches - a0
     # The eager steps and the capture's warm-up each launch kernel A once.
     _check(eager_launches == FLAT_STEPS + 1,
-           f"phase 17 {name}: kernel A launched {eager_launches} times in "
+           f"{name}: kernel A launched {eager_launches} times in "
            f"{FLAT_STEPS} eager steps and one warm-up")
     k = FLAT_STEPS
     # The trace may hold no device event at all (PERF.md §7): a second
@@ -3487,46 +3646,76 @@ def _flat_leg(dev, name, spec, tcfg, batches):
                for p in prof.values()):
             break
     _check(_same_tree(pe, pc) and _same_tree(se, sc),
-           f"phase 17 {name}: the profiled steps differ")
+           f"{name}: the profiled steps differ")
     replay_runs = prof["captured"].get("kernel_runs_per_step", {}).get(
         "segment_totals")
     # The trace misses a kernel record now and then (PERF.md §7): the
     # replays must show kernel A, at most once a step.
     if replay_runs is not None:
         _check(0 < replay_runs <= 1,
-               f"phase 17 {name}: kernel A ran {replay_runs} times per "
+               f"{name}: kernel A ran {replay_runs} times per "
                "replayed step (want 1)")
+    # The batch of the repeat and of the card-against-CPU step below. A
+    # DeepFM row whose ReLUs decide differently on the two devices takes
+    # no part in it (weight 0 on both sides): its gradient through the
+    # unit moves by far more than the rounding.
+    pcpu = _clone(p0, "cpu")
+    host_b = batch_on(host[-1], "cpu")
+    check_b, check_h = list(on_dev[-1]), list(host_b)
+    ties = 0
+    if isinstance(spec, DeepFMSpec):
+        tied = _relu_ties(spec, p0, pcpu, *on_dev[-1][:2])
+        ties = int(tied.sum())
+        check_h[3] = torch.where(tied, 0.0, host_b[3])
+        check_b[3] = check_h[3].to(dev)
     # The eager body twice on the same params, state and batch.
     pa, sa, opt_a = fresh()
     pb, sb, opt_b = fresh()
-    la = train.make_train_step(spec, tcfg, opt_a).body(pa, sa, *on_dev[-1])
-    lb = train.make_train_step(spec, tcfg, opt_b).body(pb, sb, *on_dev[-1])
+    la = train.make_train_step(spec, tcfg, opt_a).body(pa, sa, *check_b)
+    lb = train.make_train_step(spec, tcfg, opt_b).body(pb, sb, *check_b)
     _check(all(_same_bits(x, y) for x, y in zip(la, lb))
            and _same_tree(pa, pb),
-           f"phase 17 {name}: the dense step repeated on the same inputs "
+           f"{name}: the dense step repeated on the same inputs "
            "gave other bits")
-    # One step from p0 on the card (pa) against the plain CPU step.
-    pcpu = {k: v.cpu() for k, v in p0.items()}
+    # One step from p0 on the card (pa) against the plain CPU step: first
+    # its gradient (the launches a check's, uncounted), then the params.
+    grads_fn = train._dense_grads_fn(spec)
+    with torch.no_grad():
+        with _uncounted():
+            g_card = grads_fn(p0, *check_b)[1]
+        g_cpu = grads_fn(pcpu, *check_h)[1]
+    grad_errs, g_ref = _grads_near(name, g_card, g_cpu)
+    g_opt = {key: (g.float(), g_ref[key][1]) for key, g in flatten(
+        train._group_reg(tcfg)(g_cpu, pcpu)).items()}
+    del g_card, g_cpu
     opt_h = train.make_optimizer(tcfg)
+    scpu = opt_h.init(pcpu)
     lh, nh = train.make_train_step(spec, tcfg, opt_h).body(
-        pcpu, opt_h.init(pcpu), *batch_on(host[-1], "cpu"))
-    errs = {}
-    for key, t in flatten(pa).items():
-        ref = pcpu[key]
-        errs[key] = float((t.cpu() - ref).abs().max())
-        _check(torch.allclose(t.cpu(), ref, rtol=FLAT_RTOL, atol=FLAT_ATOL),
-               f"phase 17 {name}: {key} after the card's step differs from "
-               f"the plain CPU step by {errs[key]}")
+        pcpu, scpu, *check_h)
+    errs, clear = {}, {}
+    flat_cpu = {**flatten(pcpu), **flatten(scpu, "opt")}
+    for key, t in {**flatten(pa), **flatten(sa, "opt")}.items():
+        ref = flat_cpu[key]
+        errs[key] = float((t.cpu().double() - ref.double()).abs().max())
+        if key.startswith("opt/"):
+            ok = _near_cpu_state(t.cpu(), ref)
+        else:
+            ok, clear[key] = _near_cpu(t.cpu(), ref, tcfg.optimizer,
+                                       tcfg.learning_rate, g_opt.get(key))
+        _check(ok, f"{name}: {key} after the card's step differs from "
+                   f"the plain CPU step by {errs[key]} ({clear.get(key)})")
     _check(abs(float(la[0]) - float(lh)) <= FLAT_RTOL * abs(float(lh)),
-           f"phase 17 {name}: loss {float(la[0])} on the card, {float(lh)} "
+           f"{name}: loss {float(la[0])} on the card, {float(lh)} "
            "on the CPU")
     ids, vals = on_dev[0][:2]
+    # The forward on the card against the CPU's at the params the card's
+    # step reached.
     with torch.no_grad():
         s_card = spec.scores(pa, ids, vals).cpu()
-        s_cpu = spec.scores(pcpu, ids.cpu(), vals.cpu())
+        s_cpu = spec.scores(_clone(pa, "cpu"), ids.cpu(), vals.cpu())
     score_err = float((s_card - s_cpu).abs().max())
     _check(torch.allclose(s_card, s_cpu, rtol=FLAT_RTOL, atol=FLAT_ATOL),
-           f"phase 17 {name}: the card's scores differ from the CPU's by "
+           f"{name}: the card's scores differ from the CPU's by "
            f"{score_err}")
     med = statistics.median
     row = {
@@ -3541,32 +3730,35 @@ def _flat_leg(dev, name, spec, tcfg, batches):
         "kernel_a_eager_launches": eager_launches,
         "kernel_a_runs_per_replay": replay_runs,
         "max_abs_err_vs_cpu": errs, "score_max_abs_err_vs_cpu": score_err,
-        "losses": losses, "loss_card_vs_cpu": [float(la[0]), float(lh)],
+        "grad_max_abs_err_vs_cpu": grad_errs, "relu_tie_rows": ties,
+        "scale_free_clear": clear, "losses": losses, "loss_card_vs_cpu": [float(la[0]), float(lh)],
         **{f"{k}_{mode}": prof[mode].get(k) for mode in prof
            for k in ("wall_ms_per_step", "device_ms_per_step", "idle_share",
                      "host_launches_per_step", "graph_launches_per_step",
                      "top_kernels_ms_per_step")}}
-    del pe, pc, pa, pb, se, sc, on_dev
+    del pe, pc, pa, pb, se, sc, on_dev, pcpu, scpu, g_opt
     torch.cuda.empty_cache()
     return row, p0
 
 
-def _flat_serve(dev, spec, params) -> dict:
-    """Config 2 behind ``PredictEngine`` (a CUDA graph per bucket): each
-    bucket's replay against an eager ``spec.predict`` of the same padded
-    bucket (bit for bit), dispatch ms eager against replayed (host clock
-    to the answer, median of ``SERVE_REPS``)."""
+def _flat_serve(dev, spec, params, stream=None, tag="phase 17") -> dict:
+    """A flat model behind ``PredictEngine`` (a CUDA graph per bucket;
+    config 2 and its stream by default): each bucket's replay against an
+    eager ``spec.predict`` of the same padded bucket (bit for bit),
+    dispatch ms eager against replayed (host clock to the answer, median
+    of ``SERVE_REPS``)."""
     import numpy as np
     import torch
 
     from fm_spark_tpu_torch.serve import PredictEngine
 
-    eng = PredictEngine(spec, params, nnz=FLAT_C2["fields"],
-                        buckets=SERVE_BUCKETS, device=dev)
+    stream = stream or _FlatConfig2Stream(23)
+    nnz = stream.next_batch()[0].shape[1]
+    eng = PredictEngine(spec, params, nnz=nnz, buckets=SERVE_BUCKETS,
+                        device=dev)
     warm = eng.warmup()
     gen = eng.generation()
     out = {"warmup_s": warm["seconds"], "capture_s": warm["capture_s"]}
-    stream = _FlatConfig2Stream(23)
     for b in SERVE_BUCKETS:
         ids, vals = stream.next_batch()[:2]
         ids, vals = ids[:b], vals[:b]
@@ -3583,7 +3775,7 @@ def _flat_serve(dev, spec, params) -> dict:
             return eng._dispatch(gen, ids, vals)
 
         _check(np.array_equal(replay(), eager()),
-               f"phase 17 serving bucket {b}: replay != eager")
+               f"{tag} serving bucket {b}: replay != eager")
         times = {"eager": [], "replay": []}
         for _ in range(SERVE_REPS):
             for mode, fn in (("eager", eager), ("replay", replay)):
@@ -3650,10 +3842,11 @@ def flat_fm_phase(dev, report):
             setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
                     attr, 0)
         out["config2"], p2 = _flat_leg(
-            dev, "config2", spec2, c2.train_config(), _FlatConfig2Stream(7))
+            dev, "phase 17 config2", spec2, c2.train_config(),
+            _FlatConfig2Stream(7))
         print("flat config2", json.dumps(out["config2"]), flush=True)
         out["config1"], _ = _flat_leg(
-            dev, "config1", spec1, c1.train_config(),
+            dev, "phase 17 config1", spec1, c1.train_config(),
             data.Batches(ids1, vals1, labels1, FLAT_C1["batch"], seed=0))
         print("flat config1", json.dumps(out["config1"]), flush=True)
         out["serve_config2"] = _flat_serve(dev, spec2, p2)
@@ -3711,6 +3904,436 @@ def flat_fm_phase(dev, report):
     return counts, out
 
 
+FAM_B = 16384                            # phase 18's batch (configs 2, 4, 5)
+FAM_FTRL_ROWS = 81920                    # phase 18's fmtorch leg: 4 steps + holdout
+FAM_LBFGS_ITERS = 100                    # FMWithLBFGS on config 1's ratings
+FAM_FFM_ROWS = 20000                     # FFMWithSGD's Avazu-shaped rows
+FAM_FFM_ITERS = 10
+
+
+def _adaptive_leg(dev, spec, opt):
+    """Leg B of phase 18: the sparse adaptive step (``optim.
+    make_sparse_adaptive_step``) at config 2's width, ``FLAT_STEPS`` steps
+    eagerly (its body) and captured from the same seeded params and
+    slots, the loss, params and slots equal bit for bit after each; rows
+    no lane touched, and their slots, bit-unchanged; kernel A once per
+    eager step; captured step ms (CUDA events), 3 profiled steps
+    (device-busy ms, kernel A's runs per replay by symbol); one step on
+    the card against the plain CPU step: the totals its rule reads
+    (``step.grads``, :func:`_grads_near`), the params (:func:`_near_cpu`)
+    and the slots (:func:`_near_cpu_state`)."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import optim, train
+    from fm_spark_tpu_torch.graphs import _clone
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.ops import segsum
+
+    name = f"phase 18 sparse {opt}"
+    lr = 0.05
+    cfg = train.TrainConfig(learning_rate=lr, optimizer=opt)
+    stream = _FlatConfig2Stream(31)
+    host = [stream.next_batch() for _ in range(FLAT_STEPS + PROFILED_STEPS)]
+    on_dev = [[torch.from_numpy(a).to(dev) for a in b] for b in host]
+    p0 = spec.init(torch.Generator(device=dev).manual_seed(19), device=dev)
+    s0 = optim.init_adaptive_slots(opt, spec, p0)
+    if opt == "ftrl":
+        optim.seed_ftrl_slots(s0, p0, lr, 1.0)
+    step = optim.make_sparse_adaptive_step(spec, cfg)
+    pe, se, pc, sc = _clone(p0), _clone(s0), _clone(p0), _clone(s0)
+    n = spec.num_features
+    touched = torch.zeros(n, dtype=torch.bool, device=dev)
+    a0 = segsum.launches
+    step_ms = []
+    for i in range(FLAT_STEPS):
+        le = step.body(pe, se, *on_dev[i])[2]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        lc = step(pc, sc, *on_dev[i])[2]
+        t1.record()
+        torch.cuda.synchronize()
+        if i > 0:                                # the first call captures
+            step_ms.append(t0.elapsed_time(t1))
+        touched[on_dev[i][0].reshape(-1).long()] = True
+        _check(_same_bits(le, lc) and _same_tree(pe, pc)
+               and _same_tree(se, sc),
+               f"{name}: the captured step {i} differs from the eager one")
+        _check(bool(torch.isfinite(le)), f"{name}: loss {float(le)}")
+    eager_launches = segsum.launches - a0
+    _check(eager_launches == FLAT_STEPS + 1,
+           f"{name}: kernel A launched {eager_launches} times in "
+           f"{FLAT_STEPS} eager steps and one warm-up")
+    lazy = ~touched
+    _check(all(torch.equal(t[lazy], ref[lazy]) for t, ref in (
+        (pe["v"], p0["v"]), (pe["w"], p0["w"]),
+        *((se[k][j], s0[k][j]) for k in se for j in se[k]))),
+        f"{name}: a row no lane touched, or its slots, changed")
+    prof = _profile_calls(lambda j: step(pc, sc, *on_dev[FLAT_STEPS + j]),
+                          range(PROFILED_STEPS))
+    replay_runs = prof.get("kernel_runs_per_step", {}).get("segment_totals")
+    if replay_runs is not None:
+        _check(0 < replay_runs <= 1,
+               f"{name}: kernel A ran {replay_runs} times per replay")
+    # One step from p0 on the card against the plain CPU step: first the
+    # totals its rule reads (the launches a check's, uncounted).
+    pa, sa = _clone(p0), _clone(s0)
+    la = step.body(pa, sa, *on_dev[0])[2]
+    pcpu, scpu = _clone(p0, "cpu"), _clone(s0, "cpu")
+    host0 = [torch.from_numpy(a) for a in host[0]]
+    with _uncounted():
+        g_card = step.grads(p0, *on_dev[0])
+    grad_errs, g_ref = _grads_near(name, g_card, step.grads(pcpu, *host0))
+    del g_card
+    lh = step.body(pcpu, scpu, *host0)[2]
+    errs, clear = {}, {}
+    want = {**flatten(pcpu), **flatten(scpu, "slots")}
+    for key, t in {**flatten(pa), **flatten(sa, "slots")}.items():
+        errs[key] = float((t.cpu() - want[key]).abs().max())
+        if key.startswith("slots/"):
+            ok = _near_cpu_state(t.cpu(), want[key])
+        else:
+            ok, clear[key] = _near_cpu(t.cpu(), want[key], opt, lr,
+                                       g_ref.get(key))
+        _check(ok,
+               f"{name}: {key} after the card's step differs from the "
+               f"plain CPU step by {errs[key]}")
+    _check(abs(float(la) - float(lh)) <= FLAT_RTOL * abs(float(lh)),
+           f"{name}: loss {float(la)} on the card, {float(lh)} on the CPU")
+    row = {
+        "optimizer": opt, "batch": FAM_B, "lanes": int(host[0][0].size),
+        "rows_untouched": int(lazy.sum()),
+        "captured_step_ms": step_ms,
+        "captured_step_ms_median": statistics.median(step_ms),
+        "capture_s": step.captured.capture_s,
+        "kernel_a_eager_launches": eager_launches,
+        "kernel_a_runs_per_replay": replay_runs,
+        "max_abs_err_vs_cpu": errs, "grad_max_abs_err_vs_cpu": grad_errs,
+        "scale_free_clear": clear,
+        **{k: prof.get(k) for k in (
+            "wall_ms_per_step", "device_ms_per_step", "idle_share",
+            "host_launches_per_step", "top_kernels_ms_per_step")}}
+    print("families sparse", json.dumps(row), flush=True)
+    del pe, se, pc, sc, pa, sa, on_dev
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ffm_step_kernels(dev, flat, spec):
+    """The sel kernels at the flat FFM step's shape (B = ``FAM_B`` rows of
+    ``[23, 368]`` gathered from the flat table, fp32), each against its
+    plain version (bit for bit, as phase 8's) with device, call and plain
+    ms and the bound."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import ffm_sel
+
+    stream = _FlatConfig2Stream(41, FAM_B, FFM_F, FFM_BUCKET)
+    ids = torch.from_numpy(stream.next_batch()[0]).to(dev).long()
+    rows = flat["v"][ids].reshape(FAM_B, FFM_F, FFM_F * FFM_RANK)
+    x = torch.ones(FAM_B, FFM_F, device=dev)
+    ds = torch.randn(FAM_B, generator=torch.Generator(device=dev)
+                     .manual_seed(42), device=dev) * 1e-3
+    out = {}
+    for key, fn, plain, bwd in (
+            ("scores", lambda r: ffm_sel.ffm_sel_scores(rows, x),
+             lambda r: ffm_sel.ffm_sel_scores_plain(rows, x), False),
+            ("bwd", lambda r: ffm_sel.ffm_sel_bwd(rows, x, ds),
+             lambda r: ffm_sel.ffm_sel_bwd_plain(rows, x, ds), True)):
+        got, want = fn(0), plain(0)
+        _check(torch.equal(got, want),
+               f"phase 18 ffm_sel {key} at the flat step's shape: kernel "
+               "!= plain version")
+        (bms, bby), nbytes = _ffm_bound(FAM_B, 4, bwd=bwd)
+        ms = _median_ms(fn, hide_host_ms=2.0)
+        out[key] = {"max_abs_err": float((got - want).abs().max()),
+                    "ms": ms, "call_ms": _median_ms(fn),
+                    "plain_ms": _median_ms(plain, reps=5, hide_host_ms=20.0),
+                    "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
+                    "library_ms": None,
+                    "pct_of_bound_rate": 100.0 * bms / ms}
+    print("families ffm_sel", json.dumps(out), flush=True)
+    del rows, x, ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lbfgs_leg(dev, base) -> dict:
+    """Leg E's L-BFGS: ``FMWithLBFGS.train`` on the ML-100K-shaped ratings
+    (config 1's 2,625 x 8, 100,000 rows, ``FAM_LBFGS_ITERS`` iterations,
+    config 1's regs) on the card, wall s; then ``fit_lbfgs`` from one
+    seeded init on the card and on the CPU (the plain versions): the
+    final objectives within 1e-5 relative (float32 sums in another order
+    over up to 100 iterations move the path, not the minimum)."""
+    import torch
+
+    from fm_spark_tpu_torch import compat, lbfgs
+    from fm_spark_tpu_torch.data import movielens
+    from fm_spark_tpu_torch.graphs import _clone
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    ratings = os.path.join(base, "u.data")
+    movielens.synthesize_ratings(ratings, FLAT_C1["users"], FLAT_C1["items"],
+                                 FLAT_C1["ratings"], seed=0)
+    (ids, vals, labels), meta = movielens.load_ratings(ratings)
+    regs = (0.0, 1e-5, 1e-4)                   # config 1's reg_* triple
+    entry = compat.FMWithLBFGS(numIterations=FAM_LBFGS_ITERS,
+                               dim=(True, True, FLAT_C1["rank"]),
+                               regParam=regs, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = entry.run((ids, vals, labels))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(model.spec.num_features == meta["num_features"] == 2625
+           and all(torch.isfinite(t).all() for t in model.params.values()),
+           f"phase 18 FMWithLBFGS: {model.spec}")
+    spec = model.spec
+    cfg = TrainConfig(reg_bias=regs[0], reg_linear=regs[1],
+                      reg_factors=regs[2])
+    p0 = spec.init(torch.Generator().manual_seed(5), device="cpu")
+    runs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        t0 = time.perf_counter()
+        _, info = lbfgs.fit_lbfgs(spec, _clone(p0, d), ids, vals, labels,
+                                  config=cfg, num_iterations=FAM_LBFGS_ITERS)
+        runs[where] = {**info, "wall_s": time.perf_counter() - t0}
+    rel = abs(runs["card"]["loss"] - runs["cpu"]["loss"]) / abs(
+        runs["cpu"]["loss"])
+    _check(rel <= 1e-5, f"phase 18 L-BFGS: objective {runs['card']} on the "
+                        f"card, {runs['cpu']} on the CPU")
+    out = {"entry_point": {**entry.info, "wall_s": wall},
+           "fit_card": runs["card"], "fit_cpu": runs["cpu"],
+           "objective_rel_diff": rel}
+    print("families lbfgs", json.dumps(out), flush=True)
+    return out
+
+
+def _ffm_with_sgd(dev) -> dict:
+    """Leg E's ``FFMWithSGD.train`` on ``FAM_FFM_ROWS`` Avazu-shaped rows
+    (config 4's 23 fields of Zipf ids, global over 23 x 16,384), full
+    batch, ``FAM_FFM_ITERS`` iterations, rank 16: wall s and finite
+    predictions."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import compat
+
+    ids, vals, labels, _ = _FlatConfig2Stream(
+        43, FAM_FFM_ROWS, FFM_F, FFM_BUCKET).next_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = compat.FFMWithSGD.train((ids, vals, labels),
+                                    numIterations=FAM_FFM_ITERS,
+                                    dim=(True, True, FFM_RANK), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    preds = model.predict(ids[:4096], vals[:4096])
+    _check(type(model.spec).__name__ == "FFMSpec"
+           and model.spec.num_fields == FFM_F
+           and bool(np.isfinite(preds).all()) and 0 < preds.min()
+           and preds.max() < 1,
+           f"phase 18 FFMWithSGD: {model.spec}, predictions "
+           f"[{preds.min()}, {preds.max()}]")
+    out = {"rows": FAM_FFM_ROWS, "iterations": FAM_FFM_ITERS,
+           "num_features": model.spec.num_features, "wall_s": wall,
+           "mean_prediction": float(preds.mean())}
+    print("families ffm_with_sgd", json.dumps(out), flush=True)
+    return out
+
+
+def _libfm_round_trip(dev, model_dir, base) -> dict:
+    """Leg E's libFM: config 2's trained model dir through ``save_libfm``
+    and ``load_libfm`` (on the card): the tables and the scores of a batch
+    bit for bit, the seconds of each and the file's size."""
+    import torch
+
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.models import libfm_io
+
+    spec, params = models.load_model(model_dir, device=dev)
+    path = os.path.join(base, "config2.libfm")
+    t0 = time.perf_counter()
+    libfm_io.save_libfm(path, spec, params)
+    t1 = time.perf_counter()
+    spec2, params2 = libfm_io.load_libfm(path, device=dev)
+    t2 = time.perf_counter()
+    ids, vals = (torch.from_numpy(a).to(dev)
+                 for a in _FlatConfig2Stream(44).next_batch()[:2])
+    with torch.no_grad():
+        same = torch.equal(spec.scores(params, ids, vals),
+                           spec2.scores(params2, ids, vals))
+    _check(same and all(torch.equal(params[k], params2[k])
+                        for k in ("w0", "w", "v")),
+           "phase 18 libFM: the round trip changed the model or its scores")
+    out = {"num_features": spec2.num_features, "rank": spec2.rank,
+           "save_s": t1 - t0, "load_s": t2 - t1,
+           "file_mb": os.path.getsize(path) / 1e6,
+           "scores_bit_for_bit": True}
+    os.remove(path)
+    print("families libfm", json.dumps(out), flush=True)
+    return out
+
+
+def families_phase(dev, report):
+    """Phase 18: the rest of the model families and optimizers at full
+    width: FTRL (the dense step at config 2, fmtorch train resumed, config
+    5's dense head), the sparse adaptive step (FTRL, AdaGrad), the flat
+    FFM at config 4's width and DeepFM at config 5's, L-BFGS, FFMWithSGD
+    and the libFM format."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    from fm_spark_tpu_torch import configs, models, train
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="families.", dir=root)
+    t_phase = time.perf_counter()
+    out = {"card": report["card"]}
+    c2 = configs.get_config(FLAT_C2["name"])
+    spec2 = c2.spec()
+    c4 = configs.get_config("avazu_ffm_r16")
+    cfg5 = configs.get_config("criteo1tb_deepfm", param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    timings, by_leg = {}, {}
+    try:
+        # Leg C's checks of its kernels, before the counted run: a
+        # FieldFFM's params through to_flat_params, the flat FFM's scores
+        # against FieldFFM's, the sel kernels and kernel A at the flat
+        # step's shape, each against its plain version.
+        t0 = time.perf_counter()
+        fspec, fparams = _config4_model(dev, seed=18)
+        flat_spec = fspec.flat_spec()
+        flat = fspec.to_flat_params(fparams)
+        ids, vals = (torch.from_numpy(a).to(dev) for a in BenchStream(
+            45, FAM_B, FFM_F, FFM_BUCKET).next_batch()[:2])
+        with torch.no_grad():
+            s_field = fspec.scores(fparams, ids, vals)
+            s_flat = flat_spec.scores(flat, fspec.to_global_ids(ids), vals)
+        _check(_close(s_flat, s_field),
+               "phase 18 ffm: the flat FFM's scores differ from FieldFFM's "
+               f"by {float((s_flat - s_field).abs().max())}")
+        del fparams
+        out["C_ffm_scores_max_abs_err"] = float((s_flat - s_field).abs().max())
+        out["C_ffm_kernels"] = _ffm_step_kernels(dev, flat, flat_spec)
+        del flat
+        torch.cuda.empty_cache()
+        out["C_ffm_kernel_a"] = _flat_kernel_a(
+            dev, "ffm", _FlatConfig2Stream(46, FAM_B, FFM_F, FFM_BUCKET),
+            FFM_F * FFM_RANK)
+        timings["C_checks"] = time.perf_counter() - t0
+        # The main path, with every kernel count set to 0 before it; each
+        # leg's launches read from the counts around it.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+
+        def leg_done(key, t0, before):
+            timings[key] = time.perf_counter() - t0
+            after = kernel_launches()
+            by_leg[key] = {k: after[k] - before[k] for k in after}
+
+        # Leg A: FTRL. The dense step at config 2's full width, eager
+        # against captured and against the CPU.
+        t0, before = time.perf_counter(), kernel_launches()
+        out["A_ftrl_config2"], _ = _flat_leg(
+            dev, "phase 18 ftrl config2", spec2,
+            c2.train_config(optimizer="ftrl"), _FlatConfig2Stream(7))
+        print("families ftrl", json.dumps(out["A_ftrl_config2"]), flush=True)
+        # fmtorch train --optimizer ftrl, stopped at 2 and resumed to 4.
+        common = ["train", "--config", c2.name, "--synthetic", FAM_FTRL_ROWS,
+                  "--batch-size", FAM_B, "--optimizer", "ftrl",
+                  "--log-every", 1, "--checkpoint-every", 2,
+                  "--checkpoint-keep", 2]
+        leg = _resume_leg("phase 18 ftrl fmtorch", common, base, "fck", 4,
+                          2, models=True)
+        out["A_ftrl_fmtorch"] = {
+            "losses": leg["losses"], "resumed": leg["resumed"],
+            "eval": leg["full_eval"], "capture_s": leg["full"]["capture_s"],
+            "samples_per_s": leg["samples_per_s"]}
+        # Config 5's dense head by FTRL (its recipe otherwise).
+        spec5 = cfg5.spec()
+        recipe = dict(sparse_update="dedup_sr", host_dedup=True,
+                      compact_cap=DEEPFM_CAP, optimizer="ftrl")
+        out["A_ftrl_config5"], p5 = _deepfm_leg(
+            dev, spec5, cfg5.train_config(**recipe), ("sr_bits",),
+            "phase 18 ftrl")
+        del p5
+        torch.cuda.empty_cache()
+        leg_done("A", t0, before)
+        # Leg B: the sparse adaptive step at config 2's width.
+        t0, before = time.perf_counter(), kernel_launches()
+        out["B_sparse"] = {opt: _adaptive_leg(dev, spec2, opt)
+                           for opt in ("ftrl", "adagrad")}
+        leg_done("B", t0, before)
+        # Leg C: the flat FFM's dense step at config 4's width.
+        t0, before = time.perf_counter(), kernel_launches()
+        out["C_ffm_step"], _ = _flat_leg(
+            dev, "phase 18 ffm", flat_spec, c4.train_config(),
+            _FlatConfig2Stream(47, FAM_B, FFM_F, FFM_BUCKET))
+        print("families ffm", json.dumps(out["C_ffm_step"]), flush=True)
+        leg_done("C", t0, before)
+        # Leg D: the flat DeepFM at config 5's widths, Adam, fp32.
+        t0, before = time.perf_counter(), kernel_launches()
+        dspec = models.DeepFMSpec(num_features=F * BUCKET, rank=DEEPFM_RANK,
+                                  num_fields=F, mlp_dims=DEEPFM_MLP)
+        dcfg = train.TrainConfig(learning_rate=1e-3, lr_schedule="constant",
+                                 optimizer="adam", reg_factors=1e-6)
+        stream = _FlatConfig2Stream(48, FAM_B, F, BUCKET)
+        out["D_deepfm_step"], dp0 = _flat_leg(dev, "phase 18 deepfm", dspec,
+                                              dcfg, stream)
+        print("families deepfm", json.dumps(out["D_deepfm_step"]),
+              flush=True)
+        out["D_deepfm_serve"] = _flat_serve(
+            dev, dspec, dp0, _FlatConfig2Stream(49, FAM_B, F, BUCKET),
+            "phase 18 deepfm")
+        print("families deepfm serve", json.dumps(out["D_deepfm_serve"]),
+              flush=True)
+        del dp0
+        torch.cuda.empty_cache()
+        leg_done("D", t0, before)
+        # Leg E: the reference API and formats.
+        t0, before = time.perf_counter(), kernel_launches()
+        out["E_lbfgs"] = _lbfgs_leg(dev, base)
+        out["E_ffm_with_sgd"] = _ffm_with_sgd(dev)
+        out["E_libfm"] = _libfm_round_trip(dev, leg["model"], base)
+        leg_done("E", t0, before)
+        counts = kernel_launches()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+    # Each leg's path launched its kernels: the dense steps and the sparse
+    # steps kernel A once per eager step and capture warm-up, the flat
+    # FFM's step the sel kernels as often, config 5's head the SR bits.
+    least = FLAT_STEPS + 1
+    for key, name, n in (("A", "segment_totals", least),
+                         ("A", "sr_bits", 1),
+                         ("B", "segment_totals", 2 * least),
+                         ("C", "segment_totals", least),
+                         ("C", "ffm_sel_scores", least),
+                         ("C", "ffm_sel_bwd", least),
+                         ("D", "segment_totals", least),
+                         ("E", "segment_totals", 1)):
+        _check(by_leg[key][name] >= n,
+               f"phase 18 leg {key}: {name} launched {by_leg[key][name]} "
+               f"times on its path (want at least {n}): {by_leg[key]}")
+    out["launches_by_leg"] = by_leg
+    out["launches"] = counts
+    out["leg_seconds"] = timings
+    out["seconds"] = time.perf_counter() - t_phase
+    report["families"] = out
+    print(f"families {out['seconds']:.1f} s, legs {json.dumps(timings)}, "
+          f"launches {json.dumps(counts)}, by leg {json.dumps(by_leg)}",
+          flush=True)
+    return counts, out
+
+
 def main() -> int:
     import torch
 
@@ -3759,6 +4382,7 @@ def main() -> int:
     deepfm_launches, w17 = deepfm_phase(dev, report)
     serve_runs = serve_chain_phase(dev, report)
     flat_launches, flat = flat_fm_phase(dev, report)
+    fam_launches, fam = families_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -3941,6 +4565,26 @@ def main() -> int:
                     f"cap=B*nnz, {r['segments']} segments, fp32"),
                     "runs_per_replayed_step": flat[cfg][
                         "kernel_a_runs_per_replay"]}
+    # Phase 18, the other families and optimizers: each kernel's launches
+    # (eager steps and capture warm-ups), kernel A at the flat FFM step's
+    # width and the sel kernels at its shape.
+    for entry in kernels["kernels"]:
+        entry["families_launches"] = fam_launches[entry["name"]]
+        if entry["name"] == "segment_totals":
+            r = fam["C_ffm_kernel_a"]
+            entry["families_flat_ffm"] = {**{k: r[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}, "shape": (
+                f"flat FFM dense step: B*nnz={r['B']} lanes, "
+                f"w={r['width']}, cap=B*nnz, {r['segments']} segments, "
+                "fp32"), "runs_per_replayed_step": fam["C_ffm_step"][
+                    "kernel_a_runs_per_replay"]}
+        elif entry["name"] in ("ffm_sel_scores", "ffm_sel_bwd"):
+            key = "scores" if entry["name"] == "ffm_sel_scores" else "bwd"
+            entry["families_flat_ffm"] = {
+                **fam["C_ffm_kernels"][key],
+                "shape": f"flat FFM step: B={FAM_B}, {FFM_F} fields, "
+                         f"rank {FFM_RANK}, fp32"}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

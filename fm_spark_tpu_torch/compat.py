@@ -1,5 +1,5 @@
-"""Reference-API compatibility: ``FMWithSGD.train`` / ``FMModel`` (the
-port of ``fm_spark_tpu/compat.py``).
+"""Reference-API compatibility: ``FMWithSGD``, ``FMWithLBFGS`` and
+``FFMWithSGD`` with ``FMModel`` (the port of ``fm_spark_tpu/compat.py``).
 
 Argument for argument the reference's entry point (``FMWithSGD.train(
 input, task, numIterations, stepSize, miniBatchFraction, dim, regParam,
@@ -62,8 +62,9 @@ def _coerce_input(input, task):
     return ids, vals, labels, spec_kwargs
 
 
-class FMWithSGD:
-    """Minibatch-SGD FM training, the reference's entry-point class.
+class _SGDEntryPoint:
+    """The minibatch-SGD loop of the reference-named entry points; a
+    subclass gives the model family (:meth:`_build_spec`).
 
     Each iteration Bernoulli-samples the dataset at ``miniBatchFraction``
     (:class:`~fm_spark_tpu_torch.data.BernoulliBatches`: the whole
@@ -87,15 +88,19 @@ class FMWithSGD:
         self.seed = seed
         self.device = device
 
+    def _build_spec(self, spec_kwargs, ids):
+        raise NotImplementedError
+
     def run(self, input) -> FMModel:
         """Train on ``input = (ids, vals, labels)`` and return the model."""
         ids, vals, labels, spec_kwargs = _coerce_input(input, self.task)
         k0, k1, k2 = self.dim
         r0, r1, r2 = self.regParam
-        spec = models.FMSpec(
-            **spec_kwargs, rank=int(k2),
+        spec_kwargs.update(
+            rank=int(k2),
             loss="logistic" if self.task == "classification" else "squared",
             use_bias=bool(k0), use_linear=bool(k1), init_std=self.initStd)
+        spec = self._build_spec(spec_kwargs, ids)
         batch_size = ids.shape[0]
         if self.miniBatchFraction < 1.0:
             batches = BernoulliBatches(ids, vals, labels,
@@ -111,6 +116,13 @@ class FMWithSGD:
         trainer.fit(batches)
         return FMModel(spec, trainer.params)
 
+
+class FMWithSGD(_SGDEntryPoint):
+    """Minibatch-SGD FM training, the reference's entry-point class."""
+
+    def _build_spec(self, spec_kwargs, ids):
+        return models.FMSpec(**spec_kwargs)
+
     @staticmethod
     def train(input, task: str = "classification", numIterations: int = 100,
               stepSize: float = 0.1, miniBatchFraction: float = 1.0,
@@ -123,31 +135,78 @@ class FMWithSGD:
 
 
 class FMWithLBFGS:
-    """Full-batch L-BFGS FM training: not ported yet (``lbfgs.py``, ROADMAP
-    Queue 1 item 9b)."""
+    """Full-batch L-BFGS FM training, the reference's second optimizer:
+    MLlib's ``numCorrections`` history and ``convergenceTol``
+    relative-decrease stop over the same model (:func:`~fm_spark_tpu_torch
+    .lbfgs.fit_lbfgs`), on the card unless ``device="cpu"``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FMWithLBFGS is not ported yet: it needs lbfgs.py (ROADMAP "
-            "Queue 1 item 9b)")
+    def __init__(self, task: str = "classification",
+                 numIterations: int = 100, numCorrections: int = 10,
+                 convergenceTol: float = 1e-6, dim: tuple = (True, True, 8),
+                 regParam: tuple = (0.0, 0.0, 0.0), initStd: float = 0.01,
+                 seed: int = 0, device=None):
+        self.task = task
+        self.numIterations = numIterations
+        self.numCorrections = numCorrections
+        self.convergenceTol = convergenceTol
+        self.dim = dim
+        self.regParam = regParam
+        self.initStd = initStd
+        self.seed = seed
+        self.device = device
+        self.info: dict | None = None      # the last run's fit_lbfgs info
+
+    def run(self, input) -> FMModel:
+        """Train on ``input = (ids, vals, labels)`` and return the model."""
+        from fm_spark_tpu_torch import resolve_device
+        from fm_spark_tpu_torch.lbfgs import fit_lbfgs
+
+        ids, vals, labels, spec_kwargs = _coerce_input(input, self.task)
+        k0, k1, k2 = self.dim
+        r0, r1, r2 = self.regParam
+        spec_kwargs.update(rank=int(k2), use_bias=bool(k0),
+                           use_linear=bool(k1), init_std=self.initStd)
+        spec = models.FMSpec(**spec_kwargs)
+        config = TrainConfig(reg_bias=r0, reg_linear=r1, reg_factors=r2)
+        dev = resolve_device(self.device)
+        params = spec.init(torch.Generator(device=dev).manual_seed(self.seed),
+                           device=dev)
+        params, self.info = fit_lbfgs(
+            spec, params, ids, vals, labels, config=config,
+            num_iterations=self.numIterations,
+            num_corrections=self.numCorrections,
+            convergence_tol=self.convergenceTol)
+        return FMModel(spec, params)
 
     @staticmethod
-    def train(*args, **kwargs):
-        return FMWithLBFGS(*args, **kwargs)
+    def train(input, task: str = "classification", numIterations: int = 100,
+              numCorrections: int = 10, convergenceTol: float = 1e-6,
+              dim: tuple = (True, True, 8),
+              regParam: tuple = (0.0, 0.0, 0.0), initStd: float = 0.01,
+              seed: int = 0, device=None) -> FMModel:
+        """Static overload matching the reference object's ``train``."""
+        return FMWithLBFGS(task, numIterations, numCorrections,
+                           convergenceTol, dim, regParam, initStd, seed,
+                           device).run(input)
 
 
-class FFMWithSGD:
-    """Field-aware FM training entry point: not ported yet (``models/ffm.py``,
-    ROADMAP Queue 1 item 9b)."""
+class FFMWithSGD(_SGDEntryPoint):
+    """Field-aware FM training entry point (config 4's model over one flat
+    table, ``FFMSpec`` with one field per input slot); the argument
+    surface of :class:`FMWithSGD`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FFMWithSGD is not ported yet: it needs models/ffm.py (ROADMAP "
-            "Queue 1 item 9b)")
+    def _build_spec(self, spec_kwargs, ids):
+        return models.FFMSpec(num_fields=int(ids.shape[1]), **spec_kwargs)
 
     @staticmethod
-    def train(*args, **kwargs):
-        return FFMWithSGD(*args, **kwargs)
+    def train(input, task: str = "classification", numIterations: int = 100,
+              stepSize: float = 0.1, miniBatchFraction: float = 1.0,
+              dim: tuple = (True, True, 4),
+              regParam: tuple = (0.0, 0.0, 0.0), initStd: float = 0.01,
+              seed: int = 0, device=None) -> FMModel:
+        """Static overload matching the reference object's ``train``."""
+        return FFMWithSGD(task, numIterations, stepSize, miniBatchFraction,
+                          dim, regParam, initStd, seed, device).run(input)
 
 
 def evaluate(model: FMModel, input, batch_size: int = 8192) -> dict:

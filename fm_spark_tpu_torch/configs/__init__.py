@@ -69,13 +69,9 @@ class RunConfig:
     def spec(self, num_features: int | None = None):
         """The model spec; ``num_features`` overrides the hashed size
         ``num_fields * bucket`` (required for dense-id datasets such as
-        MovieLens, ``bucket = 0``). The flat ``fm`` family, ``field_fm``,
-        ``field_ffm`` and ``field_deepfm`` are ported; ``ffm`` and
-        ``deepfm`` raise (ROADMAP Queue 1 item 9b)."""
-        if self.model not in ("fm", "field_fm", "field_ffm", "field_deepfm"):
-            raise ValueError(
-                f"model family {self.model!r} (config {self.name!r}) is not "
-                "ported yet (ROADMAP Queue 1 item 9b)")
+        MovieLens, ``bucket = 0``). Every family of the reference is
+        ported: ``fm``, ``ffm``, ``deepfm``, ``field_fm``, ``field_ffm`` and
+        ``field_deepfm``."""
         if self.table_layout != "row" and self.model != "field_fm":
             raise ValueError(
                 f"table_layout={self.table_layout!r} is a field_fm "
@@ -89,6 +85,13 @@ class RunConfig:
         )
         if self.model == "fm":
             return models.FMSpec(**common)
+        if self.model == "ffm":
+            return models.FFMSpec(**common, num_fields=self.num_fields)
+        if self.model == "deepfm":
+            return models.DeepFMSpec(**common, num_fields=self.num_fields,
+                                     mlp_dims=self.mlp_dims)
+        if self.model not in ("field_fm", "field_ffm", "field_deepfm"):
+            raise ValueError(f"unknown model family {self.model!r}")
         if num_features is not None and num_features != self.num_features:
             raise ValueError(
                 f"{self.model} shapes are fixed by num_fields*bucket")

@@ -46,13 +46,15 @@ def _leaves(tree):
     return []
 
 
-def _clone(tree):
+def _clone(tree, device=None):
+    """A copy of a tree of tensors (dicts, lists, tuples), on ``device``
+    when one is given."""
     if isinstance(tree, torch.Tensor):
-        return tree.clone()
+        return tree.clone() if device is None else tree.to(device, copy=True)
     if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
+        return {k: _clone(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone(x) for x in tree)
+        return type(tree)(_clone(x, device) for x in tree)
     return tree
 
 

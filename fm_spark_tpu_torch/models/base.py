@@ -85,3 +85,12 @@ def init_linear_terms(spec: ModelSpec, device) -> dict:
         "w0": torch.zeros((), dtype=torch.float32, device=device),
         "w": torch.zeros(spec.num_features, dtype=spec.pdtype, device=device),
     }
+
+
+def to_global_ids(ids: torch.Tensor, num_fields: int,
+                  bucket: int) -> torch.Tensor:
+    """A field family's field-local ids ``[B, num_fields]`` → the flat
+    table's global ids (``f·bucket + id``), int32."""
+    offs = torch.arange(num_fields, dtype=torch.int32,
+                        device=ids.device) * bucket
+    return (ids + offs[None, :]).to(torch.int32)

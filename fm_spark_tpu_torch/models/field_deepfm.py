@@ -57,6 +57,28 @@ def _float32_sums(device: torch.device, dtype: torch.dtype):
         matmul.allow_bf16_reduced_precision_reduction = prev
 
 
+def tiled_mlp(mlp, h: torch.Tensor, cd, n_hidden: int) -> torch.Tensor:
+    """A DeepFM head (``n_hidden`` ReLU layers and one output) over ``h``
+    ``[B, d]`` → ``[B]`` in the compute dtype ``cd``, each product over
+    :data:`ROW_TILE`-row tiles of ``h`` padded with zero rows to a whole
+    tile, so a row's bits do not depend on the batch it is in."""
+    b = h.shape[0]
+    pad = -b % ROW_TILE
+    if pad:
+        h = torch.cat([h, h.new_zeros(pad, h.shape[1])])
+    with _float32_sums(h.device, cd):
+        for li, layer in enumerate(mlp):
+            kernel = layer["kernel"].to(cd)
+            out = h.new_empty(h.shape[0], kernel.shape[1])
+            for lo in range(0, h.shape[0], ROW_TILE):
+                torch.matmul(h[lo:lo + ROW_TILE], kernel,
+                             out=out[lo:lo + ROW_TILE])
+            h = out + layer["bias"].to(cd)
+            if li < n_hidden:
+                h = torch.relu(h)
+    return h[:b, 0]
+
+
 @dataclasses.dataclass(frozen=True)
 class FieldDeepFMSpec(base.ModelSpec):
     """DeepFM over field-partitioned embedding tables: ``num_fields``
@@ -130,26 +152,9 @@ class FieldDeepFMSpec(base.ModelSpec):
         return out
 
     def deep_scores(self, mlp, h: torch.Tensor) -> torch.Tensor:
-        """The MLP head over ``h = concat(xv)`` ``[B, F*rank]`` → ``[B]``,
-        each product over :data:`ROW_TILE`-row tiles of ``h`` padded with
-        zero rows to a whole tile."""
-        cd = self.cdtype
-        n_hidden = len(self.mlp_dims)
-        b = h.shape[0]
-        pad = -b % ROW_TILE
-        if pad:
-            h = torch.cat([h, h.new_zeros(pad, h.shape[1])])
-        with _float32_sums(h.device, cd):
-            for li, layer in enumerate(mlp):
-                kernel = layer["kernel"].to(cd)
-                out = h.new_empty(h.shape[0], kernel.shape[1])
-                for lo in range(0, h.shape[0], ROW_TILE):
-                    torch.matmul(h[lo:lo + ROW_TILE], kernel,
-                                 out=out[lo:lo + ROW_TILE])
-                h = out + layer["bias"].to(cd)
-                if li < n_hidden:
-                    h = torch.relu(h)
-        return h[:b, 0]
+        """The MLP head over ``h = concat(xv)`` ``[B, F*rank]`` → ``[B]``
+        (:func:`tiled_mlp`)."""
+        return tiled_mlp(mlp, h, self.cdtype, len(self.mlp_dims))
 
     def scores(self, params: dict, ids: torch.Tensor,
                vals: torch.Tensor) -> torch.Tensor:

@@ -126,3 +126,29 @@ class FieldFFMSpec(base.ModelSpec):
     def predict(self, params: dict, ids: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
         return base.predict_from_scores(self, self.scores(params, ids, vals))
+
+    # -- layout conversion (interop with the flat FFMSpec) ------------------
+
+    def flat_spec(self):
+        """The flat :class:`~fm_spark_tpu_torch.models.ffm.FFMSpec` of the
+        same model."""
+        from fm_spark_tpu_torch.models.ffm import FFMSpec
+
+        kwargs = dataclasses.asdict(self)
+        kwargs.pop("bucket")
+        kwargs.pop("fused_linear")
+        return FFMSpec(**kwargs)
+
+    def to_flat_params(self, params: dict) -> dict:
+        """The packed per-field tables as the flat ``{"w0", "w" [N], "v"
+        [N, F, k]}`` layout (field ``f``'s rows at ``f·bucket``)."""
+        f, k = self.num_fields, self.rank
+        return {"w0": params["w0"],
+                "w": torch.cat([t[:, f * k] for t in params["vw"]]),
+                "v": torch.cat([t[:, :f * k].reshape(-1, f, k)
+                                for t in params["vw"]], dim=0)}
+
+    def to_global_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """Field-local ids → the flat table's global ids (``f·bucket +
+        id``), int32."""
+        return base.to_global_ids(ids, self.num_fields, self.bucket)

@@ -145,3 +145,34 @@ class FieldFMSpec(base.ModelSpec):
     def predict(self, params: dict, ids: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
         return base.predict_from_scores(self, self.scores(params, ids, vals))
+
+    # -- layout conversion (interop with the flat FMSpec) -------------------
+
+    def flat_spec(self):
+        """The flat :class:`~fm_spark_tpu_torch.models.fm.FMSpec` of the
+        same model (the per-field tables stacked into one)."""
+        from fm_spark_tpu_torch.models.fm import FMSpec
+
+        kwargs = dataclasses.asdict(self)
+        for key in ("num_fields", "bucket", "fused_linear", "table_layout"):
+            kwargs.pop(key)
+        return FMSpec(**kwargs)
+
+    def to_flat_params(self, params: dict) -> dict:
+        """The per-field tables concatenated into the flat ``{"w0", "w"
+        [N], "v" [N, k]}`` layout (field ``f``'s rows at ``f·bucket``)."""
+        if self.fused_linear:
+            k = self.rank
+            vw = params["vw"]
+            if self.table_layout == "col":
+                vw = [t.t() for t in vw]
+            return {"w0": params["w0"],
+                    "w": torch.cat([t[:, k] for t in vw]),
+                    "v": torch.cat([t[:, :k] for t in vw], dim=0)}
+        return {"w0": params["w0"], "w": torch.cat(params["w"]),
+                "v": torch.cat(params["v"], dim=0)}
+
+    def to_global_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """Field-local ids → the flat table's global ids (``f·bucket +
+        id``), int32."""
+        return base.to_global_ids(ids, self.num_fields, self.bucket)

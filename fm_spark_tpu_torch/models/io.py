@@ -3,7 +3,9 @@ of ``fm_spark_tpu/models/io.py``).
 
 A model dir holds ``spec.json`` (``{"family", "spec", "param_dtypes"}``)
 and ``params.npz`` (flat arrays named by their path in the parameter
-tree, JAX's keypath join: ``w0``, ``w`` and ``v`` for the flat FM,
+tree, JAX's keypath join: ``w0``, ``w`` and ``v`` for the flat FM and
+FFM (``v`` ``[n, F, k]``), with ``mlp/{i}/kernel`` and ``mlp/{i}/bias``
+for DeepFM,
 ``w0``, ``vw/0`` … ``vw/{F-1}`` for the field families, and for
 FieldDeepFM ``mlp/{i}/kernel`` and ``mlp/{i}/bias``). bf16 arrays are
 widened to float32 on disk and restored from ``param_dtypes`` on load, so
@@ -22,17 +24,20 @@ import torch
 
 from fm_spark_tpu_torch import resolve_device
 from fm_spark_tpu_torch.models.base import torch_dtype
+from fm_spark_tpu_torch.models.deepfm import DeepFMSpec
+from fm_spark_tpu_torch.models.ffm import FFMSpec
 from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
 from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
 from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
 from fm_spark_tpu_torch.models.fm import FMSpec
 
-_FAMILIES = {"FMSpec": FMSpec, "FieldFMSpec": FieldFMSpec,
-             "FieldFFMSpec": FieldFFMSpec, "FieldDeepFMSpec": FieldDeepFMSpec}
+_FAMILIES = {"FMSpec": FMSpec, "FFMSpec": FFMSpec, "DeepFMSpec": DeepFMSpec,
+             "FieldFMSpec": FieldFMSpec, "FieldFFMSpec": FieldFFMSpec,
+             "FieldDeepFMSpec": FieldDeepFMSpec}
 
 
 def _table_names(spec) -> list[str]:
-    if type(spec) is FMSpec:
+    if type(spec) in (FMSpec, FFMSpec, DeepFMSpec):
         return ["w", "v"]
     groups = ("vw",) if spec.fused_linear else ("v", "w")
     return [f"{g}/{f}" for g in groups for f in range(spec.num_fields)]

@@ -4,11 +4,13 @@ evaluation (the port of ``TrainConfig``, ``make_optimizer`` and
 ``evaluate_params`` in ``fm_spark_tpu/train.py``, and of the single-chip
 core of ``fm_spark_tpu/cli.py::_fit_field_sparse``).
 
-The tables' update rule is the reference's plain SGD,
+The field tables' update rule is the reference's plain SGD,
 ``weights ← weights − lr_t · (grad + reg · weights)``, with
-``lr_t = stepSize/√(t+1)`` or constant. FieldDeepFM's MLP and bias take
-``config.optimizer`` (:func:`make_optimizer`: optax's sgd, adam or
-adagrad, computed as optax computes them).
+``lr_t = stepSize/√(t+1)`` or constant. The flat families' dense step
+(FM, FFM, DeepFM; :func:`make_train_step`, driven by :class:`FMTrainer`)
+and FieldDeepFM's MLP and bias take ``config.optimizer``
+(:func:`make_optimizer`: optax's sgd, adam or adagrad, computed as optax
+computes them, or FTRL-Proximal, ``optim``'s rule).
 """
 
 from __future__ import annotations
@@ -125,6 +127,11 @@ def _advance(count: torch.Tensor) -> None:
     count.copy_(torch.where(count < 2**31 - 1, count + 1, count))
 
 
+#: FTRL-Proximal's beta in the dense form (the reference's ``optim.ftrl``
+#: default, which its ``make_optimizer`` keeps).
+FTRL_BETA = 1.0
+
+
 def _bias_correction(moment, decay: float, count):
     """optax's ``bias_correction``: ``moment / (1 - decay**count)`` in
     float32, ``decay`` taken as the float32 JAX makes of it.
@@ -139,22 +146,35 @@ def _bias_correction(moment, decay: float, count):
 class Optimizer:
     """An optax ``GradientTransformation`` of the dense parameters, in
     place: :meth:`init` makes the state (a dict of tensors on the params'
-    device, every count a 0-dim int32), :meth:`update` advances it and
-    returns the updates, which :func:`apply_updates` adds to the params.
-    Nothing is read on the host, so a captured step may run it: the
-    learning rate and the bias corrections are computed on the device
-    from the counts."""
+    device, every count a 0-dim int32; FTRL's ``z`` and ``n`` float32 and
+    shaped like the params), :meth:`update` advances it and returns the
+    updates, which :func:`apply_updates` adds to the params. Nothing is
+    read on the host, so a captured step may run it: the learning rate and
+    the bias corrections are computed on the device from the counts."""
 
     def __init__(self, name: str, config: TrainConfig):
         self.name = name
         self._config = config
-        self._lr_at = _lr_at_tensor(config)
+        # FTRL has no schedule: an lr_schedule beside it is ignored.
+        self._lr_at = None if name == "ftrl" else _lr_at_tensor(config)
 
     def init(self, params) -> dict:
         from fm_spark_tpu_torch.graphs import _leaves
 
         dev = _leaves(params)[0].device
         state = {}
+        if self.name == "ftrl":
+            # z seeded so the closed form gives back the params; no
+            # schedule: (beta + √n)/alpha is FTRL's own, per coordinate.
+            from fm_spark_tpu_torch.optim import ftrl_init_z
+
+            alpha = float(self._config.learning_rate)
+            state["z"] = _tree_map(
+                lambda p: ftrl_init_z(p, alpha, FTRL_BETA), params)
+            state["n"] = _tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            return state
         if self.name == "adam":
             state["count"] = _count(dev)
             state["mu"] = _tree_map(torch.zeros_like, params)
@@ -174,10 +194,46 @@ class Optimizer:
             return float(np.float32(-self._config.learning_rate))
         return -self._lr_at(state["schedule_count"])
 
+    def _ftrl_update(self, grads, state, params):
+        """FTRL's deltas, optax's convention: ``(new − p)`` in float32 cast
+        to the gradient's dtype, which :func:`apply_updates` adds to ``p``;
+        ``z`` and ``n`` advanced in place. The ``reg_*`` triple is FTRL's
+        proximal l2 per group (``w0`` → ``reg_bias``, ``w`` →
+        ``reg_linear``, ``v``/``mlp`` → ``reg_factors``); an unknown group
+        raises."""
+        from fm_spark_tpu_torch.optim import ftrl_rows
+
+        if params is None:
+            raise ValueError("ftrl is a proximal rule; it needs params")
+        cfg = self._config
+        alpha = float(cfg.learning_rate)
+        l2_by_group = {"w0": cfg.reg_bias, "w": cfg.reg_linear,
+                       "v": cfg.reg_factors, "mlp": cfg.reg_factors}
+        out = {}
+        for key, g in grads.items():
+            if key not in l2_by_group:
+                raise ValueError(f"no FTRL l2 group for param {key!r} "
+                                 f"(know {sorted(l2_by_group)})")
+            l2 = float(l2_by_group[key]) + 0.0
+
+            def one(g, z, n, p, l2=l2):
+                new, z_new, n_new = ftrl_rows(p, z, n, g, alpha, FTRL_BETA,
+                                              0.0, l2)
+                z.copy_(z_new)
+                n.copy_(n_new)
+                return (new - p.float()).to(g.dtype)
+
+            out[key] = _tree_map(one, g, state["z"][key], state["n"][key],
+                                 params[key])
+        return out
+
     def update(self, grads, state, params=None):
         """The updates of ``grads`` (float32, the tree of the params),
-        with ``state`` advanced in place, in optax's order of operations."""
-        del params
+        with ``state`` advanced in place, in optax's order of operations.
+        FTRL needs ``params`` (its update is proximal); the others ignore
+        them."""
+        if self.name == "ftrl":
+            return self._ftrl_update(grads, state, params)
         neg_lr = self._neg_lr(state)
         if self.name == "adam":
             b1, b2, eps = 0.9, 0.999, float(np.float32(1e-8))
@@ -230,12 +286,12 @@ def make_optimizer(config: TrainConfig) -> Optimizer:
     ``train.make_optimizer``): ``sgd``, ``adam`` or ``adagrad`` with the
     ``constant`` or ``inv_sqrt`` schedule, as optax 0.2.6 computes them
     (Adam: b1 0.9, b2 0.999, eps 1e-8; AdaGrad: accumulators from 0.1,
-    eps 1e-7)."""
-    if config.optimizer == "ftrl":
-        raise ValueError(
-            "optimizer 'ftrl' is not ported yet: FTRL-Proximal lives in the "
-            "reference's optim/ package, queued as ROADMAP Queue 1 item 9")
-    if config.optimizer not in ("sgd", "adam", "adagrad"):
+    eps 1e-7), or ``ftrl``: FTRL-Proximal (``optim.ftrl_rows``, alpha the
+    learning rate, beta 1, l1 0) with the ``reg_*`` triple as its
+    proximal l2 per group and no schedule (its ``(beta + √n)/alpha`` is
+    one per coordinate), the state ``{"z", "n"}`` shaped like the
+    params."""
+    if config.optimizer not in ("sgd", "adam", "adagrad", "ftrl"):
         raise ValueError(f"unknown optimizer {config.optimizer!r}")
     return Optimizer(config.optimizer, config)
 
@@ -316,6 +372,10 @@ def _group_reg(config: TrainConfig):
     beside an array (the ``vw`` vector is float32, as the reference's)."""
     from fm_spark_tpu_torch.ops.fused_bwd import round_to
 
+    if config.optimizer == "ftrl":
+        # FTRL carries L2 in its proximal closed form: (g + λw) folded
+        # into n would corrupt the per-coordinate schedule.
+        return lambda grads, params: grads
     known = {"w0": config.reg_bias, "w": config.reg_linear,
              "v": config.reg_factors, "mlp": config.reg_factors}
 
@@ -362,74 +422,162 @@ def _global_norm(tree) -> torch.Tensor:
 _SPARE_ROWS = 4096
 
 
-def _dense_fm_body(spec, config: TrainConfig, optimizer):
-    """One dense step of the flat FM (the computation of the reference's
-    ``make_train_step`` for an ``FMSpec``): ``body(params, opt_state, ids,
-    vals, labels, weights) → (loss, grad_norm)``, updating ``params`` and
-    ``opt_state`` in place.
+def _summed_rows(ids, n: int, lanes, widths):
+    """Each distinct id's ``lanes`` (``[B·nnz, Σ widths]`` float32) summed
+    once, as dense float32 gradients ``[n, w]`` (one per width, zero on
+    the rows no id touches), JAX's scatter-add of the lanes.
 
-    The gradient is written out, not taken by autograd: per lane
-    ``∂ŷ/∂v[i] = x_i·(s − v[i]·x_i)`` and ``∂ŷ/∂w[i] = x_i``, times the
-    loss's ``∂L/∂ŷ``. The ``[B·nnz, k+1]`` lanes of ``[g_v | g_w]`` are
-    summed once per distinct id by the device dedup
-    (``ops.scatter._dedup``: a stable sort and kernel A at cap = B·nnz on
-    the card, no atomics, so a repeat gives the same bits), and the totals
-    written into the unique rows of zero float32 gradients of ``v`` and
-    ``w``, whose :data:`_SPARE_ROWS` rows past the table take what JAX's
-    scatter drops (ids outside ``[-n, n)``) and the unused segment slots.
-    Then ``_group_reg``'s
-    dense L2 and ``config.optimizer`` over the whole table, in place, as
-    XLA updates it: every row decays every step, touched or not. The
-    table gradients take the table's dtype (as JAX's do), ``w0``'s is
-    float32. A term gated off (``use_bias``/``use_linear`` False) gets a
-    zero gradient."""
+    The sums are the device dedup's (``ops.scatter._dedup``: a stable sort
+    and kernel A at cap = B·nnz on the card, no atomics, so a repeat gives
+    the same bits), each total written into its row of a zero buffer whose
+    :data:`_SPARE_ROWS` rows past the table take what JAX's scatter drops
+    (ids outside ``[-n, n)``) and the unused segment slots."""
     from fm_spark_tpu_torch.ops import fm as fm_ops
     from fm_spark_tpu_torch.ops import scatter as scatter_lib
-    from fm_spark_tpu_torch.sparse import _loss_and_grad_fn
 
+    dev = lanes.device
+    wid = fm_ops.write_index(ids, n).reshape(-1)
+    d = scatter_lib._dedup(wid, lanes)
+    slot = torch.arange(wid.shape[0], device=dev)
+    # A slot past the segment count holds no total: it writes to one of
+    # the spare rows past the table, spread over them (the stores of every
+    # unused slot to one row would queue behind each other).
+    tgt = torch.where(slot < d.count, d.useg.long(), n + slot % _SPARE_ROWS)
+    out, col = [], 0
+    for w in widths:
+        buf = torch.zeros(n + _SPARE_ROWS, w, dtype=torch.float32,
+                          device=dev).index_copy_(0, tgt,
+                                                  d.totals[:, col:col + w])
+        out.append(buf[:n])
+        col += w
+    return out
+
+
+def _check_slots(spec, ids):
+    if ids.shape[1] != spec.num_fields:
+        raise ValueError(
+            f"batch has nnz={ids.shape[1]} slots but the spec was sized for "
+            f"num_fields={spec.num_fields}")
+
+
+def _dense_grads_fn(spec):
+    """The loss and the gradient of a flat family's parameters, written
+    out (the reference takes ``jax.value_and_grad`` of ``spec.scores``):
+    ``fn(params, ids, vals, labels, weights) → (loss, grads)``, the table
+    gradients in the table's dtype, ``w0``'s and the MLP's float32, a
+    term gated off (``use_bias``/``use_linear`` False) a zero gradient.
+
+    Each family takes the gradient with respect to the gathered rows, and
+    :func:`_summed_rows` sums each id's ``[row gradient | linear
+    gradient]`` lanes once:
+
+    - ``FMSpec``: ``∂ŷ/∂v[i] = x_i·(s − v[i]·x_i)``, ``∂ŷ/∂w[i] = x_i``;
+    - ``FFMSpec`` (nnz = F, slot ``i`` in field ``i``): the rows ``v[ids]``
+      ``[B, F, F·k]`` are the ffm_sel kernels' layout; the scores'
+      pairwise term is ``ffm_sel_scores`` and the row gradient exactly
+      ``ffm_sel_bwd`` (the kernels on the card, their plain versions on
+      the CPU), lanes ``F·k + 1`` wide;
+    - ``DeepFMSpec``: the FM part ``x_i·(ds·(s − xv_i) + g_h_i)``, with
+      ``g_h`` the MLP's input gradient (``sparse._mlp_backward``, its
+      products ``torch.matmul``), and the MLP's own gradients.
+
+    Another family raises: the generic dense step of the field families
+    (the reference's ``--strategy single`` on a field config) is ROADMAP
+    Queue 1 item 14."""
+    from fm_spark_tpu_torch.models.deepfm import DeepFMSpec
+    from fm_spark_tpu_torch.models.ffm import FFMSpec
+    from fm_spark_tpu_torch.models.fm import FMSpec
+    from fm_spark_tpu_torch.ops import ffm_sel
+    from fm_spark_tpu_torch.ops import fm as fm_ops
+    from fm_spark_tpu_torch.sparse import (_loss_and_grad_fn, _mlp_backward,
+                                           _mlp_forward)
+
+    family = type(spec)
+    if family not in (FMSpec, FFMSpec, DeepFMSpec):
+        raise ValueError(
+            f"the dense train step of {family.__name__} is not ported yet "
+            "(ROADMAP Queue 1 item 14, the generic dense step of the field "
+            "families); the port's takes FMSpec, FFMSpec and DeepFMSpec")
     loss_and_grad = _loss_and_grad_fn(spec.loss)
-    add_reg = _group_reg(config)
     cd, pd = spec.cdtype, spec.pdtype
     sum_upcast = fm_ops.sum_upcast
 
-    @torch.no_grad()
-    def body(params, opt_state, ids, vals, labels, weights):
-        w0, w, v = params["w0"], params["w"], params["v"]
-        n, k = v.shape
+    def linear_and_bias(params, gidx, vals_c, zero):
+        linear = (sum_upcast(params["w"][gidx].to(cd) * vals_c, 1)
+                  if spec.use_linear else zero)
+        return linear, (params["w0"].to(cd) if spec.use_bias else zero)
+
+    def grads(params, ids, vals, labels, weights):
+        v = params["v"]
+        n = v.shape[0]
         dev = v.device
+        b = ids.shape[0]
         gidx = fm_ops.gather_index(ids, n)                 # [B, nnz]
         vals_c = vals.to(cd)
-        xv = v[gidx].to(cd) * vals_c[..., None]            # [B, nnz, k]
-        s = sum_upcast(xv, 1)                              # [B, k]
-        inter = 0.5 * (sum_upcast(s * s, 1) - sum_upcast(xv * xv, (1, 2)))
         zero = torch.zeros((), dtype=cd, device=dev)
-        linear = (sum_upcast(w[gidx].to(cd) * vals_c, 1) if spec.use_linear
-                  else zero)
-        bias = w0.to(cd) if spec.use_bias else zero
-        loss, dscores = loss_and_grad(bias + linear + inter, labels, weights)
-
-        g_v = dscores[:, None, None] * vals_c[..., None] * (s[:, None, :] - xv)
+        linear, bias = linear_and_bias(params, gidx, vals_c, zero)
+        extra = {}
+        if family is FFMSpec:
+            _check_slots(spec, ids)
+            fk = v.shape[1] * v.shape[2]
+            rows = v[gidx].to(cd).reshape(b, ids.shape[1], fk)
+            inter = 0.5 * ffm_sel.ffm_sel_scores(rows, vals_c)
+            loss, dscores = loss_and_grad(bias + linear + inter, labels,
+                                          weights)
+            g_rows = ffm_sel.ffm_sel_bwd(rows, vals_c, dscores)
+        else:
+            if family is DeepFMSpec:
+                _check_slots(spec, ids)
+            xv = v[gidx].to(cd) * vals_c[..., None]        # [B, nnz, k]
+            s = sum_upcast(xv, 1)                          # [B, k]
+            inter = 0.5 * (sum_upcast(s * s, 1)
+                           - sum_upcast(xv * xv, (1, 2)))
+            if family is FMSpec:
+                loss, dscores = loss_and_grad(bias + linear + inter, labels,
+                                              weights)
+                g_rows = (dscores[:, None, None] * vals_c[..., None]
+                          * (s[:, None, :] - xv))
+            else:
+                # DeepFM's order: ((interaction + linear) + bias) + deep.
+                kernels, ins, pres, deep = _mlp_forward(
+                    spec, params["mlp"], xv.reshape(b, -1))
+                loss, dscores = loss_and_grad(inter + linear + bias + deep,
+                                              labels, weights)
+                g_mlp, g_h = _mlp_backward(spec, kernels, ins, pres, dscores)
+                g_xv = (dscores[:, None, None] * (s[:, None, :] - xv)
+                        + g_h.reshape(xv.shape))
+                g_rows = g_xv * vals_c[..., None]
+                extra["mlp"] = g_mlp
         g_w = (dscores[:, None] * vals_c if spec.use_linear
                else torch.zeros_like(vals_c))
         m = ids.numel()
-        lanes = torch.cat([g_v.float().reshape(m, k),
-                           g_w.float().reshape(m, 1)], dim=1)
-        wid = fm_ops.write_index(ids, n).reshape(-1)
-        d = scatter_lib._dedup(wid, lanes)
-        slot = torch.arange(wid.shape[0], device=dev)
-        # A slot past the segment count holds no total: it writes to one
-        # of the spare rows past the table, spread over them (the stores
-        # of every unused slot to one row would queue behind each other).
-        tgt = torch.where(slot < d.count, d.useg.long(),
-                          n + slot % _SPARE_ROWS)
-        g_v = torch.zeros(n + _SPARE_ROWS, k, dtype=torch.float32,
-                          device=dev).index_copy_(0, tgt, d.totals[:, :k])
-        g_w = torch.zeros(n + _SPARE_ROWS, dtype=torch.float32,
-                          device=dev).index_copy_(0, tgt, d.totals[:, k])
+        width = v[0].numel()
+        g_v, g_w = _summed_rows(ids, n, torch.cat(
+            [g_rows.float().reshape(m, width), g_w.float().reshape(m, 1)],
+            dim=1), (width, 1))
         g_w0 = (sum_upcast(dscores).float() if spec.use_bias
                 else torch.zeros((), dtype=torch.float32, device=dev))
-        grads = add_reg({"w0": g_w0, "w": g_w[:n].to(pd),
-                         "v": g_v[:n].to(pd)}, params)
+        return loss, {"w0": g_w0, "w": g_w.reshape(n).to(pd),
+                      "v": g_v.reshape(v.shape).to(pd), **extra}
+
+    return grads
+
+
+def _dense_body(spec, config: TrainConfig, optimizer):
+    """One dense step of a flat family (the computation of the reference's
+    ``make_train_step``): ``body(params, opt_state, ids, vals, labels,
+    weights) → (loss, grad_norm)``, updating ``params`` and ``opt_state``
+    in place. The gradient is :func:`_dense_grads_fn`'s (written out, each
+    id summed once by the device dedup), then ``_group_reg``'s dense L2
+    and ``config.optimizer`` over the whole table, in place, as XLA
+    updates it: every row decays every step, touched or not."""
+    grads_fn = _dense_grads_fn(spec)
+    add_reg = _group_reg(config)
+
+    @torch.no_grad()
+    def body(params, opt_state, ids, vals, labels, weights):
+        loss, grads = grads_fn(params, ids, vals, labels, weights)
+        grads = add_reg(grads, params)
         norm = _global_norm(grads)
         apply_updates(params, optimizer.update(grads, opt_state, params))
         return loss.float(), norm
@@ -438,21 +586,21 @@ def _dense_fm_body(spec, config: TrainConfig, optimizer):
 
 
 def make_train_step(spec, config: TrainConfig, optimizer=None):
-    """The single-device dense train step of the flat FM (the reference's
-    ``make_train_step``): ``step(params, opt_state, ids, vals, labels,
-    weights) → (params, opt_state, {"loss", "grad_norm"})``, the params
-    and the optimizer's state updated in place (the counterpart of their
-    donation), the metrics 0-dim float32 tensors on the params' device.
-    ``optimizer`` defaults to :func:`make_optimizer` of ``config``.
+    """The single-device dense train step of a flat family (``FMSpec``,
+    ``FFMSpec``, ``DeepFMSpec``; the reference's ``make_train_step``):
+    ``step(params, opt_state, ids, vals, labels, weights) → (params,
+    opt_state, {"loss", "grad_norm"})``, the params and the optimizer's
+    state updated in place (the counterpart of their donation), the
+    metrics 0-dim float32 tensors on the params' device. ``optimizer``
+    defaults to :func:`make_optimizer` of ``config``.
 
-    On the card the body (:func:`_dense_fm_body`) is captured as one CUDA
+    On the card the body (:func:`_dense_body`) is captured as one CUDA
     graph over ``{"params", "opt"}`` (:class:`~fm_spark_tpu_torch.graphs
     .CapturedStep`, the counterpart of ``jax.jit``): the schedule's count
     stays on the card, and other params or state tensors capture anew. On
-    the CPU it runs the eager body. Other families raise: their dense
-    steps are ROADMAP Queue 1 item 9b."""
+    the CPU it runs the eager body. A field family raises, naming ROADMAP
+    Queue 1 item 14."""
     from fm_spark_tpu_torch import graphs
-    from fm_spark_tpu_torch.models.fm import FMSpec
     from fm_spark_tpu_torch.sparse import (_reject_collective_dtype,
                                            _reject_deep_sharded,
                                            _reject_embed_tier_require,
@@ -461,10 +609,6 @@ def make_train_step(spec, config: TrainConfig, optimizer=None):
                                            _reject_score_sharded,
                                            _reject_sel_blocked)
 
-    if type(spec) is not FMSpec:
-        raise ValueError(
-            f"the dense train step of {type(spec).__name__} is not ported "
-            "yet (ROADMAP Queue 1 item 9b); the port's takes FMSpec")
     what = "the dense single-device train step"
     _reject_host_aux(config, "the dense optax train step")
     _reject_collective_dtype(config, what)
@@ -473,7 +617,7 @@ def make_train_step(spec, config: TrainConfig, optimizer=None):
     _reject_sel_blocked(config, what)
     _reject_fused_embed_require(config, what)
     _reject_embed_tier_require(config, what)
-    body = _dense_fm_body(spec, config, optimizer or make_optimizer(config))
+    body = _dense_body(spec, config, optimizer or make_optimizer(config))
 
     def run(state, _step, *batch):
         return torch.stack(body(state["params"], state["opt"], *batch))
@@ -494,8 +638,9 @@ def make_train_step(spec, config: TrainConfig, optimizer=None):
 
 
 class FMTrainer:
-    """End-to-end trainer of the flat FM on one device, the rebuild's
-    ``FMWithSGD`` (the port of the reference's ``FMTrainer``)::
+    """End-to-end trainer of a flat family (FM, FFM, DeepFM) on one
+    device, the rebuild's ``FMWithSGD`` (the port of the reference's
+    ``FMTrainer``)::
 
         trainer = FMTrainer(spec, TrainConfig(num_steps=1000, ...))
         params = trainer.fit(train_batches)

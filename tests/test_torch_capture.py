@@ -346,6 +346,48 @@ def test_flat_fm_steps_make_no_host_sync(form, pd, sched):
     assert loss.shape == () and bool(torch.isfinite(loss))
 
 
+@pytest.mark.parametrize("form", ["sparse-ftrl", "sparse-adagrad",
+                                  "dense-ftrl", "dense-ffm", "dense-deepfm"])
+def test_adaptive_and_flat_family_steps_make_no_host_sync(form):
+    """The sparse adaptive step (FTRL and AdaGrad, the one set per
+    distinct id), the dense step with FTRL, and the dense steps of the
+    flat FFM and DeepFM, as their graphs run them, with ids out of range
+    and zero weights."""
+    from fm_spark_tpu_torch import optim, train
+
+    kw = dict(num_features=40, rank=4, init_std=0.1)
+    if form == "dense-ffm":
+        spec = models.FFMSpec(num_fields=3, **kw)
+    elif form == "dense-deepfm":
+        spec = models.DeepFMSpec(num_fields=3, mlp_dims=(8, 8), **kw)
+    else:
+        spec = models.FMSpec(**kw)
+    params = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(2)
+    ids = rng.integers(-45, 45, (B, 3)).astype(np.int32)
+    batch = [torch.from_numpy(a) for a in (
+        ids, rng.random((B, 3)).astype(np.float32),
+        rng.integers(0, 2, B).astype(np.float32),
+        (rng.random(B) > 0.2).astype(np.float32))]
+    if form.startswith("sparse"):
+        name = form.split("-")[1]
+        cfg = TrainConfig(learning_rate=0.05, optimizer=name)
+        slots = optim.init_adaptive_slots(name, spec, params)
+        body = optim.make_sparse_adaptive_step(spec, cfg, l1=1e-3).body
+        with NoHostSync():
+            _, _, loss = body(params, slots, *batch)
+    else:
+        cfg = TrainConfig(learning_rate=0.05, reg_bias=1e-3, reg_linear=1e-2,
+                          reg_factors=1e-2,
+                          optimizer="ftrl" if form == "dense-ftrl" else "adam")
+        opt = train.make_optimizer(cfg)
+        state = opt.init(params)
+        body = train.make_train_step(spec, cfg, opt).body
+        with NoHostSync():
+            loss, norm = body(params, state, *batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
+
+
 # --------------------------------------------------- the entry points
 
 

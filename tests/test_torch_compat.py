@@ -89,12 +89,22 @@ def test_fm_model_saves_and_loads_across_the_packages(ratings, tmp_path):
     assert not jmodel.spec.use_linear and jmodel.spec.rank == 4
 
 
-def test_the_unported_entry_points_name_their_roadmap_item():
-    data = (np.zeros((2, 2), np.int32), np.ones((2, 2), np.float32),
-            np.zeros(2, np.float32))
-    for cls in (compat.FFMWithSGD, compat.FMWithLBFGS):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            cls.train(data)
+@pytest.mark.parametrize("cls", ["FFMWithSGD", "FMWithLBFGS"])
+def test_the_unported_entry_points_name_their_roadmap_item(cls):
+    """Once refused naming ROADMAP item 9b, both entry points now train:
+    a finite model of the family the reference's entry point builds
+    (held against JAX's in tests/test_torch_ffm.py and
+    tests/test_torch_lbfgs_libfm.py)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 6, (40, 3)).astype(np.int32)
+    data = (ids, np.ones((40, 3), np.float32),
+            (ids.sum(1) > 7).astype(np.float32))
+    model = getattr(compat, cls).train(data, numIterations=3, device="cpu")
+    want = models.FFMSpec if cls == "FFMWithSGD" else models.FMSpec
+    assert type(model.spec) is want
+    assert model.spec.num_features == 6
+    preds = model.predict(ids, data[1])
+    assert preds.shape == (40,) and np.isfinite(preds).all()
 
 
 @pytest.mark.parametrize("fraction", [1.0, 0.5, 0.05])

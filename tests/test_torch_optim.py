@@ -100,8 +100,15 @@ def test_the_count_saturates_at_the_int32_maximum():
 
 
 def test_ftrl_and_unknown_optimizers_raise():
-    with pytest.raises(ValueError, match="ftrl.*optim/.*Queue 1 item 9"):
-        ptrain.make_optimizer(ptrain.TrainConfig(optimizer="ftrl"))
+    """FTRL builds (its state z and n, no schedule: an lr_schedule beside
+    it is ignored, as the reference's); unknown optimizers and schedules
+    still raise."""
+    popt = ptrain.make_optimizer(ptrain.TrainConfig(optimizer="ftrl",
+                                                    lr_schedule="cosine"))
+    state = popt.init(_torch(_tree(lambda s: np.ones(s, np.float32))))
+    assert sorted(state) == ["n", "z"]
+    with pytest.raises(ValueError, match="needs params"):
+        popt.update(_torch(_tree(lambda s: np.ones(s, np.float32))), state)
     with pytest.raises(ValueError, match="unknown optimizer"):
         ptrain.make_optimizer(ptrain.TrainConfig(optimizer="lion"))
     with pytest.raises(ValueError, match="unknown lr_schedule"):

@@ -184,6 +184,104 @@ _FWD_PAIRS = [(torch.float32, False), (torch.bfloat16, False),
               (torch.bfloat16, True), (torch.float32, True)]
 
 
+def _same_tree(a, b):
+    from fm_spark_tpu_torch.graphs import _leaves
+
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["sparse-ftrl", "sparse-adagrad",
+                                  "dense-ftrl", "dense-ffm", "dense-deepfm",
+                                  "field-deepfm-ftrl"])
+def test_new_steps_capture_and_repeat_bit_for_bit_on_the_card(cuda, form):
+    """The sparse adaptive step (FTRL, AdaGrad), the dense step with FTRL,
+    the flat FFM's and DeepFM's dense steps and FieldDeepFM's hybrid step
+    with FTRL on its head, on the card: the eager body run twice from
+    copies of the same params and state gives the same bits (kernel A sums
+    each id once, no atomics; the sets are one per id), and the captured
+    step equals the eager one bit for bit over three steps, its params and
+    state included."""
+    from fm_spark_tpu_torch import models, optim, sparse, train
+    from fm_spark_tpu_torch.graphs import _clone
+
+    kw = dict(num_features=3000, rank=8, init_std=0.1)
+    nnz = 39 if form in ("sparse-ftrl", "sparse-adagrad", "dense-ftrl") \
+        else 6
+    if form == "field-deepfm-ftrl":
+        spec = models.FieldDeepFMSpec(num_fields=nnz, bucket=500,
+                                      mlp_dims=(32, 32), **kw)
+    elif form == "dense-ffm":
+        spec = models.FFMSpec(num_fields=nnz, **kw)
+    elif form == "dense-deepfm":
+        spec = models.DeepFMSpec(num_fields=nnz, mlp_dims=(32, 32), **kw)
+    else:
+        spec = models.FMSpec(**kw)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        ids = (rng.zipf(1.3, (1024, nnz)) % 3000).astype(np.int32)
+        ids[0, 0], ids[1, 1] = -5, 3007
+        batches.append([torch.from_numpy(a).to(cuda) for a in (
+            ids, rng.uniform(0.5, 1.5, (1024, nnz)).astype(np.float32),
+            rng.integers(0, 2, 1024).astype(np.float32),
+            (rng.random(1024) > 0.1).astype(np.float32))])
+    if form == "field-deepfm-ftrl":
+        for b in batches:                          # field-local ids
+            b[0].remainder_(500)
+    p0 = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    if form == "field-deepfm-ftrl":
+        cfg = train.TrainConfig(learning_rate=0.05, optimizer="ftrl",
+                                sparse_update="dedup", reg_bias=1e-3,
+                                reg_factors=1e-3)
+        step = sparse.make_field_deepfm_sparse_step(spec, cfg)
+        body, init = sparse.make_field_deepfm_sparse_body(spec, cfg)
+        s0 = init(p0)
+
+        def eager(p, s, i, b):
+            return body(p, s, i, *b)[2]
+
+        def captured(p, s, i, b):
+            return step(p, s, i, *b)[2]
+    elif form.startswith("sparse"):
+        name = form.split("-")[1]
+        cfg = train.TrainConfig(learning_rate=0.05, optimizer=name)
+        s0 = optim.init_adaptive_slots(name, spec, p0)
+        step = optim.make_sparse_adaptive_step(spec, cfg, l1=1e-3, l2=1e-2)
+
+        def eager(p, s, i, b):
+            return step.body(p, s, *b)[2]
+
+        def captured(p, s, i, b):
+            return step(p, s, *b)[2]
+    else:
+        cfg = train.TrainConfig(
+            learning_rate=0.05, reg_bias=1e-3, reg_linear=1e-3,
+            reg_factors=1e-3,
+            optimizer="ftrl" if form == "dense-ftrl" else "adam")
+        s0 = train.make_optimizer(cfg).init(p0)
+        step = train.make_train_step(spec, cfg)
+
+        def eager(p, s, i, b):
+            return torch.stack(step.body(p, s, *b))
+
+        def captured(p, s, i, b):
+            m = step(p, s, *b)[2]
+            return torch.stack([m["loss"], m["grad_norm"]])
+    runs = {}
+    for name, fn in (("eager1", eager), ("eager2", eager),
+                     ("captured", captured)):
+        p, s = _clone(p0), _clone(s0)
+        out = [fn(p, s, i, b) for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        runs[name] = (p, s, torch.stack(out).cpu())
+    assert len(step.captured.capture_s) == 1
+    for name in ("eager2", "captured"):
+        assert torch.equal(runs[name][2], runs["eager1"][2]), name
+        assert _same_tree(runs[name][0], runs["eager1"][0]), name
+        assert _same_tree(runs[name][1], runs["eager1"][1]), name
+
+
 def _fwd_tables(rng, cuda, f, bucket, w, dtype, offset):
     """``f`` tables ``[bucket, w]``; with ``offset`` > 0 each is a
     contiguous view that many elements into a larger buffer, so its rows

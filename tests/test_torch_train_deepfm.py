@@ -355,13 +355,50 @@ def test_guards_keep_the_reference_messages():
         sparse.make_field_deepfm_sparse_step(
             models.FieldFMSpec(num_features=F * BUCKET, rank=K, num_fields=F,
                                bucket=BUCKET), TrainConfig())
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(ValueError, match="unknown optimizer"):
         sparse.make_field_deepfm_sparse_body(pspec,
-                                             TrainConfig(optimizer="ftrl"))
+                                             TrainConfig(optimizer="lion"))
     family, reason = sparse.fused_embed_plan(pspec,
                                              TrainConfig(fused_embed="auto"))
     assert family is None and reason == ("no fused kernel family for "
                                          "FieldDeepFMSpec")
+
+
+@pytest.mark.parametrize("form", ["dedup-fp32", "scatter_add-fp32"])
+def test_ftrl_dense_head_matches_jax(form):
+    """FieldDeepFM's hybrid step with ``optimizer='ftrl'`` on ``w0`` and the
+    MLP (z seeded from the params, n = 0), three steps against JAX's. The
+    reference folds ``reg_bias``/``reg_factors`` into the dense gradients
+    and FTRL applies them again as its proximal l2; the port does the
+    same. Float32 throughout: the tables, the loss, and FTRL's params and
+    ``z``/``n`` within ``rtol=1e-5, atol=1e-7`` (FTRL is not scale-free
+    like Adam, so summation order moves it by a few ulps only)."""
+    dt, lever = FORMS[form]
+    jspec, pspec = _specs(dt, dt)
+    cfg = dict(_cfg(lever), optimizer="ftrl")
+    jbody, jinit = jsparse.make_field_deepfm_sparse_body(
+        jspec, jtrain.TrainConfig(**cfg))
+    jstep = _jit_exact(jbody)
+    pstep = sparse.make_field_deepfm_sparse_step(pspec, TrainConfig(**cfg))
+    jp, pp = _params(jspec, pspec)
+    jo, po = jinit(jp), pstep.init_opt_state(pp)
+    assert sorted(po) == ["n", "z"]
+    for i, batch in enumerate(_batches(STEPS)):
+        jp, jo, jloss = jstep(jp, jo, jnp.int32(i), *map(jnp.asarray, batch),
+                              None)
+        pp, po, ploss = pstep(pp, po, i, *map(torch.from_numpy, batch))
+        np.testing.assert_allclose(float(ploss), float(jloss), rtol=1e-6)
+    jflat, pflat = _jflat(jp), {k: _np(v) for k, v in flatten(pp).items()}
+    for name in jflat:
+        np.testing.assert_allclose(pflat[name], jflat[name], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+    jstate = {**{f"z/{k}": v for k, v in _jflat(jo.z).items()},
+              **{f"n/{k}": v for k, v in _jflat(jo.n).items()}}
+    pstate = {k: _np(v) for k, v in flatten(po).items()}
+    assert sorted(jstate) == sorted(pstate)
+    for name in jstate:
+        np.testing.assert_allclose(pstate[name], jstate[name], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
 
 
 @pytest.mark.parametrize("steps_per_call", [1, 2])
