@@ -223,7 +223,28 @@ Phases (any failure exits non-zero before the last line is printed):
    ratings (the card's objective against the CPU's), ``FFMWithSGD`` on
    20,000 Avazu-shaped rows, and config 2's trained model through
    ``save_libfm``/``load_libfm`` (scores bit for bit). Kernel A, both sel
-   kernels and the SR bits must have launched.
+   kernels and the SR bits must have launched;
+19. training straight off raw-text shards (``stream_phase``): phase 14's
+   327,680-row Criteo TSV in three shards with 0.5 % of its lines
+   corrupted (placed from a seed; a wrong field count, a non-numeric
+   label, a bad token by turns). Leg C: the first 8,192 rows of each
+   shard through the Python and the native parser, batches and cursors
+   equal, host rows/s of each. Leg A: ``fmtorch train --native-ingest
+   --data-policy quarantine --max-bad-frac 0.05`` at config 3's full
+   width (bf16, dedup_sr, compact 12,288, the fused backward, B =
+   131,072, 6 steps over two epoch tails, a save every 2) uninterrupted,
+   and as a subprocess SIGKILLed after its step-3 loss line and resumed
+   by the same command: losses, the last step, ``params.npz``, the
+   bad/good counts and the dead-letter records equal, kernel B and the
+   SR bits in the resumed run's replays by symbol; then the same path in
+   this process, three steps under the profiler (step ms, device-busy
+   ms, idle share). Leg B: config 4 from an Avazu CSV in three shards
+   (the header in shard 0 only), ``--native-ingest --use-pallas``, 3
+   steps. Leg D: FieldFM's col layout at config 3's width (bf16,
+   dedup_sr, compact, kernel A) eager against captured and against the
+   row layout bit for bit, the unfused form (fp32, scatter_add) eager
+   against captured, and both forms' scores on the library path against
+   the CPU's, timed beside the row kernel.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -4334,6 +4355,533 @@ def families_phase(dev, report):
     return counts, out
 
 
+STREAM_BAD_FRAC = 0.005                  # phase 19: corrupted share of lines
+STREAM_STEPS = 6                         # leg A: two whole epochs at B
+STREAM_KILL_AT = 3                       # leg A: SIGKILL after this loss line
+STREAM_PY_ROWS = 8192                    # leg C: rows per shard, both parsers
+STREAM_AVAZU_ROWS = 30000                # leg B: 3 steps at 8,192
+LAYOUT_STEPS = 4                         # leg D: steps per comparison
+
+
+def _shards_of(lines, paths, header=None):
+    """``lines`` split into len(paths) consecutive shards, each line
+    newline-terminated; ``header`` goes into shard 0 only."""
+    per = (len(lines) + len(paths) - 1) // len(paths)
+    for i, path in enumerate(paths):
+        part = lines[i * per:(i + 1) * per]
+        with open(path, "wb") as f:
+            if header is not None and i == 0:
+                f.write(header + b"\n")
+            f.write(b"\n".join(part) + b"\n")
+    return per
+
+
+def _corrupt_lines(lines, frac: float, seed: int) -> dict:
+    """Corrupt ``frac`` of ``lines`` in place, at places drawn from
+    ``seed``, in the three kinds the guard rejects by turns: a wrong field
+    count (the last field dropped), a non-numeric label, a bad token (the
+    first count not an integer). Returns ``{line index: kind}``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    where = np.sort(rng.choice(len(lines), int(round(frac * len(lines))),
+                               replace=False))
+    kinds = {}
+    for j, i in enumerate(where.tolist()):
+        line = lines[i]
+        kind = j % 3
+        if kind == 0:
+            lines[i] = line.rsplit(b"\t", 1)[0]
+        elif kind == 1:
+            lines[i] = b"x" + line[1:]
+        else:
+            cols = line.split(b"\t")
+            cols[1] = b"12ab"
+            lines[i] = b"\t".join(cols)
+        kinds[i] = ("field count", "label", "token")[kind]
+    return kinds
+
+
+def _dead_letters(qdir: str) -> set:
+    """The distinct ``(path, lineno, reason)`` of a dead-letter journal."""
+    from fm_spark_tpu_torch.utils.logging import read_events
+
+    return {(e["path"], e["lineno"], e["reason"])
+            for e in read_events(os.path.join(qdir, "deadletter.jsonl"))
+            if e["event"] == "bad_record"}
+
+
+def _parsers_leg(base, lines, out):
+    """Leg C: the first STREAM_PY_ROWS rows of each dirty shard through
+    the Python parser and the native one, batch for batch and cursor for
+    cursor equal; host rows/s of each."""
+    import numpy as np
+
+    from fm_spark_tpu_torch.data.native_stream import NativeStreamBatches
+    from fm_spark_tpu_torch.data.stream import (RecordGuard, ShardReader,
+                                                StreamBatches, line_parser)
+
+    per = (len(lines) + 2) // 3
+    paths = [os.path.join(base, f"head{i}.tsv") for i in range(3)]
+    heads = [ln for i in range(3)
+             for ln in lines[i * per:i * per + STREAM_PY_ROWS]]
+    _shards_of(heads, paths)
+
+    def source(kind):
+        guard = RecordGuard("quarantine",
+                            quarantine_dir=os.path.join(base, f"q_{kind}"))
+        reader = ShardReader(paths)
+        if kind == "python":
+            return StreamBatches(reader, line_parser("criteo", BUCKET),
+                                 STREAM_PY_ROWS, F, guard=guard,
+                                 num_features=F * BUCKET)
+        return NativeStreamBatches(reader, "criteo", STREAM_PY_ROWS, F,
+                                   guard=guard, num_features=F * BUCKET,
+                                   bucket=BUCKET)
+
+    got = {}
+    for kind in ("python", "native"):
+        src = source(kind)
+        batches, states = [], []
+        t0 = time.perf_counter()
+        while src.state()["epoch"] == 0:
+            batches.append(src.next_batch())
+            states.append(src.state())
+        secs = time.perf_counter() - t0
+        got[kind] = (batches, states, src.guard.n_ok)
+        out[f"{kind}_rows_per_s"] = src.guard.n_ok / secs
+        out[f"{kind}_s"] = secs
+        src.close()
+    (pb, ps, pok), (nb, ns, nok) = got["python"], got["native"]
+    _check(len(pb) == len(nb) and ps == ns and pok == nok and all(
+        np.array_equal(x, y) for a, b in zip(pb, nb) for x, y in zip(a, b)),
+        "leg C: the native parser's batches or cursors differ from the "
+        "Python parser's")
+    _check(_dead_letters(os.path.join(base, "q_python"))
+           == _dead_letters(os.path.join(base, "q_native")),
+           "leg C: the two parsers' dead-letter records differ")
+    out.update(rows=len(heads), good_rows=pok, batches=len(pb),
+               cursor=ps[-1])
+
+
+def _kill_after(argv, line_step: int, ckdir: str) -> dict:
+    """``fmtorch`` ``argv`` as a subprocess, SIGKILLed once it has printed
+    its loss line of step ``line_step`` and its chain holds a verified
+    step below it: what it printed."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fm_spark_tpu_torch", *map(str, argv)],
+        cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    seen = []
+    try:
+        deadline = time.time() + 300
+        for line in proc.stdout:
+            if line.startswith("{"):
+                seen.append(json.loads(line))
+            if any(x.get("step") == line_step and "loss" in x for x in seen):
+                break
+            _check(time.time() < deadline, "leg A: the killed run never "
+                   f"reached step {line_step}")
+        good = os.path.join(ckdir, "last_good.json")
+        while time.time() < deadline:
+            if os.path.exists(good):
+                with contextlib.suppress(ValueError, OSError):
+                    with open(good) as f:
+                        if json.load(f)["step"] >= 2:
+                            break
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        proc.stdout.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    _check(proc.returncode == -signal.SIGKILL,
+           f"leg A: the run to kill exited {proc.returncode} first")
+    return {"lines": seen, "last_good": json.load(open(good))["step"]}
+
+
+def _stream_profile(dev, paths, base) -> dict:
+    """Leg A's path in this process (the native stream with quarantine,
+    field-local ids and the host aux on the producer thread, the
+    prefetcher, the captured step): one captured step, then three steps
+    under the profiler, each waiting on the stream as training does."""
+    import torch
+
+    from fm_spark_tpu_torch import models, sparse
+    from fm_spark_tpu_torch.cli import _field_local_rows
+    from fm_spark_tpu_torch.data import (DedupAuxBatches, MappedBatches,
+                                         Prefetcher)
+    from fm_spark_tpu_torch.data.native_stream import NativeStreamBatches
+    from fm_spark_tpu_torch.data.stream import RecordGuard, ShardReader
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    spec = models.FieldFMSpec(
+        num_features=F * BUCKET, rank=RANK, num_fields=F, bucket=BUCKET,
+        init_std=0.01, param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = TrainConfig(batch_size=TRAIN_B, learning_rate=0.05,
+                      lr_schedule="constant", reg_factors=1e-6,
+                      sparse_update="dedup_sr", host_dedup=True,
+                      compact_cap=CAP, fused_embed="require")
+    guard = RecordGuard("quarantine", os.path.join(base, "q_prof"),
+                        max_bad_frac=0.05)
+    stream = NativeStreamBatches(ShardReader(paths), "criteo", TRAIN_B, F,
+                                 guard=guard, num_features=F * BUCKET,
+                                 bucket=BUCKET)
+    src = DedupAuxBatches(MappedBatches(
+        stream, lambda b: _field_local_rows(b, BUCKET)), cap=CAP)
+    pf = Prefetcher(src, depth=2, device=dev)
+    try:
+        step = sparse.make_sgd_step(spec, cfg)
+        params = spec.init(torch.Generator(device=dev).manual_seed(0), dev)
+        params, _ = step(params, 0, *pf.next_batch())          # the capture
+        torch.cuda.synchronize()
+        prof = _profile_calls(
+            lambda j: step(params, j, *pf.next_batch()), range(1, 4))
+    finally:
+        pf.close()
+        stream.close()
+    return {k: prof[k] for k in (
+        "wall_ms_per_step", "device_ms_per_step", "idle_share",
+        "host_launches_per_step", "graph_launches_per_step")} | {
+        "kernel_runs_per_step": prof.get("kernel_runs_per_step"),
+        "ingest_rows_per_s": stream.rows_per_sec}
+
+
+def _layouts_leg(dev, out):
+    """Leg D: FieldFM's col layout (config 3, bf16, dedup_sr, compact
+    12,288, kernel A) eager against captured and against the row layout,
+    bit for bit over LAYOUT_STEPS steps; the unfused form (fp32,
+    scatter_add) eager against captured; both forms' scores on the
+    library path against the plain version on the CPU, timed."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import models, ops, sparse
+    from fm_spark_tpu_torch.ops import fused_fwd, scatter
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    kw = dict(num_features=F * BUCKET, rank=RANK, num_fields=F,
+              bucket=BUCKET, init_std=0.01)
+    row_spec = models.FieldFMSpec(**kw, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    col_spec = models.FieldFMSpec(**kw, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16",
+                                  table_layout="col")
+    cfg = TrainConfig(batch_size=TRAIN_B, learning_rate=0.05,
+                      reg_factors=1e-6, sparse_update="dedup_sr",
+                      host_dedup=True, compact_cap=CAP,
+                      segtotal_pallas=True)
+    stream = BenchStream(19, TRAIN_B, F, BUCKET)
+    batches = []
+    for _ in range(LAYOUT_STEPS):
+        ids, vals, labels, weights = stream.next_batch()
+        aux = tuple(torch.from_numpy(a).to(dev)
+                    for a in scatter.compact_aux(ids, CAP))
+        batches.append((*(torch.from_numpy(a).to(dev)
+                          for a in (ids, vals, labels, weights)), aux))
+    row = row_spec.init(torch.Generator(device=dev).manual_seed(23), dev)
+    col_e = {"w0": row["w0"].clone(),
+             "vw": [t.t().contiguous() for t in row["vw"]]}
+    col_g = {"w0": col_e["w0"].clone(), "vw": [t.clone() for t in col_e["vw"]]}
+    rbody = sparse.make_field_sparse_sgd_body(row_spec, cfg)
+    cbody = sparse.make_field_sparse_sgd_body(col_spec, cfg)
+    cstep = sparse.make_field_sparse_sgd_step(col_spec, cfg)
+    walls = {"row_eager": [], "col_eager": [], "col_captured": []}
+    losses = []
+    for j, batch in enumerate(batches):
+        for name, fn in (("row_eager", lambda: rbody(row, j, *batch)),
+                         ("col_eager", lambda: cbody(col_e, j, *batch)),
+                         ("col_captured", lambda: cstep(col_g, j, *batch))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            losses.append((name, loss))
+        lr_, le, lg = (x[1] for x in losses[-3:])
+        _check(_same_bits(le, lg) and _same_tree(col_e, col_g),
+               f"leg D: the captured col step {j} != the eager one")
+        _check(_same_bits(lr_, le) and _same_bits(row["w0"], col_e["w0"])
+               and all(_same_bits(r, c.t()) for r, c in
+                       zip(row["vw"], col_e["vw"])),
+               f"leg D: the col step {j} != the row step, transposed")
+    out["col"] = {"steps": LAYOUT_STEPS, "bitwise": True,
+                  "losses": [float(x[1]) for x in losses
+                             if x[0] == "col_eager"],
+                  "wall_ms": walls,
+                  "capture_s": cstep.captured.capture_s}
+    del row, col_g, rbody, cstep
+
+    # The unfused form, fp32 scatter_add: eager against captured.
+    un_spec = models.FieldFMSpec(**kw, fused_linear=False)
+    ucfg = TrainConfig(batch_size=TRAIN_B, learning_rate=0.05,
+                       reg_factors=1e-6, reg_linear=1e-6,
+                       sparse_update="scatter_add")
+    un_e = un_spec.init(torch.Generator(device=dev).manual_seed(29), dev)
+    un_g = {"w0": un_e["w0"].clone(), "w": [t.clone() for t in un_e["w"]],
+            "v": [t.clone() for t in un_e["v"]]}
+    ubody = sparse.make_field_sparse_sgd_body(un_spec, ucfg)
+    ustep = sparse.make_field_sparse_sgd_step(un_spec, ucfg)
+    uwalls = {"eager": [], "captured": []}
+    ulosses = []
+    for j, batch in enumerate(batches):
+        got = {}
+        for name, fn in (("eager", lambda: ubody(un_e, j, *batch[:4])),
+                         ("captured", lambda: ustep(un_g, j, *batch[:4]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, got[name] = fn()
+            torch.cuda.synchronize()
+            uwalls[name].append((time.perf_counter() - t0) * 1e3)
+        _check(_same_bits(got["eager"], got["captured"])
+               and _same_tree(un_e, un_g),
+               f"leg D: the captured unfused step {j} != the eager one")
+        ulosses.append(float(got["eager"]))
+    _check(all(np.isfinite(ulosses)), f"leg D: unfused losses {ulosses}")
+    out["unfused"] = {"steps": LAYOUT_STEPS, "bitwise": True,
+                      "losses": ulosses, "wall_ms": uwalls,
+                      "capture_s": ustep.captured.capture_s}
+    del un_g, ustep
+
+    # Both forms' scores: the library path on the card against the same
+    # formula on the CPU (fp32 compute), timed beside the row kernel.
+    col32 = models.FieldFMSpec(**kw, param_dtype="bfloat16",
+                               table_layout="col")
+    row32 = models.FieldFMSpec(**kw, param_dtype="bfloat16")
+    scores = {}
+    n_check = 16384
+    for name, spec, params in (("col", col32, col_e),
+                               ("unfused", un_spec, un_e)):
+        ids, vals = batches[0][0], batches[0][1]
+        lib0 = ops.library_calls()["field_fm_scores_library"]
+        launch0 = fused_fwd.launches
+        got = spec.scores(params, ids[:n_check], vals[:n_check]).cpu()
+        _check(ops.library_calls()["field_fm_scores_library"] == lib0 + 1
+               and fused_fwd.launches == launch0,
+               f"leg D: {name} scores not on the library path alone")
+        host = {k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+                for k, v in params.items()}
+        want = spec.scores(host, ids[:n_check].cpu(), vals[:n_check].cpu())
+        _check(_close(got, want),
+               f"leg D: {name} scores off the plain version by "
+               f"{float((got - want).abs().max())}")
+        entry = {"max_abs_err": float((got - want).abs().max())}
+        for b in (512, TRAIN_B):
+            entry[f"library_ms_B{b}"] = _median_ms(
+                lambda r, b=b: spec.scores(params, ids[:b], vals[:b]),
+                reps=10, hide_host_ms=2.0)
+        scores[name] = entry
+    # The kernel on the same values in the row layout, for comparison.
+    row_tables = [t.t().contiguous() for t in col_e["vw"]]
+    rparams = {"w0": col_e["w0"], "vw": row_tables}
+    with _uncounted():
+        for b in (512, TRAIN_B):
+            scores["col"][f"row_kernel_ms_B{b}"] = _median_ms(
+                lambda r, b=b: row32.scores(rparams, batches[0][0][:b],
+                                            batches[0][1][:b]),
+                reps=10, hide_host_ms=2.0)
+    out["scores"] = scores
+
+
+def stream_phase(dev, report):
+    """Phase 19: training straight off raw-text shards (the stream, the
+    quarantine policy, native ingest) and FieldFM's col and unfused
+    forms."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import native
+    from fm_spark_tpu_torch.data import avazu
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="stream.", dir=root)
+    out = {"card": report["card"], "host_cpu": _host_cpu()}
+    t_phase = time.perf_counter()
+    try:
+        native.load_fast()
+        tsv = os.path.join(base, "day.tsv")
+        _criteo_tsv(tsv, INGEST_ROWS, seed=14)
+        with open(tsv, "rb") as f:
+            lines = f.read().split(b"\n")[:-1]
+        os.unlink(tsv)
+        kinds = _corrupt_lines(lines, STREAM_BAD_FRAC, seed=19)
+        paths = [os.path.join(base, f"s{i}.tsv") for i in range(3)]
+        _shards_of(lines, paths)
+        out["rows"] = len(lines)
+        out["corrupted"] = {k: sum(v == k for v in kinds.values())
+                            for k in ("field count", "label", "token")}
+
+        # Leg C first: the parsers on the card's host, no card work.
+        out["leg_c"] = {}
+        _parsers_leg(base, lines, out["leg_c"])
+        del lines
+
+        # Counts start at 0 just before the main path and are read after.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        q = [os.path.join(base, f"q{i}") for i in (1, 2)]
+        ck = [os.path.join(base, f"ck{i}") for i in (1, 2)]
+        mo = [os.path.join(base, f"m{i}") for i in (1, 2)]
+
+        def leg_a(i):
+            return ["train", "--config", "criteo1tb_fm_r64", "--data",
+                    ",".join(paths), "--native-ingest", "--data-policy",
+                    "quarantine", "--quarantine-dir", q[i], "--max-bad-frac",
+                    0.05, "--test-fraction", 0, "--batch-size", TRAIN_B,
+                    "--param-dtype", "bfloat16", "--compute-dtype",
+                    "bfloat16", "--sparse-update", "dedup_sr",
+                    "--host-dedup", "--compact-cap", CAP, "--fused-embed",
+                    "require", "--steps", STREAM_STEPS, "--checkpoint-dir",
+                    ck[i], "--checkpoint-every", 2, "--checkpoint-keep", 2,
+                    "--model-out", mo[i]]
+        # Leg A: uninterrupted; then killed after step 3 and resumed.
+        t0 = time.perf_counter()
+        full, full_sum = _cli(*leg_a(0))
+        out["leg_a_full_s"] = time.perf_counter() - t0
+        _check(full_sum["native_ingest"], f"leg A fell back: {full_sum}")
+        killed = _kill_after(leg_a(1), STREAM_KILL_AT, ck[1])
+        from torch.profiler import ProfilerActivity, profile
+        from torch.autograd import DeviceType
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rest, rest_sum = _cli(*leg_a(1))
+        torch.cuda.synchronize()
+        runs, _ = _symbol_counts([e for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA])
+        lf, lr = _losses(full), _losses(rest)
+        resumed = _one(rest, "resumed")
+        _check(resumed["step"] in (2, 4) and lr and min(lr) > resumed["step"]
+               and all(lr[k] == lf[k] for k in lr) and max(lr)
+               == STREAM_STEPS, f"leg A: resumed at {resumed['step']}, "
+               f"losses {lr} != the uninterrupted {lf}")
+        _check(all(lf[k] == x["loss"] for x in killed["lines"]
+                   if "loss" in x for k in [x["step"]]),
+               "leg A: the killed run's losses differ")
+        _check(_same_chain_step(_chain_step(ck[0], STREAM_STEPS),
+                                _chain_step(ck[1], STREAM_STEPS)),
+               "leg A: the resumed run's last step differs")
+        with np.load(os.path.join(mo[0], "params.npz")) as a, \
+                np.load(os.path.join(mo[1], "params.npz")) as b:
+            _check(sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files),
+                "leg A: the resumed params.npz differs")
+        # The CLI's quarantine line (the logger's carries no dead_letter).
+        _one(full, "dead_letter")
+        bf, gf = next((x["bad_records"], x["good_records"]) for x in full
+                      if "dead_letter" in x)
+        br, gr = next((x["bad_records"], x["good_records"]) for x in rest
+                      if "dead_letter" in x)
+        _check(_one(rest, "dead_letter") == os.path.join(
+            q[1], "deadletter.jsonl"), "leg A: the dead-letter path")
+        n_bad = len(kinds)
+        cursor = _chain_step(ck[0], STREAM_STEPS)["pipeline"]
+        _check(bf == br and gf == gr and cursor["epoch"] == 2
+               and cursor["shard"] == 0 and cursor["offset"] == 0
+               and bf == 2 * n_bad and gf == 2 * (INGEST_ROWS - n_bad),
+               f"leg A: bad/good {bf}/{gf} vs resumed {br}/{gr}, cursor "
+               f"{cursor}, {n_bad} corrupted lines")
+        dl_full, dl_rest = _dead_letters(q[0]), _dead_letters(q[1])
+        _check(dl_full == dl_rest and len(dl_full) == n_bad,
+               f"leg A: dead letters {len(dl_full)} vs {len(dl_rest)}, "
+               f"{n_bad} corrupted")
+        eager_b = rest_sum["kernel_launches"]["fm_bwd_segment_totals"]
+        eager_sr = rest_sum["kernel_launches"]["sr_bits"]
+        replay_runs = {"fm_bwd_segment_totals": runs["fm_bwd_segment_totals"]
+                       - eager_b, "sr_bits": runs["sr_bits"] - eager_sr}
+        _check(all(v > 0 for v in replay_runs.values()),
+               f"leg A: kernel B or sr_bits ran in no replay: {runs}, "
+               f"eager {eager_b}, {eager_sr}")
+        sps = {x["step"]: x.get("samples_per_sec") for x in full
+               if "loss" in x}
+        # End to end over steps 2..6: the samples of five steps over the
+        # wall between the first and the last loss line (host input,
+        # saves and steps; the first step's capture before the window).
+        ts = {x["step"]: x["ts"] for x in full if "loss" in x}
+        e2e = (STREAM_STEPS - 1) * TRAIN_B / (ts[STREAM_STEPS] - ts[1])
+        packed = report.get("ingest", {}).get("leg_a", {}).get(
+            "samples_per_s")
+        out["leg_a"] = {
+            "losses": lf, "resumed": resumed, "killed_last_good":
+            killed["last_good"], "bad_records": bf, "good_records": gf,
+            "dead_letters": len(dl_full), "samples_per_s": sps,
+            "samples_per_s_steps_2_to_6": e2e,
+            "full_run_s": out["leg_a_full_s"],
+            "packed_dir_samples_per_s": packed,
+            "ingest_rows_per_s": full_sum["ingest_rows_per_sec"],
+            "step_ms": full_sum["step_ms"], "aux_ms": full_sum["aux_ms"],
+            "replay_runs_by_symbol": replay_runs}
+        for d in ck + mo:
+            shutil.rmtree(d, ignore_errors=True)
+        out["leg_a"]["profile"] = _stream_profile(dev, paths, base)
+        _check(out["leg_a"]["profile"]["kernel_runs_per_step"] is None or
+               out["leg_a"]["profile"]["kernel_runs_per_step"][
+                   "fm_bwd_segment_totals"] > 0,
+               f"leg A: no kernel B in the profiled steps: {out['leg_a']}")
+
+        # Leg B: config 4 from an Avazu CSV in three shards, the header in
+        # shard 0 only.
+        csv = os.path.join(base, "train.csv")
+        avazu.synthesize_csv(csv, STREAM_AVAZU_ROWS, seed=19)
+        with open(csv, "rb") as f:
+            alines = f.read().split(b"\n")[:-1]
+        os.unlink(csv)
+        apaths = [os.path.join(base, f"a{i}.csv") for i in range(3)]
+        _shards_of(alines[1:], apaths, header=alines[0])
+        before = kernel_launches()
+        lines_b, sum_b = _cli(
+            "train", "--config", "avazu_ffm_r16", "--data", ",".join(apaths),
+            "--native-ingest", "--batch-size", INGEST_FFM_B,
+            "--compute-dtype", "bfloat16", "--sel-blocked", "--fused-embed",
+            "require", "--use-pallas", "--test-fraction", 0, "--steps", 3)
+        got_b = {k: v - before[k] for k, v in kernel_launches().items()}
+        lb = _losses(lines_b)
+        _check(sum_b["native_ingest"] and sorted(lb) == [1, 2, 3]
+               and all(np.isfinite(list(lb.values()))),
+               f"leg B: {lb} {sum_b}")
+        _check(all(got_b[k] > 0 for k in ("ffm_sel_scores", "ffm_sel_bwd",
+                                          "gather_rows", "update_rows_add")),
+               f"leg B: an FFM or row kernel never launched: {got_b}")
+        out["leg_b"] = {"losses": lb, "launches": got_b,
+                        "ingest_rows_per_s": sum_b["ingest_rows_per_sec"],
+                        "step_ms": sum_b["step_ms"]}
+
+        # Leg D: FieldFM's col and unfused forms.
+        out["leg_d"] = {}
+        _layouts_leg(dev, out["leg_d"])
+        launches = kernel_launches()
+        out["launches"] = launches
+        for k in ("segment_totals", "fm_bwd_segment_totals", "sr_bits",
+                  "ffm_sel_scores", "ffm_sel_bwd"):
+            _check(launches[k] > 0, f"phase 19: {k} never launched: "
+                   f"{launches}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("stream", json.dumps(out), flush=True)
+    a = out["leg_a"]
+    print(f"phase 19 ({report['card']}): parse rows/s native "
+          f"{out['leg_c']['native_rows_per_s']:.0f}, python "
+          f"{out['leg_c']['python_rows_per_s']:.0f}; leg A samples/s "
+          f"{a['samples_per_s_steps_2_to_6']:.0f} over steps 2-6, per step "
+          f"{a['samples_per_s']} (packed dir {a['packed_dir_samples_per_s']});"
+          f" profiled step {a['profile']['wall_ms_per_step']} ms, busy "
+          f"{a['profile']['device_ms_per_step']} ms, idle share "
+          f"{a['profile']['idle_share']}", flush=True)
+    report["stream"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4383,6 +4931,7 @@ def main() -> int:
     serve_runs = serve_chain_phase(dev, report)
     flat_launches, flat = flat_fm_phase(dev, report)
     fam_launches, fam = families_phase(dev, report)
+    stream_launches = stream_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -4585,6 +5134,12 @@ def main() -> int:
                 **fam["C_ffm_kernels"][key],
                 "shape": f"flat FFM step: B={FAM_B}, {FFM_F} fields, "
                          f"rank {FFM_RANK}, fp32"}
+    # Phase 19, the raw-text stream and FieldFM's col and unfused forms:
+    # each kernel's launches (the eager steps and capture warm-ups of its
+    # legs; the replays' runs of kernel B and sr_bits by symbol in
+    # report["stream"]).
+    for entry in kernels["kernels"]:
+        entry["stream_launches"] = stream_launches[entry["name"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

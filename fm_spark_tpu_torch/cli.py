@@ -15,9 +15,16 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
   5), printing one JSON loss line every ``--log-every`` steps, then
   ``{"eval": {...}}`` on the held-out ``--test-fraction`` and
   ``{"saved": DIR}`` with ``--model-out``. ``--data`` takes a packed dir
-  (streamed; the held-out rows are its tail) or a small file of the
+  (streamed; the held-out rows are its tail), a comma-separated list of
+  Criteo TSV or Avazu CSV shards (the raw-text stream, read in bounded
+  memory with an exactly-once cursor, natively parsed with
+  ``--native-ingest``; ``--test-fraction 0``), or a small file of the
   config's dataset: a MovieLens ratings file, a Criteo TSV or an Avazu
-  CSV (parsed in memory; a malformed line raises with ``path:lineno``).
+  CSV (parsed in memory). A malformed line raises with ``path:lineno``
+  under ``--data-policy strict``; under ``quarantine`` it goes to
+  ``--quarantine-dir``'s dead-letter journal, a
+  ``{"bad_records", "good_records", "dead_letter"}`` line is printed, and
+  ``--max-bad-frac`` aborts a run whose bad-record rate exceeds it.
   ``--checkpoint-dir`` keeps a crash-consistent
   checkpoint chain every ``--checkpoint-every`` steps, and the same
   command resumes from its newest verified step; SIGTERM saves and
@@ -66,19 +73,45 @@ def load_dataset(cfg, synthetic: int):
     return ids, vals, labels, num_features
 
 
-def load_text(cfg, path: str):
+def _ingest_guard(args, windowed: bool = True):
+    """The per-record error policy of ``--data-policy``,
+    ``--quarantine-dir`` and ``--max-bad-frac`` (the reference's
+    ``_ingest_guard``; strict by default, and for commands without the
+    flags): a :class:`~fm_spark_tpu_torch.data.stream.RecordGuard`. The
+    in-memory loaders pass ``windowed=False`` (their good count arrives in
+    one bulk after the parse). ``quarantine`` needs ``--quarantine-dir``:
+    the port has no per-run obs directory to default to (ROADMAP Queue 1
+    item 13)."""
+    from fm_spark_tpu_torch.data.stream import RecordGuard
+
+    policy = getattr(args, "data_policy", None) or "strict"
+    qdir = getattr(args, "quarantine_dir", None)
+    frac = getattr(args, "max_bad_frac", None)
+    if policy == "quarantine" and not qdir:
+        raise SystemExit(
+            "--data-policy quarantine needs --quarantine-dir (the "
+            "dead-letter journal has to land somewhere; the per-run obs "
+            "directory it defaults to in the JAX package is not ported yet, "
+            "ROADMAP Queue 1 item 13)")
+    return RecordGuard(policy=policy, quarantine_dir=qdir,
+                       max_bad_frac=1.0 if frac is None else frac,
+                       windowed=windowed)
+
+
+def load_text(cfg, path: str, args=None):
     """``(ids, vals, labels, num_features)`` of a small file of the
     config's dataset, parsed in memory (the reference's ``load_dataset``
     for files): a MovieLens ratings file (``num_features`` = users +
     items), or a Criteo TSV or Avazu CSV (the config's hashed size;
     field-local ids for field-partitioned models, unit vals). Labels are
-    float32. A malformed Criteo or Avazu line raises
+    float32. A malformed Criteo or Avazu line goes through
+    :func:`_ingest_guard` of ``args`` (strict without them: it raises
     :class:`~fm_spark_tpu_torch.data.records.BadRecord` with
-    ``path:lineno``."""
+    ``path:lineno``), and the whole-load breaker then holds the overall
+    bad fraction to ``--max-bad-frac``."""
     import numpy as np
 
-    from fm_spark_tpu_torch.data import (avazu, criteo, field_local,
-                                         movielens, records)
+    from fm_spark_tpu_torch.data import avazu, criteo, field_local, movielens
 
     if cfg.dataset == "movielens":
         (ids, vals, labels), meta = movielens.load_ratings(path,
@@ -93,13 +126,97 @@ def load_text(cfg, path: str):
     header = 0
     if cfg.dataset == "avazu" and lines and lines[0].startswith(b"id,"):
         lines, header = lines[1:], 1
+    guard = _ingest_guard(args, windowed=False)
     ids, labels = mod.parse_lines(lines, cfg.bucket, per_field=True,
-                                  on_error=records.strict, path=path,
+                                  on_error=guard.on_error, path=path,
                                   start_lineno=1 + header)
+    guard.ok_many(len(labels))
+    guard.check_overall()
+    guard.close()
     if cfg.field_local_ids:
         ids = field_local(ids, cfg.bucket)
     return (ids, np.ones(ids.shape, np.float32), labels.astype(np.float32),
             cfg.num_features)
+
+
+def _is_shard_list(cfg, data) -> bool:
+    """``--data a,b,c`` of a Criteo or Avazu config: the raw-text stream."""
+    return (cfg.dataset in ("criteo", "avazu") and bool(data)
+            and "," in data)
+
+
+def _stream_source(args, cfg, tconfig):
+    """The raw-text stream of ``--data a,b,c`` (the reference's streaming
+    branch of ``train``): the shards in order through a
+    :class:`~fm_spark_tpu_torch.data.stream.ShardReader` (an Avazu header
+    skipped by match, never by position) and :func:`_ingest_guard`,
+    parsed natively with ``--native-ingest`` (a configuration outside the
+    native contract falls back to the Python parser, with the reason on
+    stderr), with field-local ids for field-partitioned models. It
+    refuses a missing shard, ``--test-fraction > 0`` and more than one
+    process. Returns ``(source, stream)``: the source to train from and
+    the stream under its wrappers."""
+    from fm_spark_tpu_torch.data import MappedBatches
+    from fm_spark_tpu_torch.data.native_stream import (
+        NativeStreamBatches, make_stream_batches,
+        native_stream_unsupported_reason)
+    from fm_spark_tpu_torch.data.stream import ShardReader
+
+    paths = [p for p in args.data.split(",") if p]
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if missing:
+        raise SystemExit(f"missing shard file(s): {', '.join(missing)}")
+    if args.test_fraction > 0:
+        raise SystemExit(
+            "streaming text ingest (--data with a comma-separated shard "
+            "list) holds out no eval split; pass --test-fraction 0, or "
+            "preprocess to a packed dir for held-out metrics")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit("streaming text ingest is single-process; "
+                         "preprocess to a packed dir for multi-host runs")
+    reader = ShardReader(paths, header_prefix=(
+        b"id," if cfg.dataset == "avazu" else None))
+    stream = make_stream_batches(
+        reader, cfg.dataset, tconfig.batch_size, max_nnz=cfg.num_fields,
+        guard=_ingest_guard(args), num_features=cfg.num_features,
+        bucket=cfg.bucket, native_ingest="auto" if args.native_ingest
+        else False)
+    if args.native_ingest and not isinstance(stream, NativeStreamBatches):
+        print("cli: --native-ingest fell back to the pure-Python streaming "
+              "parser: " + str(native_stream_unsupported_reason(
+                  cfg.dataset, cfg.num_fields, cfg.bucket)), file=sys.stderr)
+    source = stream
+    if cfg.field_local_ids:
+        # On the producer thread; the guard passes through the wrapper.
+        source = MappedBatches(stream,
+                               lambda b: _field_local_rows(b, cfg.bucket))
+    return source, stream
+
+
+def _field_local_rows(batch, bucket: int):
+    """A stream batch with field-local ids; the epoch tail's padding rows
+    (weight 0, global ids 0) take local id 0, where ``field_local`` alone
+    would make them negative, which the host aux refuses."""
+    from fm_spark_tpu_torch.data import field_local
+
+    ids, vals, labels, weights = batch
+    ids = field_local(ids, bucket)
+    ids[weights == 0] = 0
+    return ids, vals, labels, weights
+
+
+def _print_ingest(counts, summary: dict, stream) -> None:
+    """The reference's quarantine line, ``{"bad_records", "good_records",
+    "dead_letter"}``, when the stream's guard quarantined anything; the
+    stream's parse rate goes to the stderr ``summary``."""
+    from fm_spark_tpu_torch.data.native_stream import NativeStreamBatches
+
+    if stream is None:
+        return
+    summary["ingest_rows_per_sec"] = stream.rows_per_sec
+    summary["native_ingest"] = isinstance(stream, NativeStreamBatches)
+    if counts is not None and counts["bad_records"]:
+        print(json.dumps(counts), flush=True)
 
 
 def _synthetic_for_model(spec, n: int):
@@ -243,7 +360,9 @@ def cmd_train(args) -> int:
                              param_dtype=args.param_dtype,
                              compute_dtype=args.compute_dtype,
                              use_pallas=True if args.use_pallas else None,
-                             optimizer=args.optimizer)
+                             optimizer=args.optimizer,
+                             learning_rate=args.lr, loss=args.loss,
+                             seed=args.seed, table_layout=args.table_layout)
     if cfg.strategy not in ("single", "dp", "field_sparse"):
         raise SystemExit(f"strategy {cfg.strategy!r} (config {cfg.name!r}) "
                          "is not ported yet (ROADMAP Queue 1 item 11)")
@@ -271,7 +390,11 @@ def cmd_train(args) -> int:
             f"{type(spec).__name__})")
     dev = resolve_device(args.device)
     bs = tconfig.batch_size
-    if args.data and os.path.isdir(args.data):
+    stream = None
+    if _is_shard_list(cfg, args.data):
+        batches, stream = _stream_source(args, cfg, tconfig)
+        eval_source = None
+    elif args.data and os.path.isdir(args.data):
         # A packed dir streams; --test-fraction holds out its TAIL rows (a
         # random split when preprocess shuffled the dir).
         ds = data.PackedDataset(args.data)
@@ -285,7 +408,7 @@ def cmd_train(args) -> int:
                                            row_range=(cut, len(ds))))
             if cut < len(ds) else None)
     else:
-        ids, vals, labels, _ = (load_text(cfg, args.data) if args.data
+        ids, vals, labels, _ = (load_text(cfg, args.data, args) if args.data
                                 else load_dataset(cfg, args.synthetic))
         batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
                                               bs)
@@ -296,18 +419,23 @@ def cmd_train(args) -> int:
         with _preemption(checkpointer) as guard:
             params = fit_field_sparse(
                 spec, tconfig, batches, device=dev,
-                steps_per_call=args.steps_per_call, logger=MetricsLogger(),
-                stats=stats, checkpointer=checkpointer,
-                eval_source=eval_source, preemption_guard=guard)
+                steps_per_call=args.steps_per_call, prefetch=args.prefetch,
+                logger=MetricsLogger(), stats=stats,
+                checkpointer=checkpointer, eval_source=eval_source,
+                preemption_guard=guard)
     finally:
         if checkpointer is not None:
             checkpointer.close()
             journal.close()
+        if stream is not None:
+            stream.close()
+            stream.guard.close()
     if stats["resumed"] is not None:
         print(json.dumps({"resumed": stats["resumed"]}), flush=True)
     summary = {"device": str(dev), "kernel_launches": _since(before),
                "step_ms": stats["step_ms"], "aux_ms": stats["aux_ms"],
                "capture_s": stats["capture_s"], "saves": stats["saves"]}
+    _print_ingest(stats["ingest"], summary, stream)
     if stats["end"] < tconfig.num_steps:
         # Preempted: the chain holds the step reached; the same command
         # resumes it.
@@ -390,7 +518,12 @@ def _train_flat(args, cfg, tconfig) -> int:
             "visible (CUDA_VISIBLE_DEVICES) to run it on one")
     dev = resolve_device(args.device)
     bs = tconfig.batch_size
-    if args.data and os.path.isdir(args.data):
+    stream = None
+    if _is_shard_list(cfg, args.data):
+        batches, stream = _stream_source(args, cfg, tconfig)
+        eval_source = None
+        spec = cfg.spec()
+    elif args.data and os.path.isdir(args.data):
         # Global ids (field offset + hash): the flat table takes them as
         # they are, bucket 0 in the reader.
         ds = data.PackedDataset(args.data)
@@ -404,7 +537,7 @@ def _train_flat(args, cfg, tconfig) -> int:
         spec = cfg.spec()
     else:
         ids, vals, labels, num_features = (
-            load_text(cfg, args.data) if args.data
+            load_text(cfg, args.data, args) if args.data
             else load_dataset(cfg, args.synthetic))
         spec = cfg.spec(num_features if cfg.bucket <= 0 else None)
         batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
@@ -415,19 +548,23 @@ def _train_flat(args, cfg, tconfig) -> int:
     try:
         with _preemption(checkpointer) as guard:
             trainer.fit(batches, checkpointer=checkpointer,
-                        preemption_guard=guard,
+                        preemption_guard=guard, prefetch=args.prefetch,
                         eval_batches=(eval_source if tconfig.eval_every > 0
                                       else None))
     finally:
         if checkpointer is not None:
             checkpointer.close()
             journal.close()
+        if stream is not None:
+            stream.close()
+            stream.guard.close()
     if trainer.resumed is not None:
         print(json.dumps({"resumed": trainer.resumed}), flush=True)
     summary = {"device": str(dev), "strategy": cfg.strategy,
                "kernel_launches": _since(before),
                "capture_s": trainer._train_step.captured.capture_s,
                "saves": list(checkpointer.timings) if checkpointer else []}
+    _print_ingest(trainer.ingest, summary, stream)
     if trainer.step_count < tconfig.num_steps:
         print(json.dumps({"preempted": trainer.step_count}), flush=True)
         print(json.dumps(summary), file=sys.stderr)
@@ -673,12 +810,22 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="train a registered config")
     t.add_argument("--config", required=True, help="registered config name")
-    t.add_argument("--data", help="a packed dir (see preprocess) or a small "
+    t.add_argument("--data", help="a packed dir (see preprocess), a "
+                                  "comma-separated list of Criteo TSV or "
+                                  "Avazu CSV shards (streamed), or a small "
                                   "file of the config's dataset (MovieLens "
                                   "ratings, Criteo TSV, Avazu CSV)")
     t.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N seeded synthetic examples")
     t.add_argument("--steps", type=int, required=True)
+    t.add_argument("--lr", type=float, default=None,
+                   help="learning rate in place of the config's")
+    t.add_argument("--loss", choices=["logistic", "squared", "hinge"],
+                   help="loss in place of the config's (task compatibility "
+                        "is checked by the spec)")
+    t.add_argument("--seed", type=int, default=None,
+                   help="seed in place of the config's (init, shuffles, "
+                        "SR bits)")
     t.add_argument("--optimizer", choices=["sgd", "adam", "adagrad", "ftrl"],
                    help="the flat FM's optimizer, or FieldDeepFM's dense "
                         "one (MLP and bias), in place of the config's; the "
@@ -689,6 +836,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(a narrower copy of the config)")
     t.add_argument("--param-dtype", choices=["float32", "bfloat16"])
     t.add_argument("--compute-dtype", choices=["float32", "bfloat16"])
+    t.add_argument("--table-layout", choices=["row", "col"],
+                   help="FieldFM's table orientation; col = transposed "
+                        "[width, bucket] tables holding the same values "
+                        "(bitwise-equivalent; needs --compact-cap)")
     t.add_argument("--sparse-update", choices=["scatter_add", "dedup",
                                                "dedup_sr"])
     t.add_argument("--host-dedup", action="store_true", default=None,
@@ -729,6 +880,31 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--checkpoint-keep", type=int, default=3,
                    help="steps the chain keeps (max_to_keep)")
     t.add_argument("--model-out", help="directory to save the final model")
+    t.add_argument("--prefetch", type=int, default=2,
+                   help="background batch read-ahead depth (0 = off): "
+                        "batches are built and moved to the device off the "
+                        "step's critical path")
+    t.add_argument("--native-ingest", action="store_true",
+                   help="parse the raw-text shards of --data a,b,c with "
+                        "the C++ chunk parser: the Python path's record "
+                        "stream, cursor and quarantine records at native "
+                        "rate; a config outside the native contract falls "
+                        "back to the Python parser (reason on stderr)")
+    t.add_argument("--data-policy", default="strict",
+                   choices=["strict", "quarantine"],
+                   help="per-record error policy of the text loaders: "
+                        "strict = the first malformed or out-of-contract "
+                        "record raises with path:lineno; quarantine = bad "
+                        "records go to <quarantine-dir>/deadletter.jsonl "
+                        "and training continues")
+    t.add_argument("--quarantine-dir",
+                   help="dead-letter directory of --data-policy quarantine "
+                        "(one JSONL record per bad line: path, lineno, "
+                        "reason, repr-escaped preview)")
+    t.add_argument("--max-bad-frac", type=float, default=1.0, metavar="FRAC",
+                   help="bad-record-rate breaker (quarantine): abort when "
+                        "more than FRAC of a trailing window of records is "
+                        "bad (1.0 = never)")
     t.add_argument("--device", default=None, help=device_help)
     t.set_defaults(fn=cmd_train)
 

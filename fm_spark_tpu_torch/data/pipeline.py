@@ -1,8 +1,12 @@
 """Host batching (the port of ``fm_spark_tpu/data/pipeline.py``):
 deterministic epoch-shuffled batches, the reference's per-iteration
-Bernoulli sample, the compact-aux wrapper, a
-prefetcher that moves batches to the card off the critical path, and the
-ordered pass used by evaluation and predict."""
+Bernoulli sample, the compact-aux wrapper, the producer-side wrappers
+(:class:`MappedBatches`, :class:`StackedBatches`), a prefetcher that
+moves batches to the card off the critical path (:func:`wrap_prefetch`),
+and the ordered pass used by evaluation and predict.
+
+Every wrapper passes ``state()``/``restore()`` and the raw-text stream's
+``guard`` (``data/stream.RecordGuard``) through to its source."""
 
 from __future__ import annotations
 
@@ -249,6 +253,98 @@ class DedupAuxBatches:
         self._pre_split_state = None
         self._source.restore(state)
 
+    @property
+    def guard(self):
+        return getattr(self._source, "guard", None)
+
+
+class MappedBatches:
+    """A batch source with ``fn`` applied to each batch in the PRODUCER
+    thread (wrap it before :class:`Prefetcher`): per-batch host transforms
+    off the step's critical path, such as the field-local id conversion
+    of a raw-text stream."""
+
+    def __init__(self, source, fn):
+        self._source = source
+        self._fn = fn
+
+    def next_batch(self):
+        return self._fn(self._source.next_batch())
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
+
+    def state(self):
+        return self._source.state()
+
+    def restore(self, state) -> None:
+        self._source.restore(state)
+
+    @property
+    def guard(self):
+        return getattr(self._source, "guard", None)
+
+
+def _stack_tree(batches):
+    """Batches (tuples of numpy arrays, nested tuples allowed) stacked on a
+    new leading axis, leaf by leaf."""
+    first = batches[0]
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack_tree([b[i] for b in batches])
+                     for i in range(len(first)))
+    return np.stack([np.asarray(b) for b in batches], axis=0)
+
+
+class StackedBatches:
+    """A batch source that stacks ``n`` consecutive batches on a leading
+    axis, the input of the rolled steps
+    (:func:`~fm_spark_tpu_torch.sparse.make_field_sparse_multistep`); the
+    aux of :class:`DedupAuxBatches` stacks leaf by leaf. Wrap it BEFORE
+    :class:`Prefetcher` so the copies run in the producer thread.
+
+    ``state()`` is the source's cursor after the last stack's batches.
+    ``total`` bounds how many SOURCE batches are ever consumed: the last
+    stack of a finite run takes only the remainder and pads with copies of
+    its last real batch (which the consumer's step count never runs), so
+    the checkpointed cursor stays exact.
+    """
+
+    def __init__(self, source, n: int, total: int | None = None):
+        if n < 1:
+            raise ValueError(f"stack size must be >= 1, got {n}")
+        self._source = source
+        self._n = n
+        self._left = total  # None = unbounded
+
+    def next_batch(self):
+        take = self._n if self._left is None else min(self._n, self._left)
+        if take <= 0:
+            raise StopIteration
+        batches = [tuple(self._source.next_batch()) for _ in range(take)]
+        if self._left is not None:
+            self._left -= take
+        batches += [batches[-1]] * (self._n - take)
+        return _stack_tree(batches)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
+
+    def state(self):
+        return self._source.state()
+
+    def restore(self, state) -> None:
+        self._source.restore(state)
+
+    @property
+    def guard(self):
+        return getattr(self._source, "guard", None)
+
 
 def _tree_map(fn, batch):
     if isinstance(batch, (tuple, list)):
@@ -367,6 +463,10 @@ class Prefetcher:
             raise AttributeError("wrapped source has no state()")
         return self._last_state
 
+    @property
+    def guard(self):
+        return getattr(self._source, "guard", None)
+
     def close(self) -> None:
         self._stop.set()
         try:
@@ -387,6 +487,19 @@ class Prefetcher:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def wrap_prefetch(batches, depth: int, device="cpu"):
+    """``(source, close)``: ``batches`` in a :class:`Prefetcher` of
+    ``depth`` moving batches onto ``device``, or, at ``depth <= 0`` or for
+    a source without ``next_batch``, ``batches`` itself and a no-op close.
+    Call it after any checkpoint restore: the producer starts reading
+    ahead at once. The one definition the CLI's loops and
+    ``FMTrainer.fit`` share."""
+    if depth <= 0 or not hasattr(batches, "next_batch"):
+        return batches, lambda: None
+    pf = Prefetcher(batches, depth=depth, device=device)
+    return pf, pf.close
 
 
 def iterate_once(ids, vals, labels, batch_size: int):

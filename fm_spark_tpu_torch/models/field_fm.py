@@ -8,10 +8,13 @@ in the fused-linear layout (column ``rank`` is the linear weight), or
 
 On CUDA tensors :meth:`FieldFMSpec.scores` goes through the fused
 gather→interaction kernel (``ops.fused_fwd``) at any rank and number of
-fields, in float32 or bf16 compute (scores come back float32 either way);
-the layouts the kernel does not take (``table_layout="col"``,
-``fused_linear=False``) raise :class:`KernelUnavailable` there and run
-only on the CPU.
+fields, in float32 or bf16 compute (scores come back float32 either way).
+The layouts the kernel does not take (``table_layout="col"``,
+``fused_linear=False``) are scored by the reference's formula in
+PyTorch's own ops on any device, as the reference scores them with XLA
+ops: on the card that is the LIBRARY PATH, counted under
+``field_fm_scores_library`` (``ops.note_library``), never under the
+kernel's name.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from fm_spark_tpu_torch import resolve_device
 from fm_spark_tpu_torch.models import base
-from fm_spark_tpu_torch.ops import KernelUnavailable
+from fm_spark_tpu_torch import ops
 from fm_spark_tpu_torch.ops import fm as fm_ops
 from fm_spark_tpu_torch.ops import fused_fwd
 
@@ -59,12 +62,15 @@ class FieldFMSpec(base.ModelSpec):
         return self.rank + 1 if self.fused_linear else self.rank
 
     def kernel_unsupported(self) -> str | None:
-        """Why the fused CUDA kernel cannot score this spec, or None: only
-        the layout decides, never the rank or the field count."""
+        """Why the fused CUDA kernel does not score this spec (it is then
+        scored on the library path), or None: only the layout decides,
+        never the rank or the field count."""
         if self.table_layout == "col":
-            return "table_layout='col' has no CUDA kernel yet (ROADMAP)"
+            return ("table_layout='col' has no CUDA kernel: scored on the "
+                    "library path (torch ops), as the reference's XLA ops")
         if not self.fused_linear:
-            return "fused_linear=False has no CUDA kernel yet (ROADMAP)"
+            return ("fused_linear=False has no CUDA kernel: scored on the "
+                    "library path (torch ops), as the reference's XLA ops")
         return None
 
     def init(self, generator: torch.Generator | None = None,
@@ -116,13 +122,13 @@ class FieldFMSpec(base.ModelSpec):
                 w0=params["w0"] if self.use_bias else None,
                 compute_bf16=self.compute_dtype == "bfloat16")
             return score
-        if ids.device.type != "cpu":
-            raise KernelUnavailable(f"FieldFMSpec.scores: {reason}")
+        if ids.device.type == "cuda":
+            ops.note_library("field_fm_scores_library")
         return self._scores_plain(params, ids, vals)
 
     def _scores_plain(self, params, ids, vals):
         """The reference's formula term for term, for the layouts the
-        kernel does not take (CPU only)."""
+        kernel does not take (on the card, the library path)."""
         cd = self.cdtype
         vals_c = vals.to(cd)
         rows = self.gather_rows(params, ids)

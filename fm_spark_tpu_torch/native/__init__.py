@@ -5,8 +5,10 @@ with ctypes:
   of ``fm_dedup_aux`` and ``fm_compact_aux`` of
   ``fm_spark_tpu/native/fasthash.cpp``;
 - ``fasthash.cpp``, the preprocessing kernels: murmur3 hashing of tokens
-  and integer keys, the Criteo text parser and the packed
-  batch's row gather (the port's copy of the reference's other symbols).
+  and integer keys, the Criteo text parser, the packed batch's row
+  gather and the raw-text stream's chunk-row parsers
+  (``fm_parse_{criteo,avazu,libsvm}_rows``, :func:`parse_stream_chunk`;
+  the port's copy of the reference's other symbols).
 
 Each library compiles with ``g++ -O3 -shared -fPIC -pthread`` into
 ``build/torch_native/`` beside the package, its file name carrying a
@@ -36,10 +38,12 @@ import threading
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "CRITEO_FIELDS", "NativeBuildError", "compact_aux",
+__all__ = ["BUILD_DIR", "CRITEO_FIELDS", "NativeBuildError", "STREAM_FIELDS",
+           "STREAM_OK", "STREAM_REPARSE", "STREAM_SKIP", "compact_aux",
            "counting_sort_fits", "dedup_aux", "gather_rows",
            "hash_tokens_batch", "hash_u64_batch", "load", "load_fast",
-           "murmur3_32", "parse_criteo_chunk"]
+           "murmur3_32", "parse_criteo_chunk", "parse_stream_chunk",
+           "stream_parse_available"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "aux.cpp")
@@ -76,6 +80,16 @@ _FAST_SIGNATURES = {
     # ids, vals, labels, sel, B, F, bucket, n_threads, out ids/vals/labels
     "fm_gather_rows": (None, [_P, _P, _P, _P, _I64, _I32, _I32, _INT, _P, _P,
                               _P]),
+    # buf, len, bucket, per_field, num_features, max_rows, ids, labels,
+    # status, rowlen
+    "fm_parse_criteo_rows": (_I64, [ctypes.c_char_p, _I64, _I32, _INT, _I64,
+                                    _I64, _P, _P, _P, _P]),
+    "fm_parse_avazu_rows": (_I64, [ctypes.c_char_p, _I64, _I32, _INT, _I64,
+                                   _I64, _P, _P, _P, _P]),
+    # buf, len, zero_based, max_nnz, num_features, max_rows, ids, vals,
+    # labels, status, rowlen
+    "fm_parse_libsvm_rows": (_I64, [ctypes.c_char_p, _I64, _INT, _I64, _I64,
+                                    _I64, _P, _P, _P, _P, _P]),
 }
 
 
@@ -290,3 +304,80 @@ def gather_rows(ids: np.ndarray, vals, labels: np.ndarray, sel: np.ndarray,
                        out_vals.ctypes.data if out_vals is not None else None,
                        out_labels.ctypes.data)
     return out_ids, out_vals, out_labels
+
+
+# -------------------------------------------------- streaming chunk parse
+
+#: Per-row status codes of the chunk-row parsers: an OK row equals the
+#: per-line Python parse bit for bit and passes the record guard's value
+#: contract; a SKIP row carries no record (blank, or a libsvm comment
+#: line); a REPARSE row goes back through the per-line Python parser, so
+#: every verdict and reason is the Python path's.
+STREAM_OK, STREAM_SKIP, STREAM_REPARSE = 0, 1, 2
+
+_STREAM_SYMBOLS = {
+    "criteo": "fm_parse_criteo_rows",
+    "avazu": "fm_parse_avazu_rows",
+    "libsvm": "fm_parse_libsvm_rows",
+}
+
+#: Hashed fields per fixed-field dataset (``data/criteo.py`` and
+#: ``data/avazu.py``'s ``NUM_FIELDS``; the data layer imports this module).
+STREAM_FIELDS = {"criteo": 39, "avazu": 23}
+
+
+def stream_parse_available(dataset: str) -> bool:
+    """Whether ``dataset`` has a chunk-row parser. The library is built
+    (or loaded) to answer; a build that fails raises
+    :class:`NativeBuildError`."""
+    if dataset not in _STREAM_SYMBOLS:
+        return False
+    load_fast()
+    return True
+
+
+def parse_stream_chunk(dataset: str, chunk: bytes, *, bucket: int = 0,
+                       per_field: bool = True, num_features: int = 0,
+                       max_nnz: int = 0, zero_based: bool = False):
+    """Parse every line of ``chunk`` (which ends on a newline) for the
+    raw-text stream (``data/native_stream.py``). Returns ``(ids, vals,
+    labels, status, rowlen)``: ``ids`` int32 ``[n_lines, F]`` (``F =
+    max_nnz`` for libsvm, the dataset's field count otherwise), ``vals``
+    float32 ``[n_lines, max_nnz]`` for libsvm and None for the all-ones
+    criteo/avazu rows, ``labels`` float32, ``status`` uint8 per
+    :data:`STREAM_OK` / :data:`STREAM_SKIP` / :data:`STREAM_REPARSE`, and
+    ``rowlen`` int64, each line's bytes with its newline (what the
+    exactly-once cursor advances by)."""
+    sym = _STREAM_SYMBOLS.get(dataset)
+    if sym is None:
+        raise ValueError(f"no chunk-row parser for {dataset!r}")
+    lib = load_fast()
+    n = chunk.count(b"\n")
+    status = np.empty(n, np.uint8)
+    rowlen = np.empty(n, np.int64)
+    labels = np.empty(n, np.float32)
+    if dataset == "libsvm":
+        s = int(max_nnz)
+        if s < 1:
+            raise ValueError(f"max_nnz must be >= 1, got {max_nnz}")
+        ids = np.empty((n, s), np.int32)
+        vals = np.empty((n, s), np.float32)
+        got = lib.fm_parse_libsvm_rows(
+            chunk, len(chunk), int(zero_based), s, int(num_features), n,
+            ids.ctypes.data, vals.ctypes.data, labels.ctypes.data,
+            status.ctypes.data, rowlen.ctypes.data)
+    else:
+        f = STREAM_FIELDS[dataset]
+        if per_field and f * int(bucket) > np.iinfo(np.int32).max:
+            raise ValueError(f"id space {f}*{bucket} overflows int32 ids")
+        ids = np.empty((n, f), np.int32)
+        vals = None
+        got = getattr(lib, sym)(
+            chunk, len(chunk), int(bucket), int(per_field),
+            int(num_features), n, ids.ctypes.data, labels.ctypes.data,
+            status.ctypes.data, rowlen.ctypes.data)
+    if got != n:
+        raise RuntimeError(
+            f"native {dataset} chunk parse scanned {got} of {n} lines: the "
+            "chunk did not end on a line boundary")
+    return ids, vals, labels, status, rowlen

@@ -20,7 +20,11 @@ dedup forms runs through kernel A, which adds in a fixed order: a step
 repeats bit for bit on the card.
 
 Tables are updated IN PLACE (the JAX package donates them; the port never
-holds a second copy of a 1.33 GB table set) and returned.
+holds a second copy of a 1.33 GB table set) and returned. The compact
+path's gather and writes take FieldFM's transposed ``col`` layout too
+(``col=True``: ``[w, n]`` tables, the same values), and
+:func:`apply_split_row_updates` is the update of its unfused
+(``fused_linear=False``) form.
 
 Out-of-range writes: XLA's ``mode="drop"`` has no torch counterpart, and
 an out-of-range ``index_add_``/``index_copy_`` on CUDA is a device-side
@@ -265,13 +269,24 @@ def _check_sentinel_range(bucket: int, cap: int) -> None:
         )
 
 
-def compact_gather(table: torch.Tensor, useg: torch.Tensor) -> torch.Tensor:
+def _rows_of(table: torch.Tensor, col: bool) -> int:
+    """The table's row count: ``[n, w]``, or ``[w, n]`` in the ``col``
+    layout (FieldFM's ``table_layout='col'``, the same values
+    transposed)."""
+    return table.shape[1] if col else table.shape[0]
+
+
+def compact_gather(table: torch.Tensor, useg: torch.Tensor,
+                   col: bool = False) -> torch.Tensor:
     """Gather each unique id's row once, ``[cap, w]`` in the storage dtype;
     sentinels clip to the last row (``mode="clip"``; ``inv`` never points
-    at them)."""
-    n = table.shape[0]
+    at them). ``col``: the table is stored transposed, ``[w, n]``; its
+    columns are gathered and the small ``[w, cap]`` buffer transposed, so
+    the caller sees the row layout's values."""
+    n = _rows_of(table, col)
     _check_sentinel_range(n, useg.shape[-1])
-    return table[useg.long().clamp(0, n - 1)]
+    idx = useg.long().clamp(0, n - 1)
+    return table[:, idx].t() if col else table[idx]
 
 
 def device_compact_aux(ids: torch.Tensor, cap: int):
@@ -398,14 +413,16 @@ def _blocked_segment_sums(sdelta, segstart, segend):
 
 
 def compact_apply(table, delta, caux, mode, noise, urows,
-                  segtotal_pallas: bool = False):
+                  segtotal_pallas: bool = False, col: bool = False):
     """Update half of the compact path: per-segment totals of the sorted
     fp32 deltas (the blocked prefix, or kernel A with ``segtotal_pallas``),
     then one write per unique id (:func:`_compact_write`). ``noise``:
-    the SR bits ``[cap, w]`` for a bf16 ``dedup_sr`` table, else None."""
+    the SR bits ``[cap, w]`` for a bf16 ``dedup_sr`` table, else None.
+    ``col``: the table is stored transposed; the totals are the same and
+    the write goes to its columns."""
     useg, segstart, segend, order, inv = caux
     cap = useg.shape[-1]
-    _check_sentinel_range(table.shape[0], cap)
+    _check_sentinel_range(_rows_of(table, col), cap)
     o = order.long()
     if segtotal_pallas:
         totals = segsum_lib.segment_totals(
@@ -414,18 +431,20 @@ def compact_apply(table, delta, caux, mode, noise, urows,
     else:
         totals = _blocked_segment_sums(delta[o].float().contiguous(),
                                        segstart, segend)
-    return _compact_write(table, totals, useg, mode, noise, urows)
+    return _compact_write(table, totals, useg, mode, noise, urows, col)
 
 
-def _compact_write(table, totals, useg, mode, noise, urows):
+def _compact_write(table, totals, useg, mode, noise, urows,
+                   col: bool = False):
     """The compact update's WRITE half, in place: ``add`` of the fp32
     totals for ``dedup``, stochastic-rounded set of ``urows + totals`` for
     ``dedup_sr``. Padding slots (``useg`` past the table) clamp to the
-    last row and write nothing new there (see the module note)."""
-    n = table.shape[0]
+    last row and write nothing new there (see the module note). ``col``:
+    the same values written to the columns of a transposed table."""
+    n = _rows_of(table, col)
     real = useg < n
     if mode == "dedup":
-        return _add_rows(table, useg, real, totals)
+        return _add_rows(table, useg, real, totals, col)
     idx = useg.long().clamp(max=n - 1)
     if mode != "dedup_sr":
         raise ValueError(f"compact write takes 'dedup' or 'dedup_sr', not {mode!r}")
@@ -436,18 +455,22 @@ def _compact_write(table, totals, useg, mode, noise, urows):
     # with: the last real slot's if it is row n-1, else the row as it is.
     # The real slots are a prefix; the last one is found on the device.
     last = (real.sum() - 1).clamp(min=0).reshape(1)
+    last_row = table[:, n - 1:n].t() if col else table[n - 1:n]
     fill = torch.where((useg.index_select(0, last) == n - 1)[:, None],
-                       vals.index_select(0, last), table[n - 1:n])
+                       vals.index_select(0, last), last_row)
     src = torch.where(real[:, None], vals, fill)
+    if col:
+        return table.index_copy_(1, idx, src.t())
     return table.index_copy_(0, idx, src)
 
 
-def compact_apply_totals(table, totals, caux, mode, noise, urows):
+def compact_apply_totals(table, totals, caux, mode, noise, urows,
+                         col: bool = False):
     """Apply precomputed ``[cap, w]`` fp32 totals (the fused backward's) —
     the write half of :func:`compact_apply`."""
     useg = caux[0]
-    _check_sentinel_range(table.shape[0], useg.shape[-1])
-    return _compact_write(table, totals, useg, mode, noise, urows)
+    _check_sentinel_range(_rows_of(table, col), useg.shape[-1])
+    return _compact_write(table, totals, useg, mode, noise, urows, col)
 
 
 class _Dedup(NamedTuple):
@@ -505,14 +528,17 @@ def _first_lanes(d: _Dedup) -> torch.Tensor:
     return first[:b]
 
 
-def _add_rows(table, tgt, ok, upd):
+def _add_rows(table, tgt, ok, upd, col: bool = False):
     """``table[tgt[m]] += upd[m]`` (in the table's dtype) for lanes with
-    ``ok[m]``; the others add zero to a clamped row."""
-    n = table.shape[0]
+    ``ok[m]``; the others add zero to a clamped row. ``col``: to the
+    columns of a transposed table."""
+    n = _rows_of(table, col)
     upd = torch.where(ok[:, None], upd,
                       torch.zeros((), dtype=upd.dtype, device=upd.device))
-    return table.index_add_(0, tgt.long().clamp(0, n - 1),
-                            upd.to(table.dtype))
+    idx = tgt.long().clamp(0, n - 1)
+    if col:
+        return table.index_add_(1, idx, upd.to(table.dtype).t())
+    return table.index_add_(0, idx, upd.to(table.dtype))
 
 
 def _set_rows(table, tgt, ok, vals):
@@ -549,6 +575,29 @@ def _aux_apply(table, delta, aux, mode, noise, old_rows):
     new_rows = old_rows[ord_first.long()].float() + totals
     return _set_rows(table, useg, ok,
                      stochastic_round(new_rows, table.dtype, noise))
+
+
+def apply_split_row_updates(v, w, ids, delta):
+    """The per-lane update of a FieldFM without the fused linear column, in
+    place: ``delta`` ``[B, k]`` (factor columns) or ``[B, k+1]`` (then the
+    linear one) summed once per distinct id by the device dedup (kernel A
+    on the card, in a fixed order, so a step repeats bit for bit) and
+    added, rounded once, to ``v`` ``[n, k]`` and, with the linear column,
+    to ``w`` ``[n]``. This is the ``scatter_add`` of the reference's
+    unfused form with one rounding per id, as the ``use_pallas``
+    ``scatter_add``; an id in ``[-n, 0)`` counts from the end and any
+    other out-of-range id is dropped."""
+    n, k = v.shape
+    if ids.shape[0] == 0:
+        return
+    d = _dedup(ids, delta)
+    tgt = d.useg.long()
+    tgt = torch.where(tgt < 0, tgt + n, tgt)
+    live = torch.arange(tgt.shape[0], device=tgt.device) < d.count
+    ok = live & (tgt >= 0) & (tgt < n)
+    _add_rows(v, tgt, ok, d.totals[:, :k].contiguous())
+    if delta.shape[1] > k:
+        _add_rows(w.view(-1, 1), tgt, ok, d.totals[:, k:].contiguous())
 
 
 def pallas_gather(table, ids):

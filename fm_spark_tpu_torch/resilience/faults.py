@@ -14,15 +14,41 @@ recovery paths a planned fault would:
 - ``ckpt_gc``: the emergency GC's intent is journaled and nothing is
   deleted yet (``Checkpointer._emergency_gc``);
 - ``serve_reload``: inside a reload attempt, before the chain is read
-  (:meth:`~fm_spark_tpu_torch.serve.reload.ReloadFollower.poll_once`).
+  (:meth:`~fm_spark_tpu_torch.serve.reload.ReloadFollower.poll_once`);
+- ``ingest_truncate``: once per chunk a raw-text reader reads
+  (``data/stream.ShardReader``, ``data/native_stream``);
+- ``ingest_corrupt``: once per record before its parse on the Python
+  path (``data/stream.StreamBatches``), once per parsed chunk on the
+  native path. A :class:`FaultInjected` there is a corrupt record and
+  takes the data policy's path; an :class:`InjectedDeviceLoss`
+  propagates.
+
+The two exception classes are the reference's: what a planned ``error``
+and ``device_loss`` action raise.
 """
 
 from __future__ import annotations
 
-__all__ = ["KNOWN_POINTS", "inject"]
+__all__ = ["KNOWN_POINTS", "FaultInjected", "InjectedDeviceLoss", "inject"]
 
 #: The fault points this package calls.
-KNOWN_POINTS = ("ckpt_demote", "ckpt_gc", "serve_reload")
+KNOWN_POINTS = ("ckpt_demote", "ckpt_gc", "serve_reload", "ingest_truncate",
+                "ingest_corrupt")
+
+
+class FaultInjected(RuntimeError):
+    """An injected generic failure (action ``error``)."""
+
+
+class InjectedDeviceLoss(FaultInjected):
+    """An injected mid-step device loss, with the text a real detachment
+    produces."""
+
+    def __init__(self, point: str, occurrence: int):
+        super().__init__(
+            f"INTERNAL: device lost / attachment detached "
+            f"(injected fault at {point}#{occurrence})"
+        )
 
 
 def inject(point: str) -> None:

@@ -21,7 +21,11 @@ Forms ported (the others raise with the ROADMAP item that queues them):
   its ids past the cap act as absent features under ``'drop'``);
 - FieldFM: ``gfull_fused`` on or off, ``segtotal_pallas`` on or off
   (kernel A, ``ops.segsum``), and ``fused_embed`` off / auto / require
-  (kernel B, ``ops.fused_bwd``);
+  (kernel B, ``ops.fused_bwd``); the transposed ``table_layout='col'``
+  tables on the compact path (the row layout's values, bit for bit), and
+  the unfused ``fused_linear=False`` tables under ``scatter_add``
+  (``scatter.apply_split_row_updates``: each id's lanes summed once by the
+  device dedup, kernel A on the card);
 - FieldFFM: the ``[B, F, F, k]`` sel tensor, or with ``sel_blocked`` the
   per-owner-field loop, and with ``sel_blocked`` and ``fused_embed`` the
   two ``ffm_sel`` kernels (``ops.ffm_sel``).
@@ -133,17 +137,6 @@ def _check_host_dedup(config: TrainConfig, loss: str):
                          "exclusive")
 
 
-def _reject_unported(config: TrainConfig, col: bool = False,
-                     fused_linear: bool = True):
-    """Forms the JAX steps take that the port does not have yet."""
-    if col:
-        raise ValueError("table_layout='col' training is not ported yet "
-                         "(ROADMAP Queue 1)")
-    if not fused_linear:
-        raise ValueError("fused_linear=False training is not ported yet "
-                         "(ROADMAP Queue 1)")
-
-
 # The reference's guards for levers of other steps, with its messages;
 # ``what`` names the step.
 
@@ -246,7 +239,8 @@ def fused_embed_plan(spec, config: TrainConfig):
             return None, "the fused FM backward needs fused_linear=True"
         if spec.table_layout == "col":
             return None, ("table_layout='col' stores transposed tables; "
-                          "the kernel reads row-major unique rows")
+                          "the kernel's resident urows block is "
+                          "row-major")
         reason = fused_bwd_lib.fm_bwd_supported(
             config.compact_cap, spec.rank + 1, spec.num_fields)
         if reason:
@@ -274,9 +268,11 @@ def _resolve_fused_embed(spec, config: TrainConfig):
     return family
 
 
-def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False):
+def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False,
+                        col: bool = False):
     """Each field's ``cap`` unique rows gathered once (storage dtype) and
-    the per-lane rows expanded from them by ``inv`` (compute dtype).
+    the per-lane rows expanded from them by ``inv`` (compute dtype);
+    ``col``: from transposed tables, the same values.
 
     ``mask_overflow`` (the device-built aux, which cannot raise): a lane
     whose segment lies past ``cap`` expands to a ZERO row (the overflow
@@ -284,7 +280,7 @@ def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False):
     The host's aux guarantees ``inv < cap``."""
     useg, inv = aux[0], aux[4]
     cap = useg.shape[-1]
-    urows = [scatter_lib.compact_gather(t, useg[f])
+    urows = [scatter_lib.compact_gather(t, useg[f], col)
              for f, t in enumerate(tables)]
     if not mask_overflow:
         return urows, [u.to(cd)[inv[f].long()] for f, u in enumerate(urows)]
@@ -293,20 +289,23 @@ def _compact_gather_all(tables, aux, cd, mask_overflow: bool = False):
     return urows, rows
 
 
-def _rows_for(compact, tables, aux, cd, ids, config: TrainConfig):
+def _rows_for(compact, tables, aux, cd, ids, config: TrainConfig,
+              col: bool = False):
     """The bodies' forward table access: ``(urows, rows, aux, ovf)`` from
     the device-built compact aux (``compact_device``), the host's compact
     aux, or the per-lane gather. ``ovf`` is the worst field's segment
     count past the cap (a 0-dim int32 on the device; None but for the
-    device aux), and ``aux`` the one the update half reads."""
+    device aux), and ``aux`` the one the update half reads. ``col``
+    (compact only): the tables are stored transposed."""
     if config.compact_device:
         cap = config.compact_cap
         aux, nseg = scatter_lib.device_compact_aux(ids, cap)
         ovf = (nseg.max() - cap).clamp(min=0)
-        urows, rows = _compact_gather_all(tables, aux, cd, mask_overflow=True)
+        urows, rows = _compact_gather_all(tables, aux, cd, mask_overflow=True,
+                                          col=col)
         return urows, rows, aux, ovf
     if compact:
-        return (*_compact_gather_all(tables, aux, cd), aux, None)
+        return (*_compact_gather_all(tables, aux, cd, col=col), aux, None)
     return None, _gather_all(tables, ids, cd, config.use_pallas), aux, None
 
 
@@ -376,15 +375,16 @@ def _gfull_grads(dscores, vals_c, s, xv_fulls, rows, touched_c, k, cd,
 
 
 def _compact_apply_all(tables, g_fulls, urows, config: TrainConfig,
-                       noise_for, step_idx, neg_lr, aux):
+                       noise_for, step_idx, neg_lr, aux, col: bool = False):
     """COMPACT update: per field, the segment totals of ``-lr·g_full``
-    (float32) and one write per unique id (``scatter.compact_apply``)."""
+    (float32) and one write per unique id (``scatter.compact_apply``;
+    ``col``: into transposed tables)."""
     for f, (table, g_full) in enumerate(zip(tables, g_fulls)):
         scatter_lib.compact_apply(
             table, g_full.float() * neg_lr, tuple(a[f] for a in aux),
             config.sparse_update, noise_for(table, step_idx, f,
                                             urows[f].shape),
-            urows[f], segtotal_pallas=config.segtotal_pallas)
+            urows[f], segtotal_pallas=config.segtotal_pallas, col=col)
 
 
 def _fused_compact_updates(tables, urows, aux, s, dscores, vals, weights,
@@ -440,14 +440,15 @@ def _loss_and_grad_fn(loss_name: str):
 
 
 def _apply_updates(compact, tables, ids, g_fulls, rows, urows,
-                   config: TrainConfig, noise_for, step_idx, neg_lr, aux):
+                   config: TrainConfig, noise_for, step_idx, neg_lr, aux,
+                   col: bool = False):
     """Write ``-lr·g_full`` into every field's table: the compact update,
     or the per-lane write of ``config.sparse_update`` (the reference's
     ``_updates_for`` / ``_apply_field_updates``), with the host's
     ``dedup_aux`` sliced per field when the batch carries it."""
     if compact:
         _compact_apply_all(tables, g_fulls, urows, config, noise_for,
-                           step_idx, neg_lr, aux)
+                           step_idx, neg_lr, aux, col)
         return
     for f, (table, g_full) in enumerate(zip(tables, g_fulls)):
         scatter_lib.apply_row_updates(
@@ -516,7 +517,6 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     _reject_sel_blocked(config, what)
     _reject_deep_sharded(config, what)
     fused_bwd = _resolve_fused_embed(spec, config) == "fm_compact_bwd"
-    _reject_unported(config, col, spec.fused_linear)
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     k = spec.rank
@@ -532,10 +532,18 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                 "host_dedup step needs the batch's dedup_aux operand"
             )
         w0 = params["w0"]
-        tables = params["vw"]
         vals_c = vals.to(cd)
-        urows, rows, aux, ovf = _rows_for(compact, tables, aux, cd, ids,
-                                          config)
+        if spec.fused_linear:
+            tables = params["vw"]
+            urows, rows, aux, ovf = _rows_for(compact, tables, aux, cd, ids,
+                                              config, col)
+            lins = [r[:, k] for r in rows]
+        else:
+            # The unfused form: factor rows and linear weights apart.
+            urows, ovf = None, None
+            rows = _gather_all(params["v"], ids, cd, False)
+            lins = (_gather_all(params["w"], ids, cd, False)
+                    if spec.use_linear else None)
         if config.gfull_fused:
             xv_fulls = [r * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
             xvs = [x[:, :k] for x in xv_fulls]
@@ -544,7 +552,6 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
         s = _seq_sum(xvs)                                   # [B, k]
         sum_sq = _seq_sum([_sum_upcast(x * x, 1) for x in xvs])
         scores = 0.5 * (_sum_upcast(s * s, 1) - sum_sq)
-        lins = [r[:, k] for r in rows]
         if spec.use_linear:
             if config.gfull_fused:
                 scores = scores + _seq_sum([x[:, k] for x in xv_fulls])
@@ -569,7 +576,7 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                                        config)
             else:
                 g_fulls = []
-                for f in range(len(tables)):
+                for f in range(len(rows)):
                     g = dscores[:, None] * vals_c[:, f:f + 1] * (s - xvs[f])
                     if config.reg_factors:
                         g = g + (reg_factors * rows[f][:, :k]
@@ -583,8 +590,16 @@ def make_field_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
                         g_lin = torch.zeros(dscores.shape[0], 1, dtype=cd,
                                             device=dscores.device)
                     g_fulls.append(torch.cat([g, g_lin], dim=1))
-            _apply_updates(compact, tables, ids, g_fulls, rows, urows,
-                           config, noise_for, step_idx, neg_lr, aux)
+            if spec.fused_linear:
+                _apply_updates(compact, tables, ids, g_fulls, rows, urows,
+                               config, noise_for, step_idx, neg_lr, aux, col)
+            else:
+                for f, g_full in enumerate(g_fulls):
+                    delta = g_full if spec.use_linear else g_full[:, :k]
+                    scatter_lib.apply_split_row_updates(
+                        params["v"][f],
+                        params["w"][f] if spec.use_linear else None,
+                        ids[:, f], delta.float() * neg_lr)
         if spec.use_bias:
             _update_bias(w0, lr, dscores, config)
         return params, _fold_overflow(loss, ovf, config)
@@ -621,7 +636,6 @@ def make_field_ffm_sparse_sgd_body(spec, config: TrainConfig, sr_noise=None):
     if config.sparse_update not in scatter_lib.SPARSE_UPDATE_MODES:
         raise ValueError(f"unknown sparse_update mode {config.sparse_update!r}")
     compact = config.compact_cap > 0
-    _reject_unported(config)
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd = spec.cdtype
     F, k = spec.num_fields, spec.rank

@@ -308,14 +308,27 @@ def _batch_to(batch, device):
     return host_tensor(batch).to(device)
 
 
-def _stack(group):
-    """Batches (tuples of tensors, nested tuples allowed) stacked on a new
-    leading axis; one batch is viewed, not copied."""
-    if isinstance(group[0], (tuple, list)):
-        return tuple(_stack(parts) for parts in zip(*group))
-    if len(group) == 1:
-        return group[0].unsqueeze(0)
-    return torch.stack(group)
+def ingest_counts(source) -> dict | None:
+    """``{"bad_records", "good_records", "dead_letter"}`` of a raw-text
+    source (``data/stream``; a wrapper passes its ``guard`` through), or
+    None for a source without a guard. The counts are those of the cursor
+    as of the last CONSUMED batch (a prefetcher's read-ahead is not
+    counted), so a resumed run ends on the uninterrupted run's counts."""
+    guard = getattr(source, "guard", None)
+    if guard is None:
+        return None
+    state = source.state() if hasattr(source, "state") else {}
+    return {"bad_records": int(state.get("bad", guard.n_bad)),
+            "good_records": int(state.get("ok", guard.n_ok)),
+            "dead_letter": guard.dead_letter_path}
+
+
+def _log_ingest(logger, step: int, counts) -> None:
+    """The reference's quarantine summary line of :func:`ingest_counts`:
+    logged when the source's guard quarantined anything."""
+    if logger is not None and counts is not None and counts["bad_records"]:
+        logger.log(step, bad_records=counts["bad_records"],
+                   good_records=counts["good_records"])
 
 
 def make_eval_step(spec):
@@ -671,6 +684,7 @@ class FMTrainer:
         self.loss_history: list[float] = []
         self.last_eval: dict | None = None   # the newest in-fit eval
         self.resumed: dict | None = None     # the last fit's restore
+        self.ingest: dict | None = None      # the last fit's ingest_counts
 
     def fit(self, batches, num_steps: int | None = None, checkpointer=None,
             preemption_guard=None, eval_batches=None, prefetch: int = 0,
@@ -693,7 +707,10 @@ class FMTrainer:
         after the last, logged with an ``eval_`` prefix. ``prefetch > 0``
         moves batches to the device in a background
         :class:`~fm_spark_tpu_torch.data.Prefetcher` of that depth, made
-        after the resume so it reads from the restored cursor.
+        after the resume so it reads from the restored cursor. A raw-text
+        stream (``data/stream``) is a source like any other; when its
+        guard quarantined anything, a ``bad_records``/``good_records``
+        line is logged at the end (``self.ingest``, :func:`ingest_counts`).
         ``supervisor``, ``elastic`` and ``divergence_guard`` are not
         ported yet (ROADMAP Queue 1 items 12 and 13) and raise.
         """
@@ -703,7 +720,7 @@ class FMTrainer:
             if value is not None:
                 raise ValueError(f"FMTrainer.fit({name}=...) is not ported "
                                  f"yet (ROADMAP Queue 1 item {item})")
-        from fm_spark_tpu_torch.data import Prefetcher
+        from fm_spark_tpu_torch.data import wrap_prefetch
 
         total = num_steps if num_steps is not None else self.config.num_steps
         start = 0
@@ -719,9 +736,8 @@ class FMTrainer:
                 self.step_count = start
                 self.loss_history = list((extra or {}).get("loss_history",
                                                            []))
-        pf = (Prefetcher(batches, depth=prefetch, device=self.device)
-              if prefetch > 0 else None)
-        source = pf if pf is not None else batches
+        source, close_prefetch = wrap_prefetch(batches, prefetch,
+                                               device=self.device)
 
         def save(force: bool = False) -> None:
             if checkpointer is None:
@@ -735,11 +751,13 @@ class FMTrainer:
                 checkpointer.wait()
 
         try:
-            return self._fit_loop(source, start, total, preemption_guard,
-                                  eval_batches, save)
+            params = self._fit_loop(source, start, total, preemption_guard,
+                                    eval_batches, save)
+            self.ingest = ingest_counts(source)
+            _log_ingest(self.logger, self.step_count, self.ingest)
+            return params
         finally:
-            if pf is not None:
-                pf.close()
+            close_prefetch()
 
     def _fit_loop(self, batches, start, total, preemption_guard,
                   eval_batches, save):
@@ -831,7 +849,8 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
 
     ``batches`` yields numpy ``(ids, vals, labels, weights)`` batches
     (:class:`~fm_spark_tpu_torch.data.Batches`,
-    :class:`~fm_spark_tpu_torch.data.PackedBatches`); with ``host_dedup``
+    :class:`~fm_spark_tpu_torch.data.PackedBatches`, a raw-text stream of
+    ``data/stream`` or ``data/native_stream``); with ``host_dedup``
     the aux (compact at ``compact_cap > 0``, else the per-lane dedup aux)
     is built on the host in the prefetch thread
     (:class:`~fm_spark_tpu_torch.data.DedupAuxBatches`, which halves a
@@ -841,7 +860,10 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     steps run one per call through
     :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_sgd_step` (or its
     FieldFFM and FieldDeepFM twins), or in groups of ``steps_per_call > 1``
-    through :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_multistep`
+    (stacked on the producer thread by
+    :class:`~fm_spark_tpu_torch.data.StackedBatches`, its ``total`` the
+    steps left) through
+    :func:`~fm_spark_tpu_torch.sparse.make_field_sparse_multistep`
     (or :func:`~fm_spark_tpu_torch.sparse.make_field_deepfm_multistep`): on the
     card always as captured CUDA graphs (one per group length, captured at
     its first call), as the reference's loop always runs its jitted step.
@@ -876,11 +898,14 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     included), ``start`` and ``end`` (the steps the run began and
     stopped at), ``resumed`` (the restore: its step, cursor and ms; None
     on a fresh start), ``saves`` (each save's snapshot, crc and write ms
-    and bytes) and ``opt_state`` (the optimizer's state at the end; ``{}``
-    but for a FieldDeepFM).
+    and bytes), ``opt_state`` (the optimizer's state at the end; ``{}``
+    but for a FieldDeepFM) and ``ingest`` (:func:`ingest_counts` of the
+    source, None without a guard; when it quarantined anything,
+    ``logger`` gets the ``bad_records``/``good_records`` line).
     """
     from fm_spark_tpu_torch import resolve_device
-    from fm_spark_tpu_torch.data import DedupAuxBatches, Prefetcher
+    from fm_spark_tpu_torch.data import (DedupAuxBatches, Prefetcher,
+                                         StackedBatches)
     from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
     from fm_spark_tpu_torch.sparse import (fused_embed_plan,
                                            make_field_deepfm_multistep,
@@ -906,9 +931,8 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
         step = (make_field_deepfm_multistep if deep
                 else make_field_sparse_multistep)(spec, config, steps_per_call)
 
-    def run(p, i, group):
-        args = ((i, *group[0]) if steps_per_call == 1
-                else (i, len(group), *_stack(group)))
+    def run(p, i, m, batch):
+        args = (i, *batch) if steps_per_call == 1 else (i, m, *batch)
         if deep:
             p, _, loss = step(p, opt_state, *args)     # in place
             return p, loss
@@ -938,6 +962,11 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             batches, cap=config.compact_cap,
             overflow="split" if config.compact_overflow == "split"
             else "error")
+    if steps_per_call > 1:
+        # Stacked on the producer thread; ``total`` bounds what the
+        # stacker reads, so the saved cursor stays exact.
+        batches = StackedBatches(batches, steps_per_call,
+                                 total=config.num_steps - start)
     pf = Prefetcher(batches, depth=prefetch, device=dev) if prefetch > 0 \
         else None
     cursor = pf if pf is not None else batches
@@ -951,15 +980,15 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             if preemption_guard is not None and preemption_guard.should_stop:
                 break
             m = min(steps_per_call, config.num_steps - i)
-            group = [pf.next_batch() if pf else _batch_to(batches.next_batch(), dev)
-                     for _ in range(m)]
+            batch = (pf.next_batch() if pf
+                     else _batch_to(batches.next_batch(), dev))
             if on_card:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
             else:
                 t0 = time.perf_counter()
-            params, loss = run(params, i, group)
+            params, loss = run(params, i, m, batch)
             if on_card:
                 t1.record()
                 marks.append((t0, t1))
@@ -969,7 +998,7 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             if guard:
                 worst = loss if worst is None else torch.fmin(worst, loss)
             i += m
-            since += sum(int(b[2].shape[0]) for b in group)
+            since += m * int(batch[2].shape[-1])
             if logger is not None and (
                     i // log_every > (i - m) // log_every
                     or i >= config.num_steps):
@@ -995,6 +1024,8 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                               opt_state=opt_state)
             checkpointer.wait()
         check_poison()
+        ingest = ingest_counts(cursor)
+        _log_ingest(logger, i, ingest)
     finally:
         if pf is not None:
             pf.close()
@@ -1011,4 +1042,5 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
         stats["resumed"] = resumed
         stats["saves"] = list(checkpointer.timings) if checkpointer else []
         stats["opt_state"] = opt_state
+        stats["ingest"] = ingest
     return params

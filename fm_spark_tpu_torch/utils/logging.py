@@ -37,18 +37,23 @@ class EventLog:
     ``fm_spark_tpu/utils/logging.py``'s ``EventLog``): one
     ``{"ts", "event", ...}`` object per line, to a file and/or a stream.
     Best-effort: a journal write never takes down the operation it
-    narrates. ``records`` keeps every emitted event in memory too."""
+    narrates. ``records`` keeps every emitted event in memory too, unless
+    ``keep=False`` (a journal that may grow with the data, such as the
+    dead-letter log)."""
 
-    def __init__(self, path: str | None = None, stream=None):
+    def __init__(self, path: str | None = None, stream=None,
+                 keep: bool = True):
         self._fh = open(path, "a") if path else None
         self._stream = stream
+        self._keep = keep
         self._lock = threading.Lock()
         self.records: list[dict] = []
 
     def emit(self, event: str, **fields) -> dict:
         record = {"ts": round(time.time(), 3), "event": event, **fields}
         with self._lock:
-            self.records.append(record)
+            if self._keep:
+                self.records.append(record)
             try:
                 line = json.dumps(record)
                 if self._stream is not None:
@@ -64,3 +69,22 @@ class EventLog:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+def read_events(path: str) -> list[dict]:
+    """The records of an :class:`EventLog` file; a line that does not
+    parse (a torn tail write) is skipped."""
+    out = []
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    continue
+    except OSError:
+        pass
+    return out

@@ -125,6 +125,9 @@ def _specs(family, pd="bfloat16", cd="bfloat16"):
     if family == "ffm":
         return (jmodels.FieldFFMSpec(rank=FFM_K, **kw),
                 models.FieldFFMSpec(rank=FFM_K, **kw))
+    # FieldFM's two other forms: the transposed tables, the unfused linear.
+    kw.update({"fm-col": dict(table_layout="col"),
+               "fm-unfused": dict(fused_linear=False)}.get(family, {}))
     return (jmodels.FieldFMSpec(rank=FM_K, **kw),
             models.FieldFMSpec(rank=FM_K, **kw))
 
@@ -280,6 +283,11 @@ CAPTURABLE = {
     "ffm-devaux": ("ffm", "dedup_sr", dict(compact_device=True,
                                            compact_cap=8, sel_blocked=True)),
     "ffm-sel": ("ffm", "scatter_add", {}),
+    "fm-col-compact-segtotal": ("fm-col", "dedup_sr", dict(
+        **COMPACT, gfull_fused=True, segtotal_pallas=True)),
+    "fm-col-devaux-drop": ("fm-col", "dedup", dict(
+        compact_device=True, compact_cap=8, compact_overflow="drop")),
+    "fm-unfused-scatter-add": ("fm-unfused", "scatter_add", {}),
 }
 
 
@@ -448,6 +456,10 @@ def _serving_case(family, cd, num_fields=F):
     kw = dict(num_features=num_fields * BUCKET, num_fields=num_fields,
               bucket=BUCKET, param_dtype=cd, compute_dtype=cd, init_std=0.1)
     spec = {"fm": lambda: models.FieldFMSpec(rank=FM_K, **kw),
+            "fm-col": lambda: models.FieldFMSpec(rank=FM_K, table_layout="col",
+                                                 **kw),
+            "fm-unfused": lambda: models.FieldFMSpec(rank=FM_K,
+                                                     fused_linear=False, **kw),
             "ffm": lambda: models.FieldFFMSpec(rank=FFM_K, **kw),
             "deepfm": lambda: models.FieldDeepFMSpec(
                 rank=FM_K, mlp_dims=(16, 16, 16), **kw)}[family]()
@@ -460,7 +472,8 @@ def _serving_case(family, cd, num_fields=F):
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm"])
+@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm", "fm-col",
+                                    "fm-unfused"])
 def test_every_served_predict_is_capturable(family, cd):
     """What the engine captures per bucket on the card: ``spec.predict``
     (and FieldFFM's kernel form, which the card's ``scores`` takes) runs

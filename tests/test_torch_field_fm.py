@@ -199,17 +199,35 @@ def test_init_is_seeded_and_zeroes_linear_terms():
                                 dict(table_layout="col",
                                      compute_dtype="bfloat16")])
 def test_kernel_unavailable_for_layouts_without_a_kernel(kw):
+    from fm_spark_tpu_torch import ops
+    from fm_spark_tpu_torch.ops import fused_fwd
+
     spec = models.FieldFMSpec(**_kw(**kw))
-    assert "ROADMAP" in spec.kernel_unsupported()
-    # Off the CPU such a spec is refused, never scored another way (meta
-    # tensors stand in for CUDA ones: neither takes the CPU path).
+    # No kernel takes these layouts (ROADMAP Queue 1 item 7): off the CPU
+    # they are scored on the library path, named so, and never counted
+    # under the kernel's name (meta tensors stand in for CUDA ones: they
+    # take the same branch of scores()).
+    assert "no CUDA kernel" in spec.kernel_unsupported()
+    assert "library path" in spec.kernel_unsupported()
     w = spec.table_width
     shape = (w, BUCKET) if spec.table_layout == "col" else (BUCKET, w)
     params = {"w0": torch.zeros((), device="meta"),
               "vw": [torch.zeros(shape, device="meta") for _ in range(F)]}
+    if not spec.fused_linear:
+        params = {"w0": params["w0"],
+                  "w": [torch.zeros(BUCKET, device="meta")] * F,
+                  "v": [torch.zeros(BUCKET, 8, device="meta")] * F}
     ids = torch.zeros((2, F), dtype=torch.int32, device="meta")
-    with pytest.raises(KernelUnavailable, match="no CUDA kernel"):
-        spec.scores(params, ids, ids.float())
+    before = fused_fwd.launches
+    got = spec.scores(params, ids, ids.float())
+    assert got.shape == (2,) and got.device.type == "meta"
+    assert fused_fwd.launches == before
+    assert ops.library_calls() == {"field_fm_scores_library": 0}
+    with pytest.raises(KernelUnavailable):
+        # The kernel itself still refuses a device it has no build for.
+        fused_fwd.fm_fused_scores(
+            params["vw"] if spec.fused_linear else params["v"], ids,
+            ids.float())
     assert models.FieldFMSpec(**_kw()).kernel_unsupported() is None
     # bf16 compute has the kernel's bf16 mode now.
     assert models.FieldFMSpec(

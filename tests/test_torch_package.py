@@ -1621,3 +1621,116 @@ def test_flat_fm_step_repeats_and_captures_bit_for_bit_on_the_card(cuda, form,
             torch.testing.assert_close(runs["eager1"][0][key].cpu(),
                                        runs["cpu"][0][key], rtol=1e-5,
                                        atol=1e-6)
+
+
+def _native_stream_batches(tmp_path, n_batches, b, bucket):
+    """``n_batches`` batches of ``b`` rows of a small dirty Criteo TSV
+    parsed by the native stream (quarantine), with field-local ids."""
+    from fm_spark_tpu_torch.cli import _field_local_rows
+    from fm_spark_tpu_torch.data import criteo
+    from fm_spark_tpu_torch.data.native_stream import NativeStreamBatches
+    from fm_spark_tpu_torch.data.stream import RecordGuard, ShardReader
+
+    path = str(tmp_path / "day.tsv")
+    criteo.synthesize_tsv(path, n_batches * b + 40, seed=3)
+    with open(path, "rb") as f:
+        lines = f.read().splitlines()
+    for i in range(5, len(lines), 97):
+        lines[i] = b"x" + lines[i][1:]                # a bad label
+    with open(path, "wb") as f:
+        f.write(b"\n".join(lines) + b"\n")
+    src = NativeStreamBatches(
+        ShardReader([path]), "criteo", b, 39,
+        guard=RecordGuard("quarantine", str(tmp_path / "q")),
+        num_features=39 * bucket, bucket=bucket)
+    out = [_field_local_rows(src.next_batch(), bucket)
+           for _ in range(n_batches)]
+    assert src.guard.n_bad > 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["fusedbwd", "col-segtotal", "unfused"])
+def test_native_parsed_batches_train_on_the_card_as_the_plain_versions(
+        cuda, tmp_path, form):
+    """Batches parsed by the native stream trained by FieldFM's step on
+    the card: the captured step equals the eager one bit for bit, the
+    eager step launches the form's kernel, and the card's params stay
+    within float32 reassociation of the CPU run (the kernels' plain
+    versions)."""
+    from fm_spark_tpu_torch import models, ops, sparse, train
+    from fm_spark_tpu_torch.ops import scatter
+
+    bucket, b, cap = 64, 512, 64
+    batches = _native_stream_batches(tmp_path, 3, b, bucket)
+    spec_kw = {"fusedbwd": {}, "col-segtotal": dict(table_layout="col"),
+               "unfused": dict(fused_linear=False)}[form]
+    cfg_kw = {"fusedbwd": dict(sparse_update="dedup", host_dedup=True,
+                               compact_cap=cap, fused_embed="require"),
+              "col-segtotal": dict(sparse_update="dedup", host_dedup=True,
+                                   compact_cap=cap, segtotal_pallas=True),
+              "unfused": dict(sparse_update="scatter_add")}[form]
+    kernel = {"fusedbwd": "fm_bwd_segment_totals"}.get(form,
+                                                       "segment_totals")
+    spec = models.FieldFMSpec(num_features=39 * bucket, rank=8,
+                              num_fields=39, bucket=bucket, init_std=0.1,
+                              **spec_kw)
+    cfg = train.TrainConfig(learning_rate=0.05, reg_factors=1e-4,
+                            reg_linear=1e-5, reg_bias=1e-6, **cfg_kw)
+    p0 = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    runs = {}
+    for name in ("eager", "captured", "cpu"):
+        dev = torch.device("cpu") if name == "cpu" else cuda
+        params = {k: ([t.to(dev).clone() for t in v] if isinstance(v, list)
+                      else v.to(dev).clone()) for k, v in p0.items()}
+        body = sparse.make_field_sparse_sgd_body(spec, cfg)
+        step = sparse.make_field_sparse_sgd_step(spec, cfg)
+        losses = []
+        for i, batch in enumerate(batches):
+            aux = (tuple(torch.from_numpy(a).to(dev)
+                         for a in scatter.compact_aux(batch[0], cap))
+                   if cfg.host_dedup else None)
+            args = [torch.from_numpy(a).to(dev) for a in batch]
+            before = ops.kernel_launches()[kernel]
+            fn = step if name == "captured" else body
+            params, loss = fn(params, i, *args, aux)
+            if name == "eager":
+                assert ops.kernel_launches()[kernel] > before
+            losses.append(loss)
+        torch.cuda.synchronize()
+        runs[name] = (params, torch.stack(losses).cpu())
+    assert torch.equal(runs["captured"][1], runs["eager"][1])
+    assert _same_tree(runs["captured"][0], runs["eager"][0])
+    torch.testing.assert_close(runs["eager"][1], runs["cpu"][1], rtol=1e-5,
+                               atol=1e-6)
+    from fm_spark_tpu_torch.graphs import _leaves
+
+    for got, want in zip(_leaves(runs["eager"][0]), _leaves(runs["cpu"][0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", [dict(table_layout="col"),
+                                  dict(fused_linear=False)])
+def test_library_path_scores_on_the_card(cuda, form):
+    """FieldFM's col and unfused scores on the card: the library path
+    (counted under its name, never under the kernel's) within the
+    forward's tolerance of the CPU."""
+    from fm_spark_tpu_torch import models, ops
+    from fm_spark_tpu_torch.ops import fused_fwd
+
+    spec = models.FieldFMSpec(num_features=39 * 64, rank=8, num_fields=39,
+                              bucket=64, init_std=0.1, **form)
+    params = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 64, (300, 39)).astype(np.int32))
+    vals = torch.from_numpy(rng.random((300, 39)).astype(np.float32))
+    want = spec.scores(params, ids, vals)
+    on = {k: ([t.to(cuda) for t in v] if isinstance(v, list) else v.to(cuda))
+          for k, v in params.items()}
+    lib0 = ops.library_calls()["field_fm_scores_library"]
+    launches0 = fused_fwd.launches
+    got = spec.scores(on, ids.to(cuda), vals.to(cuda)).cpu()
+    assert ops.library_calls()["field_fm_scores_library"] == lib0 + 1
+    assert fused_fwd.launches == launches0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

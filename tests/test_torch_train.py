@@ -128,8 +128,10 @@ def test_three_steps_match_jax(pd, cd, mode, lever):
 
 # use_pallas and the per-lane dedup forms are ported (and tested in
 # tests/test_torch_train_pallas.py), and compact_device (tested in
-# tests/test_torch_compact_device.py); the ids of the rest stay as they
-# were.
+# tests/test_torch_compact_device.py). The last two forms that raised,
+# the col layout and the unfused linear (ROADMAP Queue 1 item 7), are
+# ported too (tests/test_torch_field_fm_layouts.py): their cases, under
+# their old ids, now build and take a step equal to JAX's.
 UNPORTED = [
     pytest.param(dict(sparse_update="dedup", **COMPACT),
                  dict(table_layout="col"), "table_layout='col'",
@@ -141,9 +143,29 @@ UNPORTED = [
 
 @pytest.mark.parametrize("cfg,spec_kw,match", UNPORTED)
 def test_unported_forms_raise_with_their_roadmap_item(cfg, spec_kw, match):
-    _, pspec = _specs(**spec_kw)
-    with pytest.raises(ValueError, match=f"{match}.*ROADMAP|ROADMAP.*{match}"):
-        sparse.make_field_sparse_sgd_body(pspec, TrainConfig(**cfg))
+    jspec, pspec = _specs(**spec_kw)
+    assert match in repr(pspec)
+    step = sparse.make_field_sparse_sgd_body(pspec, TrainConfig(**cfg))
+    jstep = jsparse.make_field_sparse_sgd_body(jspec,
+                                               jtrain.TrainConfig(**cfg))
+    jp = jspec.init(jax.random.key(0))
+    flat = {"w0": np.asarray(jp["w0"])}
+    for group in ("vw", "v", "w"):
+        flat.update({f"{group}/{f}": np.asarray(t)
+                     for f, t in enumerate(jp.get(group, []))})
+    pp = models.params_from_numpy(pspec, flat, "cpu")
+    batch = _batches(1)[0]
+    aux = (scatter.compact_aux(batch[0], CAP)
+           if cfg.get("compact_cap") else None)
+    jp, jl = jstep(jp, jnp.int32(0), *map(jnp.asarray, batch),
+                   None if aux is None else tuple(map(jnp.asarray, aux)))
+    pp, pl = step(pp, 0, *(torch.from_numpy(a.copy()) for a in batch),
+                  None if aux is None else tuple(map(torch.from_numpy, aux)))
+    assert abs(float(jl) - float(pl)) < 1e-6
+    for group in ("vw", "v", "w"):
+        for want, got in zip(jp.get(group, []), pp.get(group, [])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("cfg", [
