@@ -227,7 +227,7 @@ Phases (any failure exits non-zero before the last line is printed):
 19. training straight off raw-text shards (``stream_phase``): phase 14's
    327,680-row Criteo TSV in three shards with 0.5 % of its lines
    corrupted (placed from a seed; a wrong field count, a non-numeric
-   label, a bad token by turns). Leg C: the first 8,192 rows of each
+   label, a bad token by turns). Leg C: the first 2,048 rows of each
    shard through the Python and the native parser, batches and cursors
    equal, host rows/s of each. Leg A: ``fmtorch train --native-ingest
    --data-policy quarantine --max-bad-frac 0.05`` at config 3's full
@@ -244,7 +244,40 @@ Phases (any failure exits non-zero before the last line is printed):
    dedup_sr, compact, kernel A) eager against captured and against the
    row layout bit for bit, the unfused form (fp32, scatter_add) eager
    against captured, and both forms' scores on the library path against
-   the CPU's, timed beside the row kernel.
+   the CPU's, timed beside the row kernel;
+20. the tiered embedding store and continuous learning
+   (``tier_phase``) at config 2's widths (rank 32, fp32, 39 ids a row, B
+   = 16,384) on the reference ladder's stream (32 Zipf buckets of 1,024
+   rows, drifting one bucket a step; a hot tier of 48 buckets; 40
+   steps): kernel A against its plain version at the tiered step's
+   shape (the B·nnz lanes sorted by global id); then every count set to
+   0 and leg A, at 10,000,384 features (dense cold tier) for SGD, FTRL
+   and AdaGrad, the tiered run through the prefetcher (depth 2) against
+   the untiered captured step over the whole table from the same init:
+   every step's loss and the merged planes (slots too) bit for bit, with
+   hit rate, misses, evictions, stall ms, H2D/D2H bytes, ``begin_batch``
+   host ms, examples/s and, over 3 profiled steps each, device-busy ms,
+   idle share and kernel A's runs per replay by symbol; leg C, FTRL at
+   leg A's sizes with a chain every 8 steps, killed at the 10th eviction
+   (``faults.inject`` patched) and resumed by a new trainer: its merged
+   planes after 40 steps equal leg A's bit for bit; leg B, the lazy
+   rungs at 100,000,768 and 1,000,000,512 features (SGD): examples/s,
+   gathered rows/s, hit rate, stall, the cold tier's host bytes (the
+   touched buckets only), RSS growth and peak, the card's peak memory;
+   leg D, ``fmtorch train --online`` at config 2's full width (1,048,576
+   synthetic rows in 8 days, a label flip planted at day 5, FTRL) as
+   subprocesses: one uninterrupted, a ``ReloadFollower`` on its chain
+   throughout (never a step tombstoned at its swap, ending on the
+   republished tip), one SIGKILLed once day 3's save is the chain's last
+   good step and resumed by the same command (the pending eval
+   replayed; its AUC series, demoted steps and params.npz equal the
+   uninterrupted run's bit for bit), one from four Criteo day shards,
+   per-day AUC and train/eval seconds from the run's spans, and the loop
+   in this process under the profiler (kernel A in the replays); leg E,
+   ``FMTrainer.fit(divergence_guard=...)`` at config 2 with FTRL and a
+   chain every 4 steps, batch 10 poisoned: it rolls back and ends at step
+   9, params and FTRL state equal to an unpoisoned run's bit for bit.
+   Kernel A must have launched.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -4358,7 +4391,7 @@ def families_phase(dev, report):
 STREAM_BAD_FRAC = 0.005                  # phase 19: corrupted share of lines
 STREAM_STEPS = 6                         # leg A: two whole epochs at B
 STREAM_KILL_AT = 3                       # leg A: SIGKILL after this loss line
-STREAM_PY_ROWS = 8192                    # leg C: rows per shard, both parsers
+STREAM_PY_ROWS = 2048                    # leg C: rows per shard, both parsers
 STREAM_AVAZU_ROWS = 30000                # leg B: 3 steps at 8,192
 LAYOUT_STEPS = 4                         # leg D: steps per comparison
 
@@ -4882,6 +4915,786 @@ def stream_phase(dev, report):
     return launches
 
 
+# ------------------------------------------------------------------ phase 20
+
+#: Phase 20 at config 2's widths (flat FM, rank 32, fp32, 39 ids a row,
+#: B = 16,384) over the tiered embedding store's ladder stream.
+TIER_B, TIER_NNZ = 16384, 39
+TIER_BUCKET, TIER_HOT, TIER_WORK = 1024, 48, 32  # the ladder's defaults
+TIER_STEPS, TIER_PROFILED = 40, 3
+TIER_RUNGS = (10_000_000, 100_000_000, 1_000_000_000)
+TIER_LR = 0.05
+TIER_KILL_EVICTION = 10
+ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 1 << 20, 8, 5
+ONLINE_SHARD_ROWS, ONLINE_SHARD_B = 2048, 512
+DIVERGE_AT, DIVERGE_EVERY = 10, 4
+
+
+def _tier_stream(n_features: int, steps: int, seed: int = 0) -> list:
+    """The reference ladder's id stream (``bench_embed.py``'s
+    ``_batch_stream``, copied: that script imports the JAX package): each
+    step draws its buckets Zipf-style from a window of ``TIER_WORK``
+    buckets whose base drifts one bucket a step, an offset uniform in the
+    bucket, ``vals`` standard normal, labels Bernoulli(0.3)."""
+    import numpy as np
+
+    n_buckets = n_features // TIER_BUCKET
+    rng = np.random.default_rng(np.random.SeedSequence([seed, n_features]))
+    ranks = np.arange(1, TIER_WORK + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    out = []
+    for i in range(steps):
+        base = i % max(n_buckets - TIER_WORK, 1)
+        b = rng.choice(TIER_WORK, size=(TIER_B, TIER_NNZ), p=probs) + base
+        ids = (b * TIER_BUCKET + rng.integers(
+            0, TIER_BUCKET, (TIER_B, TIER_NNZ))).astype(np.int64)
+        vals = rng.standard_normal((TIER_B, TIER_NNZ)).astype(np.float32)
+        labels = (rng.random(TIER_B) < 0.3).astype(np.float32)
+        out.append((ids, vals, labels, np.ones(TIER_B, np.float32)))
+    return out
+
+
+class _ListSource:
+    """A resumable batch source over a list (``state``/``restore``)."""
+
+    def __init__(self, batches, start: int = 0):
+        self.batches, self.i = batches, start
+
+    def state(self):
+        return {"i": self.i}
+
+    def restore(self, state):
+        self.i = int(state["i"])
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i >= len(self.batches):
+            raise StopIteration
+        self.i += 1
+        return self.batches[self.i - 1]
+
+
+def _tier_config(opt: str, n_features: int):
+    """Config 2's spec at ``n_features`` rows, and the tiered config."""
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    spec = configs.get_config("criteo_kaggle_fm_r32").spec(n_features)
+    cfg = TrainConfig(num_steps=TIER_STEPS, batch_size=TIER_B,
+                      learning_rate=TIER_LR, lr_schedule="constant",
+                      optimizer=opt, embed_tier="require",
+                      hot_rows=TIER_HOT * TIER_BUCKET,
+                      embed_bucket_rows=TIER_BUCKET, seed=0)
+    return spec, cfg
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _tiered_run(dev, spec, cfg, batches, profile_batches, cold="dense"):
+    """One tiered run: ``TIER_STEPS`` steps through the prefetcher (depth
+    2), then ``TIER_PROFILED`` more steps through a new prefetcher under
+    the profiler. Returns the trainer, its losses, its merged planes
+    after the ``TIER_STEPS`` steps (dense cold mode) and its figures."""
+    import resource
+
+    import torch
+
+    from fm_spark_tpu_torch.embed import BucketPrefetcher, TieredTrainer
+
+    rss0 = _rss_bytes()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = TieredTrainer(spec, cfg, device=dev, cold=cold)
+    bb_ms = []
+    begin = trainer.store.begin_batch
+
+    def timed(ids, hot):
+        t0 = time.perf_counter()
+        out = begin(ids, hot)
+        bb_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.store.begin_batch = timed
+    t0 = time.perf_counter()
+    trainer.fit(iter(batches), num_steps=len(batches), prefetch=2)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = trainer.store.stats()
+    losses = list(trainer.loss_history)
+    merged = None if cold == "lazy" else _merged_planes(trainer)
+    pf = BucketPrefetcher(iter(profile_batches), trainer.store, depth=2)
+    try:
+        prof = _profile_calls(lambda j: trainer.step_batch(*next(pf)),
+                              range(len(profile_batches)))
+    finally:
+        pf.close()
+    n = len(batches)
+    out = {"steps": n, "seconds": wall, "examples_per_s": n * TIER_B / wall,
+           "rows_gathered_per_s": n * TIER_B * TIER_NNZ / wall,
+           "begin_batch_ms": {"median": statistics.median(bb_ms[:n]),
+                              "max": max(bb_ms[:n])},
+           "hit_rate": st["hit_rate"], "misses": st["misses"],
+           "staged_hits": st["staged_hits"], "evictions": st["evictions"],
+           "stall_ms": st["stall_ms"], "bytes_h2d": st["bytes_h2d"],
+           "bytes_d2h": st["bytes_d2h"],
+           "prefetch_stale": st["prefetch_stale"],
+           "cold_host_bytes": trainer.store.cold.host_bytes(),
+           "touched_buckets": trainer.store.cold.touched_buckets(),
+           "rss_growth_bytes": _rss_bytes() - rss0,
+           "peak_rss_bytes": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "capture_s": trainer._step.captured.capture_s,
+           "profile": prof}
+    return trainer, losses, merged, out
+
+
+def _untiered_run(dev, spec, cfg, batches, profile_batches):
+    """The captured in-memory step over the whole table, from the tiered
+    trainer's init (``spec.init`` by a generator on the card seeded by
+    ``cfg.seed``): losses, the planes and the slot planes on the host,
+    and its figures."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import optim, sparse
+
+    off = dataclasses.replace(cfg, embed_tier="off")
+    params = spec.init(torch.Generator(device=dev).manual_seed(cfg.seed),
+                       device=dev)
+    slots = None
+    if cfg.optimizer == "sgd":
+        step = sparse.make_sparse_sgd_step(spec, off)
+    else:
+        slots = optim.init_adaptive_slots(cfg.optimizer, spec, params)
+        if cfg.optimizer == "ftrl":
+            optim.seed_ftrl_slots(slots, params, cfg.learning_rate, 1.0)
+        step = optim.make_sparse_adaptive_step(spec, off)
+
+    def run(i, batch):
+        b = [torch.from_numpy(a).to(dev) for a in batch]
+        if slots is None:
+            return step(params, i, *b)[1]
+        return step(params, slots, *b)[2]
+
+    t0 = time.perf_counter()
+    losses = [float(run(i, b)) for i, b in enumerate(batches)]
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    on_dev = [[torch.from_numpy(a).to(dev) for a in b]
+              for b in profile_batches]
+    n = len(batches)
+
+    def replay(j):
+        b = on_dev[j]
+        if slots is None:
+            step(params, n + j, *b)
+        else:
+            step(params, slots, *b)
+
+    planes = {k: np.array(v.cpu()) for k, v in params.items()}
+    for table, d in (slots or {}).items():
+        for key, t in d.items():
+            planes[f"{table}_{key}"] = np.array(t.cpu())
+    prof = _profile_calls(replay, range(len(on_dev)))
+    out = {"seconds": wall, "examples_per_s": n * TIER_B / wall,
+           "capture_s": step.captured.capture_s, "profile": prof,
+           "table_bytes": sum(a.nbytes for a in planes.values())}
+    del params, slots, on_dev
+    torch.cuda.empty_cache()
+    return losses, planes, out
+
+
+def _merged_planes(trainer) -> dict:
+    """A tiered trainer's merged planes (params and slots, the slot
+    planes as ``<table>_<slot>``) and ``w0``, on the host."""
+    merged = trainer.store.merged_planes(trainer.hot)
+    merged["w0"] = trainer._w0.cpu().numpy().copy()
+    return merged
+
+
+def _tier_leg_a(dev, out):
+    """Leg A: tiered equals untiered on the card at 10,000,384 features,
+    for sgd, ftrl and adagrad. Returns FTRL's merged planes (leg C's
+    reference) and the batches."""
+    import numpy as np
+
+    n_features = -(-TIER_RUNGS[0] // TIER_BUCKET) * TIER_BUCKET
+    batches = _tier_stream(n_features, TIER_STEPS + TIER_PROFILED)
+    main, extra = batches[:TIER_STEPS], batches[TIER_STEPS:]
+    out["leg_a"] = {"num_features": n_features}
+    ftrl = None
+    for opt in ("sgd", "ftrl", "adagrad"):
+        spec, cfg = _tier_config(opt, n_features)
+        trainer, losses, merged, tiered = _tiered_run(dev, spec, cfg, main,
+                                                      extra)
+        del trainer
+        want_losses, want, untiered = _untiered_run(dev, spec, cfg, main,
+                                                    extra)
+        _check(losses == want_losses,
+               f"phase 20 leg A {opt}: tiered losses differ from the "
+               f"untiered step's: {losses[:4]} vs {want_losses[:4]}")
+        _check(sorted(merged) == sorted(want) and all(
+            np.array_equal(merged[k], want[k]) for k in want),
+            f"phase 20 leg A {opt}: a merged plane differs from the "
+            f"untiered step's ({sorted(merged)} vs {sorted(want)})")
+        _check(tiered["evictions"] > 0 and tiered["staged_hits"] > 0,
+               f"phase 20 leg A {opt}: no churn or no staged install: "
+               f"{tiered}")
+        runs = tiered["profile"].get("kernel_runs_per_step")
+        _check(runs is None or runs["segment_totals"] >= 1,
+               f"phase 20 leg A {opt}: kernel A in no replayed step: {runs}")
+        out["leg_a"][opt] = {"tiered": tiered, "untiered": untiered,
+                             "bitwise": True, "losses_first_last": [
+                                 losses[0], losses[-1]]}
+        if opt == "ftrl":
+            ftrl = merged
+        del merged, want
+    return ftrl, main
+
+
+def _tier_kernel_a(dev, batches) -> dict:
+    """Kernel A against its plain version at the tiered step's shape: the
+    B·nnz lanes of one batch sorted by their global ids, w = 33, cap =
+    B·nnz (the device dedup's form)."""
+    import torch
+
+    from fm_spark_tpu_torch.ops import scatter
+
+    ids = torch.from_numpy(batches[0][0]).to(dev).reshape(-1)
+    order, _, _, seg = scatter._sort_segments(ids)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    delta = torch.randn(ids.shape[0], 33, generator=gen, device=dev)
+    return _kernel_a_row(dev, "tiered step (global keys)", delta, seg,
+                         ids.shape[0], order.to(torch.int32), False)
+
+
+def _tier_leg_b(dev, out) -> None:
+    """Leg B: the lazy rungs (100M and 1B features, sgd)."""
+    out["leg_b"] = {}
+    for nominal in TIER_RUNGS[1:]:
+        n_features = -(-nominal // TIER_BUCKET) * TIER_BUCKET
+        batches = _tier_stream(n_features, TIER_STEPS + TIER_PROFILED)
+        spec, cfg = _tier_config("sgd", n_features)
+        trainer, losses, _, rung = _tiered_run(
+            dev, spec, cfg, batches[:TIER_STEPS], batches[TIER_STEPS:],
+            cold="lazy")
+        per_bucket = TIER_BUCKET * 33 * 4
+        _check(rung["cold_host_bytes"]
+               == rung["touched_buckets"] * per_bucket
+               and rung["touched_buckets"] <= TIER_WORK + TIER_STEPS
+               + TIER_PROFILED, f"phase 20 leg B {nominal}: cold bytes "
+               f"{rung['cold_host_bytes']} for {rung['touched_buckets']} "
+               "touched buckets")
+        # Host memory tracks the touched buckets: the batches, the lazy
+        # store and the step's buffers, far below the axis (132 GB at 1B).
+        _check(rung["rss_growth_bytes"] < 4 << 30,
+               f"phase 20 leg B {nominal}: RSS grew "
+               f"{rung['rss_growth_bytes']} bytes")
+        import math
+
+        _check(all(math.isfinite(x) for x in losses),
+               f"phase 20 leg B {nominal}: a loss is not finite")
+        rung.update(num_features=n_features,
+                    axis_bytes=n_features * 33 * 4,
+                    losses_first_last=[losses[0], losses[-1]])
+        out["leg_b"][str(nominal)] = rung
+        del trainer, batches
+
+
+class _InjectAt:
+    """``faults.inject`` raising an injected fault at the ``at``-th call
+    of ``point``."""
+
+    def __init__(self, point: str, at: int):
+        self.point, self.at, self.n = point, at, 0
+
+    def __call__(self, point):
+        if point == self.point:
+            self.n += 1
+            if self.n == self.at:
+                from fm_spark_tpu_torch.resilience import faults
+
+                raise faults.FaultInjected(
+                    f"injected fault at {point}#{self.n}")
+
+
+def _tier_leg_c(dev, base, batches, golden) -> dict:
+    """Leg C: FTRL at leg A's sizes with a chain saved every 8 steps,
+    killed at the 10th eviction (``embed_evict``), resumed by a new
+    trainer: its merged planes after 40 steps equal leg A's FTRL run's."""
+    import numpy as np
+
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.embed import TieredTrainer
+    from fm_spark_tpu_torch.resilience import faults
+
+    n_features = -(-TIER_RUNGS[0] // TIER_BUCKET) * TIER_BUCKET
+    spec, cfg = _tier_config("ftrl", n_features)
+    ckdir = os.path.join(base, "tier_ck")
+    t0 = time.perf_counter()
+    first = TieredTrainer(spec, cfg, device=dev)
+    ck = Checkpointer(ckdir, save_every=8, max_to_keep=2)
+    inject = faults.inject
+    faults.inject = _InjectAt("embed_evict", TIER_KILL_EVICTION)
+    try:
+        try:
+            first.fit(_ListSource(batches), num_steps=TIER_STEPS,
+                      checkpointer=ck, prefetch=2)
+            killed = None
+        except faults.FaultInjected as e:
+            killed = str(e)
+    finally:
+        faults.inject = inject
+        ck.close()
+    killed_at = first.step_count
+    _check(killed is not None and 0 < killed_at < TIER_STEPS,
+           f"phase 20 leg C: the fault did not stop the run ({killed}, step "
+           f"{killed_at})")
+    del first
+    second = TieredTrainer(spec, cfg, device=dev)
+    ck = Checkpointer(ckdir, save_every=8, max_to_keep=2)
+    second.fit(_ListSource(batches), num_steps=TIER_STEPS, checkpointer=ck,
+               prefetch=2)
+    resumed_from = (ck.restore_timing or {}).get("step")
+    ck.close()
+    merged = _merged_planes(second)
+    _check(second.step_count == TIER_STEPS and sorted(merged)
+           == sorted(golden) and all(np.array_equal(merged[k], golden[k])
+                                     for k in golden),
+           "phase 20 leg C: the resumed run's merged planes differ from "
+           "the uninterrupted run's")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"killed_at_step": killed_at, "resumed_from": resumed_from,
+            "fault": killed, "seconds": time.perf_counter() - t0,
+            "saves": len(ck.timings), "bitwise": True}
+
+
+def _online_argv(ckdir: str, ledger: str, model_out: str) -> list:
+    return ["train", "--config", "criteo_kaggle_fm_r32", "--synthetic",
+            ONLINE_ROWS, "--online", "--online-days", ONLINE_DAYS,
+            "--drift-inject", ONLINE_DRIFT, "--optimizer", "ftrl",
+            "--batch-size", TIER_B, "--steps", 0, "--checkpoint-dir", ckdir,
+            "--quality-ledger", ledger, "--model-out", model_out]
+
+
+#: Phase 20's ``fmtorch`` subprocesses, stopped at the phase's end
+#: whatever happened (a failed check exits while they may still run).
+_SPAWNED: list = []
+
+
+def _spawn(argv):
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fm_spark_tpu_torch", *map(str, argv)],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    _SPAWNED.append(proc)
+    return proc
+
+
+def _finish(proc, what: str, timeout: float = 600) -> list:
+    """The JSON lines a subprocess printed; it must exit 0."""
+    out, err = proc.communicate(timeout=timeout)
+    _check(proc.returncode == 0,
+           f"phase 20 {what}: exit {proc.returncode}: {err[-3000:]}")
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def _ledger_auc(path: str) -> dict:
+    """eval day -> AUC (the newest record of each day) of a quality
+    ledger."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            out[rec["day"]] = rec["value"]
+    return out
+
+
+def _spans(ckdir: str) -> dict:
+    """The online run's per-day train and eval seconds from its
+    trace.jsonl spans."""
+    out = {"train_s": {}, "eval_s": {}}
+    with open(os.path.join(ckdir, "trace.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("event") != "span":
+                continue
+            key = {"online/train_day": "train_s",
+                   "online/eval_day": "eval_s"}.get(rec["name"])
+            if key:
+                out[key][rec["day"]] = rec["dur_ms"] / 1e3
+    return out
+
+
+def _online_profiled(dev) -> dict:
+    """The online loop in this process at config 2's width (FTRL, B =
+    16,384, four days of one step) under the profiler: kernel A's runs in
+    the dense step's replays, by symbol."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_spark_tpu_torch import configs, data, online
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.ops import kernel_launches
+    from fm_spark_tpu_torch.train import FMTrainer
+
+    cfg = configs.get_config("criteo_kaggle_fm_r32", optimizer="ftrl")
+    spec = cfg.spec()
+    tcfg = cfg.train_config(num_steps=0, batch_size=TIER_B, log_every=10**6)
+    ids, vals, labels = data.synthetic_ctr(4 * TIER_B, spec.num_features, 39,
+                                           seed=21)
+    days = online.split_days(ids, vals, labels, 4)
+    trainer = FMTrainer(spec, tcfg, device=dev)
+    trainer.logger._stream = open(os.devnull, "w")
+    ckdir = os.path.join(HERE, "build", "chip_smoke", "online_prof")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = Checkpointer(ckdir, save_every=10**9)
+    before = kernel_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = online.run_online(trainer, days, ck,
+                                    sentry=online.drift_guard())
+        torch.cuda.synchronize(dev)
+    ck.close()
+    trainer.logger._stream.close()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    eager = kernel_launches()["segment_totals"] - before["segment_totals"]
+    runs, _ = _symbol_counts([e for e in prof.events()
+                              if e.device_type == DeviceType.CUDA])
+    steps = summary["final_step"]
+    return {"steps": steps, "eager_launches": eager,
+            "replay_runs": runs["segment_totals"] - eager,
+            "runs_per_replayed_step": (runs["segment_totals"] - eager)
+            / steps}
+
+
+def _tier_leg_d(dev, base, report) -> dict:
+    """Leg D: ``fmtorch train --online`` at config 2's width."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+    from fm_spark_tpu_torch.serve import PredictEngine, ReloadFollower
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    out = {}
+    d = {k: os.path.join(base, k) for k in (
+        "ck_full", "ck_kill", "mo_full", "mo_kill", "ck_shards")}
+    led = {k: os.path.join(base, f"{k}.jsonl") for k in ("full", "kill")}
+    t0 = time.perf_counter()
+    full = _spawn(_online_argv(d["ck_full"], led["full"], d["mo_full"]))
+    kill = _spawn(_online_argv(d["ck_kill"], led["kill"], d["mo_kill"]))
+    # A follower on the uninterrupted run's chain while it trains.
+    spec = configs.get_config("criteo_kaggle_fm_r32").spec()
+    init = spec.init(torch.Generator(device=dev).manual_seed(7), device=dev)
+    journal = EventLog()
+    eng = PredictEngine(spec, init, nnz=TIER_NNZ, buckets=(16,), device=dev,
+                        journal=journal)
+    eng.warmup()
+    fol = None
+    at_swap_tombstoned = []
+    # The run to kill: SIGKILL once day 3's save is the chain's last good
+    # step (step 32), before that run's next save.
+    good = os.path.join(d["ck_kill"], "last_good.json")
+    target = 4 * (ONLINE_ROWS // ONLINE_DAYS // TIER_B)
+    killed = False
+    deadline = time.time() + 600
+    while time.time() < deadline and (full.poll() is None or not killed):
+        if not killed:
+            with contextlib.suppress(OSError, ValueError, KeyError):
+                with open(good) as f:
+                    if json.load(f)["step"] >= target:
+                        kill.send_signal(signal.SIGKILL)
+                        kill.wait(timeout=60)
+                        killed = True
+            if kill.poll() is not None and not killed:
+                break
+        if fol is None and os.path.exists(os.path.join(d["ck_full"],
+                                                       "last_good.json")):
+            fol = ReloadFollower(eng, d["ck_full"], journal=journal)
+        if fol is not None and fol.poll_once() == "swapped":
+            if eng.generation().step in fol.chain.tombstoned_steps():
+                at_swap_tombstoned.append(eng.generation().step)
+        time.sleep(0.005 if not killed else 0.1)
+    _check(killed and kill.returncode == -signal.SIGKILL,
+           f"phase 20 leg D: the run to kill exited {kill.returncode}")
+    kill.stdout.close()
+    kill.stderr.close()
+    full_lines = _finish(full, "leg D (uninterrupted)")
+    out["full_s"] = time.perf_counter() - t0
+    summary = [x["online"] for x in full_lines if "online" in x][-1]
+    stones = ChainFollower(d["ck_full"]).tombstoned_steps()
+    rolled = [x["eval_day"] for x in summary["days"] if x["rolled_back"]]
+    _check(summary["rollbacks"] >= 1 and summary["demoted_steps"]
+           and rolled and rolled[0] == ONLINE_DRIFT
+           and summary["last_good"] not in stones
+           and set(summary["demoted_steps"]) <= stones,
+           f"phase 20 leg D: the sentry did not fire at day {ONLINE_DRIFT}:"
+           f" {summary}")
+    # The follower ends on the republished tip, never a tombstoned step.
+    if fol is None:
+        fol = ReloadFollower(eng, d["ck_full"], journal=journal)
+    for _ in range(3):
+        fol.poll_once()
+    swapped = [e["step"] for e in journal.records
+               if e["event"] == "serve_swap"]
+    _check(not at_swap_tombstoned and eng.generation().step
+           == summary["last_good"] and eng.generation().step not in stones,
+           f"phase 20 leg D: the follower served {eng.generation().step} "
+           f"(last good {summary['last_good']}, tombstoned at swap "
+           f"{at_swap_tombstoned})")
+    fol.stop()
+    eng.close()
+    out["follower"] = {"swaps": swapped, "final_step": swapped[-1],
+                       "later_demoted": sorted(set(swapped) & stones)}
+    # The killed run resumed by the same command (and, beside it, the run
+    # from day shards).
+    events = [json.loads(x) for x in open(os.path.join(d["ck_kill"],
+                                                       "health.jsonl"))]
+    out["kill"] = {"killed_after_step": target, "eval_day_4_done_before_kill":
+                   any(e["event"] == "quality_eval" and e["eval_day"] == 4
+                       for e in events)}
+    resume = _spawn(_online_argv(d["ck_kill"], led["kill"], d["mo_kill"]))
+    shards = [os.path.join(base, f"day{i}.tsv") for i in range(4)]
+    tsv = os.path.join(base, "days.tsv")
+    _criteo_tsv(tsv, 4 * ONLINE_SHARD_ROWS, seed=14)
+    with open(tsv, "rb") as f:
+        lines = f.read().split(b"\n")[:-1]
+    os.unlink(tsv)
+    for i, p in enumerate(shards):
+        with open(p, "wb") as f:
+            f.write(b"\n".join(lines[i * ONLINE_SHARD_ROWS:
+                                     (i + 1) * ONLINE_SHARD_ROWS]) + b"\n")
+    shard_run = _spawn(["train", "--config", "criteo_kaggle_fm_r32",
+                        "--data", ",".join(shards), "--online", "--optimizer",
+                        "ftrl", "--batch-size", ONLINE_SHARD_B, "--steps", 0,
+                        "--checkpoint-dir", d["ck_shards"]])
+    t1 = time.perf_counter()
+    resumed = [x["online"] for x in _finish(resume, "leg D (resumed)")
+               if "online" in x][-1]
+    out["resumed_s"] = time.perf_counter() - t1
+    events = [json.loads(x) for x in open(os.path.join(d["ck_kill"],
+                                                       "health.jsonl"))]
+    res_ev = [e for e in events if e["event"] == "online_resume"]
+    _check(res_ev and res_ev[-1]["evals_done"] < res_ev[-1]["start_day"]
+           and resumed["days"][0]["eval_day"] == res_ev[-1]["start_day"]
+           == 4, f"phase 20 leg D: the resumed run did not replay the "
+           f"pending eval: {res_ev} {resumed['days'][:1]}")
+    auc_full, auc_kill = _ledger_auc(led["full"]), _ledger_auc(led["kill"])
+    _check(auc_full == auc_kill and resumed["demoted_steps"]
+           == summary["demoted_steps"] and resumed["final_step"]
+           == summary["final_step"], f"phase 20 leg D: the resumed run's "
+           f"AUC series {auc_kill} / demoted {resumed['demoted_steps']} "
+           f"differ from {auc_full} / {summary['demoted_steps']}")
+    with np.load(os.path.join(d["mo_full"], "params.npz")) as a, \
+            np.load(os.path.join(d["mo_kill"], "params.npz")) as b:
+        _check(sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files),
+            "phase 20 leg D: the resumed run's params differ")
+    shard_lines = _finish(shard_run, "leg D (day shards)")
+    shard_sum = [x["online"] for x in shard_lines if "online" in x][-1]
+    _check(shard_sum["days_trained"] == 3 and shard_sum["rollbacks"] == 0
+           and shard_sum["records_seen"] == 3 * ONLINE_SHARD_ROWS,
+           f"phase 20 leg D: the day-shard run: {shard_sum}")
+    spans = _spans(d["ck_full"])
+    out.update(
+        auc_by_eval_day=auc_full, rolled_back_at=rolled,
+        demoted_steps=summary["demoted_steps"],
+        last_good=summary["last_good"], final_step=summary["final_step"],
+        rollbacks=summary["rollbacks"], train_s_by_day=spans["train_s"],
+        eval_s_by_day=spans["eval_s"], resumed_bitwise=True,
+        shards={"auc": [x["auc"] for x in shard_sum["days"]],
+                "records_seen": shard_sum["records_seen"],
+                "spans": _spans(d["ck_shards"])})
+    out["profiled"] = _online_profiled(dev)
+    _check(out["profiled"]["replay_runs"] > 0,
+           f"phase 20 leg D: kernel A in no online replay: "
+           f"{out['profiled']}")
+    for p in list(d.values()) + list(led.values()) + shards:
+        shutil.rmtree(p, ignore_errors=True)
+        with contextlib.suppress(OSError):
+            os.unlink(p)
+    return out
+
+
+class _Poisoned:
+    """A resumable batch source whose ``at``-th batch (from 1, counted on
+    its cursor) has its ``vals`` scaled to overflow float32 scores."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at, self.n = inner, at, 0
+
+    def state(self):
+        return {"inner": self.inner.state(), "n": self.n}
+
+    def restore(self, state):
+        self.inner.restore(state["inner"])
+        self.n = int(state["n"])
+
+    def next_batch(self):
+        ids, vals, labels, weights = self.inner.next_batch()
+        self.n += 1
+        if self.n == self.at:
+            vals = vals * 1e30
+        return ids, vals, labels, weights
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
+
+
+def _tier_leg_e(dev, base) -> dict:
+    """Leg E: ``FMTrainer.fit(divergence_guard=...)`` at config 2 with
+    FTRL and a chain every 4 steps; batch 10 poisoned; the run rolls back
+    and ends at the reduced target, its params and FTRL state equal to an
+    unpoisoned run's at that step."""
+    from fm_spark_tpu_torch import configs, data
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.resilience.divergence import DivergenceGuard
+    from fm_spark_tpu_torch.train import FMTrainer
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    cfg = configs.get_config("criteo_kaggle_fm_r32", optimizer="ftrl")
+    spec = cfg.spec()
+    tcfg = cfg.train_config(num_steps=12, batch_size=TIER_B, log_every=10**6)
+    ids, vals, labels = data.synthetic_ctr(8 * TIER_B, spec.num_features, 39,
+                                           seed=22)
+    ckdir = os.path.join(base, "div_ck")
+    journal = EventLog()
+    guard = DivergenceGuard(spike_factor=10.0, journal=journal)
+    t0 = time.perf_counter()
+    poisoned = FMTrainer(spec, tcfg, device=dev)
+    poisoned.logger._stream = open(os.devnull, "w")
+    ck = Checkpointer(ckdir, save_every=DIVERGE_EVERY, journal=journal)
+    poisoned.fit(_Poisoned(data.Batches(ids, vals, labels, TIER_B, seed=0),
+                           DIVERGE_AT), num_steps=12, checkpointer=ck,
+                 divergence_guard=guard)
+    ck.close()
+    clean = FMTrainer(spec, tcfg, device=dev)
+    clean.logger._stream = poisoned.logger._stream
+    clean.fit(data.Batches(ids, vals, labels, TIER_B, seed=0),
+              num_steps=poisoned.step_count)
+    poisoned.logger._stream.close()
+    want = DIVERGE_AT - 1
+    detected = [e for e in journal.records
+                if e["event"] == "divergence_detected"]
+    _check(guard.rollbacks == 1 and poisoned.step_count == want
+           and detected and detected[0]["step"] == DIVERGE_AT
+           and _same_tree(poisoned.params, clean.params)
+           and _same_tree(poisoned.opt_state, clean.opt_state),
+           f"phase 20 leg E: rollbacks {guard.rollbacks}, ended at "
+           f"{poisoned.step_count} (want {want}), {detected}; params or "
+           "state differ from the unpoisoned run's")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"detected_at": DIVERGE_AT, "reason": detected[0]["reason"],
+            "restored_step": [e for e in journal.records if e["event"]
+                              == "divergence_rollback"][0]["restored_step"],
+            "final_step": poisoned.step_count, "bitwise": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def tier_phase(dev, report):
+    """Phase 20: the tiered embedding store and continuous learning at
+    config 2's widths."""
+    import gc
+    import importlib
+    import tempfile
+
+    import torch
+
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="tier.", dir=root)
+    out = {"card": report["card"], "host_cpu": _host_cpu()}
+    t_phase = time.perf_counter()
+    try:
+        with _uncounted():
+            a_batches = _tier_stream(
+                -(-TIER_RUNGS[0] // TIER_BUCKET) * TIER_BUCKET, 1)
+            out["kernel_a"] = _tier_kernel_a(dev, a_batches)
+            del a_batches
+        # Counts start at 0 just before the main path and are read after.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        t0 = time.perf_counter()
+        golden, batches = _tier_leg_a(dev, out)
+        out["leg_a"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["leg_c"] = _tier_leg_c(dev, base, batches, golden)
+        del golden, batches
+        gc.collect()
+        t0 = time.perf_counter()
+        _tier_leg_b(dev, out)
+        out["leg_b"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["leg_d"] = _tier_leg_d(dev, base, report)
+        out["leg_e"] = _tier_leg_e(dev, base)
+        launches = kernel_launches()
+        out["launches"] = launches
+        _check(launches["segment_totals"] > 0,
+               f"phase 20: kernel A never launched: {launches}")
+    finally:
+        for proc in _SPAWNED:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        _SPAWNED.clear()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("tier", json.dumps(out), flush=True)
+    a = out["leg_a"]
+    for opt in ("sgd", "ftrl", "adagrad"):
+        t, u = a[opt]["tiered"], a[opt]["untiered"]
+        print(f"phase 20 ({report['card']}) leg A {opt} @ "
+              f"{a['num_features']:,}: tiered {t['examples_per_s']:.0f} "
+              f"ex/s (profile wall {t['profile']['wall_ms_per_step']} ms, "
+              f"busy {t['profile']['device_ms_per_step']} ms, idle "
+              f"{t['profile']['idle_share']}), begin_batch "
+              f"{t['begin_batch_ms']['median']:.1f} ms, hit rate "
+              f"{t['hit_rate']:.4f}, misses {t['misses']}, evictions "
+              f"{t['evictions']}, stall {t['stall_ms']:.1f} ms, h2d "
+              f"{t['bytes_h2d']} d2h {t['bytes_d2h']}; untiered busy "
+              f"{u['profile']['device_ms_per_step']} ms/step", flush=True)
+    for rung, r in out["leg_b"].items():
+        if rung == "seconds":
+            continue
+        print(f"phase 20 ({report['card']}) leg B {rung}: "
+              f"{r['examples_per_s']:.0f} ex/s, {r['rows_gathered_per_s']:.0f}"
+              f" rows/s, hit rate {r['hit_rate']:.4f}, stall "
+              f"{r['stall_ms']:.1f} ms, cold {r['cold_host_bytes']} B, RSS "
+              f"+{r['rss_growth_bytes']} B (peak {r['peak_rss_bytes']}), card"
+              f" {r['max_memory_allocated']} B", flush=True)
+    d = out["leg_d"]
+    print(f"phase 20 ({report['card']}) leg D: AUC {d['auc_by_eval_day']}, "
+          f"rolled back at {d['rolled_back_at']}, demoted "
+          f"{d['demoted_steps']}, train s {d['train_s_by_day']}, eval s "
+          f"{d['eval_s_by_day']}; phase {out['phase_s']:.1f} s", flush=True)
+    report["tier"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4932,6 +5745,7 @@ def main() -> int:
     flat_launches, flat = flat_fm_phase(dev, report)
     fam_launches, fam = families_phase(dev, report)
     stream_launches = stream_phase(dev, report)
+    tier_launches = tier_phase(dev, report)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -5140,6 +5954,25 @@ def main() -> int:
     # report["stream"]).
     for entry in kernels["kernels"]:
         entry["stream_launches"] = stream_launches[entry["name"]]
+    # Phase 20, the tiered store and continuous learning: each kernel's
+    # launches (the captures' warm-ups); kernel A at the tiered step's
+    # shape and its runs per replayed tiered and online step by symbol.
+    tier = report["tier"]
+    for entry in kernels["kernels"]:
+        entry["tier_launches"] = tier_launches[entry["name"]]
+        if entry["name"] == "segment_totals":
+            r = tier["kernel_a"]
+            entry["tier_step"] = {**{k: r[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}, "shape": (
+                f"tiered step: B*nnz={r['B']} lanes by global id, "
+                f"w={r['width']}, cap=B*nnz, {r['segments']} segments, "
+                "fp32"), "runs_per_replayed_step": {
+                    opt: tier["leg_a"][opt]["tiered"]["profile"].get(
+                        "kernel_runs_per_step", {}).get("segment_totals")
+                    for opt in ("sgd", "ftrl", "adagrad")},
+                "online_runs_per_replayed_step":
+                    tier["leg_d"]["profiled"]["runs_per_replayed_step"]}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

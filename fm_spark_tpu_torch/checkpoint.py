@@ -203,6 +203,12 @@ class _Tombstones:
         return step in self.singles or any(
             floor < step <= tip for floor, tip in self.ranges)
 
+    def frontier(self) -> int:
+        """The highest vetoed step, 0 when none."""
+        tips = [max(self.singles)] if self.singles else []
+        tips += [tip for _, tip in self.ranges]
+        return max(tips) if tips else 0
+
 
 class _Snapshot:
     """One save's host copy: ``arrays`` (numpy, bf16 as uint16) keyed
@@ -370,6 +376,12 @@ class Checkpointer:
 
     def is_tombstoned(self, step: int) -> bool:
         return int(step) in _read_tombstones(self.directory)
+
+    def tombstone_frontier(self) -> int:
+        """The highest demoted step (0 when none): the step axis must
+        continue PAST it — a post-rollback save reusing a demoted step
+        number would resurrect the vetoed generation's slot."""
+        return _read_tombstones(self.directory).frontier()
 
     @property
     def _tombstone_dir(self) -> str:

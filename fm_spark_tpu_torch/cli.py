@@ -28,7 +28,12 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
   ``--checkpoint-dir`` keeps a crash-consistent
   checkpoint chain every ``--checkpoint-every`` steps, and the same
   command resumes from its newest verified step; SIGTERM saves and
-  stops;
+  stops. A flat config trains over the tiered embedding store with
+  ``--embed-tier auto|require --hot-rows R`` (``embed.TieredTrainer``),
+  rolls back a diverging run with ``--divergence-guard``, and runs the
+  continuous-learning protocol with ``--online`` (day N trains, day N+1
+  evaluates, a drift verdict demotes the day's saves; ``online.py``),
+  printing ``{"online": {...}}``;
 - ``eval --model DIR (--data PATH --config NAME | --synthetic N)``
   prints the model's metrics;
 - ``predict --model DIR (--data PATH --config NAME | --synthetic N)``
@@ -374,14 +379,29 @@ def cmd_train(args) -> int:
         compact_device=args.compact_device,
         compact_overflow=args.compact_overflow,
         gfull_fused=args.gfull_fused, segtotal_pallas=args.segtotal_pallas,
-        sel_blocked=args.sel_blocked, fused_embed=args.fused_embed)
+        sel_blocked=args.sel_blocked, fused_embed=args.fused_embed,
+        embed_tier=args.embed_tier, hot_rows=args.hot_rows,
+        embed_bucket_rows=args.embed_bucket_rows)
     if tconfig.compact_overflow != "error" and tconfig.compact_cap <= 0:
         # The reference's guard (cli_levers._v_overflow_needs_cap).
         raise SystemExit(f"--compact-overflow {tconfig.compact_overflow} has "
                          "no effect without --compact-cap")
+    msg = _hot_rows_need_tier(tconfig)
+    if msg:
+        raise SystemExit(msg)
+    if args.online:
+        return _run_online_cmd(args, cfg, tconfig)
+    if args.divergence_guard is not None and (
+            cfg.strategy == "field_sparse" or not args.checkpoint_dir):
+        raise SystemExit(
+            "--divergence-guard requires strategy 'single' and "
+            "--checkpoint-dir (rollback restores the last good "
+            f"checkpoint; config {cfg.name!r} resolves to strategy "
+            f"{cfg.strategy!r})")
     if cfg.strategy != "field_sparse":
         return _train_flat(args, cfg, tconfig)
     spec = cfg.spec()
+    _tier_plan(spec, tconfig, cfg.strategy)
     if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
         # The reference's lever rule; the port's CLI trains on one device.
         raise SystemExit(
@@ -451,6 +471,40 @@ def cmd_train(args) -> int:
     summary["kernel_launches"] = _since(before)
     print(json.dumps(summary), file=sys.stderr)
     return 0
+
+
+def _hot_rows_need_tier(tc):
+    """The reference's check of ``--hot-rows`` (``cli_levers``)."""
+    if tc.hot_rows > 0 and tc.embed_tier == "off":
+        # Capacity without the lever would be a silent no-op: the
+        # in-memory trainers never consult hot_rows.
+        return "--hot-rows has no effect without --embed-tier auto|require"
+    if tc.embed_tier != "off" and tc.hot_rows > 0 and \
+            tc.hot_rows % tc.embed_bucket_rows:
+        return (
+            f"--hot-rows {tc.hot_rows} must be a multiple of "
+            f"--embed-bucket-rows {tc.embed_bucket_rows} (the hot tier "
+            "is managed in whole buckets)")
+    return None
+
+
+def _tier_plan(spec, tconfig, strategy):
+    """The embed-tier decision (the reference's, at one point:
+    ``embed.tier_plan``): ``"tiered"`` or None; ``require`` with a None
+    verdict exits with its reason, ``auto`` says on stderr that it falls
+    back to the in-memory tables."""
+    if tconfig.embed_tier == "off":
+        return None
+    from fm_spark_tpu_torch import embed
+
+    mode, reason = embed.tier_plan(spec, tconfig, strategy)
+    if mode is None:
+        if tconfig.embed_tier == "require":
+            raise SystemExit(f"--embed-tier require cannot be served: "
+                             f"{reason}")
+        print(f"embed-tier auto: in-HBM fallback ({reason})",
+              file=sys.stderr)
+    return mode
 
 
 def _split_batches(args, cfg, ids, vals, labels, bs):
@@ -542,7 +596,27 @@ def _train_flat(args, cfg, tconfig) -> int:
         spec = cfg.spec(num_features if cfg.bucket <= 0 else None)
         batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
                                               bs)
+    # One visible card: strategy 'dp' is the single step (checked above).
+    tiered = _tier_plan(spec, tconfig, "single") == "tiered"
+    if tiered and args.divergence_guard is not None:
+        raise SystemExit(
+            "--embed-tier is exclusive with --divergence-guard: the "
+            "tiered trainer runs its own fit loop")
+    if tiered and tconfig.eval_every > 0:
+        raise SystemExit(
+            "--embed-tier does not run periodic in-fit eval (eval_every > "
+            "0): held-out metrics come from the merged view once at end "
+            "of fit")
     checkpointer, journal = _checkpointer(args)
+    if tiered:
+        return _train_tiered(args, spec, tconfig, dev, batches, eval_source,
+                             checkpointer, journal, stream)
+    guard_div = None
+    if args.divergence_guard is not None:
+        from fm_spark_tpu_torch.resilience.divergence import DivergenceGuard
+
+        guard_div = DivergenceGuard(spike_factor=args.divergence_guard,
+                                    journal=journal)
     trainer = FMTrainer(spec, tconfig, device=dev)
     before = _launches()
     try:
@@ -550,7 +624,8 @@ def _train_flat(args, cfg, tconfig) -> int:
             trainer.fit(batches, checkpointer=checkpointer,
                         preemption_guard=guard, prefetch=args.prefetch,
                         eval_batches=(eval_source if tconfig.eval_every > 0
-                                      else None))
+                                      else None),
+                        divergence_guard=guard_div)
     finally:
         if checkpointer is not None:
             checkpointer.close()
@@ -576,6 +651,175 @@ def _train_flat(args, cfg, tconfig) -> int:
         models.save_model(args.model_out, spec, trainer.params)
         print(json.dumps({"saved": args.model_out}), flush=True)
     print(json.dumps(summary), file=sys.stderr)
+    return 0
+
+
+def _train_tiered(args, spec, tconfig, dev, batches, eval_source,
+                  checkpointer, journal, stream) -> int:
+    """``train --embed-tier`` when the tiered trainer serves it: the fit
+    over the hot-bucket store, then the held-out eval and the saved model
+    from its merged full-axis view."""
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.embed import TieredTrainer
+    from fm_spark_tpu_torch.train import evaluate_params
+
+    trainer = TieredTrainer(spec, tconfig, device=dev)
+    before = _launches()
+    try:
+        trainer.fit(batches, checkpointer=checkpointer,
+                    prefetch=args.prefetch)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
+            journal.close()
+        if stream is not None:
+            stream.close()
+            stream.guard.close()
+    log_every = max(tconfig.log_every, 1)
+    for i, loss in enumerate(trainer.loss_history):
+        if (i + 1) % log_every == 0 or i + 1 == len(trainer.loss_history):
+            print(json.dumps({"step": i + 1, "loss": loss}), flush=True)
+    params = trainer.merged_torch_params()
+    if eval_source is not None:
+        metrics = evaluate_params(spec, params, eval_source())
+        print(json.dumps({"eval": metrics}), flush=True)
+    if args.model_out:
+        models.save_model(args.model_out, spec, params)
+        print(json.dumps({"saved": args.model_out}), flush=True)
+    print(json.dumps({"device": str(dev), "embed_tier": "tiered",
+                      "kernel_launches": _since(before),
+                      "tier": trainer.store.stats(),
+                      "capture_s": trainer._step.captured.capture_s}),
+          file=sys.stderr)
+    return 0
+
+
+def _online_days(args, cfg):
+    """The time-ordered days of ``train --online`` (the reference's
+    ``_online_days``): ``--synthetic N`` split into ``--online-days``
+    slices (with the ``--drift-inject`` label-flip drill), or ``--data
+    d0,d1,...``, one text shard per day, parsed in memory (Criteo TSV,
+    Avazu CSV or libsvm, through ``--data-policy``'s guard)."""
+    import numpy as np
+
+    from fm_spark_tpu_torch import data, online
+
+    if args.synthetic:
+        num_features = cfg.num_features if cfg.bucket > 0 else 4096
+        ids, vals, labels = data.synthetic_ctr(
+            args.synthetic, num_features, cfg.num_fields, seed=cfg.seed)
+        days = online.split_days(ids, vals, labels, args.online_days)
+        if args.drift_inject is not None:
+            days = online.flip_labels(days, args.drift_inject)
+        return days, num_features
+    if not args.data or "," not in args.data:
+        raise SystemExit(
+            "--online needs time-ordered days: --data d0,d1,... (one "
+            "shard per day) or --synthetic N with --online-days")
+    if args.drift_inject is not None:
+        raise SystemExit("--drift-inject is the synthetic drill lever; "
+                         "real day shards carry their own drift")
+    paths = [p for p in args.data.split(",") if p]
+    days = []
+    if cfg.dataset in ("criteo", "avazu"):
+        for path in paths:
+            ids, vals, labels, _ = load_text(cfg, path, args)
+            days.append((ids, vals, labels))
+        return days, cfg.num_features
+    if cfg.dataset == "libsvm":
+        num_features = 0
+        for path in paths:
+            guard = _ingest_guard(args, windowed=False)
+            ids, vals, labels = data.load_libsvm(path,
+                                                 on_error=guard.on_error)
+            guard.ok_many(labels.shape[0])
+            guard.check_overall()
+            guard.close()
+            num_features = max(num_features,
+                               int(ids.max()) + 1 if ids.size else 1)
+            days.append((ids, vals, labels.astype(np.float32)))
+        return days, num_features
+    raise SystemExit(
+        f"--online day shards support criteo/avazu/libsvm text "
+        f"(config {cfg.name!r} is dataset {cfg.dataset!r}); use "
+        "--synthetic N for a config-free run")
+
+
+def _run_online_cmd(args, cfg, tconfig) -> int:
+    """``train --online``: the continuous-learning protocol (the
+    reference's ``_run_online_cmd``; the loop is :mod:`.online`). The
+    journal is ``health.jsonl`` in the checkpoint dir, the run's spans
+    (``online/train_day``, ``online/eval_day``) and events go to
+    ``trace.jsonl`` beside it. Strategy ``dp``
+    on one visible card is the single step (as in :func:`_train_flat`);
+    the fused ``field_sparse`` strategy is refused, as the reference
+    refuses every strategy but ``single``."""
+    import torch
+
+    from fm_spark_tpu_torch import models, obs, online, resolve_device
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.train import FMTrainer
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    one_card = cfg.strategy == "single" or (
+        cfg.strategy == "dp" and torch.cuda.device_count() <= 1)
+    if not one_card or not args.checkpoint_dir:
+        raise SystemExit(
+            "--online requires strategy 'single' and --checkpoint-dir "
+            "(day-granular rollback restores demoted generations from "
+            f"the chain; config {cfg.name!r} resolves to strategy "
+            f"{cfg.strategy!r})")
+    if cfg.task != "classification":
+        raise SystemExit("--online watches eval AUC; config "
+                         f"{cfg.name!r} is task {cfg.task!r}")
+    days, num_features = _online_days(args, cfg)
+    spec = cfg.spec(num_features if cfg.bucket <= 0 else None)
+    dev = resolve_device(args.device)
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
+    trace = EventLog(os.path.join(args.checkpoint_dir, "trace.jsonl"),
+                     keep=False)
+    run_id = obs.configure(trace)
+    checkpointer = Checkpointer(args.checkpoint_dir,
+                                save_every=args.checkpoint_every,
+                                max_to_keep=args.checkpoint_keep,
+                                journal=journal)
+    trainer = FMTrainer(spec, tconfig, device=dev)
+    sentry = online.drift_guard(
+        drop_factor=args.drift_drop_factor,
+        max_rollbacks=args.drift_max_rollbacks, journal=journal)
+    ledger = leg = fingerprint = None
+    if args.quality_ledger:
+        from fm_spark_tpu_torch.obs.ledger import (PerfLedger,
+                                                   measurement_fingerprint,
+                                                   runtime_versions)
+
+        ledger = PerfLedger(args.quality_ledger)
+        leg = f"{online.QUALITY_LEG_PREFIX}{cfg.name}/{tconfig.optimizer}"
+        fingerprint = measurement_fingerprint(
+            variant=leg, model=cfg.model, batch=tconfig.batch_size,
+            rank=cfg.rank,
+            extra={"optimizer": tconfig.optimizer,
+                   "lr": tconfig.learning_rate},
+            n_chips=1, **runtime_versions())
+    before = _launches()
+    try:
+        summary = online.run_online(
+            trainer, days, checkpointer, sentry=sentry, journal=journal,
+            ledger=ledger, leg=leg, fingerprint=fingerprint, run_id=run_id)
+    finally:
+        checkpointer.close()
+        journal.close()
+        obs.shutdown()
+        trace.close()
+    print(json.dumps({"online": summary}), flush=True)
+    if args.model_out:
+        models.save_model(args.model_out, spec, trainer.params)
+        print(json.dumps({"saved": args.model_out}), flush=True)
+    print(json.dumps({"device": str(dev), "online": True,
+                      "kernel_launches": _since(before),
+                      "capture_s": trainer._train_step.captured.capture_s}),
+          file=sys.stderr)
     return 0
 
 
@@ -905,6 +1149,54 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bad-record-rate breaker (quarantine): abort when "
                         "more than FRAC of a trailing window of records is "
                         "bad (1.0 = never)")
+    t.add_argument("--embed-tier", choices=["off", "auto", "require"],
+                   default=None, dest="embed_tier",
+                   help="tiered embedding store (flat FM, sgd/ftrl/adagrad):"
+                        " a card-resident cache of --hot-rows rows in "
+                        "buckets over host cold storage, bit-identical to "
+                        "the in-memory path; 'auto' falls back with a "
+                        "stderr notice, 'require' fails instead")
+    t.add_argument("--hot-rows", type=int, default=None, dest="hot_rows",
+                   help="hot-tier capacity in rows for --embed-tier (a "
+                        "multiple of --embed-bucket-rows, covering one "
+                        "batch's buckets, below the feature count)")
+    t.add_argument("--embed-bucket-rows", type=int, default=None,
+                   dest="embed_bucket_rows",
+                   help="rows per hot-tier bucket (the residency unit; "
+                        "default 512)")
+    t.add_argument("--divergence-guard", type=float, nargs="?", const=10.0,
+                   default=None, dest="divergence_guard", metavar="FACTOR",
+                   help="flat configs with --checkpoint-dir: a NaN/Inf "
+                        "loss or one above FACTOR x the trailing median "
+                        "(bare flag: 10x) rolls back to the last good "
+                        "checkpoint and resumes with a reduced step budget;"
+                        " one loss fetch per step")
+    t.add_argument("--online", action="store_true",
+                   help="continuous learning (flat configs, needs "
+                        "--checkpoint-dir): train day N, evaluate AUC on "
+                        "day N+1, save per day; a drift verdict demotes the"
+                        " day's saves and rolls the weights back. Days from"
+                        " --data d0,d1,... or --synthetic N with "
+                        "--online-days")
+    t.add_argument("--online-days", type=int, default=8, dest="online_days",
+                   help="with --online --synthetic: the number of "
+                        "time-ordered day slices")
+    t.add_argument("--drift-drop-factor", type=float, default=1.15,
+                   dest="drift_drop_factor", metavar="FACTOR",
+                   help="drift sentry: eval AUC below trailing-median / "
+                        "FACTOR is a drift verdict")
+    t.add_argument("--drift-max-rollbacks", type=int, default=2,
+                   dest="drift_max_rollbacks",
+                   help="drift rollbacks absorbed before the verdict "
+                        "propagates")
+    t.add_argument("--drift-inject", type=int, default=None,
+                   dest="drift_inject", metavar="DAY",
+                   help="drill: flip the labels of every synthetic day >= "
+                        "DAY (a planted concept drift)")
+    t.add_argument("--quality-ledger", dest="quality_ledger", default=None,
+                   metavar="PATH",
+                   help="append one quality_eval record per online eval "
+                        "day to this ledger JSONL")
     t.add_argument("--device", default=None, help=device_help)
     t.set_defaults(fn=cmd_train)
 

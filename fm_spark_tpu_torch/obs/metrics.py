@@ -1,7 +1,9 @@
 """Process-wide metrics registry: counters, gauges, fixed-bucket
-histograms (a reduced copy of ``fm_spark_tpu/obs/metrics.py``, enough for
-the serving engine's ``serve.*`` counters and its ``serve/batch_ms`` and
-``serve/request_ms`` histograms). Thread-safe; no exports yet."""
+histograms (a reduced copy of ``fm_spark_tpu/obs/metrics.py``: the
+serving engine's ``serve.*`` counters and histograms, the tiered store's
+``embed/*`` gauges, the online loop's ``online/*`` gauges). Thread-safe;
+its exports (Prometheus text, JSONL snapshots) wait for the rest of the
+obs plane (ROADMAP Queue 1 item 13)."""
 
 from __future__ import annotations
 

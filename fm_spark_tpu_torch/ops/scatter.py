@@ -517,6 +517,21 @@ def _dedup(ids, delta):
     return _Dedup(order, run_start, seg, useg, seg[-1:] + 1, totals)
 
 
+def _dedup_by(ids, delta, keys=None):
+    """:func:`_dedup` of the write ids ``ids``, segmented and summed by
+    ``keys`` when given: a one-to-one relabelling of ``ids`` (the tiered
+    store's global ids beside the hot-local ``ids``). Kernel A's order of
+    the adds depends on where each segment sits among the sorted lanes,
+    so sorting by the global ids puts every segment on the lanes it has
+    in the untiered step and its total on the same bits; ``useg`` is then
+    each segment's write id, that of its first sorted lane. Without
+    ``keys`` this is ``_dedup(ids, delta)``."""
+    if keys is None:
+        return _dedup(ids, delta)
+    d = _dedup(keys, delta)
+    return d._replace(useg=ids[d.order[_first_lanes(d)]])
+
+
 def _first_lanes(d: _Dedup) -> torch.Tensor:
     """Each segment's first lane in sorted order (0 past the count): the
     run starts write their positions into their segments' slots, every

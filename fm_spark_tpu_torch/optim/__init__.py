@@ -188,8 +188,9 @@ def make_sparse_adaptive_step(spec, config, *, beta: float = 1.0,
                               l1: float = 0.0, l2: float = 0.0):
     """The fused sparse per-coordinate step of the flat FM (the
     reference's ``make_sparse_adaptive_step``): ``step(params, slots, ids,
-    vals, labels, weights) → (params, slots, loss)``, ``params`` and
-    ``slots`` (:func:`init_adaptive_slots`) updated in place.
+    vals, labels, weights, keys=None) → (params, slots, loss)``, ``params``
+    and ``slots`` (:func:`init_adaptive_slots`) updated in place; ``keys``
+    as in ``sparse.make_sparse_sgd_step`` (the tiered store's global ids).
 
     The backward is the flat SGD step's analytic row rule. For each table
     the ``[B·nnz, w]`` float32 lanes are summed once per distinct id
@@ -248,7 +249,7 @@ def make_sparse_adaptive_step(spec, config, *, beta: float = 1.0,
         new, n_new = adagrad_rows(rows, slot["n"], g, alpha)
         return new, {"n": n_new}
 
-    def totals(params, ids, vals, labels, weights):
+    def totals(params, ids, vals, labels, weights, keys=None):
         """The loss, the score gradient, the device dedup ``d`` of the
         batch's ``[row | linear]`` lanes and ``g``, its totals (zero past
         the live segments)."""
@@ -272,18 +273,19 @@ def make_sparse_adaptive_step(spec, config, *, beta: float = 1.0,
             lanes.append((dscores[:, None] * vals_c).float().reshape(m, 1))
         # One dedup for both tables: they share the ids, so the segments
         # are one; the linear lane rides as the last column.
-        d = scatter_lib._dedup(fm_ops.write_index(ids, n).reshape(-1),
-                               torch.cat(lanes, dim=1))
+        d = scatter_lib._dedup_by(fm_ops.write_index(ids, n).reshape(-1),
+                                  torch.cat(lanes, dim=1), None if keys is None
+                                  else keys.reshape(-1))
         slot_i = torch.arange(m, device=v.device)
         live = (slot_i < d.count) & (d.useg < n)
         g = torch.where(live[:, None], d.totals, 0.0)   # past the count: unset
         return loss, dscores, d, g
 
     @torch.no_grad()
-    def body(params, slots, ids, vals, labels, weights):
+    def body(params, slots, ids, vals, labels, weights, keys=None):
         w0, w, v = params["w0"], params["w"], params["v"]
         n, k = v.shape
-        loss, dscores, d, g = totals(params, ids, vals, labels, weights)
+        loss, dscores, d, g = totals(params, ids, vals, labels, weights, keys)
         src, keep, idx = _unique_writes(d, n)
         for name, table, col in (("v", v, slice(0, k)), ("w", w, k)):
             if name not in slots:
@@ -319,11 +321,11 @@ def make_sparse_adaptive_step(spec, config, *, beta: float = 1.0,
 
     captured = graphs.CapturedStep(run)
 
-    def step(params, slots, ids, vals, labels, weights):
+    def step(params, slots, ids, vals, labels, weights, keys=None):
         if params["w0"].device.type != "cuda":
-            return body(params, slots, ids, vals, labels, weights)
+            return body(params, slots, ids, vals, labels, weights, keys)
         loss = captured({"params": params, "slots": slots}, 0, ids, vals,
-                        labels, weights)
+                        labels, weights, keys)
         return params, slots, loss
 
     step.captured = captured

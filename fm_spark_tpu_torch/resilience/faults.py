@@ -2,10 +2,10 @@
 ``fm_spark_tpu/resilience/faults.py``, each a call to :func:`inject` where
 the reference injects its faults, without the reference's fault plans.
 
-:func:`inject` is a no-op here: the faults plane (plans, actions and the
-cross-process occurrence counters) is not ported yet (ROADMAP Queue 1
-item 13). Tests patch it to raise at one point and so drive the same
-recovery paths a planned fault would:
+:func:`inject` is a no-op here: the reference's fault plans, actions
+and cross-process occurrence counters are not ported yet (ROADMAP Queue 1
+item 13). Tests patch it to raise (or stall) at one point and so drive
+the same recovery paths a planned fault would:
 
 - ``ckpt_demote``: a demotion's tombstone is durable and the
   ``last_good`` pointer is not yet republished
@@ -21,7 +21,15 @@ recovery paths a planned fault would:
   path (``data/stream.StreamBatches``), once per parsed chunk on the
   native path. A :class:`FaultInjected` there is a corrupt record and
   takes the data policy's path; an :class:`InjectedDeviceLoss`
-  propagates.
+  propagates;
+- ``embed_prefetch``: once per bucket the tiered store stages, on the
+  prefetch thread, before its cold read
+  (``embed/store.TieredStore.stage``): a device loss mid-prefetch
+  surfaces at the consumer's next batch;
+- ``embed_evict``: once per eviction, before its dirty write-back
+  (``TieredStore._flush_slot``): the kill-mid-eviction window;
+- ``online_eval``: once per eval day of the continuous-learning loop,
+  inside its ``online_eval`` watchdog phase (``online.run_online``).
 
 The two exception classes are the reference's: what a planned ``error``
 and ``device_loss`` action raise.
@@ -33,7 +41,8 @@ __all__ = ["KNOWN_POINTS", "FaultInjected", "InjectedDeviceLoss", "inject"]
 
 #: The fault points this package calls.
 KNOWN_POINTS = ("ckpt_demote", "ckpt_gc", "serve_reload", "ingest_truncate",
-                "ingest_corrupt")
+                "ingest_corrupt", "embed_prefetch", "embed_evict",
+                "online_eval")
 
 
 class FaultInjected(RuntimeError):

@@ -149,7 +149,7 @@ def _reject_embed_tier_require(config: TrainConfig, what: str):
     if config.embed_tier == "require":
         raise ValueError(
             f"embed_tier='require' is served by the tiered flat-FM "
-            f"trainer (fm_spark_tpu.embed.TieredTrainer), not {what}; "
+            f"trainer (fm_spark_tpu_torch.embed.TieredTrainer), not {what}; "
             "use 'auto' for fallback-to-in-HBM semantics")
 
 
@@ -1121,8 +1121,11 @@ def make_field_sparse_multistep(spec, config: TrainConfig, n: int,
 def make_sparse_sgd_step(spec, config: TrainConfig):
     """The fused sparse-SGD step of the flat FM (the reference's
     ``make_sparse_sgd_step``): ``step(params, step_idx, ids, vals, labels,
-    weights) → (params, loss)``, updating ``params`` (``{"w0", "w", "v"}``
-    of an ``FMSpec``) in place. Plain SGD with the schedule of
+    weights, keys=None) → (params, loss)``, updating ``params`` (``{"w0",
+    "w", "v"}`` of an ``FMSpec``) in place. ``keys`` (the tiered store's
+    global ids of the batch's hot-local ``ids``) orders the dedup's sums,
+    so a tiered step adds on the untiered step's bits
+    (``ops.scatter._dedup_by``); untiered callers pass none. Plain SGD with the schedule of
     :func:`~fm_spark_tpu_torch.train.make_optimizer`, read from
     ``step_idx`` (an int or a 0-dim int tensor).
 
@@ -1160,7 +1163,7 @@ def make_sparse_sgd_step(spec, config: TrainConfig):
     reg_linear = fused_bwd_lib.round_to(config.reg_linear, cd)
 
     @torch.no_grad()
-    def body(params, step_idx, ids, vals, labels, weights):
+    def body(params, step_idx, ids, vals, labels, weights, keys=None):
         w0, w, v = params["w0"], params["w"], params["v"]
         n, k = v.shape
         gidx = fm_ops.gather_index(ids, n)
@@ -1192,7 +1195,9 @@ def make_sparse_sgd_step(spec, config: TrainConfig):
         m = ids.numel()
         delta = torch.cat([g_rows.float().reshape(m, k),
                            g_w.float().reshape(m, 1)], dim=1) * -lr
-        d = scatter_lib._dedup(fm_ops.write_index(ids, n).reshape(-1), delta)
+        d = scatter_lib._dedup_by(fm_ops.write_index(ids, n).reshape(-1),
+                                  delta, None if keys is None
+                                  else keys.reshape(-1))
         slot = torch.arange(delta.shape[0], device=v.device)
         ok = (slot < d.count) & (d.useg < n)    # one write per distinct id
         # The other slots add zeros, spread over the rows (on one row
@@ -1210,10 +1215,11 @@ def make_sparse_sgd_step(spec, config: TrainConfig):
 
     captured = graphs.CapturedStep(run)
 
-    def step(params, step_idx, ids, vals, labels, weights):
+    def step(params, step_idx, ids, vals, labels, weights, keys=None):
         if not _on_card(params):
-            return body(params, step_idx, ids, vals, labels, weights)
-        return params, captured(params, step_idx, ids, vals, labels, weights)
+            return body(params, step_idx, ids, vals, labels, weights, keys)
+        return params, captured(params, step_idx, ids, vals, labels, weights,
+                                keys)
 
     step.captured = captured
     step.body = body

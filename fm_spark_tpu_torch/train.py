@@ -711,56 +711,99 @@ class FMTrainer:
         stream (``data/stream``) is a source like any other; when its
         guard quarantined anything, a ``bad_records``/``good_records``
         line is logged at the end (``self.ingest``, :func:`ingest_counts`).
-        ``supervisor``, ``elastic`` and ``divergence_guard`` are not
-        ported yet (ROADMAP Queue 1 items 12 and 13) and raise.
+        ``divergence_guard`` (a :class:`~fm_spark_tpu_torch.resilience
+        .divergence.DivergenceGuard`, which needs the checkpointer) checks
+        every step's loss (one fetch per step) before it can be logged or
+        saved; on a detection the newest verified step is restored into
+        the params and optimizer state in place (the captured step stays
+        bound to them; a chain without a step re-initialises them from the
+        seed and rewinds ``batches``), and the run continues toward the
+        reduced target ``note_rollback`` returns: a numeric blowup costs
+        one checkpoint window. ``supervisor`` and ``elastic`` are not
+        ported yet (ROADMAP Queue 1 item 12) and raise.
         """
-        for name, value, item in (("supervisor", supervisor, 12),
-                                  ("elastic", elastic, 12),
-                                  ("divergence_guard", divergence_guard, 13)):
+        for name, value in (("supervisor", supervisor), ("elastic", elastic)):
             if value is not None:
                 raise ValueError(f"FMTrainer.fit({name}=...) is not ported "
-                                 f"yet (ROADMAP Queue 1 item {item})")
+                                 "yet (ROADMAP Queue 1 item 12)")
+        if divergence_guard is not None and checkpointer is None:
+            raise ValueError(
+                "divergence-guard training needs a checkpointer: "
+                "rollback without committed good state to restore would "
+                "silently restart the run from scratch")
         from fm_spark_tpu_torch.data import wrap_prefetch
+        from fm_spark_tpu_torch.resilience.divergence import \
+            DivergenceDetected
 
         total = num_steps if num_steps is not None else self.config.num_steps
-        start = 0
-        if checkpointer is not None:
-            if not (hasattr(batches, "state") and hasattr(batches, "restore")):
-                raise ValueError(
-                    "checkpointed training needs a resumable batch source "
-                    "with state()/restore() (e.g. data.Batches); a plain "
-                    "iterator would silently replay data after resume")
-            start, self.resumed, extra = _resume(
-                checkpointer, self.params, self.opt_state, batches)
-            if start:
-                self.step_count = start
-                self.loss_history = list((extra or {}).get("loss_history",
-                                                           []))
-        source, close_prefetch = wrap_prefetch(batches, prefetch,
-                                               device=self.device)
+        if checkpointer is not None and not (
+                hasattr(batches, "state") and hasattr(batches, "restore")):
+            raise ValueError(
+                "checkpointed training needs a resumable batch source "
+                "with state()/restore() (e.g. data.Batches); a plain "
+                "iterator would silently replay data after resume")
+        initial_cursor = (batches.state() if divergence_guard is not None
+                          else None)
+        while True:
+            start = 0
+            if checkpointer is not None:
+                start, self.resumed, extra = _resume(
+                    checkpointer, self.params, self.opt_state, batches)
+                if start:
+                    self.step_count = start
+                    self.loss_history = list(
+                        (extra or {}).get("loss_history", []))
+            source, close_prefetch = wrap_prefetch(batches, prefetch,
+                                                   device=self.device)
 
-        def save(force: bool = False) -> None:
-            if checkpointer is None:
-                return
-            if not force and not checkpointer.due(self.step_count):
-                return
-            checkpointer.save(self.step_count, self.params, source.state(),
-                              {"loss_history": list(self.loss_history)},
-                              force=force, opt_state=self.opt_state)
-            if force:
-                checkpointer.wait()
+            def save(force: bool = False) -> None:
+                if checkpointer is None:
+                    return
+                if not force and not checkpointer.due(self.step_count):
+                    return
+                checkpointer.save(self.step_count, self.params,
+                                  source.state(),
+                                  {"loss_history": list(self.loss_history)},
+                                  force=force, opt_state=self.opt_state)
+                if force:
+                    checkpointer.wait()
 
-        try:
-            params = self._fit_loop(source, start, total, preemption_guard,
-                                    eval_batches, save)
-            self.ingest = ingest_counts(source)
-            _log_ingest(self.logger, self.step_count, self.ingest)
-            return params
-        finally:
-            close_prefetch()
+            try:
+                params = self._fit_loop(source, start, total,
+                                        preemption_guard, eval_batches, save,
+                                        divergence_guard)
+                self.ingest = ingest_counts(source)
+                _log_ingest(self.logger, self.step_count, self.ingest)
+                return params
+            except DivergenceDetected as e:
+                # Stop just short of the diverging step: a deterministic
+                # pipeline would replay the same poison. note_rollback
+                # re-raises once its budget is spent.
+                checkpointer.wait()      # the step a save in flight commits
+                restored = checkpointer.last_good_step() or 0
+                total = min(total, divergence_guard.note_rollback(
+                    e, restored))
+                if checkpointer.latest_step() is None:
+                    self._reinit()
+                    batches.restore(initial_cursor)
+            finally:
+                close_prefetch()
+
+    def _reinit(self) -> None:
+        """The params and optimizer state back at ``spec.init`` of the
+        seed, in place (a rollback with no step in the chain)."""
+        from fm_spark_tpu_torch.checkpoint import copy_into
+
+        fresh = self.spec.init(
+            torch.Generator(device=self.device).manual_seed(self.config.seed),
+            device=self.device)
+        copy_into(self.params, fresh)
+        copy_into(self.opt_state, self.optimizer.init(fresh))
+        self.step_count = 0
+        self.loss_history = []
 
     def _fit_loop(self, batches, start, total, preemption_guard,
-                  eval_batches, save):
+                  eval_batches, save, divergence_guard=None):
         it = iter(batches)
         log_every = max(self.config.log_every, 1)
         eval_every = self.config.eval_every
@@ -782,6 +825,10 @@ class FMTrainer:
                                        vals, labels, weights)
             self.step_count += 1
             since += 1
+            if divergence_guard is not None:
+                # Before the step's state can be logged, evaluated or
+                # saved: a poisoned step must never reach the chain.
+                divergence_guard.check(self.step_count, float(m["loss"]))
             if self.step_count % log_every == 0 or step_i == total - 1:
                 loss = float(m["loss"])
                 self.loss_history.append(loss)

@@ -24,6 +24,7 @@ import os
 import threading
 
 __all__ = [
+    "append_line_path",
     "atomic_write_bytes",
     "atomic_write_json",
     "atomic_write_text",
@@ -96,6 +97,25 @@ def atomic_write_text(path: str, text: str, **kw) -> bool:
 
 def atomic_write_json(path: str, obj, *, default=None, **kw) -> bool:
     return atomic_write_text(path, json.dumps(obj, default=default), **kw)
+
+
+def append_line_path(path: str, line: str, *,
+                     path_class: str | None = None,
+                     best_effort: bool = False) -> bool:
+    """Append ``line`` and a newline to ``path`` (opened and closed here;
+    the perf ledger's writer), flushed and fsynced. Returns True on
+    success; False only in ``best_effort`` mode."""
+    try:
+        with open(path, "a") as f:
+            f.write(line + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+    except OSError:
+        _note_failure(path_class, best_effort)
+        if best_effort:
+            return False
+        raise
+    return True
 
 
 def fsync_dir(path: str) -> None:

@@ -1734,3 +1734,143 @@ def test_library_path_scores_on_the_card(cuda, form):
     assert ops.library_calls()["field_fm_scores_library"] == lib0 + 1
     assert fused_fwd.launches == launches0
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------ the tiered store on the card
+
+
+def _tier_case(cuda, optimizer, n_steps, window=8):
+    """A tiered trainer on the card (4,096 rows in buckets of 64, a hot
+    tier of 16 buckets) and ``n_steps`` churned batches of 512 rows × 8
+    ids over a ``window``-bucket window drifting one bucket a step: 4,096
+    lanes a step, ~8 per distinct id, so kernel A's tiles cut through
+    many segments."""
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.embed import TieredTrainer
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    spec = models.FMSpec(num_features=4096, rank=8, init_std=0.05)
+    cfg = TrainConfig(batch_size=512, learning_rate=0.05,
+                      lr_schedule="constant", optimizer=optimizer,
+                      embed_tier="require", hot_rows=16 * 64,
+                      embed_bucket_rows=64, seed=3)
+    rng = np.random.default_rng(5)
+    batches = []
+    for i in range(n_steps):
+        b = rng.integers(0, window, (512, 8)) + i % (64 - window)
+        batches.append(((b * 64 + rng.integers(0, 64, (512, 8))).astype(
+            np.int64), rng.standard_normal((512, 8)).astype(np.float32),
+            (rng.random(512) < 0.3).astype(np.float32),
+            np.ones(512, np.float32)))
+    return spec, cfg, TieredTrainer(spec, cfg, device=cuda), batches
+
+
+def _untiered(cuda, spec, cfg, trainer, batches):
+    """The captured in-memory step over the same batches from the tiered
+    trainer's init (its dense cold planes): ``(losses, planes)``."""
+    import dataclasses
+
+    from fm_spark_tpu_torch import optim, sparse
+
+    off = dataclasses.replace(cfg, embed_tier="off")
+    cold = trainer.store.cold
+    params = {"w0": torch.zeros((), device=cuda),
+              "w": torch.from_numpy(cold.dense_plane("w").copy()).to(cuda),
+              "v": torch.from_numpy(cold.dense_plane("v").copy()).to(cuda)}
+    losses = []
+    if cfg.optimizer == "sgd":
+        step = sparse.make_sparse_sgd_step(spec, off)
+        for i, b in enumerate(batches):
+            losses.append(float(step(params, i, *[
+                torch.from_numpy(a).to(cuda) for a in b])[1]))
+        return losses, {k: v.cpu().numpy() for k, v in params.items()}
+    slots = optim.init_adaptive_slots(cfg.optimizer, spec, params)
+    if cfg.optimizer == "ftrl":
+        optim.seed_ftrl_slots(slots, params, cfg.learning_rate, 1.0)
+    step = optim.make_sparse_adaptive_step(spec, off)
+    for b in batches:
+        losses.append(float(step(params, slots, *[
+            torch.from_numpy(a).to(cuda) for a in b])[2]))
+    planes = {k: v.cpu().numpy() for k, v in params.items()}
+    for table, d in slots.items():
+        for key, t in d.items():
+            planes[f"{table}_{key}"] = t.cpu().numpy()
+    return losses, planes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["sgd", "ftrl"])
+def test_tiered_step_needs_the_global_dedup_keys_on_the_card(cuda, optimizer):
+    """Kernel A adds each id's lanes in an order set by where its segment
+    sits among the sorted lanes. Keyed by the hot-local ids (the reference's
+    relabelling) the tiered step's sums round otherwise than the untiered
+    step's: the fault. Keyed by the global ids (the port's design) the
+    tiered run equals the untiered one bit for bit: losses, the merged
+    planes and the slot planes."""
+    spec, cfg, trainer, batches = _tier_case(cuda, optimizer, 12)
+    want_losses, want = _untiered(cuda, spec, cfg, trainer, batches)
+    # The tiered step by hand with local keys: the dedup sorts by the
+    # hot-local ids.
+    _, _, local_tr, _ = _tier_case(cuda, optimizer, 0)
+    local_losses = []
+    for b in batches:
+        local_ids, _ = local_tr.store.begin_batch(b[0], local_tr.hot)
+        args = [local_tr._tensor(a) for a in (local_ids, *b[1:])]
+        if optimizer == "sgd":
+            out = local_tr._step(local_tr._params, len(local_losses), *args)
+        else:
+            out = local_tr._step(local_tr._params, local_tr._slots, *args)
+        local_losses.append(float(out[-1]))
+    local = local_tr.merged_params()
+    assert local_losses != want_losses or any(
+        not np.array_equal(local[k], want[k]) for k in ("w", "v"))
+    got_losses = [trainer.step_batch(*b) for b in batches]
+    assert trainer.store.stats()["evictions"] > 0
+    assert got_losses == want_losses
+    got = {**trainer.merged_params(), **{
+        f"{t}_{k}": v for t, d in (trainer.merged_slots() or {}).items()
+        for k, v in d.items()}}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_hot_planes_keep_their_storage_and_one_capture_on_the_card(cuda):
+    """40 churned steps through the prefetcher: every hot plane keeps its
+    storage and the step is captured once (installs, flushes and the
+    restore work in place)."""
+    _, _, trainer, batches = _tier_case(cuda, "ftrl", 40)
+    ptrs = {p: t.data_ptr() for p, t in trainer.hot.items()}
+    trainer.fit(iter(batches), num_steps=40, prefetch=2)
+    st = trainer.store.stats()
+    assert st["evictions"] > 0 and st["staged_hits"] > 0
+    assert {p: t.data_ptr() for p, t in trainer.hot.items()} == ptrs
+    assert len(trainer._step.captured.capture_s) == 1
+    trainer.store.restore_cold({p: trainer.store.cold.dense_plane(p).copy()
+                                for p in trainer.store.cold.plane_names})
+    trainer.step_batch(*batches[0])
+    assert {p: t.data_ptr() for p, t in trainer.hot.items()} == ptrs
+    assert len(trainer._step.captured.capture_s) == 1
+
+
+@pytest.mark.gpu
+def test_staged_copy_lands_only_after_its_event_on_the_card(cuda):
+    """A staged bucket whose copy is held back on the staging stream (a
+    sleep queued before it) is installed only after the copy's event: the
+    hot rows read the cold rows, never the device buffer's old bytes."""
+    from fm_spark_tpu_torch.embed import ColdStore, TieredStore
+
+    rows = np.arange(64 * 8 * 4, dtype=np.float32).reshape(-1, 4)
+    cold = ColdStore.dense({"v": rows.copy()}, 64)
+    store = TieredStore(cold, 2, device=cuda)
+    hot = store.init_hot()
+    hot["v"].fill_(-1.0)
+    side = store._stream("stage")
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of the side stream
+    assert store.stage(np.array([3 * 64 + 5])) == 1
+    local, hot = store.begin_batch(np.array([3 * 64 + 5, 3 * 64]), hot)
+    assert store.stats()["staged_hits"] == 1
+    got = hot["v"][torch.from_numpy(local).to(cuda)].cpu().numpy()
+    assert np.array_equal(got, rows[[3 * 64 + 5, 3 * 64]])

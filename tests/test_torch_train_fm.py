@@ -285,10 +285,13 @@ def test_trainer_stop_and_resume_equals_the_uninterrupted_run(tmp_path,
 def test_trainer_refuses_the_unported_planes():
     _, pspec = _specs("config1")
     tr = ptrain.FMTrainer(pspec, ptrain.TrainConfig(), device="cpu")
-    for kw, item in (("supervisor", "12"), ("elastic", "12"),
-                     ("divergence_guard", "13")):
+    for kw, item in (("supervisor", "12"), ("elastic", "12")):
         with pytest.raises(ValueError, match=f"item {item}"):
             tr.fit(iter([]), **{kw: object()})
+    # The divergence guard is served (the planes it needs are ported); it
+    # refuses to run without a chain to roll back to, as the reference's.
+    with pytest.raises(ValueError, match="needs a checkpointer"):
+        tr.fit(iter([]), divergence_guard=object())
     with pytest.raises(ValueError, match="resumable batch source"):
         tr.fit(iter([]), checkpointer=object())
 
