@@ -227,7 +227,7 @@ Phases (any failure exits non-zero before the last line is printed):
 19. training straight off raw-text shards (``stream_phase``): phase 14's
    327,680-row Criteo TSV in three shards with 0.5 % of its lines
    corrupted (placed from a seed; a wrong field count, a non-numeric
-   label, a bad token by turns). Leg C: the first 2,048 rows of each
+   label, a bad token by turns). Leg C: the first 1,024 rows of each
    shard through the Python and the native parser, batches and cursors
    equal, host rows/s of each. Leg A: ``fmtorch train --native-ingest
    --data-policy quarantine --max-bad-frac 0.05`` at config 3's full
@@ -258,13 +258,13 @@ Phases (any failure exits non-zero before the last line is printed):
    hit rate, misses, evictions, stall ms, H2D/D2H bytes, ``begin_batch``
    host ms, examples/s and, over 3 profiled steps each, device-busy ms,
    idle share and kernel A's runs per replay by symbol; leg C, FTRL at
-   leg A's sizes with a chain every 8 steps, killed at the 10th eviction
+   leg A's sizes with a chain every 16 steps, killed at the 10th eviction
    (``faults.inject`` patched) and resumed by a new trainer: its merged
    planes after 40 steps equal leg A's bit for bit; leg B, the lazy
    rungs at 100,000,768 and 1,000,000,512 features (SGD): examples/s,
    gathered rows/s, hit rate, stall, the cold tier's host bytes (the
    touched buckets only), RSS growth and peak, the card's peak memory;
-   leg D, ``fmtorch train --online`` at config 2's full width (1,048,576
+   leg D, ``fmtorch train --online`` at config 2's full width (524,288
    synthetic rows in 8 days, a label flip planted at day 5, FTRL) as
    subprocesses: one uninterrupted, a ``ReloadFollower`` on its chain
    throughout (never a step tombstoned at its swap, ending on the
@@ -277,7 +277,24 @@ Phases (any failure exits non-zero before the last line is printed):
    ``FMTrainer.fit(divergence_guard=...)`` at config 2 with FTRL and a
    chain every 4 steps, batch 10 poisoned: it rolls back and ends at step
    9, params and FTRL state equal to an unpoisoned run's bit for bit.
-   Kernel A must have launched.
+   Kernel A must have launched;
+21. the obs and fault planes at config 3's full width (``obs_phase``):
+   leg A, ``fmtorch train`` (bf16, dedup_sr, compact 12,288, kernel B,
+   B = 131,072 synthetic rows, 4 steps, one save) with ``--obs-dir``,
+   ``--profile``, ``--metrics`` and ``--metrics-port 0``: the run id is
+   the first line, the loss lines are finite and equal the metrics file,
+   the run dir holds the trace (window, save and verify spans), the
+   flight spool and dump and the final snapshot, and the profile names
+   every kernel the run launched by its symbol; leg B, ``fmtorch serve``
+   of the chain leg A saved (fp32 compute) with ``--slo-ms``,
+   ``--metrics-port 0``, ``--obs-dir`` and ``--repeat``, in a thread:
+   ``/metrics`` and ``/healthz`` scraped while it serves,
+   ``serve_health.jsonl`` and one ``serve/batch`` span per request in its
+   run dir, every answer within 1e-5 relative and ATOL/4 of the plain
+   version; leg C, a planted ``train_step@2=device_loss`` ends the run
+   with ``InjectedDeviceLoss`` and a flight dump naming it; leg D, the
+   plane's cost: the same captured step's wall ms and CUDA-event ms with
+   ``--obs-dir none`` and with the plane on.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -4391,7 +4408,7 @@ def families_phase(dev, report):
 STREAM_BAD_FRAC = 0.005                  # phase 19: corrupted share of lines
 STREAM_STEPS = 6                         # leg A: two whole epochs at B
 STREAM_KILL_AT = 3                       # leg A: SIGKILL after this loss line
-STREAM_PY_ROWS = 2048                    # leg C: rows per shard, both parsers
+STREAM_PY_ROWS = 1024                    # leg C: rows per shard, both parsers
 STREAM_AVAZU_ROWS = 30000                # leg B: 3 steps at 8,192
 LAYOUT_STEPS = 4                         # leg D: steps per comparison
 
@@ -4925,7 +4942,7 @@ TIER_STEPS, TIER_PROFILED = 40, 3
 TIER_RUNGS = (10_000_000, 100_000_000, 1_000_000_000)
 TIER_LR = 0.05
 TIER_KILL_EVICTION = 10
-ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 1 << 20, 8, 5
+ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 1 << 19, 8, 5
 ONLINE_SHARD_ROWS, ONLINE_SHARD_B = 2048, 512
 DIVERGE_AT, DIVERGE_EVERY = 10, 4
 
@@ -5230,7 +5247,7 @@ class _InjectAt:
 
 
 def _tier_leg_c(dev, base, batches, golden) -> dict:
-    """Leg C: FTRL at leg A's sizes with a chain saved every 8 steps,
+    """Leg C: FTRL at leg A's sizes with a chain saved every 16 steps,
     killed at the 10th eviction (``embed_evict``), resumed by a new
     trainer: its merged planes after 40 steps equal leg A's FTRL run's."""
     import numpy as np
@@ -5244,7 +5261,7 @@ def _tier_leg_c(dev, base, batches, golden) -> dict:
     ckdir = os.path.join(base, "tier_ck")
     t0 = time.perf_counter()
     first = TieredTrainer(spec, cfg, device=dev)
-    ck = Checkpointer(ckdir, save_every=8, max_to_keep=2)
+    ck = Checkpointer(ckdir, save_every=16, max_to_keep=2)
     inject = faults.inject
     faults.inject = _InjectAt("embed_evict", TIER_KILL_EVICTION)
     try:
@@ -5263,7 +5280,7 @@ def _tier_leg_c(dev, base, batches, golden) -> dict:
            f"{killed_at})")
     del first
     second = TieredTrainer(spec, cfg, device=dev)
-    ck = Checkpointer(ckdir, save_every=8, max_to_keep=2)
+    ck = Checkpointer(ckdir, save_every=16, max_to_keep=2)
     second.fit(_ListSource(batches), num_steps=TIER_STEPS, checkpointer=ck,
                prefetch=2)
     resumed_from = (ck.restore_timing or {}).get("step")
@@ -5410,7 +5427,7 @@ def _tier_leg_d(dev, base, report) -> dict:
     fol = None
     at_swap_tombstoned = []
     # The run to kill: SIGKILL once day 3's save is the chain's last good
-    # step (step 32), before that run's next save.
+    # step (step 16), before that run's next save.
     good = os.path.join(d["ck_kill"], "last_good.json")
     target = 4 * (ONLINE_ROWS // ONLINE_DAYS // TIER_B)
     killed = False
@@ -5695,6 +5712,348 @@ def tier_phase(dev, report):
     return launches
 
 
+# ------------------------------------------------------------------ phase 21
+
+#: Phase 21: the obs and fault planes at config 3's full width.
+OBS_STEPS, OBS_COST_STEPS, OBS_SERVE_ROWS, OBS_SERVE_B = 4, 10, 4096, 512
+OBS_SERVE_REPEAT, OBS_FAULT_B = 60, 16384
+
+
+def _obs_train_argv(b: int, steps: int):
+    """``fmtorch train`` of config 3 at full width (bf16 tables and
+    compute, dedup_sr, the compact host aux at ``CAP``, kernel B) on
+    ``b`` seeded synthetic rows, ``b`` a batch."""
+    return ["train", "--config", "criteo1tb_fm_r64", "--synthetic", b,
+            "--batch-size", b, "--steps", steps, "--param-dtype", "bfloat16",
+            "--compute-dtype", "bfloat16", "--sparse-update", "dedup_sr",
+            "--host-dedup", "--compact-cap", CAP, "--fused-embed", "require",
+            "--test-fraction", 0, "--log-every", 1]
+
+
+def _run_dir_of(root: str) -> str:
+    names = os.listdir(root)
+    _check(len(names) == 1, f"phase 21: want one run dir under {root}, got "
+           f"{names}")
+    return os.path.join(root, names[0])
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.read().decode()
+
+
+def _obs_train_leg(base: str, out: dict) -> str:
+    """Leg A: ``fmtorch train`` with ``--obs-dir``, ``--profile``,
+    ``--metrics`` and ``--metrics-port 0`` for ``OBS_STEPS`` steps and one
+    save; the profile names the leg's kernels by symbol, the loss lines
+    are finite and equal the metrics file's, the run dir parses. Returns
+    the chain it saved."""
+    import math
+
+    obs_root, prof = os.path.join(base, "obs_a"), os.path.join(base, "prof")
+    mfile, ck = os.path.join(base, "m.jsonl"), os.path.join(base, "ck")
+    t0 = time.perf_counter()
+    lines, summary = _cli(*_obs_train_argv(TRAIN_B, OBS_STEPS),
+                          "--obs-dir", obs_root, "--profile", prof,
+                          "--metrics", mfile, "--metrics-port", 0,
+                          "--checkpoint-dir", ck, "--checkpoint-every",
+                          OBS_STEPS)
+    out["leg_a_s"] = time.perf_counter() - t0
+    run = _run_dir_of(obs_root)
+    _check(lines[0] == {"run_id": os.path.basename(run), "obs_dir": run},
+           f"phase 21: the first line is not the run id: {lines[0]}")
+    _check("metrics_port" in lines[1], f"phase 21: no port line {lines[1]}")
+    losses = [x for x in lines if "loss" in x]
+    _check([x["step"] for x in losses] == list(range(1, OBS_STEPS + 1))
+           and all(math.isfinite(x["loss"]) for x in losses),
+           f"phase 21: loss lines {losses}")
+    _check(_jsonl(mfile) == losses, "phase 21: --metrics differs from the "
+           "printed loss lines")
+    files = sorted(os.listdir(run))
+    _check(files == ["flight.jsonl", "flight_dump.json", "metrics.jsonl",
+                     "trace.jsonl"], f"phase 21: run dir holds {files}")
+    spans = {}
+    for r in _jsonl(os.path.join(run, "trace.jsonl")):
+        spans[r["name"]] = spans.get(r["name"], 0) + 1
+    _check(spans.get("train/steps") == OBS_STEPS and spans.get(
+        "checkpoint/save") == 1 and spans.get("checkpoint/verify") == 1,
+        f"phase 21: spans {spans}")
+    with open(os.path.join(run, "flight_dump.json")) as f:
+        dump = json.load(f)
+    snap = _jsonl(os.path.join(run, "metrics.jsonl"))[-1]
+    _check(dump["reason"] == "run_end" and snap["counters"][
+        "train.samples_total"] == OBS_STEPS * TRAIN_B,
+        f"phase 21: dump {dump['reason']}, snapshot {snap['counters']}")
+    launched = [k for k, v in summary["kernel_launches"].items() if v > 0]
+    _check({"fm_bwd_segment_totals", "sr_bits"} <= set(launched),
+           f"phase 21: leg A launched {summary['kernel_launches']}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    named = {k: sum(any(sym in n for sym in KERNEL_SYMBOLS[k])
+                    for n in names) for k in launched}
+    _check(all(named.values()), f"phase 21: the profile misses kernels: "
+           f"{named}")
+    out["leg_a"] = {"losses": [x["loss"] for x in losses],
+                    "samples_per_s": [x.get("samples_per_sec")
+                                      for x in losses],
+                    "step_ms": summary["step_ms"], "spans": spans,
+                    "kernel_events_in_profile": named,
+                    "profile_bytes": os.path.getsize(os.path.join(
+                        prof, "trace.json")),
+                    "capture_s": summary["capture_s"],
+                    "saves": summary["saves"]}
+    return ck
+
+
+def _obs_serve_leg(dev, base: str, ck: str, out: dict) -> None:
+    """Leg B: ``fmtorch serve`` of the chain leg A saved, with
+    ``--slo-ms``, ``--metrics-port 0``, ``--obs-dir`` and ``--repeat``, in
+    a thread of this process; ``/metrics`` and ``/healthz`` are scraped
+    while it serves; ``serve_health.jsonl`` and the ``serve/batch`` spans
+    are in its run dir; every answer matches the plain version."""
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from fm_spark_tpu_torch import cli, configs, data, obs
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+    from fm_spark_tpu_torch.models.io import param_names, unflatten
+    from fm_spark_tpu_torch.obs import export
+
+    obs_root, preds = os.path.join(base, "obs_b"), os.path.join(base, "p.txt")
+    argv = ["serve", "--config", "criteo1tb_fm_r64", "--checkpoint-dir", ck,
+            "--compute-dtype", "float32", "--synthetic", OBS_SERVE_ROWS,
+            "--batch-size", OBS_SERVE_B, "--buckets", f"1,64,{OBS_SERVE_B}",
+            "--repeat", OBS_SERVE_REPEAT, "--latency-budget-ms", 0,
+            "--slo-ms", 1000, "--metrics-port", 0, "--obs-dir", obs_root,
+            "--out", preds]
+    result = {}
+    stdout, stderr = io.StringIO(), io.StringIO()
+
+    def serve():
+        try:
+            result["rc"] = cli.main([str(a) for a in argv])
+        except BaseException as e:      # noqa: BLE001 — reported below
+            result["error"] = repr(e)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(
+            stderr):
+        th = threading.Thread(target=serve)
+        th.start()
+        give_up = time.monotonic() + 300
+        while not (export._server is not None and obs.counter(
+                "serve.requests_total").value > 0):
+            _check(th.is_alive() and time.monotonic() < give_up,
+                   f"phase 21: serve never served: {result}")
+            time.sleep(0.01)
+        url = export._server.url
+        metrics = _get(url + "/metrics")
+        health = json.loads(_get(url + "/healthz"))
+        scraped_alive = th.is_alive()
+        th.join(timeout=600)
+    out["leg_b_s"] = time.perf_counter() - t0
+    _check(result.get("rc") == 0, f"phase 21: serve: {result}, "
+           f"{stderr.getvalue()[-3000:]}")
+    _check(scraped_alive and 'fm_spark_serve_requests_total{run_id="' in
+           metrics and health["status"] == "ok" and health["run_id"]
+           and health["degraded"] is False,
+           f"phase 21: scrape: alive {scraped_alive}, healthz {health}")
+    lines = [json.loads(x) for x in stdout.getvalue().splitlines()
+             if x.startswith("{")]
+    summary = [x["serve_summary"] for x in lines if "serve_summary" in x][0]
+    run = _run_dir_of(obs_root)
+    _check(os.path.isfile(os.path.join(run, "serve_health.jsonl")),
+           "phase 21: no serve_health.jsonl")
+    n_batch = sum(r["name"] == "serve/batch"
+                  for r in _jsonl(os.path.join(run, "trace.jsonl")))
+    n_req = OBS_SERVE_REPEAT * OBS_SERVE_ROWS // OBS_SERVE_B
+    _check(summary["served_requests"] == n_req and n_batch >= n_req,
+           f"phase 21: {summary['served_requests']} requests, {n_batch} "
+           "serve/batch spans")
+    # The plain version on the chain's newest step, on the same rows, with
+    # the spec serve built (the config's, fp32 compute, the chain's bf16).
+    spec = dataclasses.replace(configs.get_config(
+        "criteo1tb_fm_r64", compute_dtype="float32").spec(),
+        param_dtype="bfloat16")
+    names = param_names(spec)
+    restored = ChainFollower(ck).restore(unflatten(dict.fromkeys(names),
+                                                   names))
+    params = {"w0": restored["params"]["w0"].to(dev),
+              "vw": [t.to(dev) for t in restored["params"]["vw"]]}
+    ids, vals, _ = data.synthetic_ctr(OBS_SERVE_ROWS, spec.num_features, F,
+                                      seed=1)
+    want = _plain_predict(spec, params, data.field_local(ids, BUCKET), vals,
+                          dev).numpy()
+    got = np.loadtxt(preds)
+    _check(got.shape == (OBS_SERVE_REPEAT * OBS_SERVE_ROWS,),
+           f"phase 21: serve wrote {got.shape} answers")
+    err = float(np.abs(got - np.tile(want, OBS_SERVE_REPEAT)).max())
+    # fp32 sums in another order (ATOL on the scores) through the sigmoid
+    # (slope <= 1/4), printed with %.6g.
+    _check(np.allclose(got, np.tile(want, OBS_SERVE_REPEAT), rtol=1e-5,
+                       atol=ATOL / 4), f"phase 21: served answers off the "
+           f"plain version by {err}")
+    out["leg_b"] = {"served_requests": summary["served_requests"],
+                    "request_ms": summary["request_ms"], "qps": summary["qps"],
+                    "serve_batch_spans": n_batch, "max_abs_err": err,
+                    "healthz": health, "scraped_while_serving": scraped_alive}
+
+
+def _obs_fault_leg(base: str, out: dict) -> None:
+    """Leg C: a planted ``train_step@2=device_loss`` on the card ends the
+    run with the reference's device-loss class (``InjectedDeviceLoss``,
+    ``is_device_loss``) and a flight dump that names it."""
+    from fm_spark_tpu_torch import cli
+    from fm_spark_tpu_torch.resilience import faults
+
+    root = os.path.join(base, "obs_c")
+    faults.activate("train_step@2=device_loss")
+    raised = None
+    try:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            cli.main([str(a) for a in (*_obs_train_argv(OBS_FAULT_B, 4),
+                                       "--obs-dir", root)])
+    except faults.InjectedDeviceLoss as e:      # the planted ending
+        raised = e
+    finally:
+        faults.clear()
+    _check(raised is not None and faults.is_device_loss(raised),
+           f"phase 21: the planted device loss ended as {raised!r}")
+    with open(os.path.join(_run_dir_of(root), "flight_dump.json")) as f:
+        dump = json.load(f)
+    failed = [e for e in dump["events"] if e["kind"] == "run_failed"
+              and "error" in e]
+    _check(dump["reason"] == "run_failed" and failed
+           and failed[0]["device_loss"] is True,
+           f"phase 21: flight dump {dump['reason']}, {failed}")
+    out["leg_c"] = {"error": str(raised), "dump_reason": dump["reason"],
+                    "events": [e["kind"] for e in dump["events"]]}
+
+
+def _obs_cost_leg(base: str, out: dict) -> None:
+    """Leg D: the plane's cost. The same captured config-3 step for
+    ``OBS_COST_STEPS`` steps with ``--obs-dir none`` and with the plane on
+    (spans, flight recorder, capture engine, live endpoint), one run each:
+    each step's wall ms (the logger's host clock between loss lines, one
+    step a window) and its CUDA-event ms (the step's device time), medians
+    over the steps after the capture."""
+    runs = []
+    for i, on in enumerate((False, True)):
+        extra = (["--obs-dir", os.path.join(base, f"obs_d{i}"),
+                  "--metrics-port", 0] if on else ["--obs-dir", "none"])
+        lines, summary = _cli(*_obs_train_argv(TRAIN_B, OBS_COST_STEPS),
+                              *extra)
+        wall = [TRAIN_B / x["samples_per_sec"] * 1e3 for x in lines
+                if x.get("samples_per_sec")][1:]
+        runs.append({"plane": "on" if on else "off",
+                     "wall_ms": statistics.median(wall),
+                     "event_ms": statistics.median(summary["step_ms"][2:])})
+    med = {k: {p: statistics.median(r[k] for r in runs if r["plane"] == p)
+               for p in ("off", "on")} for k in ("wall_ms", "event_ms")}
+    out["leg_d"] = {"runs": runs, "median": med,
+                    "wall_cost_share": med["wall_ms"]["on"]
+                    / med["wall_ms"]["off"] - 1.0}
+
+
+def obs_phase(dev, report):
+    """Phase 21: the obs and fault planes wired into ``fmtorch train`` and
+    ``fmtorch serve`` at config 3's full width."""
+    import gc
+    import importlib
+    import tempfile
+
+    import torch
+
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="obs.", dir=root)
+    out = {"card": report["card"], "host_cpu": _host_cpu()}
+    t_phase = time.perf_counter()
+    try:
+        # Counts start at 0 just before the main path and are read after.
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        ck = _obs_train_leg(base, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _obs_serve_leg(dev, base, ck, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _obs_fault_leg(base, out)
+        _obs_cost_leg(base, out)
+        launches = kernel_launches()
+        out["launches"] = launches
+        for k in ("fm_bwd_segment_totals", "sr_bits", "fm_fused_scores"):
+            _check(launches[k] > 0, f"phase 21: {k} never launched: "
+                   f"{launches}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("obs", json.dumps(out), flush=True)
+    d = out["leg_d"]["median"]
+    print(f"phase 21 ({report['card']}): leg A {out['leg_a_s']:.1f} s, "
+          f"leg B {out['leg_b_s']:.1f} s ({out['leg_b']['qps']} req/s, "
+          f"request p50 {out['leg_b']['request_ms']['p50']} ms); captured "
+          f"step wall ms off/on {d['wall_ms']['off']:.3f}/"
+          f"{d['wall_ms']['on']:.3f}, CUDA-event ms off/on "
+          f"{d['event_ms']['off']:.3f}/{d['event_ms']['on']:.3f}; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    report["obs"] = out
+    return launches
+
+
+def repeat_phase_17(dev, report, seconds: float) -> int:
+    """``chip_smoke.py --repeat-phase-17 SECONDS``: phases 3-16 once, as
+    the full run runs them, then phase 17 again and again until
+    ``SECONDS`` have passed (run it under ``CUDA_LAUNCH_BLOCKING=1`` to
+    pin an asynchronous CUDA error to its launch). Each pass prints its
+    line; the first failure propagates with its traceback. Prints
+    ``{"phase17_loop": {"runs", "passed", "seconds"}}``."""
+    t0 = time.perf_counter()
+    kernel_phase(dev, report)
+    eval_phase(dev, report)
+    serve_phase(dev, report)
+    cli_phase(dev, report)
+    training_kernels_phase(dev, report)
+    train_phase(dev, report)
+    ffm_kernel_phase(dev, report)
+    ffm_serve_phase(dev, report)
+    ffm_train_phase(dev, report)
+    row_kernel_phase(dev, report)
+    pallas_train_phase(dev, report)
+    sr_bits_phase(dev, report)
+    capture_phase(dev, report)
+    ingest_phase(dev, report)
+    deepfm_phase(dev, report)
+    serve_chain_phase(dev, report)
+    t1 = time.perf_counter()
+    print(f"phases 3-16: {t1 - t0:.1f} s", flush=True)
+    runs = 0
+    while runs == 0 or time.perf_counter() - t1 < seconds:
+        runs += 1
+        t = time.perf_counter()
+        flat_fm_phase(dev, report)
+        print(f"phase 17 pass {runs}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    print(json.dumps({"phase17_loop": {
+        "runs": runs, "passed": runs, "seconds": time.perf_counter() - t1,
+        "launch_blocking": os.environ.get("CUDA_LAUNCH_BLOCKING")}}),
+        flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5706,6 +6065,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The telemetry plane is on by default in fmtorch train and serve;
+    # phases 1-20 run their CLI calls (and subprocesses) with it off, as
+    # they were written; phase 21 names its run dirs.
+    os.environ["FM_SPARK_OBS_DIR"] = "none"
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5725,27 +6088,40 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    if sys.argv[1:2] == ["--repeat-phase-17"]:
+        return repeat_phase_17(dev, report, float(sys.argv[2]))
 
-    rows = kernel_phase(dev, report)
-    eval_phase(dev, report)
-    launches = serve_phase(dev, report)
-    cli_phase(dev, report)
-    a_rows, b_rows = training_kernels_phase(dev, report)
-    train_launches = train_phase(dev, report)
-    ffm_rows = ffm_kernel_phase(dev, report)
-    ffm_serve_launches = ffm_serve_phase(dev, report)
-    ffm_launches = ffm_train_phase(dev, report)
-    row_rows = row_kernel_phase(dev, report)
-    pallas_launches = pallas_train_phase(dev, report)
-    sr_rows = sr_bits_phase(dev, report)
-    capture_launches = capture_phase(dev, report)
-    ingest_launches = ingest_phase(dev, report)
-    deepfm_launches, w17 = deepfm_phase(dev, report)
-    serve_runs = serve_chain_phase(dev, report)
-    flat_launches, flat = flat_fm_phase(dev, report)
-    fam_launches, fam = families_phase(dev, report)
-    stream_launches = stream_phase(dev, report)
-    tier_launches = tier_phase(dev, report)
+    seconds = report["phase_seconds"] = {}
+
+    def timed(name, phase):
+        """One phase, its seconds printed and kept in the report."""
+        t = time.perf_counter()
+        out = phase(dev, report)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    rows = timed("3 kernel", kernel_phase)
+    timed("3 eval", eval_phase)
+    launches = timed("4 serve", serve_phase)
+    timed("5 cli", cli_phase)
+    a_rows, b_rows = timed("6 training kernels", training_kernels_phase)
+    train_launches = timed("7 train", train_phase)
+    ffm_rows = timed("8 ffm kernels", ffm_kernel_phase)
+    ffm_serve_launches = timed("9 ffm serve", ffm_serve_phase)
+    ffm_launches = timed("10 ffm train", ffm_train_phase)
+    row_rows = timed("11 row kernels", row_kernel_phase)
+    pallas_launches = timed("12 pallas train", pallas_train_phase)
+    sr_rows = timed("13 sr bits", sr_bits_phase)
+    capture_launches = timed("13 capture", capture_phase)
+    ingest_launches = timed("14 ingest", ingest_phase)
+    deepfm_launches, w17 = timed("15 deepfm", deepfm_phase)
+    serve_runs = timed("16 serve chain", serve_chain_phase)
+    flat_launches, flat = timed("17 flat fm", flat_fm_phase)
+    fam_launches, fam = timed("18 families", families_phase)
+    stream_launches = timed("19 stream", stream_phase)
+    tier_launches = timed("20 tier", tier_phase)
+    obs_launches = timed("21 obs", obs_phase)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -5973,6 +6349,10 @@ def main() -> int:
                     for opt in ("sgd", "ftrl", "adagrad")},
                 "online_runs_per_replayed_step":
                     tier["leg_d"]["profiled"]["runs_per_replayed_step"]}
+    # Phase 21, the obs and fault planes: each kernel's launches (the
+    # capture warm-ups of its training legs, the serving warm-up).
+    for entry in kernels["kernels"]:
+        entry["obs_launches"] = obs_launches[entry["name"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -60,9 +60,19 @@ next save, wait or close.
 
 ``max_to_keep`` keeps the newest steps (and ``last_good``'s) and removes
 the rest with their manifests. :class:`PreemptionGuard` turns SIGTERM
-into a flag the training loop polls to save and stop. The fault points
-``ckpt_demote`` and ``ckpt_gc`` call :func:`~fm_spark_tpu_torch.
-resilience.faults.inject`, a no-op until the faults plane is ported.
+into a flag the training loop polls to save and stop (and, where it
+displaced the telemetry plane's SIGTERM handler, leaves its flight dump
+too).
+
+**Planes.** A save runs in the ``checkpoint/save`` span; its commit
+window (the manifest's verification and publish) runs under the
+``ckpt_commit`` watchdog phase with the ``ckpt_commit`` fault point and
+the ``checkpoint/verify`` span; a restore runs in ``checkpoint/restore``
+and a demotion in ``checkpoint/demote``. The fault points ``ckpt_demote``
+and ``ckpt_gc`` sit in the demotion's and the emergency GC's windows.
+Every chain file (manifests, tombstones, ``last_good``) is written and
+read through :mod:`~fm_spark_tpu_torch.utils.durable` with path class
+``ckpt``, so an ``io_*.ckpt`` fault plan reaches it.
 """
 
 from __future__ import annotations
@@ -82,7 +92,7 @@ import torch
 
 from fm_spark_tpu_torch import obs
 from fm_spark_tpu_torch.models.io import flatten, unflatten
-from fm_spark_tpu_torch.resilience import faults
+from fm_spark_tpu_torch.resilience import faults, watchdog
 from fm_spark_tpu_torch.utils import durable
 
 __all__ = ["ChainFollower", "CheckpointChainBroken", "CheckpointIOError",
@@ -240,14 +250,18 @@ def _read_step(step_dir: str):
     """``(state, {key: (dtype, array)}, bytes, read_ms)`` of the step
     saved in ``step_dir``, in whatever layout it records."""
     t0 = time.perf_counter()
-    state = durable.read_json(os.path.join(step_dir, "state.json"))
-    arrays = {}
-    for key, info in state["arrays"].items():
-        arr = np.load(os.path.join(step_dir, info["file"]), allow_pickle=False)
-        if list(arr.shape) != list(info["shape"]):
-            raise ValueError(f"{key}: shape {arr.shape} != recorded "
-                             f"{info['shape']}")
-        arrays[key] = (info["dtype"], arr)
+    with obs.span("checkpoint/restore",
+                  step=int(os.path.basename(step_dir))):
+        state = durable.read_json(os.path.join(step_dir, "state.json"),
+                                  path_class="ckpt")
+        arrays = {}
+        for key, info in state["arrays"].items():
+            arr = np.load(os.path.join(step_dir, info["file"]),
+                          allow_pickle=False)
+            if list(arr.shape) != list(info["shape"]):
+                raise ValueError(f"{key}: shape {arr.shape} != recorded "
+                                 f"{info['shape']}")
+            arrays[key] = (info["dtype"], arr)
     nbytes = sum(a.nbytes for _, a in arrays.values())
     return state, arrays, nbytes, (time.perf_counter() - t0) * 1e3
 
@@ -365,7 +379,8 @@ class Checkpointer:
     def last_good_step(self) -> int | None:
         """The persisted last verified step."""
         try:
-            step = durable.read_json(self._last_good_path).get("step")
+            step = durable.read_json(self._last_good_path,
+                                     path_class="ckpt").get("step")
             return int(step) if step is not None else None
         except (OSError, ValueError, TypeError, AttributeError):
             return None
@@ -412,20 +427,23 @@ class Checkpointer:
         step is already tombstoned."""
         step = int(step)
         self.wait()
-        stones = _read_tombstones(self.directory)
-        if step in stones:
-            self._repair_pointer(stones)
-            return False
-        os.makedirs(self._tombstone_dir, exist_ok=True)
-        self._durable_json(os.path.join(self._tombstone_dir, f"{step}.json"),
-                           {"step": step, "reason": str(reason)[:500],
-                            "ts": round(time.time(), 3)})
-        self._emit("generation_demoted", step=step, reason=str(reason)[:200])
-        obs.counter("checkpoint.demotions_total").add(1)
-        obs.gauge("checkpoint/quarantined_generations").set(
-            self._quarantined())
-        faults.inject("ckpt_demote")
-        self._republish_last_good()
+        with obs.span("checkpoint/demote", step=step):
+            stones = _read_tombstones(self.directory)
+            if step in stones:
+                self._repair_pointer(stones)
+                return False
+            os.makedirs(self._tombstone_dir, exist_ok=True)
+            self._durable_json(
+                os.path.join(self._tombstone_dir, f"{step}.json"),
+                {"step": step, "reason": str(reason)[:500],
+                 "ts": round(time.time(), 3)})
+            self._emit("generation_demoted", step=step,
+                       reason=str(reason)[:200])
+            obs.counter("checkpoint.demotions_total").add(1)
+            obs.gauge("checkpoint/quarantined_generations").set(
+                self._quarantined())
+            faults.inject("ckpt_demote")
+            self._republish_last_good()
         return True
 
     def demote_newer_than(self, step: int, reason: str = "") -> list[int]:
@@ -445,18 +463,20 @@ class Checkpointer:
             self._repair_pointer(stones)
             return []
         tip = demoted[-1]
-        os.makedirs(self._tombstone_dir, exist_ok=True)
-        self._durable_json(
-            os.path.join(self._tombstone_dir, f"range_{floor}_{tip}.json"),
-            {"newer_than": floor, "through": tip, "steps": demoted,
-             "reason": str(reason)[:500], "ts": round(time.time(), 3)})
-        self._emit("generation_demoted", steps=demoted, newer_than=floor,
-                   reason=str(reason)[:200])
-        obs.counter("checkpoint.demotions_total").add(len(demoted))
-        obs.gauge("checkpoint/quarantined_generations").set(
-            self._quarantined())
-        faults.inject("ckpt_demote")
-        self._republish_last_good()
+        with obs.span("checkpoint/demote", floor=floor, tip=tip):
+            os.makedirs(self._tombstone_dir, exist_ok=True)
+            self._durable_json(
+                os.path.join(self._tombstone_dir,
+                             f"range_{floor}_{tip}.json"),
+                {"newer_than": floor, "through": tip, "steps": demoted,
+                 "reason": str(reason)[:500], "ts": round(time.time(), 3)})
+            self._emit("generation_demoted", steps=demoted,
+                       newer_than=floor, reason=str(reason)[:200])
+            obs.counter("checkpoint.demotions_total").add(len(demoted))
+            obs.gauge("checkpoint/quarantined_generations").set(
+                self._quarantined())
+            faults.inject("ckpt_demote")
+            self._republish_last_good()
         return demoted
 
     def _repair_pointer(self, stones: _Tombstones) -> None:
@@ -483,7 +503,8 @@ class Checkpointer:
 
     def _read_manifest(self, step: int) -> dict | None:
         try:
-            return durable.read_json(self._manifest_path(step))
+            return durable.read_json(self._manifest_path(step),
+                                     path_class="ckpt")
         except (OSError, ValueError):
             return None
 
@@ -572,12 +593,13 @@ class Checkpointer:
                        reason=f"older than step {live[-1]}")
             return False
         meta = {"pipeline": pipeline_state, "extra": extra}
-        t0 = time.perf_counter()
-        snap = self._snapshot(params, opt_state)
-        t1 = time.perf_counter()
-        checksums = {k: _checksum(snap.dtypes[k], a)
-                     for k, a in snap.arrays.items()}
-        t2 = time.perf_counter()
+        with obs.span("checkpoint/save", step=step, force=bool(force)):
+            t0 = time.perf_counter()
+            snap = self._snapshot(params, opt_state)
+            t1 = time.perf_counter()
+            checksums = {k: _checksum(snap.dtypes[k], a)
+                         for k, a in snap.arrays.items()}
+            t2 = time.perf_counter()
         manifest = {"step": step, "checksums": checksums,
                     "meta_crc": _meta_crc(meta), "ts": round(time.time(), 3)}
         timing = {"step": step, "snapshot_ms": (t1 - t0) * 1e3,
@@ -622,22 +644,30 @@ class Checkpointer:
                 f.flush()
                 os.fsync(f.fileno())
             for sub in {os.path.dirname(a["file"]) for a in arrays.values()}:
-                durable.fsync_dir(os.path.join(tmp, sub))
-            durable.fsync_dir(tmp)
+                durable.fsync_dir(os.path.join(tmp, sub), "ckpt")
+            durable.fsync_dir(tmp, "ckpt")
             os.rename(tmp, final)
-            durable.fsync_dir(self.directory)
+            durable.fsync_dir(self.directory, "ckpt")
         except OSError as e:
             shutil.rmtree(tmp, ignore_errors=True)
             raise CheckpointIOError(final, e) from e
         timing["write_ms"] = (time.perf_counter() - t0) * 1e3
-        os.makedirs(self._manifest_dir, exist_ok=True)
-        self._durable_json(self._manifest_path(step), manifest)
-        prev = self.last_good_step()
-        if self.is_tombstoned(step):
-            self._emit("checkpoint_verified_demoted", step=step)
-        elif prev is None or step > prev:
-            self._durable_json(self._last_good_path,
-                               {"step": step, "ts": round(time.time(), 3)})
+        # The commit window: the step's bytes are in place, its manifest
+        # not yet written (a torn save no reader trusts). It runs under
+        # the ckpt_commit deadline, so a hang here is a structured
+        # HangDetected, and holds the ckpt_commit fault point.
+        with watchdog.phase("ckpt_commit"):
+            faults.inject("ckpt_commit")
+            with obs.span("checkpoint/verify", step=int(step)):
+                os.makedirs(self._manifest_dir, exist_ok=True)
+                self._durable_json(self._manifest_path(step), manifest)
+                prev = self.last_good_step()
+                if self.is_tombstoned(step):
+                    self._emit("checkpoint_verified_demoted", step=step)
+                elif prev is None or step > prev:
+                    self._durable_json(
+                        self._last_good_path,
+                        {"step": step, "ts": round(time.time(), 3)})
         self._emit("checkpoint_verified", step=step,
                    last_good=max(step, prev or step))
         self._collect()
@@ -765,7 +795,7 @@ class Checkpointer:
                 os.unlink(self._manifest_path(s))
             except OSError:
                 pass
-        durable.fsync_dir(self.directory)
+        durable.fsync_dir(self.directory, "ckpt")
         self._durable_json(self._last_good_path,
                            {"step": restored, "ts": round(time.time(), 3)})
         self._emit("checkpoint_stale_removed", steps=stale,
@@ -896,7 +926,8 @@ class ChainFollower:
         cleared or torn."""
         try:
             step = durable.read_json(
-                os.path.join(self.directory, "last_good.json")).get("step")
+                os.path.join(self.directory, "last_good.json"),
+                path_class="ckpt").get("step")
             return int(step) if step is not None else None
         except (OSError, ValueError, TypeError, AttributeError):
             return None
@@ -910,7 +941,8 @@ class ChainFollower:
     def _read_manifest(self, step: int) -> dict | None:
         try:
             return durable.read_json(
-                os.path.join(self._manifest_dir, f"{int(step)}.json"))
+                os.path.join(self._manifest_dir, f"{int(step)}.json"),
+                path_class="ckpt")
         except (OSError, ValueError):
             return None
 
@@ -978,6 +1010,11 @@ class PreemptionGuard:
 
     def _handler(self, signum, frame):
         self._flag.set()
+        if obs.is_signal_dump(self._previous.get(signum)):
+            # The telemetry plane's dump runs too; its delegate to the
+            # default ending does not: this guard's save-and-stop is the
+            # ending.
+            obs.signal_dump(signum)
 
     def __enter__(self) -> "PreemptionGuard":
         if threading.current_thread() is threading.main_thread():

@@ -48,6 +48,19 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
   ``serve_summary`` line at the end;
 - ``list-configs [--verbose]`` lists the registered configs.
 
+``train`` and ``serve`` run the telemetry plane (``obs/``) under
+``--obs-dir`` (default ``FM_SPARK_OBS_DIR``, else ``artifacts/obs``;
+``none`` switches it off): the run id is the first JSON line, and spans,
+the flight recorder, metrics snapshots, capture bundles, a defaulted
+dead-letter journal and serve's ``serve_health.jsonl`` land under
+``<obs-dir>/<run_id>/``. ``--metrics-port`` serves ``/metrics`` and
+``/healthz``; ``train --metrics FILE`` appends the loss lines to FILE,
+``train --profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+run; ``serve --slo-ms`` arms the ``serve_request`` deadline. A fault
+plan in ``FM_SPARK_FAULTS`` reaches the named points
+(:mod:`.resilience.faults`); a run that ends by an error leaves a
+``run_failed`` flight dump.
+
 Every command that computes runs on the CUDA device unless ``--device
 cpu`` is given. A JSON summary (eager kernel launches; for ``predict``
 and ``serve`` also the graph replays and the kernel runs they made, by
@@ -84,20 +97,23 @@ def _ingest_guard(args, windowed: bool = True):
     ``_ingest_guard``; strict by default, and for commands without the
     flags): a :class:`~fm_spark_tpu_torch.data.stream.RecordGuard`. The
     in-memory loaders pass ``windowed=False`` (their good count arrives in
-    one bulk after the parse). ``quarantine`` needs ``--quarantine-dir``:
-    the port has no per-run obs directory to default to (ROADMAP Queue 1
-    item 13)."""
+    one bulk after the parse). ``quarantine``'s dead-letter journal lands
+    in ``--quarantine-dir``, else in the run's obs directory
+    (``obs.run_dir()``); with the plane off (``--obs-dir none``) and no
+    ``--quarantine-dir`` it refuses."""
+    from fm_spark_tpu_torch import obs
     from fm_spark_tpu_torch.data.stream import RecordGuard
 
     policy = getattr(args, "data_policy", None) or "strict"
     qdir = getattr(args, "quarantine_dir", None)
     frac = getattr(args, "max_bad_frac", None)
     if policy == "quarantine" and not qdir:
-        raise SystemExit(
-            "--data-policy quarantine needs --quarantine-dir (the "
-            "dead-letter journal has to land somewhere; the per-run obs "
-            "directory it defaults to in the JAX package is not ported yet, "
-            "ROADMAP Queue 1 item 13)")
+        qdir = obs.run_dir()
+        if not qdir:
+            raise SystemExit(
+                "--data-policy quarantine needs --quarantine-dir or an obs "
+                "directory (--obs-dir is 'none'): the dead-letter journal "
+                "has to land somewhere")
     return RecordGuard(policy=policy, quarantine_dir=qdir,
                        max_bad_frac=1.0 if frac is None else frac,
                        windowed=windowed)
@@ -354,7 +370,85 @@ def cmd_cap_advise(args) -> int:
     return 0
 
 
+def _obs_setup(args) -> str | None:
+    """The telemetry plane of ``--obs-dir`` (the reference's): on unless
+    it is ``none``, every stream the run emits (spans, metrics snapshots,
+    the flight recorder, capture bundles, a defaulted dead-letter journal,
+    the serving journal) lands under ``<obs-dir>/<run_id>/``, SIGTERM
+    dumps the flight window, and the deep-capture engine is armed there.
+    The run id is echoed as the first JSON line. Returns the run dir, or
+    None with the plane off."""
+    obs_dir = getattr(args, "obs_dir", None)
+    if not obs_dir or obs_dir.lower() == "none":
+        return None
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.obs import introspect
+
+    run = obs.new_run_id()
+    obs.configure(os.path.join(obs_dir, run), run_id=run,
+                  install_signals=True)
+    introspect.configure(obs.run_dir(), run_id=run)
+    print(json.dumps({"run_id": run, "obs_dir": obs.run_dir()}), flush=True)
+    return obs.run_dir()
+
+
+def _start_metrics_endpoint(args) -> None:
+    """``--metrics-port``: the live registry over stdlib HTTP on
+    127.0.0.1 (``/metrics`` Prometheus text, ``/healthz`` JSON), on a
+    daemon thread that ``main`` stops; the bound port (0 = chosen by the
+    OS) is echoed as a JSON line."""
+    port = getattr(args, "metrics_port", None)
+    if port is None:
+        return
+    from fm_spark_tpu_torch.obs import export
+
+    srv = export.start_metrics_server(port)
+    print(json.dumps({"metrics_port": srv.port, "metrics_url": srv.url,
+                      "endpoints": ["/metrics", "/healthz"]}), flush=True)
+
+
+class _Profile:
+    """``train --profile DIR``: a ``torch.profiler`` session (CPU and, on
+    the card, CUDA activity) over the whole training run, written as a
+    Chrome trace ``DIR/trace.json`` when the run ends (also when it ends
+    by an error). The steps' CUDA graphs are captured inside the session.
+    """
+
+    def __init__(self, out_dir: str | None):
+        self.out_dir = out_dir
+        self._prof = None
+
+    def __enter__(self):
+        if not self.out_dir:
+            return self
+        import torch
+
+        os.makedirs(self.out_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.stop()
+            path = os.path.join(self.out_dir, "trace.json")
+            self._prof.export_chrome_trace(path)
+            print(json.dumps({"profile": path}), flush=True)
+            self._prof = None
+        return False
+
+
 def cmd_train(args) -> int:
+    _obs_setup(args)
+    _start_metrics_endpoint(args)
+    with _Profile(args.profile):
+        return _cmd_train(args)
+
+
+def _cmd_train(args) -> int:
     from fm_spark_tpu_torch import configs, data, models, resolve_device
     from fm_spark_tpu_torch.train import evaluate_params, fit_field_sparse
     from fm_spark_tpu_torch.utils.logging import MetricsLogger
@@ -374,7 +468,7 @@ def cmd_train(args) -> int:
     tconfig = cfg.train_config(
         num_steps=args.steps, batch_size=args.batch_size,
         log_every=args.log_every, eval_every=args.eval_every,
-        sparse_update=args.sparse_update,
+        metrics_path=args.metrics, sparse_update=args.sparse_update,
         host_dedup=args.host_dedup, compact_cap=args.compact_cap,
         compact_device=args.compact_device,
         compact_overflow=args.compact_overflow,
@@ -440,7 +534,8 @@ def cmd_train(args) -> int:
             params = fit_field_sparse(
                 spec, tconfig, batches, device=dev,
                 steps_per_call=args.steps_per_call, prefetch=args.prefetch,
-                logger=MetricsLogger(), stats=stats,
+                logger=MetricsLogger(path=tconfig.metrics_path),
+                stats=stats,
                 checkpointer=checkpointer, eval_source=eval_source,
                 preemption_guard=guard)
     finally:
@@ -748,9 +843,11 @@ def _online_days(args, cfg):
 def _run_online_cmd(args, cfg, tconfig) -> int:
     """``train --online``: the continuous-learning protocol (the
     reference's ``_run_online_cmd``; the loop is :mod:`.online`). The
-    journal is ``health.jsonl`` in the checkpoint dir, the run's spans
-    (``online/train_day``, ``online/eval_day``) and events go to
-    ``trace.jsonl`` beside it. Strategy ``dp``
+    journal is ``health.jsonl`` in the checkpoint dir; the run's spans
+    (``online/train_day``, ``online/eval_day``) and events go to the run
+    dir of ``--obs-dir``, or, with the plane off, to a run dir that is
+    the checkpoint dir itself (its ``trace.jsonl``, flight spool and
+    metrics snapshots beside the chain). Strategy ``dp``
     on one visible card is the single step (as in :func:`_train_flat`);
     the fused ``field_sparse`` strategy is refused, as the reference
     refuses every strategy but ``single``."""
@@ -777,9 +874,10 @@ def _run_online_cmd(args, cfg, tconfig) -> int:
     dev = resolve_device(args.device)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
-    trace = EventLog(os.path.join(args.checkpoint_dir, "trace.jsonl"),
-                     keep=False)
-    run_id = obs.configure(trace)
+    own_plane = not obs.enabled()
+    if own_plane:
+        obs.configure(args.checkpoint_dir, reset_metrics=False)
+    run_id = obs.run_id()
     checkpointer = Checkpointer(args.checkpoint_dir,
                                 save_every=args.checkpoint_every,
                                 max_to_keep=args.checkpoint_keep,
@@ -810,8 +908,8 @@ def _run_online_cmd(args, cfg, tconfig) -> int:
     finally:
         checkpointer.close()
         journal.close()
-        obs.shutdown()
-        trace.close()
+        if own_plane:
+            obs.shutdown()
     print(json.dumps({"online": summary}), flush=True)
     if args.model_out:
         models.save_model(args.model_out, spec, trainer.params)
@@ -896,8 +994,7 @@ _UNPORTED_SERVE_FLAGS = (
     ("fleet", "--fleet", "6b"), ("autoscale_max", "--autoscale-max", "6b"),
     ("frontdoor_port", "--frontdoor-port", "6b"), ("classes", "--classes", "6b"),
     ("serve_seconds", "--serve-seconds", "6b"),
-    ("trace_sample", "--trace-sample", "6b"), ("slo_ms", "--slo-ms", "13"),
-    ("metrics_port", "--metrics-port", "13"), ("obs_dir", "--obs-dir", "13"),
+    ("trace_sample", "--trace-sample", "6b"),
     ("compile_cache", "--compile-cache", "12"))
 
 
@@ -939,9 +1036,16 @@ def cmd_serve(args) -> int:
     """Online serving (the reference's single-engine ``serve``): the
     coalescing engine over a bounded request stream, with hot reload
     from a checkpoint chain; one summary line of request latency, QPS,
-    swaps, reload failures and staleness."""
-    from fm_spark_tpu_torch import models, obs, resolve_device
-    from fm_spark_tpu_torch.serve import PredictEngine, ReloadFollower
+    swaps, reload failures and staleness. With the obs plane on
+    (``--obs-dir``), the engine's and the follower's journal is
+    ``serve_health.jsonl`` in the run dir (never in the chain it
+    follows), mirrored into the flight ring; ``--slo-ms`` arms the
+    ``serve_request`` watchdog phase at that deadline (an overrun fails
+    its batch with ``HangDetected`` and fires the SLO capture), unless a
+    watchdog is already configured (``FM_SPARK_WATCHDOG``)."""
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.resilience import watchdog
+    from fm_spark_tpu_torch.utils.logging import EventLog
 
     for dest, flag, item in _UNPORTED_SERVE_FLAGS:
         if getattr(args, dest) is not None:
@@ -950,6 +1054,29 @@ def cmd_serve(args) -> int:
     buckets = tuple(sorted({int(b) for b in args.buckets.split(",") if b}))
     if not buckets:
         raise SystemExit(f"--buckets parsed empty from {args.buckets!r}")
+    _obs_setup(args)
+    _start_metrics_endpoint(args)
+    slo_armed = args.slo_ms is not None and not watchdog.active()
+    if slo_armed:
+        watchdog.configure({"serve_request": args.slo_ms / 1e3},
+                           action="raise")
+    journal = None
+    if obs.run_dir():
+        journal = EventLog(os.path.join(obs.run_dir(), "serve_health.jsonl"),
+                           keep=False, mirror_to_flight=True)
+    try:
+        return _serve(args, buckets, journal)
+    finally:
+        if slo_armed:
+            watchdog.clear()
+        if journal is not None:
+            journal.close()
+
+
+def _serve(args, buckets, journal) -> int:
+    from fm_spark_tpu_torch import models, obs, resolve_device
+    from fm_spark_tpu_torch.serve import PredictEngine, ReloadFollower
+
     dev = resolve_device(args.device)
     step0 = 0
     if args.model:
@@ -977,7 +1104,8 @@ def cmd_serve(args) -> int:
                     engine = PredictEngine(
                         spec, params, nnz=bids.shape[1], step=step0,
                         buckets=buckets,
-                        latency_budget_ms=args.latency_budget_ms, device=dev)
+                        latency_budget_ms=args.latency_budget_ms, device=dev,
+                        journal=journal)
                     warm = engine.warmup()
                     # No compile cache (ROADMAP item 12): the kernels
                     # build and the graphs capture in the warm-up.
@@ -989,7 +1117,8 @@ def cmd_serve(args) -> int:
                     if args.checkpoint_dir and args.reload_poll_s > 0:
                         follower = ReloadFollower(
                             engine, args.checkpoint_dir,
-                            poll_s=args.reload_poll_s).start()
+                            poll_s=args.reload_poll_s,
+                            journal=journal).start()
                 preds = engine.predict(bids, bvals)
                 if out is not None:
                     for p in preds[w > 0]:
@@ -1025,6 +1154,7 @@ def cmd_serve(args) -> int:
         "degraded": bool(obs.gauge("serve/degraded").value or 0),
     }
     print(json.dumps({"serve_summary": summary}), flush=True)
+    obs.export_snapshot()
     print(json.dumps({
         "device": str(dev), "kernel_launches": _since(before),
         **(_replay_counts(engine) if engine is not None else {}),
@@ -1045,6 +1175,12 @@ def cmd_list_configs(args) -> int:
         else:
             print(f"{name:24s} {cfg.description}")
     return 0
+
+
+def _default_obs_dir() -> str:
+    """``--obs-dir``'s default: ``FM_SPARK_OBS_DIR``, else
+    ``artifacts/obs``."""
+    return os.environ.get("FM_SPARK_OBS_DIR", "artifacts/obs")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1197,6 +1333,26 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="PATH",
                    help="append one quality_eval record per online eval "
                         "day to this ledger JSONL")
+    t.add_argument("--metrics", metavar="FILE",
+                   help="append the loss lines (one JSON object per "
+                        "--log-every steps, as printed) to this JSONL file")
+    t.add_argument("--obs-dir", dest="obs_dir", default=_default_obs_dir(),
+                   help="telemetry root: span traces (trace.jsonl), metrics "
+                        "snapshots, the flight recorder, capture bundles and "
+                        "a defaulted dead-letter journal land under "
+                        "<obs-dir>/<run_id>/ (the run id is the first JSON "
+                        "line); 'none' switches the plane off. Default: "
+                        "$FM_SPARK_OBS_DIR, else artifacts/obs")
+    t.add_argument("--metrics-port", type=int, default=None,
+                   dest="metrics_port", metavar="PORT",
+                   help="serve the live metrics registry on 127.0.0.1:PORT "
+                        "(0 = chosen by the OS, echoed as a JSON line): "
+                        "/metrics Prometheus text, /healthz a JSON liveness "
+                        "document")
+    t.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "(CPU and CUDA activity, the captured steps' "
+                        "kernels by name) to DIR/trace.json")
     t.add_argument("--device", default=None, help=device_help)
     t.set_defaults(fn=cmd_train)
 
@@ -1259,6 +1415,19 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="max_requests",
                     help="stop after N requests (0 = the whole stream)")
     sv.add_argument("--out", help="write predictions here ('-' = stdout)")
+    sv.add_argument("--slo-ms", type=float, default=None, dest="slo_ms",
+                    help="arm the serve_request watchdog phase at this "
+                         "deadline: an overrun fails its batch with a "
+                         "structured HangDetected, a flight dump and a "
+                         "capture bundle")
+    sv.add_argument("--obs-dir", dest="obs_dir", default=_default_obs_dir(),
+                    help="telemetry root (as train's): spans, the flight "
+                         "recorder, captures and serve_health.jsonl under "
+                         "<obs-dir>/<run_id>/; 'none' switches it off")
+    sv.add_argument("--metrics-port", type=int, default=None,
+                    dest="metrics_port", metavar="PORT",
+                    help="the live metrics endpoint (as train's), served "
+                         "from a daemon thread off the request path")
     for dest, flag, item in _UNPORTED_SERVE_FLAGS:
         sv.add_argument(flag, dest=dest, default=None, nargs="?", const="",
                         help=f"not ported yet (ROADMAP Queue 1 item {item}); "
@@ -1302,7 +1471,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    reason = "run_end"
+    try:
+        return args.fn(args)
+    except BaseException as e:
+        # The run's ending on its flight timeline: the dump below then
+        # holds the window that led to it (a device loss classified as
+        # such), and the error propagates unchanged.
+        from fm_spark_tpu_torch import obs
+        from fm_spark_tpu_torch.resilience import faults
+
+        reason = "run_failed"
+        obs.event("run_failed", error=f"{type(e).__name__}: "
+                  f"{(str(e).splitlines() or [''])[0][:200]}",
+                  device_loss=faults.is_device_loss(e))
+        raise
+    finally:
+        # The live endpoint stops first (a scrape racing the flush reads
+        # a consistent registry), then the plane writes its final metrics
+        # snapshot and flight dump and disarms the capture engine: also
+        # when the command exits by SystemExit or an error.
+        from fm_spark_tpu_torch import obs
+        from fm_spark_tpu_torch.obs import export
+
+        export.stop_metrics_server()
+        obs.shutdown(reason)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,10 @@ Wrapped in a :class:`~fm_spark_tpu_torch.data.Prefetcher`, chunk N+1
 parses on the producer thread while batch N trains (the ctypes call
 releases the GIL). The fault points: ``ingest_truncate`` per chunk read,
 ``ingest_corrupt`` once per parsed chunk (an injected error marks the
-chunk's first record bad).
+chunk's first record bad). Each chunk read runs under the
+``ingest_chunk`` watchdog phase and the ``ingest/chunk_read`` span, each
+parse in the ``ingest/chunk_parse`` span, and an epoch's end is an
+``ingest_epoch`` event.
 
 A library that does not build raises
 :class:`~fm_spark_tpu_torch.native.NativeBuildError`; it never falls back.
@@ -37,10 +40,10 @@ from collections import deque
 
 import numpy as np
 
-from fm_spark_tpu_torch import native
+from fm_spark_tpu_torch import native, obs
 from fm_spark_tpu_torch.data.stream import (RecordGuard, ShardReader,
                                             StreamBatches, line_parser)
-from fm_spark_tpu_torch.resilience import faults
+from fm_spark_tpu_torch.resilience import faults, watchdog
 
 __all__ = ["NativeStreamBatches", "make_stream_batches",
            "native_stream_supported", "native_stream_unsupported_reason"]
@@ -199,8 +202,10 @@ class NativeStreamBatches(StreamBatches):
                 if self._read_offset:
                     self._rfh.seek(self._read_offset)
                 self._rtail = b""
-            faults.inject("ingest_truncate")
-            chunk = self._rfh.read(self._chunk_bytes)
+            with watchdog.phase("ingest_chunk"):
+                faults.inject("ingest_truncate")
+                with obs.span("ingest/chunk_read", shard=self._read_shard):
+                    chunk = self._rfh.read(self._chunk_bytes)
             if chunk:
                 buf = self._rtail + chunk
                 nl = buf.rfind(b"\n")
@@ -241,10 +246,13 @@ class NativeStreamBatches(StreamBatches):
             forced_reason = str(e) or type(e).__name__
         if unterminated:
             data += b"\n"
-        ids, vals, labels, status, rowlen = native.parse_stream_chunk(
-            self._dataset, data, bucket=self._bucket,
-            num_features=self.num_features, max_nnz=self.max_nnz,
-            zero_based=self._zero_based)
+        with obs.span("ingest/chunk_parse", shard=shard,
+                      bytes=len(data)) as sp:
+            ids, vals, labels, status, rowlen = native.parse_stream_chunk(
+                self._dataset, data, bucket=self._bucket,
+                num_features=self.num_features, max_nnz=self.max_nnz,
+                zero_based=self._zero_based)
+            sp.set(rows=int(status.shape[0]))
         blk = _Block()
         blk.shard = shard
         blk.path = self._reader.paths[shard]
@@ -440,6 +448,8 @@ class NativeStreamBatches(StreamBatches):
 
     def _rewind_epoch(self) -> None:
         self._reader.rewind()
+        obs.event("ingest_epoch", epoch=self._reader.epoch,
+                  records=self._reader.records)
         self._read_shard = 0
         self._read_offset = 0
         self._read_lineno = 0

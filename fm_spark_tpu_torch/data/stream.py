@@ -23,11 +23,13 @@ error policies and an exactly-once resumable cursor (the port of
 
 The counters ``ingest.rows_ok_total`` and
 ``ingest.rows_quarantined_total`` and the gauge ``ingest.rows_per_sec``
-live in the port's metrics registry (:mod:`fm_spark_tpu_torch.obs`). The
-reference's spans, events, flight dumps and the ``ingest_chunk``
-watchdog phase wait for the planes that carry them (ROADMAP Queue 1
-item 13). The fault points ``ingest_truncate`` (per chunk read) and
-``ingest_corrupt`` (per record, before its parse) call
+live in the port's metrics registry (:mod:`fm_spark_tpu_torch.obs`).
+Each chunk read runs under the ``ingest_chunk`` watchdog phase and the
+``ingest/chunk_read`` span; an epoch's end is an ``ingest_epoch`` event;
+the breaker's abort is an ``ingest_aborted`` event and a flight dump;
+the dead-letter journal is mirrored into the flight recorder's ring. The
+fault points ``ingest_truncate`` (per chunk read) and ``ingest_corrupt``
+(per record, before its parse) call
 :func:`fm_spark_tpu_torch.resilience.faults.inject`.
 """
 
@@ -41,7 +43,7 @@ from collections import deque
 import numpy as np
 
 from fm_spark_tpu_torch import obs
-from fm_spark_tpu_torch.resilience import faults
+from fm_spark_tpu_torch.resilience import faults, watchdog
 from fm_spark_tpu_torch.utils.logging import EventLog
 
 __all__ = ["DEAD_LETTER_FILE", "POLICIES", "BadRecord", "IngestAborted",
@@ -161,9 +163,13 @@ class ShardReader:
         self._eof = False
 
     def _fill(self) -> None:
-        """Read ONE chunk into the pending lines."""
-        faults.inject("ingest_truncate")
-        chunk = self._fh.read(self.chunk_bytes)
+        """Read ONE chunk into the pending lines, under the
+        ``ingest_chunk`` deadline (a hung shard read becomes a structured
+        ``HangDetected``)."""
+        with watchdog.phase("ingest_chunk"):
+            faults.inject("ingest_truncate")
+            with obs.span("ingest/chunk_read", shard=self.shard):
+                chunk = self._fh.read(self.chunk_bytes)
         if not chunk:
             if self._tail:
                 self._pending.append(self._tail)   # an unterminated last line
@@ -259,7 +265,11 @@ class RecordGuard:
             os.makedirs(str(quarantine_dir), exist_ok=True)
             self.dead_letter_path = os.path.join(str(quarantine_dir),
                                                  DEAD_LETTER_FILE)
-            self._dead = EventLog(self.dead_letter_path, keep=False)
+            # Mirrored into the flight recorder's ring: the last-N crash
+            # window carries the quarantine's narrative.
+            self._dead = EventLog(self.dead_letter_path, keep=False,
+                                  mirror_to_flight=True,
+                                  path_class="quarantine")
         self._c_ok = obs.counter("ingest.rows_ok_total")
         self._c_bad = obs.counter("ingest.rows_quarantined_total")
 
@@ -324,6 +334,12 @@ class RecordGuard:
             self._dead.emit("ingest_aborted", **fields)
         if self.journal is not None:
             self.journal.emit("ingest_aborted", **fields)
+        if self._dead is None and self.journal is None:
+            # No mirrored sink carried the event into the flight ring.
+            obs.event("ingest_aborted", **fields)
+        # The last-N window, with the bad-record burst that tripped the
+        # breaker, is kept before the exception unwinds the run.
+        obs.flight_dump("ingest_aborted", **fields)
         raise IngestAborted(
             f"bad-record rate {frac:.1%} over the trailing {window} "
             f"record(s) exceeds max_bad_frac={self.max_bad_frac:.1%} "
@@ -437,6 +453,8 @@ class StreamBatches:
                 shard, lineno, line = self._reader.next_line()
             except StopIteration:
                 self._reader.rewind()
+                obs.event("ingest_epoch", epoch=self._reader.epoch,
+                          records=self._reader.records)
                 return None
             if not line.strip():
                 continue

@@ -259,7 +259,8 @@ class ColdStore:
 
     @staticmethod
     def _load_npy(path: str) -> np.ndarray:
-        return np.load(io.BytesIO(durable.read_bytes(path)),
+        return np.load(io.BytesIO(durable.read_bytes(path,
+                                                     path_class="embed")),
                        allow_pickle=False)
 
     @classmethod
@@ -270,7 +271,8 @@ class ColdStore:
         walks back to the previous generation. Lazy stores come back lazy
         (re-attach the run's ``init_fn`` with :meth:`reattach_init`)."""
         try:
-            man = durable.read_json(os.path.join(directory, COLD_MANIFEST))
+            man = durable.read_json(os.path.join(directory, COLD_MANIFEST),
+                                    path_class="embed")
             bucket_rows = int(man["bucket_rows"])
             n_rows = int(man["n_rows"])
             if man["lazy"]:

@@ -27,12 +27,35 @@ does (``chip_smoke.py`` counts them by kernel symbol).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import torch
 
-__all__ = ["CapturedStep"]
+__all__ = ["CapturedStep", "capture_underway", "capturing"]
+
+_capture_lock = threading.Lock()
+_captures = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Marks a CUDA graph capture for :func:`capture_underway` (the
+    introspection engine begins no profiler trace during one)."""
+    global _captures
+    with _capture_lock:
+        _captures += 1
+    try:
+        yield
+    finally:
+        with _capture_lock:
+            _captures -= 1
+
+
+def capture_underway() -> bool:
+    """Whether some thread of this process is capturing a CUDA graph."""
+    return _captures > 0
 
 
 def _leaves(tree):
@@ -88,8 +111,8 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: the prefetcher's thread goes on pinning and copying
         # batches on its own stream while this thread captures.
-        with torch.cuda.graph(self.graph, pool=pool,
-                              capture_error_mode="thread_local"):
+        with capturing(), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
             self.loss = fn(params, self.step, *self.inputs)
         self.capture_s = time.perf_counter() - t0
 

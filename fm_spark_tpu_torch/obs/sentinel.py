@@ -220,13 +220,26 @@ class Sentinel:
     def observe(self, record: dict) -> dict:
         """Judge ``record`` against prior history, stamp the verdict
         block into it as ``sentinel``, append it to the ledger, and
-        return the verdict block. (The reference also publishes the
-        verdict to its live endpoint and fires a deep capture on
-        ``regressed``: both wait for the rest of the obs plane, ROADMAP
-        Queue 1 item 13.)"""
+        return the verdict block. The verdict is published to the
+        ``/healthz`` endpoint's status, and a ``regressed`` one fires a
+        rate-limited deep capture while the anomalous program is still
+        resident (both best-effort; no-ops while the engine is unarmed)."""
         block = self.judge(record["leg"], record.get("value"),
                            record.get("fingerprint"))
         record = dict(record)
         record["sentinel"] = block
         self.ledger.append(record)
+        try:
+            from fm_spark_tpu_torch.obs import export as _export
+            from fm_spark_tpu_torch.obs import introspect as _introspect
+
+            _export.note_sentinel_verdict(record.get("leg"), block)
+            if block.get("verdict") == "regressed":
+                _introspect.fire(
+                    "sentinel_regressed", leg=record.get("leg"),
+                    variant=record.get("variant"),
+                    value=record.get("value"), z=block.get("z"),
+                    reason=block.get("reason"))
+        except Exception:
+            pass
         return block

@@ -6,8 +6,10 @@ deadline it destroys its own evidence by never returning. So each guarded
 phase gets a budget, and overrunning it produces a STRUCTURED ending
 instead of a stuck process:
 
-- a ``hang_detected`` journal event (and :func:`fm_spark_tpu_torch.obs
-  .event`) naming the phase, its deadline and the observed elapsed time;
+- a ``hang_detected`` journal and flight event naming the phase, its
+  deadline and the observed elapsed time;
+- an atomic flight-recorder dump (:func:`fm_spark_tpu_torch.obs
+  .flight_dump`), so the last-N window survives whatever happens next;
 - then, per the configured action: ``raise`` — :class:`HangDetected`
   raised at phase exit (for hangs that eventually return; thread-free
   and deterministic), or ``exit`` — a daemon monitor thread hard-exits
@@ -15,10 +17,12 @@ instead of a stuck process:
   stuck (for hangs that never return).
 
 A phase that finishes past :data:`NEAR_MISS_FRACTION` of its deadline is
-a near miss: counted (``near_misses``, ``resilience.near_misses_total``)
-and journaled, rate-limited per phase. The reference also writes a
-flight-recorder dump at a hang and a near miss; the port has no flight
-recorder yet (ROADMAP Queue 1 item 13), so none is written.
+a near miss: counted (``near_misses``, ``resilience.near_misses_total``),
+and it fires the ``watchdog_near_miss`` deep capture
+(:func:`fm_spark_tpu_torch.obs.introspect.fire`) while the near-hanging
+program is still resident; its journal line and flight dump are
+rate-limited (by the capture engine's limiter when one is armed, else
+per phase).
 
 Configuration: in-process via :func:`configure`, or by environment for
 subprocesses::
@@ -38,6 +42,7 @@ import threading
 import time
 
 from fm_spark_tpu_torch import obs
+from fm_spark_tpu_torch.obs.introspect import NEAR_MISS_FRACTION
 
 __all__ = [
     "ENV_ACTION",
@@ -61,13 +66,10 @@ ENV_ACTION = "FM_SPARK_WATCHDOG_ACTION"
 #: detected and bounded" from "crashed for an unexplained reason".
 HANG_EXIT_RC = 87
 
-#: A phase that finishes past this fraction of its deadline is a near
-#: miss (the reference's ``obs.introspect.NEAR_MISS_FRACTION``, copied).
-NEAR_MISS_FRACTION = 0.8
-
-#: Minimum seconds between two near-miss journal lines of the same
-#: phase: a steady-state phase living at 85% of its deadline must not
-#: journal every occurrence.
+#: Minimum seconds between two near-miss flight dumps of the same phase
+#: when NO capture engine is armed (armed, the engine's own rate limiter
+#: gates the heavy evidence): a steady-state phase living at 85% of its
+#: deadline must not fsync a dump per occurrence.
 NEAR_MISS_DUMP_INTERVAL_S = 30.0
 
 #: Guarded production phases (the registry the chaos auditor samples
@@ -268,17 +270,19 @@ class WatchdogTable:
         try:
             obs.event("hang_detected", **fields)
             obs.counter("resilience.hangs_detected_total").add(1)
+            obs.flight_dump("hang_detected", **fields)
         except Exception:
             pass
 
     def _note_near_miss(self, name: str, limit: float,
                         elapsed: float) -> None:
         """A phase finished past :data:`NEAR_MISS_FRACTION` of its
-        deadline: count it, and journal it at most once per
-        :data:`NEAR_MISS_DUMP_INTERVAL_S` per phase (a phase living at
-        85% of its deadline near-misses every occurrence). The
-        reference's flight dump and deep capture wait for the port's
-        flight recorder (ROADMAP Queue 1 item 13)."""
+        deadline: count it, arm a rate-limited deep capture, and journal
+        and flight-dump the context. The heavy evidence is rate-limited
+        (a phase living at 85% of its deadline near-misses every
+        occurrence): with a capture engine armed its limiter decides (a
+        suppressed fire suppresses the dump); unarmed, at most one per
+        :data:`NEAR_MISS_DUMP_INTERVAL_S` per phase."""
         with self._lock:
             self.near_misses += 1
         fields = dict(phase=name, deadline_s=round(limit, 3),
@@ -288,18 +292,36 @@ class WatchdogTable:
             obs.counter("resilience.near_misses_total").add(1)
         except Exception:
             pass
-        now = time.monotonic()
-        with self._lock:
-            last = self._last_near_dump.get(name)
-            if last is not None and now - last < NEAR_MISS_DUMP_INTERVAL_S:
-                return
-            self._last_near_dump[name] = now
+        armed = False
+        bundle = None
+        try:
+            from fm_spark_tpu_torch.obs import introspect
+
+            armed = introspect.active()
+            if armed:
+                bundle = introspect.fire("watchdog_near_miss", **fields)
+        except Exception:
+            pass
+        if armed and bundle is None:
+            return  # the engine's rate limiter suppressed this one
+        if not armed:
+            now = time.monotonic()
+            with self._lock:
+                last = self._last_near_dump.get(name)
+                if last is not None and \
+                        now - last < NEAR_MISS_DUMP_INTERVAL_S:
+                    return
+                self._last_near_dump[name] = now
         if self.journal is not None:
             try:
                 self.journal.emit("watchdog_near_miss", **fields)
             except Exception:
                 pass
-        obs.event("watchdog_near_miss", **fields)
+        try:
+            obs.event("watchdog_near_miss", **fields)
+            obs.flight_dump("watchdog_near_miss", **fields)
+        except Exception:
+            pass
 
     def _watch(self) -> None:
         while not self._stop.wait(self._poll_s):

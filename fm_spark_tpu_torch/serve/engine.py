@@ -38,6 +38,15 @@ batch and splits the results back per request. Every request is
 answered exactly once — failures included — and each from exactly one
 generation.
 
+Planes: the warm-up runs in the ``serve/warmup`` span and each batch in
+``serve/batch`` (host-clock spans: no device synchronisation is added to
+the replay path), its dispatch under the ``serve_request`` watchdog
+phase. ``fmtorch serve --slo-ms`` arms that phase's deadline: an
+overrun fails the batch with :class:`~fm_spark_tpu_torch.resilience
+.watchdog.HangDetected`, counts ``serve.slo_overruns_total`` and fires
+the ``serve_slo_overrun`` deep capture, with its event and flight dump
+rate-limited.
+
 The kernel wrappers count eager launches only; a replay runs the kernels
 its capture recorded past them. :meth:`PredictEngine.kernel_runs` counts
 those runs by wrapper name (each graph's recorded calls times its
@@ -54,7 +63,9 @@ import time
 import numpy as np
 import torch
 
-from fm_spark_tpu_torch import obs, ops, resolve_device
+from fm_spark_tpu_torch import graphs, obs, ops, resolve_device
+from fm_spark_tpu_torch.obs import introspect
+from fm_spark_tpu_torch.resilience import watchdog
 
 __all__ = ["DEFAULT_BUCKETS", "Generation", "PredictEngine", "ServeFuture"]
 
@@ -113,8 +124,9 @@ class _BucketGraph:
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: the worker goes on replaying the old generation's
         # graphs and synchronising its stream while this thread captures.
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
+        with graphs.capturing(), torch.cuda.graph(
+                self.graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
             self.out = predict(params, self.ids, self.vals).float()
         after = ops.kernel_recordings()
         self.kernels = {k: after[k] - before[k] for k in after
@@ -215,6 +227,7 @@ class PredictEngine:
         self._worker: threading.Thread | None = None
         self._worker_lock = threading.Lock()
         self._closed = False
+        self._last_slo_dump: float | None = None
 
     # -------------------------------------------------------- generations
 
@@ -306,6 +319,14 @@ class PredictEngine:
         kernels and capture the current generation's graph of every
         bucket; on the CPU launch every bucket once. Returns
         ``{"seconds", "buckets", "captures", "capture_s"}``."""
+        with obs.span("serve/warmup", buckets=list(self.buckets),
+                      nnz=self.nnz):
+            out = self._warmup()
+        obs.event("serve_warmup", seconds=round(out["seconds"], 4),
+                  captures=out["captures"])
+        return out
+
+    def _warmup(self) -> dict:
         t0 = time.perf_counter()
         pin = self._graphed
         if pin:
@@ -399,15 +420,20 @@ class PredictEngine:
                  vals: np.ndarray) -> np.ndarray:
         """One padded-bucket dispatch on ``gen`` with its metrics."""
         n = ids.shape[0]
+        bucket = self._bucket_for(n)
         t0 = time.perf_counter()
-        out = self._dispatch(gen, ids, vals)
+        with obs.span("serve/batch", rows=n, bucket=bucket,
+                      gen_step=gen.step):
+            with watchdog.phase("serve_request"):
+                out = self._dispatch(gen, ids, vals)
         obs.histogram("serve/batch_ms").observe(
             (time.perf_counter() - t0) * 1e3)
         obs.counter("serve.batches_total").add(1)
         obs.counter("serve.rows_total").add(n)
-        pad = self._bucket_for(n) - n
+        pad = bucket - n
         if pad:
             obs.counter("serve.padded_rows_total").add(pad)
+        introspect.tick()
         return out
 
     def score(self, ids, vals) -> np.ndarray:
@@ -521,6 +547,16 @@ class PredictEngine:
             except BaseException as e:  # noqa: BLE001 — every queued
                 # caller must be answered (exactly once), even by the failure.
                 obs.counter("serve.batch_failures_total").add(1)
+                if isinstance(e, watchdog.HangDetected):
+                    self._note_slo_overrun(e, int(ids.shape[0]), gen)
+                obs.event("serve_batch_failed",
+                          error=f"{type(e).__name__}: "
+                                f"{(str(e).splitlines() or [''])[0][:200]}",
+                          rows=int(ids.shape[0]), gen_step=gen.step)
+                if self.journal is not None:
+                    self.journal.emit("serve_batch_failed",
+                                      error=type(e).__name__,
+                                      gen_step=gen.step)
                 for r in batch:
                     r.future._set_exception(e)
                 if not isinstance(e, Exception):
@@ -533,6 +569,30 @@ class PredictEngine:
                 r.future._set(out[off:off + r.n])
                 off += r.n
                 hist.observe((t_done - r.t_submit) * 1e3)
+
+    def _note_slo_overrun(self, e, rows: int, gen: Generation) -> None:
+        """The ``serve_request`` phase blew its deadline (the SLO): count
+        it and fire a rate-limited deep capture while the slow program is
+        resident; the event and flight dump are rate-limited like the
+        watchdog's near miss (by the capture engine when armed, else once
+        per ``NEAR_MISS_DUMP_INTERVAL_S``), because a sustained breach
+        overruns every batch and the worker must answer callers, not
+        fsync per batch."""
+        overrun = dict(phase=e.phase, deadline_s=round(e.deadline_s, 3),
+                       elapsed_s=round(e.elapsed_s, 3), rows=rows,
+                       gen_step=gen.step)
+        obs.counter("serve.slo_overruns_total").add(1)
+        armed = introspect.active()
+        bundle = (introspect.fire("serve_slo_overrun", **overrun)
+                  if armed else None)
+        now = time.monotonic()
+        throttled = (self._last_slo_dump is not None
+                     and now - self._last_slo_dump
+                     < watchdog.NEAR_MISS_DUMP_INTERVAL_S)
+        if (armed and bundle is not None) or (not armed and not throttled):
+            self._last_slo_dump = now
+            obs.event("serve_slo_overrun", **overrun)
+            obs.flight_dump("serve_slo_overrun", **overrun)
 
     def close(self) -> None:
         """Stop the coalescer after answering everything queued."""

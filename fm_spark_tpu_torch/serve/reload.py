@@ -112,13 +112,18 @@ class ReloadFollower:
         if last_good <= served:
             return "fresh"
         t0 = time.perf_counter()
-        try:
-            faults.inject("serve_reload")
-            restored = self.chain.restore(self._params_example)
-        except Exception as e:  # noqa: BLE001 — degraded mode is the
-            # handler: serving must outlive a failed reload
-            self._fail(self._brief(e), last_good, served)
-            return "failed"
+        with obs.span("serve/reload", target_step=int(last_good),
+                      served_step=int(served)):
+            try:
+                # Inside the attempt, before the swap: an injected error
+                # takes the degraded path a torn chain would, an injected
+                # exit is the SIGKILL-mid-reload drill.
+                faults.inject("serve_reload")
+                restored = self.chain.restore(self._params_example)
+            except Exception as e:  # noqa: BLE001 — degraded mode is the
+                # handler: serving must outlive a failed reload
+                self._fail(self._brief(e), last_good, served)
+                return "failed"
         restore_s = time.perf_counter() - t0
         if restored is None or restored["step"] <= served:
             self._fail("no verified step newer than served generation "

@@ -15,6 +15,7 @@ computes them, or FTRL-Proximal, ``optim``'s rule).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
@@ -680,7 +681,7 @@ class FMTrainer:
             device=self.device)
         self.opt_state = self.optimizer.init(self.params)
         self.step_count = 0
-        self.logger = MetricsLogger()
+        self.logger = MetricsLogger(path=config.metrics_path)
         self.loss_history: list[float] = []
         self.last_eval: dict | None = None   # the newest in-fit eval
         self.resumed: dict | None = None     # the last fit's restore
@@ -804,25 +805,52 @@ class FMTrainer:
 
     def _fit_loop(self, batches, start, total, preemption_guard,
                   eval_batches, save, divergence_guard=None):
+        from fm_spark_tpu_torch import obs
+        from fm_spark_tpu_torch.obs import introspect
+        from fm_spark_tpu_torch.resilience import faults, watchdog
+
         it = iter(batches)
         log_every = max(self.config.log_every, 1)
         eval_every = self.config.eval_every
         since = 0
+        # The planes, latched once: an unobserved run pays one check per
+        # step. Step time is a log window's mean on the host clock, read
+        # after the window's loss fetch (the fence: every step of the
+        # window has run), never inside the captured step; the first
+        # step of a fit (kernel builds, the capture) opens no window.
+        obs_on = obs.enabled()
+        hist_step = obs.histogram("step_time_ms") if obs_on else None
+        win = None
+        first = True
         for step_i in range(start, total):
             if preemption_guard is not None and preemption_guard.should_stop:
                 save(force=True)
                 return self.params
-            try:
-                batch = next(it)
-            except StopIteration:
-                raise ValueError(
-                    f"batch iterable exhausted after {step_i} of {total} "
-                    "steps; pass an epoch-cycling iterator (data.Batches) "
-                    "or lower num_steps") from None
-            ids, vals, labels, weights = _batch_to(tuple(batch)[:4],
-                                                   self.device)
-            _, _, m = self._train_step(self.params, self.opt_state, ids,
-                                       vals, labels, weights)
+            # The step's host-observable window (the fault point, the
+            # batch fetch where a stalled producer hangs, the dispatch)
+            # runs under the step_window deadline, but for the first
+            # step, which carries the builds and the capture.
+            with (watchdog.phase("step_window") if not first
+                  else contextlib.nullcontext()):
+                faults.inject("train_step")
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    raise ValueError(
+                        f"batch iterable exhausted after {step_i} of "
+                        f"{total} steps; pass an epoch-cycling iterator "
+                        "(data.Batches) or lower num_steps") from None
+                ids, vals, labels, weights = _batch_to(tuple(batch)[:4],
+                                                       self.device)
+                _, _, m = self._train_step(self.params, self.opt_state, ids,
+                                           vals, labels, weights)
+            if obs_on:
+                if first:
+                    float(m["loss"])      # the first step's fence
+                    win = [time.time(), time.perf_counter(), 0]
+                else:
+                    win[2] += 1
+            first = False
             self.step_count += 1
             since += 1
             if divergence_guard is not None:
@@ -836,12 +864,23 @@ class FMTrainer:
                                 samples=since * labels.shape[0], loss=loss,
                                 grad_norm=float(m["grad_norm"]))
                 since = 0
+                if obs_on:
+                    _close_window(win, hist_step, self.step_count, loss,
+                                  self.device)
+            introspect.tick()
             if eval_batches is not None and (
                     (eval_every > 0 and self.step_count % eval_every == 0)
                     or step_i == total - 1):
-                self.last_eval = self.evaluate(eval_batches())
+                t_eval = time.perf_counter()
+                with obs.span("train/eval", step=self.step_count) as sp:
+                    self.last_eval = self.evaluate(eval_batches())
+                    sp.set(**{f"eval_{k}": round(float(v), 6)
+                              for k, v in self.last_eval.items()})
                 self.logger.log(self.step_count, **{
                     f"eval_{k}": v for k, v in self.last_eval.items()})
+                self.logger.add_pause(time.perf_counter() - t_eval)
+                if win is not None:
+                    win[1] += time.perf_counter() - t_eval
             save()
         save(force=True)
         return self.params
@@ -851,6 +890,26 @@ class FMTrainer:
         trainer's eval step."""
         return evaluate_params(self.spec, self.params, batches, max_batches,
                                step=self._eval_step)
+
+
+def _close_window(win, hist_step, step: int, loss: float, device) -> None:
+    """End a log window ``[t_wall, t_perf, steps]`` just after its loss
+    fetch (the fence): its mean step ms goes to the ``step_time_ms``
+    histogram and the spike detector, a retroactive ``train/steps`` span
+    records it, the card's memory watermarks ride the registry, and the
+    next window starts."""
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.obs import introspect
+
+    dur = time.perf_counter() - win[1]
+    if win[2]:
+        mean_ms = dur * 1e3 / win[2]
+        hist_step.observe(mean_ms)
+        introspect.observe_step_time(mean_ms)
+    obs.emit_span("train/steps", win[0], dur, steps=win[2], step=step,
+                  loss=loss)
+    obs.device_memory_snapshot(device if device.type == "cuda" else None)
+    win[:] = [time.time(), time.perf_counter(), 0]
 
 
 def _resume(checkpointer, params, opt_state, batches
@@ -914,8 +973,12 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     (or :func:`~fm_spark_tpu_torch.sparse.make_field_deepfm_multistep`): on the
     card always as captured CUDA graphs (one per group length, captured at
     its first call), as the reference's loop always runs its jitted step.
-    ``logger`` (a ``MetricsLogger``) gets a loss line every
-    ``config.log_every`` steps and at the last. Under ``compact_device``
+    ``logger`` (a ``MetricsLogger``; without one, a ``MetricsLogger`` on
+    ``config.metrics_path`` when that is set) gets a loss line every
+    ``config.log_every`` steps and at the last. Each call passes the
+    ``train_step`` fault point first; with the obs plane on, each log
+    window (closed by the log line's loss fetch) is a ``train/steps``
+    span and a ``step_time_ms`` observation. Under ``compact_device``
     with ``compact_overflow='error'`` a running ``fmin`` of every call's
     loss stays on the device (a later NaN cannot hide the −inf overflow
     poison) and is read at each log line, before every checkpoint save
@@ -960,9 +1023,16 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                                            make_field_sparse_multistep,
                                            make_sgd_step)
 
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.obs import introspect
+    from fm_spark_tpu_torch.resilience import faults
+    from fm_spark_tpu_torch.utils.logging import MetricsLogger
+
     dev = resolve_device(device)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if logger is None and config.metrics_path:
+        logger = MetricsLogger(path=config.metrics_path)
     if config.fused_embed == "auto":
         family, reason = fused_embed_plan(spec, config)
         name = type(spec).__name__
@@ -1022,10 +1092,14 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     log_every = max(config.log_every, 1)
     since = 0
     i = start
+    obs_on = obs.enabled()
+    hist_step = obs.histogram("step_time_ms") if obs_on else None
+    win = None
     try:
         while i < config.num_steps:
             if preemption_guard is not None and preemption_guard.should_stop:
                 break
+            faults.inject("train_step")
             m = min(steps_per_call, config.num_steps - i)
             batch = (pf.next_batch() if pf
                      else _batch_to(batches.next_batch(), dev))
@@ -1046,12 +1120,22 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                 worst = loss if worst is None else torch.fmin(worst, loss)
             i += m
             since += m * int(batch[2].shape[-1])
+            if obs_on:
+                if win is None:
+                    float(loss)           # the first call's fence
+                    win = [time.time(), time.perf_counter(), 0]
+                else:
+                    win[2] += m
             if logger is not None and (
                     i // log_every > (i - m) // log_every
                     or i >= config.num_steps):
                 check_poison()
-                logger.log(i, samples=since, loss=float(loss))
+                lv = float(loss)
+                logger.log(i, samples=since, loss=lv)
                 since = 0
+                if obs_on:
+                    _close_window(win, hist_step, i, lv, dev)
+            introspect.tick()
             if (eval_source is not None and config.eval_every > 0
                     and i // config.eval_every
                     > (i - m) // config.eval_every):

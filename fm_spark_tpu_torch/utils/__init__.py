@@ -1,2 +1,3 @@
-"""Host-side utilities of the port: evaluation metrics and the JSONL
-step logger."""
+"""Host-side utilities of the port: evaluation metrics, the JSONL step
+logger and event journal, the durable-write seam and designed-sleep
+scaling."""

@@ -487,6 +487,44 @@ def test_every_served_predict_is_capturable(family, cd):
     assert torch.equal(got, want.float())
 
 
+@pytest.mark.parametrize("family", ["fm", "ffm", "deepfm"])
+def test_the_planes_around_a_replay_make_no_host_sync(family, tmp_path):
+    """What the obs and fault planes put around a served replay and a
+    captured training step: the ``serve/batch`` span and the
+    ``serve_request`` phase around ``spec.predict``, the ``train_step``
+    fault point under an active plan inside the ``step_window`` phase, the
+    window's retroactive span and the capture engine's step boundary; with
+    the plane configured and a watchdog armed, they read the host clock
+    only and the predictions are unchanged."""
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.obs import introspect
+    from fm_spark_tpu_torch.resilience import faults, watchdog
+
+    spec, params, ids, vals = _serving_case(family, "float32")
+    want = spec.predict(params, ids, vals)
+    obs.configure(str(tmp_path / "run"))
+    introspect.configure(obs.run_dir(), profile=False)
+    faults.activate("train_step@99=error")
+    watchdog.configure({"serve_request": 60.0, "step_window": 60.0},
+                       action="raise")
+    try:
+        with NoHostSync():
+            with obs.span("serve/batch", rows=64, bucket=64, gen_step=0), \
+                    watchdog.phase("serve_request"):
+                got = spec.predict(params, ids, vals)
+            with watchdog.phase("step_window"):
+                faults.inject("train_step")
+                got2 = spec.predict(params, ids, vals)
+            obs.emit_span("train/steps", 0.0, 1e-3, steps=1)
+            introspect.observe_step_time(1.0)
+            introspect.tick()
+    finally:
+        watchdog.clear()
+        faults.clear()
+        obs.shutdown()
+    assert torch.equal(got, want) and torch.equal(got2, want)
+
+
 def test_a_capture_of_more_than_64_fields_refuses_with_its_reason(
         monkeypatch):
     """F = 65: the forward kernel takes its table pointers from a device

@@ -632,9 +632,9 @@ def test_the_resumed_saves_rewrite_every_stale_step(tmp_path, damage):
 
 # ------------------------------------------ demotion and the emergency GC
 #
-# The counterparts of tests/test_checkpoint_chain.py's demotion drills.
-# The SIGKILL-mid-demotion subprocess drill waits for the faults plane
-# (ROADMAP Queue 1 item 13): it needs an injected exit at ckpt_demote.
+# The counterparts of tests/test_checkpoint_chain.py's demotion drills,
+# the SIGKILL-mid-demotion drill among them (an injected exit at
+# ckpt_demote, planned through FM_SPARK_FAULTS in a subprocess).
 
 
 def _demo_chain(ckdir, steps=(1, 2, 3), journal=None):
@@ -716,6 +716,39 @@ def test_a_crash_between_tombstone_and_pointer_recovers(tmp_path, monkeypatch):
     assert ck.last_good_step() == 1                  # stale: vouches for 1
     assert ck.demote(1) is False and ck.last_good_step() is None
     assert ChainFollower(str(tmp_path)).restore(params) is None
+    ck.close()
+
+
+_DEMOTE_CHILD = """
+import sys
+sys.path.insert(0, {repo!r})
+from fm_spark_tpu_torch.checkpoint import Checkpointer
+Checkpointer({ckdir!r}, max_to_keep=10).demote_newer_than(1, reason="drift")
+print("survived")
+"""
+
+
+def test_an_exit_at_ckpt_demote_recovers_in_the_next_process(tmp_path):
+    """The planned ``ckpt_demote@1=exit:29`` kills a process inside the
+    demotion window (the range tombstone durable, ``last_good`` not yet
+    republished): no reader trusts the vetoed steps, and the next
+    process's demotion repairs the pointer."""
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+
+    ck, params = _demo_chain(tmp_path / "ck")
+    ck.close()
+    env = {**os.environ, "FM_SPARK_FAULTS": "ckpt_demote@1=exit:29"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEMOTE_CHILD.format(
+            repo=REPO, ckdir=str(tmp_path / "ck"))],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 29 and "survived" not in proc.stdout
+    ck = Checkpointer(str(tmp_path / "ck"), max_to_keep=10)
+    assert ck.tombstoned_steps() == {2, 3} and ck.last_good_step() == 3
+    assert ChainFollower(str(tmp_path / "ck")).restore(params)["step"] == 1
+    assert ck.restore(params)["step"] == 1
+    assert ck.demote_newer_than(1, reason="drift") == []
+    assert ck.last_good_step() == 1
     ck.close()
 
 

@@ -425,9 +425,23 @@ def test_stream_levers_and_refusals(tmp_path, monkeypatch, capsys):
         cli._stream_source(_args(data=data + ",nope.tsv"), cfg, tcfg)
     with pytest.raises(SystemExit, match="--test-fraction 0"):
         cli._stream_source(_args(data=data, test_fraction=0.2), cfg, tcfg)
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 13"):
+    # Quarantine without --quarantine-dir: refused with the plane off,
+    # the dead letters under the run dir with it on.
+    with pytest.raises(SystemExit, match="needs --quarantine-dir or an obs"):
         cli._stream_source(_args(data=data, data_policy="quarantine"), cfg,
                            tcfg)
+    from fm_spark_tpu_torch import obs
+
+    obs.configure(str(tmp_path / "run"))
+    try:
+        _, q = cli._stream_source(_args(data=data, data_policy="quarantine"),
+                                  cfg, tcfg)
+        assert q.guard.dead_letter_path == str(tmp_path / "run" /
+                                               stream.DEAD_LETTER_FILE)
+        q.close()
+        q.guard.close()
+    finally:
+        obs.shutdown()
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="single-process"):
         cli._stream_source(_args(data=data), cfg, tcfg)

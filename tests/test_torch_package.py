@@ -1874,3 +1874,125 @@ def test_staged_copy_lands_only_after_its_event_on_the_card(cuda):
     assert store.stats()["staged_hits"] == 1
     got = hot["v"][torch.from_numpy(local).to(cuda)].cpu().numpy()
     assert np.array_equal(got, rows[[3 * 64 + 5, 3 * 64]])
+
+
+# ----------------------------------------- the obs plane on the card
+
+
+#: The kernel symbols of config 3's captured step (``chip_smoke.py``'s
+#: ``KERNEL_SYMBOLS``): kernel B's first pass and the SR bits.
+_STEP_SYMBOLS = ("bwd_first_pass", "sr_bits_kernel")
+
+
+@pytest.mark.gpu
+def test_the_profiled_train_run_names_its_kernels_on_the_card(cuda, tmp_path,
+                                                              capsys):
+    """``fmtorch train --profile`` of a narrow config 3 (bf16, dedup_sr,
+    the compact host aux, kernel B): the Chrome trace names the captured
+    step's kernels by symbol, the loss lines are finite, and the run dir
+    holds the window spans."""
+    import json
+
+    from fm_spark_tpu_torch import cli
+
+    prof = str(tmp_path / "prof")
+    assert cli.main([
+        "train", "--config", "criteo1tb_fm_r64", "--bucket", "1024",
+        "--synthetic", "8192", "--steps", "4", "--batch-size", "2048",
+        "--param-dtype", "bfloat16", "--compute-dtype", "bfloat16",
+        "--sparse-update", "dedup_sr", "--host-dedup", "--compact-cap",
+        "1024", "--fused-embed", "require", "--test-fraction", "0",
+        "--obs-dir", str(tmp_path / "obs"), "--profile", prof]) == 0
+    out = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+           if x.startswith("{")]
+    losses = [x["loss"] for x in out if "loss" in x]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    for sym in _STEP_SYMBOLS:
+        assert any(sym in n for n in names), sym
+
+
+@pytest.mark.gpu
+def test_the_slo_trigger_fires_on_a_replay_on_the_card(cuda, tmp_path):
+    """A ``serve_request`` deadline below one replay's time: the batch
+    replayed through its graph fails with ``HangDetected``, the overrun
+    is counted and its capture bundle is written; with the deadline
+    cleared the same graph answers as before."""
+    from fm_spark_tpu_torch import models, obs
+    from fm_spark_tpu_torch.obs import introspect
+    from fm_spark_tpu_torch.resilience import watchdog
+    from fm_spark_tpu_torch.serve import PredictEngine
+
+    spec = models.FieldFMSpec(num_features=39 * 4096, rank=64,
+                              num_fields=39, bucket=4096)
+    params = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    run = str(tmp_path / "run")
+    obs.configure(run)
+    introspect.configure(run, profile=False)
+    eng = PredictEngine(spec, params, buckets=(64,), latency_budget_ms=0.0,
+                        device=cuda)
+    try:
+        eng.warmup()
+        rng = np.random.default_rng(0)
+        ids = rng.integers(0, 4096, (64, 39)).astype(np.int32)
+        vals = np.ones((64, 39), np.float32)
+        want = eng.predict(ids, vals)
+        watchdog.configure({"serve_request": 1e-7}, action="raise")
+        with pytest.raises(watchdog.HangDetected):
+            eng.predict(ids, vals)
+        watchdog.clear()
+        assert np.array_equal(eng.predict(ids, vals), want)
+        assert eng.graph_replays == 3
+        assert obs.counter("serve.slo_overruns_total").value == 1
+        caps = introspect.list_captures(run)
+        assert [c["trigger"] for c in caps] == ["serve_slo_overrun"]
+    finally:
+        watchdog.clear()
+        eng.close()
+        obs.shutdown()
+
+
+@pytest.mark.gpu
+def test_a_step_captures_under_the_profiler_on_the_card(cuda):
+    """A training step captured while a ``torch.profiler`` session (CPU
+    and CUDA activity, as ``--profile`` runs it) is active gives the same
+    bits as one captured without it, and its replays run the step's
+    kernels by symbol in the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_spark_tpu_torch import models, train
+    from fm_spark_tpu_torch.graphs import _clone
+
+    spec = models.FMSpec(num_features=20000, rank=8, init_std=0.1)
+    rng = np.random.default_rng(1)
+    batches = [[torch.from_numpy(a).to(cuda) for a in (
+        (rng.zipf(1.3, (2048, 39)) % 20000).astype(np.int32),
+        np.ones((2048, 39), np.float32),
+        rng.integers(0, 2, 2048).astype(np.float32),
+        np.ones(2048, np.float32))] for _ in range(3)]
+    p0 = spec.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    runs = []
+    for profiled in (False, True):
+        cfg = train.TrainConfig(learning_rate=0.05)
+        step = train.make_train_step(spec, cfg)
+        p = _clone(p0)
+        s = train.make_optimizer(cfg).init(p)
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else None)
+        if ctx is not None:
+            ctx.__enter__()
+        try:
+            losses = [step(p, s, *b)[2]["loss"] for b in batches]
+            torch.cuda.synchronize()
+        finally:
+            if ctx is not None:
+                ctx.__exit__(None, None, None)
+        assert len(step.captured.capture_s) == 1
+        runs.append((p, torch.stack(losses).cpu()))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert _same_tree(runs[0][0], runs[1][0])
+    names = [e.name for e in ctx.events() if e.device_type == DeviceType.CUDA]
+    assert sum("first_pass" in n for n in names) >= 2   # kernel A, replayed

@@ -22,7 +22,7 @@ from fm_spark_tpu_torch.obs import ledger as pledger
 from fm_spark_tpu_torch.obs import sentinel as psentinel
 from fm_spark_tpu_torch.resilience import divergence as pdiv
 from fm_spark_tpu_torch.resilience import watchdog as pwd
-from fm_spark_tpu_torch.utils.logging import EventLog
+from fm_spark_tpu_torch.utils.logging import EventLog, read_events
 
 
 @pytest.fixture(autouse=True)
@@ -284,22 +284,26 @@ def test_watchdog_spec_grammar_equals_jax(monkeypatch):
 # ------------------------------------------------------------------ obs
 
 
-def test_spans_and_events_drop_until_a_sink_is_configured():
+def test_spans_and_events_drop_until_a_sink_is_configured(tmp_path):
     assert obs.span("x") is obs.NOOP_SPAN and obs.run_id() is None
     obs.event("quality_eval", day=1)          # dropped, no error
-    sink = EventLog()
-    rid = obs.configure(sink)
+    assert obs.run_dir() is None
+    rid = obs.configure(str(tmp_path / "run"))
     assert obs.run_id() == rid and obs.enabled()
+    assert obs.run_dir() == str(tmp_path / "run")
     with obs.span("online/eval_day", day=3) as sp:
         sp.set(auc=0.75)
     obs.event("quality_eval", day=3)
-    recs = sink.records
-    assert [r["event"] for r in recs] == ["span", "quality_eval"]
+    recs = read_events(str(tmp_path / "run" / "trace.jsonl"))
+    assert [r["event"] for r in recs] == ["span"]
     assert recs[0]["name"] == "online/eval_day" and recs[0]["day"] == 3
     assert recs[0]["auc"] == 0.75 and recs[0]["dur_ms"] >= 0
     json.dumps(recs)
     obs.shutdown()
     assert not obs.enabled() and obs.run_id() is None
+    kinds = [e["kind"] for e in obs.read_spool(
+        str(tmp_path / "run" / "flight.jsonl"))]
+    assert kinds == ["run_start", "span", "quality_eval", "run_end"]
     assert math.isfinite(float(rid.split("-p")[-1]))
 
 

@@ -13,10 +13,10 @@
 - the follower never changes the chain (bytes and mtimes);
 - a chain of another layout fails the reload;
 - a failed swap (a capture that fails on the card) keeps the old
-  generation, and the poll thread outlives a failing poll.
-
-The reference's SIGKILL-mid-reload subprocess drill waits for the faults
-plane (ROADMAP Queue 1 item 13): it needs an injected exit.
+  generation, and the poll thread outlives a failing poll;
+- the SIGKILL-mid-reload drill: ``fmtorch serve`` killed by a planned
+  ``serve_reload@1=exit:9`` inside its reload attempt leaves the chain
+  untouched, and the next follower converges on the newest generation.
 
 Every served answer is held against the JAX package's ``predict`` on the
 same numpy parameters at ``rtol=1e-5, atol=1e-6`` (float32 sums in
@@ -406,3 +406,49 @@ def test_swaps_under_load_answer_each_request_from_one_generation(tmp_path):
     eng.close()
     ck.close()
     assert eng.generation().step == 4 and len(used) >= 2
+
+
+def test_sigkill_during_reload_drill_subprocess(tmp_path):
+    """A serving process dies inside a reload attempt (the injected
+    ``serve_reload`` exit, before any swap) with the planned rc; the chain
+    is untouched, and the next follower's first poll converges on the
+    newest generation."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = str(tmp_path / "model")
+    models.save_model(model, SPEC, _port(_arrays(1)))
+    chain = tmp_path / "chain"
+    ck = _chain(chain, (1,))
+    env = {**os.environ, "FM_SPARK_OBS_DIR": "none", "OMP_NUM_THREADS": "1",
+           "FM_SPARK_FAULTS": "serve_reload@1=exit:9"}
+    argv = [sys.executable, "-m", "fm_spark_tpu_torch", "serve", "--model",
+            model, "--checkpoint-dir", str(chain), "--synthetic", "64",
+            "--batch-size", "4", "--buckets", "1,4", "--reload-poll-s",
+            "0.1", "--repeat", "100000", "--latency-budget-ms", "0",
+            "--device", "cpu"]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, text=True,
+                            cwd=repo, env=env, stderr=subprocess.DEVNULL)
+    try:
+        line = proc.stdout.readline()
+        assert '"serving": true' in line, line
+        ck.save(2, _port(_arrays(2)), force=True)
+        ck.wait()
+        before = _snapshot(chain)
+        rc = proc.wait(timeout=240)
+    finally:
+        proc.kill()
+        ck.close()
+    assert rc == 9, f"expected the planned exit rc, got {rc}"
+    assert _snapshot(chain) == before
+    eng = _engine()
+    fol = ReloadFollower(eng, str(chain), poll_s=0.05)
+    try:
+        assert fol.poll_once() == "swapped"
+        assert eng.generation().step == 2
+        assert int(obs.gauge("serve/staleness_steps").value or 0) == 0
+        _assert_serves(eng, _arrays(2))
+    finally:
+        fol.stop()
+        eng.close()

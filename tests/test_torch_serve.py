@@ -335,14 +335,27 @@ def test_serve_follows_a_chain_without_a_model(tmp_path, capsys):
     ("--fleet", "2", "6b"), ("--autoscale-max", "3", "6b"),
     ("--frontdoor-port", "0", "6b"), ("--classes", "a:1:2", "6b"),
     ("--serve-seconds", "5", "6b"), ("--trace-sample", "0.1", "6b"),
-    ("--slo-ms", "10", "13"), ("--metrics-port", "0", "13"),
-    ("--obs-dir", "none", "13"), ("--compile-cache", None, "12")])
+    ("--compile-cache", None, "12")])
 def test_serve_unported_flags_exit_naming_their_item(model_dir, flag, value,
                                                      item):
     argv = ["serve", "--model", model_dir, "--synthetic", "8", "--device",
             "cpu", flag] + ([value] if value is not None else [])
     with pytest.raises(SystemExit, match=f"item {item}"):
         cli.main(argv)
+    assert {i for _, _, i in cli._UNPORTED_SERVE_FLAGS} == {"6b", "12"}
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--slo-ms", "1000"), ("--metrics-port", "0"), ("--obs-dir", "none")])
+def test_serve_obs_flags_are_taken(model_dir, flag, value, capsys):
+    """``--slo-ms``, ``--metrics-port`` and ``--obs-dir`` serve (their
+    planes are held in ``tests/test_torch_cli_obs.py``)."""
+    assert cli.main(["serve", "--model", model_dir, "--synthetic", "8",
+                     "--device", "cpu", "--obs-dir", "none",
+                     flag, value]) == 0
+    out = capsys.readouterr().out
+    assert '"serve_summary"' in out
+    assert ('"metrics_port"' in out) == (flag == "--metrics-port")
 
 
 def test_serve_accepts_and_ignores_optimizer(model_dir, capsys):
