@@ -221,8 +221,9 @@ Phases (any failure exits non-zero before the last line is printed):
    262,144 x 16, MLP 400-400-400, Adam, fp32, B = 16,384) as a phase 17
    leg, and served per bucket; leg E, ``FMWithLBFGS`` on config 1's
    ratings (the card's objective against the CPU's), ``FFMWithSGD`` on
-   20,000 Avazu-shaped rows, and config 2's trained model through
-   ``save_libfm``/``load_libfm`` (scores bit for bit). Kernel A, both sel
+   20,000 Avazu-shaped rows, and the first 159,744 rows of config 2's
+   trained model through ``save_libfm``/``load_libfm`` (scores bit for
+   bit). Kernel A, both sel
    kernels and the SR bits must have launched;
 19. training straight off raw-text shards (``stream_phase``): phase 14's
    327,680-row Criteo TSV in three shards with 0.5 % of its lines
@@ -248,7 +249,7 @@ Phases (any failure exits non-zero before the last line is printed):
 20. the tiered embedding store and continuous learning
    (``tier_phase``) at config 2's widths (rank 32, fp32, 39 ids a row, B
    = 16,384) on the reference ladder's stream (32 Zipf buckets of 1,024
-   rows, drifting one bucket a step; a hot tier of 48 buckets; 40
+   rows, drifting one bucket a step; a hot tier of 48 buckets; 32
    steps): kernel A against its plain version at the tiered step's
    shape (the B·nnz lanes sorted by global id); then every count set to
    0 and leg A, at 10,000,384 features (dense cold tier) for SGD, FTRL
@@ -260,7 +261,7 @@ Phases (any failure exits non-zero before the last line is printed):
    idle share and kernel A's runs per replay by symbol; leg C, FTRL at
    leg A's sizes with a chain every 16 steps, killed at the 10th eviction
    (``faults.inject`` patched) and resumed by a new trainer: its merged
-   planes after 40 steps equal leg A's bit for bit; leg B, the lazy
+   planes after 32 steps equal leg A's bit for bit; leg B, the lazy
    rungs at 100,000,768 and 1,000,000,512 features (SGD): examples/s,
    gathered rows/s, hit rate, stall, the cold tier's host bytes (the
    touched buckets only), RSS growth and peak, the card's peak memory;
@@ -294,7 +295,28 @@ Phases (any failure exits non-zero before the last line is printed):
    version; leg C, a planted ``train_step@2=device_loss`` ends the run
    with ``InjectedDeviceLoss`` and a flight dump naming it; leg D, the
    plane's cost: the same captured step's wall ms and CUDA-event ms with
-   ``--obs-dir none`` and with the plane on.
+   ``--obs-dir none`` and with the plane on;
+22. training over ``torch.distributed`` (``parallel_phase``): an NCCL
+   group of one rank made here (a TCP store on a free localhost port);
+   every count set to 0; the field-sharded FieldFM step at config 3's
+   full width (bf16, dedup_sr, the device aux at 12,288, gfull + kernel
+   A, B = 131,072) captured against the single-card captured step from
+   the same params and bench batches, losses and all 39 tables the same
+   bits after each of 3 steps and 2 profiled ones (wall and device-busy
+   ms each, kernel A's and ``sr_bits``' runs per replayed step by
+   symbol); FieldFFM (config 4's fields, rank 16) and FieldDeepFM
+   (config 5, Adam; replicated and deep-sharded heads) sharded steps at
+   4,096 rows a field (B = 8,192) against the single card within their
+   stated tolerances; config 2 under ``dp`` at full width against the
+   single dense step bit for bit; the generic dense step of each field
+   family at 4,096 rows a field, captured against eager bit for bit;
+   the tier's bf16 planes at 10,000,384 features (24 steps, SGD)
+   against the untiered bf16 step bit for bit; last, once the phase's
+   group is gone, ``fmtorch train --distributed --ckpt-sharded`` at
+   config 3's full width (2 steps and one sharded save, world 1, a group
+   of its own from a torchrun-style environment) in this process
+   (``cli.main``), then ``fmtorch eval --checkpoint-dir`` of its sharded
+   chain. Kernel A and ``sr_bits`` must have launched.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -908,13 +930,19 @@ class BenchStream:
     bench batch's), then its labels, from one ``default_rng(seed)``;
     vals and weights are all 1. Labels are Bernoulli(0.25) rather than
     the bench's fair coin, so a model has a bias to learn in a few
-    steps. Config 3's shape by default."""
+    steps. Config 3's shape by default.
+
+    Every stream of one ``(seed, batch, fields, bucket)`` yields the same
+    batches, so each is drawn once per run and handed out as a copy (a
+    draw at config 3's shape takes about a second on the host, and the
+    phases draw the same seeds again and again)."""
+
+    _draws: dict = {}                     # key → {"rng", "batches"}
+    _draws_lock = threading.Lock()
 
     def __init__(self, seed: int = 0, batch: int = TRAIN_B, fields: int = F,
                  bucket: int = BUCKET):
-        import numpy as np
-
-        self._rng = np.random.default_rng(seed)
+        self._key = (seed, batch, fields, bucket)
         self._b = batch
         self._f, self._bucket = fields, bucket
         self._drawn = 0
@@ -925,12 +953,19 @@ class BenchStream:
     def next_batch(self):
         import numpy as np
 
+        with BenchStream._draws_lock:
+            rec = BenchStream._draws.setdefault(self._key, {
+                "rng": np.random.default_rng(self._key[0]), "batches": []})
+            while len(rec["batches"]) <= self._drawn:
+                ids = (rec["rng"].zipf(1.3, size=(self._b, self._f))
+                       % self._bucket).astype(np.int32)
+                labels = (rec["rng"].random(self._b) < 0.25).astype(
+                    np.float32)
+                rec["batches"].append((ids, labels))
+            ids, labels = rec["batches"][self._drawn]
         self._drawn += 1
-        ids = (self._rng.zipf(1.3, size=(self._b, self._f))
-               % self._bucket).astype(np.int32)
-        labels = (self._rng.random(self._b) < 0.25).astype(np.float32)
-        return (ids, np.ones((self._b, self._f), np.float32), labels,
-                np.ones(self._b, np.float32))
+        return (ids.copy(), np.ones((self._b, self._f), np.float32),
+                labels.copy(), np.ones(self._b, np.float32))
 
 
 def _bound_ms(nbytes: float, flops: float = 0.0):
@@ -3979,6 +4014,7 @@ FAM_B = 16384                            # phase 18's batch (configs 2, 4, 5)
 FAM_FTRL_ROWS = 81920                    # phase 18's fmtorch leg: 4 steps + holdout
 FAM_LBFGS_ITERS = 100                    # FMWithLBFGS on config 1's ratings
 FAM_FFM_ROWS = 20000                     # FFMWithSGD's Avazu-shaped rows
+FAM_LIBFM_ROWS = 159744                  # config 2's first rows to libFM
 FAM_FFM_ITERS = 10
 
 
@@ -4216,15 +4252,22 @@ def _ffm_with_sgd(dev) -> dict:
 
 
 def _libfm_round_trip(dev, model_dir, base) -> dict:
-    """Leg E's libFM: config 2's trained model dir through ``save_libfm``
-    and ``load_libfm`` (on the card): the tables and the scores of a batch
-    bit for bit, the seconds of each and the file's size."""
+    """Leg E's libFM: the first ``FAM_LIBFM_ROWS`` rows of config 2's
+    trained model through ``save_libfm`` and ``load_libfm`` (on the card):
+    the tables and the scores of a batch (its ids taken modulo the rows)
+    bit for bit, the seconds of each and the file's size. (The whole
+    1,277,952-row table took ~57 s of text formatting and parsing.)"""
+    import dataclasses
+
     import torch
 
     from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.models import libfm_io
 
     spec, params = models.load_model(model_dir, device=dev)
+    spec = dataclasses.replace(spec, num_features=FAM_LIBFM_ROWS)
+    params = {"w0": params["w0"], "w": params["w"][:FAM_LIBFM_ROWS],
+              "v": params["v"][:FAM_LIBFM_ROWS]}
     path = os.path.join(base, "config2.libfm")
     t0 = time.perf_counter()
     libfm_io.save_libfm(path, spec, params)
@@ -4233,6 +4276,7 @@ def _libfm_round_trip(dev, model_dir, base) -> dict:
     t2 = time.perf_counter()
     ids, vals = (torch.from_numpy(a).to(dev)
                  for a in _FlatConfig2Stream(44).next_batch()[:2])
+    ids = ids % FAM_LIBFM_ROWS
     with torch.no_grad():
         same = torch.equal(spec.scores(params, ids, vals),
                            spec2.scores(params2, ids, vals))
@@ -4938,7 +4982,7 @@ def stream_phase(dev, report):
 #: B = 16,384) over the tiered embedding store's ladder stream.
 TIER_B, TIER_NNZ = 16384, 39
 TIER_BUCKET, TIER_HOT, TIER_WORK = 1024, 48, 32  # the ladder's defaults
-TIER_STEPS, TIER_PROFILED = 40, 3
+TIER_STEPS, TIER_PROFILED = 32, 3
 TIER_RUNGS = (10_000_000, 100_000_000, 1_000_000_000)
 TIER_LR = 0.05
 TIER_KILL_EVICTION = 10
@@ -5119,7 +5163,10 @@ def _untiered_run(dev, spec, cfg, batches, profile_batches):
         else:
             step(params, slots, *b)
 
-    planes = {k: np.array(v.cpu()) for k, v in params.items()}
+    from fm_spark_tpu_torch.embed.store import to_host
+
+    # A bf16 table as its bits, as the cold tier keeps it.
+    planes = {k: to_host(v.cpu()).copy() for k, v in params.items()}
     for table, d in (slots or {}).items():
         for key, t in d.items():
             planes[f"{table}_{key}"] = np.array(t.cpu())
@@ -5249,7 +5296,7 @@ class _InjectAt:
 def _tier_leg_c(dev, base, batches, golden) -> dict:
     """Leg C: FTRL at leg A's sizes with a chain saved every 16 steps,
     killed at the 10th eviction (``embed_evict``), resumed by a new
-    trainer: its merged planes after 40 steps equal leg A's FTRL run's."""
+    trainer: its merged planes after 32 steps equal leg A's FTRL run's."""
     import numpy as np
 
     from fm_spark_tpu_torch.checkpoint import Checkpointer
@@ -6014,6 +6061,392 @@ def obs_phase(dev, report):
     return launches
 
 
+
+# ------------------------------------------------------------------ phase 22
+
+#: Phase 22: training over torch.distributed at world 1 (one card, an
+#: NCCL group of one rank), the field families' dense step, bf16 tiers.
+PAR_STEPS, PAR_PROFILED = 3, 2
+PAR_SMALL_BUCKET, PAR_SMALL_B = 1 << 12, 8192     # the reduced legs
+PAR_TIER_STEPS = 24                     # the 48-bucket hot tier churns past 16
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _same_tables(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _par_fm_leg(dev, mesh, out):
+    """The field-sharded FieldFM step (bf16, dedup_sr, the device compact
+    aux at ``CAP``, gfull + kernel A), captured, against the single-card
+    fused step from the same params and bench batches at config 3's full
+    width: losses and tables the same bits after every step."""
+    import torch
+
+    from fm_spark_tpu_torch import models, parallel, sparse
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    spec = models.FieldFMSpec(
+        num_features=F * BUCKET, rank=RANK, num_fields=F, bucket=BUCKET,
+        init_std=0.01, param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = TrainConfig(batch_size=TRAIN_B, learning_rate=0.05,
+                      reg_factors=1e-6, sparse_update="dedup_sr",
+                      compact_device=True, compact_cap=CAP,
+                      gfull_fused=True, segtotal_pallas=True)
+    p1 = spec.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    stacked = parallel.stack_field_params(spec, p1, mesh.shape["feat"])
+    p2 = parallel.shard_field_params(stacked, mesh)
+    del stacked
+    torch.cuda.empty_cache()
+    single = sparse.make_field_sparse_sgd_step(spec, cfg)
+    shard = parallel.make_field_sharded_sgd_step(spec, cfg, mesh)
+    stream = BenchStream(0, batch=TRAIN_B, fields=F, bucket=BUCKET)
+    on_dev = [[torch.from_numpy(a).to(dev) for a in stream.next_batch()]
+              for _ in range(PAR_STEPS + PAR_PROFILED)]
+    losses = []
+    for i in range(PAR_STEPS):
+        _, l1 = single(p1, i, *on_dev[i])
+        # One rank: its rows are the whole batch, its fields all 39.
+        _, l2 = shard(p2, i, *on_dev[i])
+        _check(torch.equal(l1, l2), f"phase 22 fm step {i}: sharded loss "
+               f"{float(l2)!r} != single-card {float(l1)!r}")
+        _check(_same_tables(p1["vw"], p2["vw"])
+               and torch.equal(p1["w0"], p2["w0"]),
+               f"phase 22 fm step {i}: sharded tables differ from the "
+               "single card's")
+        losses.append(float(l2))
+    _check(losses[-1] < losses[0], f"phase 22 fm: loss did not fall: {losses}")
+    n = PAR_STEPS
+    prof_1 = _profile_calls(lambda j: single(p1, n + j, *on_dev[n + j]),
+                            range(PAR_PROFILED))
+    prof_2 = _profile_calls(lambda j: shard(p2, n + j, *on_dev[n + j]),
+                            range(PAR_PROFILED))
+    _check(_same_tables(p1["vw"], p2["vw"]),
+           "phase 22 fm: tables differ after the profiled steps")
+    runs = prof_2.get("kernel_runs_per_step")
+    _check(runs is None or (runs["segment_totals"] >= 1
+                            and runs["sr_bits"] >= 1),
+           f"phase 22 fm: kernel A or sr_bits in no replayed step: {runs}")
+    out["fm"] = {"spec": "config 3, 39 x 262,144 x 65 bf16, B = 131,072",
+                 "losses": losses, "bitwise": True,
+                 "capture_s": {"single": single.captured.capture_s,
+                               "sharded": shard.captured.capture_s},
+                 "single": prof_1, "sharded": prof_2}
+    del p1, p2, on_dev, single, shard
+    torch.cuda.empty_cache()
+
+
+def _par_small_legs(dev, mesh, out):
+    """FieldFFM and FieldDeepFM's sharded steps against the single-card
+    steps at reduced depth (``PAR_SMALL_BUCKET`` rows a field, B =
+    ``PAR_SMALL_B``), and config 2 under ``dp`` (the NCCL mesh) against
+    ``train.make_train_step`` at full width."""
+    import numpy as np
+    import torch
+
+    from fm_spark_tpu_torch import configs, models, parallel, sparse
+    from fm_spark_tpu_torch.parallel import deepfm_step
+    from fm_spark_tpu_torch.train import (TrainConfig, make_optimizer,
+                                          make_train_step)
+
+    def batches(fields, n, b=PAR_SMALL_B, bucket=PAR_SMALL_BUCKET):
+        s = BenchStream(3, batch=b, fields=fields, bucket=bucket)
+        return [[torch.from_numpy(a).to(dev) for a in s.next_batch()]
+                for _ in range(n)]
+
+    def err(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+
+    # FieldFFM (config 4's fields and rank, fp32): the sharded sel
+    # exchange against the single card's sel form.
+    ffm = models.FieldFFMSpec(num_features=FFM_F * PAR_SMALL_BUCKET,
+                              rank=FFM_RANK, num_fields=FFM_F,
+                              bucket=PAR_SMALL_BUCKET, init_std=0.01)
+    cfg = TrainConfig(learning_rate=0.05, sparse_update="dedup",
+                      compact_device=True, compact_cap=PAR_SMALL_B)
+    p1 = ffm.init(torch.Generator(device=dev).manual_seed(1), device=dev)
+    p2 = parallel.shard_field_params(
+        parallel.stack_field_params(ffm, p1, mesh.shape["feat"]), mesh)
+    s1 = sparse.make_field_ffm_sparse_sgd_step(ffm, cfg)
+    s2 = parallel.make_field_ffm_sharded_step(ffm, cfg, mesh)
+    bs = batches(FFM_F, 3)
+    l1 = [float(s1(p1, i, *b)[1]) for i, b in enumerate(bs)]
+    l2 = [float(s2(p2, i, *b)[1]) for i, b in enumerate(bs)]
+    e = err(p1["vw"], p2["vw"])
+    _check(np.allclose(l1, l2, rtol=1e-5) and e < 1e-5,
+           f"phase 22 ffm: sharded {l2} vs single {l1}, table err {e}")
+    out["ffm"] = {"losses": l2, "single_losses": l1, "max_table_err": e,
+                  "tolerance": "losses rtol 1e-5, tables 1e-5 abs (fp32: "
+                               "the sel exchange sums in its own order)"}
+    # FieldDeepFM (config 5's head, Adam), replicated and deep-sharded.
+    c5 = configs.get_config("criteo1tb_deepfm", bucket=PAR_SMALL_BUCKET)
+    deep = c5.spec()
+    out["deepfm"] = {}
+    for head in ("replicated", "deep_sharded"):
+        cfg = TrainConfig(learning_rate=0.05, optimizer="adam",
+                          sparse_update="dedup", compact_device=True,
+                          compact_cap=PAR_SMALL_B,
+                          deep_sharded=head == "deep_sharded")
+        single_cfg = TrainConfig(learning_rate=0.05, optimizer="adam",
+                                 sparse_update="dedup", compact_device=True,
+                                 compact_cap=PAR_SMALL_B)
+        p1 = deep.init(torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
+        p2 = deepfm_step.shard_field_deepfm_params(
+            deepfm_step.stack_field_deepfm_params(deep, p1,
+                                                  mesh.shape["feat"]), mesh)
+        s1 = sparse.make_field_deepfm_sparse_step(deep, single_cfg)
+        s2 = deepfm_step.make_field_deepfm_sharded_step(deep, cfg, mesh)
+        o1, o2 = s1.init_opt_state(p1), s2.init_opt_state(p2)
+        bs = batches(deep.num_fields, 3)
+        l1 = [float(s1(p1, o1, i, *b)[2]) for i, b in enumerate(bs)]
+        l2 = [float(s2(p2, o2, i, *b)[2]) for i, b in enumerate(bs)]
+        e = max(err(p1["vw"], p2["vw"]),
+                err([l[k] for l in p1["mlp"] for k in l],
+                    [l[k] for l in p2["mlp"] for k in l]))
+        _check(np.allclose(l1, l2, rtol=1e-4) and e < 1e-4,
+               f"phase 22 deepfm {head}: sharded {l2} vs single {l1}, "
+               f"err {e}")
+        out["deepfm"][head] = {"losses": l2, "single_losses": l1,
+                               "max_param_err": e, "bitwise": l1 == l2
+                               and e == 0.0}
+    # Config 2 under dp at world 1 against the single-device dense step.
+    c2 = configs.get_config("criteo_kaggle_fm_r32")
+    spec2 = c2.spec()
+    tc = c2.train_config()
+    p1 = spec2.init(torch.Generator(device=dev).manual_seed(3), device=dev)
+    dmesh = parallel.make_mesh(1, 1, device=dev)
+    p2 = parallel.shard_params(p1, dmesh, spec2, "dp")
+    opt = make_optimizer(tc)
+    o1, o2 = opt.init(p1), opt.init(p2)
+    s1 = make_train_step(spec2, tc, opt)
+    s2 = parallel.make_parallel_train_step(spec2, tc, dmesh, "dp", opt)
+    stream = _FlatConfig2Stream(5)
+    bs = [[torch.from_numpy(a).to(dev) for a in stream.next_batch()]
+          for _ in range(3 + PAR_PROFILED)]
+    l1, l2 = [], []
+    for b in bs[:3]:
+        l1.append(float(s1(p1, o1, *b)[2]["loss"]))
+        l2.append(float(s2(p2, o2, *b)[2]["loss"]))
+    _check(l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1),
+           f"phase 22 dp config 2: {l2} vs single {l1}")
+    prof = _profile_calls(lambda j: s2(p2, o2, *bs[3 + j]),
+                          range(PAR_PROFILED))
+    out["dp_config2"] = {"losses": l2, "bitwise": True, "profile": prof,
+                         "capture_s": s2.captured.capture_s}
+    del p1, p2, o1, o2, s1, s2
+    torch.cuda.empty_cache()
+
+
+def _par_dense_field_legs(dev, out):
+    """One generic dense step per field family (the reference's
+    ``--strategy single`` on a field config), captured against its eager
+    body on a copy of the params, bit for bit, at reduced depth."""
+    import torch
+
+    from fm_spark_tpu_torch import configs, graphs
+    from fm_spark_tpu_torch.train import TrainConfig, make_optimizer
+    from fm_spark_tpu_torch.train import make_train_step
+
+    out["dense_field"] = {}
+    for name in ("criteo1tb_fm_r64", "avazu_ffm_r16", "criteo1tb_deepfm"):
+        spec = configs.get_config(name, bucket=PAR_SMALL_BUCKET).spec()
+        tc = TrainConfig(learning_rate=0.05, optimizer="adam")
+        opt = make_optimizer(tc)
+        p1 = spec.init(torch.Generator(device=dev).manual_seed(4),
+                       device=dev)
+        p2 = graphs._clone(p1)
+        o1, o2 = opt.init(p1), opt.init(p2)
+        step = make_train_step(spec, tc, opt)
+        s = BenchStream(6, batch=PAR_SMALL_B, fields=spec.num_fields,
+                        bucket=PAR_SMALL_BUCKET)
+        bs = [[torch.from_numpy(a).to(dev) for a in s.next_batch()]
+              for _ in range(3 + PAR_PROFILED)]
+        for b in bs[:3]:
+            m = step(p1, o1, *b)[2]
+            loss, _ = step.body(p2, o2, *b)
+            _check(torch.equal(m["loss"], loss) and _same_tree(p1, p2),
+                   f"phase 22 dense {name}: captured differs from eager")
+        prof = _profile_calls(lambda j: step(p1, o1, *bs[3 + j]),
+                              range(PAR_PROFILED))
+        out["dense_field"][name] = {
+            "bucket": PAR_SMALL_BUCKET, "B": PAR_SMALL_B, "bitwise": True,
+            "capture_s": step.captured.capture_s, "profile": prof}
+        del p1, p2, o1, o2, step
+        torch.cuda.empty_cache()
+
+
+def _par_tier_leg(dev, out):
+    """The tier's bf16 planes against the untiered bf16 step at
+    10,000,384 features (config 2's widths, SGD), bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    n_features = -(-TIER_RUNGS[0] // TIER_BUCKET) * TIER_BUCKET
+    batches = _tier_stream(n_features, PAR_TIER_STEPS + TIER_PROFILED)
+    main, extra = batches[:PAR_TIER_STEPS], batches[PAR_TIER_STEPS:]
+    spec, cfg = _tier_config("sgd", n_features)
+    spec = dataclasses.replace(spec, param_dtype="bfloat16")
+    trainer, losses, merged, tiered = _tiered_run(dev, spec, cfg, main, extra)
+    del trainer
+    want_losses, want, untiered = _untiered_run(dev, spec, cfg, main, extra)
+    _check(losses == want_losses, f"phase 22 bf16 tier: losses differ: "
+           f"{losses[:4]} vs {want_losses[:4]}")
+    same = sorted(merged) == sorted(want) and all(
+        np.array_equal(merged[k], want[k]) for k in want)
+    _check(same, "phase 22 bf16 tier: a merged plane differs from the "
+           "untiered step's")
+    _check(tiered["evictions"] > 0, f"phase 22 bf16 tier: no churn {tiered}")
+    out["tier_bf16"] = {"num_features": n_features, "steps": PAR_TIER_STEPS,
+                        "bitwise": True, "tiered": tiered,
+                        "untiered": untiered}
+
+
+def _par_cli_leg(base, out):
+    """``fmtorch train --distributed`` at config 3's full width, world 1
+    from a torchrun-style environment (the group is the command's own: it
+    joins one and leaves it), with ``--ckpt-sharded``, run in this process
+    (``cli.main``, no interpreter start-up) as the script's last training;
+    then the chain restored into ``fmtorch eval --checkpoint-dir``."""
+    import torch.distributed as dist
+
+    ck = os.path.join(base, "ck")
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    argv = ["train", "--config", "criteo1tb_fm_r64", "--synthetic", TRAIN_B,
+            "--batch-size", TRAIN_B, "--steps", 2, "--param-dtype",
+            "bfloat16", "--compute-dtype", "bfloat16", "--sparse-update",
+            "dedup_sr", "--compact-device", "--compact-cap", CAP,
+            "--gfull-fused", "--segtotal-pallas", "--test-fraction", 0,
+            "--log-every", 1, "--checkpoint-dir", ck, "--checkpoint-every",
+            2, "--distributed", "--ckpt-sharded", "--prefetch", 0]
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        lines, summary = _cli(*argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = _losses(lines)
+    _check(sorted(losses) == [1, 2], f"phase 22 cli: losses {losses}")
+    _check(not dist.is_initialized(),
+           "phase 22 cli: the command's group outlived it")
+    state = json.load(open(os.path.join(ck, "2", "state.json")))
+    _check(state["layout"] == "sharded" and summary["world"] == 1,
+           f"phase 22 cli: layout {state['layout']}, world {summary}")
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev, _ = _cli("eval", "--checkpoint-dir", ck, "--config",
+                 "criteo1tb_fm_r64", "--compute-dtype", "bfloat16",
+                 "--synthetic", 65536, "--batch-size", 65536)
+    _check(ev[0] == {"checkpoint_step": 2} and ev[1]["count"] > 0,
+           f"phase 22 cli: eval of the chain {ev}")
+    out["cli"] = {"losses": losses, "summary": summary, "train_s": train_s,
+                  "eval": ev[1], "eval_s": time.perf_counter() - t0,
+                  "arrays": len(state["arrays"])}
+
+
+def parallel_phase(dev, report):
+    """Phase 22: training over torch.distributed at world 1 on the card
+    (an NCCL group of one rank made here), the field families' generic
+    dense step, and the tier's bf16 planes."""
+    import importlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fm_spark_tpu_torch import parallel
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="par.", dir=root)
+    out = {"card": report["card"]}
+    t_phase = time.perf_counter()
+    parallel.init_distributed(dev, coordinator=f"127.0.0.1:{_free_port()}",
+                              num_processes=1, process_id=0, timeout_s=300)
+    out["world"] = dist.get_world_size()
+    out["backend"] = dist.get_backend()
+    print(f"phase 22: world {out['world']} ({out['backend']})", flush=True)
+    seconds = out["seconds"] = {}
+    try:
+        mesh = parallel.make_field_mesh(device=dev)
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        for name, leg in (("fm", lambda: _par_fm_leg(dev, mesh, out)),
+                          ("small", lambda: _par_small_legs(dev, mesh, out)),
+                          ("dense", lambda: _par_dense_field_legs(dev, out)),
+                          ("tier", lambda: _par_tier_leg(dev, out)),
+                          ("cli", lambda: _par_cli_leg(base, out))):
+            t0 = time.perf_counter()
+            if name == "cli":
+                # The command joins a group of its own.
+                dist.destroy_process_group()
+            leg()
+            seconds[name] = time.perf_counter() - t0
+            print(f"phase 22 leg {name}: {seconds[name]:.1f} s", flush=True)
+        launches = kernel_launches()
+        out["launches"] = launches
+        _check(launches["segment_totals"] > 0 and launches["sr_bits"] > 0,
+               f"phase 22: kernel A or sr_bits never launched: {launches}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("parallel", json.dumps(out), flush=True)
+    card = report["card"]
+    for leg, prof in (("single", out["fm"]["single"]),
+                      ("sharded", out["fm"]["sharded"])):
+        runs = prof.get("kernel_runs_per_step", {})
+        print(f"phase 22 ({card}) fm {leg} captured: wall "
+              f"{prof['wall_ms_per_step']:.2f} ms, busy "
+              f"{prof['device_ms_per_step']} ms per step; kernel A "
+              f"{runs.get('segment_totals')} and sr_bits "
+              f"{runs.get('sr_bits')} runs per replayed step", flush=True)
+    p = out["dp_config2"]["profile"]
+    print(f"phase 22 ({card}) dp config 2 captured: wall "
+          f"{p['wall_ms_per_step']:.2f} ms, busy {p['device_ms_per_step']} "
+          f"ms per step; kernel A "
+          f"{p.get('kernel_runs_per_step', {}).get('segment_totals')} runs "
+          "per replayed step", flush=True)
+    for name, r in out["dense_field"].items():
+        p = r["profile"]
+        print(f"phase 22 ({card}) dense {name} @ bucket {r['bucket']}: wall "
+              f"{p['wall_ms_per_step']:.2f} ms, busy "
+              f"{p['device_ms_per_step']} ms per step; kernel A "
+              f"{p.get('kernel_runs_per_step', {}).get('segment_totals')} "
+              "runs per replayed step", flush=True)
+    t = out["tier_bf16"]["tiered"]
+    print(f"phase 22 ({card}) bf16 tier @ {out['tier_bf16']['num_features']:,}"
+          f": {t['examples_per_s']:.0f} ex/s, busy "
+          f"{t['profile']['device_ms_per_step']} ms/step, evictions "
+          f"{t['evictions']}, bitwise", flush=True)
+    c = out["cli"]
+    print(f"phase 22 ({card}) fmtorch train --distributed --ckpt-sharded: "
+          f"losses {c['losses']}, {c['train_s']:.1f} s; eval of the chain "
+          f"{c['eval_s']:.1f} s; phase {out['phase_s']:.1f} s", flush=True)
+    report["parallel"] = out
+    return launches
+
+
 def repeat_phase_17(dev, report, seconds: float) -> int:
     """``chip_smoke.py --repeat-phase-17 SECONDS``: phases 3-16 once, as
     the full run runs them, then phase 17 again and again until
@@ -6122,6 +6555,7 @@ def main() -> int:
     stream_launches = timed("19 stream", stream_phase)
     tier_launches = timed("20 tier", tier_phase)
     obs_launches = timed("21 obs", obs_phase)
+    par_launches = timed("22 parallel", parallel_phase)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -6353,6 +6787,17 @@ def main() -> int:
     # capture warm-ups of its training legs, the serving warm-up).
     for entry in kernels["kernels"]:
         entry["obs_launches"] = obs_launches[entry["name"]]
+    # Phase 22, training over torch.distributed at world 1, the field
+    # families' dense step and the bf16 tier: each kernel's launches (the
+    # eager steps and the captures' warm-ups); kernel A's and sr_bits'
+    # runs per replayed step of the sharded FieldFM step by symbol.
+    par = report["parallel"]
+    for entry in kernels["kernels"]:
+        entry["parallel_launches"] = par_launches[entry["name"]]
+        runs = par["fm"]["sharded"].get("kernel_runs_per_step")
+        if runs is not None and entry["name"] in ("segment_totals",
+                                                  "sr_bits"):
+            entry["parallel_runs_per_replayed_step"] = runs[entry["name"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -13,8 +13,11 @@ array under its canonical key (``w0.npy``, ``vw/0.npy``,
 ``mlp/0/kernel.npy`` … the names of ``models/io.py``; the optimizer's
 under ``opt/``, as ``opt/count.npy`` and ``opt/mu/mlp/0/kernel.npy``) and
 ``state.json``: the step, the pipeline cursor,
-``extra``, the layout (``"canonical"``: per-field tables, one card) and
-each array's dtype and shape. A bf16 array is stored bit for bit, as its
+``extra``, the layout (``"canonical"``: per-field tables, one card; or
+``"sharded"``: each rank of a field-sharded run wrote the fields it
+owns, a row shard of a 2-D mesh under ``vw/<field>@<row>``, and the
+restore joins them into the canonical tables, see
+``parallel.field_step.save_sharded``) and each array's dtype and shape. A bf16 array is stored bit for bit, as its
 16-bit pattern (``uint16``) with ``"bfloat16"`` recorded.
 
 **The chain** keeps the reference's files and fields. After a step's
@@ -277,7 +280,8 @@ def _matches(state, arrays, manifest: dict) -> bool:
 def _result(step, state, arrays, params_example):
     """The restore dict of a read step (see :meth:`Checkpointer.restore`);
     ``layout`` is the layout the step records."""
-    flat = {k: _to_tensor(dt, a) for k, (dt, a) in arrays.items()}
+    flat = _join_row_shards({k: _to_tensor(dt, a)
+                             for k, (dt, a) in arrays.items()})
     opt = {k[len(OPT) + 1:]: v for k, v in flat.items()
            if k.startswith(OPT + "/")}
     params: Any = {k: v for k, v in flat.items()
@@ -291,7 +295,23 @@ def _result(step, state, arrays, params_example):
         params = unflatten(params, names)
     return {"params": params, "opt_state": opt, "step": int(step),
             "pipeline": state.get("pipeline"), "extra": state.get("extra"),
-            "layout": state.get("layout", LAYOUT)}
+            "layout": state.get("layout", LAYOUT), "mesh": state.get("mesh")}
+
+
+def _join_row_shards(flat: dict) -> dict:
+    """A sharded step's row shards (``vw/3@0``, ``vw/3@1`` … of a 2-D
+    mesh's field 3) joined into their canonical table, in row order."""
+    parts: dict = {}
+    out = {}
+    for key, t in flat.items():
+        base, at, row = key.partition("@")
+        if at:
+            parts.setdefault(base, {})[int(row)] = t
+        else:
+            out[key] = t
+    for base, rows in parts.items():
+        out[base] = torch.cat([rows[r] for r in sorted(rows)], dim=0)
+    return out
 
 
 class Checkpointer:
@@ -775,10 +795,11 @@ class Checkpointer:
     # ------------------------------------------------------------ restore
 
     def _read_step(self, step: int):
-        """:func:`_read_step` of a step in the canonical layout (another
-        layout is unreadable to a training run)."""
+        """:func:`_read_step` of a step in the canonical layout or the
+        sharded one (which reads back as canonical tables; another layout
+        is unreadable to a training run)."""
         state, arrays, nbytes, read_ms = _read_step(self._step_dir(step))
-        if state.get("layout", LAYOUT) != LAYOUT:
+        if state.get("layout", LAYOUT) not in (LAYOUT, "sharded"):
             raise ValueError(f"checkpoint step {step} has layout "
                              f"{state.get('layout')!r}, not {LAYOUT!r}")
         return state, arrays, nbytes, read_ms
@@ -975,7 +996,7 @@ class ChainFollower:
                     self._emit("checkpoint_corrupt", step=s)
                     continue
                 result = _result(s, state, arrays, params_example
-                                 if layout == LAYOUT else None)
+                                 if layout in (LAYOUT, "sharded") else None)
             except (OSError, ValueError, KeyError, TypeError) as e:
                 self._emit("checkpoint_unreadable", step=s,
                            error=f"{type(e).__name__}: "

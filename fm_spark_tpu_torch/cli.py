@@ -7,12 +7,18 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
 - ``cap-advise --data DIR --batch-size B`` scans packed batches as
   training draws them and recommends a ``--compact-cap``;
 - ``train --config NAME (--data PATH | --synthetic N) --steps S ...``
-  trains any registered config: the flat FM (configs 1 and 2, strategies
-  ``single`` and ``dp`` on one device) by ``FMTrainer``'s dense step, a
-  FieldFM, FieldFFM or FieldDeepFM config (``field_sparse`` strategy)
-  by the fused sparse step (on the card each a captured CUDA graph per
-  step; FieldDeepFM's MLP and bias by ``--optimizer``, Adam for config
-  5), printing one JSON loss line every ``--log-every`` steps, then
+  trains any registered config: strategies ``single`` and ``dp`` (the
+  flat FM of configs 1 and 2, or any config by ``--strategy``) by
+  ``FMTrainer``'s dense step, a FieldFM, FieldFFM or FieldDeepFM config
+  (``field_sparse``) by the fused sparse step (on the card each a
+  captured CUDA graph per step; FieldDeepFM's MLP and bias by
+  ``--optimizer``, Adam for config 5). ``--distributed`` joins a
+  ``torch.distributed`` group (torchrun's environment or
+  ``--coordinator/--num-processes/--process-id``; one rank a card):
+  ``field_sparse`` then runs the field-sharded step (``--row-shards``,
+  ``--ckpt-sharded``), ``dp`` all-reduces the gradient, and ``row``
+  row-shards a flat FM's tables (``--force`` past 1M features). It
+  prints one JSON loss line every ``--log-every`` steps, then
   ``{"eval": {...}}`` on the held-out ``--test-fraction`` and
   ``{"saved": DIR}`` with ``--model-out``. ``--data`` takes a packed dir
   (streamed; the held-out rows are its tail), a comma-separated list of
@@ -34,8 +40,9 @@ or ``fmtorch``), mirroring ``fm_spark_tpu``'s CLI:
   continuous-learning protocol with ``--online`` (day N trains, day N+1
   evaluates, a drift verdict demotes the day's saves; ``online.py``),
   printing ``{"online": {...}}``;
-- ``eval --model DIR (--data PATH --config NAME | --synthetic N)``
-  prints the model's metrics;
+- ``eval (--model DIR | --checkpoint-dir CK --config NAME) (--data PATH
+  --config NAME | --synthetic N)`` prints the metrics of a model dir or
+  of a chain's newest verified step;
 - ``predict --model DIR (--data PATH --config NAME | --synthetic N)``
   scores through the serving engine with one bucket of ``--batch-size``
   rows and writes one ``%.6g`` prediction per line;
@@ -192,7 +199,7 @@ def _stream_source(args, cfg, tconfig):
             "streaming text ingest (--data with a comma-separated shard "
             "list) holds out no eval split; pass --test-fraction 0, or "
             "preprocess to a packed dir for held-out metrics")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    if max(_world(), int(os.environ.get("WORLD_SIZE", "1"))) > 1:
         raise SystemExit("streaming text ingest is single-process; "
                          "preprocess to a packed dir for multi-host runs")
     reader = ShardReader(paths, header_prefix=(
@@ -444,29 +451,62 @@ class _Profile:
 def cmd_train(args) -> int:
     _obs_setup(args)
     _start_metrics_endpoint(args)
-    with _Profile(args.profile):
-        return _cmd_train(args)
+    ok = False
+    try:
+        with _Profile(args.profile):
+            rc = _cmd_train(args)
+        ok = True
+        return rc
+    finally:
+        _finish_distributed(ok)
 
 
 def _cmd_train(args) -> int:
-    from fm_spark_tpu_torch import configs, data, models, resolve_device
+    from fm_spark_tpu_torch import configs, models
     from fm_spark_tpu_torch.train import evaluate_params, fit_field_sparse
-    from fm_spark_tpu_torch.utils.logging import MetricsLogger
 
     if bool(args.synthetic) == bool(args.data):
         raise SystemExit("train needs one of --data PATH or --synthetic N")
+    world = _maybe_init_distributed(args)
+    batch_size = args.batch_size
+    if args.batch_per_chip is not None:
+        if batch_size is not None:
+            raise SystemExit(
+                "--batch-per-chip and --batch-size are exclusive "
+                "(weak scaling derives the global batch from the mesh)")
+        batch_size = args.batch_per_chip * world
     cfg = configs.get_config(args.config, bucket=args.bucket,
                              param_dtype=args.param_dtype,
                              compute_dtype=args.compute_dtype,
                              use_pallas=True if args.use_pallas else None,
                              optimizer=args.optimizer,
                              learning_rate=args.lr, loss=args.loss,
-                             seed=args.seed, table_layout=args.table_layout)
-    if cfg.strategy not in ("single", "dp", "field_sparse"):
-        raise SystemExit(f"strategy {cfg.strategy!r} (config {cfg.name!r}) "
-                         "is not ported yet (ROADMAP Queue 1 item 11)")
+                             seed=args.seed, table_layout=args.table_layout,
+                             strategy=args.strategy)
+    if cfg.strategy not in STRATEGIES:
+        raise SystemExit(f"unknown strategy {cfg.strategy!r} (config "
+                         f"{cfg.name!r}); expected one of {STRATEGIES}")
+    warn = check_row_scale(cfg.strategy, cfg.num_features
+                           if cfg.strategy == "row" and cfg.bucket > 0
+                           else 0)
+    if warn:
+        if not args.force:
+            raise SystemExit(warn)
+        print(f"warning: {warn}", file=sys.stderr)
+    if world > 1:
+        # Only the sharded loops reduce across processes; 'single' would
+        # train a different model on each process's data shard.
+        if cfg.strategy == "single":
+            raise SystemExit(
+                f"multi-process training supports strategy 'field_sparse' "
+                f"(and the port's 'dp' and 'row') only; config {cfg.name!r} "
+                f"resolves to strategy {cfg.strategy!r}")
+        bs = batch_size or cfg.batch_size
+        if bs % world:
+            raise SystemExit(f"batch_size={bs} must be divisible by the "
+                             f"process count ({world})")
     tconfig = cfg.train_config(
-        num_steps=args.steps, batch_size=args.batch_size,
+        num_steps=args.steps, batch_size=batch_size,
         log_every=args.log_every, eval_every=args.eval_every,
         metrics_path=args.metrics, sparse_update=args.sparse_update,
         host_dedup=args.host_dedup, compact_cap=args.compact_cap,
@@ -484,60 +524,59 @@ def _cmd_train(args) -> int:
     if msg:
         raise SystemExit(msg)
     if args.online:
+        if world > 1:
+            raise SystemExit("--online is single-process")
         return _run_online_cmd(args, cfg, tconfig)
     if args.divergence_guard is not None and (
-            cfg.strategy == "field_sparse" or not args.checkpoint_dir):
+            cfg.strategy in ("field_sparse", "row") or not args.checkpoint_dir
+            or (cfg.strategy == "dp" and args.distributed)):
+        # The guard rolls back FMTrainer's single step ('dp' without a
+        # process group is that step on one card).
         raise SystemExit(
             "--divergence-guard requires strategy 'single' and "
             "--checkpoint-dir (rollback restores the last good "
             f"checkpoint; config {cfg.name!r} resolves to strategy "
             f"{cfg.strategy!r})")
     if cfg.strategy != "field_sparse":
-        return _train_flat(args, cfg, tconfig)
+        return _train_flat(args, cfg, tconfig, world)
     spec = cfg.spec()
     _tier_plan(spec, tconfig, cfg.strategy)
+    sharded = bool(args.distributed)
+    _validate_field_caps(args, spec, tconfig, world, sharded)
     if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
         # The reference's lever rule; the port's CLI trains on one device.
         raise SystemExit(
             f"--sel-blocked is the single-chip FieldFFM body's lever (it "
             f"blocks the [B, F, F, k] sel tensor; found 1 device(s), "
             f"{type(spec).__name__})")
-    dev = resolve_device(args.device)
-    bs = tconfig.batch_size
-    stream = None
-    if _is_shard_list(cfg, args.data):
-        batches, stream = _stream_source(args, cfg, tconfig)
-        eval_source = None
-    elif args.data and os.path.isdir(args.data):
-        # A packed dir streams; --test-fraction holds out its TAIL rows (a
-        # random split when preprocess shuffled the dir).
-        ds = data.PackedDataset(args.data)
-        cut = (max(1, int(len(ds) * (1.0 - args.test_fraction)))
-               if args.test_fraction > 0 else len(ds))
-        bucket = cfg.bucket if cfg.field_local_ids else 0
-        batches = data.PackedBatches(ds, bs, seed=cfg.seed,
-                                     row_range=(0, cut), bucket=bucket)
-        eval_source = (
-            (lambda: data.iter_packed_once(ds, bs, bucket=bucket,
-                                           row_range=(cut, len(ds))))
-            if cut < len(ds) else None)
-    else:
-        ids, vals, labels, _ = (load_text(cfg, args.data, args) if args.data
-                                else load_dataset(cfg, args.synthetic))
-        batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
-                                              bs)
+    dev = _rank_device(args)
+    batches, eval_source, stream, _ = _train_source(
+        args, cfg, tconfig, (_rank(), world) if sharded else (0, 1))
     checkpointer, journal = _checkpointer(args)
     stats = {}
     before = _launches()
     try:
         with _preemption(checkpointer) as guard:
-            params = fit_field_sparse(
-                spec, tconfig, batches, device=dev,
-                steps_per_call=args.steps_per_call, prefetch=args.prefetch,
-                logger=MetricsLogger(path=tconfig.metrics_path),
-                stats=stats,
-                checkpointer=checkpointer, eval_source=eval_source,
-                preemption_guard=guard)
+            if sharded:
+                from fm_spark_tpu_torch import parallel
+
+                mesh = parallel.make_field_mesh(n_row=args.row_shards,
+                                                device=dev)
+                params = parallel.fit_field_sharded(
+                    spec, tconfig, batches, mesh,
+                    steps_per_call=args.steps_per_call,
+                    prefetch=args.prefetch, logger=_logger(tconfig, world),
+                    stats=stats, checkpointer=checkpointer,
+                    ckpt_sharded=args.ckpt_sharded,
+                    eval_source=eval_source, preemption_guard=guard)
+            else:
+                params = fit_field_sparse(
+                    spec, tconfig, batches, device=dev,
+                    steps_per_call=args.steps_per_call,
+                    prefetch=args.prefetch, logger=_logger(tconfig, world),
+                    stats=stats,
+                    checkpointer=checkpointer, eval_source=eval_source,
+                    preemption_guard=guard)
     finally:
         if checkpointer is not None:
             checkpointer.close()
@@ -549,7 +588,8 @@ def _cmd_train(args) -> int:
         print(json.dumps({"resumed": stats["resumed"]}), flush=True)
     summary = {"device": str(dev), "kernel_launches": _since(before),
                "step_ms": stats["step_ms"], "aux_ms": stats["aux_ms"],
-               "capture_s": stats["capture_s"], "saves": stats["saves"]}
+               "capture_s": stats["capture_s"], "saves": stats["saves"],
+               "world": world}
     _print_ingest(stats["ingest"], summary, stream)
     if stats["end"] < tconfig.num_steps:
         # Preempted: the chain holds the step reached; the same command
@@ -557,13 +597,226 @@ def _cmd_train(args) -> int:
         print(json.dumps({"preempted": stats["end"]}), flush=True)
         print(json.dumps(summary), file=sys.stderr)
         return 0
-    if eval_source is not None:
+    if sharded:
+        # The tables stay sharded: eval on the layout, the model gathered
+        # into rank 0's host memory only when asked for.
+        if eval_source is not None:
+            metrics = parallel.evaluate_field_sharded(spec, mesh, params,
+                                                      eval_source())
+            print(json.dumps({"eval": metrics}), flush=True)
+        if args.model_out:
+            params = parallel.gather_field_params(spec, params, mesh, root=0)
+    elif eval_source is not None:
         metrics = evaluate_params(spec, params, eval_source())
         print(json.dumps({"eval": metrics}), flush=True)
-    if args.model_out:
+    if args.model_out and _rank() == 0:
         models.save_model(args.model_out, spec, params)
         print(json.dumps({"saved": args.model_out}), flush=True)
     summary["kernel_launches"] = _since(before)
+    print(json.dumps(summary), file=sys.stderr)
+    return 0
+
+
+def _logger(tconfig, world: int):
+    """A training loop's ``MetricsLogger``: every rank prints its lines,
+    rank 0 alone appends them to ``--metrics`` (one line per log step)."""
+    from fm_spark_tpu_torch.utils.logging import MetricsLogger
+
+    return MetricsLogger(path=tconfig.metrics_path if _rank() == 0
+                         else None, n_chips=world)
+
+
+#: train's strategies (the reference's ``--strategy`` choices).
+STRATEGIES = ("single", "field_sparse", "dp", "row")
+
+
+def check_row_scale(strategy: str, num_features: int) -> str | None:
+    """The reference's ≥1M-feature guard of strategy ``row``, which
+    materializes a dense per-shard gradient table every step: the warning
+    text, or None when the combination is fine (``--force`` runs it)."""
+    if strategy != "row" or num_features < 1_000_000:
+        return None
+    return (
+        f"strategy 'row' with {num_features:,} features materializes a "
+        "dense per-shard gradient table every step — measured ~8x below "
+        "the fused sparse path at CTR scale (parallel/step.py SCALE "
+        "CAVEAT). Use --strategy field_sparse for tables this size, or "
+        "pass --force to run 'row' anyway (exact optimizer parity is "
+        "its one remaining use).")
+
+
+def _maybe_init_distributed(args) -> int:
+    """``--distributed``: join the default process group before the first
+    touch of a card (``parallel.init_distributed``: NCCL on the card, gloo
+    with ``--device cpu``) and return the world size (1 without the
+    flag). The explicit triple ``--coordinator/--num-processes/
+    --process-id`` gives the store; without it torchrun's environment
+    does (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+    ``LOCAL_RANK``). A partial triple raises rather than rendezvous
+    against the wrong cluster."""
+    if not args.distributed:
+        if (args.coordinator is not None or args.num_processes is not None
+                or args.process_id is not None):
+            raise SystemExit(
+                "--coordinator/--num-processes/--process-id require "
+                "--distributed")
+        return 1
+    explicit = (args.coordinator, args.num_processes, args.process_id)
+    if any(x is not None for x in explicit) and None in explicit:
+        raise SystemExit(
+            "--coordinator, --num-processes and --process-id must be "
+            "given together (a partial triple would auto-detect against "
+            "the wrong cluster)")
+    if args.coordinator is None and "MASTER_ADDR" not in os.environ:
+        raise SystemExit(
+            "--distributed needs the explicit triple (--coordinator, "
+            "--num-processes, --process-id) or a torchrun environment "
+            "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
+    import torch.distributed as dist
+
+    from fm_spark_tpu_torch import parallel
+
+    parallel.init_distributed(args.device, coordinator=args.coordinator,
+                              num_processes=args.num_processes,
+                              process_id=args.process_id)
+    return dist.get_world_size()
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank_device(args):
+    """This process's device: under ``--distributed`` the rank's card
+    (``cuda:LOCAL_RANK``) or the CPU, else ``--device``'s."""
+    import torch.distributed as dist
+
+    from fm_spark_tpu_torch import resolve_device
+
+    if args.distributed and dist.is_initialized():
+        if args.device == "cpu":
+            return resolve_device("cpu")
+        return resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+    return resolve_device(args.device)
+
+
+def _finish_distributed(ok: bool) -> None:
+    """Leave the process group (after a barrier when the run ended well:
+    no rank tears it down under another's last collective)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if ok:
+            dist.barrier()
+        dist.destroy_process_group()
+
+
+def _validate_field_caps(args, spec, tconfig, n: int, sharded: bool):
+    """The reference's field_sparse guards (``_validate_field_caps``) with
+    its messages, for the port's sharded steps: ``n`` ranks, ``sharded``
+    under ``--distributed`` (a mesh of one included)."""
+    from fm_spark_tpu_torch import models
+
+    row_shards = args.row_shards
+    deep = isinstance(spec, models.FieldDeepFMSpec)
+    if row_shards < 1:
+        raise SystemExit(f"--row-shards must be >= 1, got {row_shards}")
+    if row_shards > 1 and not sharded:
+        raise SystemExit(
+            f"--row-shards={row_shards} needs multiple devices and a "
+            f"model family with a 2-D (feat, row) sharded step "
+            f"(found {n} device(s), {type(spec).__name__})")
+    if args.ckpt_sharded and not sharded:
+        raise SystemExit(
+            "--ckpt-sharded applies to multi-device field-sharded runs "
+            f"(found {n} device(s)); the default canonical layout "
+            "already serves single-chip runs")
+    if not sharded:
+        return
+    compact_sharded = tconfig.host_dedup and tconfig.compact_cap > 0
+    if compact_sharded and deep:
+        raise SystemExit(
+            f"host-built --compact-cap is not supported by the sharded "
+            f"{type(spec).__name__} step")
+    if compact_sharded and (row_shards > 1 or n > 1):
+        raise SystemExit(
+            "host-built --compact-cap on multiple chips requires a 1-D "
+            "field mesh (no --row-shards) and a single process; add "
+            "--compact-device to build the aux in-step, which composes "
+            "with both")
+    if tconfig.host_dedup and not compact_sharded:
+        raise SystemExit(
+            f"--host-dedup on {n} devices requires --compact-cap "
+            "(or drop --host-dedup / run on 1 chip)")
+    if args.steps_per_call > 1 and compact_sharded:
+        raise SystemExit("--steps-per-call > 1 does not take the host-built "
+                         "compact aux; use --compact-device")
+    if tconfig.batch_size % n:
+        raise SystemExit(
+            f"batch_size={tconfig.batch_size} must be divisible by the "
+            f"device count ({n}) for the field-sharded strategy")
+    if n % row_shards:
+        raise SystemExit(f"--row-shards={row_shards} must divide the device "
+                         f"count ({n})")
+
+
+def _train_parallel(args, cfg, spec, tconfig, dev, batches, eval_source,
+                    checkpointer, journal, stream, world: int) -> int:
+    """``dp`` (under ``--distributed``: each rank reads its own rows) or
+    ``row`` (every rank reads every row) over a ``(data, feat)`` mesh of
+    every rank (``row``: ``feat`` over every rank)."""
+    from fm_spark_tpu_torch import models, parallel
+
+    if cfg.strategy == "row":
+        try:
+            parallel.param_specs(spec, "row")     # the FM family only
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+        mesh = parallel.make_mesh(1, world, device=dev)
+    else:
+        mesh = parallel.make_mesh(world, 1, device=dev)
+    stats = {}
+    before = _launches()
+    try:
+        with _preemption(checkpointer) as guard:
+            params = parallel.fit_parallel(
+                spec, tconfig, batches, mesh, cfg.strategy,
+                prefetch=args.prefetch, logger=_logger(tconfig, world),
+                checkpointer=checkpointer, preemption_guard=guard,
+                stats=stats, eval_source=eval_source)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
+            journal.close()
+        if stream is not None:
+            stream.close()
+            stream.guard.close()
+    if stats["resumed"] is not None:
+        print(json.dumps({"resumed": stats["resumed"]}), flush=True)
+    summary = {"device": str(dev), "strategy": cfg.strategy, "world": world,
+               "kernel_launches": _since(before),
+               "capture_s": stats["capture_s"]}
+    if stats["end"] < tconfig.num_steps:
+        print(json.dumps({"preempted": stats["end"]}), flush=True)
+    else:
+        if eval_source is not None:
+            metrics = parallel.evaluate_parallel(spec, mesh, params,
+                                                 eval_source(), cfg.strategy)
+            print(json.dumps({"eval": metrics}), flush=True)
+        if args.model_out:
+            params = parallel.gather_tree(params, mesh, spec, cfg.strategy,
+                                          root=0)
+            if _rank() == 0:
+                models.save_model(args.model_out, spec, params)
+                print(json.dumps({"saved": args.model_out}), flush=True)
     print(json.dumps(summary), file=sys.stderr)
     return 0
 
@@ -602,18 +855,75 @@ def _tier_plan(spec, tconfig, strategy):
     return mode
 
 
-def _split_batches(args, cfg, ids, vals, labels, bs):
-    """In-memory arrays → (training ``Batches``, eval source or None) by
-    ``--test-fraction``."""
+def _train_source(args, cfg, tconfig, part=(0, 1)):
+    """``(training source, eval source or None, raw-text stream or None,
+    num_features of in-memory data or None)`` of ``--data``/
+    ``--synthetic``. ``part = (p, n)``: the p-th of n processes reads its
+    own rows, batches of ``batch_size / n`` (the reference's multi-host
+    ingest): a packed dir's p-th contiguous slice of the training rows, or
+    every n-th in-memory row from p, each trimmed to one length so the
+    ranks' cursors stay in lockstep; its saved cursor leaves out the slice
+    bounds, and every rank restores rank 0's. The held-out rows (the
+    eval source) stay whole: every rank evaluates the global batches. A
+    packed dir holds out its TAIL rows (a random split when preprocess
+    shuffled the dir); in-memory data a random split."""
     from fm_spark_tpu_torch import data
 
+    p, n = part
+    bs = tconfig.batch_size
+    local_bs = bs // n
+    if _is_shard_list(cfg, args.data):
+        batches, stream = _stream_source(args, cfg, tconfig)
+        return batches, None, stream, None
+    if args.data and os.path.isdir(args.data):
+        ds = data.PackedDataset(args.data)
+        cut = (max(1, int(len(ds) * (1.0 - args.test_fraction)))
+               if args.test_fraction > 0 else len(ds))
+        # Global ids (field offset + hash) for a flat table, field-local
+        # ones (the bucket's) for a field-partitioned model.
+        bucket = cfg.bucket if cfg.field_local_ids else 0
+        per = cut // n
+        batches = data.PackedBatches(ds, local_bs, seed=cfg.seed,
+                                     row_range=(p * per, (p + 1) * per),
+                                     bucket=bucket)
+        eval_source = (
+            (lambda: data.iter_packed_once(ds, bs, bucket=bucket,
+                                           row_range=(cut, len(ds))))
+            if cut < len(ds) else None)
+        return _RankCursor(batches) if n > 1 else batches, eval_source, \
+            None, None
+    ids, vals, labels, num_features = (
+        load_text(cfg, args.data, args) if args.data
+        else load_dataset(cfg, args.synthetic))
     te = None
     if args.test_fraction > 0:
         (ids, vals, labels), te = data.train_test_split(
             ids, vals, labels, args.test_fraction, seed=cfg.seed)
-    batches = data.Batches(ids, vals, labels, bs, seed=cfg.seed)
+    if n > 1:
+        end = ids.shape[0] - ids.shape[0] % n
+        ids, vals, labels = (a[p:end:n] for a in (ids, vals, labels))
+    batches = data.Batches(ids, vals, labels, local_bs, seed=cfg.seed)
     return batches, ((lambda: data.iterate_once(*te, bs))
-                     if te is not None else None)
+                     if te is not None else None), None, num_features
+
+
+class _RankCursor:
+    """A per-rank slice's source whose cursor leaves out the slice bounds
+    (``lo``/``hi``): rank 0 saves it and every rank restores it onto its
+    own slice (the reference's multi-host ``pipe_state``)."""
+
+    def __init__(self, source):
+        self._source = source
+
+    def next_batch(self):
+        return self._source.next_batch()
+
+    def state(self):
+        return {k: v for k, v in self._source.state().items()
+                if k not in ("lo", "hi")}
+
+    def restore(self, state) -> None:
+        self._source.restore(state)
 
 
 def _checkpointer(args):
@@ -641,14 +951,19 @@ _FIELD_ONLY_LEVERS = (
     ("compact_overflow", "--compact-overflow"))
 
 
-def _train_flat(args, cfg, tconfig) -> int:
-    """``train`` of a flat FM config (strategies ``single`` and ``dp``) by
-    :class:`~fm_spark_tpu_torch.train.FMTrainer`'s dense step. ``dp`` is
-    the same step on one device (the reference's mesh of one); with more
-    than one visible card it raises, never training on one of several."""
+def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
+    """``train`` by the dense step (strategies ``single``, ``dp`` and
+    ``row``) of a flat config or, with ``--strategy single|dp``, a field
+    config (the field families' generic dense step): ``single``, and
+    ``dp`` without ``--distributed``, by
+    :class:`~fm_spark_tpu_torch.train.FMTrainer` on one device (``dp`` on
+    a mesh of one); ``dp`` under ``--distributed`` and ``row`` by
+    :func:`~fm_spark_tpu_torch.parallel.step.fit_parallel` over the
+    ranks. ``dp`` with more than one visible card and no process group
+    raises, never training on one of several."""
     import torch
 
-    from fm_spark_tpu_torch import data, models, resolve_device
+    from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.train import FMTrainer
 
     for dest, flag in _FIELD_ONLY_LEVERS:
@@ -660,39 +975,34 @@ def _train_flat(args, cfg, tconfig) -> int:
         raise SystemExit(f"--steps-per-call requires strategy "
                          f"'field_sparse' (config {cfg.name!r} resolves to "
                          f"{cfg.strategy!r})")
-    if cfg.strategy == "dp" and torch.cuda.device_count() > 1:
+    for flag in ("row_shards", "ckpt_sharded"):
+        if getattr(args, flag) not in (None, False, 1):
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} applies to the field-sharded "
+                f"strategy 'field_sparse' (config {cfg.name!r} resolves to "
+                f"{cfg.strategy!r})")
+    if (cfg.strategy == "dp" and not args.distributed
+            and args.device != "cpu" and torch.cuda.device_count() > 1):
         raise SystemExit(
             f"strategy 'dp' over {torch.cuda.device_count()} visible cards "
-            "is not ported yet (ROADMAP Queue 1 item 11); make one card "
+            "runs one process per card: launch it under torchrun with "
+            "--distributed (or pass --distributed with --coordinator, "
+            "--num-processes and --process-id to each), or make one card "
             "visible (CUDA_VISIBLE_DEVICES) to run it on one")
-    dev = resolve_device(args.device)
-    bs = tconfig.batch_size
-    stream = None
-    if _is_shard_list(cfg, args.data):
-        batches, stream = _stream_source(args, cfg, tconfig)
-        eval_source = None
-        spec = cfg.spec()
-    elif args.data and os.path.isdir(args.data):
-        # Global ids (field offset + hash): the flat table takes them as
-        # they are, bucket 0 in the reader.
-        ds = data.PackedDataset(args.data)
-        cut = (max(1, int(len(ds) * (1.0 - args.test_fraction)))
-               if args.test_fraction > 0 else len(ds))
-        batches = data.PackedBatches(ds, bs, seed=cfg.seed,
-                                     row_range=(0, cut), bucket=0)
-        eval_source = (
-            (lambda: data.iter_packed_once(ds, bs, row_range=(cut, len(ds))))
-            if cut < len(ds) else None)
-        spec = cfg.spec()
-    else:
-        ids, vals, labels, num_features = (
-            load_text(cfg, args.data, args) if args.data
-            else load_dataset(cfg, args.synthetic))
-        spec = cfg.spec(num_features if cfg.bucket <= 0 else None)
-        batches, eval_source = _split_batches(args, cfg, ids, vals, labels,
-                                              bs)
-    # One visible card: strategy 'dp' is the single step (checked above).
-    tiered = _tier_plan(spec, tconfig, "single") == "tiered"
+    parallel_run = cfg.strategy == "row" or (cfg.strategy == "dp"
+                                             and args.distributed)
+    dev = _rank_device(args)
+    # dp's ranks each read their own rows; row's all read every row.
+    batches, eval_source, stream, num_features = _train_source(
+        args, cfg, tconfig,
+        (_rank(), world) if cfg.strategy == "dp" and parallel_run
+        else (0, 1))
+    spec = cfg.spec(num_features if num_features is not None
+                    and cfg.bucket <= 0 else None)
+    # dp without a process group is the single step on one card (checked
+    # above); the parallel strategies shard or replicate their tables.
+    tiered = _tier_plan(spec, tconfig, cfg.strategy if parallel_run
+                        else "single") == "tiered"
     if tiered and args.divergence_guard is not None:
         raise SystemExit(
             "--embed-tier is exclusive with --divergence-guard: the "
@@ -706,6 +1016,10 @@ def _train_flat(args, cfg, tconfig) -> int:
     if tiered:
         return _train_tiered(args, spec, tconfig, dev, batches, eval_source,
                              checkpointer, journal, stream)
+    if parallel_run:
+        return _train_parallel(args, cfg, spec, tconfig, dev, batches,
+                               eval_source, checkpointer, journal, stream,
+                               world)
     guard_div = None
     if args.divergence_guard is not None:
         from fm_spark_tpu_torch.resilience.divergence import DivergenceGuard
@@ -932,10 +1246,21 @@ def _preemption(checkpointer):
 
 
 def cmd_eval(args) -> int:
-    from fm_spark_tpu_torch import models
-    from fm_spark_tpu_torch.train import evaluate_params
+    from fm_spark_tpu_torch import models, resolve_device
+    from fm_spark_tpu_torch.train import _tree_map, evaluate_params
 
-    spec, params = models.load_model(args.model, device=args.device)
+    if bool(args.model) == bool(args.checkpoint_dir):
+        raise SystemExit("eval needs one of --model DIR or --checkpoint-dir "
+                         "DIR (with --config)")
+    if args.model:
+        spec, params = models.load_model(args.model, device=args.device)
+    else:
+        if args.config is None:
+            raise SystemExit("eval --checkpoint-dir needs --config")
+        spec, params, step = _serve_from_chain(args)
+        dev = resolve_device(args.device)
+        params = _tree_map(lambda t: t.to(dev), params)
+        print(json.dumps({"checkpoint_step": step}), flush=True)
     batches = _batches_for_model(args, spec)
     before = _launches()
     metrics = evaluate_params(spec, params, batches)
@@ -1023,9 +1348,10 @@ def _serve_from_chain(args):
         raise SystemExit(f"no verified checkpoint to serve under "
                          f"{args.checkpoint_dir} (the follower trusts only "
                          "manifest-verified steps)")
-    if restored["layout"] != "canonical":
+    if restored["layout"] not in ("canonical", "sharded"):
         raise SystemExit(f"chain holds {restored['layout']}-layout "
-                         "checkpoints; serving follows canonical layouts only")
+                         "checkpoints; serving follows canonical layouts "
+                         "(and sharded ones, read back as canonical) only")
     table = flatten(restored["params"])[names[1]]
     spec = dataclasses.replace(
         spec, param_dtype=str(table.dtype).removeprefix("torch."))
@@ -1249,6 +1575,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the fused kernels: FieldFM's backward, FieldFFM's "
                         "ffm_sel pair (with --sel-blocked)")
     t.add_argument("--steps-per-call", type=int, default=1)
+    t.add_argument("--strategy", default=None, choices=list(STRATEGIES),
+                   help="override the config's strategy: single (one "
+                        "device, the dense step), field_sparse (the fused "
+                        "step; field-sharded under --distributed), dp "
+                        "(data parallel, every family), row (the flat FM's "
+                        "row-sharded tables; --force past 1M features)")
+    t.add_argument("--force", action="store_true",
+                   help="run strategy 'row' on a table of 1M features or "
+                        "more")
+    t.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group (NCCL; "
+                        "gloo with --device cpu) before training: under "
+                        "torchrun from its environment, else with "
+                        "--coordinator/--num-processes/--process-id; one "
+                        "rank per card")
+    t.add_argument("--coordinator", default=None,
+                   help="rendezvous host:port (with --distributed)")
+    t.add_argument("--num-processes", type=int, default=None,
+                   dest="num_processes",
+                   help="total process count (with --distributed)")
+    t.add_argument("--process-id", type=int, default=None, dest="process_id",
+                   help="this process's rank (with --distributed)")
+    t.add_argument("--row-shards", type=int, default=1, dest="row_shards",
+                   help="field_sparse under --distributed: shard each "
+                        "field's bucket dimension over this many ranks (a "
+                        "2-D feat x row mesh)")
+    t.add_argument("--ckpt-sharded", action="store_true",
+                   dest="ckpt_sharded",
+                   help="field_sparse under --distributed: each rank "
+                        "writes the fields it owns into the chain; resumes "
+                        "only onto the same mesh, reads back as canonical "
+                        "tables (eval, predict, serve)")
+    t.add_argument("--batch-per-chip", type=int, default=None,
+                   dest="batch_per_chip",
+                   help="weak scaling: global batch = N x the process count "
+                        "(exclusive with --batch-size)")
     t.add_argument("--test-fraction", type=float, default=0.2)
     t.add_argument("--log-every", type=int, default=1)
     t.add_argument("--eval-every", type=int, default=None,
@@ -1369,7 +1731,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None, help=device_help)
 
     e = sub.add_parser("eval", help="evaluate a saved model")
-    e.add_argument("--model", required=True)
+    e.add_argument("--model", help="model dir (spec.json + params.npz)")
+    e.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                   help="evaluate the newest verified step of a chain "
+                        "instead (with --config; a sharded chain reads "
+                        "back as canonical tables)")
+    e.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   default=None, dest="compute_dtype")
     add_data_args(e, 8192)
     e.set_defaults(fn=cmd_eval)
 

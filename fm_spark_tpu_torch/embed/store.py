@@ -92,6 +92,41 @@ COLD_MANIFEST = "cold_manifest.json"
 STAGE_RING = 8
 
 
+#: The cold tier's numpy dtype of a bf16 plane: its 16-bit patterns, as
+#: the checkpoint chain stores bf16 (numpy has no bf16). No plane holds
+#: real uint16 values.
+BF16_BITS = np.dtype(np.uint16)
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The cold tier's numpy dtype of a plane of torch ``dtype``."""
+    if dtype == torch.bfloat16:
+        return BF16_BITS
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def torch_dtype_of(dtype) -> torch.dtype:
+    """The torch dtype of a cold plane of numpy ``dtype``."""
+    if np.dtype(dtype) == BF16_BITS:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def from_host(a: np.ndarray) -> torch.Tensor:
+    """A cold-tier array as a tensor sharing its memory (bf16 bits as
+    bf16)."""
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if a.dtype == BF16_BITS else t
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as the cold tier's numpy array, sharing its memory
+    (bf16 as its bits)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy()
+    return t.numpy()
+
+
 class ColdStore:
     """Host-memory cold tier: named row-planes over one global row axis.
 
@@ -362,7 +397,7 @@ class TieredStore:
     # ------------------------------------------------------------ hot init
 
     def _torch_dtype(self, plane: str) -> torch.dtype:
-        return torch.from_numpy(np.empty(0, self.cold.dtype(plane))).dtype
+        return torch_dtype_of(self.cold.dtype(plane))
 
     def init_hot(self) -> dict:
         """The hot planes, one per cold plane: ``[hot_rows, ...]`` on the
@@ -415,7 +450,7 @@ class TieredStore:
         goes through the staging ring (non-blocking copies); otherwise
         the copies are synchronous and timed by their caller."""
         if not self._cuda:
-            return {p: torch.from_numpy(a) for p, a in src.items()}, None
+            return {p: from_host(a) for p, a in src.items()}, None
         torch.cuda.set_device(self.device)
         side = self._stream(stream)
         ready = torch.cuda.Event()
@@ -425,12 +460,12 @@ class TieredStore:
                 bufs = {}
                 for p, a in src.items():
                     host = slot["bufs"][p]
-                    host.numpy()[...] = a
+                    to_host(host)[...] = a
                     bufs[p] = torch.empty_like(host, device=self.device)
                     bufs[p].copy_(host, non_blocking=True)
                 slot["done"] = ready
             else:
-                bufs = {p: torch.from_numpy(a).to(self.device)
+                bufs = {p: from_host(a).to(self.device)
                         for p, a in src.items()}
             ready.record(side)
         return bufs, ready
@@ -440,14 +475,14 @@ class TieredStore:
         the current stream; synchronous): on the card through a pinned
         buffer kept per ``key``."""
         if not self._cuda:
-            return t.numpy().copy()
+            return to_host(t).copy()
         buf = self._flush_buf.get(key)
         if buf is None or buf.shape != t.shape:
             buf = self._flush_buf[key] = torch.empty(
                 t.shape, dtype=t.dtype, pin_memory=True)
         buf.copy_(t, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
-        return buf.numpy().copy()
+        return to_host(buf).copy()
 
     # ------------------------------------------------------- prefetch side
 

@@ -39,7 +39,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from fm_spark_tpu_torch.embed.store import ColdStore, TieredStore
+from fm_spark_tpu_torch.embed.store import (ColdStore, TieredStore,
+                                            from_host, host_dtype, to_host)
 
 __all__ = ["TieredTrainer", "lazy_init_fn"]
 
@@ -53,6 +54,16 @@ _SLOT_PLANES = {
     ("sgd", True): (),
     ("sgd", False): (),
 }
+
+
+def _as_plane(a, dtype) -> np.ndarray:
+    """float32 values as a plane of ``dtype`` (a bf16 plane's bits rounded
+    to nearest even, as torch casts)."""
+    dtype = np.dtype(dtype)
+    if dtype == host_dtype(torch.bfloat16):
+        return to_host(torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16)).copy()
+    return np.asarray(a).astype(dtype)
 
 
 def lazy_init_fn(spec, seed: int, *, ftrl_seed: tuple | None = None):
@@ -75,8 +86,8 @@ def lazy_init_fn(spec, seed: int, *, ftrl_seed: tuple | None = None):
         if plane == "v":
             rng = np.random.default_rng(
                 np.random.SeedSequence([seed, 0xE0, bucket]))
-            return (rng.standard_normal(shape, np.float32)
-                    * init_std).astype(dtype)
+            return _as_plane(rng.standard_normal(shape, np.float32)
+                             * init_std, dtype)
         if plane == "v_z":
             alpha, beta = ftrl_seed
             return (-init("v", bucket, shape, np.float32)
@@ -93,7 +104,10 @@ class TieredTrainer:
 
     ``TrainConfig`` contract: ``embed_tier`` in ("auto", "require"),
     ``hot_rows`` > 0 and a multiple of ``embed_bucket_rows``,
-    ``optimizer`` in ("sgd", "ftrl", "adagrad"), float32 tables. The
+    ``optimizer`` in ("sgd", "ftrl", "adagrad"), float32 or bf16 tables
+    (the spec's ``param_dtype`` in the cold and hot ``v``/``w`` planes, a
+    bf16 cold plane kept as its 16-bit patterns; the slot planes float32,
+    as the reference keeps them). The
     inner step factory receives ``embed_tier="off"`` — the trainer IS the
     thing the reject lever points at.
 
@@ -145,10 +159,10 @@ class TieredTrainer:
                 f"hot_rows={hot_rows} >= num_features="
                 f"{spec.num_features}: nothing to tier — run the plain "
                 "in-HBM trainer (embed_tier='off')")
-        if spec.param_dtype != "float32":
+        if spec.param_dtype not in ("float32", "bfloat16"):
             raise ValueError(
-                f"the port's tiered store holds float32 tables; "
-                f"param_dtype={spec.param_dtype!r} is not ported")
+                f"the tiered store holds float32 or bfloat16 tables; "
+                f"param_dtype={spec.param_dtype!r}")
         if cold not in ("dense", "lazy"):
             raise ValueError(f"cold must be 'dense' or 'lazy', got {cold!r}")
         if params is not None and cold != "dense":
@@ -174,8 +188,8 @@ class TieredTrainer:
             self._step = optim.make_sparse_adaptive_step(
                 hot_spec, inner_cfg, beta=beta, l1=l1, l2=l2)
 
-        meta = {"v": ((spec.rank,), np.dtype(np.float32)),
-                "w": ((), np.dtype(np.float32))}
+        pdt = host_dtype(spec.pdtype)
+        meta = {"v": ((spec.rank,), pdt), "w": ((), pdt)}
         for p in self._slot_planes:
             meta[p] = ((spec.rank,) if p.startswith("v") else (),
                        np.dtype(np.float32))
@@ -185,14 +199,17 @@ class TieredTrainer:
                 gen = torch.Generator(device=self.device).manual_seed(
                     config.seed)
                 init = spec.init(gen, device=self.device)
-                params = {k: t.cpu().numpy() for k, t in init.items()}
+                params = {k: to_host(t.cpu()) for k, t in init.items()}
                 del init
-            # The cold tier takes eviction write-backs: own the bytes.
-            planes = {"v": np.array(params["v"], np.float32),
-                      "w": np.array(params["w"], np.float32)}
+            # The cold tier takes eviction write-backs: own the bytes (a
+            # float32 array for a bf16 plane, JAX's widened params, is
+            # rounded to its bits).
+            planes = {k: (np.array(params[k]) if np.asarray(params[k]).dtype
+                          == pdt else _as_plane(params[k], pdt))
+                      for k in ("v", "w")}
             w0 = np.array(params["w0"], np.float32)
             if opt != "sgd":
-                host = {k: torch.from_numpy(planes[k]) for k in ("v", "w")}
+                host = {k: from_host(planes[k]) for k in ("v", "w")}
                 slots = optim.init_adaptive_slots(opt, spec, host)
                 if opt == "ftrl":
                     slots = optim.seed_ftrl_slots(
@@ -302,7 +319,8 @@ class TieredTrainer:
 
     def merged_params(self) -> dict:
         """Full-axis ``{"w0", "w", "v"}`` numpy arrays — the checkpoint
-        and eval view (dense cold mode only)."""
+        and eval view (dense cold mode only; a bf16 table as its bits,
+        :func:`~fm_spark_tpu_torch.embed.store.from_host` reads them)."""
         merged = self.store.merged_planes(self.hot, ("v", "w"))
         return {"w0": self._w0.cpu().numpy().copy(),
                 "w": merged["w"], "v": merged["v"]}
@@ -321,15 +339,15 @@ class TieredTrainer:
         """:meth:`merged_params` as tensors on ``device`` (default the
         trainer's): what ``evaluate_params`` and ``save_model`` take."""
         dev = self.device if device is None else device
-        return {k: torch.from_numpy(np.array(a)).to(dev)
+        return {k: from_host(np.array(a)).to(dev)
                 for k, a in self.merged_params().items()}
 
     def save_to(self, checkpointer, pipeline_state=None,
                 force: bool = False) -> None:
         merged = self.store.merged_planes(self.hot)
         params = {"w0": self._w0.cpu(),
-                  "w": torch.from_numpy(merged["w"]),
-                  "v": torch.from_numpy(merged["v"])}
+                  "w": from_host(merged["w"]),
+                  "v": from_host(merged["v"])}
         slots = None
         if self._slot_planes:
             slots = {}
@@ -349,7 +367,7 @@ class TieredTrainer:
         if restored is None:
             return None
         params = restored["params"]
-        planes = {"v": params["v"].numpy(), "w": params["w"].numpy()}
+        planes = {"v": to_host(params["v"]), "w": to_host(params["w"])}
         for p in self._slot_planes:
             planes[p] = restored["opt_state"][p.replace("_", "/")].numpy()
         self.store.restore_cold(planes)

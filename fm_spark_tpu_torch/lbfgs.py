@@ -120,8 +120,8 @@ def make_objective(spec, config: TrainConfig, ids, vals, labels, weights):
     the params' device), with ``f.value_and_grad(params)`` → ``(value,
     grads)``. The groups are the reference's: ``w0`` → ``reg_bias``, ``w``
     → ``reg_linear``, ``v``, ``mlp``, ``vw`` → ``reg_factors``; another
-    raises. The families are those of the dense step (FM, FFM, DeepFM); a
-    field family raises, naming its ROADMAP item."""
+    raises. The families are those of the dense step (the flat and the
+    field families)."""
     return _Objective(spec, config, ids, vals, labels, weights)
 
 
@@ -133,6 +133,16 @@ class _Flat:
         self.example = params
         self.shapes = [t.shape for t in _leaves(params)]
         self.sizes = [t.numel() for t in _leaves(params)]
+
+    def rounder(self):
+        """``x ↦ x`` with the elements of bf16 leaves rounded to bf16 (the
+        identity when every leaf is float32)."""
+        leaves = _leaves(self.example)
+        if all(t.dtype == torch.float32 for t in leaves):
+            return lambda x: x
+        mask = torch.cat([torch.full((t.numel(),), t.dtype == torch.bfloat16,
+                                     device=t.device) for t in leaves])
+        return lambda x: torch.where(mask, x.to(torch.bfloat16).float(), x)
 
     def flat(self, tree) -> torch.Tensor:
         return torch.cat([t.reshape(-1).float() for t in _leaves(tree)])
@@ -335,16 +345,18 @@ class _Linesearch:
 # ------------------------------------------------------------- the loop
 
 
-def _precondition(updates, dws, dus, rhos, scale, memory_idx: int):
+def _precondition(updates, dws, dus, rhos, scale, memory_idx: int,
+                  rnd=lambda x: x):
     """optax's ``_precondition_by_lbfgs``, the two-loop recursion over the
-    ring buffer from ``memory_idx`` (every scalar a device tensor)."""
+    ring buffer from ``memory_idx`` (every scalar a device tensor); ``rnd``
+    rounds the first loop's carry to the leaves' dtypes."""
     m = rhos.shape[0]
     order = [(memory_idx + j) % m for j in range(m)]
     alphas = {}
     vec = updates
     for idx in reversed(order):
         alphas[idx] = rhos[idx] * torch.dot(dws[idx], vec)
-        vec = vec + (-alphas[idx]) * dus[idx]
+        vec = rnd(vec + (-alphas[idx]) * dus[idx])
     vec = scale * vec
     for idx in order:
         beta = rhos[idx] * torch.dot(dus[idx], vec)
@@ -363,22 +375,31 @@ def fit_lbfgs(spec, params, ids, vals, labels, weights=None, *,
     It stops after ``num_iterations`` or once the relative decrease of the
     objective between consecutive iterates, ``|f_{i-1} − f_i| /
     max(|f_{i-1}|, 1e-12)``, is at most ``convergence_tol`` (MLlib's rule,
-    the reference's ``lbfgs.py:94-102``). bf16 parameters raise (ROADMAP
-    Queue 1 item 14)."""
+    the reference's ``lbfgs.py:94-102``).
+
+    bf16 tables (float32 and bf16 leaves) follow optax's dtype handling at
+    the points where it stores a value in the parameters' dtype: the
+    gradient (JAX's of a bf16 leaf is bf16), the accepted parameters
+    (``apply_updates`` casts to the leaf's dtype), the memory pairs
+    ``Δθ``, ``Δg`` (bf16 differences of bf16 leaves) and the first loop of
+    the two-loop recursion (``cast_like`` its carry); its scaled update and
+    second loop, and a linesearch trial's parameters, stay float32, as in
+    optax. The rest is float32 in both (the vector sums of a bf16 leaf
+    round once per leaf in optax, once per vector here)."""
     config = config or TrainConfig()
     bad = sorted({str(t.dtype) for t in _leaves(params)
-                  if t.dtype != torch.float32})
+                  if t.dtype not in (torch.float32, torch.bfloat16)})
     if bad:
         raise ValueError(
-            f"fit_lbfgs takes float32 parameters, got {bad} (L-BFGS over "
-            "bf16 tables is not ported yet: ROADMAP Queue 1 item 14)")
+            f"fit_lbfgs takes float32 or bfloat16 parameters, got {bad}")
     batch = _on(params, ids, vals, labels, weights)
     objective = make_objective(spec, config, *batch)
     flat = _Flat(params)
+    rnd = flat.rounder()
 
     def vag(theta):
         value, grads = objective.value_and_grad(flat.tree(theta))
-        return value.float(), flat.flat(grads)
+        return value.float(), rnd(flat.flat(grads))
 
     theta = flat.flat(params)
     dev = theta.device
@@ -414,8 +435,8 @@ def fit_lbfgs(spec, params, ids, vals, labels, weights=None, *,
         # scale_by_lbfgs: the memory from the fresh params and gradient.
         memory_idx, prev_idx = count % m, (count - 1) % m
         if count > 0:
-            dw = theta - prev_theta
-            du = grad - prev_grad
+            dw = rnd(theta - prev_theta)
+            du = rnd(grad - prev_grad)
             curv = torch.dot(du, dw)
             rho = torch.where(curv == 0.0, 0.0, 1.0 / curv)
             dws[prev_idx], dus[prev_idx], rhos[prev_idx] = dw, du, rho
@@ -427,7 +448,8 @@ def fit_lbfgs(spec, params, ids, vals, labels, weights=None, *,
             rhos[prev_idx] = 0.0
             scale = torch.minimum(torch.ones((), device=dev),
                                   1.0 / torch.linalg.vector_norm(grad))
-        direction = -_precondition(grad, dws, dus, rhos, scale, memory_idx)
+        direction = -_precondition(grad, dws, dus, rhos, scale, memory_idx,
+                                   rnd)
         count += 1
         prev_theta, prev_grad = theta, grad
         # The zoom linesearch from the current value (read with the first
@@ -440,7 +462,7 @@ def fit_lbfgs(spec, params, ids, vals, labels, weights=None, *,
                 [value_t, slope_t]).cpu().numpy())
         ls = _Linesearch(vag, theta, direction, value0, grad, value0, slope0)
         stepsize, ls_value, ls_grad = ls.run()
-        theta = theta + float(stepsize) * direction
+        theta = rnd(theta + float(stepsize) * direction)
         i, prev, cur = i + 1, cur, value0
     value, grad = vag(theta)
     for t, src in zip(_leaves(params), _leaves(flat.tree(theta))):

@@ -137,7 +137,8 @@ class ReloadFollower:
                        "mid-reload (tombstone veto)", last_good, served)
             return "demoted"
         layout = restored.get("layout") or LAYOUT
-        if layout != LAYOUT:
+        if layout not in (LAYOUT, "sharded"):
+            # A sharded step reads back as canonical tables.
             self._fail(f"chain holds {layout}-layout checkpoints; serving "
                        "follows canonical layouts only", last_good, served)
             return "failed"

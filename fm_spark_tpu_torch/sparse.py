@@ -424,14 +424,17 @@ def _noise_fn(config: TrainConfig, sr_noise):
 
 
 def _loss_and_grad_fn(loss_name: str):
-    """``(scores, labels, weights) → (loss, dscores)``: the weighted mean
-    loss and its gradient with respect to the scores."""
+    """``(scores, labels, weights, wsum=None) → (loss, dscores)``: the
+    weighted mean loss and its gradient with respect to the scores;
+    ``wsum`` (a data-parallel step's weight total over every rank)
+    replaces ``max(Σ weights, 1)``."""
     per_example_loss = losses_lib.loss_fn(loss_name)
 
-    def loss_and_grad(scores, labels, weights):
+    def loss_and_grad(scores, labels, weights, wsum=None):
         sc = scores.detach().requires_grad_(True)
         with torch.enable_grad():
-            wsum = torch.clamp(weights.sum(), min=1.0)
+            if wsum is None:
+                wsum = torch.clamp(weights.sum(), min=1.0)
             loss = (per_example_loss(sc, labels) * weights).sum() / wsum
             (dscores,) = torch.autograd.grad(loss, sc)
         return loss.detach(), dscores

@@ -27,10 +27,10 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters: field for field those of the JAX
-    package's ``TrainConfig``, so a config reads the same in both. The
-    levers of steps the port does not have yet (the sharded knobs,
-    ``embed_tier``) are accepted here and refused by the step that would
-    need them."""
+    package's ``TrainConfig``, so a config reads the same in both. A
+    lever is refused by every step that does not take it (the sharded
+    knobs ``collective_dtype``, ``score_sharded`` and ``deep_sharded`` by
+    the single-card steps; ``parallel/`` takes them)."""
 
     num_steps: int = 100                   # numIterations
     batch_size: int = 1024
@@ -397,10 +397,13 @@ def _group_reg(config: TrainConfig):
         if key == "vw":
             if config.reg_factors == 0.0 and config.reg_linear == 0.0:
                 return g
-            r = torch.full((p.shape[-1],), round_to(config.reg_factors,
-                                                    torch.float32),
-                           dtype=torch.float32, device=p.device)
-            r[-1] = round_to(config.reg_linear, torch.float32)
+            w = p.shape[-1]
+            col = torch.arange(w, device=p.device)
+            # Filled on the device (a captured step copies nothing in).
+            r = torch.where(col == w - 1,
+                            round_to(config.reg_linear, torch.float32),
+                            round_to(config.reg_factors, torch.float32)
+                            ).to(torch.float32)
             return g + r * p.to(g.dtype)
         if key not in known:
             raise ValueError(f"no regularization group for param {key!r}")
@@ -477,7 +480,8 @@ def _check_slots(spec, ids):
 def _dense_grads_fn(spec):
     """The loss and the gradient of a flat family's parameters, written
     out (the reference takes ``jax.value_and_grad`` of ``spec.scores``):
-    ``fn(params, ids, vals, labels, weights) → (loss, grads)``, the table
+    ``fn(params, ids, vals, labels, weights, wsum=None) → (loss, grads)``
+    (``wsum``: the loss's divisor, by default ``max(Σ weights, 1)``), the table
     gradients in the table's dtype, ``w0``'s and the MLP's float32, a
     term gated off (``use_bias``/``use_linear`` False) a zero gradient.
 
@@ -495,11 +499,15 @@ def _dense_grads_fn(spec):
       ``g_h`` the MLP's input gradient (``sparse._mlp_backward``, its
       products ``torch.matmul``), and the MLP's own gradients.
 
-    Another family raises: the generic dense step of the field families
-    (the reference's ``--strategy single`` on a field config) is ROADMAP
-    Queue 1 item 14."""
+    The field families (``FieldFMSpec``, ``FieldFFMSpec``,
+    ``FieldDeepFMSpec``; the reference's ``--strategy single|dp`` on a
+    field config) take :func:`_field_dense_grads`: the same rules per
+    field, each field's lanes summed once per id in its own table."""
     from fm_spark_tpu_torch.models.deepfm import DeepFMSpec
     from fm_spark_tpu_torch.models.ffm import FFMSpec
+    from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+    from fm_spark_tpu_torch.models.field_fm import FieldFMSpec
     from fm_spark_tpu_torch.models.fm import FMSpec
     from fm_spark_tpu_torch.ops import ffm_sel
     from fm_spark_tpu_torch.ops import fm as fm_ops
@@ -507,11 +515,12 @@ def _dense_grads_fn(spec):
                                            _mlp_forward)
 
     family = type(spec)
+    if family in (FieldFMSpec, FieldFFMSpec, FieldDeepFMSpec):
+        return _field_dense_grads(spec)
     if family not in (FMSpec, FFMSpec, DeepFMSpec):
         raise ValueError(
-            f"the dense train step of {family.__name__} is not ported yet "
-            "(ROADMAP Queue 1 item 14, the generic dense step of the field "
-            "families); the port's takes FMSpec, FFMSpec and DeepFMSpec")
+            f"no dense train step for {family.__name__}; the port's takes "
+            "FMSpec, FFMSpec, DeepFMSpec and the field families")
     loss_and_grad = _loss_and_grad_fn(spec.loss)
     cd, pd = spec.cdtype, spec.pdtype
     sum_upcast = fm_ops.sum_upcast
@@ -521,7 +530,7 @@ def _dense_grads_fn(spec):
                   if spec.use_linear else zero)
         return linear, (params["w0"].to(cd) if spec.use_bias else zero)
 
-    def grads(params, ids, vals, labels, weights):
+    def grads(params, ids, vals, labels, weights, wsum=None):
         v = params["v"]
         n = v.shape[0]
         dev = v.device
@@ -537,7 +546,7 @@ def _dense_grads_fn(spec):
             rows = v[gidx].to(cd).reshape(b, ids.shape[1], fk)
             inter = 0.5 * ffm_sel.ffm_sel_scores(rows, vals_c)
             loss, dscores = loss_and_grad(bias + linear + inter, labels,
-                                          weights)
+                                          weights, wsum)
             g_rows = ffm_sel.ffm_sel_bwd(rows, vals_c, dscores)
         else:
             if family is DeepFMSpec:
@@ -548,7 +557,7 @@ def _dense_grads_fn(spec):
                            - sum_upcast(xv * xv, (1, 2)))
             if family is FMSpec:
                 loss, dscores = loss_and_grad(bias + linear + inter, labels,
-                                              weights)
+                                              weights, wsum)
                 g_rows = (dscores[:, None, None] * vals_c[..., None]
                           * (s[:, None, :] - xv))
             else:
@@ -556,7 +565,7 @@ def _dense_grads_fn(spec):
                 kernels, ins, pres, deep = _mlp_forward(
                     spec, params["mlp"], xv.reshape(b, -1))
                 loss, dscores = loss_and_grad(inter + linear + bias + deep,
-                                              labels, weights)
+                                              labels, weights, wsum)
                 g_mlp, g_h = _mlp_backward(spec, kernels, ins, pres, dscores)
                 g_xv = (dscores[:, None, None] * (s[:, None, :] - xv)
                         + g_h.reshape(xv.shape))
@@ -573,6 +582,107 @@ def _dense_grads_fn(spec):
                 else torch.zeros((), dtype=torch.float32, device=dev))
         return loss, {"w0": g_w0, "w": g_w.reshape(n).to(pd),
                       "v": g_v.reshape(v.shape).to(pd), **extra}
+
+    return grads
+
+
+def _field_dense_grads(spec):
+    """:func:`_dense_grads_fn` of a field family: ``fn(params, ids, vals,
+    labels, weights) → (loss, grads)`` over field-local ids ``[B, F]``,
+    the gradient of each field's table in its layout and dtype (``vw``
+    fused, ``v``/``w`` unfused, transposed under ``table_layout='col'``).
+
+    Per field ``f`` the lanes are ``[∂L/∂rows_f | ∂L/∂w_f]`` (FieldFM
+    ``ds·x_f·(s − xv_f)``; FieldFFM the ``ffm_sel_bwd`` rows of the
+    stacked ``[B, F, F·k]`` rows, the kernel on the card; FieldDeepFM
+    with the head's pullback ``g_h_f·x_f`` added, ``sparse._mlp_backward``),
+    summed once per id by the device dedup (:func:`_summed_rows`: the sort
+    and kernel A at cap = B on the card) into a float32 buffer of the
+    field's rows."""
+    from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
+    from fm_spark_tpu_torch.models.field_ffm import FieldFFMSpec
+    from fm_spark_tpu_torch.ops import ffm_sel
+    from fm_spark_tpu_torch.ops import fm as fm_ops
+    from fm_spark_tpu_torch.sparse import (_loss_and_grad_fn, _mlp_backward,
+                                           _mlp_forward)
+
+    loss_and_grad = _loss_and_grad_fn(spec.loss)
+    cd, pd = spec.cdtype, spec.pdtype
+    nf, k = spec.num_fields, spec.rank
+    ffm = isinstance(spec, FieldFFMSpec)
+    deep = isinstance(spec, FieldDeepFMSpec)
+    fused = getattr(spec, "fused_linear", True)
+    col = getattr(spec, "table_layout", "row") == "col"
+    width = nf * k if ffm else k
+    sum_upcast, seq_sum = fm_ops.sum_upcast, fm_ops.seq_sum
+
+    def gather(t, idx):
+        return (t[:, idx].t() if col else t[idx]).to(cd)
+
+    def grads(params, ids, vals, labels, weights, wsum=None):
+        _check_slots(spec, ids)
+        n = spec.bucket
+        dev = params["w0"].device
+        vals_c = vals.to(cd)
+        gidx = [fm_ops.gather_index(ids[:, f], n) for f in range(nf)]
+        tables = params["vw"] if fused else params["v"]
+        rows = [gather(tables[f], gidx[f]) for f in range(nf)]
+        if fused:
+            lins = [r[:, width] for r in rows]
+        elif spec.use_linear:
+            lins = [params["w"][f][gidx[f]].to(cd) for f in range(nf)]
+        score = None
+        extra = {}
+        if ffm:
+            rstk = torch.stack([r[:, :width] for r in rows], dim=1)
+            score = 0.5 * ffm_sel.ffm_sel_scores(rstk, vals_c)
+        else:
+            xvs = [r[:, :k] * vals_c[:, f:f + 1] for f, r in enumerate(rows)]
+            s = seq_sum(xvs)
+            sum_sq = seq_sum([sum_upcast(x * x, 1) for x in xvs])
+            score = 0.5 * (sum_upcast(s * s, 1) - sum_sq)
+        if spec.use_linear:
+            score = score + seq_sum([l * vals_c[:, f]
+                                     for f, l in enumerate(lins)])
+        if spec.use_bias:
+            score = score + params["w0"].to(cd)
+        if deep:
+            kernels, ins, pres, deep_out = _mlp_forward(
+                spec, params["mlp"], torch.cat(xvs, dim=1))
+            score = score + deep_out
+        loss, dscores = loss_and_grad(score, labels, weights, wsum)
+        if ffm:
+            g_rows = ffm_sel.ffm_sel_bwd(rstk, vals_c, dscores)
+            g_rows = [g_rows[:, f] for f in range(nf)]
+        else:
+            g_rows = [dscores[:, None] * vals_c[:, f:f + 1] * (s - xvs[f])
+                      for f in range(nf)]
+            if deep:
+                g_mlp, g_h = _mlp_backward(spec, kernels, ins, pres, dscores)
+                g_rows = [g + g_h[:, f * k:(f + 1) * k] * vals_c[:, f:f + 1]
+                          for f, g in enumerate(g_rows)]
+                extra["mlp"] = g_mlp
+        g_tab, g_lin = [], []
+        for f in range(nf):
+            g_l = (dscores * vals_c[:, f] if spec.use_linear
+                   else torch.zeros_like(dscores))
+            lanes = torch.cat([g_rows[f].float(), g_l.float()[:, None]],
+                              dim=1)
+            ws = (width + 1,) if fused else (width, 1)
+            out = _summed_rows(ids[:, f:f + 1], n, lanes, ws)
+            g = out[0].to(pd)
+            g_tab.append(g.t().contiguous() if col else g)
+            if not fused:
+                g_lin.append(out[1].reshape(n).to(pd))
+        g_w0 = (sum_upcast(dscores).float() if spec.use_bias
+                else torch.zeros((), dtype=torch.float32, device=dev))
+        out = {"w0": g_w0, **extra}
+        if fused:
+            out["vw"] = g_tab
+        else:
+            out["v"] = g_tab
+            out["w"] = g_lin
+        return loss, out
 
     return grads
 
@@ -612,8 +722,9 @@ def make_train_step(spec, config: TrainConfig, optimizer=None):
     graph over ``{"params", "opt"}`` (:class:`~fm_spark_tpu_torch.graphs
     .CapturedStep`, the counterpart of ``jax.jit``): the schedule's count
     stays on the card, and other params or state tensors capture anew. On
-    the CPU it runs the eager body. A field family raises, naming ROADMAP
-    Queue 1 item 14."""
+    the CPU it runs the eager body. The field families take the same step
+    through :func:`_field_dense_grads` (the reference's ``--strategy
+    single|dp`` on a field config)."""
     from fm_spark_tpu_torch import graphs
     from fm_spark_tpu_torch.sparse import (_reject_collective_dtype,
                                            _reject_deep_sharded,
@@ -927,6 +1038,12 @@ def _resume(checkpointer, params, opt_state, batches
     restored = checkpointer.restore(params)
     if restored is None:
         return 0, None, None
+    if restored["layout"] != "canonical":
+        raise SystemExit(
+            f"could not restore the checkpoint as canonical-layout — the "
+            f"directory holds {restored['layout']}-layout steps (then: add "
+            "--ckpt-sharded to resume it, or point --checkpoint-dir at a "
+            "fresh directory)")
     copy_into(params, restored["params"])
     copy_into(opt_state, restored["opt_state"])
     if restored["pipeline"] is not None:
@@ -1014,18 +1131,13 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     ``logger`` gets the ``bad_records``/``good_records`` line).
     """
     from fm_spark_tpu_torch import resolve_device
-    from fm_spark_tpu_torch.data import (DedupAuxBatches, Prefetcher,
-                                         StackedBatches)
+    from fm_spark_tpu_torch.data import DedupAuxBatches, StackedBatches
     from fm_spark_tpu_torch.models.field_deepfm import FieldDeepFMSpec
     from fm_spark_tpu_torch.sparse import (fused_embed_plan,
                                            make_field_deepfm_multistep,
                                            make_field_deepfm_sparse_step,
                                            make_field_sparse_multistep,
                                            make_sgd_step)
-
-    from fm_spark_tpu_torch import obs
-    from fm_spark_tpu_torch.obs import introspect
-    from fm_spark_tpu_torch.resilience import faults
     from fm_spark_tpu_torch.utils.logging import MetricsLogger
 
     dev = resolve_device(device)
@@ -1047,28 +1159,16 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     else:
         step = (make_field_deepfm_multistep if deep
                 else make_field_sparse_multistep)(spec, config, steps_per_call)
-
-    def run(p, i, m, batch):
-        args = (i, *batch) if steps_per_call == 1 else (i, m, *batch)
-        if deep:
-            p, _, loss = step(p, opt_state, *args)     # in place
-            return p, loss
-        return step(p, *args)
-    # The 'error' policy's sticky detector (the reference's note_loss /
-    # check_poison): fmin, so a NaN loss after the poison keeps the −inf.
-    guard = config.compact_device and config.compact_overflow == "error"
-    worst = None
-
-    def check_poison():
-        if worst is not None and float(worst) == float("-inf"):
-            raise RuntimeError(
-                "compact_cap overflow poisoned the loss: a field's per-batch "
-                f"unique-id count exceeded compact_cap {config.compact_cap} "
-                "at some step (the 'error' policy); raise compact_cap or "
-                "use compact_overflow='drop'")
     params = spec.init(torch.Generator(device=dev).manual_seed(config.seed),
                        device=dev)
     opt_state = step.init_opt_state(params) if deep else {}
+
+    def run(i, m, batch):
+        args = (i, *batch) if steps_per_call == 1 else (i, m, *batch)
+        if deep:
+            return {"loss": step(params, opt_state, *args)[2]}   # in place
+        return {"loss": step(params, *args)[1]}
+
     start, resumed = 0, None
     if checkpointer is not None:
         start, resumed, _ = _resume(checkpointer, params, opt_state,
@@ -1084,10 +1184,85 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
         # stacker reads, so the saved cursor stays exact.
         batches = StackedBatches(batches, steps_per_call,
                                  total=config.num_steps - start)
-    pf = Prefetcher(batches, depth=prefetch, device=dev) if prefetch > 0 \
+
+    def save(at, pipeline, force=False):
+        checkpointer.save(at, params, pipeline, force=force,
+                          opt_state=opt_state)
+
+    out = fit_steps(config, batches, run, device=dev, start=start,
+                    steps_per_call=steps_per_call, prefetch=prefetch,
+                    logger=logger, evaluate=(
+                        None if eval_source is None else
+                        lambda: evaluate_params(spec, params, eval_source())),
+                    checkpointer=checkpointer, save=save,
+                    preemption_guard=preemption_guard)
+    if stats is not None:
+        stats.update(out, aux_ms=list(aux_src.aux_ms) if aux_src else [],
+                     capture_s=list(step.captured.capture_s), start=start,
+                     resumed=resumed, opt_state=opt_state,
+                     saves=list(checkpointer.timings) if checkpointer
+                     else [])
+    return params
+
+
+def fit_steps(config: TrainConfig, source, run, *, device, start: int = 0,
+              steps_per_call: int = 1, prefetch: int = 0, logger=None,
+              rows_scale: int = 1, evaluate=None, checkpointer=None,
+              save=None, preemption_guard=None) -> dict:
+    """The training loop the fused fits share (:func:`fit_field_sparse`,
+    ``parallel.fit_field_sharded`` and ``parallel.fit_parallel``), from
+    step ``start`` to ``config.num_steps``.
+
+    ``source`` yields numpy or tensor batches (moved to ``device`` by a
+    :class:`~fm_spark_tpu_torch.data.Prefetcher` of depth ``prefetch``,
+    made here, after the caller's resume); ``run(i, m, batch)`` takes the
+    ``m`` steps from step ``i`` in place and returns its metrics as
+    tensors, ``"loss"`` among them. Each call passes the ``train_step``
+    fault point first. ``logger`` gets every metric every
+    ``config.log_every`` steps and at the last, with the samples since its
+    previous line (a batch's rows times ``rows_scale``: the ranks that
+    each fed as many); with the obs plane on, each log window (closed by
+    the log line's loss fetch, the first call fenced so its builds and
+    capture open none) is a ``train/steps`` span and a ``step_time_ms``
+    observation, and ``introspect.tick()`` runs after every call.
+    ``evaluate()`` → metrics runs and is logged (``eval_*``) whenever a
+    multiple of ``config.eval_every > 0`` falls in a call's steps.
+    ``save(step, cursor, force=False)`` writes a checkpoint whenever
+    ``checkpointer.due_window`` says so and once at the end (``force``:
+    the last step's save, or the preemption flush), with the cursor of
+    the last batch a step consumed. ``preemption_guard`` is polled
+    between calls. Under ``compact_device`` with
+    ``compact_overflow='error'`` a running ``fmin`` of every call's loss
+    stays on the device and is read at each log line, before every save
+    and at the end: a −inf there (the overflow poison) raises, so a
+    poisoned table is never saved.
+
+    Returns ``{"end", "loss", "step_ms", "ingest"}``: the step reached,
+    each call's loss, its ms (CUDA events on the card, capture included
+    in a group's first call; host time on the CPU) and
+    :func:`ingest_counts` of the source (when it quarantined anything,
+    ``logger`` gets the ``bad_records``/``good_records`` line)."""
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.data import Prefetcher
+    from fm_spark_tpu_torch.obs import introspect
+    from fm_spark_tpu_torch.resilience import faults
+
+    # The 'error' policy's sticky detector (the reference's note_loss /
+    # check_poison): fmin, so a NaN loss after the poison keeps the −inf.
+    guard = config.compact_device and config.compact_overflow == "error"
+    worst = None
+
+    def check_poison():
+        if worst is not None and float(worst) == float("-inf"):
+            raise RuntimeError(
+                "compact_cap overflow poisoned the loss: a field's per-batch "
+                f"unique-id count exceeded compact_cap {config.compact_cap} "
+                "at some step (the 'error' policy); raise compact_cap or "
+                "use compact_overflow='drop'")
+    pf = Prefetcher(source, depth=prefetch, device=device) if prefetch > 0 \
         else None
-    cursor = pf if pf is not None else batches
-    on_card = dev.type == "cuda"
+    cursor = pf if pf is not None else source
+    on_card = device.type == "cuda"
     losses, marks = [], []
     log_every = max(config.log_every, 1)
     since = 0
@@ -1102,24 +1277,25 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
             faults.inject("train_step")
             m = min(steps_per_call, config.num_steps - i)
             batch = (pf.next_batch() if pf
-                     else _batch_to(batches.next_batch(), dev))
+                     else _batch_to(source.next_batch(), device))
             if on_card:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
             else:
                 t0 = time.perf_counter()
-            params, loss = run(params, i, m, batch)
+            out = run(i, m, batch)
             if on_card:
                 t1.record()
                 marks.append((t0, t1))
             else:
                 marks.append(time.perf_counter() - t0)
+            loss = out["loss"]
             losses.append(loss)      # a fresh tensor per call
             if guard:
                 worst = loss if worst is None else torch.fmin(worst, loss)
             i += m
-            since += m * int(batch[2].shape[-1])
+            since += m * int(batch[2].shape[-1]) * rows_scale
             if obs_on:
                 if win is None:
                     float(loss)           # the first call's fence
@@ -1130,29 +1306,26 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
                     i // log_every > (i - m) // log_every
                     or i >= config.num_steps):
                 check_poison()
-                lv = float(loss)
-                logger.log(i, samples=since, loss=lv)
+                values = {k: float(v) for k, v in out.items()}
+                logger.log(i, samples=since, **values)
                 since = 0
                 if obs_on:
-                    _close_window(win, hist_step, i, lv, dev)
+                    _close_window(win, hist_step, i, values["loss"], device)
             introspect.tick()
-            if (eval_source is not None and config.eval_every > 0
+            if (evaluate is not None and config.eval_every > 0
                     and i // config.eval_every
                     > (i - m) // config.eval_every):
-                metrics = evaluate_params(spec, params, eval_source())
+                metrics = evaluate()
                 if logger is not None:
                     logger.log(i, **{f"eval_{k}": v
                                      for k, v in metrics.items()})
             if checkpointer is not None and checkpointer.due_window(i, m):
                 check_poison()
-                checkpointer.save(i, params, cursor.state(),
-                                  opt_state=opt_state)
+                save(i, cursor.state())
         if checkpointer is not None:
-            if i > start:
-                check_poison()
+            check_poison()
             # The last step's save, or the preemption flush.
-            checkpointer.save(i, params, cursor.state(), force=True,
-                              opt_state=opt_state)
+            save(i, cursor.state(), force=True)
             checkpointer.wait()
         check_poison()
         ingest = ingest_counts(cursor)
@@ -1160,18 +1333,10 @@ def fit_field_sparse(spec, config: TrainConfig, batches, *, device=None,
     finally:
         if pf is not None:
             pf.close()
-    if stats is not None:
-        if on_card:
-            torch.cuda.synchronize(dev)
-            stats["step_ms"] = [a.elapsed_time(b) for a, b in marks]
-        else:
-            stats["step_ms"] = [s * 1e3 for s in marks]
-        stats["loss"] = [float(x) for x in losses]
-        stats["aux_ms"] = list(aux_src.aux_ms) if aux_src else []
-        stats["capture_s"] = list(step.captured.capture_s)
-        stats["start"], stats["end"] = start, i
-        stats["resumed"] = resumed
-        stats["saves"] = list(checkpointer.timings) if checkpointer else []
-        stats["opt_state"] = opt_state
-        stats["ingest"] = ingest
-    return params
+    if on_card:
+        torch.cuda.synchronize(device)
+        step_ms = [a.elapsed_time(b) for a, b in marks]
+    else:
+        step_ms = [s * 1e3 for s in marks]
+    return {"end": i, "loss": [float(x) for x in losses], "step_ms": step_ms,
+            "ingest": ingest}

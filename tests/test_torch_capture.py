@@ -553,3 +553,121 @@ def test_a_capture_of_more_than_64_fields_refuses_with_its_reason(
     assert torch.equal(got, want)
     small = _serving_case("fm", "float32", num_fields=64)
     small[0].predict(*small[1:])          # 64 fields pass in the parameters
+
+
+# ------------------------------------ the sharded and field dense steps
+
+
+@pytest.fixture(scope="module")
+def gloo_world_1():
+    """A gloo process group of one rank in this process (the sharded
+    steps' collectives run through it, as they would on one card)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+SHARDED = {
+    "sharded-fm-lane": ("fm", dict(sparse_update="dedup_sr")),
+    "sharded-fm-device-compact": ("fm", dict(
+        sparse_update="dedup_sr", compact_device=True, compact_cap=CAP,
+        segtotal_pallas=True, gfull_fused=True)),
+    "sharded-fm-score-sharded-bf16-wire": ("fm", dict(
+        sparse_update="dedup", score_sharded=True,
+        collective_dtype="bfloat16")),
+    "sharded-ffm": ("ffm", dict(sparse_update="dedup", compact_device=True,
+                                compact_cap=CAP)),
+    "sharded-deepfm": ("deepfm", dict(sparse_update="dedup",
+                                      optimizer="adam")),
+    "sharded-deepfm-deep-sharded": ("deepfm", dict(
+        sparse_update="dedup", optimizer="adam", deep_sharded=True,
+        compact_device=True, compact_cap=CAP)),
+}
+
+
+@pytest.mark.parametrize("form", list(SHARDED))
+def test_sharded_steps_make_no_host_sync(gloo_world_1, form):
+    """The field-sharded bodies (FieldFM in three forms, FieldFFM,
+    FieldDeepFM with each head) eager at world 1 under gloo, with their
+    collectives, as their graphs run them (the step a 0-dim int32
+    tensor; bf16 tables and compute)."""
+    from fm_spark_tpu_torch import parallel
+    from fm_spark_tpu_torch.parallel import deepfm_step
+
+    family, lever = SHARDED[form]
+    kw = dict(num_features=F * BUCKET, num_fields=F, bucket=BUCKET,
+              param_dtype="bfloat16", compute_dtype="bfloat16",
+              init_std=0.1)
+    if family == "deepfm":
+        spec = models.FieldDeepFMSpec(rank=FM_K, mlp_dims=(8, 8), **kw)
+    else:
+        spec = _specs(family)[1]
+    cfg = TrainConfig(learning_rate=0.05, reg_factors=1e-4, **lever)
+    mesh = parallel.make_field_mesh(device="cpu")
+    canonical = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    step_t = torch.tensor(2, dtype=torch.int32)
+    batch = [torch.from_numpy(a) for a in _batches(1)[0]]
+    if family == "deepfm":
+        params = deepfm_step.shard_field_deepfm_params(
+            deepfm_step.stack_field_deepfm_params(spec, canonical, 1), mesh)
+        body, init_opt = deepfm_step.make_field_deepfm_sharded_body(
+            spec, cfg, mesh)
+        opt = init_opt(params)
+        with NoHostSync():
+            _, _, loss = body(params, opt, step_t, *batch)
+    else:
+        params = parallel.shard_field_params(
+            parallel.stack_field_params(spec, canonical, 1), mesh)
+        make = (parallel.make_field_ffm_sharded_body if family == "ffm"
+                else parallel.make_field_sharded_sgd_body)
+        with NoHostSync():
+            _, loss = make(spec, cfg, mesh)(params, step_t, *batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("form", ["field-dense-fm", "field-dense-ffm",
+                                  "field-dense-deepfm", "dp", "row"])
+def test_field_dense_and_parallel_steps_make_no_host_sync(gloo_world_1,
+                                                          form):
+    """The field families' generic dense step (``train.make_train_step``
+    of a FieldFM, FieldFFM, FieldDeepFM) and the dense parallel steps
+    (``dp`` of a FieldFM, ``row`` of the flat FM) at world 1 under gloo,
+    as their graphs run them."""
+    from fm_spark_tpu_torch import parallel, train
+
+    cfg = TrainConfig(learning_rate=0.05, optimizer="adam", reg_bias=1e-3,
+                      reg_factors=1e-2)
+    kw = dict(num_features=F * BUCKET, num_fields=F, bucket=BUCKET,
+              init_std=0.1)
+    if form == "row":
+        spec = models.FMSpec(num_features=40, rank=4, init_std=0.1)
+    elif form == "field-dense-ffm":
+        spec = models.FieldFFMSpec(rank=FFM_K, **kw)
+    elif form == "field-dense-deepfm":
+        spec = models.FieldDeepFMSpec(rank=FM_K, mlp_dims=(8, 8), **kw)
+    else:
+        spec = models.FieldFMSpec(rank=FM_K, **kw)
+    params = spec.init(torch.Generator().manual_seed(1), device="cpu")
+    batch = [torch.from_numpy(a) for a in _batches(1)[0]]
+    if form == "row":
+        batch[0] = batch[0] * 2 - 3              # ids out of range too
+    opt = train.make_optimizer(cfg)
+    if form in ("dp", "row"):
+        mesh = parallel.make_mesh(1, 1, device="cpu")
+        params = parallel.shard_params(params, mesh, spec, form)
+        body = parallel.make_parallel_train_step(spec, cfg, mesh, form,
+                                                 opt).body
+    else:
+        body = train.make_train_step(spec, cfg, opt).body
+    state = opt.init(params)
+    with NoHostSync():
+        loss, norm = body(params, state, *batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))

@@ -244,9 +244,15 @@ def test_fm_with_lbfgs_matches_jax(monkeypatch):
 
 
 def test_bf16_tables_raise_naming_their_item():
+    """bf16 tables train (held against optax in
+    ``tests/test_torch_tiered_bf16.py``); another dtype raises, naming
+    the two that L-BFGS takes."""
     _, spec = _fm(param_dtype="bfloat16")
     params = spec.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 14"):
+    params, info = lbfgs.fit_lbfgs(spec, params, *_data(), num_iterations=2)
+    assert params["v"].dtype == torch.bfloat16 and info["iterations"] == 2
+    params["v"] = params["v"].half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         lbfgs.fit_lbfgs(spec, params, *_data())
 
 

@@ -1996,3 +1996,118 @@ def test_a_step_captures_under_the_profiler_on_the_card(cuda):
     assert _same_tree(runs[0][0], runs[1][0])
     names = [e.name for e in ctx.events() if e.device_type == DeviceType.CUDA]
     assert sum("first_pass" in n for n in names) >= 2   # kernel A, replayed
+
+
+# ------------------------------------------ torch.distributed at world 1
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """An NCCL process group of one rank on the card, left after the
+    test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fm_spark_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.init_distributed(cuda, coordinator=f"127.0.0.1:{port}",
+                              num_processes=1, process_id=0, timeout_s=120)
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["device-compact-sr", "lane-dedup",
+                                  "score-sharded-bf16-wire"])
+def test_sharded_step_replays_equal_eager_on_the_card(nccl_world_1, form):
+    """The field-sharded FieldFM step at world 1 under NCCL: its captured
+    replays (the all_to_all, gathers and all_reduce recorded in the graph)
+    equal its eager body on a copy of the params bit for bit, and equal
+    the single-card captured step (but the bf16 wire's rounding)."""
+    from fm_spark_tpu_torch import graphs, models, parallel, sparse
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    dev = nccl_world_1
+    lever = {"device-compact-sr": dict(
+        sparse_update="dedup_sr", compact_device=True, compact_cap=512,
+        segtotal_pallas=True, gfull_fused=True),
+        "lane-dedup": dict(sparse_update="dedup"),
+        "score-sharded-bf16-wire": dict(sparse_update="dedup",
+                                        score_sharded=True,
+                                        collective_dtype="bfloat16")}[form]
+    spec = models.FieldFMSpec(num_features=7 * 1024, num_fields=7,
+                              bucket=1024, rank=16, init_std=0.05,
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    cfg = TrainConfig(learning_rate=0.05, **lever)
+    mesh = parallel.make_field_mesh(device=dev)
+    p0 = spec.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    p1 = parallel.shard_field_params(parallel.stack_field_params(spec, p0, 1),
+                                     mesh)
+    p2 = graphs._clone(p1)
+    step = parallel.make_field_sharded_sgd_step(spec, cfg, mesh)
+    single = sparse.make_field_sparse_sgd_step(
+        spec, TrainConfig(learning_rate=0.05, **{
+            k: v for k, v in lever.items()
+            if k not in ("score_sharded", "collective_dtype")}))
+    rng = np.random.default_rng(1)
+    for i in range(4):
+        b = [torch.from_numpy(a).to(dev) for a in (
+            (rng.zipf(1.3, (512, 7)) % 1024).astype(np.int32),
+            np.ones((512, 7), np.float32),
+            (rng.random(512) < 0.3).astype(np.float32),
+            np.ones(512, np.float32))]
+        _, l1 = step(p1, i, *b)
+        _, l2 = step.body(p2, i, *b)
+        _, l0 = single(p0, i, *b)
+        assert torch.equal(l1, l2)
+        assert torch.equal(p1["vw"], p2["vw"])
+        if form != "score-sharded-bf16-wire":
+            assert torch.equal(l0, l1)
+            assert all(torch.equal(p0["vw"][f], p1["vw"][f])
+                       for f in range(7))
+    assert step.captured.capture_s
+    # The canonical tables by the all-gather and by NCCL's gather to rank
+    # 0's host memory.
+    full = parallel.gather_field_params(spec, p1, mesh)
+    host = parallel.gather_field_params(spec, p1, mesh, root=0)
+    assert all(torch.equal(full["vw"][f], p1["vw"][f])
+               and torch.equal(host["vw"][f], p1["vw"][f].cpu())
+               for f in range(7))
+
+
+@pytest.mark.gpu
+def test_bf16_tier_equals_untiered_on_the_card(cuda):
+    """The tier's bf16 planes against the untiered bf16 step on the card,
+    12 churned steps of SGD: losses and merged planes bit for bit."""
+    import dataclasses
+
+    from fm_spark_tpu_torch.embed import TieredTrainer
+    from fm_spark_tpu_torch.embed.store import to_host
+
+    spec, cfg, _, batches = _tier_case(cuda, "sgd", 12)
+    spec = dataclasses.replace(spec, param_dtype="bfloat16")
+    trainer = TieredTrainer(spec, cfg, device=cuda)
+    from fm_spark_tpu_torch import sparse
+
+    off = dataclasses.replace(cfg, embed_tier="off")
+    cold = trainer.store.cold
+    from fm_spark_tpu_torch.embed.store import from_host
+
+    params = {"w0": torch.zeros((), device=cuda),
+              "w": from_host(cold.dense_plane("w").copy()).to(cuda),
+              "v": from_host(cold.dense_plane("v").copy()).to(cuda)}
+    step = sparse.make_sparse_sgd_step(spec, off)
+    want = [float(step(params, i, *[torch.from_numpy(a).to(cuda)
+                                    for a in b])[1])
+            for i, b in enumerate(batches)]
+    got = [trainer.step_batch(*b) for b in batches]
+    assert trainer.store.stats()["evictions"] > 0
+    assert got == want
+    merged = trainer.merged_params()
+    for k in ("w", "v"):
+        assert np.array_equal(merged[k], to_host(params[k].cpu())), k

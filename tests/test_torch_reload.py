@@ -294,13 +294,20 @@ def test_chain_follower_never_mutates_the_chain(tmp_path):
     assert _snapshot(tmp_path) == before
 
 
+def _relabel(tmp_path, step, layout):
+    state_path = tmp_path / str(step) / "state.json"
+    state = json.loads(state_path.read_text())
+    state["layout"] = layout
+    state_path.write_text(json.dumps(state))   # the manifest covers arrays
+
+
 def test_non_canonical_layout_fails_the_reload(tmp_path):
+    """A layout the reader does not know fails the reload. (A ``sharded``
+    step, written by the field-sharded training's ``--ckpt-sharded``,
+    reads back as canonical tables: see the next test.)"""
     ck = _chain(tmp_path, [4])
     ck.close()
-    state_path = tmp_path / "4" / "state.json"
-    state = json.loads(state_path.read_text())
-    state["layout"] = "sharded"
-    state_path.write_text(json.dumps(state))   # the manifest covers arrays
+    _relabel(tmp_path, 4, "interleaved")
     eng = _engine()
     journal = EventLog()
     fol = ReloadFollower(eng, str(tmp_path), journal=journal)
@@ -308,9 +315,23 @@ def test_non_canonical_layout_fails_the_reload(tmp_path):
         assert fol.poll_once() == "failed"
         assert eng.generation().step == 0 and fol.degraded
         assert _events(journal, "reload_failed")[0]["error"] == (
-            "chain holds sharded-layout checkpoints; serving follows "
+            "chain holds interleaved-layout checkpoints; serving follows "
             "canonical layouts only")
         assert not _events(journal, "checkpoint_unreadable")
+    finally:
+        fol.stop()
+        eng.close()
+
+
+def test_sharded_layout_reloads_as_canonical(tmp_path):
+    ck = _chain(tmp_path, [4])
+    ck.close()
+    _relabel(tmp_path, 4, "sharded")
+    eng = _engine()
+    fol = ReloadFollower(eng, str(tmp_path))
+    try:
+        assert fol.poll_once() == "swapped"
+        assert eng.generation().step == 4 and not fol.degraded
     finally:
         fol.stop()
         eng.close()

@@ -233,11 +233,13 @@ def test_sparse_sgd_step_keeps_the_reference_guards():
                                     ptrain.TrainConfig(embed_tier="require"))
     with pytest.raises(ValueError, match="HOST-built"):
         ptrain.make_train_step(pspec, ptrain.TrainConfig(host_dedup=True))
-    # The flat FFM builds; a field spec names its item.
+    # The flat FFM builds, and so does a field spec (the field families'
+    # generic dense step); a family with no dense step raises.
     ffm = models.FFMSpec(num_features=8, rank=2, num_fields=2)
     assert callable(ptrain.make_train_step(ffm, ptrain.TrainConfig()))
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 14"):
-        ptrain.make_train_step(fspec, ptrain.TrainConfig())
+    assert callable(ptrain.make_train_step(fspec, ptrain.TrainConfig()))
+    with pytest.raises(ValueError, match="no dense train step"):
+        ptrain._dense_grads_fn(object())
 
 
 def _trainer(pspec, jp, cfg):
