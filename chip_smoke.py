@@ -16,9 +16,10 @@ Phases (any failure exits non-zero before the last line is printed):
    one wide row (w = 129, a quarter of the bucket); every row within
    ATOL/RTOL of the plain version and repeated bit for bit (and the
    uniform eval batch's first 512 rows equal bit for bit to a call on
-   those rows alone), with max errors, kernel and plain times (CUDA events, median of 20 warm calls
-   over 20 distinct id sets; device time with the host's issue hidden
-   behind a sleep kernel, and the kernel's call time on an idle card) and
+   those rows alone), with max errors, kernel and plain times (CUDA
+   events, median of 12 warm calls over 12 distinct id sets; device time
+   with the host's issue hidden behind a sleep kernel, and the kernel's
+   call time on an idle card) and
    the byte bound of this run's distinct rows at 3.35 TB/s. Then
    ``train.evaluate_params`` of a config-3 model over three bench batches
    (B = 131,072): wall ms and device-busy ms per batch, one launch each;
@@ -29,12 +30,12 @@ Phases (any failure exits non-zero before the last line is printed):
    request must be answered once, by one generation, matching the plain
    version; the kernel must run in the replays, counted by its symbol in
    the profile (the replays launch past the wrapper's count);
-5. the CLI: ``python -m fm_spark_tpu_torch predict`` on a saved model
-   dir (16,384 buckets per field, to keep the npz short), checked line
-   by line against the plain version, the kernel run in its graphs'
-   replays (its ``kernel_runs_in_replays``); then ``train`` on a config-3 copy
-   with 16,384 buckets per field (bf16, dedup_sr, compact, the fused
-   backward; 3 steps) and ``eval`` of the model it wrote;
+5. the CLI (``fmtorch`` in this process, ``cli.main``): ``predict`` on
+   a saved model dir (16,384 buckets per field, to keep the npz short),
+   checked line by line against the plain version, the kernel run in its
+   graphs' replays (its ``kernel_runs_in_replays``); then ``train`` on a
+   config-3 copy with 16,384 buckets per field (bf16, dedup_sr, compact,
+   the fused backward; 3 steps) and ``eval`` of the model it wrote;
 6. the training kernels against their plain versions at full width on
    the bench batch (B = 131,072 Zipf(1.3) ids): segment totals (kernel
    A) on one field in the three forms the paths call it (the compact
@@ -316,7 +317,37 @@ Phases (any failure exits non-zero before the last line is printed):
    config 3's full width (2 steps and one sharded save, world 1, a group
    of its own from a torchrun-style environment) in this process
    (``cli.main``), then ``fmtorch eval --checkpoint-dir`` of its sharded
-   chain. Kernel A and ``sr_bits`` must have launched.
+   chain. Kernel A and ``sr_bits`` must have launched;
+23. the supervisor, elastic training, the kernel build cache, the front
+   door and the serving fleet (``elastic_fleet_phase``), every count set
+   to 0 first: leg A, config 2's ``fmtorch train --supervise`` from a
+   packed dir (8 steps, a chain every 2) with a device loss injected at
+   step 6, ``--compile-cache`` (the repo's build dirs, warm: no library
+   built) and ``--profile``, in this process, against the same command
+   uninterrupted: the losses, the chain's final step and params.npz bit
+   for bit, the journal's failure, probe, backoff and recovered events,
+   kernel A's runs per replayed step by symbol; leg B, the elastic
+   parent (``--elastic``) over a gang of the one card (world 1, NCCL) at
+   config 3's full width, each launch losing its device at its first
+   step: the third identical loss opens the breaker as permanent, one
+   card cannot shrink, and the run ends with the reference's message;
+   leg C, ``fmtorch serve --fleet 2 --frontdoor-port 0 --classes ...
+   --serve-seconds --compile-cache`` at config 3's full width from a
+   2-step chain, the seeded load generator's burst with a replica
+   killed at the 40th scored request (``replica_kill``): every request
+   answered exactly once or failed with a 503, the dead replica
+   respawned and re-admitted, 32 direct requests equal to one
+   ``PredictEngine``'s values bit for bit and served by both replicas,
+   each replica's ``fresh_compiles`` 0 and its ``fm_fused_scores`` runs
+   by its own count. Each leg's seconds and the burst's request p50/p99
+   are printed with the card's name and power limit.
+
+``python3 chip_smoke.py --repeat-phase-19 SECONDS`` runs phases 3-16
+once, then phase 19 again and again for SECONDS (under
+``CUDA_LAUNCH_BLOCKING=1``: the loop in which the prefetcher's event
+fault showed, PERF.md §6); ``--repeat-phase-17 SECONDS`` does the same
+for phase 17. Phase 5's ``fmtorch`` commands run in this process
+(``cli.main``).
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -340,6 +371,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -348,6 +380,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -360,7 +393,7 @@ TRAIN_B, CAP = 131072, 12288             # bench.py's config-3 batch and cap
 DROP_CAP = 8192                          # below the bench batch's distinct ids
 TRAIN_STEPS, WARM_STEPS = 7, 2
 PROFILED_STEPS = 3                       # phase 13: after the 7 compared
-REPS = 20
+REPS = 12                                # timed calls (and id sets) per case
 FFM_F, FFM_BUCKET, FFM_RANK = 23, 1 << 14, 16   # config 4, avazu_ffm_r16
 FFM_BATCHES = (512, 8192, 131072)
 # fp32 accumulation in another order than the plain version: the two
@@ -759,6 +792,29 @@ def serve_phase(dev, report):
     return out["launches"]
 
 
+def _fmtorch_run(argv):
+    """One phase-5 ``fmtorch`` command, run in this process
+    (``cli.main``, no interpreter start-up): a ``CompletedProcess`` of
+    its exit code, stdout and stderr."""
+    import gc
+
+    import torch
+
+    from fm_spark_tpu_torch import cli
+
+    argv = [str(a) for a in argv]
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return subprocess.CompletedProcess(argv, rc, out.getvalue(),
+                                       err.getvalue())
+
+
 def cli_phase(dev, report):
     import numpy as np
 
@@ -769,11 +825,9 @@ def cli_phase(dev, report):
     model_dir = os.path.join(HERE, "build", "chip_smoke", "model")
     out_path = os.path.join(HERE, "build", "chip_smoke", "preds.txt")
     models.save_model(model_dir, spec, params)
-    proc = subprocess.run(
-        [sys.executable, "-m", "fm_spark_tpu_torch", "predict",
-         "--model", model_dir, "--synthetic", "4096", "--batch-size", "512",
-         "--out", out_path],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
+    proc = _fmtorch_run([
+        "predict", "--model", model_dir, "--synthetic", "4096",
+        "--batch-size", "512", "--out", out_path])
     _check(proc.returncode == 0, f"cli predict exited {proc.returncode}:\n"
            f"{proc.stderr[-4000:]}")
     summary = json.loads(proc.stderr.strip().splitlines()[-1])
@@ -794,14 +848,12 @@ def cli_phase(dev, report):
 
     # train on a config-3 copy of 16,384 buckets per field, then eval.
     train_dir = os.path.join(HERE, "build", "chip_smoke", "trained")
-    proc = subprocess.run(
-        [sys.executable, "-m", "fm_spark_tpu_torch", "train",
-         "--config", "criteo1tb_fm_r64", "--bucket", str(bucket),
-         "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
-         "--param-dtype", "bfloat16", "--compute-dtype", "bfloat16",
-         "--sparse-update", "dedup_sr", "--host-dedup", "--compact-cap",
-         "4096", "--fused-embed", "require", "--model-out", train_dir],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
+    proc = _fmtorch_run([
+        "train", "--config", "criteo1tb_fm_r64", "--bucket", str(bucket),
+        "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
+        "--param-dtype", "bfloat16", "--compute-dtype", "bfloat16",
+        "--sparse-update", "dedup_sr", "--host-dedup", "--compact-cap",
+        "4096", "--fused-embed", "require", "--model-out", train_dir])
     _check(proc.returncode == 0, f"cli train exited {proc.returncode}:\n"
            f"{proc.stderr[-4000:]}")
     lines = [json.loads(x) for x in proc.stdout.splitlines()]
@@ -816,10 +868,8 @@ def cli_phase(dev, report):
     # kernel; the capture records it and the replays run it uncounted.
     _check(train_launches["kernel_launches"]["fm_bwd_segment_totals"] == 1,
            f"cli train did not run the fused backward: {train_launches}")
-    proc = subprocess.run(
-        [sys.executable, "-m", "fm_spark_tpu_torch", "eval", "--model",
-         train_dir, "--synthetic", "4096", "--batch-size", "1024"],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
+    proc = _fmtorch_run(["eval", "--model", train_dir, "--synthetic", "4096",
+                         "--batch-size", "1024"])
     _check(proc.returncode == 0, f"cli eval exited {proc.returncode}:\n"
            f"{proc.stderr[-4000:]}")
     metrics = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -839,12 +889,10 @@ def _pallas_cli(bucket: int):
     field (fp32, scatter_add, 3 steps): both row kernels F times a step."""
     import numpy as np
 
-    proc = subprocess.run(
-        [sys.executable, "-m", "fm_spark_tpu_torch", "train",
-         "--config", "criteo1tb_fm_r64", "--bucket", str(bucket),
-         "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
-         "--use-pallas"],
-        cwd=HERE, capture_output=True, text=True, timeout=600)
+    proc = _fmtorch_run([
+        "train", "--config", "criteo1tb_fm_r64", "--bucket", str(bucket),
+        "--synthetic", "20000", "--steps", "3", "--batch-size", "4096",
+        "--use-pallas"])
     _check(proc.returncode == 0, f"cli train --use-pallas exited "
            f"{proc.returncode}:\n{proc.stderr[-4000:]}")
     lines = [json.loads(x) for x in proc.stdout.splitlines()]
@@ -871,9 +919,7 @@ def _ffm_cli(dev):
     out_path = os.path.join(base, "ffm_preds.txt")
 
     def run(*args):
-        proc = subprocess.run(
-            [sys.executable, "-m", "fm_spark_tpu_torch", *args], cwd=HERE,
-            capture_output=True, text=True, timeout=600)
+        proc = _fmtorch_run(args)
         _check(proc.returncode == 0, f"cli {args[0]} (ffm) exited "
                f"{proc.returncode}:\n{proc.stderr[-4000:]}")
         return proc, json.loads(proc.stderr.strip().splitlines()[-1])
@@ -2917,7 +2963,7 @@ SERVE_TRAIN_B = 16384                    # phase 16 leg A: the trainer's batch
 SERVE_TRAIN_ROWS = 65536
 SERVE_TRAIN_STEPS = 6                    # saves every 2 steps: 2, 4, 6
 SERVE_REPEAT = 65                        # leg A: passes of 64 requests
-SERVE_REPS = 30                          # leg C: timed dispatches per case
+SERVE_REPS = 15                          # leg C: timed dispatches per case
 
 
 def _chain_stat(d, digest: bool = False) -> dict:
@@ -6447,13 +6493,336 @@ def parallel_phase(dev, report):
     return launches
 
 
-def repeat_phase_17(dev, report, seconds: float) -> int:
-    """``chip_smoke.py --repeat-phase-17 SECONDS``: phases 3-16 once, as
-    the full run runs them, then phase 17 again and again until
-    ``SECONDS`` have passed (run it under ``CUDA_LAUNCH_BLOCKING=1`` to
-    pin an asynchronous CUDA error to its launch). Each pass prints its
-    line; the first failure propagates with its traceback. Prints
-    ``{"phase17_loop": {"runs", "passed", "seconds"}}``."""
+SUP_STEPS, SUP_LOSS_AT = 8, 6            # phase 23 leg A: 8 steps, a loss at 6
+FLEET_KILL_AT = 40                       # leg C: the 40th scored request
+FLEET_BUCKETS = "1,8,64"
+FLEET_TRAIN_B = 16384                    # leg C's 2-step chain
+
+
+def _trace_names(path: str) -> list:
+    with open(path) as f:
+        return [(e.get("name", ""), e.get("cat", ""))
+                for e in json.load(f)["traceEvents"]]
+
+
+def _supervise_leg(dev, base, out) -> None:
+    """Leg A: config 2's ``fmtorch train --supervise`` from a packed dir,
+    a device loss injected at step ``SUP_LOSS_AT`` (the ``train_step``
+    point), with ``--compile-cache`` (the repo's build dirs: a warm cache)
+    and ``--profile``, in this process; against the same command
+    uninterrupted. The losses, the chain's final step and params.npz are
+    equal bit for bit; the journal holds the supervisor's events; kernel
+    A runs in the replays, counted by its symbol in the profile."""
+    import numpy as np
+
+    from fm_spark_tpu_torch import configs
+    from fm_spark_tpu_torch.resilience import faults
+
+    t0 = time.perf_counter()
+    c2 = configs.get_config(FLAT_C2["name"])
+    tsv, packed = os.path.join(base, "day.tsv"), os.path.join(base, "packed")
+    _criteo_tsv(tsv, FLAT_TSV_ROWS, seed=23)
+    _cli("preprocess", "--config", c2.name, "--input", tsv, "--out-dir",
+         packed)
+    common = ["train", "--config", c2.name, "--data", packed,
+              "--batch-size", FLAT_C2["batch"], "--steps", SUP_STEPS,
+              "--log-every", 1, "--checkpoint-every", 2]
+    ck = [os.path.join(base, f"sup{i}") for i in (0, 1)]
+    m = [os.path.join(base, f"sup{i}_model") for i in (0, 1)]
+    prof = os.path.join(base, "sup_prof")
+    golden, _ = _cli(*common, "--checkpoint-dir", ck[0], "--model-out", m[0])
+    faults.activate(f"train_step@{SUP_LOSS_AT}=device_loss")
+    try:
+        lines, summary = _cli(*common, "--checkpoint-dir", ck[1],
+                              "--model-out", m[1], "--supervise",
+                              "--compile-cache", os.path.join(HERE, "build"),
+                              "--profile", prof)
+    finally:
+        faults.clear()
+    lg, ls = _losses(golden), _losses(lines)
+    _check(lg == ls and sorted(ls) == list(range(1, SUP_STEPS + 1)),
+           f"phase 23 leg A: supervised losses {ls} != uninterrupted {lg}")
+    _check(_same_chain_step(_chain_step(ck[0], SUP_STEPS),
+                            _chain_step(ck[1], SUP_STEPS)),
+           "phase 23 leg A: the chains' final steps differ")
+    with np.load(os.path.join(m[0], "params.npz")) as a, \
+            np.load(os.path.join(m[1], "params.npz")) as b:
+        _check(sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files),
+            "phase 23 leg A: params.npz differs from the uninterrupted run's")
+    events = [e["event"] for e in _jsonl(os.path.join(ck[1],
+                                                      "health.jsonl"))]
+    _check({"failure", "probe", "backoff", "recovered"} <= set(events)
+           and summary["supervisor"]["failures"] == 1
+           and summary["compile_cache"]["misses"] == 0,
+           f"phase 23 leg A: journal {events}, summary "
+           f"{summary.get('supervisor')}, {summary.get('compile_cache')}")
+    names = _trace_names(os.path.join(prof, "trace.json"))
+    runs = _symbol_counts([types.SimpleNamespace(name=n) for n, c in names
+                           if c == "kernel"])[0]["segment_totals"]
+    replays = sum(1 for n, _ in names if n == "cudaGraphLaunch")
+    eager = summary["kernel_launches"]["segment_totals"]
+    _check(eager > 0 and replays > 0 and runs > eager,
+           f"phase 23 leg A: kernel A {runs} runs in the profile, {eager} "
+           f"eager launches, {replays} graph launches")
+    out["leg_a"] = {
+        "losses": ls, "events": events, "seconds": time.perf_counter() - t0,
+        "kernel_a_eager_launches": eager, "graph_launches": replays,
+        "kernel_a_runs_per_replayed_step": (runs - eager) / replays,
+        "compile_cache": summary["compile_cache"],
+        "capture_s": summary["capture_s"]}
+
+
+def _elastic_leg(base, out) -> None:
+    """Leg B: the elastic parent (``fmtorch train --elastic``, this
+    process) over a gang of the one card (world 1 under NCCL) at config
+    3's full width; every launch loses its device at its first step, so
+    the third identical loss is a permanent verdict, ``can_shrink`` is
+    false at one card, and the run ends with the reference's message.
+    The shrink itself needs two cards: the CPU tests hold it
+    (``tests/test_torch_elastic.py``, a gloo gang of 4)."""
+    from fm_spark_tpu_torch import cli
+    from fm_spark_tpu_torch.resilience import CircuitOpen, faults
+
+    t0 = time.perf_counter()
+    ck = os.path.join(base, "elastic_ck")
+    argv = ["train", "--config", "criteo1tb_fm_r64", "--synthetic", 16384,
+            "--batch-size", 16384, "--steps", 2, "--param-dtype",
+            "bfloat16", "--compute-dtype", "bfloat16", "--sparse-update",
+            "dedup_sr", "--compact-device", "--compact-cap", CAP,
+            "--test-fraction", 0, "--checkpoint-dir", ck,
+            "--checkpoint-every", 2, "--prefetch", 0, "--elastic"]
+    saved = os.environ.get("FM_SPARK_FAULTS")
+    os.environ["FM_SPARK_FAULTS"] = "train_step@1=device_loss"
+    buf, err = io.StringIO(), None
+    # The parent's designed backoff sleeps (1 s, 2 s) are waits, not
+    # checks: scaled to 0 here.
+    os.environ["FM_SPARK_TEST_SLEEP_SCALE"] = "0"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(buf):
+            cli.main([str(a) for a in argv])
+    except CircuitOpen as e:
+        err = str(e)
+    finally:
+        if saved is None:
+            os.environ.pop("FM_SPARK_FAULTS", None)
+        else:
+            os.environ["FM_SPARK_FAULTS"] = saved
+        os.environ.pop("FM_SPARK_TEST_SLEEP_SCALE", None)
+        faults.clear()    # the parent's probe point loaded the ranks' plan
+    want = ("train: 3 consecutive device losses — escalating instead of "
+            "thrashing the checkpoint")
+    _check(err == want, f"phase 23 leg B: the parent ended with {err!r}: "
+           f"{buf.getvalue()[-3000:]}")
+    events = _jsonl(os.path.join(ck, "health.jsonl"))
+    names = [e["event"] for e in events]
+    opened = [e for e in events if e["event"] == "circuit_open"]
+    failed = [json.loads(x)["gang_failed"] for x in buf.getvalue(
+    ).splitlines() if x.startswith('{"gang_failed"')]
+    _check(names.count("failure") == 3 and len(opened) == 1
+           and opened[0]["permanent"] and "mesh_shrink" not in names
+           and len(failed) == 3 and all("device lost" in f for f in failed),
+           f"phase 23 leg B: journal {names}, failures {failed}")
+    out["leg_b"] = {"events": names, "error": err, "gang_failures": failed,
+                    "seconds": time.perf_counter() - t0}
+
+
+def _fleet_leg(dev, base, out) -> None:
+    """Leg C: ``fmtorch serve --fleet 2 --frontdoor-port 0 --classes ...
+    --serve-seconds S --compile-cache <repo build dirs>`` (a subprocess)
+    at config 3's full width from a trained chain (2 steps here, in this
+    process, with ``--model-out``); the seeded load generator drives it
+    while a ``replica_kill`` exit fault kills one replica mid-burst.
+    Every accepted request is answered exactly once or failed with an
+    explicit 503; the dead replica is respawned and re-admitted; served
+    values equal one ``PredictEngine``'s on the same rows bit for bit;
+    each replica's warm-up built nothing (``fresh_compiles`` 0) and ran
+    ``fm_fused_scores`` in its graphs' replays by its own count."""
+    import signal
+
+    import numpy as np
+
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.serve import PredictEngine, loadgen
+
+    t0 = time.perf_counter()
+    ck, model = os.path.join(base, "fleet_ck"), os.path.join(base, "m3")
+    _cli(*_obs_train_argv(FLEET_TRAIN_B, 2), "--checkpoint-dir", ck,
+         "--checkpoint-every", 2, "--model-out", model)
+    out["leg_c_train_s"] = time.perf_counter() - t0
+    env = dict(os.environ, FM_SPARK_FAULTS=f"replica_kill@{FLEET_KILL_AT}"
+               "=exit", FM_SPARK_FAULTS_STATE=os.path.join(base, "fs.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fm_spark_tpu_torch", "serve", "--model",
+         model, "--checkpoint-dir", ck, "--fleet", "2", "--frontdoor-port",
+         "0", "--classes", "interactive:256:2000,batch:256:4000,"
+         "background:128:8000", "--serve-seconds", "600", "--compile-cache",
+         os.path.join(HERE, "build"), "--buckets", FLEET_BUCKETS,
+         "--reload-poll-s", "1", "--obs-dir", os.path.join(base, "obs_c")],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        url = None
+        for line in proc.stdout:
+            if '"frontdoor"' in line:
+                url = json.loads(line)["frontdoor"]["url"]
+                break
+        _check(url is not None, "phase 23 leg C: the fleet never came up "
+               f"(serve exited {proc.poll()})")
+        out["leg_c_up_s"] = time.perf_counter() - t0
+        host, port = url.split("//")[1].split(":")
+        port = int(port)
+        sched = loadgen.make_schedule("diurnal", 23, duration_s=4.0,
+                                      base_rps=40.0, rows=4,
+                                      deadline_ms=2000.0)
+        tap = os.path.join(base, "tap.jsonl")
+        t1 = time.perf_counter()
+        burst = loadgen.run_loadgen(host, port, sched, tap, nnz=F,
+                                    num_features=BUCKET, threads=16)
+        out["leg_c_burst_s"] = time.perf_counter() - t1
+        attempts = _jsonl(tap)
+        by_req = {}
+        for a in attempts:
+            by_req.setdefault(a["req_id"], []).append(a)
+        _check(len(by_req) == sched.n_requests and all(
+            len(v) == 1 and v[0]["status"] in (200, 503)
+            for v in by_req.values()),
+            f"phase 23 leg C: attempts {burst}")
+        # The killed replica comes back and is re-admitted.
+        give_up, health = time.monotonic() + 180, {}
+        while time.monotonic() < give_up:
+            health = json.loads(_get(url + "/healthz"))
+            reps = health["replicas"]
+            if (all(r["state"] == "ready" for r in reps)
+                    and max(r["incarnations"] for r in reps) == 2):
+                break
+            time.sleep(0.5)
+        reps = health.get("replicas", [])
+        _check(len(reps) == 2 and all(r["state"] == "ready" for r in reps)
+               and sorted(r["incarnations"] for r in reps) == [1, 2],
+               f"phase 23 leg C: the fleet after the kill: {health}")
+        out["leg_c_readmit_s"] = time.perf_counter() - t1
+        # Served values against one engine on the same rows.
+        spec, params = models.load_model(model, device=dev)
+        eng = PredictEngine(spec, params, nnz=F, buckets=tuple(
+            int(b) for b in FLEET_BUCKETS.split(",")), device=dev)
+        eng.warmup()
+        del params
+        direct, mismatched, served_by = 0, [], set()
+        for ev in sched.events[:32]:
+            ids, vals = loadgen.event_payload(ev, sched, nnz=F,
+                                              num_features=BUCKET)
+            body = json.dumps({"id": ev.req_id, "class": "interactive",
+                               "deadline_ms": 5000, "ids": ids,
+                               "vals": vals}).encode()
+            status, doc = loadgen._post_predict(host, port, body,
+                                                timeout_s=30)
+            _check(status == 200, f"phase 23 leg C: direct request {status}")
+            got = np.asarray(doc["scores"], np.float32)
+            want = eng.predict(np.asarray(ids, np.int32),
+                               np.asarray(vals, np.float32))
+            direct += 1
+            served_by.add(doc["replica"])
+            if not np.array_equal(got, want):
+                mismatched.append(ev.req_id)
+        eng.close()
+        del eng
+        _check(not mismatched and served_by == {0, 1},
+               f"phase 23 leg C: {len(mismatched)} of {direct} differ from "
+               f"the engine's; served by {served_by}")
+        time.sleep(1.0)                  # one health poll of the counts
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=120)
+    _check(proc.returncode == 0, f"phase 23 leg C: serve exited "
+           f"{proc.returncode}: {err[-3000:]}")
+    summary = next(json.loads(x)["serve_summary"] for x in rest.splitlines()
+                   if x.startswith('{"serve_summary"'))
+    door, replicas = summary["frontdoor"], summary["replicas"]
+    runs = [(r.get("kernel_runs") or {}).get("fm_fused_scores", 0)
+            for r in replicas]
+    _check(door["accepted"] == door["answered"] + door["failed"]
+           + door["timeout"] and door["answered"] >= sched.n_requests
+           - burst["by_outcome"].get("error", 0)
+           and door["retries"] >= 1,
+           f"phase 23 leg C: door {door}")
+    _check(all(r["fresh_compiles"] == 0 for r in replicas) and all(
+        n > 0 for n in runs), f"phase 23 leg C: replicas {replicas}")
+    obs_c = os.path.join(base, "obs_c")
+    journal = next(os.path.join(obs_c, d, "fleet_health.jsonl")
+                   for d in os.listdir(obs_c) if os.path.exists(
+                       os.path.join(obs_c, d, "fleet_health.jsonl")))
+    fleet_events = [e["event"] for e in _jsonl(journal)]
+    _check({"replica_down", "replica_spawn", "replica_ready"}
+           <= set(fleet_events), f"phase 23 leg C: journal {fleet_events}")
+    out["leg_c"] = {"burst": burst, "frontdoor": {
+        k: door[k] for k in ("accepted", "answered", "failed", "timeout",
+                             "shed", "retries")},
+        "replicas": [{k: r.get(k) for k in (
+            "replica", "incarnations", "generation_step", "fresh_compiles",
+            "graph_replays", "kernel_runs")} for r in replicas],
+        "direct_requests": direct, "fleet_events": fleet_events,
+        "seconds": time.perf_counter() - t0}
+
+
+def elastic_fleet_phase(dev, report):
+    """Phase 23: the supervisor, elastic training and the kernel build
+    cache (item 12a), the front door and the serving fleet (item 6b).
+    Each wrapper's count is set to 0 just before the phase; the legs'
+    launches in this process (leg A's warm-up, leg C's trained chain and
+    reference engine) are read after; each replica counts its own."""
+    import importlib
+    import tempfile
+
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="elastic.", dir=root)
+    out = {"card": report["card"]}
+    t_phase = time.perf_counter()
+    try:
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        _supervise_leg(dev, base, out)
+        print("phase 23 leg A", json.dumps(out["leg_a"]), flush=True)
+        _elastic_leg(base, out)
+        print("phase 23 leg B", json.dumps(out["leg_b"]), flush=True)
+        _fleet_leg(dev, base, out)
+        print("phase 23 leg C", json.dumps(out["leg_c"]), flush=True)
+        launches = kernel_launches()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["elastic_fleet"] = out
+    card = report["card"]
+    a, b, c = out["leg_a"], out["leg_b"], out["leg_c"]
+    print(f"phase 23 ({card}) leg A supervised config 2: "
+          f"{a['seconds']:.1f} s, kernel A "
+          f"{a['kernel_a_runs_per_replayed_step']:.2f} runs per replayed "
+          f"step, bit for bit; leg B elastic world 1: {b['seconds']:.1f} s; "
+          f"leg C fleet of 2 at config 3: {c['seconds']:.1f} s (up "
+          f"{out['leg_c_up_s']:.1f} s, burst {out['leg_c_burst_s']:.1f} s, "
+          f"re-admitted {out['leg_c_readmit_s']:.1f} s), request p50 "
+          f"{c['burst']['ok_p50_ms']} ms, p99 {c['burst']['ok_p99_ms']} ms",
+          flush=True)
+    return launches
+
+
+def repeat_phase(dev, report, which: str, seconds: float) -> int:
+    """``chip_smoke.py --repeat-phase-17 SECONDS`` (or ``-19``): phases
+    3-16 once (phase 5's commands in this process), then phase 17 (or
+    19) again and again until ``SECONDS`` have passed (run it under
+    ``CUDA_LAUNCH_BLOCKING=1`` to pin an asynchronous CUDA error to its
+    launch): the loop in which the prefetcher's event fault showed. Each
+    pass prints its line; the first failure propagates with its
+    traceback. Prints ``{"phase<N>_loop": {"runs", "passed",
+    "seconds"}}``."""
+    loop = {"17": flat_fm_phase, "19": stream_phase}[which]
     t0 = time.perf_counter()
     kernel_phase(dev, report)
     eval_phase(dev, report)
@@ -6477,10 +6846,10 @@ def repeat_phase_17(dev, report, seconds: float) -> int:
     while runs == 0 or time.perf_counter() - t1 < seconds:
         runs += 1
         t = time.perf_counter()
-        flat_fm_phase(dev, report)
-        print(f"phase 17 pass {runs}: {time.perf_counter() - t:.1f} s",
+        loop(dev, report)
+        print(f"phase {which} pass {runs}: {time.perf_counter() - t:.1f} s",
               flush=True)
-    print(json.dumps({"phase17_loop": {
+    print(json.dumps({f"phase{which}_loop": {
         "runs": runs, "passed": runs, "seconds": time.perf_counter() - t1,
         "launch_blocking": os.environ.get("CUDA_LAUNCH_BLOCKING")}}),
         flush=True)
@@ -6521,8 +6890,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    if sys.argv[1:2] == ["--repeat-phase-17"]:
-        return repeat_phase_17(dev, report, float(sys.argv[2]))
+    if sys.argv[1:2] in (["--repeat-phase-17"], ["--repeat-phase-19"]):
+        return repeat_phase(dev, report, sys.argv[1][-2:],
+                            float(sys.argv[2]))
 
     seconds = report["phase_seconds"] = {}
 
@@ -6556,6 +6926,7 @@ def main() -> int:
     tier_launches = timed("20 tier", tier_phase)
     obs_launches = timed("21 obs", obs_phase)
     par_launches = timed("22 parallel", parallel_phase)
+    fleet_launches = timed("23 elastic fleet", elastic_fleet_phase)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -6798,6 +7169,21 @@ def main() -> int:
         if runs is not None and entry["name"] in ("segment_totals",
                                                   "sr_bits"):
             entry["parallel_runs_per_replayed_step"] = runs[entry["name"]]
+    # Phase 23, the supervisor, elastic training and the fleet: each
+    # kernel's launches in this process (leg A's warm-up, leg C's 2-step
+    # chain and reference engine); kernel A's runs per replayed step of
+    # the supervised config-2 run by symbol; fm_fused_scores' runs in
+    # each fleet replica's graph replays, by the replica's own count.
+    ef = report["elastic_fleet"]
+    for entry in kernels["kernels"]:
+        entry["elastic_fleet_launches"] = fleet_launches[entry["name"]]
+        if entry["name"] == "segment_totals":
+            entry["supervised_runs_per_replayed_step"] = ef["leg_a"][
+                "kernel_a_runs_per_replayed_step"]
+        elif entry["name"] == "fm_fused_scores":
+            entry["fleet_replica_runs"] = [
+                (r["kernel_runs"] or {}).get("fm_fused_scores", 0)
+                for r in ef["leg_c"]["replicas"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

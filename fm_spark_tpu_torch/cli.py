@@ -448,7 +448,37 @@ class _Profile:
         return False
 
 
+_CACHE_COUNTS = ("requests", "hits", "misses")
+
+
+def _compile_cache(args) -> str | None:
+    """``--compile-cache [DIR]`` (bare: the default dir), else
+    ``FM_SPARK_COMPILE_CACHE``: the kernel build cache's dir, or None.
+    Notes the cache's counts so far on ``args`` (:func:`_cache_counts`)."""
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    if getattr(args, "compile_cache", None) is not None:
+        d = compile_cache.enable(args.compile_cache or None)
+    else:
+        d = compile_cache.enable_from_env()
+    st = compile_cache.cache_stats()
+    args.cache_base = {k: st[k] for k in _CACHE_COUNTS}
+    return d
+
+
+def _cache_counts(args) -> dict:
+    """The kernel build cache's counts for a command's summary: the
+    libraries this command asked for, found built (hits) and built
+    (misses), whatever the process did before it."""
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    st = compile_cache.cache_stats()
+    return {"enabled": st["enabled"], **{
+        k: st[k] - args.cache_base[k] for k in _CACHE_COUNTS}}
+
+
 def cmd_train(args) -> int:
+    _compile_cache(args)
     _obs_setup(args)
     _start_metrics_endpoint(args)
     ok = False
@@ -467,6 +497,16 @@ def _cmd_train(args) -> int:
 
     if bool(args.synthetic) == bool(args.data):
         raise SystemExit("train needs one of --data PATH or --synthetic N")
+    if args.elastic and (args.distributed or "RANK" in os.environ):
+        # The reference's refusal, and the port's way round it: the
+        # elastic parent launches (and relaunches) the ranks itself.
+        raise SystemExit(
+            "--elastic is single-process: a multi-host gang cannot "
+            "shrink without a coordinated re-initialize (the port's "
+            "--elastic is that re-initialize: it launches its own ranks, "
+            "one per card or --num-processes N, and relaunches them on "
+            "half the cards; run it without --distributed, outside "
+            "torchrun)")
     world = _maybe_init_distributed(args)
     batch_size = args.batch_size
     if args.batch_per_chip is not None:
@@ -537,6 +577,9 @@ def _cmd_train(args) -> int:
             "--checkpoint-dir (rollback restores the last good "
             f"checkpoint; config {cfg.name!r} resolves to strategy "
             f"{cfg.strategy!r})")
+    _check_supervise(args, cfg)
+    if args.elastic and cfg.strategy == "field_sparse":
+        return _train_elastic(args, tconfig)
     if cfg.strategy != "field_sparse":
         return _train_flat(args, cfg, tconfig, world)
     spec = cfg.spec()
@@ -589,7 +632,7 @@ def _cmd_train(args) -> int:
     summary = {"device": str(dev), "kernel_launches": _since(before),
                "step_ms": stats["step_ms"], "aux_ms": stats["aux_ms"],
                "capture_s": stats["capture_s"], "saves": stats["saves"],
-               "world": world}
+               "world": world, "compile_cache": _cache_counts(args)}
     _print_ingest(stats["ingest"], summary, stream)
     if stats["end"] < tconfig.num_steps:
         # Preempted: the chain holds the step reached; the same command
@@ -626,6 +669,169 @@ def _logger(tconfig, world: int):
                          else None, n_chips=world)
 
 
+def _check_supervise(args, cfg) -> None:
+    """The reference's guards of ``--supervise`` and ``--elastic``, in its
+    words. ``dp`` without ``--distributed`` is the single step on one
+    card, so it counts as ``single`` (as for ``--divergence-guard``)."""
+    single = cfg.strategy == "single" or (cfg.strategy == "dp"
+                                          and not args.distributed)
+    if args.supervise and (not single or not args.checkpoint_dir):
+        raise SystemExit(
+            "--supervise requires strategy 'single' and --checkpoint-dir "
+            "(device-loss recovery resumes from committed checkpoints; "
+            f"config {cfg.name!r} resolves to strategy {cfg.strategy!r})")
+    if not args.elastic:
+        return
+    if not args.checkpoint_dir:
+        raise SystemExit(
+            "--elastic requires --checkpoint-dir (degraded-mode resume "
+            "restores the last good checkpoint onto the shrunk mesh)")
+    if not single and cfg.strategy != "field_sparse":
+        raise SystemExit(
+            "--elastic supports strategies 'single' (with --supervise) and "
+            f"'field_sparse'; config {cfg.name!r} resolves to "
+            f"{cfg.strategy!r}")
+    if single and not args.supervise:
+        raise SystemExit(
+            "--elastic with strategy 'single' requires --supervise (the "
+            "shrink trigger is the supervisor's permanent-fault verdict)")
+    if args.ckpt_sharded:
+        raise SystemExit(
+            "--elastic and --ckpt-sharded are exclusive: sharded "
+            "checkpoints resume only onto the same mesh, but the whole "
+            "point of elastic mode is resuming onto a smaller one (use the "
+            "default canonical layout)")
+    if args.row_shards > 1:
+        raise SystemExit(
+            "--elastic requires --row-shards 1: a shrunk device set cannot "
+            "honor a fixed row-shard extent (the halved count stops "
+            "dividing by it) — the 2-D mesh's row capacity is a commitment "
+            "elastic mode cannot keep")
+    if single and args.num_processes is not None:
+        raise SystemExit("--num-processes with --elastic sizes the gang of "
+                         "strategy 'field_sparse'; strategy 'single' runs "
+                         "one process")
+
+
+#: The elastic parent's own flags, left out of its ranks' command lines
+#: (the parent serves ``--metrics-port`` itself): ``(flag, takes a
+#: value)``.
+_ELASTIC_PARENT_FLAGS = (("--elastic", False), ("--max-shrinks", True),
+                         ("--num-processes", True), ("--metrics-port", True))
+
+
+def _rank_argv(argv: list) -> list:
+    """``argv`` (the parent's ``train`` command line) without the elastic
+    parent's own flags: each rank's command line, before its triple."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        for flag, value in _ELASTIC_PARENT_FLAGS:
+            if a == flag:
+                skip = value
+                break
+            if value and a.startswith(flag + "="):
+                break
+        else:
+            out.append(a)
+    return out
+
+
+def _train_elastic(args, tconfig) -> int:
+    """``train --elastic`` on a ``field_sparse`` config: the elastic
+    parent (the port's counterpart of the reference's
+    ``_fit_field_sparse_elastic``). It launches a gang of ranks, one per
+    visible card (or ``--num-processes N``; ``--device cpu`` runs gloo
+    ranks), each a ``--distributed`` rank on a fresh rendezvous
+    (:func:`~fm_spark_tpu_torch.parallel.gang.run_gang`). A failed gang
+    is ended and its first rank's error, by its text, goes to the
+    :class:`~fm_spark_tpu_torch.resilience.Supervisor` (probe, bounded
+    backoff; checkpointed progress between two losses clears the run of
+    failures); on a PERMANENT verdict the
+    :class:`~fm_spark_tpu_torch.resilience.ElasticController` halves the
+    gang and it is relaunched, every launch resuming from the chain's
+    canonical layout. A failure that is not a device loss propagates,
+    as does a mixed-mode circuit open. Rank 0's lines are relayed."""
+    import torch
+
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+    from fm_spark_tpu_torch.parallel import gang
+    from fm_spark_tpu_torch.resilience import (BackoffPolicy, CircuitOpen,
+                                               ElasticController, Supervisor,
+                                               is_device_loss)
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    cpu = args.device == "cpu"
+    n = args.num_processes or (1 if cpu else torch.cuda.device_count())
+    if n < 1:
+        raise SystemExit("--elastic found no card to launch a rank on "
+                         "(pass --device cpu for gloo ranks)")
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"),
+                       mirror_to_flight=True)
+    supervisor = Supervisor(
+        policy=BackoffPolicy(initial=1.0, multiplier=2.0, max_delay=15.0),
+        journal=journal, breaker_threshold=3,
+        device="cpu" if cpu else None)
+    elastic = ElasticController(devices=list(range(n)),
+                                max_shrinks=args.max_shrinks,
+                                journal=journal)
+    argv = _rank_argv(args.argv)
+    log_dir = os.path.join(args.checkpoint_dir, "elastic")
+    launches = []
+    step_at_last_failure = None
+    try:
+        while True:
+            world = elastic.n_chips
+            res = gang.run_gang(argv, world, log_dir,
+                                tag=f"launch{len(launches)}")
+            launches.append({"world": world, "rcs": res.rcs,
+                             "killed": res.killed,
+                             "seconds": round(res.seconds, 3)})
+            sys.stdout.write(res.stdout)
+            sys.stdout.flush()
+            if res.ok:
+                supervisor.note_success("train")
+                if elastic.degraded:
+                    journal.emit("degraded_complete", **elastic.summary())
+                summary = {}
+                errs = [x for x in res.stderr.splitlines()
+                        if x.startswith("{")]
+                if errs:
+                    summary = json.loads(errs[-1])
+                summary.update(elastic=elastic.summary(), launches=launches)
+                print(json.dumps(summary), file=sys.stderr)
+                return 0
+            failure = res.failure
+            print(json.dumps({"gang_failed": str(failure),
+                              "world": world}), file=sys.stderr, flush=True)
+            if not is_device_loss(failure):
+                raise failure
+            committed = ChainFollower(args.checkpoint_dir).last_good_step()
+            if (step_at_last_failure is not None and committed is not None
+                    and committed > step_at_last_failure):
+                supervisor.note_success("train")
+            step_at_last_failure = committed
+            try:
+                supervisor.recover("train", failure)
+            except CircuitOpen:
+                if not supervisor.permanent() or not elastic.can_shrink():
+                    raise
+                ranks = elastic.shrink("train")
+                if tconfig.batch_size % len(ranks):
+                    raise SystemExit(
+                        f"elastic shrink reached {len(ranks)} device(s) but "
+                        f"batch_size={tconfig.batch_size} does not divide "
+                        "by it; pick a batch divisible by every shrink step "
+                        "(halving from the initial mesh) or lower "
+                        "--max-shrinks") from failure
+                supervisor.reset("train")
+    finally:
+        journal.close()
+
+
 #: train's strategies (the reference's ``--strategy`` choices).
 STRATEGIES = ("single", "field_sparse", "dp", "row")
 
@@ -655,8 +861,9 @@ def _maybe_init_distributed(args) -> int:
     ``LOCAL_RANK``). A partial triple raises rather than rendezvous
     against the wrong cluster."""
     if not args.distributed:
-        if (args.coordinator is not None or args.num_processes is not None
-                or args.process_id is not None):
+        # --num-processes alone sizes the elastic parent's gang.
+        if (args.coordinator is not None or args.process_id is not None
+                or (args.num_processes is not None and not args.elastic)):
             raise SystemExit(
                 "--coordinator/--num-processes/--process-id require "
                 "--distributed")
@@ -934,7 +1141,13 @@ def _checkpointer(args):
     from fm_spark_tpu_torch.utils.logging import EventLog
 
     os.makedirs(args.checkpoint_dir, exist_ok=True)
-    journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"))
+    # A supervised or guarded run mirrors each health event into the
+    # flight ring, so its fault timeline carries the retry story too.
+    journal = EventLog(os.path.join(args.checkpoint_dir, "health.jsonl"),
+                       mirror_to_flight=bool(
+                           getattr(args, "supervise", False)
+                           or getattr(args, "divergence_guard", None)
+                           is not None))
     return Checkpointer(args.checkpoint_dir,
                         save_every=args.checkpoint_every,
                         max_to_keep=args.checkpoint_keep,
@@ -1003,10 +1216,10 @@ def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
     # above); the parallel strategies shard or replicate their tables.
     tiered = _tier_plan(spec, tconfig, cfg.strategy if parallel_run
                         else "single") == "tiered"
-    if tiered and args.divergence_guard is not None:
+    if tiered and (args.divergence_guard is not None or args.supervise):
         raise SystemExit(
-            "--embed-tier is exclusive with --divergence-guard: the "
-            "tiered trainer runs its own fit loop")
+            "--embed-tier is exclusive with --divergence-guard and "
+            "--supervise: the tiered trainer runs its own fit loop")
     if tiered and tconfig.eval_every > 0:
         raise SystemExit(
             "--embed-tier does not run periodic in-fit eval (eval_every > "
@@ -1026,7 +1239,20 @@ def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
 
         guard_div = DivergenceGuard(spike_factor=args.divergence_guard,
                                     journal=journal)
-    trainer = FMTrainer(spec, tconfig, device=dev)
+    supervisor = elastic = None
+    if args.supervise:
+        from fm_spark_tpu_torch.resilience import Supervisor
+
+        supervisor = Supervisor(journal=journal, device=dev)
+    if args.elastic:
+        from fm_spark_tpu_torch.resilience import ElasticController
+
+        elastic = ElasticController(
+            devices=[0] if dev.type == "cpu"
+            else list(range(torch.cuda.device_count())),
+            max_shrinks=args.max_shrinks, journal=journal)
+    trainer = FMTrainer(spec, tconfig, device=dev,
+                        n_chips=elastic.n_chips if elastic else 1)
     before = _launches()
     try:
         with _preemption(checkpointer) as guard:
@@ -1034,7 +1260,8 @@ def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
                         preemption_guard=guard, prefetch=args.prefetch,
                         eval_batches=(eval_source if tconfig.eval_every > 0
                                       else None),
-                        divergence_guard=guard_div)
+                        divergence_guard=guard_div, supervisor=supervisor,
+                        elastic=elastic)
     finally:
         if checkpointer is not None:
             checkpointer.close()
@@ -1048,6 +1275,12 @@ def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
                "kernel_launches": _since(before),
                "capture_s": trainer._train_step.captured.capture_s,
                "saves": list(checkpointer.timings) if checkpointer else []}
+    summary["compile_cache"] = _cache_counts(args)
+    if supervisor is not None:
+        summary["supervisor"] = {"verdict": supervisor.health_verdict(),
+                                 "failures": supervisor.total_failures}
+    if elastic is not None:
+        summary["elastic"] = elastic.summary()
     _print_ingest(trainer.ingest, summary, stream)
     if trainer.step_count < tconfig.num_steps:
         print(json.dumps({"preempted": trainer.step_count}), flush=True)
@@ -1281,6 +1514,7 @@ def cmd_predict(args) -> int:
     from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.serve import PredictEngine
 
+    _compile_cache(args)
     spec, params = models.load_model(args.model, device=args.device)
     batches = _batches_for_model(args, spec)
     engine = None
@@ -1313,14 +1547,13 @@ def cmd_predict(args) -> int:
     return 0
 
 
-#: serve's flags of the reference that wait for later ports, by the
-#: ROADMAP Queue 1 item that brings them.
-_UNPORTED_SERVE_FLAGS = (
-    ("fleet", "--fleet", "6b"), ("autoscale_max", "--autoscale-max", "6b"),
-    ("frontdoor_port", "--frontdoor-port", "6b"), ("classes", "--classes", "6b"),
-    ("serve_seconds", "--serve-seconds", "6b"),
-    ("trace_sample", "--trace-sample", "6b"),
-    ("compile_cache", "--compile-cache", "12"))
+#: serve's flags that configure the front door and its fleet: with
+#: ``--fleet`` only, as ``(dest, flag)``.
+_FLEET_FLAGS = (("autoscale_max", "--autoscale-max"),
+                ("frontdoor_port", "--frontdoor-port"),
+                ("classes", "--classes"),
+                ("serve_seconds", "--serve-seconds"),
+                ("trace_sample", "--trace-sample"))
 
 
 def _serve_from_chain(args):
@@ -1373,13 +1606,20 @@ def cmd_serve(args) -> int:
     from fm_spark_tpu_torch.resilience import watchdog
     from fm_spark_tpu_torch.utils.logging import EventLog
 
-    for dest, flag, item in _UNPORTED_SERVE_FLAGS:
-        if getattr(args, dest) is not None:
-            raise SystemExit(f"serve {flag} is not ported yet (ROADMAP Queue "
-                             f"1 item {item})")
+    if not args.fleet:
+        for dest, flag in _FLEET_FLAGS:
+            if getattr(args, dest) is not None:
+                raise SystemExit(f"serve {flag} requires --fleet N (it "
+                                 "configures the front door of the replica "
+                                 "fleet)")
+    elif args.synthetic or args.data or args.out:
+        raise SystemExit("serve --fleet answers HTTP requests at its front "
+                         "door; --synthetic, --data and --out drive the "
+                         "single engine's request stream")
     buckets = tuple(sorted({int(b) for b in args.buckets.split(",") if b}))
     if not buckets:
         raise SystemExit(f"--buckets parsed empty from {args.buckets!r}")
+    cache_dir = _compile_cache(args)
     _obs_setup(args)
     _start_metrics_endpoint(args)
     slo_armed = args.slo_ms is not None and not watchdog.active()
@@ -1391,12 +1631,113 @@ def cmd_serve(args) -> int:
         journal = EventLog(os.path.join(obs.run_dir(), "serve_health.jsonl"),
                            keep=False, mirror_to_flight=True)
     try:
+        if args.fleet:
+            return _serve_fleet(args, journal, cache_dir)
         return _serve(args, buckets, journal)
     finally:
         if slo_armed:
             watchdog.clear()
         if journal is not None:
             journal.close()
+
+
+def _serve_fleet(args, journal, cache_dir) -> int:
+    """``serve --fleet N``: N replica processes (each its own engine on
+    ``--device`` and, with ``--checkpoint-dir``, its own read-only chain
+    follower) behind one HTTP front door with deadline-aware admission
+    control (``--classes``), serving until SIGINT/SIGTERM or
+    ``--serve-seconds``. Prints the front door's URL first and one
+    ``serve_summary`` line (admission counters, per-replica health with
+    each replica's ``fresh_compiles`` and kernel runs) at the end. With
+    the obs plane on, the fleet's journal is ``fleet_health.jsonl`` in
+    the run dir and each replica opens its own run dir beside it."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from fm_spark_tpu_torch import obs
+    from fm_spark_tpu_torch.serve.fleet import Fleet
+    from fm_spark_tpu_torch.serve.frontdoor import (AdmissionController,
+                                                    FrontDoor)
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    if not args.model:
+        raise SystemExit(
+            "--fleet needs --model DIR: each replica loads the saved "
+            "model, then (with --checkpoint-dir) hot-follows the chain "
+            "through its own read-only follower")
+    # Without the obs plane the replicas' port files, journals and stderr
+    # go to a temporary dir, removed when the fleet stops.
+    scratch = None if obs.run_dir() else tempfile.mkdtemp(prefix="fm_fleet_")
+    work_dir = scratch or os.path.join(obs.run_dir(), "fleet")
+    if obs.run_dir():
+        journal = EventLog(os.path.join(obs.run_dir(), "fleet_health.jsonl"),
+                           mirror_to_flight=True)
+    obs_root = os.path.dirname(obs.run_dir()) if obs.run_dir() else None
+    replica_env = {}
+    if args.slo_ms is not None:
+        # The serve_request deadline runs in the replicas' engines.
+        replica_env = {"FM_SPARK_WATCHDOG":
+                       f"serve_request={args.slo_ms / 1e3}",
+                       "FM_SPARK_WATCHDOG_ACTION": "raise"}
+    autoscaler = None
+    if args.autoscale_max:
+        from fm_spark_tpu_torch.serve.autoscale import Autoscaler
+
+        autoscaler = Autoscaler(min_replicas=1,
+                                max_replicas=max(args.autoscale_max,
+                                                 args.fleet))
+    fleet = Fleet(args.model, n_replicas=args.fleet,
+                  chain_dir=args.checkpoint_dir, work_dir=work_dir,
+                  journal=journal, buckets=args.buckets,
+                  latency_budget_ms=args.latency_budget_ms,
+                  reload_poll_s=args.reload_poll_s,
+                  compile_cache_dir=cache_dir, obs_root=obs_root,
+                  replica_env=replica_env, autoscaler=autoscaler,
+                  device=args.device)
+    door = None
+    try:
+        fleet.start()
+        admission = (AdmissionController(args.classes) if args.classes
+                     else AdmissionController())
+        door = FrontDoor(fleet, admission=admission,
+                         port=args.frontdoor_port or 0, journal=journal,
+                         trace_sample=(1.0 if args.trace_sample is None
+                                       else args.trace_sample)).start()
+        print(json.dumps({"frontdoor": {
+            "url": door.url, "replicas": args.fleet, "work_dir": work_dir,
+            "classes": [dataclasses.asdict(c)
+                        for c in admission.classes]}}), flush=True)
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        if args.serve_seconds:
+            stop.wait(args.serve_seconds)
+        else:
+            while not stop.wait(0.5):
+                pass
+        stats = door.stats()
+        health = fleet.healthz()
+    finally:
+        if door is not None:
+            door.stop()          # closes the fleet with it
+        else:
+            fleet.close()
+        if journal is not None and obs.run_dir():
+            journal.close()
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+    summary = {"frontdoor": stats,
+               "fleet": {k: health[k] for k in ("ready", "n_replicas",
+                                                 "capacity", "elastic")},
+               "replicas": health["replicas"]}
+    if fleet.autoscaler is not None:
+        summary["autoscale"] = fleet.autoscaler.summary()
+    print(json.dumps({"serve_summary": summary}), flush=True)
+    obs.export_snapshot()
+    return 0
 
 
 def _serve(args, buckets, journal) -> int:
@@ -1433,12 +1774,14 @@ def _serve(args, buckets, journal) -> int:
                         latency_budget_ms=args.latency_budget_ms, device=dev,
                         journal=journal)
                     warm = engine.warmup()
-                    # No compile cache (ROADMAP item 12): the kernels
-                    # build and the graphs capture in the warm-up.
+                    # fresh_compiles: the kernel libraries the warm-up
+                    # built (0 on a warm build cache); captures: its CUDA
+                    # graphs, which every process captures anew.
                     print(json.dumps({
                         "serving": True, "step": step0,
                         "buckets": list(buckets), "warmup_s": warm["seconds"],
-                        "fresh_compiles": None, "captures": warm["captures"],
+                        "fresh_compiles": warm["fresh_compiles"],
+                        "captures": warm["captures"],
                         "capture_s": warm["capture_s"]}), flush=True)
                     if args.checkpoint_dir and args.reload_poll_s > 0:
                         follower = ReloadFollower(
@@ -1662,6 +2005,38 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="embed_bucket_rows",
                    help="rows per hot-tier bucket (the residency unit; "
                         "default 512)")
+    t.add_argument("--supervise", action="store_true",
+                   help="wrap single-strategy training in the device-fault "
+                        "supervisor (resilience/): a device loss probes the "
+                        "card, backs off with bounded exponential delay, "
+                        "and restores the newest verified step in place, "
+                        "ending bit for bit where the uninterrupted run "
+                        "does; health events land in "
+                        "<checkpoint-dir>/health.jsonl. Requires "
+                        "--checkpoint-dir")
+    t.add_argument("--elastic", action="store_true",
+                   help="elastic degraded mode (resilience/elastic.py): N "
+                        "identical consecutive device losses are classified "
+                        "PERMANENT and the run sheds capacity instead of "
+                        "dying. field_sparse: this process launches the "
+                        "ranks (one per card, or --num-processes N) and "
+                        "relaunches them on half the cards (8>4>2>1) from "
+                        "the last good checkpoint; single (with "
+                        "--supervise): per-chip metrics re-normalize. "
+                        "Requires --checkpoint-dir; exclusive with "
+                        "--ckpt-sharded")
+    t.add_argument("--max-shrinks", type=int, default=3, dest="max_shrinks",
+                   help="with --elastic: how many times the device set may "
+                        "halve before a permanent fault propagates (3 = an "
+                        "8-card gang degrades down to 1)")
+    t.add_argument("--compile-cache", nargs="?", const="", default=None,
+                   metavar="DIR", dest="compile_cache",
+                   help="the kernel build cache at DIR (bare flag = the "
+                        "repo-local default dir): a warm process loads "
+                        "every nvcc and g++ library built before instead "
+                        "of building it (utils/compile_cache.py). "
+                        "FM_SPARK_COMPILE_CACHE=<dir|1> does the same "
+                        "without the flag")
     t.add_argument("--divergence-guard", type=float, nargs="?", const=10.0,
                    default=None, dest="divergence_guard", metavar="FACTOR",
                    help="flat configs with --checkpoint-dir: a NaN/Inf "
@@ -1745,6 +2120,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--model", required=True, help="model dir (spec.json + params.npz)")
     add_data_args(pr, 8192)
     pr.add_argument("--out", help="output file ('-' = stdout)")
+    pr.add_argument("--compile-cache", nargs="?", const="", default=None,
+                    metavar="DIR", dest="compile_cache",
+                    help="the kernel build cache (as train's)")
     pr.set_defaults(fn=cmd_predict)
 
     sv = sub.add_parser(
@@ -1796,10 +2174,44 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="metrics_port", metavar="PORT",
                     help="the live metrics endpoint (as train's), served "
                          "from a daemon thread off the request path")
-    for dest, flag, item in _UNPORTED_SERVE_FLAGS:
-        sv.add_argument(flag, dest=dest, default=None, nargs="?", const="",
-                        help=f"not ported yet (ROADMAP Queue 1 item {item}); "
-                             "giving it exits")
+    sv.add_argument("--compile-cache", nargs="?", const="", default=None,
+                    metavar="DIR", dest="compile_cache",
+                    help="the kernel build cache (as train's); the replicas "
+                         "of --fleet share it: the first builds, the rest "
+                         "load (each replica's fresh_compiles)")
+    sv.add_argument("--fleet", type=int, default=0,
+                    help="the production front door: run N replica "
+                         "processes (each its own engine on --device; "
+                         "several share a card) behind one HTTP front door "
+                         "with deadline-aware admission control (requires "
+                         "--model; --checkpoint-dir adds per-replica hot "
+                         "reload)")
+    sv.add_argument("--autoscale-max", type=int, default=None,
+                    dest="autoscale_max", metavar="N",
+                    help="with --fleet: the bidirectional autoscaler with "
+                         "this replica ceiling — grows on sustained "
+                         "front-door shed, parks idle replicas on low "
+                         "coalescer fill; decisions journal as "
+                         "autoscale_decision events (default: a fixed-size "
+                         "fleet)")
+    sv.add_argument("--frontdoor-port", type=int, default=None,
+                    dest="frontdoor_port", metavar="PORT",
+                    help="with --fleet: the front door's listen port "
+                         "(default: ephemeral, printed at startup)")
+    sv.add_argument("--classes", default=None,
+                    help="with --fleet: admission classes as "
+                         "'name:queue_cap:deadline_ms,...' in priority "
+                         "order (default: interactive:64:500,batch:64:2000,"
+                         "background:32:8000)")
+    sv.add_argument("--serve-seconds", type=float, default=None,
+                    dest="serve_seconds",
+                    help="with --fleet: serve for this long, then exit "
+                         "cleanly (default: until SIGINT/SIGTERM)")
+    sv.add_argument("--trace-sample", type=float, default=None,
+                    dest="trace_sample", metavar="FRAC",
+                    help="with --fleet: the fraction of accepted requests "
+                         "that get a distributed trace (default 1.0; spans "
+                         "cost one JSONL write per hop)")
     sv.set_defaults(fn=cmd_serve)
 
     lc = sub.add_parser("list-configs", help="list the registered configs")
@@ -1838,7 +2250,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = [str(a) for a in (sys.argv[1:] if argv is None else argv)]
     args = build_parser().parse_args(argv)
+    args.argv = argv               # the elastic parent relaunches it
     reason = "run_end"
     try:
         return args.fn(args)

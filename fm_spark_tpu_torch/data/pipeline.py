@@ -18,6 +18,8 @@ import time
 import numpy as np
 import torch
 
+from .. import graphs
+
 
 def train_test_split(ids, vals, labels, test_fraction=0.2, seed=0):
     """Deterministic shuffled split (the same permutation as the JAX
@@ -381,10 +383,13 @@ class Prefetcher:
     ``record_stream`` on each tensor, so the compute stream never reads a
     buffer before its copy lands and the allocator never hands the
     buffer's memory to the side stream while the compute stream may still
-    read it. The pinned buffers come from PyTorch's caching host
-    allocator, which records the copy on the side stream and reuses a
-    buffer only once that copy has completed, so a pinned buffer is never
-    refilled while its copy is in flight.
+    read it. The copies and the record are issued only while no CUDA
+    graph capture is underway in the process (``graphs.side_stream_work``):
+    PyTorch's pool may hand the producer the capturing stream itself.
+    The pinned buffers come from PyTorch's caching host allocator, which
+    records the copy on the side stream and reuses a buffer only once
+    that copy has completed, so a pinned buffer is never refilled while
+    its copy is in flight.
 
     ``state()`` is the wrapped source's cursor as of the last consumed
     batch.
@@ -404,7 +409,9 @@ class Prefetcher:
     def _to_device(self, batch, side):
         if side is None:
             return _tree_map(host_tensor, batch), None
-        with torch.cuda.stream(side):
+        # Never while a capture is underway: the side stream may be the
+        # capturing stream itself (``graphs.side_stream_work``).
+        with graphs.side_stream_work(), torch.cuda.stream(side):
             out = _tree_map(
                 lambda a: host_tensor(a, pin=True).to(self._device,
                                                       non_blocking=True),

@@ -76,7 +76,7 @@ import time
 import numpy as np
 import torch
 
-from fm_spark_tpu_torch import obs, resolve_device
+from fm_spark_tpu_torch import graphs, obs, resolve_device
 from fm_spark_tpu_torch.resilience import faults
 from fm_spark_tpu_torch.utils import durable
 
@@ -454,7 +454,9 @@ class TieredStore:
         torch.cuda.set_device(self.device)
         side = self._stream(stream)
         ready = torch.cuda.Event()
-        with torch.cuda.stream(side):
+        # Never while another thread captures: the pool may hand this
+        # side stream out as the capturing one (graphs.side_stream_work).
+        with graphs.side_stream_work(), torch.cuda.stream(side):
             if pinned:
                 slot = self._ring_slot()
                 bufs = {}

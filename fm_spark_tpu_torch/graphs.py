@@ -33,24 +33,75 @@ import time
 
 import torch
 
-__all__ = ["CapturedStep", "capture_underway", "capturing"]
+__all__ = ["CapturedStep", "capture_underway", "capturing",
+           "side_stream_work"]
 
-_capture_lock = threading.Lock()
-_captures = 0
+# Captures and other threads' side-stream work exclude each other.
+# PyTorch hands out ``torch.cuda.Stream()`` round-robin from a pool of 32
+# streams per device, and ``torch.cuda.graph`` captures on one of them
+# (made once per process). So a thread's "own" side stream is, every
+# 32nd stream drawn, the very stream another thread is capturing on: a
+# copy and an event record issued there during the capture are recorded
+# into the graph instead of running, and waiting on that event later
+# fails with "CUDA error: invalid argument" (cudaStreamWaitEvent).
+# ``thread_local`` capture mode does not guard that: the work is legal,
+# it just lands in the wrong place. So every thread that issues work on
+# a side stream of its own does it inside :func:`side_stream_work`, and
+# no capture begins while any such work is being issued.
+_gate = threading.Condition()
+_captures = 0          # captures underway
+_side_work = 0         # side-stream work being issued on other threads
+_waiting = 0           # captures waiting for that work to be issued
+_local = threading.local()
 
 
 @contextlib.contextmanager
 def capturing():
     """Marks a CUDA graph capture for :func:`capture_underway` (the
-    introspection engine begins no profiler trace during one)."""
-    global _captures
-    with _capture_lock:
+    introspection engine begins no profiler trace during one) and holds
+    it apart from :func:`side_stream_work` on other threads: the capture
+    begins once no such work is being issued, and none is issued until
+    it ends."""
+    global _captures, _waiting
+    with _gate:
+        _waiting += 1
+        try:
+            while _side_work:
+                _gate.wait()
+        finally:
+            _waiting -= 1
         _captures += 1
+    _local.capturing = getattr(_local, "capturing", 0) + 1
     try:
         yield
     finally:
-        with _capture_lock:
+        _local.capturing -= 1
+        with _gate:
             _captures -= 1
+            _gate.notify_all()
+
+
+@contextlib.contextmanager
+def side_stream_work():
+    """Issue work on a side stream of this thread's own (a prefetcher's
+    copies and event record, a staging copy) while no capture is
+    underway: waits for captures in progress or waiting to begin, then
+    holds new ones off until the block ends. On a thread that is itself
+    capturing it waits for nothing (that work is the capture's own)."""
+    global _side_work
+    if getattr(_local, "capturing", 0):
+        yield
+        return
+    with _gate:
+        while _captures or _waiting:
+            _gate.wait()
+        _side_work += 1
+    try:
+        yield
+    finally:
+        with _gate:
+            _side_work -= 1
+            _gate.notify_all()
 
 
 def capture_underway() -> bool:

@@ -4,7 +4,9 @@ Each ``fm_spark_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a
 shared library of its own, with a plain C interface, under
 ``build/torch_kernels/`` beside the package. The library's file name
 carries a hash of its source and the flags, so an edited source is
-rebuilt and an unchanged one is reused by every later process. Missing
+rebuilt and an unchanged one is reused by every later process
+(``compile_cache.enable`` moves the directory to a shared cache and
+counts the builds). Missing
 libraries build in parallel (one ``nvcc`` per source, all started
 together). A build or load that fails raises :class:`KernelBuildError`
 with the compiler's output; nothing falls back to another path.
@@ -130,39 +132,63 @@ def _lib_path(name: str, src: str) -> str:
     for path in (src, *headers):
         with open(path, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{name}.{h.hexdigest()[:16]}.so")
+    return os.path.join(_build_dir(), f"{name}.{h.hexdigest()[:16]}.so")
+
+
+def _build_dir() -> str:
+    """``BUILD_DIR``, or the kernel build cache's directory when one is
+    enabled (:mod:`fm_spark_tpu_torch.utils.compile_cache`)."""
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    return compile_cache.dir_for("torch_kernels", BUILD_DIR)
 
 
 def build_all() -> dict[str, str]:
     """Compile every kernel library that is not built yet; return
     ``{name: library path}`` for all of them."""
+    from fm_spark_tpu_torch.utils import compile_cache
+
     paths = {name: _lib_path(name, src) for name, src in _sources().items()}
     with _lock:
-        todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
-        if not todo:
+        if all(os.path.exists(p) for p in paths.values()):
+            for p in paths.values():
+                compile_cache.note(p, hit=True)
             return paths
         nvcc = _nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}
-        for name, path in todo.items():
-            tmp = f"{path}.{os.getpid()}.tmp"
-            procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, _sources()[name]],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, path)
-        failures = []
-        for name, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate()
-            build_logs[name] = out
-            if proc.returncode != 0:
-                failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-                continue
-            # Atomic publish: a concurrent process sees no library or a
-            # whole one.
-            os.replace(tmp, path)
-        if failures:
-            raise KernelBuildError("kernel build failed:\n" + "\n".join(failures))
+        with compile_cache.build_lock(_build_dir()):
+            # Under the directory's lock: a process that waited here for
+            # another's build finds its libraries and builds nothing.
+            todo = {n: p for n, p in paths.items()
+                    if not os.path.exists(p)}
+            for p in paths.values():
+                compile_cache.note(p, hit=p not in todo.values())
+            if todo:
+                _compile(nvcc, todo)
     return paths
+
+
+def _compile(nvcc: str, todo: dict) -> None:
+    """Build the libraries ``{name: path}`` in parallel, one ``nvcc``
+    each, and publish each one atomically."""
+    procs = {}
+    for name, path in todo.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, _sources()[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        # Atomic publish: a concurrent process sees no library or a
+        # whole one.
+        os.replace(tmp, path)
+    if failures:
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failures))
 
 
 def load(name: str) -> ctypes.CDLL:

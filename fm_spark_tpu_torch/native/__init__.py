@@ -115,13 +115,22 @@ def _lib_path(src: str) -> str:
     with open(src, "rb") as fh:
         h.update(fh.read())
     stem = os.path.splitext(os.path.basename(src))[0]
-    return os.path.join(BUILD_DIR, f"{stem}.{h.hexdigest()[:16]}.so")
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    return os.path.join(compile_cache.dir_for("torch_native", BUILD_DIR),
+                        f"{stem}.{h.hexdigest()[:16]}.so")
 
 
-def _build_and_bind(src: str, signatures: dict) -> ctypes.CDLL:
-    path = _lib_path(src)
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+def _build(src: str, path: str) -> None:
+    """Compile ``src`` into ``path`` under the build directory's lock (a
+    process that waited for another's build finds the library and builds
+    nothing), publishing it atomically."""
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    with compile_cache.build_lock(os.path.dirname(path)):
+        compile_cache.note(path, hit=os.path.exists(path))
+        if os.path.exists(path):
+            return
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.run([_gxx(), *GXX_FLAGS, src, "-o", tmp],
                               capture_output=True, text=True)
@@ -132,6 +141,16 @@ def _build_and_bind(src: str, signatures: dict) -> ctypes.CDLL:
         # Atomic publish: a concurrent process sees no library or a whole
         # one.
         os.replace(tmp, path)
+
+
+def _build_and_bind(src: str, signatures: dict) -> ctypes.CDLL:
+    from fm_spark_tpu_torch.utils import compile_cache
+
+    path = _lib_path(src)
+    if os.path.exists(path):
+        compile_cache.note(path, hit=True)
+    else:
+        _build(src, path)
     try:
         lib = ctypes.CDLL(path)
     except OSError as e:

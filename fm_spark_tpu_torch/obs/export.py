@@ -22,8 +22,8 @@ port); port 0 asks the OS for an ephemeral one, which the CLIs echo as a
 ``{"metrics_port": N}`` JSON line. One process-wide server
 (:func:`start_metrics_server` / :func:`stop_metrics_server`;
 ``obs.shutdown`` stops it); the handler never raises into the server's
-threads. The fleet's metrics rollup comes with the fleet (ROADMAP Queue 1
-item 6b).
+threads. :func:`render_fleet_metrics` renders the serving fleet's rollup
+(every replica's scraped registry) onto the front door's ``/metrics``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from fm_spark_tpu_torch.obs.metrics import registry
 __all__ = [
     "MetricsServer",
     "note_sentinel_verdict",
+    "render_fleet_metrics",
     "start_metrics_server",
     "status",
     "stop_metrics_server",
@@ -45,6 +46,96 @@ __all__ = [
 
 _status_lock = threading.Lock()
 _status: dict = {}
+
+
+def render_fleet_metrics(rollup: dict | None,
+                         prefix: str = "fm_spark_fleet") -> str:
+    """Prometheus text for the fleet rollup: per-replica
+    counters/gauges with a ``replica`` label, plus fleet-level
+    histogram aggregates rebuilt from RAW bucket counts.
+
+    ``rollup`` is :meth:`fm_spark_tpu_torch.serve.fleet.Fleet.metrics_rollup`
+    output: ``{"replicas": {idx: {"pid", "snapshot", "buckets"}}}``
+    where ``snapshot`` is a registry snapshot and ``buckets`` a
+    :meth:`~fm_spark_tpu_torch.obs.metrics.MetricsRegistry.bucket_snapshot`.
+    Per-replica percentile summaries are deliberately NOT merged —
+    quantiles don't aggregate — instead bucket counts are summed
+    element-wise (identical bounds only) and exposed as one cumulative
+    ``_bucket{le=...}`` exposition per histogram name. Returns ``""``
+    on an empty/None rollup; malformed replica docs are skipped, a
+    scrape must never raise into the front door's handler thread.
+    """
+    if not rollup or not rollup.get("replicas"):
+        return ""
+
+    def clean(name: str) -> str:
+        safe = "".join(c if c.isalnum() or c == "_" else "_"
+                       for c in name)
+        return f"{prefix}_{safe}" if prefix else safe
+
+    def esc(v) -> str:
+        return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+                .replace("\n", "\\n"))
+
+    def num(v: float) -> str:
+        f = float(v)
+        return str(int(f)) if f.is_integer() else repr(f)
+
+    lines: list[str] = []
+    # name -> (bounds tuple, summed counts, count, sum)
+    agg: dict[str, list] = {}
+    typed: set[str] = set()
+    for idx in sorted(rollup["replicas"]):
+        doc = rollup["replicas"][idx]
+        if not isinstance(doc, dict):
+            continue
+        snap = doc.get("snapshot") or {}
+        lab = f'{{replica="{esc(idx)}"}}'
+        for kind, ptype in (("counters", "counter"), ("gauges", "gauge")):
+            for name in sorted(snap.get(kind) or {}):
+                v = snap[kind][name]
+                if v is None:
+                    continue
+                m = clean(name)
+                if m not in typed:
+                    typed.add(m)
+                    lines.append(f"# TYPE {m} {ptype}")
+                try:
+                    lines.append(f"{m}{lab} {num(v)}")
+                except (TypeError, ValueError):
+                    continue
+        for name, h in sorted((doc.get("buckets") or {}).items()):
+            try:
+                bounds = tuple(float(b) for b in h["bounds"])
+                counts = [int(c) for c in h["counts"]]
+                count, total = int(h["count"]), float(h["sum"])
+            except (KeyError, TypeError, ValueError):
+                continue
+            if len(counts) != len(bounds) + 1:
+                continue
+            cur = agg.get(name)
+            if cur is None:
+                agg[name] = [bounds, counts, count, total]
+            elif cur[0] == bounds:
+                cur[1] = [a + b for a, b in zip(cur[1], counts)]
+                cur[2] += count
+                cur[3] += total
+            # mismatched bounds: keep the first replica's series rather
+            # than summing apples onto oranges
+    for name in sorted(agg):
+        bounds, counts, count, total = agg[name]
+        if not count:
+            continue
+        m = clean(name)
+        lines.append(f"# TYPE {m} histogram")
+        cum = 0
+        for b, c in zip(bounds, counts):
+            cum += c
+            lines.append(f'{m}_bucket{{le="{b:g}"}} {cum}')
+        lines.append(f'{m}_bucket{{le="+Inf"}} {count}')
+        lines.append(f"{m}_sum {num(total)}")
+        lines.append(f"{m}_count {count}")
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def note_sentinel_verdict(leg: str | None, block: dict | None) -> None:

@@ -399,8 +399,15 @@ def inject(point: str) -> None:
 # Substrings (lowercased) that mark a runtime error as a lost/unhealthy
 # device attachment rather than a program bug: the reference's
 # vocabulary, kept word for word so both packages classify an error
-# alike. A compile error or a shape mismatch must NEVER
-# match — retrying those burns the whole deadline re-crashing.
+# alike, and after it CUDA's own texts for a card that is gone or broken
+# (cudaErrorECCUncorrectable, cudaErrorDevicesUnavailable,
+# cudaErrorNoDevice). A compile error or a shape mismatch must NEVER
+# match — retrying those burns the whole deadline re-crashing — and
+# neither may CUDA's program errors: "invalid argument", "an illegal
+# memory access was encountered", "unspecified launch failure", "out of
+# memory" (tests/test_torch_supervisor.py holds both lists). A sticky
+# error of the first kind leaves the process's context dead; the
+# supervisor's probe sees that and ends the process (supervisor.py).
 _DEVICE_LOSS_MARKERS = (
     "device lost",
     "device is lost",
@@ -414,6 +421,9 @@ _DEVICE_LOSS_MARKERS = (
     "connection reset",
     "transport closed",
     "halted execution",
+    "uncorrectable ecc error",
+    "busy or unavailable",
+    "no cuda-capable device",
 )
 
 

@@ -6,10 +6,11 @@ model cannot express them; this module makes them injectable with the
 SAME plan grammar, environment variables and occurrence counters as
 :mod:`fm_spark_tpu_torch.resilience.faults`.
 
-Its seam is the serving fleet's transport (the reference's
-``serve/fleet.py`` connection pool), which the port takes with ROADMAP
-Queue 1 item 6b; until then nothing in the port calls
-:func:`on_connect`, :func:`on_send` or :func:`on_recv` but the tests.
+Its seam is the serving fleet's transport: every dial goes through
+:class:`FaultyHTTPConnection` (:func:`on_connect`), and
+``serve/fleet.py``'s ``_http_json`` calls :func:`on_send` and
+:func:`on_recv` around each request it writes and response it reads, so
+dispatch, the health poll and the metrics scrape all meet the plan.
 
 Points and their actions::
 
@@ -38,6 +39,7 @@ executed, and :class:`TransportFailure` classifies them.
 
 from __future__ import annotations
 
+import http.client
 import socket
 import threading
 import time
@@ -47,6 +49,7 @@ from fm_spark_tpu_torch.utils import sleeps
 
 __all__ = [
     "BLACKHOLE_CAP_S",
+    "FaultyHTTPConnection",
     "TransportFailure",
     "check",
     "on_connect",
@@ -189,3 +192,23 @@ def on_recv(peer: "str | None",
     if rule is None:
         return None
     return _strike(rule, "recv", timeout_s)
+
+
+class FaultyHTTPConnection(http.client.HTTPConnection):
+    """An ``http.client.HTTPConnection`` whose dial routes through the
+    fault plane: the way serve code opens a replica connection, so a
+    partition schedule reaches every transport path."""
+
+    def __init__(self, host: str, port: int, *,
+                 peer: "str | None" = None, timeout=None):
+        if timeout is None:
+            super().__init__(host, port)
+        else:
+            super().__init__(host, port, timeout=timeout)
+        self.peer = peer
+
+    def connect(self):
+        on_connect(self.peer,
+                   self.timeout if isinstance(self.timeout, (int, float))
+                   else None)
+        return super().connect()

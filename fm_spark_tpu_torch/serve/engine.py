@@ -163,18 +163,25 @@ class ServeFuture:
 
 
 class _Request:
-    __slots__ = ("ids", "vals", "n", "future", "t_submit", "deadline")
+    __slots__ = ("ids", "vals", "n", "future", "t_submit", "t_wall",
+                 "deadline", "trace")
 
-    def __init__(self, ids, vals, deadline=None):
+    def __init__(self, ids, vals, deadline=None, trace=None):
         self.ids = ids
         self.vals = vals
         self.n = int(ids.shape[0])
         self.future = ServeFuture()
         self.t_submit = time.perf_counter()
+        #: Wall-clock submit time: the start of the request's retroactive
+        #: ``serve/coalesce`` link span.
+        self.t_wall = time.time()
         #: Absolute ``time.monotonic()`` deadline (None = unbounded): the
         #: coalescer never holds a request past it waiting for
         #: batch-mates, and never scores one that expired in the queue.
         self.deadline = deadline
+        #: Distributed-trace context (a ``obs.TraceContext``) or None:
+        #: tags the request's link span and its latency exemplar.
+        self.trace = trace
 
 
 _STOP = object()
@@ -271,9 +278,11 @@ class PredictEngine:
         if not self._graphed:
             return _to_device(params, self.device)
         side = self._side_stream()
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            params = _to_device(params, self.device)
+        # Not while another thread captures (graphs.side_stream_work).
+        with graphs.side_stream_work():
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                params = _to_device(params, self.device)
         side.synchronize()
         return params
 
@@ -318,12 +327,22 @@ class PredictEngine:
         """Make each bucket's staging buffers and, on the card, build the
         kernels and capture the current generation's graph of every
         bucket; on the CPU launch every bucket once. Returns
-        ``{"seconds", "buckets", "captures", "capture_s"}``."""
+        ``{"seconds", "buckets", "captures", "capture_s",
+        "fresh_compiles"}``: the kernel libraries the warm-up built
+        (``utils.compile_cache``; 0 on a warm cache, and on the CPU). A
+        CUDA graph cannot be cached across processes, so every process
+        captures its ``captures`` anew."""
+        from fm_spark_tpu_torch.utils import compile_cache
+
+        misses0 = compile_cache.cache_stats()["misses"]
         with obs.span("serve/warmup", buckets=list(self.buckets),
                       nnz=self.nnz):
             out = self._warmup()
+        out["fresh_compiles"] = (compile_cache.cache_stats()["misses"]
+                                 - misses0)
         obs.event("serve_warmup", seconds=round(out["seconds"], 4),
-                  captures=out["captures"])
+                  captures=out["captures"],
+                  fresh_compiles=out["fresh_compiles"])
         return out
 
     def _warmup(self) -> dict:
@@ -417,15 +436,21 @@ class PredictEngine:
             return out_h.numpy()[:n].copy()
 
     def _execute(self, gen: Generation, ids: np.ndarray,
-                 vals: np.ndarray) -> np.ndarray:
-        """One padded-bucket dispatch on ``gen`` with its metrics."""
+                 vals: np.ndarray, exec_info: dict | None = None
+                 ) -> np.ndarray:
+        """One padded-bucket dispatch on ``gen`` with its metrics;
+        ``exec_info`` receives the ``serve/batch`` span's id and its
+        perf-clock bounds (the coalescer's link spans point at them)."""
         n = ids.shape[0]
         bucket = self._bucket_for(n)
         t0 = time.perf_counter()
         with obs.span("serve/batch", rows=n, bucket=bucket,
-                      gen_step=gen.step):
+                      gen_step=gen.step) as sp:
             with watchdog.phase("serve_request"):
                 out = self._dispatch(gen, ids, vals)
+        if exec_info is not None:
+            exec_info.update(span_id=getattr(sp, "span_id", None), t0=t0,
+                             t1=time.perf_counter())
         obs.histogram("serve/batch_ms").observe(
             (time.perf_counter() - t0) * 1e3)
         obs.counter("serve.batches_total").add(1)
@@ -460,18 +485,22 @@ class PredictEngine:
                     daemon=True)
                 self._worker.start()
 
-    def submit(self, ids, vals, deadline: float | None = None) -> ServeFuture:
+    def submit(self, ids, vals, deadline: float | None = None,
+               trace=None) -> ServeFuture:
         """Enqueue one request (<= bucket-max rows) for coalescing;
         returns its :class:`ServeFuture`. ``deadline`` is an absolute
         ``time.monotonic()`` timestamp: a request that expires while
-        still queued is answered with :class:`TimeoutError`."""
+        still queued is answered with :class:`TimeoutError`. ``trace``
+        (an ``obs.TraceContext``) yields one ``serve/coalesce`` link span
+        joining this request to the shared ``serve/batch`` span, and
+        tags its latency observation as the bucket's exemplar."""
         ids, vals = self._coerce(ids, vals)
         if ids.shape[0] > self.buckets[-1]:
             raise ValueError(
                 f"submit() takes at most bucket-max ({self.buckets[-1]}) "
                 "rows per request; use predict() to auto-chunk")
         self._ensure_worker()
-        req = _Request(ids, vals, deadline=deadline)
+        req = _Request(ids, vals, deadline=deadline, trace=trace)
         obs.counter("serve.requests_total").add(1)
         self._queue.put(req)
         return req.future
@@ -542,8 +571,9 @@ class PredictEngine:
             gen = self._gen
             ids = np.concatenate([r.ids for r in batch])
             vals = np.concatenate([r.vals for r in batch])
+            exec_info: dict = {}
             try:
-                out = self._execute(gen, ids, vals)
+                out = self._execute(gen, ids, vals, exec_info=exec_info)
             except BaseException as e:  # noqa: BLE001 — every queued
                 # caller must be answered (exactly once), even by the failure.
                 obs.counter("serve.batch_failures_total").add(1)
@@ -564,11 +594,28 @@ class PredictEngine:
                 continue
             t_done = time.perf_counter()
             hist = obs.histogram("serve/request_ms")
+            t_exec0 = exec_info.get("t0", t_done)
+            t_exec1 = exec_info.get("t1", t_done)
             off = 0
             for r in batch:
                 r.future._set(out[off:off + r.n])
                 off += r.n
-                hist.observe((t_done - r.t_submit) * 1e3)
+                hist.observe((t_done - r.t_submit) * 1e3,
+                             exemplar=(r.trace.trace_id
+                                       if r.trace is not None else None))
+                if r.trace is not None:
+                    # One link span per coalesced request: its
+                    # queue-to-split window, joined to the SHARED
+                    # serve/batch span (N requests, one execute).
+                    obs.emit_span(
+                        "serve/coalesce", r.t_wall, t_done - r.t_submit,
+                        trace=r.trace.trace_id,
+                        remote_parent=r.trace.parent_span_id,
+                        exec_span=exec_info.get("span_id"),
+                        queue_ms=round((t_exec0 - r.t_submit) * 1e3, 3),
+                        exec_ms=round((t_exec1 - t_exec0) * 1e3, 3),
+                        split_ms=round((t_done - t_exec1) * 1e3, 3),
+                        rows=r.n)
 
     def _note_slo_overrun(self, e, rows: int, gen: Generation) -> None:
         """The ``serve_request`` phase blew its deadline (the SLO): count

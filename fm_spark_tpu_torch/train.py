@@ -777,7 +777,8 @@ class FMTrainer:
     step binds their storage). Each step is :func:`make_train_step`'s.
     """
 
-    def __init__(self, spec, config: TrainConfig, device=None):
+    def __init__(self, spec, config: TrainConfig, device=None,
+                 n_chips: int = 1):
         from fm_spark_tpu_torch import resolve_device
         from fm_spark_tpu_torch.utils.logging import MetricsLogger
 
@@ -792,7 +793,8 @@ class FMTrainer:
             device=self.device)
         self.opt_state = self.optimizer.init(self.params)
         self.step_count = 0
-        self.logger = MetricsLogger(path=config.metrics_path)
+        self.logger = MetricsLogger(path=config.metrics_path,
+                                    n_chips=n_chips)
         self.loss_history: list[float] = []
         self.last_eval: dict | None = None   # the newest in-fit eval
         self.resumed: dict | None = None     # the last fit's restore
@@ -831,13 +833,34 @@ class FMTrainer:
         bound to them; a chain without a step re-initialises them from the
         seed and rewinds ``batches``), and the run continues toward the
         reduced target ``note_rollback`` returns: a numeric blowup costs
-        one checkpoint window. ``supervisor`` and ``elastic`` are not
-        ported yet (ROADMAP Queue 1 item 12) and raise.
+        one checkpoint window.
+
+        ``supervisor`` (a :class:`~fm_spark_tpu_torch.resilience
+        .Supervisor`, which needs the checkpointer) turns a device loss
+        (``resilience.is_device_loss``) into a recovery: the loss is
+        journaled, the supervisor probes and backs off (raising
+        :class:`~fm_spark_tpu_torch.resilience.CircuitOpen` after its
+        threshold of consecutive losses), and the newest verified step is
+        restored in place as a rollback's is (an empty chain re-initialises
+        from the seed and rewinds ``batches``), so the run ends bit for
+        bit where the uninterrupted one does; the recovery's wall clock
+        is a pause of the logger's window. Other errors propagate.
+        ``elastic`` (an :class:`~fm_spark_tpu_torch.resilience
+        .ElasticController`, which needs the supervisor): when the breaker
+        opens on a PERMANENT fault, the controller sheds capacity instead
+        (journaled), the logger's per-chip rate re-normalizes where it
+        tracked the controller's chips, the breaker re-arms and the run
+        resumes; a mixed-mode circuit open still raises.
         """
-        for name, value in (("supervisor", supervisor), ("elastic", elastic)):
-            if value is not None:
-                raise ValueError(f"FMTrainer.fit({name}=...) is not ported "
-                                 "yet (ROADMAP Queue 1 item 12)")
+        if supervisor is not None and checkpointer is None:
+            raise ValueError(
+                "supervised training needs a checkpointer: device-loss "
+                "recovery without committed state to resume from would "
+                "silently restart the run from scratch")
+        if elastic is not None and supervisor is None:
+            raise ValueError(
+                "elastic degraded mode needs a supervisor: the shrink "
+                "trigger is the supervisor's permanent-fault verdict")
         if divergence_guard is not None and checkpointer is None:
             raise ValueError(
                 "divergence-guard training needs a checkpointer: "
@@ -854,9 +877,17 @@ class FMTrainer:
                 "checkpointed training needs a resumable batch source "
                 "with state()/restore() (e.g. data.Batches); a plain "
                 "iterator would silently replay data after resume")
-        initial_cursor = (batches.state() if divergence_guard is not None
+        # A retry or rollback with no step in the chain yet rewinds the
+        # source to its pre-run cursor: at the top of the next pass, once
+        # the prefetcher, which reads the source, is closed.
+        initial_cursor = (batches.state() if checkpointer is not None
                           else None)
+        rewind = False
         while True:
+            if rewind:
+                self._reinit()
+                batches.restore(initial_cursor)
+                rewind = False
             start = 0
             if checkpointer is not None:
                 start, self.resumed, extra = _resume(
@@ -879,11 +910,17 @@ class FMTrainer:
                                   force=force, opt_state=self.opt_state)
                 if force:
                     checkpointer.wait()
+                if supervisor is not None:
+                    # A committed step is real progress: the breaker
+                    # counts CONSECUTIVE losses, never lifetime ones.
+                    supervisor.note_success("train")
 
             try:
                 params = self._fit_loop(source, start, total,
                                         preemption_guard, eval_batches, save,
                                         divergence_guard)
+                if supervisor is not None:
+                    supervisor.note_success("train")
                 self.ingest = ingest_counts(source)
                 _log_ingest(self.logger, self.step_count, self.ingest)
                 return params
@@ -895,11 +932,40 @@ class FMTrainer:
                 restored = checkpointer.last_good_step() or 0
                 total = min(total, divergence_guard.note_rollback(
                     e, restored))
-                if checkpointer.latest_step() is None:
-                    self._reinit()
-                    batches.restore(initial_cursor)
+                rewind = checkpointer.latest_step() is None
+            except Exception as e:  # noqa: BLE001 — classified below
+                from fm_spark_tpu_torch.resilience import is_device_loss
+
+                if supervisor is None or not is_device_loss(e):
+                    raise
+                self._recover(e, supervisor, elastic)
+                checkpointer.wait()  # the step a save in flight commits
+                rewind = checkpointer.latest_step() is None
             finally:
                 close_prefetch()
+
+    def _recover(self, exc, supervisor, elastic) -> None:
+        """One device loss under a supervisor: journal, probe and back off
+        (``CircuitOpen`` at the threshold, unless a permanent verdict lets
+        ``elastic`` shed capacity); the loop then resumes in place."""
+        from fm_spark_tpu_torch.resilience import CircuitOpen
+
+        t0 = time.perf_counter()
+        try:
+            supervisor.recover("train", exc)
+        except CircuitOpen:
+            if (elastic is None or not supervisor.permanent()
+                    or not elastic.can_shrink()):
+                raise
+            prev_chips = elastic.n_chips
+            elastic.shrink("train")
+            # Re-normalize only a logger that tracked the controller's
+            # chips: a one-card trainer under a fleet-wide controller
+            # keeps its one-card rate.
+            if self.logger._n_chips == prev_chips:
+                self.logger.set_n_chips(elastic.n_chips)
+            supervisor.reset("train")
+        self.logger.add_pause(time.perf_counter() - t0)
 
     def _reinit(self) -> None:
         """The params and optimizer state back at ``spec.init`` of the

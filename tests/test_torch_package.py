@@ -34,19 +34,54 @@ def _modules():
         if not m.name.endswith("__main__")]
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+_NO_JAX = ("bad = sorted(m for m in sys.modules\n"
+           "             if m.split('.')[0] in ('jax', 'jaxlib', "
+           "'fm_spark_tpu'))\n"
+           "print(bad)\n"
+           "sys.exit(1 if bad else 0)\n")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module and ``chip_smoke`` import no JAX; nor does a serving
+    fleet's replica process (``python -m fm_spark_tpu_torch.serve.fleet``)
+    that loads a model, warms up, announces its port and stops on
+    SIGTERM."""
     code = (
         "import importlib, sys\n"
         f"for name in {_modules()!r} + ['chip_smoke']:\n"
-        "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fm_spark_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "    importlib.import_module(name)\n" + _NO_JAX)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(_modules()) >= 15
+    from fm_spark_tpu_torch import models
+
+    spec = models.FieldFMSpec(num_features=8, rank=2, num_fields=2, bucket=4)
+    model = str(tmp_path / "m")
+    models.save_model(model, spec, spec.init(device="cpu"))
+    port_file = str(tmp_path / "port")
+    replica = (
+        "import os, runpy, signal, sys, threading, time\n"
+        "def stop():\n"
+        f"    while not os.path.exists({port_file!r}):\n"
+        "        time.sleep(0.05)\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=stop, daemon=True).start()\n"
+        "sys.argv = ['fleet', '--replica-id', '0', '--model', "
+        f"{model!r}, '--port-file', {port_file!r}, '--device', 'cpu',"
+        " '--buckets', '1,2']\n"
+        "try:\n"
+        "    runpy.run_module('fm_spark_tpu_torch.serve.fleet',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n" + _NO_JAX)
+    env = dict(os.environ, FM_SPARK_OBS_DIR="none")
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run([sys.executable, "-c", replica], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert os.path.exists(port_file)
 
 
 def test_every_module_imports_without_starting_work():
@@ -2111,3 +2146,143 @@ def test_bf16_tier_equals_untiered_on_the_card(cuda):
     merged = trainer.merged_params()
     for k in ("w", "v"):
         assert np.array_equal(merged[k], to_host(params[k].cpu())), k
+
+
+class _GatedSource:
+    """Batches of ``x`` = the batch index; the second ``next_batch``
+    returns only once ``started`` is set (from inside a capture), so the
+    prefetcher's producer copies it while the capture runs."""
+
+    def __init__(self, started, n: int = 4096):
+        self._started, self._n, self._i = started, n, 0
+
+    def next_batch(self):
+        self._i += 1
+        if self._i == 2 and not self._started.wait(30):
+            raise TimeoutError("no capture began")
+        return (np.full(self._n, float(self._i), np.float32),)
+
+
+@pytest.mark.gpu
+def test_prefetcher_copies_never_land_in_a_capture(cuda):
+    """PyTorch hands its side streams out round-robin from a pool of 32
+    per device, and ``torch.cuda.graph`` captures on one of them; so for
+    one of any 32 consecutive prefetchers the producer's side stream is
+    the capture stream. Here the producer copies a batch while the
+    trainer's thread captures (the host sleeps inside the capture), at
+    every offset of the pool. Before the copies were held apart from
+    captures (``graphs.side_stream_work``), the copy and its event record
+    went into the graph at the aliased offset and ``wait_event`` raised
+    "CUDA error: invalid argument" (the fault seen in phases 17 and 19);
+    now every offset gives the batch and the replay's loss."""
+    import threading
+    import time
+
+    from fm_spark_tpu_torch import graphs
+    from fm_spark_tpu_torch.data import Prefetcher
+
+    w = torch.ones(4096, device=cuda)
+    for offset in range(34):
+        print(f"pool offset {offset}", flush=True)   # shown on a failure
+        started = threading.Event()
+
+        def step(params, t, x):
+            if torch.cuda.is_current_stream_capturing():
+                started.set()
+                time.sleep(0.2)   # hold the capture open for the producer
+            return (params["w"] * x).sum()
+
+        for _ in range(offset % 32):
+            torch.cuda.Stream(cuda)      # turn the pool by one
+        pf = Prefetcher(_GatedSource(started), depth=1, device=cuda)
+        try:
+            (x1,) = pf.next_batch()
+            captured = graphs.CapturedStep(step)
+            loss1 = captured({"w": w}, 0, x1)
+            (x2,) = pf.next_batch()
+            loss2 = captured({"w": w}, 1, x2)
+            torch.cuda.synchronize()
+        finally:
+            pf.close()
+        assert float(x2[0]) == 2.0 and float(x2[-1]) == 2.0, offset
+        assert float(loss1) == 4096.0 and float(loss2) == 8192.0, offset
+
+
+def _small_fm_problem():
+    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch.data import synthetic_ctr
+    from fm_spark_tpu_torch.train import TrainConfig
+
+    ids, vals, labels = synthetic_ctr(num_examples=2048, num_features=512,
+                                      nnz=8, seed=3)
+    spec = models.FMSpec(num_features=512, rank=8, init_std=0.05)
+    config = TrainConfig(num_steps=10, batch_size=256, learning_rate=0.1,
+                         lr_schedule="constant", log_every=1)
+    return spec, config, (ids, vals, labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_at", [2, 6])
+def test_supervised_recovery_restores_the_captured_step_in_place(
+        cuda, tmp_path, loss_at):
+    """A device loss injected at step ``loss_at`` of a captured FMTrainer
+    run on the card: the supervisor recovers, the newest verified step
+    (or, before the first save, the seed's init and the rewound cursor)
+    is restored into the tensors the graph is bound to, so the step is
+    captured once and replayed on, and the run ends bit for bit where
+    the uninterrupted one does."""
+    import io
+
+    from fm_spark_tpu_torch.checkpoint import Checkpointer
+    from fm_spark_tpu_torch.data import Batches
+    from fm_spark_tpu_torch.resilience import BackoffPolicy, Supervisor, faults
+    from fm_spark_tpu_torch.train import FMTrainer
+
+    spec, config, (ids, vals, labels) = _small_fm_problem()
+    runs = []
+    for plan in (None, f"train_step@{loss_at}=device_loss"):
+        trainer = FMTrainer(spec, config, device=cuda)
+        trainer.logger._stream = io.StringIO()
+        tensors = dict(trainer.params)
+        ck = Checkpointer(str(tmp_path / f"ck{len(runs)}"), save_every=4)
+        sup = Supervisor(policy=BackoffPolicy(jitter=0.0),
+                         probe=lambda: True, sleep=lambda s: None)
+        if plan:
+            faults.activate(plan)
+        try:
+            trainer.fit(Batches(ids, vals, labels, 256, seed=7),
+                        checkpointer=ck, supervisor=sup, prefetch=2)
+        finally:
+            faults.clear()
+            ck.close()
+        assert all(trainer.params[k] is t for k, t in tensors.items())
+        assert len(trainer._train_step.captured.capture_s) == 1
+        runs.append((trainer, sup))
+    (golden, _), (trainer, sup) = runs
+    assert sup.total_failures == 1 and sup.state == "closed"
+    assert trainer.loss_history == golden.loss_history
+    for k in golden.params:
+        assert torch.equal(trainer.params[k], golden.params[k]), k
+
+
+@pytest.mark.gpu
+def test_prefetched_captured_fits_after_many_in_process_fits(cuda):
+    """The pattern that showed the prefetcher's event fault: a process
+    that has run many captured fits (each a capture and a prefetcher
+    drawing streams from PyTorch's pool) runs a prefetched captured fit,
+    over and over, past a full turn of the pool; every fit gives the
+    first fit's losses."""
+    import io
+
+    from fm_spark_tpu_torch.data import Batches
+    from fm_spark_tpu_torch.train import FMTrainer
+
+    spec, config, (ids, vals, labels) = _small_fm_problem()
+    want = None
+    for _ in range(40):
+        trainer = FMTrainer(spec, config, device=cuda)
+        trainer.logger._stream = io.StringIO()
+        trainer.fit(Batches(ids, vals, labels, 256, seed=7), prefetch=2)
+        torch.cuda.synchronize()
+        want = want or list(trainer.loss_history)
+        assert trainer.loss_history == want
