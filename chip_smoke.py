@@ -250,7 +250,7 @@ Phases (any failure exits non-zero before the last line is printed):
 20. the tiered embedding store and continuous learning
    (``tier_phase``) at config 2's widths (rank 32, fp32, 39 ids a row, B
    = 16,384) on the reference ladder's stream (32 Zipf buckets of 1,024
-   rows, drifting one bucket a step; a hot tier of 48 buckets; 32
+   rows, drifting one bucket a step; a hot tier of 48 buckets; 24
    steps): kernel A against its plain version at the tiered step's
    shape (the B·nnz lanes sorted by global id); then every count set to
    0 and leg A, at 10,000,384 features (dense cold tier) for SGD, FTRL
@@ -260,9 +260,9 @@ Phases (any failure exits non-zero before the last line is printed):
    hit rate, misses, evictions, stall ms, H2D/D2H bytes, ``begin_batch``
    host ms, examples/s and, over 3 profiled steps each, device-busy ms,
    idle share and kernel A's runs per replay by symbol; leg C, FTRL at
-   leg A's sizes with a chain every 16 steps, killed at the 10th eviction
+   leg A's sizes with a chain every 16 steps, killed at the 5th eviction
    (``faults.inject`` patched) and resumed by a new trainer: its merged
-   planes after 32 steps equal leg A's bit for bit; leg B, the lazy
+   planes after 24 steps equal leg A's bit for bit; leg B, the lazy
    rungs at 100,000,768 and 1,000,000,512 features (SGD): examples/s,
    gathered rows/s, hit rate, stall, the cold tier's host bytes (the
    touched buckets only), RSS growth and peak, the card's peak memory;
@@ -340,7 +340,26 @@ Phases (any failure exits non-zero before the last line is printed):
    ``PredictEngine``'s values bit for bit and served by both replicas,
    each replica's ``fresh_compiles`` 0 and its ``fm_fused_scores`` runs
    by its own count. Each leg's seconds and the burst's request p50/p99
-   are printed with the card's name and power limit.
+   are printed with the card's name and power limit;
+24. the chaos campaign (``chaos_phase``), every count set to 0 first:
+   leg A, ``chaos.run_campaign`` at config 2's widths (1,277,952 x 32
+   fp32; B = 1,024 on the drill's 3 libsvm shards of 2,048 rows, 18
+   steps over three epochs) over the first seed of each of the seven
+   scenario classes: every invariant green, the outcomes a completion, a
+   hang and an abort among them, every recovered stream-comparable drill
+   on the golden drill's params crc32s, the golden drill's largest
+   clean step, chunk-read and commit windows against the hang drills'
+   0.05 s deadline, kernel A's runs per replayed step by symbol (the
+   seven schedules under torch.profiler) and the card's allocated
+   memory after each drill (the last no more than the first); leg B,
+   the canary on seed 3 caught by ``exactly_once_stream`` and
+   ``loss_continuity`` and minimized to at most 2 rules with a device
+   loss; leg C, the subprocess worker on the card SIGKILLed after step
+   13 and respawned (beside leg B, on a thread), its stitched tap,
+   losses and params' crc32s the golden drill's; leg D, a ``kill_flash_crowd`` fleet schedule at
+   config 3's full width (2 replicas, bf16; the fleet comes up on a
+   thread while legs B and C run), ``audit_fleet`` green, each
+   replica's ``fresh_compiles`` 0.
 
 ``python3 chip_smoke.py --repeat-phase-19 SECONDS`` runs phases 3-16
 once, then phase 19 again and again for SECONDS (under
@@ -5028,10 +5047,10 @@ def stream_phase(dev, report):
 #: B = 16,384) over the tiered embedding store's ladder stream.
 TIER_B, TIER_NNZ = 16384, 39
 TIER_BUCKET, TIER_HOT, TIER_WORK = 1024, 48, 32  # the ladder's defaults
-TIER_STEPS, TIER_PROFILED = 32, 3
+TIER_STEPS, TIER_PROFILED = 24, 3      # 24 (32 before the chaos phase)
 TIER_RUNGS = (10_000_000, 100_000_000, 1_000_000_000)
 TIER_LR = 0.05
-TIER_KILL_EVICTION = 10
+TIER_KILL_EVICTION = 5                   # ~7 evictions in 24 steps
 ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 1 << 19, 8, 5
 ONLINE_SHARD_ROWS, ONLINE_SHARD_B = 2048, 512
 DIVERGE_AT, DIVERGE_EVERY = 10, 4
@@ -5341,8 +5360,9 @@ class _InjectAt:
 
 def _tier_leg_c(dev, base, batches, golden) -> dict:
     """Leg C: FTRL at leg A's sizes with a chain saved every 16 steps,
-    killed at the 10th eviction (``embed_evict``), resumed by a new
-    trainer: its merged planes after 32 steps equal leg A's FTRL run's."""
+    killed at the ``TIER_KILL_EVICTION``-th eviction (``embed_evict``),
+    resumed by a new trainer: its merged planes after ``TIER_STEPS``
+    steps equal leg A's FTRL run's."""
     import numpy as np
 
     from fm_spark_tpu_torch.checkpoint import Checkpointer
@@ -6813,6 +6833,411 @@ def elastic_fleet_phase(dev, report):
     return launches
 
 
+CHAOS_B, CHAOS_ROWS = 1024, 2048          # phase 24 leg A: B = 1,024 (config
+                                          # 2's is 16,384), 3 shards of 2,048
+                                          # rows: 6 batches an epoch, 18 steps
+CHAOS_KILL_AT = 13                        # leg C: the worker killed after step
+                                          # 13's loss line (step 6 committed)
+CHAOS_WINDOW_PHASES = ("step_window", "ingest_chunk", "ckpt_commit")
+
+
+class _WindowTimer:
+    """A watchdog table that arms no deadline and keeps each guarded
+    phase's longest window (``watchdog._table`` for phase 24's golden
+    drill): the clean windows the hang drills' 0.05 s deadline must
+    clear."""
+
+    def __init__(self):
+        self.deadlines = {p: float("inf") for p in CHAOS_WINDOW_PHASES}
+        self.max_s = dict.fromkeys(CHAOS_WINDOW_PHASES, 0.0)
+        self.count = dict.fromkeys(CHAOS_WINDOW_PHASES, 0)
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def _window(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.max_s[name] = max(self.max_s[name], dt)
+                self.count[name] += 1
+
+    def phase(self, name):
+        if name not in self.max_s:
+            return contextlib.nullcontext()
+        return self._window(name)
+
+    def close(self) -> None:
+        pass
+
+
+def _chaos_cfg():
+    """The training drill at config 2's widths: its 1,277,952 × 32 fp32
+    table, the drill's own libsvm shards at B = 1,024."""
+    from fm_spark_tpu_torch.resilience import chaos
+
+    return chaos.DrillConfig(
+        batch_size=CHAOS_B, rows_per_shard=CHAOS_ROWS,
+        num_features=FLAT_C2["fields"] * FLAT_C2["bucket"],
+        rank=FLAT_C2["rank"])
+
+
+def _chaos_leg_a(dev, base, out) -> None:
+    """Leg A: the training campaign (``chaos.run_campaign``) at config 2's
+    widths over the first seed of each of the seven scenario classes.
+    The golden drill runs under :class:`_WindowTimer` (its clean step,
+    chunk-read and commit windows); the seven schedules under
+    torch.profiler (kernel A's runs per replayed step by symbol, past the
+    warm-ups' eager launches). Every invariant green, the outcomes
+    include a completion, a hang and an abort, every completed
+    stream-comparable drill with a recovery ends on the golden run's
+    params crc32s, and the card's allocated memory after the last drill
+    is what it was after the first (each drill frees its trainer and
+    graph)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fm_spark_tpu_torch.ops import kernel_launches
+    from fm_spark_tpu_torch.resilience import chaos, watchdog
+
+    t0 = time.perf_counter()
+    cfg = _chaos_cfg()
+    gen, firsts = chaos.ScheduleGenerator(cfg), {}
+    for seed in range(200):
+        firsts.setdefault(gen.schedule(seed).scenario, seed)
+    seeds = sorted(firsts.values())
+    _check(len(seeds) == 7, f"phase 24 leg A: scenario classes {firsts}")
+    timer = _WindowTimer()
+    drills, prof, eager0 = [], None, 0
+    run_schedule = chaos.run_schedule
+
+    def recording(sched, *a, **kw):
+        nonlocal prof, eager0
+        if not drills:
+            watchdog._table = timer
+        elif prof is None:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+            eager0 = kernel_launches()["segment_totals"]
+        t = time.perf_counter()
+        try:
+            r = run_schedule(sched, *a, **kw)
+        finally:
+            if len(drills) == 0:
+                watchdog._table = None
+        torch.cuda.synchronize(dev)
+        failures = sum(1 for e in _jsonl(r.health_path)
+                       if e.get("event") == "failure")
+        drills.append({"seed": sched.seed, "scenario": sched.scenario,
+                       "outcome": r.outcome, "failures": failures,
+                       "stream_comparable": sched.stream_comparable,
+                       "params_sums": r.params_sums,
+                       "seconds": time.perf_counter() - t,
+                       "allocated": torch.cuda.memory_allocated(dev),
+                       "peak": torch.cuda.max_memory_allocated(dev)})
+        return r
+
+    torch.cuda.synchronize(dev)            # the context exists: peaks reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    chaos.run_schedule = recording
+    try:
+        verdict = chaos.run_campaign(
+            seeds, cfg=cfg, base_dir=os.path.join(base, "campaign"),
+            minimize_failures=False, device=dev)
+    finally:
+        chaos.run_schedule = run_schedule
+        watchdog.clear()
+        if prof is not None:
+            prof.stop()
+    eager = kernel_launches()["segment_totals"] - eager0
+    events = prof.events()
+    replays = sum(1 for e in events if e.name == "cudaGraphLaunch")
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    runs = _symbol_counts(on_dev)[0]["segment_totals"]
+    per_replay = (runs - eager) / replays if replays else 0.0
+    shutil.rmtree(os.path.join(base, "campaign"), ignore_errors=True)
+    failing = [(e["seed"], e["scenario"], e["violations"])
+               for e in verdict["schedules"] if e["verdict"] != "green"]
+    _check(verdict["all_green"], f"phase 24 leg A: {failing}")
+    outcomes = {e["outcome"] for e in verdict["schedules"]}
+    _check({"completed", "hang_detected", "ingest_aborted"} <= outcomes,
+           f"phase 24 leg A: outcomes {outcomes}")
+    golden, rest = drills[0], drills[1:]
+    recovered = [d for d in rest if d["outcome"] == "completed"
+                 and d["failures"] and d["stream_comparable"]]
+    _check(recovered and all(d["params_sums"] == golden["params_sums"]
+                             for d in recovered),
+           f"phase 24 leg A: recovered drills {[(d['seed'], d['params_sums']) for d in recovered]} against golden {golden['params_sums']}")
+    _check(0 < per_replay <= 1, f"phase 24 leg A: kernel A {runs} runs "
+           f"by symbol, {eager} eager launches, {replays} graph launches")
+    _check(drills[-1]["allocated"] <= drills[0]["allocated"],
+           f"phase 24 leg A: allocated after each drill "
+           f"{[d['allocated'] for d in drills]}")
+    out["leg_a"] = {
+        "seeds": seeds, "schedules": [
+            {k: e[k] for k in ("seed", "scenario", "plan", "outcome",
+                               "verdict", "duration_s")}
+            for e in verdict["schedules"]],
+        "drills": [{k: d[k] for k in ("seed", "scenario", "outcome",
+                                      "failures", "seconds", "allocated",
+                                      "peak")} for d in drills],
+        "recovered_on_golden_crc32": [d["seed"] for d in recovered],
+        "golden_params_sums": golden["params_sums"],
+        "clean_window_max_s": timer.max_s, "clean_windows": timer.count,
+        "hang_deadline_s": chaos._HANG_DEADLINE_S,
+        "kernel_a_device_runs": runs, "kernel_a_eager_launches": eager,
+        "graph_launches": replays,
+        "kernel_a_runs_per_replayed_step": per_replay,
+        "campaign_total_s": verdict["total_s"],
+        "seconds": time.perf_counter() - t0}
+
+
+def _chaos_leg_b(dev, base, out) -> None:
+    """Leg B: the canary (``break_restore``: restore stops rewinding the
+    cursor) on seed 3, a recovery storm, at leg A's widths: caught by
+    ``exactly_once_stream`` and ``loss_continuity`` and minimized to at
+    most 2 rules that still hold a device loss."""
+    import dataclasses
+
+    from fm_spark_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(_chaos_cfg(), break_restore=True)
+    _check(chaos.ScheduleGenerator(cfg).schedule(3).scenario
+           == "recovery_storm", "phase 24 leg B: seed 3's scenario")
+    verdict = chaos.run_campaign([3], cfg=cfg,
+                                 base_dir=os.path.join(base, "canary"),
+                                 minimize_failures=True, device=dev)
+    shutil.rmtree(os.path.join(base, "canary"), ignore_errors=True)
+    failures = verdict["failures"]
+    _check(len(failures) == 1, f"phase 24 leg B: failures {failures}")
+    failure = failures[0]
+    violated = {v["invariant"] for v in failure["violations"]}
+    minimized = failure.get("minimized_plan") or ""
+    _check({"exactly_once_stream", "loss_continuity"} <= violated
+           and failure.get("minimized_rules", 99) <= 2
+           and "device_loss" in minimized,
+           f"phase 24 leg B: {violated}, minimized {minimized!r}")
+    out["leg_b"] = {"plan": failure["plan"], "violated": sorted(violated),
+                    "minimized_plan": minimized,
+                    "minimized_rules": failure["minimized_rules"],
+                    "seconds": time.perf_counter() - t0}
+
+
+def _chaos_leg_c(dev, base):
+    """Leg C: one subprocess kill schedule (``run_schedule_subproc``):
+    the reference's worker shape (128 features, rank 4, B = 16) on the
+    card, SIGKILLed after step ``CHAOS_KILL_AT``'s loss line with its
+    flight ring compacting, respawned: the stitched tap, the losses and
+    the params' crc32s equal the golden drill's on the card. The golden
+    drill runs here; the worker chain, which keeps no fault plan in this
+    process, runs on a thread beside leg B. Returns the thread;
+    :func:`_chaos_leg_c_check` joins it."""
+    from fm_spark_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    cfg = chaos.DrillConfig(flight_capacity=4)
+    golden = chaos.golden_run(cfg, os.path.join(base, "sub_golden"),
+                              device=dev)
+    return golden, t0, _Background(lambda: chaos.run_schedule_subproc(
+        "", cfg, os.path.join(base, "sub_kill"),
+        kill_at_step=CHAOS_KILL_AT, device=dev))
+
+
+def _chaos_leg_c_check(out, leg) -> None:
+    import signal
+
+    from fm_spark_tpu_torch.resilience import chaos
+
+    golden, t0, worker = leg
+    r = worker.join()
+    _check(r.outcome == "completed" and r.rcs[0] == -signal.SIGKILL
+           and r.rcs[-1] == 0 and r.resumed_at[1] in (6, 12),
+           f"phase 24 leg C: {r.outcome} {r.error} rcs {r.rcs} resumed "
+           f"{r.resumed_at}")
+    stitched = chaos.stitch_taps(r)
+    _check(stitched == golden.tap and r.loss_history == golden.loss_history
+           and r.params_sums == golden.params_sums,
+           f"phase 24 leg C: stitched {len(stitched)} batches against "
+           f"{len(golden.tap)}, sums {r.params_sums} {golden.params_sums}")
+    out["leg_c"] = {"rcs": list(r.rcs), "resumed_at": list(r.resumed_at),
+                    "batches": len(stitched), "worker_s": r.duration_s,
+                    "seconds": time.perf_counter() - t0}
+
+
+class _Background:
+    """A call run on its own thread: :meth:`join` returns its value or
+    raises its error."""
+
+    def __init__(self, fn):
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 — raised at join
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def _chaos_fleet_up(dev, base) -> dict:
+    """Leg D's stack (``chaos.build_fleet_stack``) at config 3's full
+    width: the model dir and a one-step chain of bf16 tables (1.33 GB),
+    2 replica processes on the card behind the front door, from a warm
+    build cache (the repo's kernel builds linked in). It comes up on a
+    thread while legs B and C run: no fault point they plan fires in it,
+    and the replicas take no traffic until leg D's schedule."""
+    from fm_spark_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    fbase = os.path.join(base, "fleet")
+    cache = os.path.join(fbase, "compile_cache")
+    os.makedirs(cache)
+    for kind in ("torch_kernels", "torch_native"):
+        src = os.path.join(HERE, "build", kind)
+        if os.path.isdir(src):
+            os.symlink(src, os.path.join(cache, kind))
+    cfg = chaos.FleetDrillConfig(
+        num_features=F * BUCKET, num_fields=F, bucket=BUCKET, rank=RANK,
+        param_dtype="bfloat16", converge_timeout_s=120.0)
+    ctx = chaos.build_fleet_stack(cfg, fbase, device=dev)
+    return {"cfg": cfg, "ctx": ctx, "base": fbase,
+            "up_s": time.perf_counter() - t0}
+
+
+def _chaos_fleet_down(stack) -> None:
+    if stack.get("ctx") is not None:
+        ctx, stack["ctx"] = stack["ctx"], None
+        try:
+            ctx["door"].stop()
+        finally:
+            ctx["ck"].close()
+    shutil.rmtree(stack["base"], ignore_errors=True)
+
+
+def _chaos_leg_d(dev, out, stack) -> None:
+    """Leg D: one ``kill_flash_crowd`` fleet schedule (seed 0) against
+    :func:`_chaos_fleet_up`'s stack, one replica SIGKILLed mid-crowd:
+    ``audit_fleet`` (with ``audit_serve_events`` over each replica's
+    journal) green, the dead replica respawned and converged, each
+    replica's ``fresh_compiles`` 0 and the forward kernel run in the
+    graphs' replays by the replicas' own counts."""
+    from fm_spark_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    sched = chaos.fleet_schedule(0)
+    _check(sched.scenario == "fleet_kill_flash_crowd",
+           f"phase 24 leg D: seed 0 is {sched.scenario}")
+    try:
+        entry = chaos.run_fleet_schedule(
+            sched, stack["cfg"], stack["ctx"],
+            os.path.join(stack["base"], "f0"))
+        health = stack["ctx"]["fleet"].healthz()
+    finally:
+        _chaos_fleet_down(stack)
+    reps = health["replicas"]
+    runs = [(r.get("kernel_runs") or {}).get("fm_fused_scores", 0)
+            for r in reps]
+    _check(entry["verdict"] == "green" and entry["killed_replica"]
+           is not None and entry["recovery_s"] is not None,
+           f"phase 24 leg D: {entry}")
+    _check(len(reps) == 2 and all(r["fresh_compiles"] == 0 for r in reps)
+           and sum(runs) > 0, f"phase 24 leg D: replicas {reps}")
+    out["leg_d"] = {
+        "traffic": entry["traffic"], "counters": entry["counters"],
+        "killed_replica": entry["killed_replica"],
+        "recovery_s": entry["recovery_s"], "up_s": stack["up_s"],
+        "drill_s": entry["duration_s"],
+        "replicas": [{k: r.get(k) for k in (
+            "replica", "incarnations", "generation_step", "fresh_compiles",
+            "graph_replays", "kernel_runs")} for r in reps],
+        "seconds": time.perf_counter() - t0}
+
+
+def chaos_phase(dev, report):
+    """Phase 24: the chaos campaign (item 12b) on the card. Each wrapper's
+    count is set to 0 just before the phase and read after it (kernel A's
+    launches here are the drills' capture warm-ups; the replicas of leg D
+    count their own)."""
+    import importlib
+    import tempfile
+
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="chaos.", dir=root)
+    out = {"card": report["card"]}
+    t_phase = time.perf_counter()
+    try:
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        _chaos_leg_a(dev, base, out)
+        print("phase 24 leg A", json.dumps(out["leg_a"]), flush=True)
+        # Leg D's fleet comes up and leg C's worker chain runs while leg
+        # B runs (after leg A, whose clean windows they must not crowd).
+        fleet = _Background(lambda: _chaos_fleet_up(dev, base))
+        try:
+            leg_c = _chaos_leg_c(dev, base)
+            _chaos_leg_b(dev, base, out)
+            print("phase 24 leg B", json.dumps(out["leg_b"]), flush=True)
+            _chaos_leg_c_check(out, leg_c)
+            print("phase 24 leg C", json.dumps(out["leg_c"]), flush=True)
+            t_wait = time.perf_counter()
+            stack = fleet.join()
+            out["leg_d_wait_s"] = time.perf_counter() - t_wait
+            _chaos_leg_d(dev, out, stack)
+        finally:
+            try:
+                _chaos_fleet_down(fleet.join())
+            except Exception:          # noqa: BLE001 — raised above, or
+                pass                   # the stack never came up
+        print("phase 24 leg D", json.dumps(out["leg_d"]), flush=True)
+        launches = kernel_launches()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    _check(launches["segment_totals"] > 0,
+           f"phase 24: kernel A never launched: {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["chaos"] = out
+    a, b, c, d = out["leg_a"], out["leg_b"], out["leg_c"], out["leg_d"]
+    win = a["clean_window_max_s"]
+    print(f"phase 24 ({report['card']}): leg A {a['seconds']:.1f} s "
+          f"({len(a['schedules'])} schedules: "
+          + ", ".join(f"{e['seed']} {e['scenario']} {e['outcome']}"
+                      for e in a["schedules"])
+          + f"), largest clean window step {win['step_window']:.4f} s, "
+          f"chunk {win['ingest_chunk']:.4f} s, commit "
+          f"{win['ckpt_commit']:.4f} s (deadline "
+          f"{a['hang_deadline_s']} s), allocated after the first drill "
+          f"{a['drills'][0]['allocated']} B and the last "
+          f"{a['drills'][-1]['allocated']} B (peak "
+          f"{a['drills'][-1]['peak']} B), kernel A "
+          f"{a['kernel_a_runs_per_replayed_step']:.3f} runs per replayed "
+          f"step; leg B {b['seconds']:.1f} s (minimized to "
+          f"{b['minimized_plan']!r}); leg C {c['seconds']:.1f} s (rcs "
+          f"{c['rcs']}, beside leg B); leg D {d['seconds']:.1f} s after its "
+          f"fleet came up in {d['up_s']:.1f} s beside legs B and C (waited "
+          f"{out['leg_d_wait_s']:.1f} s), recovered {d['recovery_s']} s, "
+          f"{d['traffic']}); phase {out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
 def repeat_phase(dev, report, which: str, seconds: float) -> int:
     """``chip_smoke.py --repeat-phase-17 SECONDS`` (or ``-19``): phases
     3-16 once (phase 5's commands in this process), then phase 17 (or
@@ -6927,6 +7352,7 @@ def main() -> int:
     obs_launches = timed("21 obs", obs_phase)
     par_launches = timed("22 parallel", parallel_phase)
     fleet_launches = timed("23 elastic fleet", elastic_fleet_phase)
+    chaos_launches = timed("24 chaos", chaos_phase)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -7184,6 +7610,20 @@ def main() -> int:
             entry["fleet_replica_runs"] = [
                 (r["kernel_runs"] or {}).get("fm_fused_scores", 0)
                 for r in ef["leg_c"]["replicas"]]
+    # Phase 24, the chaos campaign: each kernel's launches in this process
+    # (the drills' capture warm-ups); kernel A's runs per replayed step of
+    # leg A's schedules by symbol; fm_fused_scores' runs in leg D's
+    # replicas' graph replays, by each replica's own count.
+    ch = report["chaos"]
+    for entry in kernels["kernels"]:
+        entry["chaos_launches"] = chaos_launches[entry["name"]]
+        if entry["name"] == "segment_totals":
+            entry["chaos_runs_per_replayed_step"] = ch["leg_a"][
+                "kernel_a_runs_per_replayed_step"]
+        elif entry["name"] == "fm_fused_scores":
+            entry["chaos_fleet_replica_runs"] = [
+                (r["kernel_runs"] or {}).get("fm_fused_scores", 0)
+                for r in ch["leg_d"]["replicas"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

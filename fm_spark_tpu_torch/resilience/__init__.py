@@ -2,8 +2,11 @@
 (:mod:`.faults`), the storage and network fault planes (:mod:`.iofaults`,
 :mod:`.netfaults`), the divergence and drift guard (:mod:`.divergence`),
 the per-phase deadline watchdog (:mod:`.watchdog`), the retry, backoff
-and circuit-breaker supervisor (:mod:`.supervisor`) and the elastic
-degraded mode on top of it (:mod:`.elastic`)."""
+and circuit-breaker supervisor (:mod:`.supervisor`), the elastic
+degraded mode on top of it (:mod:`.elastic`), and the chaos campaign that
+drives them all under seeded multi-fault schedules (:mod:`.chaos`, run by
+``python -m fm_spark_tpu_torch.tools.chaos_drill``) with its standalone
+auditors (:mod:`.chaos_audit`)."""
 
 from fm_spark_tpu_torch.resilience import faults, watchdog
 from fm_spark_tpu_torch.resilience.elastic import (

@@ -67,7 +67,7 @@ ENV_PLAN = "FM_SPARK_FAULTS"
 ENV_STATE = "FM_SPARK_FAULTS_STATE"
 
 #: The injection points: the reference's registry, name for name. The
-#: port calls these (the rest wait for the modules that call them):
+#: port calls every one but ``sweep_leg`` (below):
 #:
 #: - ``train_step``: once per step of ``FMTrainer``'s loop and of
 #:   ``fit_field_sparse``'s, before the batch is fetched;
@@ -96,10 +96,18 @@ ENV_STATE = "FM_SPARK_FAULTS_STATE"
 #:   (``io_write.ckpt``);
 #: - ``net_connect``, ``net_send``, ``net_recv``: the fleet's transport,
 #:   interpreted by :mod:`~fm_spark_tpu_torch.resilience.netfaults`,
-#:   scoped by peer (``net_connect.replica-1``); like ``backend_init``,
-#:   ``sweep_leg``, ``probe``, ``frontdoor_accept``, ``replica_kill`` and
-#:   ``fleet_dispatch`` they fire in modules the port has not taken yet
-#:   (ROADMAP Queue 1 items 6b and 12a).
+#:   scoped by peer (``net_connect.replica-1``);
+#: - ``probe``: each health probe of the supervisor
+#:   (``resilience/supervisor.py``); ``frontdoor_accept``: each
+#:   ``/predict`` the front door receives (``serve/frontdoor.py``);
+#:   ``replica_kill``: each ``/predict`` a fleet replica receives, and
+#:   ``fleet_dispatch``: each dispatch of a request to a replica
+#:   (``serve/fleet.py``);
+#: - ``backend_init``: the chaos campaign's subprocess worker's init
+#:   window, before it resolves its device (``resilience/chaos.py``).
+#:
+#: ``sweep_leg`` fires only in the reference's benchmark harness
+#: (``bench.py``); it waits for a benchmark of the port.
 KNOWN_POINTS = (
     "backend_init",
     "sweep_leg",

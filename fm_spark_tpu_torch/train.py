@@ -928,7 +928,7 @@ class FMTrainer:
                 # Stop just short of the diverging step: a deterministic
                 # pipeline would replay the same poison. note_rollback
                 # re-raises once its budget is spent.
-                checkpointer.wait()      # the step a save in flight commits
+                self._join_writer(checkpointer, supervisor, elastic)
                 restored = checkpointer.last_good_step() or 0
                 total = min(total, divergence_guard.note_rollback(
                     e, restored))
@@ -939,7 +939,7 @@ class FMTrainer:
                 if supervisor is None or not is_device_loss(e):
                     raise
                 self._recover(e, supervisor, elastic)
-                checkpointer.wait()  # the step a save in flight commits
+                self._join_writer(checkpointer, supervisor, elastic)
                 rewind = checkpointer.latest_step() is None
             finally:
                 close_prefetch()
@@ -966,6 +966,22 @@ class FMTrainer:
                 self.logger.set_n_chips(elastic.n_chips)
             supervisor.reset("train")
         self.logger.add_pause(time.perf_counter() - t0)
+
+    def _join_writer(self, checkpointer, supervisor, elastic) -> None:
+        """Join the save in flight before a recovery restores (the step
+        it commits is the newest to restore). Its file write runs in the
+        background, so a device loss inside its commit window surfaces
+        here, after the loss that started this recovery: under a
+        supervisor it is recovered from like any other (one more failure
+        on the breaker); anything else propagates."""
+        from fm_spark_tpu_torch.resilience import is_device_loss
+
+        try:
+            checkpointer.wait()
+        except Exception as e:  # noqa: BLE001 — classified below
+            if supervisor is None or not is_device_loss(e):
+                raise
+            self._recover(e, supervisor, elastic)
 
     def _reinit(self) -> None:
         """The params and optimizer state back at ``spec.init`` of the

@@ -82,6 +82,26 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert os.path.exists(port_file)
+    # The chaos campaign's modules are among the imported ones; the
+    # worker scripts it writes out and launches import only the port.
+    import ast
+
+    from fm_spark_tpu_torch.resilience import chaos
+
+    names = {m for m in _modules()}
+    assert {"fm_spark_tpu_torch.resilience.chaos",
+            "fm_spark_tpu_torch.resilience.chaos_audit",
+            "fm_spark_tpu_torch.tools.chaos_drill"} <= names
+    for template in (chaos._WORKER_TEMPLATE, chaos._DEMOTE_WORKER,
+                     chaos._GC_WORKER):
+        imported = set()
+        for node in ast.walk(ast.parse(template)):
+            if isinstance(node, ast.Import):
+                imported |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                imported.add(node.module.split(".")[0])
+        assert "fm_spark_tpu_torch" in imported
+        assert not imported & {"jax", "jaxlib", "fm_spark_tpu"}, imported
 
 
 def test_every_module_imports_without_starting_work():
@@ -2286,3 +2306,75 @@ def test_prefetched_captured_fits_after_many_in_process_fits(cuda):
         torch.cuda.synchronize()
         want = want or list(trainer.loss_history)
         assert trainer.loss_history == want
+
+
+def _first_seed_of_each_scenario():
+    from fm_spark_tpu_torch.resilience import chaos
+
+    gen, firsts = chaos.ScheduleGenerator(), {}
+    for seed in range(200):
+        firsts.setdefault(gen.schedule(seed).scenario, seed)
+    return sorted(firsts.values())
+
+
+@pytest.mark.gpu
+def test_one_schedule_per_scenario_class_on_the_card(cuda, tmp_path):
+    """The first seed of each of the seven scenario classes drilled on the
+    card at the reference's drill shape, against a golden run on the card:
+    every invariant green (a recovery ends on the golden params' crc32s,
+    the hang drill's capture happens before its 0.05 s deadline is armed),
+    the outcomes include a completion, a hang and an abort."""
+    from fm_spark_tpu_torch.resilience import chaos
+
+    seeds = _first_seed_of_each_scenario()
+    assert len(seeds) == 7
+    verdict = chaos.run_campaign(seeds, base_dir=str(tmp_path),
+                                 minimize_failures=False, device=cuda)
+    failing = [(e["seed"], e["scenario"], e["violations"])
+               for e in verdict["schedules"] if e["verdict"] != "green"]
+    assert verdict["all_green"], failing
+    assert {"completed", "hang_detected", "ingest_aborted"} <= {
+        e["outcome"] for e in verdict["schedules"]}
+
+
+@pytest.mark.gpu
+def test_a_drills_trainer_and_graph_are_freed_before_the_next(cuda,
+                                                              tmp_path):
+    """Each drill builds a trainer and captures its graph; the drill frees
+    both before it returns, so the card's allocated memory after the
+    fourth drill is what it was after the first, and no drill's graph
+    outlives it."""
+    import gc
+    import weakref
+
+    from fm_spark_tpu_torch.resilience import chaos
+    from fm_spark_tpu_torch.train import FMTrainer
+
+    cfg = chaos.DrillConfig(num_features=200_000, rank=16, batch_size=64,
+                            rows_per_shard=128)
+    shards = chaos.build_shards(str(tmp_path / "shards"), cfg)
+    made = []
+    init = FMTrainer.__init__
+
+    def tracking(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(weakref.ref(self._train_step.captured))
+
+    FMTrainer.__init__ = tracking
+    try:
+        after = []
+        for i, seed in enumerate((-1, 1, 3, 19)):
+            sched = (chaos.Schedule(seed=-1, scenario="golden", rules=())
+                     if seed < 0 else chaos.ScheduleGenerator(cfg)
+                     .schedule(seed))
+            r = chaos.run_schedule(sched, cfg, str(tmp_path / f"d{i}"),
+                                   shard_paths=shards, device=cuda)
+            assert r.outcome == sched.expects, r.error
+            gc.collect()
+            torch.cuda.synchronize()
+            after.append(torch.cuda.memory_allocated(cuda))
+    finally:
+        FMTrainer.__init__ = init
+    assert after[-1] <= after[0], after
+    assert len(made) == 4
+    assert all(ref() is None or not ref()._graphs for ref in made)
