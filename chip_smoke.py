@@ -359,7 +359,26 @@ Phases (any failure exits non-zero before the last line is printed):
    losses and params' crc32s the golden drill's; leg D, a ``kill_flash_crowd`` fleet schedule at
    config 3's full width (2 replicas, bf16; the fleet comes up on a
    thread while legs B and C run), ``audit_fleet`` green, each
-   replica's ``fresh_compiles`` 0.
+   replica's ``fresh_compiles`` 0;
+25. the tooling planes (``tooling_phase``) over the run dirs phases 21,
+   23 and 24 made on the card (kept under ``build/chip_smoke/tooling``
+   instead of deleted), each tool in this process (``main(argv)``):
+   ``fmlint`` against ``fmlint_baseline_torch.json`` (exit 0, its report
+   into phase 21 leg A's run dir); ``run_doctor`` over leg A's run dir
+   with its ``--profile`` trace (span shares, the static-analysis
+   section, the profile as a capture bundle naming kernel B's and
+   ``sr_bits``' symbols) and over leg B's (the serving section, its
+   request p50/p99 those of the run's journaled ``serve_summary``);
+   ``obs_report`` over both (span counts those of ``trace.jsonl``);
+   ``trace_report`` over phase 23 leg C's obs root (a complete trace
+   through the door, the parent and a replica whose hops fit in the
+   client's round trip, the killed replica's torn traces counted, the
+   clock offsets between processes of one host near 0); ``run_doctor``
+   over phase 24 leg A's ``chaos_verdict.json`` (green, 7 schedules);
+   ``hash_audit --tokens 200000``; ``build_native --check``; and
+   ``measured.update_entry`` of phase 21 leg D's captured config-3 rate
+   (B over its CUDA-event ms) and phase 10's config-4 rate into
+   ``chiprun_out/measured_torch.json``, read back by ``load_measured``.
 
 ``python3 chip_smoke.py --repeat-phase-19 SECONDS`` runs phases 3-16
 once, then phase 19 again and again for SECONDS (under
@@ -402,6 +421,9 @@ import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: Run dirs phases 21, 23 and 24 keep for phase 25's tools.
+TOOLING_DIR = os.path.join(HERE, "build", "chip_smoke", "tooling")
 
 F, BUCKET, RANK = 39, 1 << 18, 64        # config 3, criteo1tb_fm_r64
 WIDTH = RANK + 1
@@ -6111,6 +6133,13 @@ def obs_phase(dev, report):
         for k in ("fm_bwd_segment_totals", "sr_bits", "fm_fused_scores"):
             _check(launches[k] > 0, f"phase 21: {k} never launched: "
                    f"{launches}")
+        # Leg A's and B's run dirs and leg A's profile, for phase 25.
+        for leg in ("a", "b"):
+            run = _run_dir_of(os.path.join(base, f"obs_{leg}"))
+            _keep_for_tooling(run, "obs21", os.path.basename(run))
+            report.setdefault("tooling_inputs", {})[f"obs21_{leg}"] = \
+                os.path.join("obs21", os.path.basename(run))
+        _keep_for_tooling(os.path.join(base, "prof"), "prof21")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -6126,6 +6155,15 @@ def obs_phase(dev, report):
     report["obs"] = out
     return launches
 
+
+
+def _keep_for_tooling(src: str, *dest) -> str:
+    """Move ``src`` to ``TOOLING_DIR/<dest>`` (phase 25 reads it there and
+    removes the whole dir)."""
+    path = os.path.join(TOOLING_DIR, *dest)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    shutil.move(src, path)
+    return path
 
 
 # ------------------------------------------------------------------ phase 22
@@ -6663,7 +6701,7 @@ def _fleet_leg(dev, base, out) -> None:
 
     import numpy as np
 
-    from fm_spark_tpu_torch import models
+    from fm_spark_tpu_torch import models, obs
     from fm_spark_tpu_torch.serve import PredictEngine, loadgen
 
     t0 = time.perf_counter()
@@ -6698,8 +6736,14 @@ def _fleet_leg(dev, base, out) -> None:
                                       deadline_ms=2000.0)
         tap = os.path.join(base, "tap.jsonl")
         t1 = time.perf_counter()
-        burst = loadgen.run_loadgen(host, port, sched, tap, nnz=F,
-                                    num_features=BUCKET, threads=16)
+        # The burst's client spans join the fleet's obs root (phase 25
+        # merges the client, door, parent and replica hops).
+        obs.configure(os.path.join(base, "obs_c", "client"))
+        try:
+            burst = loadgen.run_loadgen(host, port, sched, tap, nnz=F,
+                                        num_features=BUCKET, threads=16)
+        finally:
+            obs.shutdown()
         out["leg_c_burst_s"] = time.perf_counter() - t1
         attempts = _jsonl(tap)
         by_req = {}
@@ -6814,6 +6858,9 @@ def elastic_fleet_phase(dev, report):
         _fleet_leg(dev, base, out)
         print("phase 23 leg C", json.dumps(out["leg_c"]), flush=True)
         launches = kernel_launches()
+        # Leg C's obs root (the client, door and parent, each replica),
+        # for phase 25.
+        _keep_for_tooling(os.path.join(base, "obs_c"), "obs_c")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     out["launches"] = launches
@@ -6964,6 +7011,13 @@ def _chaos_leg_a(dev, base, out) -> None:
     failing = [(e["seed"], e["scenario"], e["violations"])
                for e in verdict["schedules"] if e["verdict"] != "green"]
     _check(verdict["all_green"], f"phase 24 leg A: {failing}")
+    # The campaign's verdict file, as the drill runner writes it, for
+    # phase 25's run doctor.
+    from fm_spark_tpu_torch.tools import chaos_drill
+
+    out["verdict_path"] = os.path.relpath(chaos_drill.write_verdict(
+        dict(verdict, mode="bounded"), os.path.join(TOOLING_DIR, "chaos")),
+        TOOLING_DIR)
     outcomes = {e["outcome"] for e in verdict["schedules"]}
     _check({"completed", "hang_detected", "ingest_aborted"} <= outcomes,
            f"phase 24 leg A: outcomes {outcomes}")
@@ -7238,6 +7292,241 @@ def chaos_phase(dev, report):
     return launches
 
 
+# ------------------------------------------------------------------ phase 25
+
+#: Phase 25: hash_audit's tokens a decade (its default is 1M; 200,000
+#: keeps the three decades' audit to seconds on the host).
+TOOLING_HASH_TOKENS = 200_000
+
+
+def _tool(fn, argv) -> tuple:
+    """``fn(argv)`` in this process: ``(rc, stdout, stderr)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _section(text: str, title: str) -> str:
+    """The lines of the ``## <title>`` section of a report."""
+    lines, on = [], False
+    for line in text.splitlines():
+        if line.startswith("## "):
+            on = line.startswith(f"## {title}")
+        if on:
+            lines.append(line)
+    return "\n".join(lines)
+
+
+def _tooling_runs(out: dict, report: dict) -> None:
+    """fmlint into leg A's run dir, then the run doctor and obs_report
+    over phase 21's run dirs."""
+    from fm_spark_tpu_torch.tools import fmlint, obs_report, run_doctor
+
+    ins = report["tooling_inputs"]
+    run_a = os.path.join(TOOLING_DIR, ins["obs21_a"])
+    run_b = os.path.join(TOOLING_DIR, ins["obs21_b"])
+    prof = os.path.join(TOOLING_DIR, "prof21")
+    t = time.perf_counter()
+    rc, _, err = _tool(fmlint.main, ["--repo", HERE, "--run-id",
+                                     os.path.basename(run_a), "--out", run_a])
+    with open(os.path.join(run_a, "fmlint.json")) as f:
+        lint = json.load(f)
+    _check(rc == 0 and lint["ok"] and lint["baseline_path"].endswith(
+        "fmlint_baseline_torch.json"), f"phase 25: fmlint rc {rc}: "
+        f"{err[-2000:]}")
+    out["fmlint"] = {"rc": rc, "rules": len(lint["rules"]),
+                     "total_findings": lint["total_findings"],
+                     "baselined": lint["baselined_total"],
+                     "suppressed": len(lint["suppressed"]),
+                     "new": len(lint["new"]),
+                     "seconds": time.perf_counter() - t}
+    # The doctor over leg A: the span shares, the fmlint section, the
+    # --profile trace as a capture bundle naming kernel B and sr_bits.
+    t = time.perf_counter()
+    rc, text, err = _tool(run_doctor.main, [run_a, "--profile", prof])
+    bundle = run_doctor.profile_bundle(prof, top=10_000)
+    names = " ".join(k["name"] for k in bundle["kernels"])
+    named = {k: [sym for sym in KERNEL_SYMBOLS[k] if sym in names]
+             for k in ("fm_bwd_segment_totals", "sr_bits")}
+    where = _section(text, "Where the time went")
+    _check(rc == 0 and "execute" in where and "%" in where
+           and "## Static analysis (fmlint — " in text
+           and f"{lint['total_findings']}  new 0" in text
+           and "## Deep captures (1 bundle(s))" in text
+           and "## Device profile (" in text and all(named.values()),
+           f"phase 25: the doctor over leg A (rc {rc}, kernels {named}): "
+           f"{text[-3000:]}{err[-1000:]}")
+    k_b = next(k for k in bundle["kernels"]
+               if KERNEL_SYMBOLS["fm_bwd_segment_totals"][0] in k["name"])
+    out["doctor_train"] = {
+        "rc": rc, "time_went": where.splitlines()[1:],
+        "profile": bundle["context"], "kernel_b_runs": k_b["runs"],
+        "kernel_b_device_ms": k_b["device_ms"],
+        "seconds": time.perf_counter() - t}
+    # The doctor over leg B: the serving section's request percentiles
+    # are the run's own (its journaled serve_summary).
+    t = time.perf_counter()
+    rc, text, err = _tool(run_doctor.main, [run_b])
+    [summ] = [e for e in _jsonl(os.path.join(run_b, "serve_health.jsonl"))
+              if e.get("event") == "serve_summary"]
+    run = obs_report.load_run(run_b)
+    events = obs_report._read_jsonl(os.path.join(run_b, "flight.jsonl"))
+    serve = run_doctor.serve_diagnose(run, obs_report.serve_timeline(events),
+                                      [])
+    hist = serve["histograms"]["serve/request_ms"]
+    _check(rc == 0 and "## Serving" in text and not serve["violations"]
+           and (hist["p50"], hist["p99"]) == (summ["request_ms"]["p50"],
+                                              summ["request_ms"]["p99"]),
+           f"phase 25: the doctor over leg B (rc {rc}): {hist} against "
+           f"{summ['request_ms']}: {text[-2000:]}")
+    out["doctor_serve"] = {"rc": rc, "request_ms": {
+        k: hist[k] for k in ("count", "p50", "p95", "p99")},
+        "journal_request_ms": summ["request_ms"],
+        "seconds": time.perf_counter() - t}
+    # obs_report over both: every span of trace.jsonl counted.
+    spans = {}
+    for name, run_dir in (("train", run_a), ("serve", run_b)):
+        n = sum(1 for r in _jsonl(os.path.join(run_dir, "trace.jsonl"))
+                if r.get("event") == "span")
+        rc, text, _ = _tool(obs_report.main, [run_dir])
+        _check(rc == 0 and f"## Phase breakdown ({n} spans)" in text,
+               f"phase 25: obs_report over {name}: rc {rc}, {n} spans: "
+               f"{text[:1500]}")
+        spans[name] = n
+    out["obs_report_spans"] = spans
+
+
+def _tooling_traces(out: dict) -> None:
+    """trace_report over phase 23 leg C's obs root."""
+    from fm_spark_tpu_torch.tools import trace_report
+
+    t = time.perf_counter()
+    root = os.path.join(TOOLING_DIR, "obs_c")
+    merged = trace_report.merge(root)
+    complete = [tr for tr in merged.values() if not tr["incomplete"]
+                and {"frontdoor/request", "fleet/dispatch", "replica/handle",
+                     "serve/coalesce"} <= set(tr["by_name"])]
+    with_client = [tr for tr in complete if "client/request" in tr["by_name"]]
+    over = []
+    for tr in with_client:
+        bd = trace_report.breakdown(tr)
+        if bd["frontdoor"] + bd["dispatch"] > bd["client"] + 1.0:
+            over.append((tr["trace_id"], bd))
+    skew = trace_report.estimate_skew(trace_report.collect(root))
+    incomplete = sum(tr["incomplete"] for tr in merged.values())
+    rc, text, _ = _tool(trace_report.main, [root, "--top", 3])
+    _check(rc == 0 and complete and with_client and not over
+           and incomplete >= 1 and skew
+           and all(abs(v) < 0.5 for v in skew.values()),
+           f"phase 25: trace_report: {len(merged)} merged, {len(complete)} "
+           f"complete ({len(with_client)} with the client), hops over the "
+           f"round trip {over[:3]}, {incomplete} incomplete, offsets "
+           f"{skew}: {text[:2000]}")
+    slowest = max(with_client, key=lambda tr: tr["total_ms"])
+    bd = trace_report.breakdown(slowest)
+    out["trace_report"] = {
+        "merged": len(merged), "complete": len(complete),
+        "with_client": len(with_client), "incomplete": incomplete,
+        "offsets_ms": {f"{a}->{b}": round(v * 1e3, 3)
+                       for (a, b), v in skew.items()},
+        "slowest_with_client": {"trace_id": slowest["trace_id"],
+                                "total_ms": slowest["total_ms"],
+                                "hops_ms": bd},
+        "seconds": time.perf_counter() - t}
+
+
+def tooling_phase(dev, report):
+    """Phase 25: the tooling planes (item 13b) over the run dirs phases
+    21, 23 and 24 made on the card, each tool in this process. The counts
+    are set to 0 just before the phase and read after (the tools launch
+    no kernel: they read what the kernel phases left)."""
+    import datetime
+    import importlib
+
+    from fm_spark_tpu_torch import measured
+    from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
+    from fm_spark_tpu_torch.tools import build_native, hash_audit, run_doctor
+
+    out = {"card": report["card"], "host_cpu": _host_cpu()}
+    t_phase = time.perf_counter()
+    try:
+        for _, mod, attr in KERNEL_COUNTERS:
+            setattr(importlib.import_module(f"fm_spark_tpu_torch.ops.{mod}"),
+                    attr, 0)
+        _tooling_runs(out, report)
+        _tooling_traces(out)
+        # The doctor over phase 24 leg A's campaign verdict.
+        chaos_dir = os.path.dirname(os.path.join(
+            TOOLING_DIR, report["chaos"]["verdict_path"]))
+        n = len(report["chaos"]["leg_a"]["schedules"])
+        rc, text, _ = _tool(run_doctor.main, [chaos_dir])
+        _check(rc == 0 and f"## Chaos verdict (bounded campaign, {n} "
+               f"schedule(s))" in text and f"chaos campaign green: {n} "
+               "seeded schedule(s)" in text,
+               f"phase 25: the doctor over the chaos verdict: {text[-2000:]}")
+        out["doctor_chaos"] = {"rc": rc, "schedules": n}
+        t = time.perf_counter()
+        rc, text, _ = _tool(hash_audit.main,
+                            ["--tokens", TOOLING_HASH_TOKENS])
+        audit = json.loads(text)
+        _check(rc == 0 and audit["ok"], f"phase 25: hash_audit {audit}")
+        out["hash_audit"] = {"worst_ratio_vs_uniform":
+                             audit["worst_ratio_vs_uniform"],
+                             "rows": audit["rows"],
+                             "seconds": time.perf_counter() - t}
+        t = time.perf_counter()
+        rc, text, err = _tool(build_native.main, ["--check"])
+        _check(rc == 0, f"phase 25: build_native --check: {text} {err}")
+        out["build_native"] = {"rc": rc, "report": text.strip(),
+                               "seconds": time.perf_counter() - t}
+        # The card's rates into the port's MEASURED file: config 3's
+        # captured step (phase 21 leg D, the plane off) and config 4's
+        # (phase 10's first leg), B over their CUDA-event ms.
+        path = os.path.join(HERE, "chiprun_out", "measured_torch.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if os.path.exists(path):
+            os.remove(path)
+        today = datetime.date.today().isoformat()
+        ev_ms = report["obs"]["leg_d"]["median"]["event_ms"]["off"]
+        measured.update_headline(
+            rate=TRAIN_B / (ev_ms / 1e3), vs_baseline=None,
+            variant="config 3 fusedbwd bf16 dedup_sr cap 12288, captured",
+            source="chip_smoke.py phase 21 leg D (CUDA-event median)",
+            attachment=report["card"], date=today, path=path)
+        leg, row = next(iter(report["ffm_train"].items()))
+        measured.update_entry(
+            "ffm_avazu", row["samples_per_s"], f"config 4 {leg}",
+            "chip_smoke.py phase 10 (median step ms)", report["card"],
+            today, path=path)
+        back = measured.load_measured(path)
+        _check(back["headline"]["attachment"] == report["card"],
+               f"phase 25: measured read back {back}")
+        out["measured"] = back
+        launches = kernel_launches()
+    finally:
+        shutil.rmtree(TOOLING_DIR, ignore_errors=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["tooling"] = out
+    print("tooling", json.dumps(out), flush=True)
+    tr, dt = out["trace_report"], out["doctor_train"]
+    print(f"phase 25 ({report['card']}): fmlint {out['fmlint']['rules']} "
+          f"rules, {out['fmlint']['total_findings']} findings "
+          f"({out['fmlint']['baselined']} baselined, "
+          f"{out['fmlint']['suppressed']} suppressed, 0 new); doctor over "
+          f"leg A: profile {dt['profile']}, kernel B {dt['kernel_b_runs']} "
+          f"runs {dt['kernel_b_device_ms']} ms; serve p50/p99 "
+          f"{out['doctor_serve']['request_ms']['p50']}/"
+          f"{out['doctor_serve']['request_ms']['p99']} ms; traces "
+          f"{tr['merged']} merged, {tr['complete']} complete, "
+          f"{tr['incomplete']} incomplete, offsets {tr['offsets_ms']} ms; "
+          f"hash_audit worst {out['hash_audit']['worst_ratio_vs_uniform']:.3f}"
+          f"; headline {out['measured']['headline']['rate_samples_per_sec_per_chip']:.0f}"
+          f" samples/s; phase {out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
 def repeat_phase(dev, report, which: str, seconds: float) -> int:
     """``chip_smoke.py --repeat-phase-17 SECONDS`` (or ``-19``): phases
     3-16 once (phase 5's commands in this process), then phase 17 (or
@@ -7349,10 +7638,12 @@ def main() -> int:
     fam_launches, fam = timed("18 families", families_phase)
     stream_launches = timed("19 stream", stream_phase)
     tier_launches = timed("20 tier", tier_phase)
+    shutil.rmtree(TOOLING_DIR, ignore_errors=True)
     obs_launches = timed("21 obs", obs_phase)
     par_launches = timed("22 parallel", parallel_phase)
     fleet_launches = timed("23 elastic fleet", elastic_fleet_phase)
     chaos_launches = timed("24 chaos", chaos_phase)
+    tooling_launches = timed("25 tooling", tooling_phase)
 
     def fwd_row(dtype, ids, b, compute="float32"):
         return next(r for r in rows if (r["dtype"], r["ids"], r["B"],
@@ -7624,6 +7915,10 @@ def main() -> int:
             entry["chaos_fleet_replica_runs"] = [
                 (r["kernel_runs"] or {}).get("fm_fused_scores", 0)
                 for r in ch["leg_d"]["replicas"]]
+    # Phase 25, the tooling planes: the tools launch no kernel (they read
+    # the run dirs phases 21, 23 and 24 left).
+    for entry in kernels["kernels"]:
+        entry["tooling_launches"] = tooling_launches[entry["name"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=2)

@@ -636,7 +636,7 @@ class Checkpointer:
         try:
             self._commit(*args)
         except BaseException as e:  # noqa: BLE001 — raised at the next join
-            self._writer_error = e
+            self._writer_error = e  # fmlint: disable=thread-lock-discipline -- the writer thread sets it and dies; the caller reads it only after join() in wait(), which orders the two
 
     def _commit(self, step, snap: _Snapshot, meta, manifest, timing) -> None:
         """Write the step under a temporary name, fsync, rename; then its

@@ -83,6 +83,10 @@ import os
 import sys
 import time
 
+from fm_spark_tpu_torch.cli_levers import (_LEVERS, _add_lever_args,
+                                           _lever_overrides, check_levers_any,
+                                           field_caps, field_only_levers)
+
 
 def load_dataset(cfg, synthetic: int):
     """``(ids, vals, labels, num_features)`` of ``synthetic`` planted-FM
@@ -549,18 +553,8 @@ def _cmd_train(args) -> int:
         num_steps=args.steps, batch_size=batch_size,
         log_every=args.log_every, eval_every=args.eval_every,
         metrics_path=args.metrics, sparse_update=args.sparse_update,
-        host_dedup=args.host_dedup, compact_cap=args.compact_cap,
-        compact_device=args.compact_device,
-        compact_overflow=args.compact_overflow,
-        gfull_fused=args.gfull_fused, segtotal_pallas=args.segtotal_pallas,
-        sel_blocked=args.sel_blocked, fused_embed=args.fused_embed,
-        embed_tier=args.embed_tier, hot_rows=args.hot_rows,
-        embed_bucket_rows=args.embed_bucket_rows)
-    if tconfig.compact_overflow != "error" and tconfig.compact_cap <= 0:
-        # The reference's guard (cli_levers._v_overflow_needs_cap).
-        raise SystemExit(f"--compact-overflow {tconfig.compact_overflow} has "
-                         "no effect without --compact-cap")
-    msg = _hot_rows_need_tier(tconfig)
+        **_lever_overrides(args))
+    msg = check_levers_any(tconfig)
     if msg:
         raise SystemExit(msg)
     if args.online:
@@ -586,12 +580,6 @@ def _cmd_train(args) -> int:
     _tier_plan(spec, tconfig, cfg.strategy)
     sharded = bool(args.distributed)
     _validate_field_caps(args, spec, tconfig, world, sharded)
-    if tconfig.sel_blocked and type(spec) is not models.FieldFFMSpec:
-        # The reference's lever rule; the port's CLI trains on one device.
-        raise SystemExit(
-            f"--sel-blocked is the single-chip FieldFFM body's lever (it "
-            f"blocks the [B, F, F, k] sel tensor; found 1 device(s), "
-            f"{type(spec).__name__})")
     dev = _rank_device(args)
     batches, eval_source, stream, _ = _train_source(
         args, cfg, tconfig, (_rank(), world) if sharded else (0, 1))
@@ -946,9 +934,8 @@ def _validate_field_caps(args, spec, tconfig, n: int, sharded: bool):
             "--ckpt-sharded applies to multi-device field-sharded runs "
             f"(found {n} device(s)); the default canonical layout "
             "already serves single-chip runs")
-    if not sharded:
-        return
-    compact_sharded = tconfig.host_dedup and tconfig.compact_cap > 0
+    compact_sharded = (tconfig.host_dedup and tconfig.compact_cap > 0
+                       and sharded)
     if compact_sharded and deep:
         raise SystemExit(
             f"host-built --compact-cap is not supported by the sharded "
@@ -959,10 +946,20 @@ def _validate_field_caps(args, spec, tconfig, n: int, sharded: bool):
             "field mesh (no --row-shards) and a single process; add "
             "--compact-device to build the aux in-step, which composes "
             "with both")
-    if tconfig.host_dedup and not compact_sharded:
+    if tconfig.host_dedup and sharded and not compact_sharded:
         raise SystemExit(
             f"--host-dedup on {n} devices requires --compact-cap "
             "(or drop --host-dedup / run on 1 chip)")
+    # Registry-driven per-lever guards (one validate per _Lever row).
+    ctx = dict(spec=spec, cap=field_caps(spec), n=n, pc=n, sharded=sharded,
+               row_shards=row_shards)
+    for lv in _LEVERS:
+        if lv.validate is not None:
+            msg = lv.validate(tconfig, ctx)
+            if msg:
+                raise SystemExit(msg)
+    if not sharded:
+        return
     if args.steps_per_call > 1 and compact_sharded:
         raise SystemExit("--steps-per-call > 1 does not take the host-built "
                          "compact aux; use --compact-device")
@@ -1026,21 +1023,6 @@ def _train_parallel(args, cfg, spec, tconfig, dev, batches, eval_source,
                 print(json.dumps({"saved": args.model_out}), flush=True)
     print(json.dumps(summary), file=sys.stderr)
     return 0
-
-
-def _hot_rows_need_tier(tc):
-    """The reference's check of ``--hot-rows`` (``cli_levers``)."""
-    if tc.hot_rows > 0 and tc.embed_tier == "off":
-        # Capacity without the lever would be a silent no-op: the
-        # in-memory trainers never consult hot_rows.
-        return "--hot-rows has no effect without --embed-tier auto|require"
-    if tc.embed_tier != "off" and tc.hot_rows > 0 and \
-            tc.hot_rows % tc.embed_bucket_rows:
-        return (
-            f"--hot-rows {tc.hot_rows} must be a multiple of "
-            f"--embed-bucket-rows {tc.embed_bucket_rows} (the hot tier "
-            "is managed in whole buckets)")
-    return None
 
 
 def _tier_plan(spec, tconfig, strategy):
@@ -1154,16 +1136,6 @@ def _checkpointer(args):
                         journal=journal), journal
 
 
-#: train's levers of the fused field steps, refused by the flat family's
-#: dense step, as the reference's CLI refuses them off ``field_sparse``.
-_FIELD_ONLY_LEVERS = (
-    ("host_dedup", "--host-dedup"), ("compact_device", "--compact-device"),
-    ("compact_cap", "--compact-cap"), ("segtotal_pallas", "--segtotal-pallas"),
-    ("gfull_fused", "--gfull-fused"), ("sel_blocked", "--sel-blocked"),
-    ("use_pallas", "--use-pallas"), ("sparse_update", "--sparse-update"),
-    ("compact_overflow", "--compact-overflow"))
-
-
 def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
     """``train`` by the dense step (strategies ``single``, ``dp`` and
     ``row``) of a flat config or, with ``--strategy single|dp``, a field
@@ -1179,7 +1151,10 @@ def _train_flat(args, cfg, tconfig, world: int = 1) -> int:
     from fm_spark_tpu_torch import models
     from fm_spark_tpu_torch.train import FMTrainer
 
-    for dest, flag in _FIELD_ONLY_LEVERS:
+    # train's levers of the fused field steps, refused by the flat
+    # family's dense step, as the reference's CLI refuses them off
+    # ``field_sparse``.
+    for dest, flag in field_only_levers():
         if getattr(args, dest):
             raise SystemExit(f"{flag} requires strategy 'field_sparse' "
                              f"(config {cfg.name!r} resolves to "
@@ -1598,7 +1573,8 @@ def cmd_serve(args) -> int:
     swaps, reload failures and staleness. With the obs plane on
     (``--obs-dir``), the engine's and the follower's journal is
     ``serve_health.jsonl`` in the run dir (never in the chain it
-    follows), mirrored into the flight ring; ``--slo-ms`` arms the
+    follows), mirrored into the flight ring, and ends with the run's
+    ``serve_summary``; ``--slo-ms`` arms the
     ``serve_request`` watchdog phase at that deadline (an overrun fails
     its batch with ``HangDetected`` and fires the SLO capture), unless a
     watchdog is already configured (``FM_SPARK_WATCHDOG``)."""
@@ -1822,6 +1798,10 @@ def _serve(args, buckets, journal) -> int:
         "staleness_steps": int(obs.gauge("serve/staleness_steps").value or 0),
         "degraded": bool(obs.gauge("serve/degraded").value or 0),
     }
+    if journal is not None:
+        # The run's closing books in its journal, as the fleet's door
+        # journals frontdoor_summary: the run doctor reads them there.
+        journal.emit("serve_summary", **summary)
     print(json.dumps({"serve_summary": summary}), flush=True)
     obs.export_snapshot()
     print(json.dumps({
@@ -1891,32 +1871,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bitwise-equivalent; needs --compact-cap)")
     t.add_argument("--sparse-update", choices=["scatter_add", "dedup",
                                                "dedup_sr"])
-    t.add_argument("--host-dedup", action="store_true", default=None,
-                   help="build the dedup aux on the host (the compact aux "
-                        "with --compact-cap)")
-    t.add_argument("--compact-cap", type=int, default=None)
-    t.add_argument("--compact-device", action="store_true", default=None,
-                   help="build the compact aux on the card inside the step "
-                        "(no host aux). Needs --compact-cap and a dedup "
-                        "--sparse-update; exclusive with --host-dedup")
-    t.add_argument("--compact-overflow", choices=["error", "drop", "split"],
-                   help="when a field's unique ids exceed --compact-cap: "
-                        "error (default; the device aux poisons the loss "
-                        "to -inf), drop (device aux: overflow ids behave "
-                        "as absent features), split (host aux: the batch "
-                        "is halved until every field fits)")
-    t.add_argument("--gfull-fused", action="store_true", default=None)
-    t.add_argument("--segtotal-pallas", action="store_true", default=None,
-                   help="segment sums by the segment-totals kernel")
-    t.add_argument("--sel-blocked", action="store_true", default=None,
-                   help="FieldFFM: the per-owner-field interaction loop in "
-                        "place of the [B, F, F, k] sel tensor")
     t.add_argument("--use-pallas", action="store_true",
                    help="row gathers and scatter_add/dedup writes by the "
                         "row kernels (gather_rows, update_rows_add)")
-    t.add_argument("--fused-embed", choices=["off", "auto", "require"],
-                   help="the fused kernels: FieldFM's backward, FieldFFM's "
-                        "ffm_sel pair (with --sel-blocked)")
+    _add_lever_args(t)
     t.add_argument("--steps-per-call", type=int, default=1)
     t.add_argument("--strategy", default=None, choices=list(STRATEGIES),
                    help="override the config's strategy: single (one "
@@ -1990,21 +1948,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bad-record-rate breaker (quarantine): abort when "
                         "more than FRAC of a trailing window of records is "
                         "bad (1.0 = never)")
-    t.add_argument("--embed-tier", choices=["off", "auto", "require"],
-                   default=None, dest="embed_tier",
-                   help="tiered embedding store (flat FM, sgd/ftrl/adagrad):"
-                        " a card-resident cache of --hot-rows rows in "
-                        "buckets over host cold storage, bit-identical to "
-                        "the in-memory path; 'auto' falls back with a "
-                        "stderr notice, 'require' fails instead")
-    t.add_argument("--hot-rows", type=int, default=None, dest="hot_rows",
-                   help="hot-tier capacity in rows for --embed-tier (a "
-                        "multiple of --embed-bucket-rows, covering one "
-                        "batch's buckets, below the feature count)")
-    t.add_argument("--embed-bucket-rows", type=int, default=None,
-                   dest="embed_bucket_rows",
-                   help="rows per hot-tier bucket (the residency unit; "
-                        "default 512)")
     t.add_argument("--supervise", action="store_true",
                    help="wrap single-strategy training in the device-fault "
                         "supervisor (resilience/): a device loss probes the "

@@ -216,7 +216,7 @@ class TieredTrainer:
                         slots, host, float(config.learning_rate), beta)
                 for p in self._slot_planes:
                     table, slot = p.split("_")
-                    planes[p] = slots[table][slot].numpy()
+                    planes[p] = slots[table][slot].numpy()  # fmlint: disable=torch-host-sync -- construction, not the step loop: the slot planes are host tensors copied into the cold store once
             self._cold = ColdStore.dense(planes, bucket_rows)
         else:
             self._cold = ColdStore.lazy(
@@ -369,7 +369,7 @@ class TieredTrainer:
         params = restored["params"]
         planes = {"v": to_host(params["v"]), "w": to_host(params["w"])}
         for p in self._slot_planes:
-            planes[p] = restored["opt_state"][p.replace("_", "/")].numpy()
+            planes[p] = restored["opt_state"][p.replace("_", "/")].numpy()  # fmlint: disable=torch-host-sync -- restore, not the step loop: the chain's slot planes are host tensors handed to the cold store once
         self.store.restore_cold(planes)
         self._w0.copy_(params["w0"])
         self.step_count = int(restored["step"])

@@ -76,7 +76,7 @@ def ffm_sel_supported(num_fields: int, rank: int,
 def _check(rows_stacked, vals, dscores=None):
     """Validate the operands; return ``(B, F, k)``."""
     if rows_stacked.dim() != 3:
-        raise ValueError(f"want rows_stacked [B, F, F·k], got "
+        raise KernelUnavailable(f"want rows_stacked [B, F, F·k], got "
                          f"{tuple(rows_stacked.shape)}")
     b, num_fields, fk = rows_stacked.shape
     rank = fk // num_fields if num_fields else 0
@@ -85,22 +85,22 @@ def _check(rows_stacked, vals, dscores=None):
             f"ffm_sel: packed width {fk} is not divisible by the field "
             f"count {num_fields}")
     if b < 1:
-        raise ValueError("empty batch")
+        raise KernelUnavailable("empty batch")
     if rows_stacked.dtype not in _DTYPES:
         raise TypeError(f"rows must be float32 or bfloat16, got "
                         f"{rows_stacked.dtype}")
     if vals.shape != (b, num_fields) or not vals.is_floating_point():
-        raise ValueError(f"want float vals [{b}, {num_fields}], got "
+        raise KernelUnavailable(f"want float vals [{b}, {num_fields}], got "
                          f"{tuple(vals.shape)} {vals.dtype}")
     others = [vals]
     if dscores is not None:
         if dscores.shape != (b,) or not dscores.is_floating_point():
-            raise ValueError(f"want float dscores [{b}], got "
+            raise KernelUnavailable(f"want float dscores [{b}], got "
                              f"{tuple(dscores.shape)} {dscores.dtype}")
         others.append(dscores)
     for t in others:
         if t.device != rows_stacked.device:
-            raise ValueError(f"tensor on {t.device}, rows on "
+            raise KernelUnavailable(f"tensor on {t.device}, rows on "
                              f"{rows_stacked.device}")
     return b, num_fields, rank
 
@@ -159,7 +159,7 @@ def _kernel_operands(name, rows_stacked, *others):
     if reason:
         raise KernelUnavailable(f"{name}: {reason}")
     if not rows_stacked.is_contiguous():
-        raise ValueError(f"{name}: rows_stacked must be contiguous")
+        raise KernelUnavailable(f"{name}: rows_stacked must be contiguous")
     from fm_spark_tpu_torch.kernels import build
 
     return build.load("ffm_sel"), [t.to(rows_stacked.dtype).contiguous()

@@ -107,12 +107,12 @@ def rv_vector(rv, k, cd, device):
 
 def _check(urows, s1, dscores, vals, weights, order, inv, cap):
     if not urows:
-        raise ValueError("no fields")
+        raise KernelUnavailable("no fields")
     num_fields = len(urows)
     b, w = s1.shape
     shape, dtype = urows[0].shape, urows[0].dtype
     if tuple(shape) != (cap, w):
-        raise ValueError(f"want [cap, k+1] = [{cap}, {w}] urows, got {tuple(shape)}")
+        raise KernelUnavailable(f"want [cap, k+1] = [{cap}, {w}] urows, got {tuple(shape)}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"urows storage must be float32 or bfloat16, got {dtype}")
     if s1.dtype not in (torch.float32, torch.bfloat16) or dscores.dtype != s1.dtype:
@@ -121,7 +121,7 @@ def _check(urows, s1, dscores, vals, weights, order, inv, cap):
     if (dscores.shape != (b,) or vals.shape != (b, num_fields)
             or weights.shape != (b,) or order.shape != (num_fields, b)
             or inv.shape != (num_fields, b)):
-        raise ValueError("want dscores/weights [B], vals [B, F], order/inv [F, B]")
+        raise KernelUnavailable("want dscores/weights [B], vals [B, F], order/inv [F, B]")
     if vals.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError("vals and weights must be float32")
     if order.dtype != torch.int32 or inv.dtype != torch.int32:
@@ -129,10 +129,10 @@ def _check(urows, s1, dscores, vals, weights, order, inv, cap):
     dev = s1.device
     for t in (*urows, dscores, vals, weights, order, inv):
         if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, s1 on {dev}")
+            raise KernelUnavailable(f"tensor on {t.device}, s1 on {dev}")
     for t in urows:
         if t.shape != shape or t.dtype != dtype:
-            raise ValueError("every field's urows must share one shape and dtype")
+            raise KernelUnavailable("every field's urows must share one shape and dtype")
 
 
 def fm_bwd_sorted_deltas(urows, s1, dscores, vals, weights, order, inv,
@@ -205,7 +205,7 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
         raise KernelUnavailable(f"fm_bwd_segment_totals: {reason}")
     if not all(t.is_contiguous() for t in (*urows, s1, dscores, vals,
                                            weights, order, inv)):
-        raise ValueError("fm_bwd_segment_totals: inputs must be contiguous")
+        raise KernelUnavailable("fm_bwd_segment_totals: inputs must be contiguous")
     from fm_spark_tpu_torch.kernels import build
 
     lib = build.load("fm_fused_bwd")
@@ -214,7 +214,7 @@ def fm_bwd_segment_totals(urows, s1, dscores, vals, weights, order, inv,
     if isinstance(neg_lr, torch.Tensor):
         if (neg_lr.shape != () or neg_lr.dtype != torch.float32
                 or neg_lr.device != dev):
-            raise ValueError(f"fm_bwd_segment_totals: neg_lr must be a 0-dim "
+            raise KernelUnavailable(f"fm_bwd_segment_totals: neg_lr must be a 0-dim "
                              f"float32 tensor on {dev}")
     else:
         neg_lr = torch.full((), neg_lr, dtype=torch.float32, device=dev)

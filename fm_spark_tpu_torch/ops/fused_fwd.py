@@ -53,32 +53,32 @@ _staged_lock = threading.Lock()
 
 def _check(tables, ids, vals, w0):
     if ids.dim() != 2 or ids.shape != vals.shape:
-        raise ValueError(f"want matching [B, F] ids/vals, got "
+        raise KernelUnavailable(f"want matching [B, F] ids/vals, got "
                          f"{tuple(ids.shape)} / {tuple(vals.shape)}")
     b, num_fields = ids.shape
     if b < 1:
-        raise ValueError("empty batch")
+        raise KernelUnavailable("empty batch")
     if len(tables) != num_fields:
-        raise ValueError(f"{len(tables)} tables for {num_fields} fields")
+        raise KernelUnavailable(f"{len(tables)} tables for {num_fields} fields")
     if ids.dtype != torch.int32 or vals.dtype != torch.float32:
         raise TypeError(f"want int32 ids and float32 vals, got {ids.dtype} "
                         f"/ {vals.dtype}")
     shape, dtype = tables[0].shape, tables[0].dtype
     if len(shape) != 2 or shape[1] < 2:
-        raise ValueError(f"want [bucket, k+1] tables, got {tuple(shape)}")
+        raise KernelUnavailable(f"want [bucket, k+1] tables, got {tuple(shape)}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"table storage must be float32 or bfloat16, got {dtype}")
     dev = ids.device
     for t in tables:
         if t.shape != shape or t.dtype != dtype:
-            raise ValueError("every field table must share one shape and dtype")
+            raise KernelUnavailable("every field table must share one shape and dtype")
         if t.device != dev:
-            raise ValueError(f"table on {t.device}, ids on {dev}")
+            raise KernelUnavailable(f"table on {t.device}, ids on {dev}")
     if vals.device != dev:
-        raise ValueError(f"vals on {vals.device}, ids on {dev}")
+        raise KernelUnavailable(f"vals on {vals.device}, ids on {dev}")
     if w0 is not None and (w0.numel() != 1 or w0.dtype != torch.float32
                            or w0.device != dev):
-        raise ValueError("w0 must be one float32 value on the ids' device")
+        raise KernelUnavailable("w0 must be one float32 value on the ids' device")
 
 
 def _capturing() -> bool:
@@ -163,7 +163,7 @@ def fm_fused_scores(tables, ids, vals, *, use_linear: bool = True, w0=None,
     bucket, w = tables[0].shape
     if not (ids.is_contiguous() and vals.is_contiguous()
             and all(t.is_contiguous() for t in tables)):
-        raise ValueError("fm_fused_scores: ids, vals and tables must be contiguous")
+        raise KernelUnavailable("fm_fused_scores: ids, vals and tables must be contiguous")
     from fm_spark_tpu_torch.kernels import build
 
     lib = build.load("fm_fused_fwd")

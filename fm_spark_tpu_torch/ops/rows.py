@@ -43,7 +43,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def _check_table(table, ids):
     if table.dim() != 2 or table.shape[0] < 1:
-        raise ValueError(f"want a non-empty table [n, w], got "
+        raise KernelUnavailable(f"want a non-empty table [n, w], got "
                          f"{tuple(table.shape)}")
     if table.dtype not in _DTYPES:
         raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
@@ -51,7 +51,7 @@ def _check_table(table, ids):
         raise TypeError(f"want int32 ids [B], got {tuple(ids.shape)} "
                         f"{ids.dtype}")
     if ids.device != table.device:
-        raise ValueError(f"ids on {ids.device}, table on {table.device}")
+        raise KernelUnavailable(f"ids on {ids.device}, table on {table.device}")
 
 
 def _check_update(table, ids, valid, delta, count):
@@ -70,7 +70,7 @@ def _check_update(table, ids, valid, delta, count):
                         f"{count.dtype}")
     for t in (valid, delta, count):
         if t is not None and t.device != table.device:
-            raise ValueError(f"tensor on {t.device}, table on {table.device}")
+            raise KernelUnavailable(f"tensor on {t.device}, table on {table.device}")
 
 
 def _lib_for(name, *tensors):
@@ -79,7 +79,7 @@ def _lib_for(name, *tensors):
     if dev.type != "cuda":
         raise KernelUnavailable(f"{name}: no kernel for {dev}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: operands must be contiguous")
+        raise KernelUnavailable(f"{name}: operands must be contiguous")
     from fm_spark_tpu_torch.kernels import build
 
     return build.load("rows")
@@ -96,7 +96,7 @@ def _divider(d: int) -> tuple[int, int]:
     ``0 <= x < 2**31`` (``magic`` < 2**32): ``l = ceil(log2 d)``,
     ``magic = ceil(2**(31 + l) / d)``, ``shift = 31 + l``."""
     if d < 1:
-        raise ValueError(f"divisor {d} < 1")
+        raise KernelUnavailable(f"divisor {d} < 1")
     lg = (d - 1).bit_length()
     return -(-(1 << (31 + lg)) // d), 31 + lg
 

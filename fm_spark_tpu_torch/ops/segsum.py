@@ -30,7 +30,7 @@ _launch_lock = threading.Lock()
 
 def _check(delta, seg, cap, order, dtypes):
     if delta.dim() != 2 or seg.dim() != 1 or seg.shape[0] < 1:
-        raise ValueError(f"want delta [B, w] and seg [B], got "
+        raise KernelUnavailable(f"want delta [B, w] and seg [B], got "
                          f"{tuple(delta.shape)} / {tuple(seg.shape)}")
     if delta.dtype not in dtypes or seg.dtype != torch.int32:
         raise TypeError(f"want {dtypes} delta and int32 seg, got "
@@ -42,13 +42,13 @@ def _check(delta, seg, cap, order, dtypes):
                         f"{tuple(seg.shape)}, got {tuple(order.shape)} "
                         f"{order.dtype}")
     if order is None and delta.shape[0] != seg.shape[0]:
-        raise ValueError(f"delta has {delta.shape[0]} rows, seg "
+        raise KernelUnavailable(f"delta has {delta.shape[0]} rows, seg "
                          f"{seg.shape[0]} lanes")
     for t in lanes:
         if t.device != delta.device:
-            raise ValueError(f"lanes on {t.device}, delta on {delta.device}")
+            raise KernelUnavailable(f"lanes on {t.device}, delta on {delta.device}")
     if cap < 1:
-        raise ValueError(f"cap must be >= 1, got {cap}")
+        raise KernelUnavailable(f"cap must be >= 1, got {cap}")
 
 
 def segment_totals_plain(delta: torch.Tensor, seg: torch.Tensor, cap: int,
@@ -94,7 +94,7 @@ def segment_totals(delta: torch.Tensor, seg: torch.Tensor, cap: int,
         raise KernelUnavailable(f"segment_totals: no kernel for {delta.device}")
     lanes = [delta, seg] if order is None else [delta, seg, order]
     if not all(t.is_contiguous() for t in lanes):
-        raise ValueError("segment_totals: operands must be contiguous")
+        raise KernelUnavailable("segment_totals: operands must be contiguous")
     from fm_spark_tpu_torch.kernels import build
 
     lib = build.load("segment_totals")

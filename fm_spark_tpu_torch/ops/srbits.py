@@ -92,7 +92,7 @@ def sr_bits(seed: int, step, field: int, shape, device) -> torch.Tensor:
         device = torch.device("cuda", torch.cuda.current_device())
     if isinstance(step, torch.Tensor):
         if step.dim() != 0 or step.device != device:
-            raise ValueError(f"sr_bits: step must be a 0-dim tensor on "
+            raise KernelUnavailable(f"sr_bits: step must be a 0-dim tensor on "
                              f"{device}, got {tuple(step.shape)} on "
                              f"{step.device}")
         if step.dtype != torch.int32:

@@ -354,7 +354,7 @@ class PredictEngine:
             build.build_all()
         for b in self.buckets:
             if b not in self._staging:
-                self._staging[b] = (
+                self._staging[b] = (  # fmlint: disable=thread-lock-discipline -- warmup() runs before serving starts; staging entries are add-only and never replaced after
                     torch.zeros((b, self.nnz), dtype=torch.int32,
                                 pin_memory=pin),
                     torch.zeros((b, self.nnz), dtype=torch.float32,
@@ -518,7 +518,7 @@ class PredictEngine:
         """Block for the first request, then accumulate under the
         latency budget / until bucket-max; ``None`` = stop."""
         first = self._carry
-        self._carry = None
+        self._carry = None  # fmlint: disable=thread-lock-discipline -- batcher-thread-local carry: only the single worker thread (_run/_gather) ever touches it
         if first is None:
             first = self._queue.get()
         if first is _STOP:
@@ -543,7 +543,7 @@ class PredictEngine:
                 self._queue.put(_STOP)
                 break
             if rows + nxt.n > cap:
-                self._carry = nxt
+                self._carry = nxt  # fmlint: disable=thread-lock-discipline -- heads the next batch; batcher-thread-local (single worker thread)
                 break
             batch.append(nxt)
             rows += nxt.n
@@ -568,7 +568,7 @@ class PredictEngine:
                 if not batch:
                     continue
             # ONE generation read per micro-batch (the no-torn-swap contract).
-            gen = self._gen
+            gen = self._gen  # fmlint: disable=thread-lock-discipline -- single atomic reference read per micro-batch IS the protocol (no-torn-swap contract)
             ids = np.concatenate([r.ids for r in batch])
             vals = np.concatenate([r.vals for r in batch])
             exec_info: dict = {}
@@ -578,11 +578,11 @@ class PredictEngine:
                 # caller must be answered (exactly once), even by the failure.
                 obs.counter("serve.batch_failures_total").add(1)
                 if isinstance(e, watchdog.HangDetected):
-                    self._note_slo_overrun(e, int(ids.shape[0]), gen)
+                    self._note_slo_overrun(e, ids.shape[0], gen)
                 obs.event("serve_batch_failed",
                           error=f"{type(e).__name__}: "
                                 f"{(str(e).splitlines() or [''])[0][:200]}",
-                          rows=int(ids.shape[0]), gen_step=gen.step)
+                          rows=ids.shape[0], gen_step=gen.step)
                 if self.journal is not None:
                     self.journal.emit("serve_batch_failed",
                                       error=type(e).__name__,
@@ -637,7 +637,7 @@ class PredictEngine:
                      and now - self._last_slo_dump
                      < watchdog.NEAR_MISS_DUMP_INTERVAL_S)
         if (armed and bundle is not None) or (not armed and not throttled):
-            self._last_slo_dump = now
+            self._last_slo_dump = now  # fmlint: disable=thread-lock-discipline -- _note_slo_overrun runs only on the batcher thread (called from _run alone); the throttle stamp is that thread's
             obs.event("serve_slo_overrun", **overrun)
             obs.flight_dump("serve_slo_overrun", **overrun)
 

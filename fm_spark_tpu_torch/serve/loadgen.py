@@ -213,9 +213,9 @@ def _post_predict(host: str, port: int, body: bytes, *,
     # The loadgen IS the client: user traffic arrives from outside the
     # fleet's transport, so the netfault plane (the parent<->replica
     # link) does not intercept it; traces are minted at the door.
-    conn = http.client.HTTPConnection(host, port, timeout=timeout_s)
+    conn = http.client.HTTPConnection(host, port, timeout=timeout_s)  # fmlint: disable=fleet-transport-discipline -- the loadgen IS the client: it models user traffic arriving from outside the fleet's transport boundary
     try:
-        conn.putrequest("POST", "/predict")
+        conn.putrequest("POST", "/predict")  # fmlint: disable=trace-propagation -- client side of the trust boundary: traces are MINTED at the front door (inbound X-FM-Trace is ignored there)
         conn.putheader("Content-Type", "application/json")
         conn.putheader("Content-Length", str(len(body)))
         conn.endheaders()
@@ -279,7 +279,7 @@ def run_loadgen(host: str, port: int, schedule: TrafficSchedule,
             time.sleep(delay)
         ids, vals = event_payload(ev, schedule, nnz=nnz,
                                   num_features=num_features)
-        body = json.dumps({  # the HTTP request's wire format
+        body = json.dumps({  # fmlint: disable=eventlog-only -- HTTP request wire format, not a journal write
             "id": ev.req_id, "class": ev.cls,
             "deadline_ms": ev.deadline_ms, "ids": ids, "vals": vals,
         }).encode()

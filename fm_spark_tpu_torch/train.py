@@ -210,12 +210,13 @@ class Optimizer:
         alpha = float(cfg.learning_rate)
         l2_by_group = {"w0": cfg.reg_bias, "w": cfg.reg_linear,
                        "v": cfg.reg_factors, "mlp": cfg.reg_factors}
+        l2s = {k: float(v) + 0.0 for k, v in l2_by_group.items()}
         out = {}
         for key, g in grads.items():
             if key not in l2_by_group:
                 raise ValueError(f"no FTRL l2 group for param {key!r} "
                                  f"(know {sorted(l2_by_group)})")
-            l2 = float(l2_by_group[key]) + 0.0
+            l2 = l2s[key]
 
             def one(g, z, n, p, l2=l2):
                 new, z_new, n_new = ftrl_rows(p, z, n, g, alpha, FTRL_BETA,
@@ -1039,7 +1040,7 @@ class FMTrainer:
                                            vals, labels, weights)
             if obs_on:
                 if first:
-                    float(m["loss"])      # the first step's fence
+                    float(m["loss"])      # the first step's fence  # fmlint: disable=torch-host-sync -- the first step's fence: the window's clock starts once the first step (and its capture) has run
                     win = [time.time(), time.perf_counter(), 0]
                 else:
                     win[2] += 1
@@ -1049,13 +1050,13 @@ class FMTrainer:
             if divergence_guard is not None:
                 # Before the step's state can be logged, evaluated or
                 # saved: a poisoned step must never reach the chain.
-                divergence_guard.check(self.step_count, float(m["loss"]))
+                divergence_guard.check(self.step_count, float(m["loss"]))  # fmlint: disable=torch-host-sync -- opt-in per-step sync: the divergence guard must see the loss before the step can be logged, evaluated or saved
             if self.step_count % log_every == 0 or step_i == total - 1:
-                loss = float(m["loss"])
+                loss = float(m["loss"])  # fmlint: disable=torch-host-sync -- the window fence: the log-boundary loss fetch IS the measurement boundary
                 self.loss_history.append(loss)
                 self.logger.log(self.step_count,
                                 samples=since * labels.shape[0], loss=loss,
-                                grad_norm=float(m["grad_norm"]))
+                                grad_norm=float(m["grad_norm"]))  # fmlint: disable=torch-host-sync -- log-boundary fetch, already behind the window fence above
                 since = 0
                 if obs_on:
                     _close_window(win, hist_step, self.step_count, loss,
@@ -1377,10 +1378,10 @@ def fit_steps(config: TrainConfig, source, run, *, device, start: int = 0,
             if guard:
                 worst = loss if worst is None else torch.fmin(worst, loss)
             i += m
-            since += m * int(batch[2].shape[-1]) * rows_scale
+            since += m * batch[2].shape[-1] * rows_scale
             if obs_on:
                 if win is None:
-                    float(loss)           # the first call's fence
+                    float(loss)           # the first call's fence  # fmlint: disable=torch-host-sync -- the first call's fence: the window's clock starts once the first call (and its capture) has run
                     win = [time.time(), time.perf_counter(), 0]
                 else:
                     win[2] += m

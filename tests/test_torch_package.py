@@ -102,6 +102,89 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                 imported.add(node.module.split(".")[0])
         assert "fm_spark_tpu_torch" in imported
         assert not imported & {"jax", "jaxlib", "fm_spark_tpu"}, imported
+    # The tooling planes are among the imported modules too.
+    assert {"fm_spark_tpu_torch.analysis", "fm_spark_tpu_torch.analysis.core",
+            "fm_spark_tpu_torch.analysis.rules_obs",
+            "fm_spark_tpu_torch.analysis.rules_threads",
+            "fm_spark_tpu_torch.analysis.rules_torch",
+            "fm_spark_tpu_torch.cli_levers", "fm_spark_tpu_torch.measured",
+            "fm_spark_tpu_torch.tools.fmlint",
+            "fm_spark_tpu_torch.tools.resilience_lint",
+            "fm_spark_tpu_torch.tools.trace_report",
+            "fm_spark_tpu_torch.tools.obs_report",
+            "fm_spark_tpu_torch.tools.run_doctor",
+            "fm_spark_tpu_torch.tools.hash_audit",
+            "fm_spark_tpu_torch.tools.build_native"} <= names
+
+
+def _reference_path_literals(tree) -> list:
+    """``(line, literal)`` of every string passed (at any depth of the
+    arguments) to ``os.path.join`` or ``spec_from_file_location`` that
+    names a ``fm_spark_tpu`` path component — the JAX package's
+    directory, not the port's."""
+    import ast
+    import re
+
+    calls = ("join", "spec_from_file_location")
+    out, seen = [], set()
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and (
+                (isinstance(node.func, ast.Attribute)
+                 and node.func.attr in calls)
+                or (isinstance(node.func, ast.Name)
+                    and node.func.id in calls))):
+            continue
+        if (isinstance(node.func, ast.Attribute)
+                and node.func.attr == "join"
+                and not (isinstance(node.func.value, ast.Attribute)
+                         and node.func.value.attr == "path")):
+            continue                    # "sep".join(...), not a path
+        for arg in [*node.args, *(k.value for k in node.keywords)]:
+            for sub in ast.walk(arg):
+                if (isinstance(sub, ast.Constant) and id(sub) not in seen
+                        and isinstance(sub.value, str)
+                        and "fm_spark_tpu" in re.split(r"[/\\]",
+                                                       sub.value)):
+                    seen.add(id(sub))       # a join inside a load: once
+                    out.append((sub.lineno, sub.value))
+    return out
+
+
+def test_no_module_loads_the_reference_by_path():
+    """No port module and no line of ``chip_smoke.py`` builds a path into
+    ``fm_spark_tpu/`` (the JAX package): a by-path load of the reference's
+    file (the reference's own tools load its ledger, its chaos auditor
+    and its analysis package that way) would silently run the reference
+    where the port's file was meant, and no import would show it."""
+    import ast
+
+    pkg = os.path.join(REPO, "fm_spark_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        bad += [(os.path.relpath(path, REPO), line, lit)
+                for line, lit in _reference_path_literals(tree)]
+    assert bad == []
+    # The guard sees the spellings it is for.
+    probe = ast.parse(
+        "import os, importlib.util\n"
+        "a = os.path.join(REPO, 'fm_spark_tpu', 'obs', 'ledger.py')\n"
+        "b = importlib.util.spec_from_file_location('x', "
+        "os.path.join(R, 'fm_spark_tpu/resilience/chaos_audit.py'))\n"
+        "c = os.path.join(REPO, 'fm_spark_tpu_torch', 'analysis')\n"
+        "d = ', '.join(['fm_spark_tpu', 'x'])\n")
+    assert [line for line, _ in _reference_path_literals(probe)] == [2, 3]
+    # The port's tools load the port's own files by path.
+    from fm_spark_tpu_torch.tools import fmlint, run_doctor
+
+    assert fmlint.ANALYSIS_DIR == os.path.join(pkg, "analysis")
+    assert run_doctor.CHAOS_AUDIT_PATH == os.path.join(
+        pkg, "resilience", "chaos_audit.py")
 
 
 def test_every_module_imports_without_starting_work():
