@@ -122,11 +122,13 @@ Phases (any failure exits non-zero before the last line is printed):
    the same command into a checkpoint chain kept in a temporary
    directory (``--checkpoint-keep 2``): leg A, config 3 at full width
    (bf16, ``dedup_sr``, host compact aux at 12,288, the fused backward,
-   batch 131,072, 6 steps over two epoch boundaries, resumed at 3), with
+   batch 131,072, 6 steps over two epoch boundaries, a save every 3,
+   resumed at 3), with
    ``eval --data`` and ``predict --data`` on the holdout; leg B, the same
    with ``segtotal`` and ``--steps-per-call 2`` (4 steps, resumed at 2);
    leg C, config 4 from an Avazu CSV (``--use-pallas``, ``sel_blocked``,
-   the FFM kernels, batch 8,192, resumed at 3) and ``eval --data``. The
+   the FFM kernels, batch 8,192, a save every 3, resumed at 3) and
+   ``eval --data``. The
    resumed run's loss lines and final saved step (and in legs A and C its
    params.npz) must equal the uninterrupted run's bit for bit, its steps
    replays of graphs captured after the restore (the equality is the
@@ -164,10 +166,10 @@ Phases (any failure exits non-zero before the last line is printed):
    leg A, ``fmtorch train`` publishes step 2 of a config-3 chain (bf16,
    full width, bench ids, B = 16,384), ``fmtorch serve --config ...
    --checkpoint-dir`` starts from it, and the same train command resumes
-   to step 6 (saves every 2) while serve answers 4,160 requests paced by
+   to step 4 (saves every 2) while serve answers 3,200 requests paced by
    a 5 ms budget: serve must swap at least once, with no reload failure,
-   not degraded, end on step 6, and its last pass equal the plain
-   version on step 6's params; leg B (in this process, meanwhile), the
+   not degraded, end on step 4, and its last pass equal the plain
+   version on step 4's params; leg B (in this process, meanwhile), the
    chain's drills at config 5's width with a client served throughout:
    a demoted tip refused, ``demote_newer_than`` moving the pointer back,
    a corrupt tip and a torn ``last_good`` walked past, a demotion racing
@@ -266,8 +268,8 @@ Phases (any failure exits non-zero before the last line is printed):
    rungs at 100,000,768 and 1,000,000,512 features (SGD): examples/s,
    gathered rows/s, hit rate, stall, the cold tier's host bytes (the
    touched buckets only), RSS growth and peak, the card's peak memory;
-   leg D, ``fmtorch train --online`` at config 2's full width (524,288
-   synthetic rows in 8 days, a label flip planted at day 5, FTRL) as
+   leg D, ``fmtorch train --online`` at config 2's full width (393,216
+   synthetic rows in 6 days, a label flip planted at day 5, FTRL) as
    subprocesses: one uninterrupted, a ``ReloadFollower`` on its chain
    throughout (never a step tombstoned at its swap, ending on the
    republished tip), one SIGKILLed once day 3's save is the chain's last
@@ -279,7 +281,9 @@ Phases (any failure exits non-zero before the last line is printed):
    ``FMTrainer.fit(divergence_guard=...)`` at config 2 with FTRL and a
    chain every 4 steps, batch 10 poisoned: it rolls back and ends at step
    9, params and FTRL state equal to an unpoisoned run's bit for bit.
-   Kernel A must have launched;
+   Legs A and B run alone (their rates are read); legs C and E run in
+   this process while leg D's resumed and day-shard runs train in
+   theirs. Kernel A must have launched;
 21. the obs and fault planes at config 3's full width (``obs_phase``):
    leg A, ``fmtorch train`` (bf16, dedup_sr, compact 12,288, kernel B,
    B = 131,072 synthetic rows, 4 steps, one save) with ``--obs-dir``,
@@ -333,7 +337,8 @@ Phases (any failure exits non-zero before the last line is printed):
    card cannot shrink, and the run ends with the reference's message;
    leg C, ``fmtorch serve --fleet 2 --frontdoor-port 0 --classes ...
    --serve-seconds --compile-cache`` at config 3's full width from a
-   2-step chain, the seeded load generator's burst with a replica
+   2-step chain (the fleet spawned before leg B and coming up beside
+   it), the seeded load generator's burst with a replica
    killed at the 40th scored request (``replica_kill``): every request
    answered exactly once or failed with a 503, the dead replica
    respawned and re-admitted, 32 direct requests equal to one
@@ -359,7 +364,20 @@ Phases (any failure exits non-zero before the last line is printed):
    losses and params' crc32s the golden drill's; leg D, a ``kill_flash_crowd`` fleet schedule at
    config 3's full width (2 replicas, bf16; the fleet comes up on a
    thread while legs B and C run), ``audit_fleet`` green, each
-   replica's ``fresh_compiles`` 0;
+   replica's ``fresh_compiles`` 0; leg E (after leg B, while leg C's
+   worker runs and the fleet's replicas come up, once the fleet's chain
+   is written), the disk at full width: a
+   ``Checkpointer`` over config 3's bf16 tables on the card (1.33 GB a
+   step), its step directories published through the durable seam
+   (``utils/durable.publish_dir``) under the chain's write policy:
+   steps 1-3 saved and 3 demoted, ENOSPC on step 4's first file (one
+   emergency GC, victims [3], step 4 committed), EIO on every write of
+   step 5 and on every publish of step 7 (``CheckpointIOError``, no
+   step dir), step 6's first table torn halfway (retried, committed), a
+   fresh ``ChainFollower``'s restore of step 6 onto the card bit for
+   bit, a clean save's snapshot, crc and write ms, its resident set
+   (``/proc/self/statm``, sampled on a thread) within 24 MiB (less than
+   one table) of where it began, and no staging dir left after any save;
 25. the tooling planes (``tooling_phase``) over the run dirs phases 21,
    23 and 24 made on the card (kept under ``build/chip_smoke/tooling``
    instead of deleted), each tool in this process (``main(argv)``):
@@ -385,7 +403,10 @@ once, then phase 19 again and again for SECONDS (under
 ``CUDA_LAUNCH_BLOCKING=1``: the loop in which the prefetcher's event
 fault showed, PERF.md §6); ``--repeat-phase-17 SECONDS`` does the same
 for phase 17. Phase 5's ``fmtorch`` commands run in this process
-(``cli.main``).
+(``cli.main``). ``python3 chip_smoke.py --disk-ab`` builds no kernel: it
+writes config 3's 1.33 GB step directory the way the checkpoint wrote it
+before its seam and through the seam, in turns (ABBA twice, host ms and
+RSS growth each, the files compared), then runs phase 24's leg E alone.
 
 Phases 7, 10 and 12 train through ``fit_field_sparse``, which runs the
 captured step on the card: a kernel wrapper counts its launches in the
@@ -2407,6 +2428,20 @@ def _criteo_tsv(path: str, rows: int, seed: int) -> int:
     return len(body)
 
 
+#: Phases 14 and 19's Criteo TSV (``INGEST_ROWS`` lines, seed 14), made
+#: once by phase 14 and read again by phase 19, which removes it.
+DAY_TSV = os.path.join(HERE, "build", "chip_smoke", "day14.tsv")
+
+
+def _day_tsv() -> int:
+    """:data:`DAY_TSV`, written unless it is there; returns its size."""
+    if not os.path.exists(DAY_TSV):
+        os.makedirs(os.path.dirname(DAY_TSV), exist_ok=True)
+        _criteo_tsv(DAY_TSV + ".part", INGEST_ROWS, seed=14)
+        os.replace(DAY_TSV + ".part", DAY_TSV)
+    return os.path.getsize(DAY_TSV)
+
+
 def _cli(*argv):
     """``fmtorch`` run in this process (``cli.main``, the console
     script's entry point): its stdout's JSON lines and stderr's last
@@ -2563,23 +2598,22 @@ def ingest_phase(dev, report):
     base = tempfile.mkdtemp(prefix="ingest.", dir=root)
     out = {"card": report["card"]}
     try:
+        t_data = time.perf_counter()
         # The preprocessing library builds at first use: apart from the
         # parse's time.
         t0 = time.perf_counter()
         native.load_fast()
         out["native_build_s"] = time.perf_counter() - t0
         # Data: the Criteo TSV, preprocess at config 3's full bucket.
-        tsv = os.path.join(base, "day.tsv")
         t0 = time.perf_counter()
-        out["tsv_bytes"] = _criteo_tsv(tsv, INGEST_ROWS, seed=14)
+        out["tsv_bytes"] = _day_tsv()
         out["tsv_write_s"] = time.perf_counter() - t0
         packed = os.path.join(base, "criteo")
         lines, _ = _cli("preprocess", "--config", "criteo1tb_fm_r64",
-                        "--input", tsv, "--out-dir", packed)
+                        "--input", DAY_TSV, "--out-dir", packed)
         pre = lines[-1]
         _check(pre["num_examples"] == INGEST_ROWS and pre["shuffled"],
                f"preprocess: {pre}")
-        os.unlink(tsv)
         out["preprocess"] = {
             **pre, "parse_rows_per_s": INGEST_ROWS / pre["parse_s"],
             "rows_per_s": INGEST_ROWS / (pre["parse_s"] + pre["shuffle_s"])}
@@ -2613,11 +2647,14 @@ def ingest_phase(dev, report):
                    "--batch-size", TRAIN_B, "--param-dtype", "bfloat16",
                    "--compute-dtype", "bfloat16", "--sparse-update",
                    "dedup_sr", "--host-dedup", "--compact-cap", CAP,
-                   "--test-fraction", "0.2", "--checkpoint-every", 2,
-                   "--checkpoint-keep", 2]
-        # Leg A: the fused backward, 6 steps over two epoch boundaries.
-        leg_a = _resume_leg("leg A", config3 + ["--fused-embed", "require"],
-                            base, "a", 6, 3, models=True)
+                   "--test-fraction", "0.2", "--checkpoint-keep", 2]
+        # Leg A: the fused backward, 6 steps over two epoch boundaries,
+        # saved every 3 (a save at the mid-epoch stop, 4 saves a leg).
+        t_leg = time.perf_counter()
+        out["leg_seconds"] = {"data": t_leg - t_data}
+        leg_a = _resume_leg("leg A", config3 + [
+            "--fused-embed", "require", "--checkpoint-every", 3], base, "a",
+            6, 3, models=True)
         model = leg_a["model"]
         lines, ev = _cli("eval", "--model", model, "--config",
                          "criteo1tb_fm_r64", "--data", holdout,
@@ -2645,6 +2682,8 @@ def ingest_phase(dev, report):
         _check(pr["kernel_runs_in_replays"].get("fm_fused_scores", 0) > 0,
                f"predict --data ran no forward kernel: {pr}")
         shutil.rmtree(model)
+        out["leg_seconds"]["A"] = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
         out["leg_a"] = {**_leg_numbers(leg_a), "losses": leg_a["losses"],
                         "eval": metrics, "predict_lines": int(got.shape[0])}
 
@@ -2652,8 +2691,11 @@ def ingest_phase(dev, report):
         # at a stride boundary.
         leg_b = _resume_leg(
             "leg B", config3 + ["--gfull-fused", "--segtotal-pallas",
-                                "--steps-per-call", 2], base, "b", 4, 2)
+                                "--steps-per-call", 2, "--checkpoint-every",
+                                2], base, "b", 4, 2)
         out["leg_b"] = {**_leg_numbers(leg_b), "losses": leg_b["losses"]}
+        out["leg_seconds"]["B"] = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
         shutil.rmtree(packed)
         shutil.rmtree(holdout)
 
@@ -2674,7 +2716,7 @@ def ingest_phase(dev, report):
                       packed_c, "--batch-size", INGEST_FFM_B,
                       "--compute-dtype", "bfloat16", "--sel-blocked",
                       "--fused-embed", "require", "--use-pallas",
-                      "--test-fraction", "0.2", "--checkpoint-every", 2,
+                      "--test-fraction", "0.2", "--checkpoint-every", 3,
                       "--checkpoint-keep", 2], base, "c", 6, 3, models=True)
         lines, ev = _cli("eval", "--model", leg_c["model"], "--config",
                          "avazu_ffm_r16", "--data", packed_c,
@@ -2683,6 +2725,7 @@ def ingest_phase(dev, report):
                and np.isfinite(lines[-1]["logloss"])
                and ev["kernel_launches"]["ffm_sel_scores"] > 0,
                f"eval --data (avazu): {lines[-1]} {ev}")
+        out["leg_seconds"]["C"] = time.perf_counter() - t_leg
         out["leg_c"] = {**_leg_numbers(leg_c), "losses": leg_c["losses"],
                         "eval": lines[-1]}
         launches = kernel_launches()
@@ -2692,6 +2735,7 @@ def ingest_phase(dev, report):
     finally:
         shutil.rmtree(base, ignore_errors=True)
     print("ingest", json.dumps(out), flush=True)
+    print(f"phase 14 legs {json.dumps(out['leg_seconds'])}", flush=True)
     report["ingest"] = out
     return launches
 
@@ -2940,7 +2984,7 @@ def deepfm_phase(dev, report):
                   "--batch-size", DEEPFM_B, "--param-dtype", "bfloat16",
                   "--compute-dtype", "bfloat16", "--sparse-update",
                   "dedup_sr", "--host-dedup", "--compact-cap", DEEPFM_CAP,
-                  "--test-fraction", "0.2", "--checkpoint-every", 2,
+                  "--test-fraction", "0.2", "--checkpoint-every", 3,
                   "--checkpoint-keep", 2]
         cli_a = _resume_leg("deepfm leg A", common, base, "d", 6, 3,
                             models=True)
@@ -3002,8 +3046,8 @@ def deepfm_phase(dev, report):
 SERVE_BUCKETS = (1, 8, 64, 512)
 SERVE_TRAIN_B = 16384                    # phase 16 leg A: the trainer's batch
 SERVE_TRAIN_ROWS = 65536
-SERVE_TRAIN_STEPS = 6                    # saves every 2 steps: 2, 4, 6
-SERVE_REPEAT = 65                        # leg A: passes of 64 requests
+SERVE_TRAIN_STEPS = 4                    # saves every 2 steps: 2, 4
+SERVE_REPEAT = 50                        # leg A: passes of 64 requests
 SERVE_REPS = 15                          # leg C: timed dispatches per case
 
 
@@ -4891,11 +4935,10 @@ def stream_phase(dev, report):
     t_phase = time.perf_counter()
     try:
         native.load_fast()
-        tsv = os.path.join(base, "day.tsv")
-        _criteo_tsv(tsv, INGEST_ROWS, seed=14)
-        with open(tsv, "rb") as f:
+        _day_tsv()
+        with open(DAY_TSV, "rb") as f:
             lines = f.read().split(b"\n")[:-1]
-        os.unlink(tsv)
+        os.unlink(DAY_TSV)
         kinds = _corrupt_lines(lines, STREAM_BAD_FRAC, seed=19)
         paths = [os.path.join(base, f"s{i}.tsv") for i in range(3)]
         _shards_of(lines, paths)
@@ -5073,7 +5116,9 @@ TIER_STEPS, TIER_PROFILED = 24, 3      # 24 (32 before the chaos phase)
 TIER_RUNGS = (10_000_000, 100_000_000, 1_000_000_000)
 TIER_LR = 0.05
 TIER_KILL_EVICTION = 5                   # ~7 evictions in 24 steps
-ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 1 << 19, 8, 5
+# 6 days of 4 steps: the drift planted at day 5 is the last eval day's;
+# the run to kill dies after day 3's save.
+ONLINE_ROWS, ONLINE_DAYS, ONLINE_DRIFT = 6 << 16, 6, 5
 ONLINE_SHARD_ROWS, ONLINE_SHARD_B = 2048, 512
 DIVERGE_AT, DIVERGE_EVERY = 10, 4
 
@@ -5139,12 +5184,10 @@ def _tier_config(opt: str, n_features: int):
 
 
 def _rss_bytes() -> int:
-    """This process's resident set now (``VmRSS``)."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS:"):
-                return int(line.split()[1]) * 1024
-    return 0
+    """This process's resident set now (``/proc/self/statm``'s resident
+    pages, ``VmRSS``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
 def _tiered_run(dev, spec, cfg, batches, profile_batches, cold="dense"):
@@ -5533,8 +5576,11 @@ def _online_profiled(dev) -> dict:
             / steps}
 
 
-def _tier_leg_d(dev, base, report) -> dict:
-    """Leg D: ``fmtorch train --online`` at config 2's width."""
+def _tier_leg_d(dev, base, report, beside) -> dict:
+    """Leg D: ``fmtorch train --online`` at config 2's width. ``beside()``
+    runs in this process while the resumed and day-shard runs (two
+    subprocesses) train: the engine and its follower are closed by then,
+    so nothing here captures a graph beside it (``resumed_s`` spans it)."""
     import signal
 
     import numpy as np
@@ -5638,6 +5684,7 @@ def _tier_leg_d(dev, base, report) -> dict:
                         "ftrl", "--batch-size", ONLINE_SHARD_B, "--steps", 0,
                         "--checkpoint-dir", d["ck_shards"]])
     t1 = time.perf_counter()
+    beside()
     resumed = [x["online"] for x in _finish(resume, "leg D (resumed)")
                if "online" in x][-1]
     out["resumed_s"] = time.perf_counter() - t1
@@ -5793,16 +5840,21 @@ def tier_phase(dev, report):
         golden, batches = _tier_leg_a(dev, out)
         out["leg_a"]["seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["leg_c"] = _tier_leg_c(dev, base, batches, golden)
-        del golden, batches
-        gc.collect()
-        t0 = time.perf_counter()
         _tier_leg_b(dev, out)
         out["leg_b"]["seconds"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-        out["leg_d"] = _tier_leg_d(dev, base, report)
-        out["leg_e"] = _tier_leg_e(dev, base)
+
+        def beside():
+            # Legs C and E (correctness only: no rate of theirs is read)
+            # run while leg D's resumed runs train in their processes;
+            # legs A and B, whose rates are read, ran alone.
+            nonlocal golden, batches
+            out["leg_c"] = _tier_leg_c(dev, base, batches, golden)
+            golden = batches = None
+            gc.collect()
+            out["leg_e"] = _tier_leg_e(dev, base)
+        out["leg_d"] = _tier_leg_d(dev, base, report, beside)
         launches = kernel_launches()
         out["launches"] = launches
         _check(launches["segment_totals"] > 0,
@@ -6686,16 +6738,50 @@ def _elastic_leg(base, out) -> None:
                     "seconds": time.perf_counter() - t0}
 
 
-def _fleet_leg(dev, base, out) -> None:
+def _fleet_up(base, out) -> dict:
+    """Leg C's start: a chain of config 3 at full width trained in this
+    process (2 steps, with ``--model-out``), then ``fmtorch serve --fleet
+    2`` spawned over it; a thread reads its stdout up to the front door's
+    URL. The fleet comes up beside leg B: its environment is taken here,
+    before leg B sets its own, and its stderr goes to a file, which no
+    pipe's buffer can stall."""
+    t0 = time.perf_counter()
+    ck, model = os.path.join(base, "fleet_ck"), os.path.join(base, "m3")
+    _cli(*_obs_train_argv(FLEET_TRAIN_B, 2), "--checkpoint-dir", ck,
+         "--checkpoint-every", 2, "--model-out", model)
+    out["leg_c_train_s"] = time.perf_counter() - t0
+    env = dict(os.environ, FM_SPARK_FAULTS=f"replica_kill@{FLEET_KILL_AT}"
+               "=exit", FM_SPARK_FAULTS_STATE=os.path.join(base, "fs.json"))
+    err = open(os.path.join(base, "fleet.stderr"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fm_spark_tpu_torch", "serve", "--model",
+         model, "--checkpoint-dir", ck, "--fleet", "2", "--frontdoor-port",
+         "0", "--classes", "interactive:256:2000,batch:256:4000,"
+         "background:128:8000", "--serve-seconds", "600", "--compile-cache",
+         os.path.join(HERE, "build"), "--buckets", FLEET_BUCKETS,
+         "--reload-poll-s", "1", "--obs-dir", os.path.join(base, "obs_c")],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def front_door():
+        for line in proc.stdout:
+            if '"frontdoor"' in line:
+                out["leg_c_up_s"] = time.perf_counter() - t0
+                return json.loads(line)["frontdoor"]["url"]
+        return None
+    return {"t0": t0, "ck": ck, "model": model, "proc": proc, "err": err,
+            "url": _Background(front_door)}
+
+
+def _fleet_leg(dev, base, out, up) -> None:
     """Leg C: ``fmtorch serve --fleet 2 --frontdoor-port 0 --classes ...
-    --serve-seconds S --compile-cache <repo build dirs>`` (a subprocess)
-    at config 3's full width from a trained chain (2 steps here, in this
-    process, with ``--model-out``); the seeded load generator drives it
-    while a ``replica_kill`` exit fault kills one replica mid-burst.
-    Every accepted request is answered exactly once or failed with an
-    explicit 503; the dead replica is respawned and re-admitted; served
-    values equal one ``PredictEngine``'s on the same rows bit for bit;
-    each replica's warm-up built nothing (``fresh_compiles`` 0) and ran
+    --serve-seconds S --compile-cache <repo build dirs>`` (a subprocess,
+    :func:`_fleet_up`) at config 3's full width from a trained chain; the
+    seeded load generator drives it while a ``replica_kill`` exit fault
+    kills one replica mid-burst. Every accepted request is answered
+    exactly once or failed with an explicit 503; the dead replica is
+    respawned and re-admitted; served values equal one
+    ``PredictEngine``'s on the same rows bit for bit; each replica's
+    warm-up built nothing (``fresh_compiles`` 0) and ran
     ``fm_fused_scores`` in its graphs' replays by its own count."""
     import signal
 
@@ -6704,31 +6790,11 @@ def _fleet_leg(dev, base, out) -> None:
     from fm_spark_tpu_torch import models, obs
     from fm_spark_tpu_torch.serve import PredictEngine, loadgen
 
-    t0 = time.perf_counter()
-    ck, model = os.path.join(base, "fleet_ck"), os.path.join(base, "m3")
-    _cli(*_obs_train_argv(FLEET_TRAIN_B, 2), "--checkpoint-dir", ck,
-         "--checkpoint-every", 2, "--model-out", model)
-    out["leg_c_train_s"] = time.perf_counter() - t0
-    env = dict(os.environ, FM_SPARK_FAULTS=f"replica_kill@{FLEET_KILL_AT}"
-               "=exit", FM_SPARK_FAULTS_STATE=os.path.join(base, "fs.json"))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "fm_spark_tpu_torch", "serve", "--model",
-         model, "--checkpoint-dir", ck, "--fleet", "2", "--frontdoor-port",
-         "0", "--classes", "interactive:256:2000,batch:256:4000,"
-         "background:128:8000", "--serve-seconds", "600", "--compile-cache",
-         os.path.join(HERE, "build"), "--buckets", FLEET_BUCKETS,
-         "--reload-poll-s", "1", "--obs-dir", os.path.join(base, "obs_c")],
-        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    t0, model, proc = up["t0"], up["model"], up["proc"]
     try:
-        url = None
-        for line in proc.stdout:
-            if '"frontdoor"' in line:
-                url = json.loads(line)["frontdoor"]["url"]
-                break
+        url = up["url"].join()
         _check(url is not None, "phase 23 leg C: the fleet never came up "
                f"(serve exited {proc.poll()})")
-        out["leg_c_up_s"] = time.perf_counter() - t0
         host, port = url.split("//")[1].split(":")
         port = int(port)
         sched = loadgen.make_schedule("diurnal", 23, duration_s=4.0,
@@ -6799,7 +6865,10 @@ def _fleet_leg(dev, base, out) -> None:
     finally:
         if proc.poll() is None:
             proc.send_signal(signal.SIGTERM)
-        rest, err = proc.communicate(timeout=120)
+        rest, _ = proc.communicate(timeout=120)
+        up["err"].seek(0)
+        err = up["err"].read()
+        up["err"].close()
     _check(proc.returncode == 0, f"phase 23 leg C: serve exited "
            f"{proc.returncode}: {err[-3000:]}")
     summary = next(json.loads(x)["serve_summary"] for x in rest.splitlines()
@@ -6838,6 +6907,7 @@ def elastic_fleet_phase(dev, report):
     launches in this process (leg A's warm-up, leg C's trained chain and
     reference engine) are read after; each replica counts its own."""
     import importlib
+    import signal
     import tempfile
 
     from fm_spark_tpu_torch.ops import KERNEL_COUNTERS, kernel_launches
@@ -6853,9 +6923,18 @@ def elastic_fleet_phase(dev, report):
                     attr, 0)
         _supervise_leg(dev, base, out)
         print("phase 23 leg A", json.dumps(out["leg_a"]), flush=True)
-        _elastic_leg(base, out)
+        # Leg C's fleet comes up (its own processes) while leg B's gang
+        # launches run; leg C's burst and checks follow leg B.
+        up = _fleet_up(base, out)
+        try:
+            _elastic_leg(base, out)
+        except BaseException:
+            # SIGTERM, as leg C's own ending: the fleet stops its replicas.
+            up["proc"].send_signal(signal.SIGTERM)
+            up["proc"].communicate(timeout=120)
+            raise
         print("phase 23 leg B", json.dumps(out["leg_b"]), flush=True)
-        _fleet_leg(dev, base, out)
+        _fleet_leg(dev, base, out, up)
         print("phase 23 leg C", json.dumps(out["leg_c"]), flush=True)
         launches = kernel_launches()
         # Leg C's obs root (the client, door and parent, each replica),
@@ -6872,7 +6951,8 @@ def elastic_fleet_phase(dev, report):
           f"{a['seconds']:.1f} s, kernel A "
           f"{a['kernel_a_runs_per_replayed_step']:.2f} runs per replayed "
           f"step, bit for bit; leg B elastic world 1: {b['seconds']:.1f} s; "
-          f"leg C fleet of 2 at config 3: {c['seconds']:.1f} s (up "
+          f"leg C fleet of 2 at config 3: {c['seconds']:.1f} s from its "
+          f"chain's training, leg B's included (up "
           f"{out['leg_c_up_s']:.1f} s, burst {out['leg_c_burst_s']:.1f} s, "
           f"re-admitted {out['leg_c_readmit_s']:.1f} s), request p50 "
           f"{c['burst']['ok_p50_ms']} ms, p99 {c['burst']['ok_p99_ms']} ms",
@@ -7140,6 +7220,9 @@ class _Background:
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
+    def alive(self) -> bool:
+        return self._thread.is_alive()
+
     def join(self):
         self._thread.join()
         if "error" in self._out:
@@ -7221,6 +7304,278 @@ def _chaos_leg_d(dev, out, stack) -> None:
         "seconds": time.perf_counter() - t0}
 
 
+class _RssPeak:
+    """The largest resident set (:func:`_rss_bytes`) sampled every
+    millisecond on a thread while the block runs; ``before`` is the one
+    sampled as it starts."""
+
+    def __enter__(self):
+        self.before = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+#: Leg E: a clean write may grow the resident set by at most this much:
+#: less than one table (262,144 × 65 bf16 cells, 32.5 MiB), so a copy of
+#: any table fails it. The writer copies nothing (its chunks are views of
+#: the snapshot); the CPU test's tracemalloc bound holds smaller copies.
+DISK_RSS_SLACK = 24 << 20
+
+
+def _fleet_chain_written(base, fleet) -> float:
+    """Wait until leg D's stack (on its thread) is past its chain's one
+    step, its only checkpoint write in this process, so that no plan leg
+    E arms can strike it: the ``Fleet`` it builds after the save has
+    made its work dir (or the thread has ended). Returns the seconds
+    waited."""
+    t0 = time.perf_counter()
+    work = os.path.join(base, "fleet", "work")
+    deadline = time.monotonic() + 600
+    while (not os.path.isdir(work) and fleet.alive()
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _chaos_leg_e(dev, base, out) -> None:
+    """Leg E, the disk at full width: a ``Checkpointer`` over config 3's
+    bf16 tables on the card (39 × 262,144 × 65, 1.33 GB a step), its step
+    directories published through the durable seam under the chain's
+    write policy. Steps 1-3 saved and step 3 demoted; ENOSPC on step 4's
+    first file: one emergency GC, victims [3], step 4 committed; EIO on
+    every write of step 5: ``CheckpointIOError``, no step 5; step 6's
+    first table torn halfway: retried and committed; EIO on every publish
+    of step 7: ``CheckpointIOError``, no step 7; a fresh ``ChainFollower``
+    restores step 6 into card tensors bit for bit; a clean save of step 8
+    timed, and the resident set sampled while it writes stays within
+    ``DISK_RSS_SLACK`` of where it began. The plan is cleared after each
+    armed save; no staging dir is left after any."""
+    import errno
+
+    import torch
+
+    from fm_spark_tpu_torch.checkpoint import (ChainFollower,
+                                               CheckpointIOError,
+                                               Checkpointer, copy_into)
+    from fm_spark_tpu_torch.models.io import flatten
+    from fm_spark_tpu_torch.resilience import faults
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    t0 = time.perf_counter()
+    _, params = _config3_model(dev, seed=24, dtype="bfloat16")
+    ckdir = os.path.join(base, "disk_e")
+    journal = EventLog()
+    ck = Checkpointer(ckdir, max_to_keep=2, journal=journal)
+    leg = {"bytes": sum(t.numel() * t.element_size()
+                        for t in flatten(params).values())}
+
+    def staging():
+        return [n for n in os.listdir(ckdir) if ".tmp" in n]
+
+    def save(step, plan=None):
+        """Move the tables to a state of their own, save ``step`` under
+        ``plan``; the error ``wait()`` raised, or None."""
+        for t in params["vw"]:
+            t[step].add_(1.0)
+        params["w0"].fill_(0.05 * step)
+        if plan:
+            faults.activate(plan)
+        try:
+            ck.save(step, params, {"step": step})
+            try:
+                ck.wait()
+            except CheckpointIOError as e:
+                return e
+        finally:
+            faults.clear()
+        _check(not staging(), f"phase 24 leg E: step {step} left {staging()}")
+        return None
+
+    def events(name):
+        return [e for e in journal.records if e["event"] == name]
+
+    try:
+        for step in (1, 2, 3):
+            _check(save(step) is None, f"phase 24 leg E: step {step}")
+        ck.demote(3, reason="leg E")
+        _check(ck.last_good_step() == 2, "phase 24 leg E: demotion")
+        err = save(4, "io_write.ckpt@1=enospc")
+        gc = events("ckpt_emergency_gc")
+        _check(err is None and [e["steps"] for e in gc] == [[3]]
+               and 4 in ck.all_steps() and ck.last_good_step() == 4,
+               f"phase 24 leg E: ENOSPC on step 4: {err}, gc {gc}, steps "
+               f"{ck.all_steps()}, last_good {ck.last_good_step()}")
+        err = save(5, "io_write.ckpt@1-9=eio")
+        _check(err is not None and err.errno == errno.EIO
+               and not os.path.exists(os.path.join(ckdir, "5"))
+               and ck.last_good_step() == 4 and not staging(),
+               f"phase 24 leg E: EIO on step 5: {err!r}, steps "
+               f"{ck.all_steps()}, last_good {ck.last_good_step()}")
+        first = list(flatten(params)).index("vw/0") + 1
+        torn = params["vw"][0].numel()       # half the table's 2-byte cells
+        err = save(6, f"io_write.ckpt@{first}=torn_write:{torn}")
+        saved = {"w0": params["w0"].clone(),
+                 "vw": [t.clone() for t in params["vw"]]}
+        retried = [e for e in events("ckpt_io_retry") if e["path"] == "6"]
+        _check(err is None and len(retried) == 1
+               and ck.last_good_step() == 6,
+               f"phase 24 leg E: step 6 torn at vw/0.npy byte {torn}: "
+               f"{err!r}, retries {retried}, last_good "
+               f"{ck.last_good_step()}")
+        err = save(7, "io_rename.ckpt@1-9=eio")
+        _check(err is not None and err.errno == errno.EIO
+               and not os.path.exists(os.path.join(ckdir, "7"))
+               and ck.last_good_step() == 6 and not staging(),
+               f"phase 24 leg E: EIO on step 7's publish: {err!r}, steps "
+               f"{ck.all_steps()}")
+        t = time.perf_counter()
+        got = ChainFollower(ckdir).restore(params)
+        fresh = {"w0": torch.zeros_like(params["w0"]),
+                 "vw": [torch.empty_like(v) for v in params["vw"]]}
+        copy_into(fresh, got["params"])
+        del got
+        torch.cuda.synchronize(dev)
+        leg["restore_s"] = time.perf_counter() - t
+        _check(_same_tree(fresh, saved),
+               "phase 24 leg E: step 6 restored onto the card differs from "
+               "what was saved")
+        del fresh, saved
+        for v in params["vw"]:
+            v[8].add_(1.0)
+        with _RssPeak() as rss:
+            ck.save(8, params, {"step": 8})
+            ck.wait()
+        timing = ck.timings[-1]
+        _check(rss.peak - rss.before <= DISK_RSS_SLACK and not staging()
+               and ck.last_good_step() == 8,
+               f"phase 24 leg E: the clean write's RSS grew "
+               f"{rss.peak - rss.before} B")
+        leg.update({
+            "gc_victims": gc[0]["steps"], "torn_at": [first, torn],
+            "retries": len(events("ckpt_io_retry")),
+            "io_errors": [(e["path"], e["errno"])
+                          for e in events("checkpoint_io_error")],
+            "clean": {k: timing[k] for k in ("snapshot_ms", "crc_ms",
+                                              "write_ms", "bytes")},
+            "rss_before": rss.before, "rss_peak": rss.peak,
+            "rss_growth": rss.peak - rss.before,
+            "write_ms_by_step": {x["step"]: x.get("write_ms")
+                                 for x in ck.timings}})
+    finally:
+        faults.clear()
+        ck.close()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    leg["seconds"] = time.perf_counter() - t0
+    out["leg_e"] = leg
+
+
+def _parents_commit(final, snap, state: bytes) -> None:
+    """The step directory as the checkpoint wrote it before its files went
+    through the durable seam: each ``.npy`` by ``write_array`` into a real
+    file (numpy's ``tofile``), fsynced; ``state.json``; the directories
+    fsynced; one rename."""
+    import numpy as np
+
+    from fm_spark_tpu_torch.utils import durable
+
+    tmp = final + ".tmp-parent"
+    for key, arr in snap.arrays.items():
+        path = os.path.join(tmp, key + ".npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            np.lib.format.write_array(f, arr, allow_pickle=False)
+            f.flush()
+            os.fsync(f.fileno())
+    with open(os.path.join(tmp, "state.json"), "wb") as f:
+        f.write(state)
+        f.flush()
+        os.fsync(f.fileno())
+    for d, _, _ in os.walk(tmp, topdown=False):
+        durable.fsync_dir(d)
+    os.rename(tmp, final)
+    durable.fsync_dir(os.path.dirname(final))
+
+
+def disk_ab_phase(dev, report) -> int:
+    """``chip_smoke.py --disk-ab``: config 3's bf16 tables on the card
+    (1.33 GB) snapshotted once, then their step directory written the
+    parent's way (:func:`_parents_commit`) and through the seam
+    (``durable.publish_dir``, the checkpoint's own writer) in turns,
+    ABBA twice, each write timed on the host clock with the resident set
+    sampled; the first two directories compared file for file; then
+    phase 24's leg E alone. Prints ``{"disk_ab": ...}``."""
+    import filecmp
+    import tempfile
+
+    from fm_spark_tpu_torch import checkpoint as ckm
+    from fm_spark_tpu_torch.utils import durable
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="disk_ab.", dir=root)
+    out = {"card": report["card"], "writes": []}
+    try:
+        _, params = _config3_model(dev, seed=24, dtype="bfloat16")
+        ck = ckm.Checkpointer(os.path.join(base, "ck"))
+        snap = ck._snapshot(params)
+        del params
+        state = json.dumps({"step": 1, "layout": ckm.LAYOUT}).encode()
+        files = [(k + ".npy", ckm._npy_writer(a))
+                 for k, a in snap.arrays.items()]
+        files.append(("state.json", lambda f: f.write(state)))
+        ways = {"parent": lambda d: _parents_commit(d, snap, state),
+                "seam": lambda d: durable.publish_dir(d, files,
+                                                      path_class="ckpt")}
+        out["bytes"] = sum(a.nbytes for a in snap.arrays.values())
+        for i, way in enumerate(("parent", "seam", "seam", "parent") * 2):
+            d = os.path.join(base, f"w{i}")
+            with _RssPeak() as rss:
+                t = time.perf_counter()
+                ways[way](d)
+                ms = (time.perf_counter() - t) * 1e3
+            out["writes"].append({"way": way, "ms": ms,
+                                  "rss_growth": rss.peak - rss.before})
+            print(f"disk A/B {way}: {ms:.1f} ms, RSS "
+                  f"+{rss.peak - rss.before} B", flush=True)
+            if i == 1:
+                names = sorted(os.path.relpath(os.path.join(p, f), d)
+                               for p, _, fs in os.walk(d) for f in fs)
+                same = [filecmp.cmp(os.path.join(base, "w0", n),
+                                    os.path.join(d, n), shallow=False)
+                        for n in names]
+                _check(len(names) == len(files) and all(same),
+                       f"disk A/B: the seam's files differ from the "
+                       f"parent's: {names}")
+                shutil.rmtree(os.path.join(base, "w0"))
+            if i:
+                shutil.rmtree(d)
+        del snap, files, ways, ck
+        for way in ("parent", "seam"):
+            ms = sorted(w["ms"] for w in out["writes"] if w["way"] == way)
+            out[way] = {"median_ms": statistics.median(ms), "ms": ms,
+                        "rss_growth_max": max(
+                            w["rss_growth"] for w in out["writes"]
+                            if w["way"] == way)}
+        t = time.perf_counter()
+        _chaos_leg_e(dev, base, out)
+        out["leg_e_alone_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print(json.dumps({"disk_ab": out}), flush=True)
+    return 0
+
+
 def chaos_phase(dev, report):
     """Phase 24: the chaos campaign (item 12b) on the card. Each wrapper's
     count is set to 0 just before the phase and read after it (kernel A's
@@ -7243,12 +7598,16 @@ def chaos_phase(dev, report):
         _chaos_leg_a(dev, base, out)
         print("phase 24 leg A", json.dumps(out["leg_a"]), flush=True)
         # Leg D's fleet comes up and leg C's worker chain runs while leg
-        # B runs (after leg A, whose clean windows they must not crowd).
+        # B runs (after leg A, whose clean windows they must not crowd),
+        # and then leg E.
         fleet = _Background(lambda: _chaos_fleet_up(dev, base))
         try:
             leg_c = _chaos_leg_c(dev, base)
             _chaos_leg_b(dev, base, out)
             print("phase 24 leg B", json.dumps(out["leg_b"]), flush=True)
+            out["leg_e_wait_s"] = _fleet_chain_written(base, fleet)
+            _chaos_leg_e(dev, base, out)
+            print("phase 24 leg E", json.dumps(out["leg_e"]), flush=True)
             _chaos_leg_c_check(out, leg_c)
             print("phase 24 leg C", json.dumps(out["leg_c"]), flush=True)
             t_wait = time.perf_counter()
@@ -7270,6 +7629,7 @@ def chaos_phase(dev, report):
     out["phase_s"] = time.perf_counter() - t_phase
     report["chaos"] = out
     a, b, c, d = out["leg_a"], out["leg_b"], out["leg_c"], out["leg_d"]
+    e = out["leg_e"]
     win = a["clean_window_max_s"]
     print(f"phase 24 ({report['card']}): leg A {a['seconds']:.1f} s "
           f"({len(a['schedules'])} schedules: "
@@ -7288,7 +7648,15 @@ def chaos_phase(dev, report):
           f"{c['rcs']}, beside leg B); leg D {d['seconds']:.1f} s after its "
           f"fleet came up in {d['up_s']:.1f} s beside legs B and C (waited "
           f"{out['leg_d_wait_s']:.1f} s), recovered {d['recovery_s']} s, "
-          f"{d['traffic']}); phase {out['phase_s']:.1f} s", flush=True)
+          f"{d['traffic']}); leg E {e['seconds']:.1f} s beside leg C and "
+          f"the fleet's come-up (config 3's "
+          f"{e['bytes']} B a step: GC victims {e['gc_victims']}, "
+          f"{e['retries']} retries, errors {e['io_errors']}, restore "
+          f"{e['restore_s']:.2f} s; the clean save's snapshot "
+          f"{e['clean']['snapshot_ms']:.1f} ms, crc "
+          f"{e['clean']['crc_ms']:.1f} ms, write "
+          f"{e['clean']['write_ms']:.1f} ms, RSS +{e['rss_growth']} B); "
+          f"phase {out['phase_s']:.1f} s", flush=True)
     return launches
 
 
@@ -7596,6 +7964,8 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
+    if sys.argv[1:] == ["--disk-ab"]:
+        return disk_ab_phase(dev, report)
     t0 = time.perf_counter()
     build.build_all()
     report["build_s"] = time.perf_counter() - t0

@@ -8,8 +8,9 @@ replays exactly the batches, step indices and learning rates the
 uninterrupted run would have seen and ends with the same bits.
 
 **Step data.** Each step is one directory, ``<dir>/<step>/``, written
-under a temporary name, fsynced and renamed. It holds one ``.npy`` per
-array under its canonical key (``w0.npy``, ``vw/0.npy``,
+under a temporary name, fsynced and renamed by
+:func:`~fm_spark_tpu_torch.utils.durable.publish_dir`. It holds one
+``.npy`` per array under its canonical key (``w0.npy``, ``vw/0.npy``,
 ``mlp/0/kernel.npy`` … the names of ``models/io.py``; the optimizer's
 under ``opt/``, as ``opt/count.npy`` and ``opt/mu/mlp/0/kernel.npy``) and
 ``state.json``: the step, the pipeline cursor,
@@ -43,10 +44,12 @@ tombstone (one atomic file; a range vetoes every step in ``(floor,
 tip]`` at once), then ``last_good`` republished at the newest verified
 step no tombstone vetoes. A crash between the two leaves a pointer that
 vouches for a vetoed step, which no reader trusts, and the next demotion
-repairs it. A chain file write that fails with ENOSPC runs the emergency
-GC once (:meth:`Checkpointer._emergency_gc`: tombstoned steps, manifests
-of steps that are gone, ``.tmp`` leftovers; never ``last_good``'s step)
-and retries once.
+repairs it. Every chain write, a step's directory or a chain file, takes
+one policy (:meth:`Checkpointer._with_io_policy`): a transient error
+retries with bounded backoff; ENOSPC runs the emergency GC once
+(:meth:`Checkpointer._emergency_gc`: tombstoned steps, manifests of
+steps that are gone, ``.tmp`` leftovers; never ``last_good``'s step)
+and retries once; what still fails raises :class:`CheckpointIOError`.
 
 **Followers.** :class:`ChainFollower` is the serving side's reader: it
 never writes, renames or removes anything in the chain, trusts only
@@ -73,9 +76,12 @@ window (the manifest's verification and publish) runs under the
 the ``checkpoint/verify`` span; a restore runs in ``checkpoint/restore``
 and a demotion in ``checkpoint/demote``. The fault points ``ckpt_demote``
 and ``ckpt_gc`` sit in the demotion's and the emergency GC's windows.
-Every chain file (manifests, tombstones, ``last_good``) is written and
-read through :mod:`~fm_spark_tpu_torch.utils.durable` with path class
-``ckpt``, so an ``io_*.ckpt`` fault plan reaches it.
+Every step directory (its arrays, ``state.json`` and its publish) and
+every chain file (manifests, tombstones, ``last_good``) is written, and
+every chain file read, through :mod:`~fm_spark_tpu_torch.utils.durable`
+with path class ``ckpt``, so an ``io_*.ckpt`` fault plan reaches it: the
+step's files are ``io_write.ckpt`` occurrences in the order of their
+keys, ``state.json`` last, before the manifest's.
 """
 
 from __future__ import annotations
@@ -157,6 +163,28 @@ def _to_tensor(dtype: str, arr: np.ndarray) -> torch.Tensor:
     if _dtype_name(t.dtype) != dtype:
         raise ValueError(f"array stored as {arr.dtype}, recorded {dtype}")
     return t
+
+
+#: The bytes of one payload write of an array's ``.npy`` file.
+NPY_CHUNK = 16 << 20
+
+
+def _npy_writer(arr: np.ndarray):
+    """The writer of ``arr``'s ``.npy`` file for :func:`durable.publish_dir`:
+    ``write_array``'s header, then the array's own memory in slices of
+    ``NPY_CHUNK`` bytes, so nothing is copied (``write_array`` itself
+    copies each chunk into a non-file object). An array that is not
+    C-contiguous goes through ``write_array``."""
+    def write(f):
+        if not arr.flags.c_contiguous:
+            np.lib.format.write_array(f, arr, allow_pickle=False)
+            return
+        np.lib.format.write_array_header_1_0(
+            f, np.lib.format.header_data_from_array_1_0(arr))
+        body = memoryview(arr.reshape(-1).view(np.uint8))
+        for i in range(0, len(body), NPY_CHUNK):
+            f.write(body[i:i + NPY_CHUNK])
+    return write
 
 
 def copy_into(params, restored) -> None:
@@ -639,38 +667,21 @@ class Checkpointer:
             self._writer_error = e  # fmlint: disable=thread-lock-discipline -- the writer thread sets it and dies; the caller reads it only after join() in wait(), which orders the two
 
     def _commit(self, step, snap: _Snapshot, meta, manifest, timing) -> None:
-        """Write the step under a temporary name, fsync, rename; then its
-        manifest and ``last_good``; then collect old steps."""
+        """Publish the step's directory through the durable seam under the
+        chain's write policy; then its manifest and ``last_good``; then
+        collect old steps."""
         t0 = time.perf_counter()
         final = self._step_dir(step)
-        tmp = f"{final}.tmp-{os.getpid()}"
-        try:
-            os.makedirs(tmp)
-            arrays = {}
-            for key, arr in snap.arrays.items():
-                rel = key + ".npy"
-                path = os.path.join(tmp, rel)
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                with open(path, "wb") as f:
-                    np.lib.format.write_array(f, arr, allow_pickle=False)
-                    f.flush()
-                    os.fsync(f.fileno())
-                arrays[key] = {"file": rel, "dtype": snap.dtypes[key],
-                               "shape": list(arr.shape)}
-            state = {"step": step, "layout": LAYOUT, "arrays": arrays,
-                     **meta}
-            with open(os.path.join(tmp, "state.json"), "w") as f:
-                json.dump(state, f)
-                f.flush()
-                os.fsync(f.fileno())
-            for sub in {os.path.dirname(a["file"]) for a in arrays.values()}:
-                durable.fsync_dir(os.path.join(tmp, sub), "ckpt")
-            durable.fsync_dir(tmp, "ckpt")
-            os.rename(tmp, final)
-            durable.fsync_dir(self.directory, "ckpt")
-        except OSError as e:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise CheckpointIOError(final, e) from e
+        arrays = {key: {"file": key + ".npy", "dtype": snap.dtypes[key],
+                        "shape": list(arr.shape)}
+                  for key, arr in snap.arrays.items()}
+        state = json.dumps({"step": step, "layout": LAYOUT,
+                            "arrays": arrays, **meta}).encode()
+        files = [(info["file"], _npy_writer(snap.arrays[key]))
+                 for key, info in arrays.items()]
+        files.append(("state.json", lambda f: f.write(state)))
+        self._with_io_policy(final, lambda: durable.publish_dir(
+            final, files, path_class="ckpt"))
         timing["write_ms"] = (time.perf_counter() - t0) * 1e3
         # The commit window: the step's bytes are in place, its manifest
         # not yet written (a torn save no reader trusts). It runs under
@@ -712,20 +723,26 @@ class Checkpointer:
                     pass
 
     def _durable_json(self, path: str, obj: dict) -> None:
-        """One fail-loud chain-file write: transient errors retry with
-        bounded backoff; ENOSPC runs the emergency GC and then exactly one
-        more attempt; what still fails raises :class:`CheckpointIOError`."""
+        """One fail-loud chain-file write under :meth:`_with_io_policy`."""
+        self._with_io_policy(path, lambda: durable.atomic_write_json(
+            path, obj, path_class="ckpt"))
+
+    def _with_io_policy(self, path: str, write) -> None:
+        """The chain's write policy around ``write()``, one whole durable
+        write of ``path`` (a chain file or a step's directory): transient
+        errors retry with bounded backoff (``ckpt_io_retry``); ENOSPC runs
+        the emergency GC and then exactly one more attempt; what still
+        fails raises :class:`CheckpointIOError` (``checkpoint_io_error``)."""
+        name = os.path.basename(path)
         for attempt, delay in enumerate(_IO_RETRY_BACKOFF_S, 1):
             try:
-                durable.atomic_write_json(path, obj, path_class="ckpt")
+                write()
                 return
             except OSError as e:
-                name = os.path.basename(path)
                 if getattr(e, "errno", None) == errno.ENOSPC:
                     self._emergency_gc(trigger=name)
                     try:
-                        durable.atomic_write_json(path, obj,
-                                                  path_class="ckpt")
+                        write()
                         return
                     except OSError as e2:
                         self._emit("checkpoint_io_error", path=name,

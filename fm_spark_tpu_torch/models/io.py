@@ -140,8 +140,8 @@ def load_model(path: str, device=None):
         meta = json.load(f)
     family = _FAMILIES.get(meta["family"])
     if family is None:
-        raise ValueError(f"model family {meta['family']!r} is not ported yet "
-                         f"(ported: {sorted(_FAMILIES)})")
+        raise ValueError(f"model family {meta['family']!r} is unknown "
+                         f"(registered: {sorted(_FAMILIES)})")
     kwargs = dict(meta["spec"])
     if kwargs.get("min_target") is None:
         kwargs["min_target"] = -math.inf

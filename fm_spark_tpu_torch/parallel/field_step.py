@@ -40,8 +40,10 @@ capture records them); on the CPU it runs eagerly under gloo.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import shutil
 import time
 
 import numpy as np
@@ -859,13 +861,18 @@ def save_sharded(checkpointer, step: int, spec, params, mesh,
                  force: bool = False) -> None:
     """Save a sharded run's step on every rank (a collective call): each
     rank writes the fields it owns (2-D: its rows of each) into the
-    step's directory under their canonical keys (``vw/<field>``, a row
-    shard as ``vw/<field>@<row>``), the commit follows the reference's:
-    after a barrier rank 0 checks every rank's files against the crc32s
-    they gathered, then writes ``state.json`` (layout ``sharded``, the
-    mesh's shape), renames the step into place, and publishes its
-    manifest and ``last_good``; a final barrier orders every rank after
-    the commit. A sharded step reads back as canonical per-field tables
+    step's staging directory under their canonical keys (``vw/<field>``,
+    a row shard as ``vw/<field>@<row>``), the commit follows the
+    reference's: after a barrier rank 0 checks every rank's files against
+    the crc32s they gathered, then writes ``state.json`` (layout
+    ``sharded``, the mesh's shape), renames the step into place, and
+    publishes its manifest and ``last_good``; a final collective orders
+    every rank after the commit. Every file and the publish go through
+    the durable seam (``durable.write_staged``, ``durable.publish_dir``,
+    path class ``ckpt``) under the chain's write policy
+    (``Checkpointer._with_io_policy``); a write that still fails on any
+    rank removes the staging dir and raises ``CheckpointIOError`` on
+    every rank. A sharded step reads back as canonical per-field tables
     (``Checkpointer.restore`` joins the row shards), so ``eval``,
     ``predict`` and ``serve --checkpoint-dir`` take it."""
     _commit_sharded(checkpointer, step, spec, params, mesh, pipeline_state,
@@ -919,69 +926,98 @@ def _commit_sharded(checkpointer, step, spec, params, mesh, pipeline_state,
         return
     mesh.barrier()                       # tmp exists before anyone writes
     t0 = time.perf_counter()
-    mine = {}
-    for key, t in _owned_arrays(spec, params, mesh, opt_state).items():
-        dtype = ck._dtype_name(t.dtype)
-        arr = (t.view(torch.int16).numpy().view(np.uint16)  # fmlint: disable=torch-host-sync -- checkpoint path: the shard is already on the host (_owned_arrays copied it), .numpy() is a view
-               if t.dtype == torch.bfloat16 else t.numpy())  # fmlint: disable=torch-host-sync -- checkpoint path: the shard is already on the host (_owned_arrays copied it), .numpy() is a view
-        path = os.path.join(tmp, key + ".npy")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "wb") as f:
-            np.lib.format.write_array(f, arr, allow_pickle=False)
-            f.flush()
-            os.fsync(f.fileno())
-        mine[key] = {"file": key + ".npy", "dtype": dtype,
-                     "shape": list(arr.shape),
-                     "crc": ck._checksum(dtype, arr)}
+    mine, err = {}, None
+    try:
+        for key, t in _owned_arrays(spec, params, mesh, opt_state).items():
+            dtype = ck._dtype_name(t.dtype)
+            arr = (t.view(torch.int16).numpy().view(np.uint16)  # fmlint: disable=torch-host-sync -- checkpoint path: the shard is already on the host (_owned_arrays copied it), .numpy() is a view
+                   if t.dtype == torch.bfloat16 else t.numpy())  # fmlint: disable=torch-host-sync -- checkpoint path: the shard is already on the host (_owned_arrays copied it), .numpy() is a view
+            path = os.path.join(tmp, key + ".npy")
+            checkpointer._with_io_policy(
+                final, functools.partial(durable.write_staged, path,
+                                         ck._npy_writer(arr),
+                                         path_class="ckpt"))
+            mine[key] = {"file": key + ".npy", "dtype": dtype,
+                         "shape": list(arr.shape),
+                         "crc": ck._checksum(dtype, arr)}
+    except ck.CheckpointIOError as e:
+        err = e
+    _agree(mesh, final, tmp, err)         # every rank's files, or none
     everyone = _gather_objects(mesh, mine)
     mesh.barrier()
     if mesh.index == 0:
-        arrays, checksums = {}, {}
-        for part in everyone:
-            for key, info in part.items():
-                # The commit checks each rank's bytes as they landed.
-                arr = np.load(os.path.join(tmp, info["file"]),
-                              allow_pickle=False)
-                if ck._checksum(info["dtype"], arr) != info["crc"]:
-                    raise ck.CheckpointIOError(
-                        final, OSError(f"shard {key} does not match the crc "
-                                       "its rank computed"))
-                checksums[key] = info["crc"]
-                arrays[key] = {k: info[k] for k in ("file", "dtype",
-                                                     "shape")}
-        meta = {"pipeline": pipeline_state, "extra": None}
-        layout = {"feat": mesh.shape["feat"],
-                  "row": mesh.shape.get("row", 1)}
-        state = {"step": step, "layout": SHARDED_LAYOUT, "mesh": layout,
-                 "arrays": arrays, **meta}
-        with open(os.path.join(tmp, "state.json"), "w") as f:
-            json.dump(state, f)
-            f.flush()
-            os.fsync(f.fileno())
-        for sub in {os.path.dirname(a["file"]) for a in arrays.values()}:
-            durable.fsync_dir(os.path.join(tmp, sub), "ckpt")
-        durable.fsync_dir(tmp, "ckpt")
-        os.rename(tmp, final)
-        durable.fsync_dir(checkpointer.directory, "ckpt")
-        manifest = {"step": step, "checksums": checksums,
-                    "meta_crc": ck._meta_crc(meta),
-                    "ts": round(time.time(), 3)}
-        os.makedirs(checkpointer._manifest_dir, exist_ok=True)
-        checkpointer._durable_json(checkpointer._manifest_path(step),
-                                   manifest)
-        prev = checkpointer.last_good_step()
-        if prev is None or step > prev:
-            checkpointer._durable_json(
-                checkpointer._last_good_path,
-                {"step": step, "ts": round(time.time(), 3)})
-        checkpointer.timings.append(
-            {"step": step, "write_ms": (time.perf_counter() - t0) * 1e3,
-             "bytes": int(sum(np.prod(a["shape"]) for a in arrays.values())),
-             "forced": bool(force), "sharded": True})
-        checkpointer._emit("checkpoint_verified", step=step,
-                           last_good=max(step, prev or step))
-        checkpointer._collect()
+        try:
+            _publish_sharded(checkpointer, step, final, tmp, everyone,
+                             mesh, pipeline_state, force, t0)
+        except ck.CheckpointIOError as e:
+            err = e
+    _agree(mesh, final, tmp, err)         # every rank after the commit
+
+
+def _agree(mesh, final, tmp, err) -> None:
+    """A collective check: when any rank's write failed (``err`` on it),
+    rank 0 removes the staging dir and every rank raises
+    :class:`~fm_spark_tpu_torch.checkpoint.CheckpointIOError` (its own,
+    or one naming a peer's failure), so no rank waits on a save that
+    cannot commit."""
+    from fm_spark_tpu_torch import checkpoint as ck
+
+    bad = torch.tensor(int(err is not None), dtype=torch.int32)
+    bad = mesh.all_reduce(bad.to(mesh.device or "cpu"), mesh.axis_names,
+                          op="max")
+    if not int(bad):
+        return
+    if mesh.index == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
     mesh.barrier()
+    raise err or ck.CheckpointIOError(
+        final, OSError("a peer rank's checkpoint write failed"))
+
+
+def _publish_sharded(checkpointer, step, final, tmp, everyone, mesh,
+                     pipeline_state, force, t0) -> None:
+    """Rank 0's commit of a sharded step: check each rank's files against
+    the crc32s it gathered, publish the staging dir with ``state.json``
+    through the durable seam under the chain's write policy, then the
+    manifest and ``last_good``."""
+    from fm_spark_tpu_torch import checkpoint as ck
+    from fm_spark_tpu_torch.utils import durable
+
+    arrays, checksums = {}, {}
+    for part in everyone:
+        for key, info in part.items():
+            # The commit checks each rank's bytes as they landed.
+            arr = np.load(os.path.join(tmp, info["file"]),
+                          allow_pickle=False)
+            if ck._checksum(info["dtype"], arr) != info["crc"]:
+                raise ck.CheckpointIOError(
+                    final, OSError(f"shard {key} does not match the crc "
+                                   "its rank computed"))
+            checksums[key] = info["crc"]
+            arrays[key] = {k: info[k] for k in ("file", "dtype", "shape")}
+    meta = {"pipeline": pipeline_state, "extra": None}
+    layout = {"feat": mesh.shape["feat"], "row": mesh.shape.get("row", 1)}
+    state = json.dumps({"step": step, "layout": SHARDED_LAYOUT,
+                        "mesh": layout, "arrays": arrays, **meta}).encode()
+    checkpointer._with_io_policy(final, functools.partial(
+        durable.publish_dir, final, [("state.json", lambda f: f.write(state))],
+        path_class="ckpt", staging=tmp))
+    manifest = {"step": step, "checksums": checksums,
+                "meta_crc": ck._meta_crc(meta), "ts": round(time.time(), 3)}
+    os.makedirs(checkpointer._manifest_dir, exist_ok=True)
+    checkpointer._durable_json(checkpointer._manifest_path(step), manifest)
+    prev = checkpointer.last_good_step()
+    if prev is None or step > prev:
+        checkpointer._durable_json(
+            checkpointer._last_good_path,
+            {"step": step, "ts": round(time.time(), 3)})
+    checkpointer.timings.append(
+        {"step": step, "write_ms": (time.perf_counter() - t0) * 1e3,
+         "bytes": int(sum(np.prod(a["shape"]) for a in arrays.values())),
+         "forced": bool(force), "sharded": True})
+    checkpointer._emit("checkpoint_verified", step=step,
+                       last_good=max(step, prev or step))
+    checkpointer._collect()
 
 
 def _gather_objects(mesh, obj) -> list:

@@ -5,7 +5,7 @@ port of the FieldFM, FieldFFM and FieldDeepFM bodies of
 take the FieldFM forms below with the MLP's pullback added, its MLP and
 ``w0`` the dense optimizer (Adam for config 5).
 
-Forms ported (the others raise with the ROADMAP item that queues them):
+Forms ported (the guards refuse what the reference refuses, in its words):
 
 - without a cap, every ``sparse_update``: ``scatter_add`` (one
   ``index_add_`` per field of every lane's row delta), and ``dedup`` /

@@ -1,13 +1,16 @@
 """The durable-write seam (the port's copy of
 ``fm_spark_tpu/utils/durable.py``): every byte the port promises to keep.
-Checkpoint manifests, tombstones and ``last_good``, the obs ledger, flight
-spool and EventLog journals (the quarantine dead-letter journal among
-them), the embed cold store's write-back and the capture bundles write
-through these functions, and :mod:`fm_spark_tpu_torch.resilience.iofaults`
-injects at exactly four points: ``io_write`` (payload bytes),
-``io_fsync`` (file and directory fsync), ``io_rename`` (atomic publish)
-and ``io_read`` (durable read), each scoped by the PATH CLASS its call
-site declares (``ckpt``, ``obs``, ``embed``, ``cache``, ``quarantine``).
+Checkpoint step directories (:func:`publish_dir`: the arrays and
+``state.json``, published by one rename; a sharded step's rank files by
+:func:`write_staged`), manifests, tombstones and
+``last_good``, the obs ledger, flight spool and EventLog journals (the
+quarantine dead-letter journal among them), the embed cold store's
+write-back and the capture bundles write through these functions, and
+:mod:`fm_spark_tpu_torch.resilience.iofaults` injects at exactly four
+points: ``io_write`` (payload bytes), ``io_fsync`` (file and directory
+fsync), ``io_rename`` (atomic publish) and ``io_read`` (durable read),
+each scoped by the PATH CLASS its call site declares (``ckpt``, ``obs``,
+``embed``, ``cache``, ``quarantine``).
 
 The tiers:
 
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 
 __all__ = [
@@ -44,9 +48,11 @@ __all__ = [
     "atomic_write_text",
     "fsync_dir",
     "io_failure_counts",
+    "publish_dir",
     "read_bytes",
     "read_json",
     "reset_failure_counts",
+    "write_staged",
 ]
 
 _lock = threading.Lock()
@@ -162,6 +168,93 @@ def atomic_write_bytes(path: str, data: bytes, *,
             return False
         raise
     return True
+
+
+class _BudgetedFile:
+    """A write-only file object over an open file: every ``write`` goes
+    through one ``io_write`` budget, so a ``torn_write:K`` rule cuts the
+    FILE after K bytes across all its chunks. A caller streams a large
+    payload into it as slices of its own memory (any buffer)."""
+
+    def __init__(self, f, budget: "int | None"):
+        self._f = f
+        self._budget = budget
+        self._left = budget
+
+    def write(self, data) -> int:
+        n = memoryview(data).nbytes
+        if self._left is not None:
+            if n > self._left:
+                self._f.write(memoryview(data).cast("B")[:self._left])
+                self._f.flush()
+                raise OSError(
+                    5, f"[iofault] torn write after {self._budget} bytes")
+            self._left -= n
+        self._f.write(data)
+        return n
+
+
+def _write_file(path: str, write, path_class: "str | None") -> None:
+    """One file of a directory: ``write(f)`` writes its bytes to ``f``,
+    whose writes share one ``io_write`` occurrence (and its
+    ``torn_write`` budget); the file is fsynced (``io_fsync``)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        write(_BudgetedFile(f, _io().on_write(path_class)))
+        f.flush()
+        _io().on_fsync(path_class)
+        os.fsync(f.fileno())
+
+
+def write_staged(path: str, write, *,
+                 path_class: "str | None" = None) -> None:
+    """Write one file into a staging directory that :func:`publish_dir`
+    publishes later, maybe from another process (a sharded checkpoint's
+    ranks each write their own files). A failure is counted and raises:
+    the fail-loud tier; the file is rewritten whole on a retry."""
+    try:
+        _write_file(path, write, path_class)
+    except OSError:
+        _note_failure(path_class, "write_staged", False)
+        raise
+
+
+def publish_dir(final: str, files, *, path_class: "str | None" = None,
+                staging: "str | None" = None) -> None:
+    """Publish a DIRECTORY atomically: ``final`` ends up holding every
+    file of the staging dir or does not exist. Each ``(rel, write)``
+    pair of ``files`` is written into the staging dir (``staging``, which
+    may already hold files of :func:`write_staged`, else a new
+    ``<final>.tmp-<pid>``) and fsynced; then every directory under it,
+    bottom up; then one rename publishes it (``io_rename``) and the
+    parent is fsynced. Every fsync is an ``io_fsync``. A failure leaves
+    nothing at ``final`` (a failure after the rename moves the dir
+    back), removes a staging dir this call made, is counted, and raises:
+    the fail-loud tier, its caller owns retry."""
+    tmp = staging or f"{final}.tmp-{os.getpid()}"
+    published = False
+    try:
+        if staging is None:
+            os.makedirs(tmp)
+        for rel, write in files:
+            _write_file(os.path.join(tmp, rel), write, path_class)
+        for d, _, _ in os.walk(tmp, topdown=False):
+            fsync_dir(d, path_class)
+        _io().on_rename(path_class)
+        os.rename(tmp, final)
+        published = True
+        fsync_dir(os.path.dirname(final) or ".", path_class)
+    except BaseException as e:
+        if published:
+            try:
+                os.rename(final, tmp)
+            except OSError:
+                shutil.rmtree(final, ignore_errors=True)
+        if staging is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if isinstance(e, OSError):
+            _note_failure(path_class, "publish_dir", False)
+        raise
 
 
 def atomic_write_text(path: str, text: str, **kw) -> bool:

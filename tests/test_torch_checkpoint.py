@@ -62,6 +62,7 @@ from fm_spark_tpu_torch.checkpoint import (CheckpointChainBroken,
                                            Checkpointer, CheckpointIOError,
                                            PreemptionGuard, copy_into)
 from fm_spark_tpu_torch.train import TrainConfig, fit_field_sparse
+from fm_spark_tpu_torch.utils import durable
 from fm_spark_tpu_torch.utils.logging import EventLog
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,6 +130,79 @@ def test_round_trip_keeps_the_bf16_bits(tmp_path):
     assert _same(fresh, params)
     with pytest.raises(ValueError, match="float32"):
         copy_into(_params("float32")[1], got["params"])
+
+
+def _commit_the_parents_way(ckdir, step, params, pipeline, extra):
+    """A step written as the checkpoint wrote it before its directory went
+    through the durable seam: each ``.npy`` by ``write_array`` into a real
+    file, ``state.json`` by ``json.dump``, one rename; then the manifest
+    and ``last_good``."""
+    from fm_spark_tpu_torch import checkpoint as ck
+
+    os.makedirs(ckdir)
+    final = os.path.join(str(ckdir), str(step))
+    tmp = final + ".tmp-parent"
+    arrays, checksums = {}, {}
+    for key, t in ck._flatten(params).items():
+        dtype = ck._dtype_name(t.dtype)
+        arr = (t.view(torch.int16).numpy().view(np.uint16)
+               if t.dtype == torch.bfloat16 else t.numpy())
+        path = os.path.join(tmp, key + ".npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            np.lib.format.write_array(f, arr, allow_pickle=False)
+        arrays[key] = {"file": key + ".npy", "dtype": dtype,
+                       "shape": list(arr.shape)}
+        checksums[key] = ck._checksum(dtype, arr)
+    meta = {"pipeline": pipeline, "extra": extra}
+    with open(os.path.join(tmp, "state.json"), "w") as f:
+        json.dump({"step": step, "layout": "canonical", "arrays": arrays,
+                   **meta}, f)
+    os.rename(tmp, final)
+    os.makedirs(os.path.join(str(ckdir), "manifests"))
+    durable.atomic_write_json(
+        os.path.join(str(ckdir), "manifests", f"{step}.json"),
+        {"step": step, "checksums": checksums,
+         "meta_crc": ck._meta_crc(meta), "ts": 0.0})
+    durable.atomic_write_json(os.path.join(str(ckdir), "last_good.json"),
+                              {"step": step, "ts": 0.0})
+
+
+@pytest.mark.parametrize("pd", ["bfloat16", "float32"])
+def test_the_seam_writes_the_parents_bytes_and_both_chains_restore(tmp_path,
+                                                                   pd):
+    """The step directory the seam publishes holds the same bytes, file for
+    file, as a step written straight to real files (``write_array``'s
+    ``tofile`` path, ``json.dump``); a chain written that way restores in
+    the checkpointer and a follower, as the seam's own does."""
+    from fm_spark_tpu_torch.checkpoint import ChainFollower
+
+    _, params = _params(pd)
+    ck = Checkpointer(str(tmp_path / "seam"))
+    ck.save(3, params, {"epoch": 0, "index": 5}, {"note": "x"})
+    ck.close()
+    _commit_the_parents_way(tmp_path / "direct", 3, params,
+                            {"epoch": 0, "index": 5}, {"note": "x"})
+    names = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "seam" / "3")
+                   for d, _, fs in os.walk(tmp_path / "seam" / "3")
+                   for f in fs)
+    assert names == sorted(["state.json", "w0.npy"]
+                           + [f"vw/{f}.npy" for f in range(F)])
+    for name in names:
+        assert ((tmp_path / "seam" / "3" / name).read_bytes()
+                == (tmp_path / "direct" / "3" / name).read_bytes()), name
+    m = [json.loads((tmp_path / root / "manifests" / "3.json").read_text())
+         for root in ("seam", "direct")]
+    assert m[0]["checksums"] == m[1]["checksums"]
+    assert m[0]["meta_crc"] == m[1]["meta_crc"]
+    for root in ("seam", "direct"):
+        got = Checkpointer(str(tmp_path / root)).restore(_params(pd,
+                                                                 seed=9)[1])
+        assert got["step"] == 3 and _same(got["params"], params)
+        assert got["pipeline"] == {"epoch": 0, "index": 5}
+        fol = ChainFollower(str(tmp_path / root)).restore(_params(pd,
+                                                                  seed=9)[1])
+        assert fol["step"] == 3 and _same(fol["params"], params)
 
 
 def test_optimizer_state_saves_beside_the_params_and_restores(tmp_path):
@@ -289,7 +363,8 @@ def test_a_failed_write_raises_at_the_next_boundary(tmp_path, monkeypatch):
 
     def broken(*a, **k):
         raise OSError(28, "No space left on device")
-    monkeypatch.setattr(np.lib.format, "write_array", broken)
+    # Every payload write of the step's files, as the seam makes it.
+    monkeypatch.setattr(durable._BudgetedFile, "write", broken)
     ck = Checkpointer(str(tmp_path))
     ck.save(1, params)
     with pytest.raises(CheckpointIOError) as err:

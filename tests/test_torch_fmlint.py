@@ -10,7 +10,8 @@
 - Suppressions, the baseline and the report behave as the reference's on
   the same trees.
 - Every port rule has a firing fixture, and the shipped port has no
-  unbaselined finding (no ``torch-capture-side-effect`` baselined).
+  unbaselined finding (no ``torch-capture-side-effect`` or
+  ``durable-write-discipline`` baselined).
 """
 
 import importlib.util
@@ -403,6 +404,9 @@ def test_shipped_port_has_zero_unbaselined_findings():
         assert s["path"].startswith("fm_spark_tpu_torch/")
     baseline = pcore.load_baseline(os.path.join(REPO, pcore.BASELINE_FILE))
     assert "torch-capture-side-effect" not in baseline
+    # The checkpoint's step directory publishes through the durable seam:
+    # no raw durable write is tolerated anywhere.
+    assert "durable-write-discipline" not in baseline
     # A capture hazard is a fault, never a suppression either.
     assert not [s for s in rep["suppressed"]
                 if s["rule"] == "torch-capture-side-effect"]

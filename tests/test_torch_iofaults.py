@@ -13,7 +13,10 @@
   runs its emergency GC at ENOSPC, raises ``CheckpointIOError`` when the
   retries run out, and an all-failing obs plane leaves the chain's bytes
   unchanged;
-- the embed cold store's write-back goes through the seam (``embed``).
+- the embed cold store's write-back goes through the seam (``embed``);
+- a checkpoint step's directory (its arrays streamed without a copy,
+  ``state.json``, its publish) and a sharded step's rank files go through
+  the seam under the chain's write policy.
 
 Equality is exact: the modules are pure Python.
 """
@@ -252,6 +255,291 @@ def test_the_embed_cold_store_writes_through_the_seam(tmp_path):
     back = ColdStore.read_back(str(tmp_path / "c"))
     assert np.array_equal(back.dense_plane("table"),
                           np.arange(40, dtype=np.float32).reshape(8, 5))
+
+
+# ------------------------------------------- the step directory's seam
+#
+# A step of ``_params()`` is five files, in this order: w0.npy, vw/0.npy,
+# vw/1.npy, vw/2.npy and state.json. Each is one ``io_write.ckpt``
+# occurrence and one ``io_fsync.ckpt`` (its fsync); then the fsyncs of the
+# ``vw`` dir (6) and the staging dir (7), the publish (``io_rename.ckpt``
+# 1) and the chain dir's fsync (8); then the manifest's write.
+
+_STEP_FILES = ["w0.npy", "vw/0.npy", "vw/1.npy", "vw/2.npy", "state.json"]
+
+
+def _no_staging(root) -> bool:
+    return not [n for n in os.listdir(root) if ".tmp" in n]
+
+
+def _step_retries(journal, name="1"):
+    return [e for e in journal.records
+            if e["event"] == "ckpt_io_retry" and e["path"] == name]
+
+
+def test_the_step_directory_goes_through_the_seam_in_order(tmp_path,
+                                                           monkeypatch):
+    """Every byte, fsync and the publish of a step's directory are seam
+    events of class ``ckpt``, in the order the occurrences above count."""
+    seq = []
+    for point, fn in (("io_write", "on_write"), ("io_fsync", "on_fsync"),
+                      ("io_rename", "on_rename")):
+        real = getattr(iofaults, fn)
+
+        def spy(path_class=None, _point=point, _real=real):
+            seq.append((_point, path_class))
+            return _real(path_class)
+        monkeypatch.setattr(iofaults, fn, spy)
+    real_open, real_fsync_dir = open, durable.fsync_dir
+
+    def spy_open(path, *a, **kw):
+        seq.append(("open", os.path.relpath(path, tmp_path)))
+        return real_open(path, *a, **kw)
+
+    def spy_fsync_dir(path, path_class=None):
+        seq.append(("dir", os.path.relpath(path, tmp_path)))
+        return real_fsync_dir(path, path_class)
+    monkeypatch.setattr(durable, "open", spy_open, raising=False)
+    monkeypatch.setattr(durable, "fsync_dir", spy_fsync_dir)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, _params(), force=True)
+    ck.wait()
+    tmp = f"1.tmp-{os.getpid()}"
+    want = []
+    for rel in _STEP_FILES:
+        want += [("open", os.path.join(tmp, rel)), ("io_write", "ckpt"),
+                 ("io_fsync", "ckpt")]
+    want += [("dir", os.path.join(tmp, "vw")), ("io_fsync", "ckpt"),
+             ("dir", tmp), ("io_fsync", "ckpt"), ("io_rename", "ckpt"),
+             ("dir", "."), ("io_fsync", "ckpt"),
+             ("open", os.path.join("manifests", "1.json.tmp")),
+             ("io_write", "ckpt")]
+    assert seq[:len(want)] == want
+    assert sorted(os.path.relpath(os.path.join(d, f), tmp_path / "1")
+                  for d, _, fs in os.walk(tmp_path / "1") for f in fs) \
+        == sorted(_STEP_FILES)
+
+
+@pytest.mark.parametrize("rule", [
+    "io_write.ckpt@2=eio",           # an array's bytes (vw/0.npy)
+    "io_write.ckpt@5=eio",           # state.json's bytes
+    "io_fsync.ckpt@2=eio",           # an array's fsync
+    "io_fsync.ckpt@5=eio",           # state.json's fsync
+    "io_fsync.ckpt@7=eio",           # the staging dir's fsync
+    "io_fsync.ckpt@8=eio",           # the chain dir's, after the publish
+    "io_rename.ckpt@1=eio",          # the publish
+])
+def test_each_ckpt_point_strikes_the_step_directory(tmp_path, rule):
+    """One strike on the step's directory fails that attempt only: it is
+    counted, journaled as a retry of the step (not of its manifest), leaves
+    no staging dir and no step behind, and the retry commits."""
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), journal=journal)
+    faults.activate(rule)
+    ck.save(1, _params(), {"cursor": 1}, force=True)
+    ck.wait()
+    faults.clear()
+    retries = [e for e in journal.records if e["event"] == "ckpt_io_retry"]
+    assert [(e["path"], e["errno"]) for e in retries] == [("1", errno.EIO)]
+    assert durable.io_failure_counts()["ckpt"] == 1
+    assert ck.last_good_step() == 1 and _no_staging(tmp_path)
+    got = ck.restore()
+    want = _params()
+    assert torch.equal(got["params"]["vw/0"], want["vw"][0])
+    assert got["pipeline"] == {"cursor": 1}
+
+
+def test_a_torn_array_is_never_published_and_is_retried(tmp_path,
+                                                         monkeypatch):
+    """A ``torn_write`` budget cuts the array's FILE across its chunks; the
+    torn staging dir is never renamed into place, and the retry writes the
+    whole file. Torn every time, nothing is published."""
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), journal=journal)
+    published = []
+    real_rename = os.rename
+
+    def spy_rename(src, dst):
+        published.append(os.path.getsize(os.path.join(src, "vw", "0.npy")))
+        return real_rename(src, dst)
+    monkeypatch.setattr(os, "rename", spy_rename)
+    faults.activate("io_write.ckpt@2=torn_write:100")
+    ck.save(1, _params(), force=True)
+    ck.wait()
+    full = os.path.getsize(tmp_path / "1" / "vw" / "0.npy")
+    assert full > 100 and published == [full]
+    assert len(_step_retries(journal)) == 1 and _no_staging(tmp_path)
+    faults.clear()
+    faults.activate("io_write.ckpt@1-99=torn_write:100")
+    ck.save(2, _params(), force=True)
+    with pytest.raises(CheckpointIOError) as ei:
+        ck.wait()
+    assert ei.value.errno == errno.EIO and published == [full]
+    assert not os.path.exists(tmp_path / "2") and _no_staging(tmp_path)
+    assert ck.last_good_step() == 1
+
+
+def test_enospc_on_an_array_runs_the_gc_once(tmp_path):
+    """ENOSPC on a step's array: one journaled emergency GC (the step its
+    trigger, the demoted step its victim), then exactly one more attempt,
+    which commits; struck again there, the save raises."""
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), max_to_keep=10, journal=journal)
+    for s in (1, 2):
+        ck.save(s, _params(), force=True)
+    ck.wait()
+    ck.demote(2, reason="drill")
+    faults.activate("io_write.ckpt@2=enospc")
+    ck.save(3, _params(), force=True)
+    ck.wait()
+    gc = [e for e in journal.records if e["event"] == "ckpt_emergency_gc"]
+    assert [(e["trigger"], e["steps"]) for e in gc] == [("3", [2])]
+    assert not _step_retries(journal, "3")
+    assert ck.all_steps() == [1, 3] and ck.last_good_step() == 3
+    faults.clear()
+    ck.demote(3, reason="drill")
+    # The first attempt's vw/0.npy (2), then the second's w0.npy (3).
+    faults.activate("io_write.ckpt@2-3=enospc")
+    ck.save(4, _params(), force=True)
+    with pytest.raises(CheckpointIOError) as ei:
+        ck.wait()
+    assert ei.value.errno == errno.ENOSPC
+    gc = [e for e in journal.records if e["event"] == "ckpt_emergency_gc"]
+    assert [(e["trigger"], e["steps"]) for e in gc][1:] == [("4", [3])]
+    errors = [e for e in journal.records
+              if e["event"] == "checkpoint_io_error"]
+    assert [(e["path"], e["errno"]) for e in errors] == [("4", errno.ENOSPC)]
+    assert ck.all_steps() == [1] and _no_staging(tmp_path)
+    assert ck.last_good_step() == 1
+
+
+def test_an_occurrence_past_the_step_files_strikes_the_manifest(tmp_path):
+    """The step's five files are occurrences 1-5; the 6th ``io_write.ckpt``
+    is the manifest's, retried under its own name as before."""
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), journal=journal)
+    faults.activate("io_write.ckpt@6=eio")
+    ck.save(1, _params(), force=True)
+    ck.wait()
+    retries = [e for e in journal.records if e["event"] == "ckpt_io_retry"]
+    assert [e["path"] for e in retries] == ["1.json"]
+    assert ck.last_good_step() == 1
+
+
+def test_an_array_streams_in_chunks_and_is_never_copied_whole(tmp_path,
+                                                              monkeypatch):
+    """A 48 MiB array goes into the seam's file object in chunks of at
+    most 16 MiB (the header a write of its own), each a view of the
+    array's memory: the save allocates under 1 MiB, so neither the array
+    nor a chunk of it is copied."""
+    import tracemalloc
+
+    sizes = []
+    real_write = durable._BudgetedFile.write
+
+    def spy(self, data):
+        sizes.append(memoryview(data).nbytes)
+        return real_write(self, data)
+    monkeypatch.setattr(durable._BudgetedFile, "write", spy)
+    big = torch.arange(12 * 2**20, dtype=torch.float32)      # 48 MiB
+    params = {"w0": torch.zeros(()), "vw": [big]}
+    ck = Checkpointer(str(tmp_path))
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        tracemalloc.reset_peak()
+        ck.save(1, params, force=True)
+        ck.wait()
+        peak = tracemalloc.get_traced_memory()[1] - before
+        print('PEAK', peak)
+    finally:
+        tracemalloc.stop()
+    header = os.path.getsize(tmp_path / "1" / "vw" / "0.npy") - big.numel() * 4
+    assert max(sizes) <= 16 * 2**20 + header
+    assert sum(s > header for s in sizes) >= 3       # vw/0's three chunks
+    assert peak < 1 << 20, peak
+    assert np.array_equal(np.load(tmp_path / "1" / "vw" / "0.npy"),
+                          big.numpy())
+
+
+# ------------------------------------------- a sharded step's files
+#
+# ``save_sharded`` at a mesh of one (no process group): the rank's files
+# (w0.npy and vw/0.npy-vw/2.npy, ``io_write.ckpt`` 1-4) through
+# ``durable.write_staged``, then rank 0's state.json (5) and the publish
+# (``io_rename.ckpt`` 1) through ``durable.publish_dir``, each under the
+# chain's write policy.
+
+
+def _sharded_save(ck, step, seed=0):
+    from fm_spark_tpu_torch import models, parallel
+    from fm_spark_tpu_torch.parallel import field_step
+
+    spec = models.FieldFMSpec(num_features=3 * 8, num_fields=3, bucket=8,
+                              rank=4, init_std=0.1)
+    params = spec.init(torch.Generator().manual_seed(seed), device="cpu")
+    mesh = parallel.make_field_mesh(device="cpu")
+    sharded = parallel.shard_field_params(
+        parallel.stack_field_params(spec, params, 1), mesh)
+    field_step.save_sharded(ck, step, spec, sharded, mesh, {"cursor": step},
+                          force=True)
+    return params
+
+
+@pytest.mark.parametrize("rule,retried", [
+    ("io_write.ckpt@2=eio", True),        # a rank's array (vw/0.npy)
+    ("io_write.ckpt@3=torn_write:40", True),
+    ("io_write.ckpt@5=eio", True),        # rank 0's state.json
+    ("io_fsync.ckpt@1=eio", True),        # a rank file's fsync
+    ("io_rename.ckpt@1=eio", True),       # the publish
+    ("io_write.ckpt@6=eio", False),       # past the step: the manifest
+])
+def test_a_sharded_step_goes_through_the_seam(tmp_path, rule, retried):
+    """Each ``ckpt`` point strikes a sharded step's rank files, its
+    ``state.json`` or its publish; the policy retries that write under
+    the step's name, and the step commits and restores as saved."""
+    from fm_spark_tpu_torch.parallel import field_step
+
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), journal=journal)
+    faults.activate(rule)
+    params = _sharded_save(ck, 1)
+    faults.clear()
+    retries = [e["path"] for e in journal.records
+               if e["event"] == "ckpt_io_retry"]
+    assert retries == (["1"] if retried else ["1.json"])
+    assert durable.io_failure_counts()["ckpt"] == 1
+    assert ck.last_good_step() == 1 and _no_staging(tmp_path)
+    with open(tmp_path / "1" / "state.json") as f:
+        assert json.load(f)["layout"] == field_step.SHARDED_LAYOUT
+    got = ck.restore()
+    assert got["pipeline"] == {"cursor": 1}
+    for f in range(3):
+        assert torch.equal(got["params"][f"vw/{f}"], params["vw"][f])
+
+
+def test_a_sharded_step_on_a_full_disk_runs_the_gc_or_raises(tmp_path):
+    """ENOSPC on a rank's file runs the emergency GC once and the file is
+    written again; EIO on every write raises ``CheckpointIOError`` and
+    leaves no step and no staging dir."""
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), max_to_keep=10, journal=journal)
+    for s in (1, 2):
+        _sharded_save(ck, s)
+    ck.demote(2, reason="drill")
+    faults.activate("io_write.ckpt@2=enospc")
+    _sharded_save(ck, 3)
+    faults.clear()
+    gc = [e for e in journal.records if e["event"] == "ckpt_emergency_gc"]
+    assert [(e["trigger"], e["steps"]) for e in gc] == [("3", [2])]
+    assert ck.all_steps() == [1, 3] and ck.last_good_step() == 3
+    faults.activate("io_write.ckpt@1-99=eio")
+    with pytest.raises(CheckpointIOError) as ei:
+        _sharded_save(ck, 4)
+    faults.clear()
+    assert ei.value.errno == errno.EIO
+    assert ck.all_steps() == [1, 3] and ck.last_good_step() == 3
+    assert not os.path.exists(tmp_path / "4") and _no_staging(tmp_path)
 
 
 # ------------------------------------------------------------- network

@@ -333,7 +333,8 @@ def test_run_doctor_train_sections(runs, capsys):
                   runs["prof"])
     assert "## Where the time went" in out and "execute" in out
     assert "## Static analysis (fmlint — " in out and "OK)" in out
-    assert "fmlint: clean vs baseline" in out
+    # The shipped tree has no baselined finding left to burn down.
+    assert "fmlint: clean — zero findings beyond reasoned suppressions" in out
     assert "no bench_leg ledger records" in out
     assert "## Deep captures (1 bundle(s))" in out
     assert "## Device profile (" in out

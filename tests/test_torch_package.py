@@ -2461,3 +2461,48 @@ def test_a_drills_trainer_and_graph_are_freed_before_the_next(cuda,
     assert after[-1] <= after[0], after
     assert len(made) == 4
     assert all(ref() is None or not ref()._graphs for ref in made)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA device: the save copies card "
+                           "tensors into pinned host buffers")
+def test_a_card_save_through_an_enospc_restores_bit_for_bit(tmp_path):
+    """Two bf16 tables on the card, saved through an ENOSPC on an array's
+    write: the emergency GC frees the demoted step, the one retry commits,
+    and a follower's restore copied back onto the card is the saved bits,
+    though the tables changed in place right after the save returned."""
+    from fm_spark_tpu_torch.checkpoint import (ChainFollower, Checkpointer,
+                                               copy_into)
+    from fm_spark_tpu_torch.resilience import faults
+    from fm_spark_tpu_torch.utils.logging import EventLog
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {"w0": torch.full((), 0.25, device=dev),
+              "vw": [torch.randn(4096, 65, device=dev, generator=g)
+                     .to(torch.bfloat16) for _ in range(2)]}
+    journal = EventLog()
+    ck = Checkpointer(str(tmp_path), max_to_keep=10, journal=journal)
+    ck.save(1, params)
+    ck.save(2, params)
+    ck.demote(2, reason="drill")
+    saved = [t.clone() for t in params["vw"]]
+    faults.activate("io_write.ckpt@2=enospc")        # vw/0.npy
+    try:
+        ck.save(3, params)
+        for t in params["vw"]:
+            t.add_(1.0)                              # the next step, at once
+        ck.wait()
+    finally:
+        faults.clear()
+    gc = [e for e in journal.records if e["event"] == "ckpt_emergency_gc"]
+    assert [e["steps"] for e in gc] == [[2]]
+    assert ck.last_good_step() == 3 and ck.all_steps() == [1, 3]
+    got = ChainFollower(str(tmp_path)).restore(params)
+    assert got["step"] == 3
+    copy_into(params, got["params"])
+    for t, want in zip(params["vw"], saved):
+        assert t.device.type == "cuda"
+        assert torch.equal(t.view(torch.int16), want.view(torch.int16))
+    ck.close()
